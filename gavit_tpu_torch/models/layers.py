@@ -1,0 +1,149 @@
+"""Core ViT layers (counterpart of ``gavit_tpu/models/layers.py``).
+
+Deterministic (serving) forward only: dropout and drop_path are the identity
+here, and come with training. Parameters are fp32; each module computes in
+its ``dtype`` (fp32 or bf16) the way the JAX modules do: weights cast to the
+compute dtype at use, LayerNorm statistics and affine in fp32 with ε=1e-5,
+outputs rounded to the compute dtype.
+
+Dense weights use ``nn.Linear``'s ``[out, in]`` layout (the JAX kernels are
+``[in, out]``; ``utils/convert.py`` transposes).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from gavit_tpu_torch.ops.attention import fused_qkv_attention
+from gavit_tpu_torch.ops.mlp import fused_mlp_inference
+
+LN_EPS = 1e-5
+
+
+class Dense(nn.Module):
+    """``x·Wᵀ + b`` in the compute dtype (the non-quantised ``QDense``), the
+    bias added in the GEMM's epilogue before the one rounding to the dtype."""
+
+    def __init__(self, in_features: int, out_features: int, *,
+                 bias: bool = True, dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(
+            torch.empty(out_features, in_features, device=device))
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+
+
+class LayerNorm(nn.LayerNorm):
+    """Flax ``nn.LayerNorm(epsilon=1e-5, dtype=...)``: fp32 statistics and
+    affine, result in the compute dtype."""
+
+    def __init__(self, dim: int, *, dtype=torch.float32, device=None):
+        super().__init__(dim, eps=LN_EPS, device=device)
+        self.dtype = dtype
+
+    def forward(self, x):
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                         self.bias, self.eps)
+        return y.to(self.dtype)
+
+
+class PatchEmbed(nn.Module):
+    """NHWC image ``[B, H, W, C]`` → patch tokens ``[B, N, D]``: a reshape and
+    one GEMM, patch features ordered ``(c, ph, pw)`` (layers.py:165-182)."""
+
+    def __init__(self, patch_size: int, in_chans: int, embed_dim: int, *,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = Dense(in_chans * patch_size * patch_size, embed_dim,
+                          dtype=dtype, device=device)
+
+    def forward(self, x):
+        b, h, w, c = x.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(
+                f"image size {h}x{w} not divisible by patch size {p}")
+        gh, gw = h // p, w // p
+        x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 5, 2, 4)
+        return self.proj(x.reshape(b, gh * gw, c * p * p))
+
+
+class HeadMergeProj(Dense):
+    """Attention output projection on ``[B, H, N, d]``; the weight is the
+    Dense over the merged heads, ``[D, H·d]``."""
+
+    def forward(self, out4):
+        b, h, n, d = out4.shape
+        return super().forward(out4.transpose(1, 2).reshape(b, n, h * d))
+
+
+class Attention(nn.Module):
+    """Fused-QKV multi-head self-attention: qkv GEMM → kernel A on the raw
+    rows → head-merging output projection."""
+
+    def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
+                 dtype=torch.float32, impl: str = "auto", device=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.impl = impl
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
+                         device=device)
+        self.proj = HeadMergeProj(dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        b, n, c = x.shape
+        h = self.num_heads
+        hd = c // h
+        qkv = self.qkv(x).view(b, n, 3, h, hd)
+        out4 = fused_qkv_attention(qkv, hd ** -0.5, merge_heads=False,
+                                   impl=self.impl)
+        return self.proj(out4)
+
+
+class Mlp(nn.Module):
+    """fc1 → GELU → fc2 through :func:`fused_mlp_inference`: tanh GELU on
+    the bf16 path and erf on fp32 (layers.py:252-260, 300-301)."""
+
+    def __init__(self, dim: int, hidden_dim: int, *, dtype=torch.float32,
+                 impl: str = "auto", device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.impl = impl
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        dt = self.dtype
+        return fused_mlp_inference(
+            x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+            self.fc2.weight.to(dt), self.fc2.bias.to(dt),
+            approximate=dt == torch.bfloat16, impl=self.impl,
+        )
+
+
+class Block(nn.Module):
+    """Pre-LN transformer block (deterministic)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
+                 qkv_bias: bool = True, dtype=torch.float32,
+                 attn_impl: str = "auto", mlp_impl: str = "auto",
+                 device=None):
+        super().__init__()
+        self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, dtype=dtype,
+                              impl=attn_impl, device=device)
+        self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, impl=mlp_impl,
+                       device=device)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))

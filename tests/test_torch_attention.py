@@ -1,0 +1,71 @@
+"""The port's attention (gavit_tpu_torch.ops.attention) against the JAX
+package's: the v4 fused kernel ``_fused_qkv_flat`` (Pallas, interpret mode on
+the CPU) and ``attention_reference``, on the same numpy inputs.
+
+Tolerances: 1e-5 in fp32, where both sides take fp32 products and differ
+only in summation order; 2e-2 in bf16, where the outputs are rounded to bf16
+(one ulp is 2^-8 relative) and a sum in another order can land an ulp away.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gavit_tpu.ops import attention as jattn
+from gavit_tpu_torch.ops import attention as tattn
+
+TOL = {"fp32": 1e-5, "bf16": 2e-2}
+DTYPES = {"fp32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+B, H, D = 2, 4, 16
+
+
+def _qkv(n, seed):
+    return np.random.default_rng(seed).standard_normal(
+        (B, n, 3 * H * D)).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n", [17, 13])
+def test_fused_qkv_attention_matches_jax(n, dtype):
+    jdt, tdt = DTYPES[dtype]
+    qkv = _qkv(n, n)
+    scale = D ** -0.5
+    jq = jnp.asarray(qkv, jdt)
+    want_kernel = np.asarray(jattn._fused_qkv_flat(jq, scale, H, D),
+                             np.float32)
+    q5 = jq.reshape(B, n, 3, H, D).transpose(2, 0, 3, 1, 4)
+    want_ref = np.asarray(jattn.attention_reference(q5[0], q5[1], q5[2],
+                                                    scale), np.float32)
+    tq = torch.from_numpy(qkv).to(tdt).view(B, n, 3, H, D)
+    got = tattn.fused_qkv_attention(tq, scale, merge_heads=False)
+    assert got.shape == (B, H, n, D) and got.dtype == tdt
+    got = got.float().numpy()
+    np.testing.assert_allclose(got, want_kernel, atol=TOL[dtype], rtol=0)
+    np.testing.assert_allclose(got, want_ref, atol=TOL[dtype], rtol=0)
+
+
+def test_merge_heads_layout_and_reference_impl():
+    qkv = torch.from_numpy(_qkv(17, 0)).view(B, 17, 3, H, D)
+    out4 = tattn.fused_qkv_attention(qkv, 0.25, merge_heads=False)
+    merged = tattn.fused_qkv_attention(qkv, 0.25)
+    assert merged.shape == (B, 17, H, D)
+    torch.testing.assert_close(merged, out4.transpose(1, 2), rtol=0, atol=0)
+    ref = tattn.fused_qkv_attention(qkv, 0.25, merge_heads=False,
+                                    impl="reference")
+    torch.testing.assert_close(ref, out4, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="impl"):
+        tattn.fused_qkv_attention(qkv, 0.25, impl="pallas")
+
+
+def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
+    """A CPU tensor goes to the plain version without counting a launch;
+    the kernel wrapper itself raises on it rather than computing."""
+    before = tattn.KERNEL_LAUNCHES
+    qkv = torch.from_numpy(_qkv(13, 1))
+    tattn.fused_qkv_attention(qkv.view(B, 13, 3, H, D), 0.25)
+    assert tattn.KERNEL_LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.qkv_attention_kernel(
+            torch.zeros(1, 13, 3 * H * 64), 0.125, H)

@@ -1,0 +1,229 @@
+"""The Hopper kernels against their plain PyTorch versions on the card, at
+the edges the serving shapes do not reach: ragged and tiny N, widths that are
+not a multiple of a tile, k past N-1, exact ties, the threshold fallback, and
+each body's dispatch bound (attention's tensor-core body up to 224 keys, the
+graph's up to 256). chip_smoke.py covers the serving shapes themselves.
+
+Marked ``cuda``: they skip without a card. This file imports nothing of JAX,
+so it runs on a machine without it, where the JAX-importing conftest is left
+out:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda \\
+        tests/test_torch_cuda.py -q
+
+Tolerances, as in chip_smoke.py: fp32 1e-5 (fp32 products summed in another
+order), bf16 2e-2 (outputs rounded to bf16, one ulp is 2^-8 relative).
+"""
+
+import pytest
+import torch
+
+from gavit_tpu.config import from_dict
+from gavit_tpu_torch.models.vit import build_model, init_params
+from gavit_tpu_torch.ops import attention as A
+from gavit_tpu_torch.ops import graph_ops as G
+from gavit_tpu_torch.ops import mlp as M
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    # PyTorch's default: the fp32 plain versions run in IEEE fp32, not TF32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return torch.device("cuda", 0)
+
+
+def _randn(dev, *shape, seed=0, scale=1.0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(*shape, device=dev, generator=g) * scale
+
+
+def _err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (3, 13, 2), (2, 17, 12),
+                                       (1, 224, 3), (1, 225, 3), (2, 400, 1)])
+def test_attention_kernel_matches_plain(dev, dtype, b, n, heads):
+    qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(dtype)
+    before = A.KERNEL_LAUNCHES
+    got = A.fused_qkv_attention(qkv.view(b, n, 3, heads, 64), 0.125,
+                                merge_heads=False)
+    assert A.KERNEL_LAUNCHES == before + 1
+    want = A.attention_reference(*A._split_heads(qkv, heads), 0.125)
+    torch.cuda.synchronize()
+    assert got.shape == (b, heads, n, 64) and got.dtype == dtype
+    assert _err(got, want) <= TOL[dtype]
+
+
+def test_attention_kernel_refuses_what_it_does_not_take(dev):
+    with pytest.raises(ValueError, match="head_dim 64"):
+        A.qkv_attention_kernel(torch.zeros(1, 5, 3 * 2 * 32, device=dev),
+                               0.2, 2)
+    rows = torch.zeros(1, 5, 2 * 3 * 64, device=dev)[..., :3 * 64]
+    with pytest.raises(ValueError, match="contiguous"):
+        A.qkv_attention_kernel(rows, 0.125, 1)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        A.qkv_attention_kernel(torch.zeros(1, 5, 3 * 64, device=dev,
+                                           dtype=torch.float16), 0.125, 1)
+    # fp32 K and V of one head at 384 px (N=577) exceed a block's 227 KB
+    with pytest.raises(ValueError, match="does not fit"):
+        A.qkv_attention_kernel(torch.zeros(1, 577, 3 * 64, device=dev),
+                               0.125, 1)
+
+
+@pytest.mark.parametrize("m,d,f", [(1, 64, 256), (5, 72, 136), (129, 64, 256),
+                                   (197, 768, 3072), (300, 136, 520)])
+def test_mlp_kernel_matches_plain(dev, m, d, f):
+    bf = torch.bfloat16
+    x = _randn(dev, m, d, seed=1).to(bf)
+    w1 = _randn(dev, f, d, seed=2, scale=d ** -0.5).to(bf)
+    b1 = _randn(dev, f, seed=3, scale=0.1).to(bf)
+    # |y| stays under 2, where one bf16 ulp (2^-7) is under the tolerance
+    w2 = _randn(dev, d, f, seed=4, scale=0.5 * f ** -0.5).to(bf)
+    b2 = _randn(dev, d, seed=5, scale=0.1).to(bf)
+    for approximate in (True, False):
+        before = M.KERNEL_LAUNCHES
+        got = M.mlp_inference_kernel(x, w1, b1, w2, b2, approximate)
+        assert M.KERNEL_LAUNCHES == before + 1
+        want = M._chain_infer(x, w1, b1, w2, b2, approximate)
+        torch.cuda.synchronize()
+        assert got.shape == (m, d) and got.dtype == bf
+        assert _err(got, want) <= TOL[bf]
+
+
+def test_mlp_dispatch_by_dtype(dev):
+    """bf16 launches the kernel at any M; fp32 takes the GEMM chain."""
+    x = _randn(dev, 2, 3, 64)
+    w1, b1 = _randn(dev, 256, 64, scale=0.1), torch.zeros(256, device=dev)
+    w2, b2 = _randn(dev, 64, 256, scale=0.1), torch.zeros(64, device=dev)
+    before = M.KERNEL_LAUNCHES
+    y32 = M.fused_mlp_inference(x, w1, b1, w2, b2, approximate=False)
+    assert M.KERNEL_LAUNCHES == before
+    bf = [t.bfloat16() for t in (x, w1, b1, w2, b2)]
+    y16 = M.fused_mlp_inference(*bf)
+    assert M.KERNEL_LAUNCHES == before + 1
+    assert y32.shape == y16.shape == x.shape
+    with pytest.raises(ValueError, match="divisible by 8"):
+        M.mlp_inference_kernel(bf[0].reshape(6, 64)[:, :60].contiguous(),
+                               bf[1][:, :60].contiguous(), bf[2],
+                               bf[3][:60].contiguous(), bf[4][:60], True)
+
+
+GRAPH_CASES = [  # (b, n, dim, mode, k, threshold, temperature)
+    (1, 2, 32, "knn", 8, 0.0, 1.0),       # k past N-1
+    (2, 5, 72, "knn", 1, 0.0, 1.0),       # dim not a multiple of 64
+    (1, 17, 64, "threshold", 8, 0.1, 0.5),
+    (3, 16, 128, "dense", 8, 0.0, 2.0),
+    (1, 196, 768, "knn", 8, 0.0, 1.0),
+    (1, 256, 64, "threshold", 8, 0.0, 1.0),  # the tensor-core body's bound
+    (1, 257, 64, "knn", 20, 0.0, 1.0),       # past it: the CUDA-core body
+]
+
+
+# a selection decided by less than this may go either way between two
+# summation orders of the same fp32 products
+TIE_MARGIN = 1e-5
+
+
+def _near_tie(sim, mode, k, threshold):
+    """Rows whose selection sits within TIE_MARGIN of its boundary: the gap
+    between the k-th and (k+1)-th non-self similarity (knn), or a non-self
+    similarity that close to the threshold."""
+    n = sim.shape[-1]
+    eye = torch.eye(n, dtype=torch.bool, device=sim.device)
+    if mode == "knn":
+        kk = min(k, n - 1)
+        if kk == n - 1:
+            return torch.zeros(sim.shape[:-1], dtype=torch.bool,
+                               device=sim.device)
+        top = torch.topk(sim.masked_fill(eye, -1e30), kk + 1, dim=-1).values
+        return top[..., kk - 1] - top[..., kk] < TIE_MARGIN
+    if mode == "threshold":
+        gap = (sim - threshold).abs().masked_fill(eye, float("inf"))
+        return gap.amin(-1) < TIE_MARGIN
+    return torch.zeros(sim.shape[:-1], dtype=torch.bool, device=sim.device)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,dim,mode,k,thr,temp", GRAPH_CASES)
+def test_graph_kernel_matches_plain(dev, dtype, b, n, dim, mode, k, thr, temp):
+    t = _randn(dev, b, n, dim, seed=n).to(dtype)
+    v = _randn(dev, b, n, dim, seed=n + 1).to(dtype)
+    before = G.KERNEL_LAUNCHES
+    got, adj = G.graph_aggregate_kernel(t, v, mode, k, thr, temp,
+                                        return_adjacency=True)
+    assert G.KERNEL_LAUNCHES == before + 1
+    ref_adj = G.build_adjacency(t, mode=mode, k=k, threshold=thr,
+                                temperature=temp)
+    want = G.graph_aggregate(ref_adj, v)
+    torch.cuda.synchronize()
+    same = ((adj > 0) == (ref_adj > 0)).all(-1)
+    assert got.shape == v.shape and got.dtype == dtype
+    # a row may pick another neighbour only at a near-tie; the rest agree
+    assert (same | _near_tie(G.cosine_similarity(t), mode, k, thr)).all()
+    assert _err(got[same], want[same]) <= TOL[dtype]
+    assert _err(adj[same], ref_adj[same]) <= TOL[dtype]
+    if mode == "knn":
+        assert ((adj > 0).sum(-1) == min(k, n - 1)).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", [40, 300])  # both bodies
+def test_graph_kernel_ties_prefer_lower_indices(dev, dtype, n):
+    """Identical tokens tie exactly: the k neighbours of every row are the
+    lowest non-self indices, as jax.lax.top_k picks them."""
+    k = 5
+    t = _randn(dev, 1, 1, 64).expand(1, n, 64).contiguous().to(dtype)
+    v = _randn(dev, 1, n, 64, seed=3).to(dtype)
+    _, adj = G.graph_aggregate_kernel(t, v, "knn", k, 0.0, 1.0,
+                                      return_adjacency=True)
+    want = torch.zeros(n, n, dtype=torch.bool)
+    for i in range(n):
+        want[i, [j for j in range(n) if j != i][:k]] = True
+    assert torch.equal(adj[0].cpu() > 0, want)
+
+
+def test_graph_threshold_without_edges_keeps_self(dev):
+    t = _randn(dev, 2, 9, 64)
+    v = _randn(dev, 2, 9, 64, seed=1)
+    out = G.graph_aggregate_kernel(t, v, "threshold", 8, 1.5, 1.0)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, v, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("precision", ["fp32", "bf16"])
+@pytest.mark.parametrize("include_cls", [False, True])
+def test_small_vit_kernels_match_plain_versions(dev, precision, include_cls):
+    """A small ViT with head_dim 64 (kernel A's width) through the kernels
+    and through the plain versions, on the same weights and images."""
+    cfg = from_dict({"model": {
+        "name": "custom", "img_size": 32, "patch_size": 8, "embed_dim": 128,
+        "depth": 2, "num_heads": 2, "num_classes": 14,
+        "graph": {"enabled": True, "num_blocks": 1, "k": 4,
+                  "include_cls": include_cls}}}).model
+    logits = {}
+    for impl in ("auto", "reference"):
+        model = init_params(build_model(cfg, precision=precision,
+                                        attn_impl=impl, graph_impl=impl,
+                                        mlp_impl=impl),
+                            torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.graphs[0].gate.fill_(0.5)
+        model = model.to(dev)
+        x = _randn(dev, 3, 32, 32, 3, seed=7)
+        with torch.inference_mode():
+            logits[impl] = model(x)
+    torch.cuda.synchronize()
+    # fp32: summation order only; bf16: a one-ulp difference in an early
+    # activation carries through the residual stream of both blocks
+    tol = 1e-4 if precision == "fp32" else 5e-2
+    assert logits["auto"].dtype == torch.float32
+    assert _err(logits["auto"], logits["reference"]) <= tol
