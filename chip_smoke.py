@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Bring-up check of the PyTorch port's bf16 serving path on one CUDA card.
+"""Bring-up check of the PyTorch port's bf16 serving and training paths on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,19 +8,28 @@ Phases, each printing its own lines; any failure raises and exits nonzero
 before the last line:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
-2. build: the Hopper kernels from ``gavit_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernel checks: kernels A (attention), B (inference MLP) and C (graph
-   aggregate) against their plain PyTorch versions at the serving shapes of
-   ViT-B/16 at 224 px, each within a stated tolerance;
+2. build: the Hopper kernels from ``gavit_tpu_torch/csrc`` (one nvcc per
+   source, all at once, sm_90a);
+3. kernel checks against their plain PyTorch versions, each within a stated
+   tolerance: A (attention), B (inference MLP) and C (graph aggregate) at
+   the serving shapes of ViT-B/16 at 224 px; F (dropout), D and D′ (training
+   MLP) and A′ (attention backward) at the training shapes (batch 128);
 4. slice: ``configs/vit_b16_graph2.yaml`` in bf16 from a seed, graph gates
    set to 0.5, through the kernels (``impl='auto'``) and through the plain
    versions (``impl='reference'``) on the same weights;
 5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a warmed
    Predictor; every response must be 200 and match the plain-version
    Predictor; the kernels' launch counters, zeroed just before, must show
-   that the requests went through every kernel;
-6. times: each kernel against its plain version (CUDA events, median),
-   Predictor p50 for one image, images/s of the bf16 forward at batch 64.
+   that the requests went through every serving kernel;
+6. train: the same config at batch 128 through ``scripts/train_torch.py``'s
+   trainer (preprocess → forward with dropout 0.1 → loss → backward →
+   AdamW): 5 steps through the kernels against 5 through the plain versions
+   from the same start (losses, and every gradient of the first step), the
+   launch counts of one step, then 30 steps through the kernels that must
+   lower the loss;
+7. times: each kernel against its plain version and a library call (CUDA
+   events, median), Predictor p50 for one image, images/s of the bf16
+   forward at batch 64 and of the train step at batch 128.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -28,7 +38,9 @@ The last two lines are one JSON object describing the kernels and then
 from __future__ import annotations
 
 import io
+import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -57,6 +69,17 @@ GRAPH_TOL = {"fp32": 1e-5, "bf16": 2e-2}
 # compared
 GRAPH_SAME_ROWS = {"fp32": 1.0, "bf16": 0.99}
 PROB_TOL = 2e-2  # bf16 model end to end, probabilities in [0, 1]
+# training kernels (bf16): D′'s and A′'s outputs are rounded to bf16 from
+# fp32 sums taken in another order; relative to the tensor's largest value
+GRAD_REL_TOL = 2e-2
+BIAS_REL_TOL = 1e-3  # D′'s fp32 bias gradients: summation order only
+DROP_RATE = 0.1
+TRAIN_BATCH = 128
+LOSS_REL_TOL = 2e-2  # per-step loss, kernels vs plain versions, bf16
+GRAD_COSINE = 0.99  # each parameter's first gradient, kernels vs plain
+# the H100 SXM's published dense peaks (the bound of each kernel's work)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -156,16 +179,16 @@ def check_attention(dev, results):
             results["A"]["cases"].append((dtype_name, b, qkv))
 
 
-def mlp_inputs(dev, m):
+def mlp_inputs(dev, m, dim=DIM, hidden=HIDDEN):
     import torch
 
     g = torch.Generator(device=dev).manual_seed(SEED + m)
     bf = torch.bfloat16
-    x = torch.randn(m, DIM, device=dev, generator=g).to(bf)
-    w1 = (torch.randn(HIDDEN, DIM, device=dev, generator=g) * 0.02).to(bf)
-    b1 = (torch.randn(HIDDEN, device=dev, generator=g) * 0.02).to(bf)
-    w2 = (torch.randn(DIM, HIDDEN, device=dev, generator=g) * 0.02).to(bf)
-    b2 = (torch.randn(DIM, device=dev, generator=g) * 0.02).to(bf)
+    x = torch.randn(m, dim, device=dev, generator=g).to(bf)
+    w1 = (torch.randn(hidden, dim, device=dev, generator=g) * 0.02).to(bf)
+    b1 = (torch.randn(hidden, device=dev, generator=g) * 0.02).to(bf)
+    w2 = (torch.randn(dim, hidden, device=dev, generator=g) * 0.02).to(bf)
+    b2 = (torch.randn(dim, device=dev, generator=g) * 0.02).to(bf)
     return x, w1, b1, w2, b2
 
 
@@ -235,6 +258,125 @@ def check_graph(dev, results):
             results["C"]["cases"].append((dtype_name, b, (t, v)))
 
 
+def rel_err(a, b) -> float:
+    return max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def ulps(got, want) -> float:
+    """Largest distance in bf16 ulps of |want| (floored at 2^-10, below
+    which fp32 cancellation, not rounding, sets the difference)."""
+    import torch
+
+    w = want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(
+        torch.clamp(w.abs(), min=2.0 ** -10))) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+def check(name, ok, line):
+    log(f"[check] {name}: {line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"kernel {name} disagrees with its plain version")
+
+
+def check_dropout(dev, results, n_tokens=N_TOKENS, dim=DIM,
+                  batch=TRAIN_BATCH):
+    import torch
+
+    from gavit_tpu_torch.ops import dropout as DR
+    from gavit_tpu_torch.ops import philox
+
+    seed = philox.step_seed(SEED, 3)
+    for dtype_name in ("bf16", "fp32"):
+        g = torch.Generator(device=dev).manual_seed(SEED + 11)
+        x = torch.randn(batch, n_tokens, dim, device=dev, generator=g).to(
+            getattr(torch, DTYPES[dtype_name]))
+        got = DR.dropout_kernel(x, seed, 5, DROP_RATE)
+        want = DR.dropout_reference(x, seed, 5, DROP_RATE)
+        err = max_err(got, want)
+        kept = (want != 0).float().mean().item()
+        check("F dropout", torch.equal(got, want),
+              f"{dtype_name} [{batch}, {n_tokens}, {dim}] rate {DROP_RATE}: "
+              f"bit-exact {torch.equal(got, want)} (max_abs_err {err:.3e}), "
+              f"kept {kept:.4%}")
+        results["F"]["errs"].append(err)
+        if dtype_name == "bf16":
+            results["F"]["cases"].append((x, seed))
+
+
+def check_mlp_train(dev, results, m=TRAIN_BATCH * N_TOKENS, dim=DIM,
+                    hidden=HIDDEN):
+    import torch
+
+    from gavit_tpu_torch.ops import mlp as M
+    from gavit_tpu_torch.ops import philox
+
+    x, w1, b1, w2, b2 = mlp_inputs(dev, m, dim, hidden)
+    seed, sites = philox.step_seed(SEED, 4), (2, 3)
+    y, h1 = M.mlp_train_kernel(x, w1, b1, w2, b2, seed, sites, DROP_RATE,
+                               DROP_RATE)
+    y_ref, h1_ref = M.mlp_train_reference(x, w1, b1, w2, b2, seed, sites,
+                                          DROP_RATE, DROP_RATE)
+    y_fc2 = M.mlp_train_fc2_reference(h1, w2, b2, seed, sites, DROP_RATE,
+                                      DROP_RATE)
+    uh, uy = ulps(h1, h1_ref), ulps(y, y_fc2)
+    err = max(max_err(h1, h1_ref), max_err(y, y_ref))
+    check("D mlp train fwd", uh <= 1 and uy <= 1 and torch.isfinite(y).all()
+          and rel_err(y, y_ref) <= GRAD_REL_TOL,
+          f"bf16 M={m} D={dim} F={hidden} rate {DROP_RATE}: h1 within "
+          f"{uh:.0f} ulp, y within {uy:.0f} ulp of the plain fc2 on the "
+          f"kernel's h1 (tol 1 ulp); y vs plain chain rel "
+          f"{rel_err(y, y_ref):.3e}; max_abs_err {err:.3e}")
+    results["D"]["errs"].append(err)
+    results["D"]["cases"].append((x, w1, b1, w2, b2, seed, sites))
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    dy = (torch.randn(m, dim, device=dev, generator=g) * 0.01).to(
+        torch.bfloat16)
+    got = M.mlp_train_bwd_kernel(dy, h1_ref, w2, seed, sites, DROP_RATE,
+                                 DROP_RATE)
+    want = M.mlp_train_bwd_reference(dy, h1_ref, w2, seed, sites, DROP_RATE,
+                                     DROP_RATE)
+    names = ("dh1", "go", "db1", "db2", "dye")
+    rels = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+    ok = (all(rels[n] <= GRAD_REL_TOL for n in ("dh1", "go", "dye"))
+          and all(rels[n] <= BIAS_REL_TOL for n in ("db1", "db2")))
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    check("D′ mlp train bwd", ok,
+          f"bf16 M={m}: rel to max " + ", ".join(
+              f"{n} {v:.3e}" for n, v in rels.items())
+          + f" (tol {GRAD_REL_TOL:.0e}; db1, db2 {BIAS_REL_TOL:.0e}); "
+          f"dye bit-exact {torch.equal(got[4], want[4])}, go bit-exact "
+          f"{torch.equal(got[1], want[1])}; max_abs_err {err:.3e}")
+    results["D′"]["errs"].append(err)
+    results["D′"]["cases"].append((dy, h1_ref, w2, seed, sites))
+
+
+def check_attention_bwd(dev, results, batch=TRAIN_BATCH, n=N_TOKENS,
+                        heads=HEADS):
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+
+    scale = HEAD_DIM ** -0.5
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    qkv = torch.randn(batch, n, 3 * heads * HEAD_DIM, device=dev,
+                      generator=g).to(torch.bfloat16)
+    # dO as the output projection's backward hands it over: [B, N, H, d]
+    # memory behind the [B, H, N, d] view
+    do = torch.randn(batch, n, heads, HEAD_DIM, device=dev,
+                     generator=g).to(torch.bfloat16).transpose(1, 2)
+    got = A.qkv_attention_bwd_kernel(qkv, do, scale, heads)
+    want = A.attention_backward_reference(qkv, do, scale, heads)
+    rel, err = rel_err(got, want), max_err(got, want)
+    check("A′ attention bwd", rel <= GRAD_REL_TOL
+          and torch.isfinite(got).all().item(),
+          f"bf16 B={batch} N={n} H={heads} d={HEAD_DIM}: dqkv rel to max "
+          f"{rel:.3e} (tol {GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}")
+    results["A′"]["errs"].append(err)
+    results["A′"]["cases"].append((qkv, do))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -294,18 +436,28 @@ def phase_slice(cfg, weights, dev):
                              "the plain versions")
 
 
-def reset_counts():
-    from gavit_tpu_torch.ops import attention, graph_ops, mlp
+# each kernel's launch counter: (module, attribute)
+COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
+            "A′": ("attention", "BWD_KERNEL_LAUNCHES"),
+            "B": ("mlp", "KERNEL_LAUNCHES"),
+            "C": ("graph_ops", "KERNEL_LAUNCHES"),
+            "D": ("mlp", "TRAIN_FWD_LAUNCHES"),
+            "D′": ("mlp", "TRAIN_BWD_LAUNCHES"),
+            "F": ("dropout", "KERNEL_LAUNCHES")}
 
-    attention.KERNEL_LAUNCHES = mlp.KERNEL_LAUNCHES = 0
-    graph_ops.KERNEL_LAUNCHES = 0
+
+def reset_counts():
+    import importlib
+
+    for mod, attr in COUNTERS.values():
+        setattr(importlib.import_module(f"gavit_tpu_torch.ops.{mod}"), attr, 0)
 
 
 def read_counts():
-    from gavit_tpu_torch.ops import attention, graph_ops, mlp
+    import importlib
 
-    return {"A": attention.KERNEL_LAUNCHES, "B": mlp.KERNEL_LAUNCHES,
-            "C": graph_ops.KERNEL_LAUNCHES}
+    return {k: getattr(importlib.import_module(f"gavit_tpu_torch.ops.{mod}"),
+                       attr) for k, (mod, attr) in COUNTERS.items()}
 
 
 def phase_serve(cfg, weights, dev):
@@ -380,13 +532,115 @@ def phase_serve(cfg, weights, dev):
         thread.join(timeout=30)
     device_calls = 4  # 1 image, 1 PNG, bucket 8, bucket 128
     log(f"[serve] kernel launches over {device_calls} device calls: "
-        f"A {counts['A']} B {counts['B']} C {counts['C']}")
-    depth, n_graph = cfg.model.depth, len(cfg.model.graph_insert_after())
-    expect = {"A": depth * device_calls, "B": depth * device_calls,
-              "C": n_graph * device_calls}
-    if any(counts[k] == 0 for k in counts) or counts != expect:
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    depth, n_graph = cfg.model.depth, len(set(cfg.model.graph_insert_after()))
+    expect = {k: 0 for k in COUNTERS}
+    expect.update({"A": depth * device_calls, "B": depth * device_calls,
+                   "C": n_graph * device_calls})
+    if counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
     return predictor, reference, counts
+
+
+def train_config(overrides=()):
+    """vit_b16_graph2 at batch 128 with a warmup of 5 steps (5 steps an
+    epoch of a 640-image synthetic set with learnable class stripes)."""
+    from gavit_tpu_torch import load_config
+
+    return load_config(str(CONFIG), [
+        f"data.batch_size={TRAIN_BATCH}", "data.synthetic_size=640",
+        "data.synthetic_learnable=true", "training.warmup_epochs=1",
+        f"training.seed={SEED}", *overrides])
+
+
+def phase_train(cfg, dev, steps_compare=5, steps_learn=30):
+    """The training step through scripts/train_torch.py's entry points."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+
+    dataset = train_torch.create_dataset(cfg)
+    bs = cfg.data.batch_size
+    trainers = {impl: train_torch.build_trainer(cfg, dataset, dev, impl=impl,
+                                                gate=GATE)
+                for impl in ("auto", "reference")}
+    data = list(itertools.islice(
+        train_torch.batches(dataset, bs, cfg.training.seed),
+        max(steps_compare, steps_learn)))
+    losses = {impl: [] for impl in trainers}
+    first_grads = {}
+    counts = None
+    for i in range(steps_compare):
+        images, labels = (torch.from_numpy(a) for a in data[i])
+        for impl, tr in trainers.items():
+            if impl == "auto" and i == 1:
+                torch.cuda.synchronize()
+                reset_counts()
+            m = tr.train_step(images, labels)
+            if impl == "auto" and i == 1:
+                torch.cuda.synchronize()
+                counts = read_counts()
+            loss = m["loss"].item()
+            if not math.isfinite(loss):
+                raise AssertionError(f"{impl} step {i}: loss {loss}")
+            losses[impl].append(loss)
+            if i == 0:
+                first_grads[impl] = [(n, p.grad.detach().float().flatten())
+                                     for n, p in tr.model.named_parameters()]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses["auto"],
+                                                 losses["reference"])]
+    ok = max(rels) <= LOSS_REL_TOL
+    log(f"[train] vit_b16_graph2 {cfg.training.precision} b{bs}, dropout "
+        f"{cfg.model.drop_rate}, "
+        f"gates {GATE}: losses through the kernels "
+        f"{[round(v, 5) for v in losses['auto']]}, through the plain versions "
+        f"{[round(v, 5) for v in losses['reference']]}; max rel diff "
+        f"{max(rels):.3e} (tol {LOSS_REL_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training through the kernels disagrees with "
+                             "the plain versions")
+    cos = []
+    for (name, a), (_, b) in zip(first_grads["auto"],
+                                 first_grads["reference"]):
+        if b.abs().max() == 0 and a.abs().max() == 0:
+            continue
+        cos.append((torch.nn.functional.cosine_similarity(a, b, dim=0)
+                    .item(), name))
+    worst = min(cos)
+    ok = worst[0] >= GRAD_COSINE
+    log(f"[train] first-step gradients, kernels vs plain versions: lowest "
+        f"cosine {worst[0]:.6f} ({worst[1]}) over {len(cos)} parameters "
+        f"(need {GRAD_COSINE}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("a gradient through the kernels points away "
+                             "from the plain version's")
+    depth, n_graph = cfg.model.depth, len(set(cfg.model.graph_insert_after()))
+    n_drop = 1 + depth + n_graph  # embedding, attention proj, graph proj
+    expect = {"A": depth, "A′": depth, "B": 0, "C": n_graph, "D": depth,
+              "D′": depth, "F": 2 * n_drop}
+    log("[train] kernel launches in one train step: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != expect:
+        raise AssertionError(f"launch counts {counts}, expected {expect}")
+
+    # keep training through the kernels: the loss must come down
+    del trainers["reference"]
+    tr = trainers["auto"]
+    for i in range(steps_compare, steps_learn):
+        images, labels = (torch.from_numpy(a) for a in data[i])
+        losses["auto"].append(tr.train_step(images, labels)["loss"].item())
+    run = losses["auto"][:steps_learn]
+    first, last = sum(run[:5]) / 5, sum(run[-5:]) / 5
+    ok = all(math.isfinite(v) for v in run) and last < first
+    log(f"[train] {steps_learn} steps through the kernels (warmup 5 steps, "
+        f"lr {cfg.training.learning_rate}): mean loss of the first 5 "
+        f"{first:.5f}, of the last 5 {last:.5f}; losses "
+        f"{[round(v, 4) for v in run]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("30 steps through the kernels did not lower "
+                             "the loss")
+    return tr, data[0], counts
 
 
 def phase_times(cfg, dev, results, predictors, card):
@@ -400,16 +654,17 @@ def phase_times(cfg, dev, results, predictors, card):
     from gavit_tpu_torch.ops.preprocess import val_preprocess
 
     scale = HEAD_DIM ** -0.5
-    times = {}
     for dtype_name, b, qkv in results["A"]["cases"]:
         q, k_, v = A._split_heads(qkv, HEADS)
         k = cuda_ms(lambda: A.qkv_attention_kernel(qkv, scale, HEADS))
         p = cuda_ms(lambda: A.attention_reference(q, k_, v, scale))
         # a library rung to measure against, not a replacement
         sdpa = cuda_ms(lambda: F.scaled_dot_product_attention(q, k_, v))
-        times[("A", dtype_name, b)] = (k, p)
+        bms, by = bound(4 * b * HEADS * N_TOKENS ** 2 * HEAD_DIM,
+                        4 * b * N_TOKENS * HEADS * HEAD_DIM * qkv.element_size())
         log(f"[time] A attention {dtype_name} B={b}: kernel {k:.4f} ms, "
-            f"plain {p:.4f} ms, torch sdpa {sdpa:.4f} ms ({card})")
+            f"plain {p:.4f} ms, torch sdpa {sdpa:.4f} ms, bound {bms:.4f} ms "
+            f"({by}) ({card})")
     for dtype_name, m, args in results["B"]["cases"]:
         x, w1, b1, w2, b2 = args
         k = cuda_ms(lambda: M.mlp_inference_kernel(*args, True))
@@ -418,9 +673,11 @@ def phase_times(cfg, dev, results, predictors, card):
         # function, but the speed reference for kernel B
         blas = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1),
                                                approximate="tanh"), w2, b2))
-        times[("B", dtype_name, m)] = (k, p)
+        bms, by = bound(4 * m * DIM * HIDDEN,
+                        (2 * m * DIM + 2 * DIM * HIDDEN + HIDDEN + DIM) * 2)
         log(f"[time] B mlp {dtype_name} M={m}: kernel {k:.4f} ms, plain "
-            f"{p:.4f} ms, bf16 cuBLAS chain {blas:.4f} ms ({card})")
+            f"{p:.4f} ms, bf16 cuBLAS chain {blas:.4f} ms, bound {bms:.4f} "
+            f"ms ({by}) ({card})")
     for dtype_name, b, (t, v) in results["C"]["cases"]:
         for mode, kw in GRAPH_MODES:
             k_, thr = kw.get("k", 8), kw.get("threshold", 0.0)
@@ -428,9 +685,11 @@ def phase_times(cfg, dev, results, predictors, card):
                                                          1.0))
             p = cuda_ms(lambda: G.graph_aggregate(G.build_adjacency(
                 t, mode=mode, k=k_, threshold=thr), v))
-            times[("C", dtype_name, b, mode)] = (k, p)
+            n = t.shape[1]
+            bms, by = bound(4 * b * n * n * DIM,
+                            3 * t.numel() * t.element_size())
             log(f"[time] C graph {dtype_name} {mode} B={b}: kernel {k:.4f} "
-                f"ms, plain {p:.4f} ms ({card})")
+                f"ms, plain {p:.4f} ms, bound {bms:.4f} ms ({by}) ({card})")
 
     predictor, reference = predictors
     s = cfg.data.image_size
@@ -455,24 +714,185 @@ def phase_times(cfg, dev, results, predictors, card):
             ms = cuda_ms(lambda: model(x), iters=10, warmup=2)
         log(f"[time] bf16 forward b64 impl={impl}: {ms:.3f} ms, "
             f"{64 / (ms / 1000):.1f} img/s ({card})")
-    return times
 
 
-def kernels_json(results, counts, times):
-    rows = [
+def bound(flops: float, nbytes: float):
+    """(least ms, what bounds it): the larger of the operations at the
+    card's bf16 tensor-core peak and the bytes at its memory rate."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def phase_train_times(cfg, dev, results, trainer, batch, card):
+    """Each training-path kernel at the b128 shapes against its plain
+    version and a library call; A, B and C at their main-path shapes; the
+    train step through the kernels and through the plain versions."""
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import dropout as DR
+    from gavit_tpu_torch.ops import graph_ops as G
+    from gavit_tpu_torch.ops import mlp as M
+
+    rows = {}
+    bf = torch.bfloat16
+    b, n, h, d = TRAIN_BATCH, N_TOKENS, HEADS, HEAD_DIM
+    scale = d ** -0.5
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+
+    # A and A′ at b128
+    qkv, do = results["A′"]["cases"][0]
+    q, k, v = (t.detach().clone().requires_grad_(True)
+               for t in A._split_heads(qkv, h))
+    do_c = do.contiguous()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), do_c)
+
+    ka = cuda_ms(lambda: A.qkv_attention_kernel(qkv, scale, h))
+    pa = cuda_ms(lambda: A.attention_reference(*A._split_heads(qkv, h),
+                                               scale), iters=5)
+    la = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    rows["A"] = (ka, pa, la) + bound(4 * b * h * n * n * d,
+                                     4 * b * n * h * d * 2)
+    kb = cuda_ms(lambda: A.qkv_attention_bwd_kernel(qkv, do, scale, h))
+    pb = cuda_ms(lambda: A.attention_backward_reference(qkv, do, scale, h),
+                 iters=5)
+    lb = cuda_ms(sdpa_fwd_bwd)
+    rows["A′"] = (kb, pb, lb) + bound(10 * b * h * n * n * d,
+                                      7 * b * n * h * d * 2)
+
+    # B at the serving b64 shape (its main path), against a bf16 cuBLAS chain
+    m64 = 64 * N_TOKENS
+    (_, _, args_b), = [c for c in results["B"]["cases"] if c[1] == m64]
+    x, w1, b1, w2, b2 = args_b
+    kB = cuda_ms(lambda: M.mlp_inference_kernel(*args_b, True))
+    pB = cuda_ms(lambda: M._chain_infer(*args_b, True), iters=5)
+    lB = cuda_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1),
+                                         approximate="tanh"), w2, b2))
+    rows["B"] = (kB, pB, lB) + bound(4 * m64 * DIM * HIDDEN,
+                                     (2 * m64 * DIM + 2 * DIM * HIDDEN
+                                      + HIDDEN + DIM) * 2)
+
+    # C at b128 with the adjacency kept for the backward, as training runs it
+    t = torch.randn(b, n - 1, DIM, device=dev, generator=g).to(bf)
+    vals = torch.randn(b, n - 1, DIM, device=dev, generator=g).to(bf)
+    kc = cuda_ms(lambda: G.graph_aggregate_kernel(t, vals, "knn", 8, 0.0, 1.0,
+                                                  return_adjacency=True))
+    pc = cuda_ms(lambda: G.graph_aggregate(G.build_adjacency(t, k=8), vals),
+                 iters=5)
+    rows["C"] = (kc, pc, None) + bound(4 * b * (n - 1) ** 2 * DIM,
+                                       3 * b * (n - 1) * DIM * 2
+                                       + b * (n - 1) ** 2 * 4)
+
+    # D and D′ at M = 128 x 197, against F.linear → gelu → dropout → F.linear
+    # → dropout in bf16 (its forward, and its backward alone)
+    x, w1, b1, w2, b2, seed, sites = results["D"]["cases"][0]
+    m = x.shape[0]
+    dy, h1, _, _, _ = results["D′"]["cases"][0]
+    leaves = [a.detach().clone().requires_grad_(True)
+              for a in (x, w1, b1, w2, b2)]
+
+    def chain():
+        lx, lw1, lb1, lw2, lb2 = leaves
+        hid = F.dropout(F.gelu(F.linear(lx, lw1, lb1)), DROP_RATE)
+        return F.dropout(F.linear(hid, lw2, lb2), DROP_RATE)
+
+    y_chain = chain()
+    kd = cuda_ms(lambda: M.mlp_train_kernel(x, w1, b1, w2, b2, seed, sites,
+                                            DROP_RATE, DROP_RATE))
+    pd = cuda_ms(lambda: M.mlp_train_reference(
+        x, w1, b1, w2, b2, seed, sites, DROP_RATE, DROP_RATE), iters=5)
+    ld = cuda_ms(chain)
+    rows["D"] = (kd, pd, ld) + bound(
+        4 * m * DIM * HIDDEN,
+        (m * DIM + 2 * DIM * HIDDEN + HIDDEN + DIM + m * HIDDEN + m * DIM) * 2)
+    kd2 = cuda_ms(lambda: M.mlp_train_bwd_kernel(dy, h1, w2, seed, sites,
+                                                 DROP_RATE, DROP_RATE))
+    pd2 = cuda_ms(lambda: M.mlp_train_bwd_reference(
+        dy, h1, w2, seed, sites, DROP_RATE, DROP_RATE), iters=5)
+    ld2 = cuda_ms(lambda: torch.autograd.grad(y_chain, leaves, dy,
+                                              retain_graph=True))
+    rows["D′"] = (kd2, pd2, ld2) + bound(
+        2 * m * DIM * HIDDEN,
+        (2 * m * DIM + 3 * m * HIDDEN + DIM * HIDDEN) * 2
+        + (HIDDEN + DIM) * 4)
+
+    # F on one [128, 197, 768] bf16 site
+    xf, fseed = results["F"]["cases"][0]
+    kf = cuda_ms(lambda: DR.dropout_kernel(xf, fseed, 5, DROP_RATE))
+    pf = cuda_ms(lambda: DR.dropout_reference(xf, fseed, 5, DROP_RATE),
+                 iters=5)
+    lf = cuda_ms(lambda: F.dropout(xf, DROP_RATE))
+    rows["F"] = (kf, pf, lf) + bound(0, 2 * xf.numel() * 2)
+
+    for key, (km, pm, lm, bms, by) in rows.items():
+        log(f"[time] {key}: kernel {km:.4f} ms, plain {pm:.4f} ms, library "
+            f"{'n/a' if lm is None else f'{lm:.4f} ms'}, bound {bms:.4f} ms "
+            f"({by}) ({card})")
+
+    # the train step at b128, through the kernels and the plain versions
+    dataset = train_torch.create_dataset(cfg)
+    plain = train_torch.build_trainer(cfg, dataset, dev, impl="reference",
+                                      gate=GATE)
+    images, labels = (torch.from_numpy(a) for a in batch)
+    step_ms = {"auto": [], "reference": []}
+    for tr in (trainer, plain):
+        tr.train_step(images, labels)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for impl, tr in (("auto", trainer), ("reference", plain),
+                         ("auto", trainer)):
+            t0 = time.perf_counter()
+            tr.train_step(images, labels)
+            torch.cuda.synchronize()
+            step_ms[impl].append((time.perf_counter() - t0) * 1000)
+    steps = {}
+    for impl, ts in step_ms.items():
+        ms = statistics.median(ts)
+        steps[impl] = ms
+        log(f"[time] train step b{TRAIN_BATCH} {cfg.training.precision} "
+            f"impl={impl}: {ms:.3f} ms "
+            f"(median of {len(ts)}), {TRAIN_BATCH / (ms / 1000):.1f} img/s "
+            f"({card})")
+    return rows, steps
+
+
+def kernels_json(results, serve_counts, train_counts, rows):
+    """One row per kernel. ``launches``: from the training step for the
+    kernels on its path, from the served requests for B."""
+    spec = [
         ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
-         "gavit_tpu/ops/attention.py:583", ("A", "bf16", 64)),
+         "gavit_tpu/ops/attention.py:583"),
+        ("A′", "fused_qkv_attention_bwd",
+         "gavit_tpu_torch/csrc/attention_bwd.cu",
+         "gavit_tpu/ops/attention.py:608"),
         ("B", "fused_mlp_inference", "gavit_tpu_torch/csrc/mlp.cu",
-         "gavit_tpu/ops/mlp.py:582", ("B", "bf16", 64 * N_TOKENS)),
+         "gavit_tpu/ops/mlp.py:582"),
         ("C", "fused_graph_aggregate", "gavit_tpu_torch/csrc/graph.cu",
-         "gavit_tpu/ops/graph_ops.py:129", ("C", "bf16", 64, "knn")),
+         "gavit_tpu/ops/graph_ops.py:129"),
+        ("D", "fused_mlp_train_fwd", "gavit_tpu_torch/csrc/mlp.cu",
+         "gavit_tpu/ops/mlp.py:145"),
+        ("D′", "fused_mlp_train_bwd", "gavit_tpu_torch/csrc/mlp.cu",
+         "gavit_tpu/ops/mlp.py:192"),
+        ("F", "fused_dropout", "gavit_tpu_torch/csrc/dropout.cu",
+         "gavit_tpu/ops/dropout.py:33"),
     ]
-    return {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[key], "max_abs_err": max(results[key]["errs"]),
-         "ms": times[tkey][0], "plain_ms": times[tkey][1]}
-        for key, name, src, rep, tkey in rows
-    ]}
+    out = []
+    for key, name, src, rep in spec:
+        km, pm, lm, bms, by = rows[key]
+        counts = serve_counts if key == "B" else train_counts
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": rep, "launches": counts[key],
+                    "max_abs_err": max(results[key]["errs"]), "ms": km,
+                    "plain_ms": pm, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lm})
+    return {"kernels": out}
 
 
 def main():
@@ -483,21 +903,30 @@ def main():
 
     dev = torch.device("cuda", 0)
     phase_build()
-    results = {k: {"errs": [], "cases": []} for k in "ABC"}
+    results = {k: {"errs": [], "cases": []} for k in COUNTERS}
     check_attention(dev, results)
     check_mlp(dev, results)
     check_graph(dev, results)
+    check_dropout(dev, results)
+    check_mlp_train(dev, results)
+    check_attention_bwd(dev, results)
     cfg = load_config(str(CONFIG))
     weights = gated_weights(cfg)
     phase_slice(cfg, weights, dev)
-    predictor, reference, counts = phase_serve(cfg, weights, dev)
-    times = phase_times(cfg, dev, results, (predictor, reference), card)
-    leaked = [m for m in sys.modules if m.split(".")[0] in ("jax", "flax")]
+    predictor, reference, serve_counts = phase_serve(cfg, weights, dev)
+    tcfg = train_config()
+    trainer, batch, train_counts = phase_train(tcfg, dev)
+    phase_times(cfg, dev, results, (predictor, reference), card)
+    del predictor, reference
+    rows, _ = phase_train_times(tcfg, dev, results, trainer, batch, card)
+    leaked = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
-    log(f"[env] nothing of jax or flax imported; {card}")
+    log(f"[env] nothing of jax, flax or gavit_tpu imported; {card}")
     print(card)
-    print(json.dumps(kernels_json(results, counts, times)))
+    print(json.dumps(kernels_json(results, serve_counts, train_counts, rows),
+                     ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -2,19 +2,21 @@
 
 A second package beside the JAX one, with the same layout and module names:
 
-  models/    — ViT + graph message-passing blocks (nn.Module, deterministic)
+  config.py  — the typed YAML config (the port's own copy of the schema)
+  data/      — the label list and the synthetic dataset
+  models/    — ViT + graph message-passing blocks (nn.Module; ``eval()`` is
+               the deterministic forward, ``train()`` the dropout one)
   ops/       — the plain PyTorch versions and the wrappers of the hand-written
-               Hopper kernels (fused attention, inference MLP, fused graph op)
+               Hopper kernels (attention forward and backward, inference and
+               training MLP, dropout, fused graph op)
   csrc/      — the CUDA C++ sources of those kernels, built on first use
-  utils/     — the weight bridge from the JAX parameter tree
+  training/  — the loss, schedule, optimizer and the train step
+  utils/     — the weight bridge to and from the JAX parameter tree
   serving.py — the Predictor (bucketed batches, device-resident weights)
 
-It imports torch and nothing of jax or flax. It shares the JAX package's
-config schema (``gavit_tpu.config``, which imports only yaml) and its label
-order (``gavit_tpu.data.dataset.DISEASE_NAMES``); nothing else of
-``gavit_tpu``.
+It imports torch and nothing of jax, flax or gavit_tpu.
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
 
-from gavit_tpu.config import Config, load_config  # noqa: E402,F401
+from gavit_tpu_torch.config import Config, load_config  # noqa: E402,F401

@@ -1,10 +1,16 @@
 """Core ViT layers (counterpart of ``gavit_tpu/models/layers.py``).
 
-Deterministic (serving) forward only: dropout and drop_path are the identity
-here, and come with training. Parameters are fp32; each module computes in
-its ``dtype`` (fp32 or bf16) the way the JAX modules do: weights cast to the
-compute dtype at use, LayerNorm statistics and affine in fp32 with ε=1e-5,
-outputs rounded to the compute dtype.
+``eval()`` is the deterministic forward (serving); ``train()`` the training
+one, with dropout and drop_path, as JAX's ``deterministic=False``.
+Parameters are fp32; each module computes in its ``dtype`` (fp32 or bf16)
+the way the JAX modules do: weights cast to the compute dtype at use (so
+the gradients reach the fp32 parameters through the cast), LayerNorm
+statistics and affine in fp32 with ε=1e-5, outputs rounded to the compute
+dtype.
+
+Dropout sites carry fixed ids (``site``; see ``models/vit.py``) and draw
+their masks from the step seed passed down the forward, so the backward
+regenerates them (``ops/philox.py``).
 
 Dense weights use ``nn.Linear``'s ``[out, in]`` layout (the JAX kernels are
 ``[in, out]``; ``utils/convert.py`` transposes).
@@ -17,7 +23,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from gavit_tpu_torch.ops.attention import fused_qkv_attention
-from gavit_tpu_torch.ops.mlp import fused_mlp_inference
+from gavit_tpu_torch.ops.dropout import fused_dropout
+from gavit_tpu_torch.ops.mlp import fused_mlp, fused_mlp_inference
 
 LN_EPS = 1e-5
 
@@ -54,6 +61,35 @@ class LayerNorm(nn.LayerNorm):
         return y.to(self.dtype)
 
 
+class Dropout(nn.Module):
+    """``FusedDropout`` (layers.py:308-320): kernel F in training mode with
+    the step seed and this site's id; the identity in eval mode or at rate
+    0."""
+
+    def __init__(self, rate: float, site: int, impl: str = "auto"):
+        super().__init__()
+        self.rate = rate
+        self.site = site
+        self.impl = impl
+
+    def forward(self, x, seed):
+        if not self.training or self.rate == 0.0:
+            return x
+        return fused_dropout(x, seed, self.site, self.rate, impl=self.impl)
+
+
+def drop_path(x, rate: float, training: bool, generator=None):
+    """Stochastic depth (layers.py:323-338): drop whole residual branches per
+    sample with probability ``rate``, the kept ones scaled by 1/(1-rate).
+    The draw comes from ``generator`` (on x's device)."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
+    mask = mask.reshape((-1,) + (1,) * (x.ndim - 1))
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 class PatchEmbed(nn.Module):
     """NHWC image ``[B, H, W, C]`` → patch tokens ``[B, N, D]``: a reshape and
     one GEMM, patch features ordered ``(c, ph, pw)`` (layers.py:165-182)."""
@@ -87,63 +123,86 @@ class HeadMergeProj(Dense):
 
 class Attention(nn.Module):
     """Fused-QKV multi-head self-attention: qkv GEMM → kernel A on the raw
-    rows → head-merging output projection."""
+    rows (A′ in the backward) → head-merging output projection → projection
+    dropout (layers.py:425)."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
-                 dtype=torch.float32, impl: str = "auto", device=None):
+                 proj_drop: float = 0.0, site: int = 0, dtype=torch.float32,
+                 impl: str = "auto", dropout_impl: str = "auto", device=None):
         super().__init__()
         self.num_heads = num_heads
         self.impl = impl
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                          device=device)
         self.proj = HeadMergeProj(dim, dim, dtype=dtype, device=device)
+        self.proj_drop = Dropout(proj_drop, site, dropout_impl)
 
-    def forward(self, x):
+    def forward(self, x, seed=None):
         b, n, c = x.shape
         h = self.num_heads
         hd = c // h
         qkv = self.qkv(x).view(b, n, 3, h, hd)
         out4 = fused_qkv_attention(qkv, hd ** -0.5, merge_heads=False,
                                    impl=self.impl)
-        return self.proj(out4)
+        return self.proj_drop(self.proj(out4), seed)
 
 
 class Mlp(nn.Module):
-    """fc1 → GELU → fc2 through :func:`fused_mlp_inference`: tanh GELU on
-    the bf16 path and erf on fp32 (layers.py:252-260, 300-301)."""
+    """fc1 → GELU → fc2 (layers.py:205-305).
 
-    def __init__(self, dim: int, hidden_dim: int, *, dtype=torch.float32,
-                 impl: str = "auto", device=None):
+    Eval: :func:`fused_mlp_inference`, tanh GELU on the bf16 path and erf on
+    fp32. Train: :func:`fused_mlp` (kernels D and D′ on the card), erf GELU,
+    with the hidden and output dropout sites ``site`` and ``site + 1``
+    folded in, as the JAX package folds them into its kernel.
+    """
+
+    def __init__(self, dim: int, hidden_dim: int, *, drop: float = 0.0,
+                 site: int = 0, dtype=torch.float32, impl: str = "auto",
+                 device=None):
         super().__init__()
         self.dtype = dtype
         self.impl = impl
+        self.drop = drop
+        self.sites = (site, site + 1)
         self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
         self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
 
-    def forward(self, x):
+    def forward(self, x, seed=None):
         dt = self.dtype
-        return fused_mlp_inference(
-            x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt),
-            self.fc2.weight.to(dt), self.fc2.bias.to(dt),
-            approximate=dt == torch.bfloat16, impl=self.impl,
-        )
+        args = (x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt),
+                self.fc2.weight.to(dt), self.fc2.bias.to(dt))
+        if self.training:
+            return fused_mlp(*args, seed, self.sites, self.drop, self.drop,
+                             impl=self.impl)
+        return fused_mlp_inference(*args, approximate=dt == torch.bfloat16,
+                                   impl=self.impl)
 
 
 class Block(nn.Module):
-    """Pre-LN transformer block (deterministic)."""
+    """Pre-LN transformer block with stochastic depth (layers.py:459-538).
+    Its dropout sites are ``site`` (attention projection), ``site + 1`` and
+    ``site + 2`` (the MLP's hidden and output masks)."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
-                 qkv_bias: bool = True, dtype=torch.float32,
-                 attn_impl: str = "auto", mlp_impl: str = "auto",
+                 qkv_bias: bool = True, drop: float = 0.0,
+                 drop_path_rate: float = 0.0, site: int = 0,
+                 dtype=torch.float32, attn_impl: str = "auto",
+                 mlp_impl: str = "auto", dropout_impl: str = "auto",
                  device=None):
         super().__init__()
+        self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
-        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias, dtype=dtype,
-                              impl=attn_impl, device=device)
+        self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
+                              proj_drop=drop, site=site, dtype=dtype,
+                              impl=attn_impl, dropout_impl=dropout_impl,
+                              device=device)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype=dtype, impl=mlp_impl,
-                       device=device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, site=site + 1,
+                       dtype=dtype, impl=mlp_impl, device=device)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, seed=None, generator=None):
+        rate = self.drop_path_rate
+        x = x + drop_path(self.attn(self.norm1(x), seed), rate,
+                          self.training, generator)
+        return x + drop_path(self.mlp(self.norm2(x), seed), rate,
+                             self.training, generator)

@@ -1,9 +1,16 @@
 """Graph-augmented Vision Transformer (counterpart of
-``gavit_tpu/models/vit.py``), deterministic forward.
+``gavit_tpu/models/vit.py``).
 
 NHWC images in (already normalised), the image cast to the compute dtype
-before patchify → +CLS → +position embeddings → blocks, with graph blocks
-after the configured blocks → final LayerNorm → CLS → head → fp32 logits.
+before patchify → +CLS → +position embeddings → embedding dropout → blocks
+(stochastic depth linearly spaced over depth), with graph blocks after the
+configured blocks → final LayerNorm → CLS → head → fp32 logits.
+
+``eval()`` (the state ``build_model`` returns) is the deterministic
+forward. In ``train()`` mode the forward takes the step's dropout seed
+(``ops/philox.py::step_seed``) and a generator for drop_path; every dropout
+site has a fixed id (:func:`dropout_sites`), so the backward regenerates its
+mask.
 """
 
 from __future__ import annotations
@@ -11,11 +18,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from gavit_tpu.config import ModelConfig
+from gavit_tpu_torch.config import ModelConfig
 from gavit_tpu_torch.models.graph import GraphBlock
 from gavit_tpu_torch.models.layers import (
     Block,
     Dense,
+    Dropout,
     LayerNorm,
     PatchEmbed,
 )
@@ -23,17 +31,32 @@ from gavit_tpu_torch.models.layers import (
 PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
 
 
+def dropout_sites(depth: int, n_graph: int) -> dict:
+    """The fixed site ids of the model's dropout masks: the embedding 0;
+    block i's attention projection 1+3i and its MLP's hidden and output
+    masks 2+3i and 3+3i; graph block j's projection 1+3·depth+j."""
+    sites = {"embed": 0}
+    for i in range(depth):
+        sites[f"blocks.{i}.attn"] = 1 + 3 * i
+        sites[f"blocks.{i}.mlp"] = (2 + 3 * i, 3 + 3 * i)
+    for j in range(n_graph):
+        sites[f"graphs.{j}"] = 1 + 3 * depth + j
+    return sites
+
+
 class VisionTransformer(nn.Module):
     """ViT backbone with interleaved graph blocks.
 
-    ``attn_impl`` / ``graph_impl`` / ``mlp_impl``: ``'auto'`` launches the
-    Hopper kernels on CUDA tensors and takes the plain versions on CPU
-    tensors; ``'reference'`` always takes the plain versions.
+    ``attn_impl`` / ``graph_impl`` / ``mlp_impl`` / ``dropout_impl``:
+    ``'auto'`` launches the Hopper kernels on CUDA tensors and takes the
+    plain versions on CPU tensors; ``'reference'`` always takes the plain
+    versions.
     """
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
                  attn_impl: str = "auto", graph_impl: str = "auto",
-                 mlp_impl: str = "auto", device=None):
+                 mlp_impl: str = "auto", dropout_impl: str = "auto",
+                 device=None):
         super().__init__()
         if cfg.moe.enabled:
             raise NotImplementedError(
@@ -46,50 +69,67 @@ class VisionTransformer(nn.Module):
         n = cfg.num_patches
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, d, device=device))
-        self.blocks = nn.ModuleList(
-            Block(d, cfg.num_heads, cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
-                  dtype=dtype, attn_impl=attn_impl, mlp_impl=mlp_impl,
-                  device=device)
-            for _ in range(cfg.depth)
-        )
         # a set, as in the JAX model: two blocks placed at one site are one
         self.graph_sites = tuple(sorted(set(cfg.graph_insert_after())))
+        sites = dropout_sites(cfg.depth, len(self.graph_sites))
+        self.pos_drop = Dropout(cfg.drop_rate, sites["embed"], dropout_impl)
+        dpr = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
+               for i in range(cfg.depth)]
+        self.blocks = nn.ModuleList(
+            Block(d, cfg.num_heads, cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+                  drop=cfg.drop_rate, drop_path_rate=dpr[i],
+                  site=sites[f"blocks.{i}.attn"], dtype=dtype,
+                  attn_impl=attn_impl, mlp_impl=mlp_impl,
+                  dropout_impl=dropout_impl, device=device)
+            for i in range(cfg.depth)
+        )
         self.graphs = nn.ModuleList(
-            GraphBlock(d, cfg.graph, dtype=dtype, impl=graph_impl,
+            GraphBlock(d, cfg.graph, drop=cfg.drop_rate,
+                       site=sites[f"graphs.{j}"], dtype=dtype,
+                       impl=graph_impl, dropout_impl=dropout_impl,
                        device=device)
-            for _ in self.graph_sites
+            for j in range(len(self.graph_sites))
         )
         self.norm = LayerNorm(d, dtype=dtype, device=device)
         self.head = Dense(d, cfg.num_classes, dtype=dtype, device=device)
 
-    def forward(self, x):
-        """``[B, H, W, C]`` normalised images → ``[B, num_classes]`` fp32."""
+    def forward(self, x, seed: int | None = None, generator=None):
+        """``[B, H, W, C]`` normalised images → ``[B, num_classes]`` fp32.
+
+        ``seed``: the step's 64-bit dropout seed, needed in training mode
+        when ``drop_rate > 0``. ``generator``: drop_path's draws (training
+        mode, ``drop_path_rate > 0``)."""
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         b, _, d = x.shape
         cls = self.cls_token.to(dt).expand(b, 1, d)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
+        x = self.pos_drop(x, seed)
         graphs = dict(zip(self.graph_sites, self.graphs))
         for i, block in enumerate(self.blocks):
-            x = block(x)
+            x = block(x, seed, generator)
             if i in graphs:
-                x = graphs[i](x)
+                x = graphs[i](x, seed)
         x = self.norm(x)
         return self.head(x[:, 0]).float()
 
 
 def build_model(cfg: ModelConfig, *, precision: str = "fp32",
                 attn_impl: str = "auto", graph_impl: str = "auto",
-                mlp_impl: str = "auto", device=None) -> VisionTransformer:
-    """``precision``: ``'fp32'`` (parity) or ``'bf16'`` (serving). The
-    parameters are fp32 either way; ``init_params`` fills them."""
+                mlp_impl: str = "auto", dropout_impl: str = "auto",
+                device=None) -> VisionTransformer:
+    """``precision``: ``'fp32'`` (parity) or ``'bf16'`` (serving and
+    training). The parameters are fp32 either way; ``init_params`` fills
+    them. The model comes back in eval mode (deterministic, as the JAX
+    model's default); ``train()`` switches dropout and drop_path on."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, "
                          f"not {precision!r}")
     return VisionTransformer(
         cfg, dtype=PRECISIONS[precision], attn_impl=attn_impl,
-        graph_impl=graph_impl, mlp_impl=mlp_impl, device=device,
-    )
+        graph_impl=graph_impl, mlp_impl=mlp_impl, dropout_impl=dropout_impl,
+        device=device,
+    ).eval()
 
 
 @torch.no_grad()

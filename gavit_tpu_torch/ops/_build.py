@@ -1,8 +1,9 @@
 """Build and load the hand-written Hopper kernels (``gavit_tpu_torch/csrc``).
 
-The sources export plain C launchers and include no PyTorch header, so one
-``nvcc`` call compiles all of them into a shared library in seconds, which is
-then bound with ``ctypes``. The library goes to ``build/gavit_tpu_torch/`` at
+The sources export plain C launchers and include no PyTorch header. Each
+``.cu`` file compiles in its own ``nvcc`` process, all started together, and
+one more call links the objects into a shared library, which is then bound
+with ``ctypes``. The library goes to ``build/gavit_tpu_torch/`` at
 the repository root, named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the existing file.
 
@@ -26,9 +27,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gavit_tpu_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of csrc/common.cuh
@@ -36,6 +37,8 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "gavit_error_string": ((_I,), ctypes.c_char_p),
@@ -43,6 +46,15 @@ _SIGNATURES = {
     "gavit_attention_fits": ((_I, _I), _I),
     "gavit_attention_fwd": ((_P, _P, _I, _I, _I, _I, _F, _I, _P), _I),
     "gavit_mlp_infer": ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "gavit_mlp_train_fwd": (
+        (_P,) * 8 + (_I, _I, _I, _U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
+    "gavit_mlp_bwd_partial_rows": ((_I, _I), _I),
+    "gavit_mlp_train_bwd": (
+        (_P,) * 10 + (_I, _I, _I, _U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
+    "gavit_attention_bwd_fits": ((_I, _I), _I),
+    "gavit_attention_bwd": (
+        (_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P), _I),
+    "gavit_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_graph_fits": ((_I,), _I),
     "gavit_graph_fwd": (
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P), _I),
@@ -84,20 +96,42 @@ def library_path() -> Path:
 
 
 def _build(out: Path) -> None:
+    """One nvcc process per source, all at once, then one link."""
     global build_log, build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    logs, failed = [], []
+    for cmd, _, proc in jobs:
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = out.with_name(f"{tag}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code "
+                               f"{proc.returncode}:\n{' '.join(cmd)}\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for _, obj, _ in jobs:
+            obj.unlink(missing_ok=True)
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stderr
+    build_log = "".join(logs)
 
 
 def library() -> ctypes.CDLL:

@@ -6,10 +6,16 @@
   row softmax → ``A·V`` in one pass. On a CUDA tensor it launches kernel C
   (``csrc/graph.cu``), which replaces the TPU kernel ``_graph_kernel``.
 
+* :func:`graph_backward` — ``_fga_bwd``'s closed-form VJP over the saved
+  fp32 adjacency (softmax and cosine-similarity chain rules), in plain
+  tensor ops with fp32 products: the JAX package computes it with einsums,
+  not a Pallas kernel. Selection is not differentiated, as there.
+
 kNN selection keeps the JAX package's tie rule on both paths: among equal
 similarities the lower index is taken first (``jax.lax.top_k`` is stable;
 here a stable descending sort, and k leftmost-max passes in the kernel).
-Forward only: the closed-form backward (``_fga_bwd``) comes with training.
+Under autograd the forward keeps the adjacency (kernel C with
+``return_adjacency``) and the backward is :func:`graph_backward`.
 """
 
 from __future__ import annotations
@@ -106,15 +112,65 @@ def graph_aggregate_kernel(tokens, values, mode: str, k: int,
     return (out, adj) if return_adjacency else out
 
 
+def graph_backward(tokens, values, adj, g, temperature: float = 1.0):
+    """``_fga_bwd`` (gavit_tpu/ops/graph_ops.py:445): the VJP of
+    ``graph_aggregate(adj, values)`` with ``adj`` the row softmax of the
+    masked cosine similarity of ``tokens``, over the saved fp32 ``adj``.
+    Returns ``(d tokens, d values)`` in their dtypes."""
+    g32 = g.float()
+    # out = A @ v:  dv = Aᵀ g,  dA = g vᵀ
+    dv = torch.matmul(adj.transpose(-1, -2), g32)
+    da = torch.matmul(g32, values.float().transpose(-1, -2))
+    # row softmax: masked entries have A == 0, so their logits get 0
+    dlogits = adj * (da - (da * adj).sum(-1, keepdim=True))
+    dsim = dlogits / temperature
+    # sim = n nᵀ with n = t · rsqrt(Σt² + eps)
+    t32 = tokens.float()
+    r = torch.rsqrt((t32 * t32).sum(-1, keepdim=True) + _EPS)
+    nvec = t32 * r
+    dn = torch.matmul(dsim, nvec) + torch.matmul(dsim.transpose(-1, -2), nvec)
+    dt = r * dn - t32 * (r ** 3) * (dn * t32).sum(-1, keepdim=True)
+    return dt.to(tokens.dtype), dv.to(values.dtype)
+
+
+class _FusedGraphAggregate(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tokens, values, mode, k, threshold, temperature,
+                use_kernel):
+        if use_kernel:
+            out, adj = graph_aggregate_kernel(tokens, values, mode, k,
+                                              threshold, temperature,
+                                              return_adjacency=True)
+        else:
+            adj = build_adjacency(tokens, mode=mode, k=k, threshold=threshold,
+                                  temperature=temperature)
+            out = graph_aggregate(adj, values)
+        ctx.save_for_backward(tokens, values, adj)
+        ctx.temperature = temperature
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        tokens, values, adj = ctx.saved_tensors
+        dt, dv = graph_backward(tokens, values, adj, g, ctx.temperature)
+        return dt, dv, None, None, None, None, None
+
+
 def fused_graph_aggregate(tokens, values, mode: str = "knn", k: int = 8,
                           threshold: float = 0.0, temperature: float = 1.0,
                           impl: str = "auto"):
     """``graph_aggregate(build_adjacency(tokens), values)`` without the
-    adjacency leaving the chip. ``impl='auto'`` launches kernel C for a CUDA
+    adjacency leaving the chip (it is written once, for the backward, when
+    a gradient is needed). ``impl='auto'`` launches kernel C for a CUDA
     tensor and takes the plain version for a CPU tensor; ``'reference'``
     always takes the plain version."""
     _build.check_impl(impl)
-    if impl == "reference" or tokens.device.type == "cpu":
+    use_kernel = impl == "auto" and tokens.device.type != "cpu"
+    if torch.is_grad_enabled() and (tokens.requires_grad
+                                    or values.requires_grad):
+        return _FusedGraphAggregate.apply(tokens, values, mode, k, threshold,
+                                          temperature, use_kernel)
+    if not use_kernel:
         adj = build_adjacency(tokens, mode=mode, k=k, threshold=threshold,
                               temperature=temperature)
         return graph_aggregate(adj, values)

@@ -1,4 +1,6 @@
-"""Inference MLP (counterpart of the serving half of ``gavit_tpu/ops/mlp.py``).
+"""The MLP fc1 → GELU → fc2 (counterpart of ``gavit_tpu/ops/mlp.py``).
+
+Serving:
 
 * :func:`_chain_infer` — the plain PyTorch version of
   ``GELU(x·W1+b1)·W2+b2`` with the TPU kernel's rounding: ``h1`` is rounded
@@ -7,9 +9,18 @@
   tensor it launches kernel B (``csrc/mlp.cu``), which replaces the TPU
   kernel ``_mlp_infer_kernel``.
 
-Weights use ``nn.Linear``'s layout: ``w1 [F, D]``, ``w2 [D, F]``. The
-training MLP kernels (``_mlp_fwd_kernel`` / ``_mlp_bwd_kernel``) come with
-training.
+Training:
+
+* :func:`mlp_train_reference` / :func:`mlp_train_bwd_reference` — the plain
+  versions of the TPU kernels ``_mlp_fwd_kernel`` / ``_mlp_bwd_kernel``:
+  erf-GELU (the A&S form of ``_gelu_and_grad_f32``), the hidden and output
+  dropout masks of ``ops/philox.py``, ``h1`` kept as the residual.
+* :func:`fused_mlp` — the training op, an autograd function. On a CUDA bf16
+  tensor the forward launches kernel D and the backward kernel D′
+  (``csrc/mlp.cu``); dx, dW1 and dW2 are ``torch.matmul`` over their
+  outputs, as the JAX package leaves them to XLA.
+
+Weights use ``nn.Linear``'s layout: ``w1 [F, D]``, ``w2 [D, F]``.
 """
 
 from __future__ import annotations
@@ -17,10 +28,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from gavit_tpu_torch.ops import _build
+from gavit_tpu_torch.ops import _build, philox
 
-# launches of kernel B since the last reset (chip_smoke.py reads it)
+# launches since the last reset (chip_smoke.py reads them): kernel B, and
+# the training kernels D (forward) and D′ (backward)
 KERNEL_LAUNCHES = 0
+TRAIN_FWD_LAUNCHES = 0
+TRAIN_BWD_LAUNCHES = 0
+
+_INV_SQRT2 = 0.7071067811865476
+_INV_SQRT2PI = 0.3989422804014327
 
 
 def _chain_infer(x2, w1, b1, w2, b2, approximate: bool):
@@ -86,4 +103,211 @@ def fused_mlp_inference(x, w1, b1, w2, b2, approximate: bool = True,
         y = mlp_inference_kernel(x2, w1, b1, w2, b2, approximate)
     else:
         y = _chain_infer(x2, w1, b1, w2, b2, approximate)
+    return y.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def gelu_and_grad(x):
+    """(GELU(x), GELU'(x)) in fp32 from one exp: the JAX kernels'
+    ``_gelu_and_grad_f32`` (erf by the Abramowitz–Stegun polynomial, max
+    abs error 1.5e-7). Kernels D and D′ run the same rounded operations in
+    the same order (csrc/common.cuh), so on the card both give the same
+    bits."""
+    z = x * _INV_SQRT2
+    s = torch.where(z < 0, -1.0, 1.0)
+    az = z.abs()
+    t = 1.0 / (1.0 + 0.3275911 * az)
+    poly = t * (0.254829592 + t * (-0.284496736 + t * (
+        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
+    e = torch.exp(-az * az)
+    cdf = 0.5 * (1.0 + s * (1.0 - poly * e))
+    return x * cdf, cdf + x * (e * _INV_SQRT2PI)
+
+
+def _drop_scale(rate: float) -> float:
+    return 1.0 / (1.0 - rate)
+
+
+def _mask(shape, seed, site, rate, device):
+    return philox.keep_mask(shape, seed, site, rate, device=device)
+
+
+def mlp_train_reference(x2, w1, b1, w2, b2, seed, sites, rate: float,
+                        out_rate: float):
+    """``[M, D]`` → ``(y [M, D], h1 [M, F])`` in x2's dtype: h1 = x·W1ᵀ+b1
+    rounded (the residual), then :func:`mlp_train_fc2_reference`."""
+    h1 = (torch.matmul(x2.float(), w1.float().t()) + b1.float()).to(x2.dtype)
+    return mlp_train_fc2_reference(h1, w2, b2, seed, sites, rate,
+                                   out_rate), h1
+
+
+def mlp_train_fc2_reference(h1, w2, b2, seed, sites, rate: float,
+                            out_rate: float):
+    """The forward after fc1: g = GELU(h1) in fp32, the hidden mask of site
+    ``sites[0]``, g rounded, y = g·W2ᵀ+b2 in fp32, the output mask of
+    ``sites[1]``, y rounded to h1's dtype."""
+    dt, dev = h1.dtype, h1.device
+    g, _ = gelu_and_grad(h1.float())
+    if rate > 0.0:
+        g = torch.where(_mask(g.shape, seed, sites[0], rate, dev),
+                        g * _drop_scale(rate), 0.0)
+    y = torch.matmul(g.to(dt).float(), w2.float().t()) + b2.float()
+    if out_rate > 0.0:
+        y = torch.where(_mask(y.shape, seed, sites[1], out_rate, dev),
+                        y * _drop_scale(out_rate), 0.0)
+    return y.to(dt)
+
+
+def mlp_train_bwd_reference(dy2, h1, w2, seed, sites, rate: float,
+                            out_rate: float):
+    """The VJP pieces of :func:`mlp_train_reference`: ``(dh1, go, db1, db2,
+    dye)`` — dye the output-masked dy (x's dtype), dh1 = (dye·W2)·GELU'·mask
+    and go = GELU·mask (the dropped activations, for dW2), db1 and db2 the
+    fp32 column sums of dh1 (before rounding) and dye."""
+    dt, dev = dy2.dtype, dy2.device
+    if out_rate > 0.0:
+        dye = torch.where(_mask(dy2.shape, seed, sites[1], out_rate, dev),
+                          dy2.float() * _drop_scale(out_rate), 0.0).to(dt)
+    else:
+        dye = dy2
+    g, dg = gelu_and_grad(h1.float())
+    if rate > 0.0:
+        keep = _mask(g.shape, seed, sites[0], rate, dev)
+        g = torch.where(keep, g * _drop_scale(rate), 0.0)
+        dg = torch.where(keep, dg * _drop_scale(rate), 0.0)
+    dh1 = torch.matmul(dye.float(), w2.float()) * dg
+    return (dh1.to(dt), g.to(dt), dh1.sum(0), dye.float().sum(0), dye)
+
+
+def _site_args(seed, sites, rate, out_rate):
+    """(k0, k1, site_h, thr_h, scale_h, site_o, thr_o, scale_o) for the
+    launchers; a site is off when its threshold is 0 and its scale 1."""
+    k0, k1 = philox.split_seed(seed or 0)
+    out = [k0, k1]
+    for site, r in zip(sites, (rate, out_rate)):
+        out += [int(site) & 0xFFFFFFFF, philox.threshold(r),
+                _drop_scale(r) if r > 0.0 else 1.0]
+    return out
+
+
+def _check_train(x2, w1, w2, what):
+    m, d = x2.shape
+    f = w1.shape[0]
+    if w1.shape != (f, d) or w2.shape != (d, f):
+        raise ValueError(f"MLP shapes x {tuple(x2.shape)} w1 "
+                         f"{tuple(w1.shape)} w2 {tuple(w2.shape)}")
+    if d % 8 or f % 8:
+        raise ValueError(f"{what} takes widths divisible by 8, got {d}, {f}")
+    return m, d, f
+
+
+def mlp_train_kernel(x2, w1, b1, w2, b2, seed, sites, rate: float,
+                     out_rate: float):
+    """Kernel D on CUDA bf16 tensors → ``(y, h1)``."""
+    global TRAIN_FWD_LAUNCHES
+    m, d, f = _check_train(x2, w1, w2, "kernel D")
+    for t in (x2, w1, b1, w2, b2):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"kernel D takes bfloat16 tensors, not {t.dtype}")
+    _build.require_cuda(x2, w1, b1, w2, b2)
+    h1 = torch.empty((m, f), dtype=x2.dtype, device=x2.device)
+    g = torch.empty_like(h1)
+    y = torch.empty((m, d), dtype=x2.dtype, device=x2.device)
+    lib = _build.library()
+    _build.check(lib.gavit_mlp_train_fwd(
+        x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), h1.data_ptr(), g.data_ptr(), y.data_ptr(), m, d, f,
+        *_site_args(seed, sites, rate, out_rate), _build.stream(x2.device)),
+        "MLP training forward kernel")
+    with _build.count_lock:
+        TRAIN_FWD_LAUNCHES += 1
+    return y, h1
+
+
+def mlp_train_bwd_kernel(dy2, h1, w2, seed, sites, rate: float,
+                         out_rate: float):
+    """Kernel D′ on CUDA bf16 tensors → ``(dh1, go, db1, db2, dye)``."""
+    global TRAIN_BWD_LAUNCHES
+    m, f = h1.shape
+    d = dy2.shape[1]
+    if dy2.shape != (m, d) or w2.shape != (d, f):
+        raise ValueError(f"MLP backward shapes dy {tuple(dy2.shape)} h1 "
+                         f"{tuple(h1.shape)} w2 {tuple(w2.shape)}")
+    if d % 8 or f % 8 or d > 8192:
+        raise ValueError(f"kernel D′ takes widths divisible by 8 (D up to "
+                         f"8192), got {d}, {f}")
+    for t in (dy2, h1, w2):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"kernel D′ takes bfloat16 tensors, not {t.dtype}")
+    _build.require_cuda(dy2, h1, w2)
+    dev = dy2.device
+    lib = _build.library()
+    dye = torch.empty_like(dy2) if out_rate > 0.0 else dy2
+    dh1 = torch.empty_like(h1)
+    go = torch.empty_like(h1)
+    db1 = torch.empty(f, dtype=torch.float32, device=dev)
+    db2 = torch.empty(d, dtype=torch.float32, device=dev)
+    part1 = torch.empty((lib.gavit_mlp_bwd_partial_rows(m, 0), f),
+                        dtype=torch.float32, device=dev)
+    part2 = torch.empty((lib.gavit_mlp_bwd_partial_rows(m, 1), d),
+                        dtype=torch.float32, device=dev)
+    _build.check(lib.gavit_mlp_train_bwd(
+        dy2.data_ptr(), h1.data_ptr(), w2.data_ptr(), dye.data_ptr(),
+        dh1.data_ptr(), go.data_ptr(), db1.data_ptr(), db2.data_ptr(),
+        part1.data_ptr(), part2.data_ptr(), m, d, f,
+        *_site_args(seed, sites, rate, out_rate), _build.stream(dev)),
+        "MLP training backward kernel")
+    with _build.count_lock:
+        TRAIN_BWD_LAUNCHES += 1
+    return dh1, go, db1, db2, dye
+
+
+class _FusedMlp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, seed, sites, rate, out_rate,
+                use_kernel):
+        fwd = mlp_train_kernel if use_kernel else mlp_train_reference
+        y, h1 = fwd(x2, w1, b1, w2, b2, seed, sites, rate, out_rate)
+        ctx.save_for_backward(x2, h1, w1, w2)
+        ctx.args = (seed, sites, rate, out_rate, use_kernel)
+        ctx.bias_dtypes = (b1.dtype, b2.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2, h1, w1, w2 = ctx.saved_tensors
+        seed, sites, rate, out_rate, use_kernel = ctx.args
+        dy2 = gy.to(x2.dtype).contiguous()
+        bwd = mlp_train_bwd_kernel if use_kernel else mlp_train_bwd_reference
+        dh1, go, db1, db2, dye = bwd(dy2, h1, w2, seed, sites, rate, out_rate)
+        dx = torch.matmul(dh1, w1)       # dh1 · W1, [M, D]
+        dw1 = torch.matmul(dh1.t(), x2)  # [F, D]
+        dw2 = torch.matmul(dye.t(), go)  # [D, F]
+        return (dx, dw1, db1.to(ctx.bias_dtypes[0]), dw2,
+                db2.to(ctx.bias_dtypes[1]), None, None, None, None, None)
+
+
+def fused_mlp(x, w1, b1, w2, b2, seed, sites, rate: float,
+              out_rate: float = 0.0, impl: str = "auto"):
+    """out_dropout(dropout(GELU(x·W1ᵀ + b1))·W2ᵀ + b2) over the last dim of
+    ``x``, differentiable; erf GELU (training). ``sites`` = (hidden site,
+    output site) of the masks, ``seed`` the step seed (None when both rates
+    are 0).
+
+    CUDA bf16 with ``impl='auto'`` launches kernels D and D′ at every M, the
+    ragged edge masked (the TPU's ``pick_block`` rule does not carry over);
+    CPU tensors, fp32 and ``impl='reference'`` take the plain versions.
+    """
+    _build.check_impl(impl)
+    if (rate > 0.0 or out_rate > 0.0) and seed is None:
+        raise ValueError("MLP dropout with a rate > 0 needs a seed")
+    shape = x.shape
+    use_kernel = (impl == "auto" and x.device.type != "cpu"
+                  and x.dtype == torch.bfloat16)
+    y = _FusedMlp.apply(x.reshape(-1, shape[-1]), w1, b1, w2, b2, seed,
+                        tuple(sites), float(rate), float(out_rate), use_kernel)
     return y.reshape(shape)

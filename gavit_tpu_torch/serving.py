@@ -21,8 +21,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from gavit_tpu.config import Config
-from gavit_tpu.data.dataset import DISEASE_NAMES
+from gavit_tpu_torch.config import Config
+from gavit_tpu_torch.data.dataset import DISEASE_NAMES
 from gavit_tpu_torch.models.layers import LayerNorm
 from gavit_tpu_torch.models.vit import build_model, init_params
 from gavit_tpu_torch.ops.preprocess import val_preprocess

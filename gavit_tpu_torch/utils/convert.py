@@ -1,11 +1,15 @@
-"""Weights from the JAX package's Flax parameter tree into the port.
+"""Weights between the JAX package's Flax parameter tree and the port.
 
 ``load_flax_params(model, tree)`` takes the tree as nested dicts of numpy
 arrays (``jax.tree.map(np.asarray, params)``), or the path of an ``.npz``
 whose keys are the '/'-joined Flax paths (``blocks_0/attn/qkv/kernel``).
 Dense kernels ``[in, out]`` are transposed into ``nn.Linear``'s
 ``[out, in]``; LayerNorm ``scale`` becomes ``weight``. Strict: a missing or
-unexpected key, or a shape mismatch, raises.
+unexpected key, or a shape mismatch, raises. ``to_flax_tree`` is the
+reverse direction (port → nested dicts of numpy arrays in the Flax layout).
+``load_criterion_params`` / ``criterion_tree`` carry the loss's λ
+(``{'lambda_wbce', 'lambda_focal', 'lambda_asl'}``, the JAX package's
+``params['criterion']``).
 
 Reading an orbax checkpoint needs JAX and waits for the checkpoint port.
 """
@@ -85,3 +89,35 @@ def load_flax_params(model: nn.Module, tree) -> nn.Module:
                              f"does not match {tuple(p.shape)}")
         p.copy_(torch.tensor(arr))
     return model
+
+
+def to_flax_tree(model: nn.Module) -> dict:
+    """The model's parameters as nested dicts of fp32 numpy arrays in the
+    Flax layout (Dense kernels ``[in, out]``)."""
+    tree: dict = {}
+    for path, (p, transpose) in flax_layout(model).items():
+        arr = p.detach().float().cpu().numpy()
+        node = tree
+        *parents, leaf = path.split("/")
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = arr.T.copy() if transpose else arr
+    return tree
+
+
+def criterion_tree(criterion: nn.Module) -> dict:
+    """The loss's λ as ``{name: 0-dim fp32 array}``."""
+    return {name: p.detach().float().cpu().numpy()
+            for name, p in criterion.named_parameters()}
+
+
+@torch.no_grad()
+def load_criterion_params(criterion: nn.Module, tree) -> nn.Module:
+    """Fill the loss's λ from ``params['criterion']`` of the JAX package."""
+    own = dict(criterion.named_parameters())
+    if set(own) != set(tree):
+        raise KeyError(f"criterion tree has {sorted(tree)}, expected "
+                       f"{sorted(own)}")
+    for name, p in own.items():
+        p.copy_(torch.tensor(np.asarray(tree[name], np.float32)))
+    return criterion

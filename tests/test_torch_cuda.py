@@ -1,8 +1,11 @@
 """The Hopper kernels against their plain PyTorch versions on the card, at
-the edges the serving shapes do not reach: ragged and tiny N, widths that are
-not a multiple of a tile, k past N-1, exact ties, the threshold fallback, and
-each body's dispatch bound (attention's tensor-core body up to 224 keys, the
-graph's up to 256). chip_smoke.py covers the serving shapes themselves.
+the edges the main paths do not reach: ragged and tiny N and M, widths that
+are not a multiple of a tile, k past N-1, exact ties, the threshold
+fallback, each body's dispatch bound (attention's tensor-core bodies up to
+224 keys, the graph's up to 256), dropout rates 0 and 0.1 with the masks
+bit-identical to the plain version's, and the training kernels' gradients
+against torch.autograd through the plain versions. chip_smoke.py covers the
+serving and training shapes themselves.
 
 Marked ``cuda``: they skip without a card. This file imports nothing of JAX,
 so it runs on a machine without it, where the JAX-importing conftest is left
@@ -18,11 +21,13 @@ order), bf16 2e-2 (outputs rounded to bf16, one ulp is 2^-8 relative).
 import pytest
 import torch
 
-from gavit_tpu.config import from_dict
+from gavit_tpu_torch.config import from_dict
 from gavit_tpu_torch.models.vit import build_model, init_params
 from gavit_tpu_torch.ops import attention as A
+from gavit_tpu_torch.ops import dropout as DR
 from gavit_tpu_torch.ops import graph_ops as G
 from gavit_tpu_torch.ops import mlp as M
+from gavit_tpu_torch.ops import philox
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +232,181 @@ def test_small_vit_kernels_match_plain_versions(dev, precision, include_cls):
     tol = 1e-4 if precision == "fp32" else 5e-2
     assert logits["auto"].dtype == torch.float32
     assert _err(logits["auto"], logits["reference"]) <= tol
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|."""
+    return _err(a, b) / max(b.float().abs().max().item(), 1e-12)
+
+
+def _ulps(got, want):
+    """The largest distance from the plain version in bf16 ulps, taken at
+    |want| floored at 2^-10 (two summation orders of the same fp32 products
+    can round to neighbours; near 0 the floor absorbs fp32 cancellation)."""
+    w = want.float()
+    mag = torch.clamp(w.abs(), min=2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((got.float() - w).abs() / ulp).max().item()
+
+
+SEED = philox.step_seed(42, 7)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (2, 197, 768),
+                                   (1001,)])
+def test_dropout_kernel_is_bit_exact(dev, dtype, shape):
+    x = _randn(dev, *shape, seed=3).to(dtype)
+    before = DR.KERNEL_LAUNCHES
+    got = DR.dropout_kernel(x, SEED, 17, 0.1)
+    assert DR.KERNEL_LAUNCHES == before + 1
+    want = DR.dropout_reference(x, SEED, 17, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    # the backward is the same mask on the gradient
+    xr = x.clone().requires_grad_(True)
+    g = _randn(dev, *shape, seed=4).to(dtype)
+    DR.fused_dropout(xr, SEED, 17, 0.1).backward(g)
+    assert torch.equal(xr.grad, DR.dropout_reference(g, SEED, 17, 0.1))
+    assert DR.fused_dropout(x, SEED, 17, 0.0) is x
+
+
+MLP_SHAPES = [(1, 64, 256), (5, 72, 136), (129, 64, 256), (394, 768, 3072),
+              (300, 136, 520)]
+
+
+def _mlp_train_inputs(dev, m, d, f):
+    bf = torch.bfloat16
+    x = _randn(dev, m, d, seed=1).to(bf)
+    w1 = _randn(dev, f, d, seed=2, scale=d ** -0.5).to(bf)
+    b1 = _randn(dev, f, seed=3, scale=0.1).to(bf)
+    w2 = _randn(dev, d, f, seed=4, scale=0.5 * f ** -0.5).to(bf)
+    b2 = _randn(dev, d, seed=5, scale=0.1).to(bf)
+    return x, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,d,f", MLP_SHAPES)
+def test_mlp_train_kernels_match_plain(dev, m, d, f, rate):
+    args = _mlp_train_inputs(dev, m, d, f)
+    sites = (5, 6)
+    before = (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES)
+    y, h1 = M.mlp_train_kernel(*args, SEED, sites, rate, rate)
+    y_ref, h1_ref = M.mlp_train_reference(*args, SEED, sites, rate, rate)
+    dy = _randn(dev, m, d, seed=6).to(torch.bfloat16)
+    got = M.mlp_train_bwd_kernel(dy, h1_ref, args[3], SEED, sites, rate, rate)
+    want = M.mlp_train_bwd_reference(dy, h1_ref, args[3], SEED, sites, rate,
+                                     rate)
+    assert (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES) == \
+        (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert _ulps(h1, h1_ref) <= 1, f"h1 off by {_ulps(h1, h1_ref)} ulp"
+    # y against the plain second half on the kernel's own h1 (a one-ulp h1
+    # difference moves GELU and y by more than y's ulp)
+    y_fc2 = M.mlp_train_fc2_reference(h1, *args[3:], SEED, sites, rate, rate)
+    assert _ulps(y, y_fc2) <= 1, f"y off by {_ulps(y, y_fc2)} ulp"
+    assert _rel(y, y_ref) <= 2e-2
+    if rate:  # the output mask: dropped elements are exactly 0 on both sides
+        keep = philox.keep_mask((m, d), SEED, sites[1], rate, device=dev)
+        assert bool((y[~keep] == 0).all()) and bool((y_ref[~keep] == 0).all())
+    dh1, go, db1, db2, dye = got
+    assert torch.equal(dye, want[4])  # an elementwise bf16 product: exact
+    # GELU runs the same IEEE operations in the kernel and the plain version
+    assert torch.equal(go, want[1])
+    assert _rel(dh1, want[0]) <= 2e-2 and _rel(go, want[1]) <= 2e-2
+    assert _rel(db1, want[2]) <= 1e-3 and _rel(db2, want[3]) <= 1e-3
+    if rate:  # the hidden mask regenerated in the backward
+        keep_h = philox.keep_mask((m, f), SEED, sites[0], rate, device=dev)
+        assert bool((go[~keep_h] == 0).all()) and bool((dh1[~keep_h] == 0).all())
+
+
+@pytest.mark.parametrize("m,d,f", [(197, 64, 256), (394, 768, 3072)])
+def test_mlp_train_gradients_match_autograd_through_plain(dev, m, d, f):
+    grads = {}
+    for impl in ("auto", "reference"):
+        leaves = [t.clone().requires_grad_(True)
+                  for t in _mlp_train_inputs(dev, m, d, f)]
+        y = M.fused_mlp(*leaves, SEED, (1, 2), 0.1, 0.1, impl=impl)
+        y.backward(_randn(dev, m, d, seed=9).to(torch.bfloat16))
+        grads[impl] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    for got, want in zip(grads["auto"], grads["reference"]):
+        assert got.dtype == want.dtype and _rel(got, want) <= 2e-2
+
+
+@pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (2, 13, 2), (2, 17, 12),
+                                       (1, 197, 12), (2, 224, 3)])
+def test_attention_bwd_kernel_matches_plain(dev, b, n, heads):
+    bf = torch.bfloat16
+    qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(bf)
+    # dO as it arrives from the output projection: [B, N, H, d] memory
+    # behind a [B, H, N, d] view, and once made contiguous
+    do_bnhd = _randn(dev, b, n, heads, 64, seed=n + 1).to(bf)
+    want = A.attention_backward_reference(qkv, do_bnhd.transpose(1, 2),
+                                          0.125, heads)
+    before = A.BWD_KERNEL_LAUNCHES
+    for dout in (do_bnhd.transpose(1, 2), do_bnhd.transpose(1, 2).contiguous()):
+        got = A.qkv_attention_bwd_kernel(qkv, dout, 0.125, heads)
+        torch.cuda.synchronize()
+        assert got.shape == qkv.shape and got.dtype == bf
+        assert _rel(got, want) <= 2e-2
+    assert A.BWD_KERNEL_LAUNCHES == before + 2
+
+
+def test_attention_gradients_match_autograd_through_plain(dev):
+    b, n, heads = 2, 197, 12
+    grads = {}
+    for impl in ("auto", "reference"):
+        qkv = _randn(dev, b, n, 3 * heads * 64, seed=1).to(
+            torch.bfloat16).requires_grad_(True)
+        out = A.fused_qkv_attention(qkv.view(b, n, 3, heads, 64), 0.125,
+                                    merge_heads=False, impl=impl)
+        # through the head merge, as HeadMergeProj feeds it
+        merged = out.transpose(1, 2).reshape(b, n, heads * 64)
+        merged.backward(_randn(dev, b, n, heads * 64, seed=2).to(
+            torch.bfloat16))
+        grads[impl] = qkv.grad
+    torch.cuda.synchronize()
+    assert _rel(grads["auto"], grads["reference"]) <= 2e-2
+
+
+def test_attention_bwd_kernel_refuses_what_it_does_not_take(dev):
+    qkv = torch.zeros(1, 5, 3 * 64, device=dev)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+        A.qkv_attention_bwd_kernel(qkv, torch.zeros(1, 1, 5, 64, device=dev),
+                                   0.125, 1)
+    qkv = torch.zeros(1, 225, 3 * 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="N <= 224"):
+        A.qkv_attention_bwd_kernel(
+            qkv, torch.zeros(1, 1, 225, 64, device=dev, dtype=torch.bfloat16),
+            0.125, 1)
+
+
+def test_small_vit_training_step_through_kernels(dev):
+    """A small bf16 ViT (head_dim 64) trained one step through the kernels
+    and through the plain versions from the same weights and seed: the
+    losses agree and every gradient points the same way."""
+    cfg = from_dict({"model": {
+        "name": "custom", "img_size": 32, "patch_size": 8, "embed_dim": 128,
+        "depth": 2, "num_heads": 2, "num_classes": 14, "drop_rate": 0.1,
+        "graph": {"enabled": True, "num_blocks": 1, "k": 4}}})
+    x = _randn(dev, 4, 32, 32, 3, seed=7)
+    grads, losses = {}, {}
+    for impl in ("auto", "reference"):
+        model = init_params(build_model(cfg.model, precision="bf16",
+                                        attn_impl=impl, graph_impl=impl,
+                                        mlp_impl=impl, dropout_impl=impl),
+                            torch.Generator().manual_seed(0))
+        with torch.no_grad():
+            model.graphs[0].gate.fill_(0.5)
+        model = model.to(dev).train()
+        loss = model(x, seed=SEED).float().square().mean()
+        loss.backward()
+        losses[impl] = loss.item()
+        grads[impl] = [p.grad.flatten() for p in model.parameters()]
+    assert abs(losses["auto"] - losses["reference"]) <= 2e-2 * abs(
+        losses["reference"])
+    for a, b in zip(grads["auto"], grads["reference"]):
+        if b.abs().max() > 0:
+            cos = torch.nn.functional.cosine_similarity(a, b, dim=0)
+            assert cos.item() >= 0.99

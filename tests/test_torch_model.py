@@ -16,10 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from gavit_tpu.config import from_dict, load_config
+from gavit_tpu.config import from_dict as jax_from_dict
+from gavit_tpu.config import load_config as jax_load_config
 from gavit_tpu.models.vit import build_model as jax_build_model
 from gavit_tpu.models.vit import count_params as jax_count_params
 from gavit_tpu.models.vit import init_params as jax_init_params
+from gavit_tpu_torch.config import from_dict, load_config
 from gavit_tpu_torch.models.graph import GraphBlock
 from gavit_tpu_torch.models.vit import build_model, count_params, init_params
 from gavit_tpu_torch.utils.convert import flatten_tree, load_flax_params
@@ -45,7 +47,8 @@ def tiny_cfg(**graph):
 def jax_params(graph, seed=0):
     """The JAX model of the same config dict, and its parameter tree with
     the graph gates at GATE."""
-    model = jax_build_model(tiny_cfg(**graph).model, precision="fp32")
+    model = jax_build_model(jax_from_dict(tiny_raw(**graph)).model,
+                            precision="fp32")
     params = jax.tree.map(np.asarray,
                           jax_init_params(model, jax.random.key(seed)))
     for j in range(2):
@@ -89,18 +92,19 @@ NARROW = ["model.img_size=32", "model.patch_size=8", "model.embed_dim=64",
 
 @pytest.mark.parametrize("path", CONFIGS, ids=lambda p: p.stem)
 def test_shipped_config_logits_match_jax(path):
-    """Every YAML file of the repository, read by the shared loader: the
-    port's model matches the JAX model's fp32 logits (1e-4, as above), or
-    refuses a model it does not port yet, naming the ROADMAP item."""
+    """Every YAML file of the repository, read by each package's loader:
+    the port's model matches the JAX model's fp32 logits (1e-4, as above),
+    or refuses a model it does not port yet, naming the ROADMAP item."""
     cfg = load_config(str(path), NARROW)
+    jcfg = jax_load_config(str(path), NARROW)
     if path.stem in UNPORTED:
         with pytest.raises(NotImplementedError, match=UNPORTED[path.stem]):
             build_model(cfg.model)
         return
-    jmodel = jax_build_model(cfg.model, precision="fp32")
+    jmodel = jax_build_model(jcfg.model, precision="fp32")
     params = jax.tree.map(np.asarray,
                           jax_init_params(jmodel, jax.random.key(1)))
-    sites = cfg.model.graph_insert_after()
+    sites = jcfg.model.graph_insert_after()
     assert sites
     for j in range(len(sites)):
         params[f"graph_{j}"]["gate"] = np.float32(GATE)

@@ -18,8 +18,9 @@ import pytest
 import torch
 
 from gavit_tpu import serving as jax_serving
-from gavit_tpu.config import from_dict
-from gavit_tpu.data.dataset import DISEASE_NAMES
+from gavit_tpu.config import from_dict as jax_from_dict
+from gavit_tpu_torch.config import from_dict
+from gavit_tpu_torch.data.dataset import DISEASE_NAMES
 from gavit_tpu.ops.preprocess import val_preprocess as jax_val_preprocess
 from gavit_tpu.serving import Predictor as JaxPredictor
 from gavit_tpu_torch import serving
@@ -60,7 +61,7 @@ def test_val_preprocess_matches_jax():
 def test_predictor_matches_jax_predictor():
     """3 images pad to bucket 8 on both sides; the graph gates are nonzero
     so the graph branch reaches the probabilities."""
-    jcfg = tiny_cfg()
+    jcfg = jax_from_dict(TINY)
     jp = JaxPredictor(jcfg, precision="fp32")
     params = dict(jp.params)
     for j in range(2):
@@ -186,22 +187,27 @@ def test_http_handler_healthz_and_predict():
 
 
 def test_port_never_imports_jax():
-    """No jax or flax; of the JAX package only the config schema and the
-    label list (gavit_tpu.data's __init__ also loads its loader, which
-    imports jax only inside a function)."""
-    shared = {"gavit_tpu", "gavit_tpu.config", "gavit_tpu.data",
-              "gavit_tpu.data.dataset", "gavit_tpu.data.loader"}
+    """Nothing of jax, flax or gavit_tpu loads while the port is imported
+    and driven: the package, its serving and training modules, and both
+    CLIs (the trainer takes one tiny step on the CPU)."""
+    tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
+            "--set", "model.embed_dim=64", "--set", "model.depth=2",
+            "--set", "model.num_heads=2", "--set", "data.image_size=32",
+            "--set", "data.batch_size=2", "--set", "data.synthetic_size=8"]
     code = (
         "import sys, runpy\n"
         "import gavit_tpu_torch, gavit_tpu_torch.serving\n"
+        "import gavit_tpu_torch.training.trainer\n"
         f"runpy.run_path({str(ROOT / 'scripts' / 'serve_torch.py')!r})\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]\n"
+        f"train = runpy.run_path({str(ROOT / 'scripts' / 'train_torch.py')!r})\n"
+        "train['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--synthetic', '--steps', '1', '--device', 'cpu', *{tiny!r}])\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'flax', 'gavit_tpu')]\n"
         "assert not bad, bad\n"
-        "ref = {m for m in sys.modules if m.split('.')[0] == 'gavit_tpu'}\n"
-        f"assert ref <= {shared!r}, ref - {shared!r}\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
-                   timeout=120)
+                   timeout=300)
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):

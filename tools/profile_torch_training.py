@@ -1,0 +1,145 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's bf16 training step, on a card.
+
+    python3 tools/profile_torch_training.py [--batch 128] [--iters 5] \
+        [--out build/profile_train]
+
+Builds ``configs/vit_b16_graph2.yaml`` (dropout 0.1, graph gates 0.5,
+weights from a seed) through ``scripts/train_torch.py``'s trainer at the
+given batch, takes 3 warm-up steps on synthetic uint8 batches, then:
+
+* times the step on the host clock around ``train_step`` and a
+  synchronize (median over ``--iters``);
+* runs ``torch.profiler`` over ``--iters`` more steps and prints the device
+  time per step grouped by kernel family (the port's kernels A, A′, C, D,
+  D′, F by name; cuBLAS GEMMs; LayerNorm; elementwise and reductions), the
+  top kernels, the device busy time per step and the idle share of the
+  wall time (1 - busy / wall);
+* writes a Chrome trace under ``--out``.
+
+It needs a CUDA device and exits nonzero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+# fragments of the (demangled) kernel names → family, first match wins
+FAMILIES = (
+    ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
+    ("attn_fwd", "A attention forward (attention.cu)"),
+    ("gemm_kernel<true, 3>", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
+    ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
+    ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
+    ("gemm_kernel<false, 1>", "D fc1 + GELU + mask (mlp.cu)"),
+    ("gemm_kernel<false, 2>", "D fc2 + mask (mlp.cu)"),
+    ("gemm_kernel<false, 0>", "B inference MLP (mlp.cu)"),
+    ("dropout_kernel", "F dropout (dropout.cu)"),
+    ("graph_", "C graph op (graph.cu)"),
+    ("layer_norm", "LayerNorm forward and backward"),
+    ("nvjet", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
+    ("xmma_gemm_f32", "cuBLAS fp32 GEMMs (graph backward)"),
+    ("sgemm", "cuBLAS fp32 GEMMs (graph backward)"),
+    ("gemm", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
+    ("multi_tensor_apply", "AdamW (foreach)"),
+    ("reduce", "reductions (bias grads, norms, loss)"),
+    ("copy_kernel", "dtype casts (weights to bf16, LayerNorm inputs to fp32)"),
+    ("elementwise", "elementwise (adds, scales, preprocess, loss)"),
+    ("Memcpy", "copies"),
+    ("Memset", "memsets"),
+)
+
+
+def family(name: str) -> str:
+    for frag, fam in FAMILIES:
+        if frag in name:
+            return fam
+    return "other"
+
+
+def main():
+    p = argparse.ArgumentParser()
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--iters", type=int, default=5)
+    p.add_argument("--out", default="build/profile_train")
+    args = p.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_training: no CUDA device")
+    import train_torch
+    from gavit_tpu_torch import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = load_config(str(ROOT / "configs" / "vit_b16_graph2.yaml"),
+                      [f"data.batch_size={args.batch}"])
+    dataset = train_torch.create_dataset(cfg)
+    trainer = train_torch.build_trainer(cfg, dataset, "cuda", gate=0.5)
+    images, labels = (torch.from_numpy(a) for a in next(
+        train_torch.batches(dataset, args.batch, 0)))
+    card = torch.cuda.get_device_name(0)
+    for _ in range(3):
+        trainer.train_step(images, labels)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(args.iters):
+        t0 = time.perf_counter()
+        trainer.train_step(images, labels)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1000)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.iters):
+            trainer.train_step(images, labels)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    # device-side events only (kernels, memsets, copies), so no time is
+    # counted twice through the CPU op that launched it; the optimizer's
+    # annotations ("Optimizer.step#AdamW.step") span its kernels on the
+    # device timeline and are left out too
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0
+              and not e.key.startswith(("Command Buffer", "Activity",
+                                        "Optimizer."))]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1000
+    n = args.iters
+    step = statistics.median(times)
+    print(f"[profile] train step b{args.batch} bf16 on {card}: {step:.3f} ms "
+          f"(host clock, median of {n}), {args.batch / step * 1000:.1f} "
+          f"img/s; under the profiler wall {wall_ms / n:.3f} ms, device busy "
+          f"{busy_ms / n:.3f} ms per step, idle share "
+          f"{1 - busy_ms / wall_ms:.3f}")
+    fams = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        f = fams[family(e.key)]
+        f[0] += e.self_device_time_total / 1000 / n
+        f[1] += e.count // n
+    for fam, (ms, cnt) in sorted(fams.items(), key=lambda kv: -kv[1][0]):
+        print(f"[profile] family {ms:9.3f} ms/step {cnt:5d}x/step "
+              f"{100 * ms / (busy_ms / n):5.1f}%  {fam}")
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in events[:30]:
+        print(f"[profile] kernel {e.self_device_time_total / 1000 / n:9.4f} "
+              f"ms/step {e.count // n:4d}x/step  {e.key[:100]}")
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"trace_train_b{args.batch}.json"))
+
+
+if __name__ == "__main__":
+    main()
