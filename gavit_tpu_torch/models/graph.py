@@ -21,7 +21,7 @@ from gavit_tpu_torch.ops.graph_ops import fused_graph_aggregate
 class GraphBlock(nn.Module):
     def __init__(self, dim: int, cfg: GraphConfig, *, drop: float = 0.0,
                  site: int = 0, dtype=torch.float32, impl: str = "auto",
-                 dropout_impl: str = "auto", device=None):
+                 device=None):
         super().__init__()
         if not cfg.dynamic or cfg.adjacency == "learned_static":
             raise NotImplementedError(
@@ -33,7 +33,7 @@ class GraphBlock(nn.Module):
         self.norm = LayerNorm(dim, dtype=dtype, device=device)
         self.value = Dense(dim, dim, dtype=dtype, device=device)
         self.proj = Dense(dim, dim, dtype=dtype, device=device)
-        self.proj_drop = Dropout(drop, site, dropout_impl)
+        self.proj_drop = Dropout(drop, site, impl)
         self.gate = nn.Parameter(torch.zeros((), device=device))
 
     def forward(self, x, seed=None):

@@ -128,14 +128,14 @@ class Attention(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  proj_drop: float = 0.0, site: int = 0, dtype=torch.float32,
-                 impl: str = "auto", dropout_impl: str = "auto", device=None):
+                 impl: str = "auto", device=None):
         super().__init__()
         self.num_heads = num_heads
         self.impl = impl
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                          device=device)
         self.proj = HeadMergeProj(dim, dim, dtype=dtype, device=device)
-        self.proj_drop = Dropout(proj_drop, site, dropout_impl)
+        self.proj_drop = Dropout(proj_drop, site, impl)
 
     def forward(self, x, seed=None):
         b, n, c = x.shape
@@ -186,19 +186,16 @@ class Block(nn.Module):
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
                  qkv_bias: bool = True, drop: float = 0.0,
                  drop_path_rate: float = 0.0, site: int = 0,
-                 dtype=torch.float32, attn_impl: str = "auto",
-                 mlp_impl: str = "auto", dropout_impl: str = "auto",
-                 device=None):
+                 dtype=torch.float32, impl: str = "auto", device=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
                               proj_drop=drop, site=site, dtype=dtype,
-                              impl=attn_impl, dropout_impl=dropout_impl,
-                              device=device)
+                              impl=impl, device=device)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, site=site + 1,
-                       dtype=dtype, impl=mlp_impl, device=device)
+                       dtype=dtype, impl=impl, device=device)
 
     def forward(self, x, seed=None, generator=None):
         rate = self.drop_path_rate

@@ -47,16 +47,13 @@ def dropout_sites(depth: int, n_graph: int) -> dict:
 class VisionTransformer(nn.Module):
     """ViT backbone with interleaved graph blocks.
 
-    ``attn_impl`` / ``graph_impl`` / ``mlp_impl`` / ``dropout_impl``:
-    ``'auto'`` launches the Hopper kernels on CUDA tensors and takes the
-    plain versions on CPU tensors; ``'reference'`` always takes the plain
-    versions.
+    ``impl``, for every op of the model: ``'auto'`` launches the Hopper
+    kernels on CUDA tensors and takes the plain versions on CPU tensors;
+    ``'reference'`` always takes the plain versions.
     """
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
-                 attn_impl: str = "auto", graph_impl: str = "auto",
-                 mlp_impl: str = "auto", dropout_impl: str = "auto",
-                 device=None):
+                 impl: str = "auto", device=None):
         super().__init__()
         if cfg.moe.enabled:
             raise NotImplementedError(
@@ -72,22 +69,20 @@ class VisionTransformer(nn.Module):
         # a set, as in the JAX model: two blocks placed at one site are one
         self.graph_sites = tuple(sorted(set(cfg.graph_insert_after())))
         sites = dropout_sites(cfg.depth, len(self.graph_sites))
-        self.pos_drop = Dropout(cfg.drop_rate, sites["embed"], dropout_impl)
+        self.pos_drop = Dropout(cfg.drop_rate, sites["embed"], impl)
         dpr = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
                for i in range(cfg.depth)]
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                   drop=cfg.drop_rate, drop_path_rate=dpr[i],
                   site=sites[f"blocks.{i}.attn"], dtype=dtype,
-                  attn_impl=attn_impl, mlp_impl=mlp_impl,
-                  dropout_impl=dropout_impl, device=device)
+                  impl=impl, device=device)
             for i in range(cfg.depth)
         )
         self.graphs = nn.ModuleList(
             GraphBlock(d, cfg.graph, drop=cfg.drop_rate,
                        site=sites[f"graphs.{j}"], dtype=dtype,
-                       impl=graph_impl, dropout_impl=dropout_impl,
-                       device=device)
+                       impl=impl, device=device)
             for j in range(len(self.graph_sites))
         )
         self.norm = LayerNorm(d, dtype=dtype, device=device)
@@ -115,9 +110,7 @@ class VisionTransformer(nn.Module):
 
 
 def build_model(cfg: ModelConfig, *, precision: str = "fp32",
-                attn_impl: str = "auto", graph_impl: str = "auto",
-                mlp_impl: str = "auto", dropout_impl: str = "auto",
-                device=None) -> VisionTransformer:
+                impl: str = "auto", device=None) -> VisionTransformer:
     """``precision``: ``'fp32'`` (parity) or ``'bf16'`` (serving and
     training). The parameters are fp32 either way; ``init_params`` fills
     them. The model comes back in eval mode (deterministic, as the JAX
@@ -126,9 +119,7 @@ def build_model(cfg: ModelConfig, *, precision: str = "fp32",
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, "
                          f"not {precision!r}")
     return VisionTransformer(
-        cfg, dtype=PRECISIONS[precision], attn_impl=attn_impl,
-        graph_impl=graph_impl, mlp_impl=mlp_impl, dropout_impl=dropout_impl,
-        device=device,
+        cfg, dtype=PRECISIONS[precision], impl=impl, device=device,
     ).eval()
 
 

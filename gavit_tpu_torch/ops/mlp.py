@@ -18,7 +18,7 @@ Training:
 * :func:`fused_mlp` — the training op, an autograd function. On a CUDA bf16
   tensor the forward launches kernel D and the backward kernel D′
   (``csrc/mlp.cu``); dx, dW1 and dW2 are ``torch.matmul`` over their
-  outputs, as the JAX package leaves them to XLA.
+  outputs, as the JAX package leaves them to XLA. Other CUDA dtypes raise.
 
 Weights use ``nn.Linear``'s layout: ``w1 [F, D]``, ``w2 [D, F]``.
 """
@@ -298,16 +298,25 @@ def fused_mlp(x, w1, b1, w2, b2, seed, sites, rate: float,
     output site) of the masks, ``seed`` the step seed (None when both rates
     are 0).
 
-    CUDA bf16 with ``impl='auto'`` launches kernels D and D′ at every M, the
-    ragged edge masked (the TPU's ``pick_block`` rule does not carry over);
-    CPU tensors, fp32 and ``impl='reference'`` take the plain versions.
+    Dispatch by device and dtype, never by failure:
+
+    * CPU tensors, and ``impl='reference'``, take the plain versions.
+    * CUDA bf16 launches kernels D and D′ at every M, the ragged edge masked
+      (the TPU's ``pick_block`` rule does not carry over).
+    * CUDA in any other dtype raises: at ViT widths the JAX package trains
+      fp32 through ``fused_gelu_dropout`` (kernels H/H′), which waits for
+      ROADMAP Queue 2 item 10.
     """
     _build.check_impl(impl)
     if (rate > 0.0 or out_rate > 0.0) and seed is None:
         raise ValueError("MLP dropout with a rate > 0 needs a seed")
     shape = x.shape
-    use_kernel = (impl == "auto" and x.device.type != "cpu"
-                  and x.dtype == torch.bfloat16)
+    use_kernel = impl == "auto" and x.device.type != "cpu"
+    if use_kernel and x.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"kernels D/D′ take bf16, got {x.dtype}: fp32 MLP training on "
+            "the card waits for ROADMAP Queue 2 item 10 (kernels H/H′, "
+            "fused_gelu_dropout)")
     y = _FusedMlp.apply(x.reshape(-1, shape[-1]), w1, b1, w2, b2, seed,
                         tuple(sites), float(rate), float(out_rate), use_kernel)
     return y.reshape(shape)

@@ -100,8 +100,7 @@ class Predictor:
                 f"Predictor(device={device!r}) needs a CUDA device and this "
                 "PyTorch sees none")
         model_cfg = dataclasses.replace(config.model, drop_rate=0.0)
-        model = build_model(model_cfg, precision=precision, attn_impl=impl,
-                            graph_impl=impl, mlp_impl=impl)
+        model = build_model(model_cfg, precision=precision, impl=impl)
         if weights is None:
             init_params(model, torch.Generator().manual_seed(seed))
         else:

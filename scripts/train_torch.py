@@ -52,8 +52,7 @@ def build_trainer(config, dataset, device, *, impl: str = "auto",
     from gavit_tpu_torch.training.trainer import Trainer
 
     model = build_model(config.model, precision=config.training.precision,
-                        attn_impl=impl, graph_impl=impl, mlp_impl=impl,
-                        dropout_impl=impl)
+                        impl=impl)
     init_params(model, torch.Generator().manual_seed(config.training.seed))
     if gate is not None:
         with torch.no_grad():

@@ -217,8 +217,7 @@ def test_small_vit_kernels_match_plain_versions(dev, precision, include_cls):
     logits = {}
     for impl in ("auto", "reference"):
         model = init_params(build_model(cfg, precision=precision,
-                                        attn_impl=impl, graph_impl=impl,
-                                        mlp_impl=impl),
+                                        impl=impl),
                             torch.Generator().manual_seed(0))
         with torch.no_grad():
             model.graphs[0].gate.fill_(0.5)
@@ -334,6 +333,19 @@ def test_mlp_train_gradients_match_autograd_through_plain(dev, m, d, f):
         assert got.dtype == want.dtype and _rel(got, want) <= 2e-2
 
 
+def test_mlp_train_refuses_fp32_on_the_card(dev):
+    """fp32 MLP training on the card waits for kernels H/H′; the wrapper
+    raises rather than run the plain version on CUDA tensors."""
+    x, w1, b1, w2, b2 = (t.float() for t in _mlp_train_inputs(dev, 5, 64, 256))
+    before = (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+        M.fused_mlp(x, w1, b1, w2, b2, SEED, (1, 2), 0.1, 0.1)
+    assert (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES) == before
+    y = M.fused_mlp(x, w1, b1, w2, b2, SEED, (1, 2), 0.1, 0.1,
+                    impl="reference")
+    assert y.shape == x.shape and y.dtype == torch.float32
+
+
 @pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (2, 13, 2), (2, 17, 12),
                                        (1, 197, 12), (2, 224, 3)])
 def test_attention_bwd_kernel_matches_plain(dev, b, n, heads):
@@ -394,8 +406,7 @@ def test_small_vit_training_step_through_kernels(dev):
     grads, losses = {}, {}
     for impl in ("auto", "reference"):
         model = init_params(build_model(cfg.model, precision="bf16",
-                                        attn_impl=impl, graph_impl=impl,
-                                        mlp_impl=impl, dropout_impl=impl),
+                                        impl=impl),
                             torch.Generator().manual_seed(0))
         with torch.no_grad():
             model.graphs[0].gate.fill_(0.5)

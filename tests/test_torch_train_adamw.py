@@ -4,6 +4,11 @@ norm clipping, warmup-cosine schedule with a warmup of 2 steps, lr 1e-4),
 fp32 on the CPU, on the tiny model and batch of ``test_torch_train_step.py``,
 with weight decay on every parameter and with the JAX package's mask.
 
+The weight decay is 30, not the config's 0.05: at 0.05 decay moves a weight
+by less than the tolerance, so a wrong mask would pass. At 30 it moves every
+nonzero leaf (LayerNorm scales, gates, λ, kernels, embeddings) by at least
+9e-5, nine times the tolerance.
+
 The parameters after each step agree within 1e-5 — a tenth of one step's
 move: Adam's normalised update turns a gradient difference at the fp32
 noise floor into a move of up to the lr. Step 0 runs at lr 0 and moves
@@ -30,21 +35,23 @@ from test_torch_train_step import (_assert_tree_close, jax_loss_fn,
 @pytest.mark.parametrize("decay_all", [True, False])
 def test_three_adamw_steps_match_optax(decay_all):
     raw, jcfg, jmodel, params, x, labels, pos_weight = setup(
-        seed=1, learning_rate=1e-4, weight_decay_all_params=decay_all)
+        seed=1, learning_rate=1e-4, weight_decay=30.0,
+        weight_decay_all_params=decay_all)
     steps_per_epoch = 2  # warmup_epochs 1 → warmup of 2 steps
     tx = jax_make_optimizer(jcfg, steps_per_epoch)
     jparams = {"model": jax.tree.map(jnp.asarray, params),
                "criterion": jlosses.init_criterion_params()}
     state = tx.init(jparams)
-    grad_fn = jax.grad(jax_loss_fn(jmodel, x, labels, pos_weight),
-                       has_aux=True)
+    grad_fn = jax.jit(jax.grad(jax_loss_fn(jmodel, x, labels, pos_weight),
+                               has_aux=True))
+    update = jax.jit(tx.update)
 
     trainer = Trainer(from_dict(raw), port_model(raw, params), pos_weight,
                       steps_per_epoch, device="cpu")
     before = to_flax_tree(trainer.model)
     for step in range(3):
         grads, _ = grad_fn(jparams)
-        updates, state = tx.update(grads, state, jparams)
+        updates, state = update(grads, state, jparams)
         jparams = optax.apply_updates(jparams, updates)
         m = trainer.train_step(torch.from_numpy(x), torch.from_numpy(labels))
         assert m["lr"] == pytest.approx(1e-4 * step / 2)

@@ -10,7 +10,8 @@ through ``load_flax_params``), the same images, labels and pos_weight.
   logits within 1e-4, each gradient within 1e-4 of the largest |grad| of
   its tensor (fp32 products in different orders);
 * (tests/test_torch_train_adamw.py: three optimizer steps against optax;)
-* the loss, the schedule and the weight-decay mask on their own.
+* the loss, the schedule and the weight-decay mask on their own, the mask
+  name by name against the one the JAX package's ``make_optimizer`` applies.
 """
 
 import jax
@@ -23,16 +24,17 @@ from gavit_tpu.config import from_dict as jax_from_dict
 from gavit_tpu.models.vit import build_model as jax_build_model
 from gavit_tpu.models.vit import init_params as jax_init_params
 from gavit_tpu.training import losses as jlosses
+from gavit_tpu.training.optimizer import make_optimizer as jax_make_optimizer
 from gavit_tpu.training.schedule import warmup_cosine_schedule as jax_sched
 from gavit_tpu_torch.config import from_dict
 from gavit_tpu_torch.models.vit import build_model
 from gavit_tpu_torch.ops.preprocess import val_preprocess
 from gavit_tpu_torch.training.losses import DynamicWeightedLoss
-from gavit_tpu_torch.training.optimizer import decays
+from gavit_tpu_torch.training.optimizer import decays, make_optimizer
 from gavit_tpu_torch.training.schedule import warmup_cosine_schedule
-from gavit_tpu_torch.utils.convert import (flatten_tree, flax_layout,
-                                           load_criterion_params,
-                                           load_flax_params)
+from gavit_tpu_torch.utils.convert import (criterion_tree, flatten_tree,
+                                           flax_layout, load_criterion_params,
+                                           load_flax_params, to_flax_tree)
 
 GATE = 0.5
 BATCH = 4
@@ -100,8 +102,8 @@ def test_loss_logits_and_grads_match_jax():
     raw, jcfg, jmodel, params, x, labels, pos_weight = setup()
     jparams = {"model": params,
                "criterion": jlosses.init_criterion_params()}
-    (jloss, jlogits), jgrads = jax.value_and_grad(
-        jax_loss_fn(jmodel, x, labels, pos_weight), has_aux=True)(jparams)
+    (jloss, jlogits), jgrads = jax.jit(jax.value_and_grad(
+        jax_loss_fn(jmodel, x, labels, pos_weight), has_aux=True))(jparams)
 
     model = port_model(raw, params)
     crit = DynamicWeightedLoss()
@@ -166,3 +168,35 @@ def test_schedule_and_decay_mask_match_jax():
     assert {"cls_token", "pos_embed", "graphs.0.gate", "norm.weight",
             "head.bias"} <= masked
     assert not any(n.endswith("qkv.weight") for n in masked)
+
+
+@pytest.mark.parametrize("decay_all", [True, False])
+def test_decay_groups_match_jax_mask(decay_all):
+    """Each parameter, the λ included, sits in a group of the port's AdamW
+    with weight decay exactly where the JAX package's optimizer decays it.
+    The JAX side is read off optax's second update (the first runs at lr 0)
+    at zero gradients on parameters of ones: Adam's step is 0 there, so a
+    leaf moves only if it decays."""
+    raw = tiny_raw(weight_decay_all_params=decay_all)
+    model = build_model(from_dict(raw).model)
+    crit = DynamicWeightedLoss()
+    ones = jax.tree.map(jnp.ones_like,
+                        {"model": to_flax_tree(model),
+                         "criterion": criterion_tree(crit)})
+    tx = jax_make_optimizer(jax_from_dict(raw), 2)
+    zeros, state = jax.tree.map(jnp.zeros_like, ones), tx.init(ones)
+    for _ in range(2):
+        updates, state = jax.jit(tx.update)(zeros, state, ones)
+    want = {k: bool(np.abs(v).max() > 0)
+            for k, v in flatten_tree(updates).items()}
+
+    opt, _ = make_optimizer(from_dict(raw), model, crit, 2)
+    decayed = {id(p): g["weight_decay"] > 0
+               for g in opt.param_groups for p in g["params"]}
+    got = {f"model/{path}": decayed[id(p)]
+           for path, (p, _) in flax_layout(model).items()}
+    got.update({f"criterion/{n}": decayed[id(p)]
+                for n, p in crit.named_parameters()})
+    assert got == want
+    assert any(want.values())
+    assert all(want.values()) == decay_all  # the mask exempts some leaves
