@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths on
-one CUDA card.
+one CUDA card: ViT-B/16 with two kNN graph blocks at 224 px
+(``configs/vit_b16_graph2.yaml``) and its 384-px fine-tune with a
+learned-static graph block (``configs/finetune_384.yaml``).
 
     python3 chip_smoke.py
 
@@ -13,23 +15,29 @@ before the last line:
 3. kernel checks against their plain PyTorch versions, each within a stated
    tolerance: A (attention), B (inference MLP) and C (graph aggregate) at
    the serving shapes of ViT-B/16 at 224 px; F (dropout), D and D′ (training
-   MLP) and A′ (attention backward) at the training shapes (batch 128);
-4. slice: ``configs/vit_b16_graph2.yaml`` in bf16 from a seed, graph gates
-   set to 0.5, through the kernels (``impl='auto'``) and through the plain
-   versions (``impl='reference'``) on the same weights;
+   MLP) and A′ (attention backward) at the training shapes (batch 128); K
+   and K′ (long-sequence attention) at 384 px (N=577, b1 and b16), H and H′
+   (GELU + dropout) at the 384 fine-tune's hidden rows [16·577, 3072];
+4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
+   (and the learned adjacency logits drawn from a normal), through the
+   kernels (``impl='auto'``) and through the plain versions
+   (``impl='reference'``) on the same weights: 8 images at 224 px, 16 at
+   384 px with the launch counts of that forward;
 5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a warmed
-   Predictor; every response must be 200 and match the plain-version
+   224-px Predictor; every response must be 200 and match the plain-version
    Predictor; the kernels' launch counters, zeroed just before, must show
    that the requests went through every serving kernel;
-6. train: the same config at batch 128 through ``scripts/train_torch.py``'s
-   trainer (preprocess → forward with dropout 0.1 → loss → backward →
-   AdamW): 5 steps through the kernels against 5 through the plain versions
-   from the same start (losses, and every gradient of the first step), the
-   launch counts of one step, then 30 steps through the kernels that must
-   lower the loss;
+6. train: each configuration through ``scripts/train_torch.py``'s trainer
+   (preprocess → forward with dropout 0.1 → loss → backward → AdamW),
+   vit_b16_graph2 at batch 128 and finetune_384 at its batch 16: 5 steps
+   through the kernels against 5 through the plain versions from the same
+   start (losses, and every gradient of the first step), the launch counts
+   of one step, then 30 steps through the kernels that must lower the loss;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), Predictor p50 for one image, images/s of the bf16
-   forward at batch 64 and of the train step at batch 128.
+   events, median), Predictor p50 for one image at 224 and 384 px,
+   images/s of the bf16 forward (224 px b64, 384 px b16) and of the train
+   step (224 px b128, 384 px b16), and the 384 MLP's two routes (kernels
+   D/D′ against the chain of H/H′ and F) at M = 9232.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -51,9 +59,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "vit_b16_graph2.yaml"
+CONFIG_384 = ROOT / "configs" / "finetune_384.yaml"
 SEED = 0
 GATE = 0.5
 HEADS, HEAD_DIM, N_TOKENS, DIM, HIDDEN = 12, 64, 197, 768, 3072
+N_384, BATCH_384 = 577, 16  # tokens at 384 px, the fine-tune's batch
 DTYPES = {"bf16": "bfloat16", "fp32": "float32"}  # names of torch dtypes
 
 # tolerances, with why:
@@ -156,8 +166,6 @@ def check_attention(dev, results):
 
     scale = HEAD_DIM ** -0.5
     cases = [(name, b, N_TOKENS) for name in DTYPES for b in (1, 8, 64)]
-    # bf16 past 224 keys takes the CUDA-core body (384 px: N=577)
-    cases.append(("bf16", 2, 577))
     for dtype_name, b, n in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + b)
         dtype = getattr(torch, DTYPES[dtype_name])
@@ -177,6 +185,76 @@ def check_attention(dev, results):
         results["A"]["errs"].append(err)
         if n == N_TOKENS:
             results["A"]["cases"].append((dtype_name, b, qkv))
+
+
+def check_long_attention(dev, results):
+    """K at 384 px (b1: serving one image; b16: the fine-tune's batch) and
+    K′ at b16, dO as the output projection's backward hands it over."""
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+
+    scale = HEAD_DIM ** -0.5
+    for b in (1, BATCH_384):
+        g = torch.Generator(device=dev).manual_seed(SEED + 31 + b)
+        qkv = torch.randn(b, N_384, 3 * HEADS * HEAD_DIM, device=dev,
+                          generator=g).to(torch.bfloat16)
+        got = A.qkv_attention_long_kernel(qkv, scale, HEADS)
+        want = A.attention_reference(*A._split_heads(qkv, HEADS), scale)
+        torch.cuda.synchronize()
+        err, tol = max_err(got, want), ATTN_TOL["bf16"]
+        check("K long attention", torch.isfinite(got).all().item()
+              and err <= tol,
+              f"bf16 B={b} N={N_384} H={HEADS} d={HEAD_DIM}: max_abs_err "
+              f"{err:.3e} (tol {tol:.0e})")
+        results["K"]["errs"].append(err)
+        results["K"]["cases"].append((b, qkv))
+    do = torch.randn(BATCH_384, N_384, HEADS, HEAD_DIM, device=dev,
+                     generator=g).to(torch.bfloat16).transpose(1, 2)
+    got = A.qkv_attention_long_bwd_kernel(qkv, do, scale, HEADS)
+    want = A.attention_backward_reference(qkv, do, scale, HEADS)
+    rel, err = rel_err(got, want), max_err(got, want)
+    check("K′ long attention bwd", rel <= GRAD_REL_TOL
+          and torch.isfinite(got).all().item(),
+          f"bf16 B={BATCH_384} N={N_384} H={HEADS} d={HEAD_DIM}: dqkv rel to "
+          f"max {rel:.3e} (tol {GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}")
+    results["K′"]["errs"].append(err)
+    results["K′"]["cases"].append((qkv, do))
+
+
+def check_gelu_dropout(dev, results):
+    """H and H′ at the 384 fine-tune's hidden rows, bf16 and fp32: the
+    masks (zero patterns) bit-exact, values within one ulp of the dtype."""
+    import torch
+
+    from gavit_tpu_torch.ops import dropout as DR
+    from gavit_tpu_torch.ops import philox
+
+    seed, site, m = philox.step_seed(SEED, 5), 6, BATCH_384 * N_384
+    for dtype_name in ("bf16", "fp32"):
+        dtype = getattr(torch, DTYPES[dtype_name])
+        g = torch.Generator(device=dev).manual_seed(SEED + 41)
+        x = (torch.randn(m, HIDDEN, device=dev, generator=g) * 2).to(dtype)
+        dy = torch.randn(m, HIDDEN, device=dev, generator=g).to(dtype)
+        for key, got, want in (
+                ("H", DR.gelu_dropout_kernel(x, seed, site, DROP_RATE),
+                 DR.gelu_dropout_reference(x, seed, site, DROP_RATE)),
+                ("H′", DR.gelu_dropout_bwd_kernel(x, dy, seed, site,
+                                                  DROP_RATE),
+                 DR.gelu_dropout_bwd_reference(x, dy, seed, site,
+                                               DROP_RATE))):
+            u = ulps(got, want, floor=torch.finfo(dtype).tiny)
+            zeros = torch.equal(got == 0, want == 0)
+            err = max_err(got, want)
+            check(f"{key} gelu dropout{' bwd' if key == 'H′' else ''}",
+                  zeros and u <= 1 and torch.isfinite(got).all().item(),
+                  f"{dtype_name} [{m}, {HIDDEN}] rate {DROP_RATE}: zeros "
+                  f"identical {zeros}, within {u:.0f} ulp (tol 1), bit-exact "
+                  f"{torch.equal(got, want)}, max_abs_err {err:.3e}, kept "
+                  f"{(want != 0).float().mean().item():.4%}")
+            results[key]["errs"].append(err)
+            if dtype_name == "bf16":
+                results[key]["cases"].append((x, dy, seed, site))
 
 
 def mlp_inputs(dev, m, dim=DIM, hidden=HIDDEN):
@@ -262,14 +340,16 @@ def rel_err(a, b) -> float:
     return max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
 
 
-def ulps(got, want) -> float:
-    """Largest distance in bf16 ulps of |want| (floored at 2^-10, below
-    which fp32 cancellation, not rounding, sets the difference)."""
+def ulps(got, want, floor: float = 2.0 ** -10) -> float:
+    """Largest distance in ulps of want's dtype (bf16 or fp32) at |want|,
+    floored at ``floor`` (by default 2^-10, below which fp32 cancellation,
+    not rounding, sets the difference of two GEMMs)."""
     import torch
 
+    bits = {torch.bfloat16: 7, torch.float32: 23}[want.dtype]
     w = want.float()
-    ulp = torch.exp2(torch.floor(torch.log2(
-        torch.clamp(w.abs(), min=2.0 ** -10))) - 7)
+    ulp = torch.exp2(torch.floor(torch.log2(torch.clamp(w.abs(), min=floor)))
+                     - bits)
     return ((got.float() - w).abs() / ulp).max().item()
 
 
@@ -381,9 +461,11 @@ def check_attention_bwd(dev, results, batch=TRAIN_BATCH, n=N_TOKENS,
 
 
 def gated_weights(cfg) -> dict:
-    """Weights from SEED with both graph gates at GATE, keyed by '/'-joined
-    Flax paths as an ``.npz`` would hold them. The gates are zero at init,
-    which would hide the graph kernel from the logits."""
+    """Weights from SEED with the graph gates at GATE and learned adjacency
+    logits drawn from a standard normal, keyed by '/'-joined Flax paths as
+    an ``.npz`` would hold them. Gates and logits are zero at init, which
+    would hide the graph branch from the logits (or make its adjacency
+    uniform)."""
     import torch
 
     from gavit_tpu_torch.models.vit import build_model, init_params
@@ -391,9 +473,13 @@ def gated_weights(cfg) -> dict:
 
     model = init_params(build_model(cfg.model),
                         torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 5)
     with torch.no_grad():
         for gb in model.graphs:
             gb.gate.fill_(GATE)
+            if gb.adj_logits is not None:
+                gb.adj_logits.copy_(torch.randn(gb.adj_logits.shape,
+                                                generator=g))
     out = {}
     for path, (p, transpose) in flax_layout(model).items():
         arr = p.detach().numpy()
@@ -401,24 +487,34 @@ def gated_weights(cfg) -> dict:
     return out
 
 
-def phase_slice(cfg, weights, dev):
+def phase_slice(cfg, weights, dev, name, n_images=8, expect=None):
+    """The bf16 forward of ``n_images`` through the kernels against the
+    plain versions (and fp32 plain versions, for scale). ``expect``: the
+    nonzero launch counts of the kernels' forward, asserted."""
     import numpy as np
     import torch
 
     from gavit_tpu_torch.ops.preprocess import val_preprocess
     from gavit_tpu_torch.serving import Predictor
 
+    s = cfg.data.image_size
     imgs = np.random.default_rng(SEED).integers(
-        0, 256, (8, cfg.data.image_size, cfg.data.image_size, 3), np.uint8)
+        0, 256, (n_images, s, s, 3), np.uint8)
     x = val_preprocess(torch.from_numpy(imgs).to(dev))
-    probs = {}
+    probs, counts = {}, None
     for precision, impl in (("bf16", "auto"), ("bf16", "reference"),
                             ("fp32", "reference")):
         model = Predictor(cfg, weights, precision=precision, device=dev,
                           impl=impl).model
+        if impl == "auto":
+            torch.cuda.synchronize()
+            reset_counts()
         with torch.inference_mode():
             logits = model(x)
-        if logits.shape != (8, cfg.model.num_classes) or \
+        if impl == "auto":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        if logits.shape != (n_images, cfg.model.num_classes) or \
                 not torch.isfinite(logits).all():
             raise AssertionError(f"{precision}/{impl} logits: bad shape "
                                  f"{tuple(logits.shape)} or non-finite")
@@ -427,13 +523,19 @@ def phase_slice(cfg, weights, dev):
     err = max_err(probs[("bf16", "auto")], probs[("bf16", "reference")])
     err32 = max_err(probs[("bf16", "auto")], probs[("fp32", "reference")])
     ok = err <= PROB_TOL
-    log(f"[slice] vit_b16_graph2 bf16, gates {GATE}, 8 images: kernels vs "
-        f"plain versions max |dp| {err:.3e} (tol {PROB_TOL:.0e}) "
+    log(f"[slice] {name} {s} px bf16, gates {GATE}, {n_images} images: "
+        f"kernels vs plain versions max |dp| {err:.3e} (tol {PROB_TOL:.0e}) "
         f"{'ok' if ok else 'FAIL'}; bf16 kernels vs fp32 plain max |dp| "
         f"{err32:.3e}")
     if not ok:
         raise AssertionError("the slice through the kernels disagrees with "
                              "the plain versions")
+    log(f"[slice] kernel launches in that forward: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if expect is not None and counts != expected(expect):
+        raise AssertionError(f"launch counts {counts}, expected "
+                             f"{expected(expect)}")
+    return counts
 
 
 # each kernel's launch counter: (module, attribute)
@@ -443,7 +545,16 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "C": ("graph_ops", "KERNEL_LAUNCHES"),
             "D": ("mlp", "TRAIN_FWD_LAUNCHES"),
             "D′": ("mlp", "TRAIN_BWD_LAUNCHES"),
-            "F": ("dropout", "KERNEL_LAUNCHES")}
+            "F": ("dropout", "KERNEL_LAUNCHES"),
+            "K": ("attention", "LONG_KERNEL_LAUNCHES"),
+            "K′": ("attention", "LONG_BWD_KERNEL_LAUNCHES"),
+            "H": ("dropout", "GELU_LAUNCHES"),
+            "H′": ("dropout", "GELU_BWD_LAUNCHES")}
+
+
+def expected(nonzero: dict) -> dict:
+    """Every counter at 0 but those named."""
+    return {k: nonzero.get(k, 0) for k in COUNTERS}
 
 
 def reset_counts():
@@ -534,9 +645,8 @@ def phase_serve(cfg, weights, dev):
     log(f"[serve] kernel launches over {device_calls} device calls: "
         + ", ".join(f"{k} {v}" for k, v in counts.items()))
     depth, n_graph = cfg.model.depth, len(set(cfg.model.graph_insert_after()))
-    expect = {k: 0 for k in COUNTERS}
-    expect.update({"A": depth * device_calls, "B": depth * device_calls,
-                   "C": n_graph * device_calls})
+    expect = expected({"A": depth * device_calls, "B": depth * device_calls,
+                       "C": n_graph * device_calls})
     if counts != expect:
         raise AssertionError(f"launch counts {counts}, expected {expect}")
     return predictor, reference, counts
@@ -553,8 +663,44 @@ def train_config(overrides=()):
         f"training.seed={SEED}", *overrides])
 
 
-def phase_train(cfg, dev, steps_compare=5, steps_learn=30):
-    """The training step through scripts/train_torch.py's entry points."""
+def train_config_384():
+    """finetune_384 at its batch 16 with a warmup of 5 steps (an 80-image
+    synthetic set) and the 224-px run's lr of 1e-4: the file's 3e-5 is a
+    fine-tune's, from pretrained weights, and moves random weights too
+    little for 30 steps to show learning."""
+    from gavit_tpu_torch import load_config
+
+    return load_config(str(CONFIG_384), [
+        "data.synthetic_size=80", "data.synthetic_learnable=true",
+        "training.warmup_epochs=1", "training.learning_rate=1e-4",
+        f"training.seed={SEED}"])
+
+
+def held_loss(trainer, batches) -> float:
+    """The mean loss of the trainer's model over ``batches`` in eval mode
+    (no dropout) on the validation preprocessing: the same number for the
+    same weights, so it can show learning where a b16 training loss is
+    too noisy to."""
+    import torch
+
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+
+    trainer.model.eval()
+    total = 0.0
+    with torch.no_grad():
+        for images, labels in batches:
+            x = val_preprocess(torch.from_numpy(images).to(trainer.device))
+            loss, _ = trainer.criterion(
+                trainer.model(x), torch.from_numpy(labels).to(trainer.device),
+                trainer.pos_weight)
+            total += loss.item()
+    trainer.model.train()
+    return total / len(batches)
+
+
+def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
+    """The training step through scripts/train_torch.py's entry points;
+    ``expect``: the nonzero launch counts of one step, asserted."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -571,6 +717,8 @@ def phase_train(cfg, dev, steps_compare=5, steps_learn=30):
     losses = {impl: [] for impl in trainers}
     first_grads = {}
     counts = None
+    held = data[:5]  # the learning check's fixed batches
+    before = held_loss(trainers["auto"], held)
     for i in range(steps_compare):
         images, labels = (torch.from_numpy(a) for a in data[i])
         for impl, tr in trainers.items():
@@ -591,7 +739,7 @@ def phase_train(cfg, dev, steps_compare=5, steps_learn=30):
     rels = [abs(a - b) / abs(b) for a, b in zip(losses["auto"],
                                                  losses["reference"])]
     ok = max(rels) <= LOSS_REL_TOL
-    log(f"[train] vit_b16_graph2 {cfg.training.precision} b{bs}, dropout "
+    log(f"[train] {name} {cfg.training.precision} b{bs}, dropout "
         f"{cfg.model.drop_rate}, "
         f"gates {GATE}: losses through the kernels "
         f"{[round(v, 5) for v in losses['auto']]}, through the plain versions "
@@ -601,28 +749,27 @@ def phase_train(cfg, dev, steps_compare=5, steps_learn=30):
         raise AssertionError("training through the kernels disagrees with "
                              "the plain versions")
     cos = []
-    for (name, a), (_, b) in zip(first_grads["auto"],
-                                 first_grads["reference"]):
+    for (param, a), (_, b) in zip(first_grads["auto"],
+                                  first_grads["reference"]):
         if b.abs().max() == 0 and a.abs().max() == 0:
             continue
         cos.append((torch.nn.functional.cosine_similarity(a, b, dim=0)
-                    .item(), name))
+                    .item(), param))
     worst = min(cos)
     ok = worst[0] >= GRAD_COSINE
+    graph = [f"{p} {c:.6f}" for c, p in cos if p.startswith("graphs.")]
     log(f"[train] first-step gradients, kernels vs plain versions: lowest "
         f"cosine {worst[0]:.6f} ({worst[1]}) over {len(cos)} parameters "
-        f"(need {GRAD_COSINE}) {'ok' if ok else 'FAIL'}")
+        f"(need {GRAD_COSINE}) {'ok' if ok else 'FAIL'}; the graph blocks': "
+        + ", ".join(graph))
     if not ok:
         raise AssertionError("a gradient through the kernels points away "
                              "from the plain version's")
-    depth, n_graph = cfg.model.depth, len(set(cfg.model.graph_insert_after()))
-    n_drop = 1 + depth + n_graph  # embedding, attention proj, graph proj
-    expect = {"A": depth, "A′": depth, "B": 0, "C": n_graph, "D": depth,
-              "D′": depth, "F": 2 * n_drop}
-    log("[train] kernel launches in one train step: "
+    log(f"[train] {name}: kernel launches in one train step: "
         + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts}, expected {expect}")
+    if counts != expected(expect):
+        raise AssertionError(f"launch counts {counts}, expected "
+                             f"{expected(expect)}")
 
     # keep training through the kernels: the loss must come down
     del trainers["reference"]
@@ -631,12 +778,13 @@ def phase_train(cfg, dev, steps_compare=5, steps_learn=30):
         images, labels = (torch.from_numpy(a) for a in data[i])
         losses["auto"].append(tr.train_step(images, labels)["loss"].item())
     run = losses["auto"][:steps_learn]
-    first, last = sum(run[:5]) / 5, sum(run[-5:]) / 5
-    ok = all(math.isfinite(v) for v in run) and last < first
-    log(f"[train] {steps_learn} steps through the kernels (warmup 5 steps, "
-        f"lr {cfg.training.learning_rate}): mean loss of the first 5 "
-        f"{first:.5f}, of the last 5 {last:.5f}; losses "
-        f"{[round(v, 4) for v in run]} {'ok' if ok else 'FAIL'}")
+    after = held_loss(tr, held)
+    ok = all(math.isfinite(v) for v in run) and after < before
+    log(f"[train] {name}: {steps_learn} steps through the kernels (warmup 5 "
+        f"steps, lr {cfg.training.learning_rate}): mean loss of the first 5 "
+        f"batches, without dropout or augmentation, {before:.5f} before and "
+        f"{after:.5f} after; training losses {[round(v, 4) for v in run]} "
+        f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("30 steps through the kernels did not lower "
                              "the loss")
@@ -863,9 +1011,143 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     return rows, steps
 
 
+def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
+    """The 384 fine-tune's kernels (K, K′ at b16; H, H′ at [16·577, 3072]
+    bf16) against their plain versions and a library call; the MLP's two
+    routes at M = 9232; Predictor p50 at 384 px; the b16 forward and the
+    b16 train step through the kernels and the plain versions."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import dropout as DR
+    from gavit_tpu_torch.ops import mlp as M
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+
+    rows = {}
+    b, n, h, d = BATCH_384, N_384, HEADS, HEAD_DIM
+    scale = d ** -0.5
+    qkv, do = results["K′"]["cases"][0]
+    q, k, v = (t.detach().clone().requires_grad_(True)
+               for t in A._split_heads(qkv, h))
+    do_c = do.contiguous()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), do_c)
+
+    rows["K"] = (cuda_ms(lambda: A.qkv_attention_long_kernel(qkv, scale, h)),
+                 cuda_ms(lambda: A.attention_reference(
+                     *A._split_heads(qkv, h), scale), iters=5),
+                 cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                 ) + bound(4 * b * h * n * n * d, 4 * b * n * h * d * 2)
+    rows["K′"] = (cuda_ms(lambda: A.qkv_attention_long_bwd_kernel(
+                      qkv, do, scale, h)),
+                  cuda_ms(lambda: A.attention_backward_reference(
+                      qkv, do, scale, h), iters=5),
+                  cuda_ms(sdpa_fwd_bwd)
+                  ) + bound(10 * b * h * n * n * d, 7 * b * n * h * d * 2)
+
+    x, dy, seed, site = results["H"]["cases"][0]
+    xg = x.detach().clone().requires_grad_(True)
+    y_lib = F.dropout(F.gelu(xg), DROP_RATE)
+    rows["H"] = (cuda_ms(lambda: DR.gelu_dropout_kernel(x, seed, site,
+                                                        DROP_RATE)),
+                 cuda_ms(lambda: DR.gelu_dropout_reference(x, seed, site,
+                                                           DROP_RATE),
+                         iters=5),
+                 cuda_ms(lambda: F.dropout(F.gelu(x), DROP_RATE))
+                 ) + bound(0, 2 * x.numel() * 2)
+    rows["H′"] = (cuda_ms(lambda: DR.gelu_dropout_bwd_kernel(
+                      x, dy, seed, site, DROP_RATE)),
+                  cuda_ms(lambda: DR.gelu_dropout_bwd_reference(
+                      x, dy, seed, site, DROP_RATE), iters=5),
+                  cuda_ms(lambda: torch.autograd.grad(y_lib, xg, dy,
+                                                      retain_graph=True))
+                  ) + bound(0, 3 * x.numel() * 2)
+    for key in ("K", "K′", "H", "H′"):
+        km, pm, lm, bms, by = rows[key]
+        log(f"[time] {key} at 384 px b{b}: kernel {km:.4f} ms, plain "
+            f"{pm:.4f} ms, library {lm:.4f} ms, bound {bms:.4f} ms ({by}) "
+            f"({card})")
+
+    # the MLP's two routes at M = 9232: D/D′ against fc1 → H → fc2 → F
+    m = b * n
+    args = mlp_inputs(dev, m, DIM, HIDDEN)
+    sites = (2, 3)
+    leaves = {r: [a.detach().clone().requires_grad_(True) for a in args]
+              for r in ("fused", "chain")}
+    run = {"fused": lambda t: M._FusedMlp.apply(*t, seed, sites, DROP_RATE,
+                                                DROP_RATE, True),
+           "chain": lambda t: M.mlp_train_chain(*t, seed, sites, DROP_RATE,
+                                                DROP_RATE)}
+    gy = torch.randn(m, DIM, device=dev).to(torch.bfloat16)
+    for route in ("fused", "chain", "chain", "fused"):
+        t = leaves[route]
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: run[route](t), iters=10)
+        both = cuda_ms(lambda: torch.autograd.grad(run[route](t), t, gy),
+                       iters=10)
+        log(f"[time] 384 MLP b{b} (M={m}) route {route}: forward {fwd:.4f} "
+            f"ms, forward + backward {both:.4f} ms, backward {both - fwd:.4f} "
+            f"ms ({card})")
+
+    predictor = Predictor(cfg, weights, precision="bf16", device=dev)
+    s = cfg.data.image_size
+    img = np.random.default_rng(SEED + 2).integers(0, 256, (s, s, 3),
+                                                   np.uint8)
+    for _ in range(5):
+        predictor.predict_proba(img)
+    lat = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        predictor.predict_proba(img)
+        lat.append((time.perf_counter() - t0) * 1000)
+    log(f"[time] Predictor.predict_proba 1 image bf16 at {s} px: p50 "
+        f"{statistics.median(lat):.3f} ms over 50 calls ({card})")
+    plain = Predictor(cfg, weights, precision="bf16", device=dev,
+                      impl="reference")
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, 256, (b, s, s, 3), np.uint8)).to(dev)
+    xb = val_preprocess(imgs)
+    for impl, model in (("auto", predictor.model), ("reference", plain.model)):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(xb), iters=10, warmup=2)
+        log(f"[time] bf16 forward at {s} px b{b} impl={impl}: {ms:.3f} ms, "
+            f"{b / (ms / 1000):.1f} img/s ({card})")
+    del predictor, plain
+
+    dataset = train_torch.create_dataset(tcfg)
+    ref = train_torch.build_trainer(tcfg, dataset, dev, impl="reference",
+                                    gate=GATE)
+    images, labels = (torch.from_numpy(a) for a in batch)
+    step_ms = {"auto": [], "reference": []}
+    for tr in (trainer, ref):
+        tr.train_step(images, labels)
+    torch.cuda.synchronize()
+    for _ in range(5):
+        for impl, tr in (("auto", trainer), ("reference", ref),
+                         ("auto", trainer)):
+            t0 = time.perf_counter()
+            tr.train_step(images, labels)
+            torch.cuda.synchronize()
+            step_ms[impl].append((time.perf_counter() - t0) * 1000)
+    for impl, ts in step_ms.items():
+        ms = statistics.median(ts)
+        log(f"[time] train step at {s} px b{b} {tcfg.training.precision} "
+            f"impl={impl}: {ms:.3f} ms (median of {len(ts)}), "
+            f"{b / (ms / 1000):.1f} img/s ({card})")
+    return rows
+
+
 def kernels_json(results, serve_counts, train_counts, rows):
-    """One row per kernel. ``launches``: from the training step for the
-    kernels on its path, from the served requests for B."""
+    """One row per kernel. ``launches``: from a training step for the
+    kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
+    K, K′, H, H′), from the served requests for B."""
     spec = [
         ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
          "gavit_tpu/ops/attention.py:583"),
@@ -882,11 +1164,22 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu/ops/mlp.py:192"),
         ("F", "fused_dropout", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:33"),
+        ("K", "fused_qkv_attention_long",
+         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu/ops/attention.py:453"),
+        ("K′", "fused_qkv_attention_long_bwd",
+         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu/ops/attention.py:475"),
+        ("H", "fused_gelu_dropout", "gavit_tpu_torch/csrc/dropout.cu",
+         "gavit_tpu/ops/dropout.py:252"),
+        ("H′", "fused_gelu_dropout_bwd", "gavit_tpu_torch/csrc/dropout.cu",
+         "gavit_tpu/ops/dropout.py:261"),
     ]
     out = []
     for key, name, src, rep in spec:
         km, pm, lm, bms, by = rows[key]
-        counts = serve_counts if key == "B" else train_counts
+        counts = serve_counts if key == "B" else train_counts[
+            "384" if key in ("K", "K′", "H", "H′") else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
@@ -910,23 +1203,52 @@ def main():
     check_dropout(dev, results)
     check_mlp_train(dev, results)
     check_attention_bwd(dev, results)
+    check_long_attention(dev, results)
+    check_gelu_dropout(dev, results)
+
+    # 224 px: vit_b16_graph2 (12 blocks, 2 kNN graph blocks)
     cfg = load_config(str(CONFIG))
     weights = gated_weights(cfg)
-    phase_slice(cfg, weights, dev)
+    depth = cfg.model.depth
+    phase_slice(cfg, weights, dev, "vit_b16_graph2")
     predictor, reference, serve_counts = phase_serve(cfg, weights, dev)
     tcfg = train_config()
-    trainer, batch, train_counts = phase_train(tcfg, dev)
+    # per block A, A′, D, D′; C at 2 graph blocks; F forward and backward at
+    # the embedding, 12 attention projections and 2 graph projections
+    trainer, batch, counts_224 = phase_train(
+        tcfg, dev, "vit_b16_graph2",
+        {"A": depth, "A′": depth, "C": 2, "D": depth, "D′": depth,
+         "F": 2 * (1 + depth + 2)})
+
+    # 384 px: finetune_384 (12 blocks, 1 learned-static graph block): K and
+    # B in the forward; in training K, K′, H, H′ per block (M = 16·577 has
+    # no row block) and F at the embedding, 12 attention projections, 12
+    # MLP outputs and the graph projection, forward and backward
+    cfg384 = load_config(str(CONFIG_384))
+    weights384 = gated_weights(cfg384)
+    phase_slice(cfg384, weights384, dev, "finetune_384", n_images=BATCH_384,
+                expect={"K": depth, "B": depth})
+    tcfg384 = train_config_384()
+    trainer384, batch384, counts_384 = phase_train(
+        tcfg384, dev, "finetune_384",
+        {"K": depth, "K′": depth, "H": depth, "H′": depth,
+         "F": 2 * (1 + 2 * depth + 1)})
+
     phase_times(cfg, dev, results, (predictor, reference), card)
     del predictor, reference
     rows, _ = phase_train_times(tcfg, dev, results, trainer, batch, card)
+    del trainer
+    rows.update(phase_384_times(cfg384, tcfg384, dev, results, weights384,
+                                trainer384, batch384, card))
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:
         raise AssertionError(f"the port imported {leaked}")
     log(f"[env] nothing of jax, flax or gavit_tpu imported; {card}")
     print(card)
-    print(json.dumps(kernels_json(results, serve_counts, train_counts, rows),
-                     ensure_ascii=False))
+    print(json.dumps(kernels_json(results, serve_counts,
+                                  {"224": counts_224, "384": counts_384},
+                                  rows), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,20 +18,21 @@
 // ~4*N*d*2 bytes per head is ~100 FLOP/byte, below the ridge, so the bf16
 // path is bound by memory and staging, not by the tensor cores.
 //
-// Two bodies, chosen by dtype and N (never by a failure):
+// Two bodies, chosen by dtype (never by a failure):
 // * bf16 with N <= 224 (every ViT at 224 px): attn_fwd_mma_kernel, on the
 //   tensor cores (mma.sync m16n8k16, fp32 accumulate), grid (query-row
-//   block, head, image), described below.
-// * fp32, and bf16 past 224 keys: attn_fwd_kernel on the CUDA cores, fp32
-//   FMAs only (no TF32). Grid (query-row block of 16, head, image), so B=1
-//   still launches 12 heads x 13 blocks. Each block stages K and V of its
-//   head into dynamic shared memory with a padded row stride (65 words in
-//   fp32, 33 in bf16), so the 32 lanes of a warp that score 32 different keys
-//   hit 32 different banks. Each warp owns two query rows: the lanes score
-//   the keys lane, lane+32, ... against q held in registers, reduce max and
-//   sum with shuffles, and compute the output columns lane and lane+32 from
-//   the rounded probabilities in shared memory. It is bound by shared-memory
-//   bandwidth (one operand load per FMA).
+//   block, head, image), described below. Longer bf16 rows take kernel K
+//   (attention_long.cu), which streams key tiles.
+// * fp32 (the parity path) with K and V of a head in shared memory (N <=
+//   416): attn_fwd_kernel on the CUDA cores, fp32 FMAs only (no TF32). Grid
+//   (query-row block of 16, head, image), so B=1 still launches 12 heads x
+//   13 blocks. Each block stages K and V of its head into dynamic shared
+//   memory with a padded row stride of 65 words, so the 32 lanes of a warp
+//   that score 32 different keys hit 32 different banks. Each warp owns two
+//   query rows: the lanes score the keys lane, lane+32, ... against q held
+//   in registers, reduce max and sum with shuffles, and compute the output
+//   columns lane and lane+32 from the probabilities in shared memory. It is
+//   bound by shared-memory bandwidth (one operand load per FMA).
 #include "common.cuh"
 
 namespace {
@@ -41,33 +42,22 @@ constexpr int kWarps = 8;
 constexpr int kRowsPerWarp = 2;
 constexpr int kBlockRows = kWarps * kRowsPerWarp;
 
-template <typename T>
-struct KvStride;
-template <>
-struct KvStride<float> {
-  static constexpr int value = kHeadDim + 1;  // 65 words: bank = (j + c) % 32
-};
-template <>
-struct KvStride<__nv_bfloat16> {
-  static constexpr int value = kHeadDim + 2;  // 33 words: bank = (j + c/2) % 32
-};
+constexpr int kKvStride = kHeadDim + 1;  // 65 words: bank = (j + c) % 32
 
 inline int pad32(int n) { return (n + 31) & ~31; }
 
-template <typename T>
 int attn_smem_bytes(int n) {
-  return 2 * n * KvStride<T>::value * (int)sizeof(T) +
+  return 2 * n * kKvStride * (int)sizeof(float) +
          (kWarps * pad32(n) + kWarps * kHeadDim) * (int)sizeof(float);
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-    attn_fwd_kernel(const T* __restrict__ qkv, T* __restrict__ out, int n,
+    attn_fwd_kernel(const float* __restrict__ qkv, float* __restrict__ out, int n,
                     int heads, float scale) {
-  constexpr int S = KvStride<T>::value;
+  constexpr int S = kKvStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sk = reinterpret_cast<T*>(smem_raw);
-  T* sv = sk + n * S;
+  float* sk = reinterpret_cast<float*>(smem_raw);
+  float* sv = sk + n * S;
   const int n_pad = (n + 31) & ~31;
   float* sp = reinterpret_cast<float*>(sv + n * S);  // [warps][n_pad] probs
   float* sq = sp + kWarps * n_pad;                   // [warps][d] query row
@@ -75,14 +65,14 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int b = blockIdx.z, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long row_stride = 3L * heads * kHeadDim;
-  const T* base = qkv + (long)b * n * row_stride;
+  const float* base = qkv + (long)b * n * row_stride;
   const int qoff = h * kHeadDim;
   const int koff = (heads + h) * kHeadDim;
   const int voff = (2 * heads + h) * kHeadDim;
 
   for (int e = threadIdx.x; e < n * kHeadDim; e += blockDim.x) {
     const int j = e / kHeadDim, c = e % kHeadDim;
-    const T* row = base + (long)j * row_stride;
+    const float* row = base + (long)j * row_stride;
     sk[j * S + c] = row[koff + c];
     sv[j * S + c] = row[voff + c];
   }
@@ -93,9 +83,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int i = blockIdx.x * kBlockRows + warp * kRowsPerWarp + r;
     if (i >= n) break;  // warp-uniform; no block barrier follows
-    const T* qrow = base + (long)i * row_stride + qoff;
-    wq[lane] = to_f32(qrow[lane]);
-    wq[lane + 32] = to_f32(qrow[lane + 32]);
+    const float* qrow = base + (long)i * row_stride + qoff;
+    wq[lane] = qrow[lane];
+    wq[lane + 32] = qrow[lane + 32];
     __syncwarp();
     float q[kHeadDim];
 #pragma unroll
@@ -103,10 +93,10 @@ __global__ void __launch_bounds__(kWarps * 32)
 
     float m = -INFINITY;
     for (int j = lane; j < n; j += 32) {
-      const T* kr = sk + j * S;
+      const float* kr = sk + j * S;
       float s = 0.f;
 #pragma unroll
-      for (int c = 0; c < kHeadDim; ++c) s = fmaf(q[c], to_f32(kr[c]), s);
+      for (int c = 0; c < kHeadDim; ++c) s = fmaf(q[c], kr[c], s);
       s *= scale;
       wp[j] = s;
       m = fmaxf(m, s);
@@ -119,18 +109,18 @@ __global__ void __launch_bounds__(kWarps * 32)
       l += p;
     }
     const float inv = 1.f / warp_sum(l);
-    for (int j = lane; j < n; j += 32) wp[j] = round_to<T>(wp[j] * inv);
+    for (int j = lane; j < n; j += 32) wp[j] *= inv;
     __syncwarp();
 
     float o0 = 0.f, o1 = 0.f;
     for (int j = 0; j < n; ++j) {
       const float p = wp[j];
-      o0 = fmaf(p, to_f32(sv[j * S + lane]), o0);
-      o1 = fmaf(p, to_f32(sv[j * S + lane + 32]), o1);
+      o0 = fmaf(p, sv[j * S + lane], o0);
+      o1 = fmaf(p, sv[j * S + lane + 32], o1);
     }
-    T* orow = out + (((long)b * n + i) * heads + h) * kHeadDim;
-    orow[lane] = from_f32<T>(o0);
-    orow[lane + 32] = from_f32<T>(o1);
+    float* orow = out + (((long)b * n + i) * heads + h) * kHeadDim;
+    orow[lane] = o0;
+    orow[lane + 32] = o1;
     __syncwarp();  // wq and wp are rewritten by the next row
   }
 }
@@ -324,15 +314,14 @@ int launch_attn_mma(const void* qkv, void* out, int batch, int n, int heads, flo
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch_attn(const void* qkv, void* out, int batch, int n, int heads,
-                float scale, cudaStream_t stream) {
-  const int smem = attn_smem_bytes<T>(n);
-  cudaError_t err = set_smem(attn_fwd_kernel<T>, smem);
+int launch_attn_f32(const void* qkv, void* out, int batch, int n, int heads, float scale,
+                    cudaStream_t stream) {
+  const int smem = attn_smem_bytes(n);
+  cudaError_t err = set_smem(attn_fwd_kernel, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((n + kBlockRows - 1) / kBlockRows, heads, batch);
-  attn_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), n, heads, scale);
+  attn_fwd_kernel<<<grid, kWarps * 32, smem, stream>>>(static_cast<const float*>(qkv),
+                                                      static_cast<float*>(out), n, heads, scale);
   return cudaGetLastError();
 }
 
@@ -346,26 +335,21 @@ GAVIT_EXPORT const char* gavit_error_string(int code) {
 // from PyTorch's: the wrappers select the tensors' device before a launch.
 GAVIT_EXPORT int gavit_set_device(int device) { return cudaSetDevice(device); }
 
-// 1 if K and V of one head at this N fit in a block's shared memory; the
-// Python wrapper raises on 0 (long sequences wait for a blockwise kernel).
+// 1 if kernel A takes this N: bf16 up to the tensor-core body's 224 keys
+// (past them the wrapper routes to kernel K), fp32 while K and V of one head
+// fit a block's shared memory (N <= 416). The Python wrapper raises on 0.
 GAVIT_EXPORT int gavit_attention_fits(int n, int dtype) {
-  if (dtype == GAVIT_BF16 && n <= kMmaMaxKeys) return 1;
-  const int bytes = dtype == GAVIT_BF16 ? attn_smem_bytes<__nv_bfloat16>(n)
-                                        : attn_smem_bytes<float>(n);
-  return bytes <= kMaxSmemBytes ? 1 : 0;
+  if (dtype == GAVIT_BF16) return n <= kMmaMaxKeys ? 1 : 0;
+  return dtype == GAVIT_F32 && attn_smem_bytes(n) <= kMaxSmemBytes ? 1 : 0;
 }
 
 GAVIT_EXPORT int gavit_attention_fwd(const void* qkv, void* out, int batch,
                                      int n, int heads, int head_dim,
                                      float scale, int dtype, void* stream) {
   if (head_dim != kHeadDim || batch <= 0 || batch > 65535 || n <= 0 ||
-      heads <= 0 || heads > 65535)
+      heads <= 0 || heads > 65535 || !gavit_attention_fits(n, dtype))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == GAVIT_BF16 && n <= kMmaMaxKeys)
-    return launch_attn_mma(qkv, out, batch, n, heads, scale, s);
-  if (dtype == GAVIT_BF16)
-    return launch_attn<__nv_bfloat16>(qkv, out, batch, n, heads, scale, s);
-  if (dtype == GAVIT_F32) return launch_attn<float>(qkv, out, batch, n, heads, scale, s);
-  return cudaErrorInvalidValue;
+  if (dtype == GAVIT_BF16) return launch_attn_mma(qkv, out, batch, n, heads, scale, s);
+  return launch_attn_f32(qkv, out, batch, n, heads, scale, s);
 }

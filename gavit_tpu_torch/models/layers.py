@@ -122,9 +122,9 @@ class HeadMergeProj(Dense):
 
 
 class Attention(nn.Module):
-    """Fused-QKV multi-head self-attention: qkv GEMM → kernel A on the raw
-    rows (A′ in the backward) → head-merging output projection → projection
-    dropout (layers.py:425)."""
+    """Fused-QKV multi-head self-attention: qkv GEMM → kernel A or K on the
+    raw rows by sequence length (A′ or K′ in the backward) → head-merging
+    output projection → projection dropout (layers.py:425)."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  proj_drop: float = 0.0, site: int = 0, dtype=torch.float32,
@@ -151,9 +151,14 @@ class Mlp(nn.Module):
     """fc1 → GELU → fc2 (layers.py:205-305).
 
     Eval: :func:`fused_mlp_inference`, tanh GELU on the bf16 path and erf on
-    fp32. Train: :func:`fused_mlp` (kernels D and D′ on the card), erf GELU,
-    with the hidden and output dropout sites ``site`` and ``site + 1``
-    folded in, as the JAX package folds them into its kernel.
+    fp32. Train: :func:`fused_mlp`, erf GELU with the hidden and output
+    dropout sites ``site`` and ``site + 1``: the megakernel (D and D′ on the
+    card) where the JAX package's row-block rule finds a block, else the
+    chain fc1 (cuBLAS) → GELU + dropout at ``site`` (H and H′) → fc2 →
+    dropout at ``site + 1`` (F), as the JAX package's ``Mlp`` falls back.
+    Both routes draw their masks from the same (seed, site) pairs, so they
+    compute the same function with the same masks; which one runs changes
+    the result only by where bf16 rounds (``ops/mlp.py::fused_mlp``).
     """
 
     def __init__(self, dim: int, hidden_dim: int, *, drop: float = 0.0,

@@ -80,7 +80,7 @@ class VisionTransformer(nn.Module):
             for i in range(cfg.depth)
         )
         self.graphs = nn.ModuleList(
-            GraphBlock(d, cfg.graph, drop=cfg.drop_rate,
+            GraphBlock(d, cfg.graph, num_patches=n, drop=cfg.drop_rate,
                        site=sites[f"graphs.{j}"], dtype=dtype,
                        impl=impl, device=device)
             for j in range(len(self.graph_sites))
@@ -127,7 +127,8 @@ def build_model(cfg: ModelConfig, *, precision: str = "fp32",
 def init_params(model: VisionTransformer, generator: torch.Generator):
     """The JAX package's initialisers: truncated normal (σ=0.02, cut at ±2σ)
     for Dense kernels, CLS and position embeddings; Xavier uniform for the
-    patch projection; zeros for biases and graph gates; LayerNorm scale 1.
+    patch projection; zeros for biases, graph gates and learned-static
+    adjacency logits; LayerNorm scale 1.
 
     The draws come from ``generator`` on the CPU and are copied to the
     parameters' device, so a seed gives the same weights on every device.
@@ -156,6 +157,8 @@ def init_params(model: VisionTransformer, generator: torch.Generator):
                 mod.bias.zero_()
         elif isinstance(mod, GraphBlock):
             mod.gate.zero_()
+            if mod.adj_logits is not None:
+                mod.adj_logits.zero_()
     fill(model.cls_token, trunc)
     fill(model.pos_embed, trunc)
     return model

@@ -54,7 +54,13 @@ _SIGNATURES = {
     "gavit_attention_bwd_fits": ((_I, _I), _I),
     "gavit_attention_bwd": (
         (_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P), _I),
+    "gavit_attention_long_fwd": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
+    "gavit_attention_long_bwd": (
+        (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),
     "gavit_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
+    "gavit_gelu_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
+    "gavit_gelu_dropout_bwd": (
+        (_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_graph_fits": ((_I,), _I),
     "gavit_graph_fwd": (
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P), _I),

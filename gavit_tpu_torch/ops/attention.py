@@ -3,15 +3,19 @@
 * :func:`attention_reference` — the plain PyTorch version: materialises the
   ``[B, H, N, N]`` scores, fp32 softmax, ``p`` rounded to the value dtype
   before ``p·v``. CPU tensors take it, and ``chip_smoke.py`` holds the
-  kernel to it on the card.
+  kernels to it on the card.
 * :func:`attention_backward_reference` — the plain version of the TPU
-  backward ``_bwd_kernel_v4``: P recomputed, delta = rowsum(dP∘P), dq, dk,
-  dv packed back into the ``[B, N, 3·H·d]`` rows.
+  backwards ``_bwd_kernel_v4`` and ``_bwd_kernel_v3``: P recomputed,
+  delta = rowsum(dP∘P), dq, dk, dv packed back into the ``[B, N, 3·H·d]``
+  rows.
 * :func:`fused_qkv_attention` — the qkv GEMM's raw ``[B, N, 3·H·d]`` rows
-  in, ``[B, H, N, d]`` out, differentiable. On a CUDA tensor it launches
-  kernel A (``csrc/attention.cu``, replaces ``_fwd_kernel_v4``) and, in the
-  backward, kernel A′ (``csrc/attention_bwd.cu``, replaces
-  ``_bwd_kernel_v4``); it raises for anything those kernels do not take.
+  in, ``[B, H, N, d]`` out, differentiable. On a CUDA tensor it launches the
+  kernels :func:`attention_route` names for the sequence length and dtype:
+  kernel A (``csrc/attention.cu``, replaces ``_fwd_kernel_v4``) with A′ in
+  the backward (``csrc/attention_bwd.cu``, replaces ``_bwd_kernel_v4``), or
+  kernel K with K′ (``csrc/attention_long.cu``, replace ``_fwd_kernel_v3``
+  and ``_bwd_kernel_v3``); it raises for anything those kernels do not
+  take.
 """
 
 from __future__ import annotations
@@ -20,10 +24,39 @@ import torch
 
 from gavit_tpu_torch.ops import _build
 
-# launches since the last reset (chip_smoke.py reads them): kernel A and
-# the backward kernel A′
+# launches since the last reset (chip_smoke.py reads them): kernels A, A′,
+# K and K′
 KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
+LONG_KERNEL_LAUNCHES = 0
+LONG_BWD_KERNEL_LAUNCHES = 0
+
+# the longest rows kernel A takes: its tensor-core body keeps the scores of
+# 224 keys in registers (bf16); its fp32 body stages K and V of a head in
+# shared memory (attn_smem_bytes(416) = 231,680 of 232,448 bytes)
+A_MAX_N = {torch.bfloat16: 224, torch.float32: 416}
+# the longest rows kernels K/K′ take. They stream key tiles and would run at
+# any N; the bound is the JAX package's own switch from the exact v3 kernels
+# to the blockwise v5 ones (``_v3_fits`` at head_dim 64 in bf16: 2·7·N·64·2
+# + 5·N²·4 bytes within its 12 MiB budget), so both packages run the exact
+# kernels over the same range and the blockwise port (L/L′) takes the rest.
+K_MAX_N = 749
+
+
+def attention_route(n: int, dtype: torch.dtype) -> str:
+    """The kernel family that takes rows of ``n`` tokens in ``dtype`` on the
+    card: ``'A'`` (A/A′, bf16 up to 224 tokens; fp32 forward up to 416) or
+    ``'K'`` (K/K′, bf16 past 224 up to :data:`K_MAX_N`)."""
+    if n < 1:
+        raise ValueError(f"attention over {n} tokens")
+    if n <= A_MAX_N.get(dtype, 0):
+        return "A"
+    if dtype == torch.bfloat16 and n <= K_MAX_N:
+        return "K"
+    raise NotImplementedError(
+        f"no attention kernel takes {dtype} rows of {n} tokens (bf16 up to "
+        f"{K_MAX_N}, fp32 up to {A_MAX_N[torch.float32]}): longer sequences "
+        "wait for the blockwise kernels L/L′, ROADMAP Queue 2 item 10")
 
 
 def attention_reference(q, k, v, scale: float):
@@ -45,21 +78,44 @@ def _split_heads(qkv3, heads: int):
     return qkv5[0], qkv5[1], qkv5[2]
 
 
+def _check_rows(qkv3, heads: int, what: str):
+    """(b, n, d) of packed rows a kernel takes: head_dim 64, on the card."""
+    b, n, f = qkv3.shape
+    d = f // (3 * heads)
+    if 3 * heads * d != f or d != 64:
+        raise ValueError(f"{what} takes head_dim 64, got rows of {f} "
+                         f"for {heads} heads")
+    _build.require_cuda(qkv3)
+    return b, n, d
+
+
+def _dout_strides(dout, qkv3, heads: int):
+    """dout ``[B, H, N, d]`` read through its strides (last dim contiguous,
+    rows 16-byte aligned; otherwise copied first) → (dout, sb, sh, sn)."""
+    b, n, _ = qkv3.shape
+    d = qkv3.shape[2] // (3 * heads)
+    if dout.shape != (b, heads, n, d) or dout.dtype != qkv3.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
+                         f"match qkv {tuple(qkv3.shape)} {qkv3.dtype}")
+    sb, sh, sn, sc = dout.stride()
+    if (sc != 1 or any(x % 8 for x in (sb, sh, sn))
+            or dout.data_ptr() % 16 or dout.device != qkv3.device):
+        dout = dout.contiguous()
+        sb, sh, sn, sc = dout.stride()
+    return dout, sb, sh, sn
+
+
 def qkv_attention_kernel(qkv3, scale: float, heads: int):
     """Kernel A on a CUDA tensor ``[B, N, 3·H·d]`` → ``[B, H, N, d]`` (a view
     of ``[B, N, H, d]`` memory)."""
     global KERNEL_LAUNCHES
-    b, n, f = qkv3.shape
-    d = f // (3 * heads)
-    if 3 * heads * d != f or d != 64:
-        raise ValueError(f"kernel A takes head_dim 64, got rows of {f} "
-                         f"for {heads} heads")
-    _build.require_cuda(qkv3)
+    b, n, d = _check_rows(qkv3, heads, "kernel A")
     code = _build.dtype_code(qkv3.dtype)
     lib = _build.library()
     if not lib.gavit_attention_fits(n, code):
-        raise ValueError(f"N={n} does not fit kernel A's shared memory "
-                         "(long sequences wait for the blockwise kernel)")
+        raise ValueError(f"N={n} does not fit kernel A ({qkv3.dtype} up to "
+                         f"N={A_MAX_N[qkv3.dtype]}; longer bf16 rows take "
+                         "kernel K)")
     # written as [B, N, H, d]: the [B, H, N, d] view below merges heads for
     # the output projection without a copy
     out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
@@ -75,7 +131,7 @@ def attention_backward_reference(qkv3, dout, scale: float, heads: int):
     """The VJP of :func:`attention_reference` on the packed rows:
     ``qkv3 [B, N, 3·H·d]`` and ``dout [B, H, N, d]`` → ``dqkv3`` like qkv3.
 
-    As the TPU kernel: p in fp32, dv = bf16(p)ᵀ·do, dp = do·vᵀ,
+    As the TPU kernels: p in fp32, dv = bf16(p)ᵀ·do, dp = do·vᵀ,
     delta = rowsum(dp∘p), ds = (p∘(dp − delta)·scale) rounded to the input
     dtype, dq = ds·k, dk = dsᵀ·q, fp32 products from the inputs' values.
     """
@@ -97,31 +153,18 @@ def attention_backward_reference(qkv3, dout, scale: float, heads: int):
 
 def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
     """Kernel A′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` bf16 (contiguous)
-    and ``dout [B, H, N, d]``, read through its strides (its last dim
-    contiguous, rows 16-byte aligned; otherwise it is copied first) →
-    ``dqkv3`` like qkv3."""
+    and ``dout [B, H, N, d]``, read through its strides → ``dqkv3`` like
+    qkv3."""
     global BWD_KERNEL_LAUNCHES
-    b, n, f = qkv3.shape
-    d = f // (3 * heads)
-    if 3 * heads * d != f or d != 64:
-        raise ValueError(f"kernel A′ takes head_dim 64, got rows of {f} "
-                         f"for {heads} heads")
-    if dout.shape != (b, heads, n, d) or dout.dtype != qkv3.dtype:
-        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not "
-                         f"match qkv {tuple(qkv3.shape)} {qkv3.dtype}")
-    _build.require_cuda(qkv3)
+    b, n, d = _check_rows(qkv3, heads, "kernel A′")
     code = _build.dtype_code(qkv3.dtype)
     lib = _build.library()
     if not lib.gavit_attention_bwd_fits(n, code):
         raise NotImplementedError(
             f"kernel A′ takes bf16 with N <= 224, got {qkv3.dtype} N={n}: "
-            "fp32 and longer sequences wait for ROADMAP Queue 2 item 10 "
-            "(the blockwise kernels L/L′)")
-    sb, sh, sn, sc = dout.stride()
-    if (sc != 1 or any(x % 8 for x in (sb, sh, sn))
-            or dout.data_ptr() % 16 or dout.device != qkv3.device):
-        dout = dout.contiguous()
-        sb, sh, sn, sc = dout.stride()
+            "longer bf16 rows take kernel K′; fp32 waits for ROADMAP Queue 2 "
+            "item 10 (the blockwise kernels L/L′)")
+    dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
     dqkv = torch.empty_like(qkv3)
     _build.check(lib.gavit_attention_bwd(
         qkv3.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), b, n, heads, d,
@@ -132,27 +175,75 @@ def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
     return dqkv
 
 
+def _check_long(qkv3, heads: int, what: str):
+    b, n, d = _check_rows(qkv3, heads, what)
+    if qkv3.dtype != torch.bfloat16:
+        raise TypeError(f"{what} takes bfloat16 rows, not {qkv3.dtype}")
+    if n > K_MAX_N:
+        raise NotImplementedError(
+            f"{what} takes N <= {K_MAX_N}, got {n}: longer sequences wait "
+            "for the blockwise kernels L/L′, ROADMAP Queue 2 item 10")
+    return b, n, d
+
+
+def qkv_attention_long_kernel(qkv3, scale: float, heads: int):
+    """Kernel K on a CUDA bf16 tensor ``[B, N, 3·H·d]`` → ``[B, H, N, d]``
+    (a view of ``[B, N, H, d]`` memory, as kernel A's)."""
+    global LONG_KERNEL_LAUNCHES
+    b, n, d = _check_long(qkv3, heads, "kernel K")
+    out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
+    lib = _build.library()
+    _build.check(lib.gavit_attention_long_fwd(
+        qkv3.data_ptr(), out.data_ptr(), b, n, heads, d, float(scale),
+        _build.stream(qkv3.device)), "long attention kernel")
+    with _build.count_lock:
+        LONG_KERNEL_LAUNCHES += 1
+    return out.transpose(1, 2)
+
+
+def qkv_attention_long_bwd_kernel(qkv3, dout, scale: float, heads: int):
+    """Kernel K′ on CUDA bf16 tensors, the arguments as
+    :func:`qkv_attention_bwd_kernel`'s → ``dqkv3`` like qkv3. Its two
+    launches share a ``[3, B, H, N]`` fp32 scratch of row statistics."""
+    global LONG_BWD_KERNEL_LAUNCHES
+    b, n, d = _check_long(qkv3, heads, "kernel K′")
+    dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
+    dqkv = torch.empty_like(qkv3)
+    stats = torch.empty((3, b, heads, n), dtype=torch.float32,
+                        device=qkv3.device)
+    lib = _build.library()
+    _build.check(lib.gavit_attention_long_bwd(
+        qkv3.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        b, n, heads, d, sb, sh, sn, float(scale),
+        _build.stream(qkv3.device)), "long attention backward kernel")
+    with _build.count_lock:
+        LONG_BWD_KERNEL_LAUNCHES += 1
+    return dqkv
+
+
+_FORWARD = {"A": qkv_attention_kernel, "K": qkv_attention_long_kernel}
+_BACKWARD = {"A": qkv_attention_bwd_kernel, "K": qkv_attention_long_bwd_kernel}
+
+
 class _FusedQkvAttention(torch.autograd.Function):
-    """[B, N, 3·H·d] rows → [B, H, N, d]; saves only the rows."""
+    """[B, N, 3·H·d] rows → [B, H, N, d]; saves only the rows. ``route``:
+    the kernel family (``'A'`` or ``'K'``), None for the plain versions."""
 
     @staticmethod
-    def forward(ctx, qkv3, scale, heads, use_kernel):
+    def forward(ctx, qkv3, scale, heads, route):
         ctx.save_for_backward(qkv3)
-        ctx.args = (scale, heads, use_kernel)
-        if use_kernel:
-            # a [B, H, N, d] view of [B, N, H, d] memory
-            return qkv_attention_kernel(qkv3, scale, heads)
-        return attention_reference(*_split_heads(qkv3, heads), scale)
+        ctx.args = (scale, heads, route)
+        if route is None:
+            return attention_reference(*_split_heads(qkv3, heads), scale)
+        return _FORWARD[route](qkv3, scale, heads)
 
     @staticmethod
     def backward(ctx, g):
         (qkv3,) = ctx.saved_tensors
-        scale, heads, use_kernel = ctx.args
-        if use_kernel:
-            return qkv_attention_bwd_kernel(qkv3, g, scale, heads), None, \
-                None, None
-        return attention_backward_reference(qkv3, g, scale, heads), None, \
-            None, None
+        scale, heads, route = ctx.args
+        bwd = attention_backward_reference if route is None \
+            else _BACKWARD[route]
+        return bwd(qkv3, g, scale, heads), None, None, None
 
 
 def fused_qkv_attention(qkv, scale: float, merge_heads: bool = True,
@@ -161,18 +252,20 @@ def fused_qkv_attention(qkv, scale: float, merge_heads: bool = True,
     qkv GEMM's rows) → ``[B, N, H, d]``, or ``[B, H, N, d]`` with
     ``merge_heads=False`` for an output projection that contracts (h, d).
 
-    ``impl='auto'`` launches kernel A (and A′ in the backward) for a CUDA
-    tensor and takes the plain versions for a CPU tensor; ``'reference'``
-    always takes the plain versions.
+    ``impl='auto'`` launches the kernels of :func:`attention_route` (A/A′
+    or K/K′) for a CUDA tensor and takes the plain versions for a CPU
+    tensor; ``'reference'`` always takes the plain versions.
     """
     _build.check_impl(impl)
     b, n, three, h, d = qkv.shape
     qkv3 = qkv.reshape(b, n, three * h * d)
-    use_kernel = impl == "auto" and qkv.device.type != "cpu"
+    route = None
+    if impl == "auto" and qkv.device.type != "cpu":
+        route = attention_route(n, qkv.dtype)
     if torch.is_grad_enabled() and qkv.requires_grad:
-        out = _FusedQkvAttention.apply(qkv3, float(scale), h, use_kernel)
-    elif use_kernel:
-        out = qkv_attention_kernel(qkv3, scale, h)
+        out = _FusedQkvAttention.apply(qkv3, float(scale), h, route)
+    elif route is not None:
+        out = _FORWARD[route](qkv3, scale, h)
     else:
         out = attention_reference(*_split_heads(qkv3, h), scale)
     if merge_heads:

@@ -15,10 +15,13 @@ Training:
   versions of the TPU kernels ``_mlp_fwd_kernel`` / ``_mlp_bwd_kernel``:
   erf-GELU (the A&S form of ``_gelu_and_grad_f32``), the hidden and output
   dropout masks of ``ops/philox.py``, ``h1`` kept as the residual.
-* :func:`fused_mlp` — the training op, an autograd function. On a CUDA bf16
-  tensor the forward launches kernel D and the backward kernel D′
-  (``csrc/mlp.cu``); dx, dW1 and dW2 are ``torch.matmul`` over their
-  outputs, as the JAX package leaves them to XLA. Other CUDA dtypes raise.
+* :func:`mlp_train_chain` — the unfused chain the JAX package's ``Mlp``
+  takes when :func:`has_row_block` finds no row block: fc1, GELU + dropout
+  (kernels H/H′), fc2, dropout (kernel F).
+* :func:`fused_mlp` — the training op, differentiable; :func:`mlp_route`
+  picks the megakernel (kernel D forward, D′ backward, ``csrc/mlp.cu``; dx,
+  dW1 and dW2 are ``torch.matmul`` over their outputs, as the JAX package
+  leaves them to XLA) or the chain.
 
 Weights use ``nn.Linear``'s layout: ``w1 [F, D]``, ``w2 [D, F]``.
 """
@@ -29,15 +32,14 @@ import torch
 import torch.nn.functional as F
 
 from gavit_tpu_torch.ops import _build, philox
+from gavit_tpu_torch.ops.dropout import (fused_dropout, fused_gelu_dropout,
+                                         gelu_and_grad, site_args)
 
 # launches since the last reset (chip_smoke.py reads them): kernel B, and
 # the training kernels D (forward) and D′ (backward)
 KERNEL_LAUNCHES = 0
 TRAIN_FWD_LAUNCHES = 0
 TRAIN_BWD_LAUNCHES = 0
-
-_INV_SQRT2 = 0.7071067811865476
-_INV_SQRT2PI = 0.3989422804014327
 
 
 def _chain_infer(x2, w1, b1, w2, b2, approximate: bool):
@@ -111,23 +113,6 @@ def fused_mlp_inference(x, w1, b1, w2, b2, approximate: bool = True,
 # ---------------------------------------------------------------------------
 
 
-def gelu_and_grad(x):
-    """(GELU(x), GELU'(x)) in fp32 from one exp: the JAX kernels'
-    ``_gelu_and_grad_f32`` (erf by the Abramowitz–Stegun polynomial, max
-    abs error 1.5e-7). Kernels D and D′ run the same rounded operations in
-    the same order (csrc/common.cuh), so on the card both give the same
-    bits."""
-    z = x * _INV_SQRT2
-    s = torch.where(z < 0, -1.0, 1.0)
-    az = z.abs()
-    t = 1.0 / (1.0 + 0.3275911 * az)
-    poly = t * (0.254829592 + t * (-0.284496736 + t * (
-        1.421413741 + t * (-1.453152027 + t * 1.061405429))))
-    e = torch.exp(-az * az)
-    cdf = 0.5 * (1.0 + s * (1.0 - poly * e))
-    return x * cdf, cdf + x * (e * _INV_SQRT2PI)
-
-
 def _drop_scale(rate: float) -> float:
     return 1.0 / (1.0 - rate)
 
@@ -186,12 +171,8 @@ def mlp_train_bwd_reference(dy2, h1, w2, seed, sites, rate: float,
 def _site_args(seed, sites, rate, out_rate):
     """(k0, k1, site_h, thr_h, scale_h, site_o, thr_o, scale_o) for the
     launchers; a site is off when its threshold is 0 and its scale 1."""
-    k0, k1 = philox.split_seed(seed or 0)
-    out = [k0, k1]
-    for site, r in zip(sites, (rate, out_rate)):
-        out += [int(site) & 0xFFFFFFFF, philox.threshold(r),
-                _drop_scale(r) if r > 0.0 else 1.0]
-    return out
+    hidden = site_args(seed, sites[0], rate)
+    return (*hidden, *site_args(seed, sites[1], out_rate)[2:])
 
 
 def _check_train(x2, w1, w2, what):
@@ -291,6 +272,45 @@ class _FusedMlp(torch.autograd.Function):
                 db2.to(ctx.bias_dtypes[1]), None, None, None, None, None)
 
 
+# The JAX package's row-block rule (pick_block, gavit_tpu/ops/mlp.py:93-121,
+# at its default budgets and without its GAVIT_MLP_BM override): the
+# megakernel needs a row block that divides M and whose working set fits
+# the VMEM budget, 0.8 x 48 MiB for bf16 and 0.8 x 16 MiB otherwise.
+_ROW_BLOCKS = (64, 128, 256, 512, 32)
+_MIB = 1024 * 1024
+
+
+def has_row_block(m: int, d: int, f: int, itemsize: int) -> bool:
+    """True where ``pick_block(m, d, f, itemsize)`` finds a row block."""
+    budget = int(0.8 * (48 if itemsize == 2 else 16) * _MIB)
+    fixed = 2 * d * f * itemsize + (f + d) * 4
+    per_row = 2 * (2 * d * itemsize + f * itemsize) + 3 * f * 4
+    return any(m % bm == 0 and fixed + bm * per_row <= budget
+               for bm in _ROW_BLOCKS)
+
+
+def mlp_route(m: int, d: int, f: int, dtype: torch.dtype) -> str:
+    """``'fused'`` (kernels D/D′) for bf16 rows whose count M has a row
+    block, as the JAX package's ``Mlp`` takes its megakernel; ``'chain'``
+    (fc1, H, fc2, F) for every other shape, fp32 included (D/D′ are bf16
+    only; at ViT widths the JAX package's fp32 weights exceed its budget
+    too). 384 px at b16 (M = 9232 = 2⁴·577) and 224 px at b16 (M = 3152)
+    take the chain, 224 px at b32 and b128 (M = 6304, 25216) the
+    megakernel."""
+    return "fused" if dtype == torch.bfloat16 and has_row_block(
+        m, d, f, 2) else "chain"
+
+
+def mlp_train_chain(x, w1, b1, w2, b2, seed, sites, rate: float,
+                    out_rate: float, impl: str = "auto"):
+    """fc1 → GELU + dropout at ``sites[0]`` (kernels H/H′) → fc2 → dropout
+    at ``sites[1]`` (kernel F), differentiable by autograd; fc1 and fc2 are
+    ``F.linear`` in x's dtype (cuBLAS on the card, as the JAX package's
+    ``QDense`` is XLA's)."""
+    h = fused_gelu_dropout(F.linear(x, w1, b1), seed, sites[0], rate, impl)
+    return fused_dropout(F.linear(h, w2, b2), seed, sites[1], out_rate, impl)
+
+
 def fused_mlp(x, w1, b1, w2, b2, seed, sites, rate: float,
               out_rate: float = 0.0, impl: str = "auto"):
     """out_dropout(dropout(GELU(x·W1ᵀ + b1))·W2ᵀ + b2) over the last dim of
@@ -298,25 +318,25 @@ def fused_mlp(x, w1, b1, w2, b2, seed, sites, rate: float,
     output site) of the masks, ``seed`` the step seed (None when both rates
     are 0).
 
-    Dispatch by device and dtype, never by failure:
-
-    * CPU tensors, and ``impl='reference'``, take the plain versions.
-    * CUDA bf16 launches kernels D and D′ at every M, the ragged edge masked
-      (the TPU's ``pick_block`` rule does not carry over).
-    * CUDA in any other dtype raises: at ViT widths the JAX package trains
-      fp32 through ``fused_gelu_dropout`` (kernels H/H′), which waits for
-      ROADMAP Queue 2 item 10.
+    :func:`mlp_route` picks the megakernel or the chain by dtype and row
+    count, on every device; the device picks kernels (CUDA) or plain
+    versions (CPU, and ``impl='reference'``). Both routes draw the same
+    masks from the same (seed, site) pairs and compute the same function:
+    in fp32 they agree to summation order. In bf16 they round at other
+    places, as the JAX package's two routes do: the chain rounds fc1's
+    output and the hidden gradient to bf16 where D/D′ keep fp32, and F
+    scales by bf16(1/(1-rate)) where D scales in fp32.
     """
     _build.check_impl(impl)
     if (rate > 0.0 or out_rate > 0.0) and seed is None:
         raise ValueError("MLP dropout with a rate > 0 needs a seed")
     shape = x.shape
-    use_kernel = impl == "auto" and x.device.type != "cpu"
-    if use_kernel and x.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"kernels D/D′ take bf16, got {x.dtype}: fp32 MLP training on "
-            "the card waits for ROADMAP Queue 2 item 10 (kernels H/H′, "
-            "fused_gelu_dropout)")
-    y = _FusedMlp.apply(x.reshape(-1, shape[-1]), w1, b1, w2, b2, seed,
-                        tuple(sites), float(rate), float(out_rate), use_kernel)
+    x2 = x.reshape(-1, shape[-1])
+    if mlp_route(x2.shape[0], shape[-1], w1.shape[0], x.dtype) == "chain":
+        y = mlp_train_chain(x2, w1, b1, w2, b2, seed, sites, rate, out_rate,
+                            impl)
+    else:
+        use_kernel = impl == "auto" and x.device.type != "cpu"
+        y = _FusedMlp.apply(x2, w1, b1, w2, b2, seed, tuple(sites),
+                            float(rate), float(out_rate), use_kernel)
     return y.reshape(shape)

@@ -69,13 +69,16 @@ def _bucketed_predict(images_u8, buckets, image_size, call) -> np.ndarray:
 
 @torch.no_grad()
 def _cast_weights_(model: torch.nn.Module, dtype: torch.dtype) -> None:
-    """Store every weight but LayerNorm's in the compute dtype once, instead
-    of casting it on every call; the numbers are the same."""
+    """Store every weight in the compute dtype once, instead of casting it
+    on every call; the numbers are the same. LayerNorm's stay fp32, and so
+    do a learned-static graph's adjacency logits, whose softmax the model
+    takes in fp32."""
     for mod in model.modules():
         if isinstance(mod, LayerNorm):
             continue
-        for p in mod.parameters(recurse=False):
-            p.data = p.data.to(dtype)
+        for name, p in mod.named_parameters(recurse=False):
+            if name != "adj_logits":
+                p.data = p.data.to(dtype)
 
 
 class Predictor:

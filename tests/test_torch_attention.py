@@ -1,12 +1,16 @@
 """The port's attention (gavit_tpu_torch.ops.attention) against the JAX
 package's: the v4 fused kernel ``_fused_qkv_flat`` (Pallas, interpret mode on
-the CPU) and ``attention_reference``, on the same numpy inputs.
+the CPU) and ``attention_reference``, the v3 pair ``_fused_qkv5`` (kernels K
+and K′, forward and ``jax.vjp``) against the port's plain versions, and the
+port's route against the JAX dispatcher's choice at ViT-B's shapes, on the
+same numpy inputs.
 
 Tolerances: 1e-5 in fp32, where both sides take fp32 products and differ
 only in summation order; 2e-2 in bf16, where the outputs are rounded to bf16
 (one ulp is 2^-8 relative) and a sum in another order can land an ulp away.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,3 +73,55 @@ def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
     with pytest.raises(ValueError, match="CUDA"):
         tattn.qkv_attention_kernel(
             torch.zeros(1, 13, 3 * H * 64), 0.125, H)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("n", [40, 33])
+def test_long_attention_plain_versions_match_jax_v3(n, dtype):
+    """K's and K′'s plain versions against the TPU kernels they replace
+    (``_fused_qkv5``: ``_fwd_kernel_v3`` and, through ``jax.vjp``,
+    ``_bwd_kernel_v3``), B 1, H 2, d 16, on the v3 layout [B, 3, H, N, d]."""
+    jdt, tdt = DTYPES[dtype]
+    b, h, d = 1, 2, 16
+    scale = d ** -0.5
+    rng = np.random.default_rng(n)
+    qkv = rng.standard_normal((b, n, 3 * h * d)).astype(np.float32)
+    dout = rng.standard_normal((b, h, n, d)).astype(np.float32)
+    q5 = jnp.asarray(qkv, jdt).reshape(b, n, 3, h, d).transpose(0, 2, 3, 1, 4)
+    want, vjp = jax.vjp(lambda x: jattn._fused_qkv5(x, scale), q5)
+    (dq5,) = vjp(jnp.asarray(dout, jdt))
+
+    tq = torch.from_numpy(qkv).to(tdt)
+    got = tattn.attention_reference(*tattn._split_heads(tq, h), scale)
+    dgot = tattn.attention_backward_reference(
+        tq, torch.from_numpy(dout).to(tdt), scale, h)
+    assert got.dtype == dgot.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype],
+                               rtol=0)
+    # dqkv rows [B, N, 3·H·d] → [B, 3, H, N, d]
+    dgot5 = dgot.float().reshape(b, n, 3, h, d).permute(0, 2, 3, 1, 4)
+    np.testing.assert_allclose(dgot5.numpy(), np.asarray(dq5, np.float32),
+                               atol=TOL[dtype], rtol=0)
+
+
+def test_route_picks_the_jax_dispatchers_family():
+    """At ViT-B's shapes (12 heads, d 64, bf16) the JAX dispatcher takes v4
+    at 224 px (N=197) and v3 at 384 px (N=577), where the port takes A and
+    K; past v3's bound both leave the exact kernels (the port raises until
+    L/L′ are ported)."""
+    bf = torch.bfloat16
+    assert jattn._v4_fits(12, 197, 64, 2)
+    assert tattn.attention_route(197, bf) == "A"
+    assert not jattn._v4_fits(12, 577, 64, 2) and jattn._v3_fits(577, 64, 2)
+    assert tattn.attention_route(577, bf) == "K"
+    k_max = tattn.K_MAX_N
+    assert jattn._v3_fits(k_max, 64, 2) and not jattn._v3_fits(k_max + 1,
+                                                              64, 2)
+    assert tattn.attention_route(k_max, bf) == "K"
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        tattn.attention_route(k_max + 1, bf)
+    assert tattn.attention_route(225, bf) == "K"
+    assert tattn.attention_route(416, torch.float32) == "A"
+    with pytest.raises(NotImplementedError, match="L/L′"):
+        tattn.attention_route(417, torch.float32)

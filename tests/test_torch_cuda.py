@@ -1,11 +1,12 @@
 """The Hopper kernels against their plain PyTorch versions on the card, at
 the edges the main paths do not reach: ragged and tiny N and M, widths that
 are not a multiple of a tile, k past N-1, exact ties, the threshold
-fallback, each body's dispatch bound (attention's tensor-core bodies up to
-224 keys, the graph's up to 256), dropout rates 0 and 0.1 with the masks
-bit-identical to the plain version's, and the training kernels' gradients
-against torch.autograd through the plain versions. chip_smoke.py covers the
-serving and training shapes themselves.
+fallback, each body's dispatch bound (attention's kernel A up to 224 keys
+and K past it, the graph's tensor-core body up to 256), dropout (F) and
+GELU + dropout (H, H′) at rates 0 and 0.1 with the masks bit-identical to
+the plain version's, the MLP's two routes, and the training kernels'
+gradients against torch.autograd through the plain versions. chip_smoke.py
+covers the serving and training shapes themselves.
 
 Marked ``cuda``: they skip without a card. This file imports nothing of JAX,
 so it runs on a machine without it, where the JAX-importing conftest is left
@@ -58,10 +59,13 @@ def _err(a, b):
                                        (1, 224, 3), (1, 225, 3), (2, 400, 1)])
 def test_attention_kernel_matches_plain(dev, dtype, b, n, heads):
     qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(dtype)
-    before = A.KERNEL_LAUNCHES
+    # bf16 past 224 keys takes kernel K
+    counter = {"A": "KERNEL_LAUNCHES", "K": "LONG_KERNEL_LAUNCHES"}[
+        A.attention_route(n, dtype)]
+    before = getattr(A, counter)
     got = A.fused_qkv_attention(qkv.view(b, n, 3, heads, 64), 0.125,
                                 merge_heads=False)
-    assert A.KERNEL_LAUNCHES == before + 1
+    assert getattr(A, counter) == before + 1
     want = A.attention_reference(*A._split_heads(qkv, heads), 0.125)
     torch.cuda.synchronize()
     assert got.shape == (b, heads, n, 64) and got.dtype == dtype
@@ -319,31 +323,74 @@ def test_mlp_train_kernels_match_plain(dev, m, d, f, rate):
         assert bool((go[~keep_h] == 0).all()) and bool((dh1[~keep_h] == 0).all())
 
 
-@pytest.mark.parametrize("m,d,f", [(197, 64, 256), (394, 768, 3072)])
+@pytest.mark.parametrize("m,d,f", [(197, 64, 256), (394, 768, 3072),
+                                   (256, 64, 256), (512, 768, 3072)])
 def test_mlp_train_gradients_match_autograd_through_plain(dev, m, d, f):
+    """Both routes in bf16: M = 197 and 394 have no row block (the chain:
+    H/H′, F), 256 and 512 do (D/D′)."""
+    fused = M.mlp_route(m, d, f, torch.bfloat16) == "fused"
+    assert fused == (m % 32 == 0)
     grads = {}
     for impl in ("auto", "reference"):
         leaves = [t.clone().requires_grad_(True)
                   for t in _mlp_train_inputs(dev, m, d, f)]
+        before = _launches()
         y = M.fused_mlp(*leaves, SEED, (1, 2), 0.1, 0.1, impl=impl)
         y.backward(_randn(dev, m, d, seed=9).to(torch.bfloat16))
         grads[impl] = [t.grad for t in leaves]
+        moved = [a - b for a, b in zip(_launches(), before)]
+        if impl == "auto":
+            assert moved == ([1, 1, 0, 0, 0] if fused else [0, 0, 1, 1, 2])
     torch.cuda.synchronize()
     for got, want in zip(grads["auto"], grads["reference"]):
         assert got.dtype == want.dtype and _rel(got, want) <= 2e-2
 
 
-def test_mlp_train_refuses_fp32_on_the_card(dev):
-    """fp32 MLP training on the card waits for kernels H/H′; the wrapper
-    raises rather than run the plain version on CUDA tensors."""
-    x, w1, b1, w2, b2 = (t.float() for t in _mlp_train_inputs(dev, 5, 64, 256))
-    before = (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
-        M.fused_mlp(x, w1, b1, w2, b2, SEED, (1, 2), 0.1, 0.1)
-    assert (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES) == before
-    y = M.fused_mlp(x, w1, b1, w2, b2, SEED, (1, 2), 0.1, 0.1,
-                    impl="reference")
-    assert y.shape == x.shape and y.dtype == torch.float32
+def _launches():
+    return (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES, DR.GELU_LAUNCHES,
+            DR.GELU_BWD_LAUNCHES, DR.KERNEL_LAUNCHES)
+
+
+def test_mlp_train_fp32_takes_the_chain_on_the_card(dev):
+    """fp32 MLP training on the card runs fc1, H, fc2 and F (H′ and F in
+    the backward), launches no D or D′, and matches the plain versions."""
+    grads = {}
+    for impl in ("auto", "reference"):
+        leaves = [t.float().clone().requires_grad_(True)
+                  for t in _mlp_train_inputs(dev, 5, 64, 256)]
+        before = _launches()
+        y = M.fused_mlp(*leaves, SEED, (1, 2), 0.1, 0.1, impl=impl)
+        y.backward(_randn(dev, 5, 64, seed=9))
+        grads[impl] = [y.detach()] + [t.grad for t in leaves]
+        moved = [a - b for a, b in zip(_launches(), before)]
+        assert moved == ([0, 0, 1, 1, 2] if impl == "auto" else [0] * 5)
+    torch.cuda.synchronize()
+    for got, want in zip(grads["auto"], grads["reference"]):
+        assert got.dtype == torch.float32 and _err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (3, 577, 3072),
+                                   (1001,)])
+def test_gelu_dropout_kernels_are_bit_exact(dev, dtype, shape, rate):
+    """H and H′ against their plain versions: the same bits, zeros
+    included (GELU runs the same IEEE operations on both sides)."""
+    x = _randn(dev, *shape, seed=5, scale=2.0).to(dtype)
+    g = _randn(dev, *shape, seed=6).to(dtype)
+    before = (DR.GELU_LAUNCHES, DR.GELU_BWD_LAUNCHES)
+    y = DR.gelu_dropout_kernel(x, SEED, 23, rate)
+    dx = DR.gelu_dropout_bwd_kernel(x, g, SEED, 23, rate)
+    assert (DR.GELU_LAUNCHES, DR.GELU_BWD_LAUNCHES) == (before[0] + 1,
+                                                        before[1] + 1)
+    torch.cuda.synchronize()
+    assert torch.equal(y, DR.gelu_dropout_reference(x, SEED, 23, rate))
+    assert torch.equal(dx, DR.gelu_dropout_bwd_reference(x, g, SEED, 23,
+                                                         rate))
+    # through the autograd op: x saved, the mask regenerated
+    xr = x.clone().requires_grad_(True)
+    DR.fused_gelu_dropout(xr, SEED, 23, rate).backward(g)
+    assert torch.equal(xr.grad, dx)
 
 
 @pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (2, 13, 2), (2, 17, 12),
@@ -421,3 +468,68 @@ def test_small_vit_training_step_through_kernels(dev):
         if b.abs().max() > 0:
             cos = torch.nn.functional.cosine_similarity(a, b, dim=0)
             assert cos.item() >= 0.99
+
+
+LONG_CASES = [(1, 1, 1), (2, 17, 2), (1, 64, 3), (1, 65, 3), (3, 130, 2),
+              (1, 577, 12), (2, 749, 2)]
+
+
+@pytest.mark.parametrize("b,n,heads", LONG_CASES)
+def test_long_attention_kernels_match_plain(dev, b, n, heads):
+    """K and K′ at ragged N (one token, a partial tile, exactly one and
+    just past one 64-row tile, 384 px, K′'s bound), dO through the strides
+    it arrives with and contiguous."""
+    bf = torch.bfloat16
+    qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(bf)
+    before = (A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES)
+    got = A.qkv_attention_long_kernel(qkv, 0.125, heads)
+    want = A.attention_reference(*A._split_heads(qkv, heads), 0.125)
+    do_bnhd = _randn(dev, b, n, heads, 64, seed=n + 1).to(bf)
+    dwant = A.attention_backward_reference(qkv, do_bnhd.transpose(1, 2),
+                                           0.125, heads)
+    for dout in (do_bnhd.transpose(1, 2),
+                 do_bnhd.transpose(1, 2).contiguous()):
+        dgot = A.qkv_attention_long_bwd_kernel(qkv, dout, 0.125, heads)
+        torch.cuda.synchronize()
+        assert dgot.shape == qkv.shape and dgot.dtype == bf
+        assert _rel(dgot, dwant) <= 2e-2
+    assert (A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1] + 2)
+    assert got.shape == (b, heads, n, 64) and _err(got, want) <= TOL[bf]
+
+
+def test_long_attention_gradients_match_autograd_through_plain(dev):
+    b, n, heads = 2, 577, 12
+    grads = {}
+    for impl in ("auto", "reference"):
+        qkv = _randn(dev, b, n, 3 * heads * 64, seed=1).to(
+            torch.bfloat16).requires_grad_(True)
+        before = A.LONG_BWD_KERNEL_LAUNCHES
+        out = A.fused_qkv_attention(qkv.view(b, n, 3, heads, 64), 0.125,
+                                    merge_heads=False, impl=impl)
+        merged = out.transpose(1, 2).reshape(b, n, heads * 64)
+        merged.backward(_randn(dev, b, n, heads * 64, seed=2).to(
+            torch.bfloat16))
+        assert A.LONG_BWD_KERNEL_LAUNCHES == before + (impl == "auto")
+        grads[impl] = qkv.grad
+    torch.cuda.synchronize()
+    assert _rel(grads["auto"], grads["reference"]) <= 2e-2
+
+
+def test_route_raises_past_the_long_kernels_bound(dev):
+    n = A.K_MAX_N + 1
+    qkv = torch.zeros(1, n, 3 * 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="L/L′"):
+        A.fused_qkv_attention(qkv.view(1, n, 3, 1, 64), 0.125)
+    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+        A.qkv_attention_long_kernel(qkv, 0.125, 1)
+    with pytest.raises(TypeError, match="bfloat16"):
+        A.qkv_attention_long_kernel(qkv[:, :5].float().contiguous(), 0.125, 1)
+    # kernel A's fp32 body ends where the route says it does
+    lib = A._build.library()
+    f32 = A._build.dtype_code(torch.float32)
+    assert lib.gavit_attention_fits(A.A_MAX_N[torch.float32], f32) == 1
+    assert lib.gavit_attention_fits(A.A_MAX_N[torch.float32] + 1, f32) == 0
+    bf = A._build.dtype_code(torch.bfloat16)
+    assert lib.gavit_attention_fits(224, bf) == 1
+    assert lib.gavit_attention_fits(225, bf) == 0

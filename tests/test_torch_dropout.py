@@ -131,9 +131,10 @@ def _mlp_inputs(seed=0, m=34, d=64, f=256):
 @pytest.mark.parametrize("rate,out_rate", [(RATE, RATE), (0.0, RATE),
                                            (RATE, 0.0)])
 def test_training_mlp_plain_version_equals_hand_chain(rate, out_rate):
-    """fp32: the plain version of D/D′ against F.gelu (exact erf) and the
-    explicit masks, forward and through torch.autograd (the A&S erf of the
-    TPU kernels is within 1.5e-7 of erf)."""
+    """fp32: the plain versions of both MLP routes (D/D′, and the chain
+    through H/H′ and F) against F.gelu (exact erf) and the explicit masks,
+    forward and through torch.autograd (the A&S erf of the TPU kernels is
+    within 1.5e-7 of erf)."""
     x, w1, b1, w2, b2 = _mlp_inputs()
     seed, sites = philox.step_seed(7, 0), (11, 12)
     m, f = x.shape[0], w1.shape[0]
@@ -151,14 +152,22 @@ def test_training_mlp_plain_version_equals_hand_chain(rate, out_rate):
     dy = torch.randn(want.shape, generator=torch.Generator().manual_seed(1))
     want.backward(dy)
 
-    args = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
-    got = tmlp.fused_mlp(*args, seed, sites, rate, out_rate)
-    got.backward(dy)
-    torch.testing.assert_close(got, want.detach(), rtol=0, atol=2e-6)
-    for a, b in zip(args, leaves):
-        torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-5)
-    # the masks are the Philox ones: dropped outputs are exactly 0
-    assert torch.equal(got.detach() == 0, ~keep_o | (want.detach() == 0))
+    # both routes: fp32 takes the chain (H/H′'s and F's plain versions);
+    # the megakernel's plain versions (D/D′) through their autograd op
+    routes = (
+        lambda *a: tmlp.fused_mlp(*a, seed, sites, rate, out_rate),
+        lambda *a: tmlp._FusedMlp.apply(*a, seed, sites, rate, out_rate,
+                                        False),
+    )
+    for route in routes:
+        args = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        got = route(*args)
+        got.backward(dy)
+        torch.testing.assert_close(got, want.detach(), rtol=0, atol=2e-6)
+        for a, b in zip(args, leaves):
+            torch.testing.assert_close(a.grad, b.grad, rtol=0, atol=1e-5)
+        # the masks are the Philox ones: dropped outputs are exactly 0
+        assert torch.equal(got.detach() == 0, ~keep_o | (want.detach() == 0))
 
 
 def _tiny_model(drop_rate=RATE, drop_path_rate=0.0):
@@ -211,3 +220,53 @@ def test_drop_path_draws_from_the_generator():
         outs = {tuple(model(img, generator=torch.Generator().manual_seed(s))
                       .flatten().tolist()) for s in range(4)}
     assert len(outs) > 1
+
+
+def test_gelu_dropout_at_rate_zero_matches_jax():
+    """H's and H′'s plain versions against the JAX package's
+    ``fused_gelu_dropout`` (its CPU path: the A&S erf in another order of
+    operations) and its ``jax.vjp``, fp32, within 1e-6."""
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((2, 17, 48)) * 2).astype(np.float32)
+    g = rng.standard_normal(x.shape).astype(np.float32)
+    jseed = jnp.asarray([3], jnp.int32)
+    want, vjp = jax.vjp(lambda a: jdrop.fused_gelu_dropout(a, jseed, 0.0),
+                        jnp.asarray(x))
+    (dwant,) = vjp(jnp.asarray(g))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    got = tdrop.fused_gelu_dropout(tx, None, 9, 0.0)
+    got.backward(torch.from_numpy(g))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(dwant), atol=1e-6,
+                               rtol=0)
+    # the exact GELU, not tanh's
+    torch.testing.assert_close(got.detach(), F.gelu(tx.detach()), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gelu_dropout_masks_and_backward(dtype):
+    """At rate 0.1 the plain version is keep·GELU·(1/(1-rate)) under
+    ``philox.keep_mask`` of its (seed, site) (the JAX CPU path draws
+    jax.random masks, so bits cannot be compared there), and autograd's
+    gradient is H′'s plain version, whose zeros are the same mask."""
+    x = torch.randn(5, 33, 40, generator=torch.Generator().manual_seed(2))
+    x = x.to(dtype).requires_grad_(True)
+    seed, site = philox.step_seed(11, 2), 8
+    y = tdrop.fused_gelu_dropout(x, seed, site, RATE)
+    keep = philox.keep_mask(x.shape, seed, site, RATE)
+    gelu, _ = tdrop.gelu_and_grad(x.detach().float())
+    want = torch.where(keep, gelu * (1 / (1 - RATE)), 0.0).to(dtype)
+    assert torch.equal(y.detach(), want)
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(3))
+    y.backward(g.to(dtype))
+    dx = tdrop.gelu_dropout_bwd_reference(x.detach(), g.to(dtype), seed, site,
+                                          RATE)
+    assert torch.equal(x.grad, dx)
+    assert bool((dx[~keep] == 0).all()) and bool((y.detach()[~keep] == 0).all())
+    # another site draws another mask
+    other = tdrop.gelu_dropout_reference(x.detach(), seed, site + 1, RATE)
+    assert not torch.equal(other == 0, y.detach() == 0)
+    with pytest.raises(ValueError, match="seed"):
+        tdrop.fused_gelu_dropout(x, None, site, RATE)

@@ -1,13 +1,24 @@
 """The port's VisionTransformer against gavit_tpu's on the same weights
 (carried over with ``load_flax_params``), fp32 on the CPU, graph gates
-nonzero (they are zero at init, which would hide the graph branch), with the
-CLS token inside and outside the graph. The bar is logits within 1e-4, well
-under the repo's 1e-3: both sides run fp32 products in different orders.
+nonzero (they are zero at init, which would hide the graph branch) and
+learned-static adjacency logits drawn from a seed (zero at init, which would
+make the adjacency uniform), with the CLS token inside and outside the
+graph. The bar is logits within 1e-4, well under the repo's 1e-3: both
+sides run fp32 products in different orders.
 
-Also: the weight bridge is strict, and the initialisers follow the JAX
-package's distributions.
+The weights come from the port's initialiser through ``to_flax_tree``; the
+tree is held leaf for leaf (path and shape) against the JAX model's own
+parameter tree from ``jax.eval_shape`` of its ``init_params``. The JAX
+forward runs under ``jax.jit``, its Pallas kernels in interpret mode: one
+compile per model instead of an eager interpretation of every op.
+
+Also: the weight bridge is strict and round-trips a learned-static tree,
+and the initialisers follow the JAX package's distributions.
 """
 
+import dataclasses
+import functools
+import json
 from pathlib import Path
 
 import jax
@@ -24,7 +35,8 @@ from gavit_tpu.models.vit import init_params as jax_init_params
 from gavit_tpu_torch.config import from_dict, load_config
 from gavit_tpu_torch.models.graph import GraphBlock
 from gavit_tpu_torch.models.vit import build_model, count_params, init_params
-from gavit_tpu_torch.utils.convert import flatten_tree, load_flax_params
+from gavit_tpu_torch.utils.convert import (flatten_tree, load_flax_params,
+                                           to_flax_tree)
 
 GATE = 0.5
 
@@ -44,16 +56,46 @@ def tiny_cfg(**graph):
     return from_dict(tiny_raw(**graph))
 
 
-def jax_params(graph, seed=0):
-    """The JAX model of the same config dict, and its parameter tree with
-    the graph gates at GATE."""
-    model = jax_build_model(jax_from_dict(tiny_raw(**graph)).model,
-                            precision="fp32")
-    params = jax.tree.map(np.asarray,
-                          jax_init_params(model, jax.random.key(seed)))
-    for j in range(2):
-        params[f"graph_{j}"]["gate"] = np.float32(GATE)
-    return model, params
+def _jax_side(jcfg):
+    """(shapes of the JAX model's parameter tree by '/'-joined path, its
+    jitted deterministic forward, its parameter count) for a JAX config,
+    built once per model: configurations whose models are equal (two
+    shipped files are, at this width) share one compile."""
+    return _jax_model(json.dumps(dataclasses.asdict(jcfg.model),
+                                 sort_keys=True))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_model(model_json: str):
+    jmodel = jax_build_model(jax_from_dict({"model": json.loads(model_json)})
+                             .model, precision="fp32")
+    tree = jax.eval_shape(lambda k: jax_init_params(jmodel, k),
+                          jax.random.key(0))
+    shapes = {"/".join(p.key for p in path): tuple(leaf.shape)
+              for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+    forward = jax.jit(lambda params, x: jmodel.apply(
+        {"params": params}, x, deterministic=True))
+    return shapes, forward, jax_count_params(tree)
+
+
+def port_weights(cfg, seed):
+    """The port's model at ``seed`` with the graph gates at GATE and any
+    learned-static logits drawn from a normal, and its Flax tree."""
+    model = init_params(build_model(cfg.model),
+                        torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for gb in model.graphs:
+            gb.gate.fill_(GATE)
+            if gb.adj_logits is not None:
+                gb.adj_logits.copy_(torch.randn(gb.adj_logits.shape,
+                                                generator=g))
+    return model, to_flax_tree(model)
+
+
+def assert_matches_jax_tree(params, shapes):
+    got = {k: tuple(v.shape) for k, v in flatten_tree(params).items()}
+    assert got == shapes
 
 
 @pytest.mark.parametrize("graph", [
@@ -63,11 +105,13 @@ def jax_params(graph, seed=0):
 ])
 def test_vit_fp32_logits_match_jax(graph):
     cfg = tiny_cfg(**graph)
-    jmodel, params = jax_params(graph)
+    shapes, forward, _ = _jax_side(jax_from_dict(tiny_raw(**graph)))
+    model, params = port_weights(cfg, 0)
+    assert_matches_jax_tree(params, shapes)
     x = np.random.default_rng(0).standard_normal((3, 32, 32, 3)).astype(
         np.float32)
-    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x),
-                                   deterministic=True))
+    want = np.asarray(forward(params, jnp.asarray(x)))
+    # the bridge carries the tree into a fresh model
     model = load_flax_params(build_model(cfg.model, precision="fp32"), params)
     with torch.no_grad():
         got = model(torch.from_numpy(x))
@@ -83,7 +127,7 @@ def test_vit_fp32_logits_match_jax(graph):
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "configs")
                  .rglob("*.yaml"))
 # configs whose model the port does not build yet, and the ROADMAP item
-UNPORTED = {"finetune_384": "Queue 1 item 2", "vit_b16_moe": "Queue 1 item 11"}
+UNPORTED = {"vit_b16_moe": "Queue 1 item 11"}
 # each file's own graph settings, at a tiny width and depth (the graph sites
 # follow the depth as the file's rule places them)
 NARROW = ["model.img_size=32", "model.patch_size=8", "model.embed_dim=64",
@@ -96,24 +140,20 @@ def test_shipped_config_logits_match_jax(path):
     the port's model matches the JAX model's fp32 logits (1e-4, as above),
     or refuses a model it does not port yet, naming the ROADMAP item."""
     cfg = load_config(str(path), NARROW)
-    jcfg = jax_load_config(str(path), NARROW)
     if path.stem in UNPORTED:
         with pytest.raises(NotImplementedError, match=UNPORTED[path.stem]):
             build_model(cfg.model)
         return
-    jmodel = jax_build_model(jcfg.model, precision="fp32")
-    params = jax.tree.map(np.asarray,
-                          jax_init_params(jmodel, jax.random.key(1)))
+    jcfg = jax_load_config(str(path), NARROW)
     sites = jcfg.model.graph_insert_after()
     assert sites
-    for j in range(len(sites)):
-        params[f"graph_{j}"]["gate"] = np.float32(GATE)
+    shapes, forward, _ = _jax_side(jcfg)
+    model, params = port_weights(cfg, 1)
+    assert_matches_jax_tree(params, shapes)
+    assert model.graph_sites == tuple(sorted(set(sites)))
     x = np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(
         np.float32)
-    want = np.asarray(jmodel.apply({"params": params}, jnp.asarray(x),
-                                   deterministic=True))
-    model = load_flax_params(build_model(cfg.model), params)
-    assert model.graph_sites == tuple(sorted(set(sites)))
+    want = np.asarray(forward(params, jnp.asarray(x)))
     with torch.no_grad():
         got = model(torch.from_numpy(x))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
@@ -121,9 +161,10 @@ def test_shipped_config_logits_match_jax(path):
 
 def test_bridge_is_strict_and_reads_npz(tmp_path):
     cfg = tiny_cfg()
-    jmodel, params = jax_params({})
+    _, params = port_weights(cfg, 0)
     model = build_model(cfg.model)
-    assert count_params(model) == jax_count_params(params)
+    _, _, jax_count = _jax_side(jax_from_dict(tiny_raw()))
+    assert count_params(model) == jax_count
     flat = flatten_tree(params)
 
     missing = dict(flat)
@@ -149,6 +190,31 @@ def test_bridge_is_strict_and_reads_npz(tmp_path):
         params["blocks_0"]["attn"]["qkv"]["kernel"].T)
 
 
+@pytest.mark.parametrize("include_cls", [False, True])
+def test_bridge_round_trips_learned_static(include_cls):
+    """graph_0/adj_logits ([n, n] over the tokens the block sees, as the JAX
+    model's tree holds it) goes through to_flax_tree and load_flax_params
+    exactly; a wrong shape raises naming the key."""
+    graph = {"adjacency": "learned_static", "num_blocks": 1,
+             "include_cls": include_cls}
+    cfg = tiny_cfg(**graph)
+    shapes, _, _ = _jax_side(jax_from_dict(tiny_raw(**graph)))
+    n = 16 + int(include_cls)
+    assert shapes["graph_0/adj_logits"] == (n, n)
+    model, params = port_weights(cfg, 2)
+    assert_matches_jax_tree(params, shapes)
+    back = to_flax_tree(load_flax_params(build_model(cfg.model), params))
+    flat, again = flatten_tree(params), flatten_tree(back)
+    assert set(flat) == set(again)
+    for key, val in flat.items():
+        np.testing.assert_array_equal(again[key], val)
+    assert np.abs(flat["graph_0/adj_logits"]).max() > 0
+    bad = dict(flat)
+    bad["graph_0/adj_logits"] = np.zeros((n - 1, n - 1), np.float32)
+    with pytest.raises(ValueError, match="graph_0/adj_logits"):
+        load_flax_params(build_model(cfg.model), bad)
+
+
 def test_init_params_distributions_and_seed():
     cfg = tiny_cfg()
     a = init_params(build_model(cfg.model), torch.Generator().manual_seed(3))
@@ -163,11 +229,21 @@ def test_init_params_distributions_and_seed():
     assert (a.blocks[1].mlp.fc1.bias == 0).all()
     assert (a.norm.weight == 1).all() and (a.norm.bias == 0).all()
     assert all(g.gate.item() == 0 for g in a.graphs)
+    static = init_params(build_model(tiny_cfg(
+        adjacency="learned_static").model), torch.Generator().manual_seed(3))
+    assert all((g.adj_logits == 0).all() for g in static.graphs)
 
 
-@pytest.mark.parametrize("graph", [{"dynamic": False},
-                                   {"adjacency": "learned_static"}])
+@pytest.mark.parametrize("graph", [
+    {"dynamic": False},
+    {"dynamic": False, "adjacency": "threshold", "threshold": 0.2},
+])
 def test_unported_graph_modes_raise(graph):
+    """The static adjacency shared across graph blocks is not ported; the
+    learned-static one is (it ignores ``dynamic``, as in the JAX model)."""
     cfg = tiny_cfg(**graph)
     with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         GraphBlock(64, cfg.model.graph)
+    static = tiny_cfg(dynamic=False, adjacency="learned_static")
+    assert GraphBlock(64, static.model.graph, num_patches=16).adj_logits \
+        .shape == (16, 16)

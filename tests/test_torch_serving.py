@@ -1,6 +1,7 @@
 """The port's serving layer: Predictor against gavit_tpu.serving.Predictor on
 the same weights and uint8 images (fp32 on the CPU, within 1e-4: fp32 on both
-sides, summation order only), preprocessing, validation and bucketing
+sides, summation order only), the image size taken from the config,
+preprocessing, validation and bucketing
 against the JAX package's, the HTTP handler of scripts/serve_torch.py
 in-process, and the port's isolation from JAX."""
 
@@ -21,11 +22,13 @@ from gavit_tpu import serving as jax_serving
 from gavit_tpu.config import from_dict as jax_from_dict
 from gavit_tpu_torch.config import from_dict
 from gavit_tpu_torch.data.dataset import DISEASE_NAMES
+from gavit_tpu_torch.models.vit import build_model, init_params
 from gavit_tpu.ops.preprocess import val_preprocess as jax_val_preprocess
 from gavit_tpu.serving import Predictor as JaxPredictor
 from gavit_tpu_torch import serving
 from gavit_tpu_torch.ops.preprocess import val_preprocess
 from gavit_tpu_torch.serving import Predictor
+from gavit_tpu_torch.utils.convert import to_flax_tree
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
@@ -60,14 +63,16 @@ def test_val_preprocess_matches_jax():
 
 def test_predictor_matches_jax_predictor():
     """3 images pad to bucket 8 on both sides; the graph gates are nonzero
-    so the graph branch reaches the probabilities."""
-    jcfg = jax_from_dict(TINY)
-    jp = JaxPredictor(jcfg, precision="fp32")
-    params = dict(jp.params)
-    for j in range(2):
-        params[f"graph_{j}"] = {**params[f"graph_{j}"],
-                                "gate": jnp.float32(0.5)}
-    jp = JaxPredictor(jcfg, precision="fp32", params=params)
+    so the graph branch reaches the probabilities. The weights are the
+    port's seeded ones in the Flax layout, handed to both Predictors (the
+    JAX one jits its forward)."""
+    model = init_params(build_model(tiny_cfg().model),
+                        torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for gb in model.graphs:
+            gb.gate.fill_(0.5)
+    params = to_flax_tree(model)
+    jp = JaxPredictor(jax_from_dict(TINY), precision="fp32", params=params)
     pred = Predictor(tiny_cfg(), params, precision="fp32", device="cpu")
     imgs = _images(3, seed=1)
     want = jp.predict_proba(imgs)
@@ -76,6 +81,28 @@ def test_predictor_matches_jax_predictor():
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     assert pred.latency_stats()["count"] == 1
     assert pred.disease_names == list(DISEASE_NAMES)
+
+
+def test_predictor_takes_the_config_image_size():
+    """A learned-static model at 48 px (9 patches of 16): the Predictor
+    validates and buckets images of the config's size, refuses others,
+    and keeps the adjacency logits in fp32 while the rest is cast."""
+    raw = {"model": {"name": "custom", "img_size": 48, "patch_size": 16,
+                     "embed_dim": 64, "depth": 2, "num_heads": 2,
+                     "num_classes": 14,
+                     "graph": {"enabled": True, "num_blocks": 1,
+                               "adjacency": "learned_static"}},
+           "data": {"image_size": 48}}
+    pred = Predictor(from_dict(raw), precision="bf16", device="cpu",
+                     buckets=(1, 4))
+    assert pred.model.graphs[0].adj_logits.dtype == torch.float32
+    assert pred.model.head.weight.dtype == torch.bfloat16
+    imgs = np.random.default_rng(4).integers(0, 256, (5, 48, 48, 3),
+                                             np.uint8)
+    probs = pred.predict_proba(imgs)
+    assert probs.shape == (5, 14) and np.isfinite(probs).all()
+    with pytest.raises(ValueError, match="48, 48, 3"):
+        pred.predict_proba(_images(1))
 
 
 @pytest.mark.parametrize("shape", [(32, 32, 3), (2, 32, 32, 3),

@@ -1,8 +1,13 @@
 """The port's training step against the JAX package's, fp32 on the CPU at a
 tiny size (depth 2, embed 64, 2 heads, 32 px with patch 8, two kNN graph
 blocks with k=4 and gates at 0.5 — they are zero at init, which would make
-graph parity vacuous), drop rate 0, the same weights (numpy from a seed,
-through ``load_flax_params``), the same images, labels and pos_weight.
+graph parity vacuous), drop rate 0, the same weights (the port's seeded
+initialiser in the Flax layout, held leaf for leaf against the JAX model's
+tree, through ``load_flax_params``), the same images, labels and
+pos_weight. A second configuration is the 384-px fine-tune's graph at the
+same size: one learned-static graph block, batch 3 (M = 51 rows: no row
+block, so both packages take the unfused MLP chain), its adjacency logits
+drawn from a seed (zero at init, which would make the adjacency uniform).
 
 * the loss, the logits and every parameter's gradient (the λ included)
   against ``jax.value_and_grad`` of ``dynamic_weighted_loss(model.apply(...,
@@ -27,7 +32,7 @@ from gavit_tpu.training import losses as jlosses
 from gavit_tpu.training.optimizer import make_optimizer as jax_make_optimizer
 from gavit_tpu.training.schedule import warmup_cosine_schedule as jax_sched
 from gavit_tpu_torch.config import from_dict
-from gavit_tpu_torch.models.vit import build_model
+from gavit_tpu_torch.models.vit import build_model, init_params
 from gavit_tpu_torch.ops.preprocess import val_preprocess
 from gavit_tpu_torch.training.losses import DynamicWeightedLoss
 from gavit_tpu_torch.training.optimizer import decays, make_optimizer
@@ -40,32 +45,47 @@ GATE = 0.5
 BATCH = 4
 
 
-def tiny_raw(**training):
+KNN = {"enabled": True, "num_blocks": 2, "insert_after": [0, 1],
+       "adjacency": "knn", "k": 4}
+LEARNED = {"enabled": True, "num_blocks": 1, "adjacency": "learned_static",
+           "temperature": 0.7}
+
+
+def tiny_raw(graph=None, batch=BATCH, **training):
     return {
         "model": {"name": "custom", "img_size": 32, "patch_size": 8,
                   "embed_dim": 64, "depth": 2, "num_heads": 2,
                   "num_classes": 14, "drop_rate": 0.0,
-                  "graph": {"enabled": True, "num_blocks": 2,
-                            "insert_after": [0, 1], "adjacency": "knn",
-                            "k": 4}},
-        "data": {"image_size": 32, "batch_size": BATCH},
+                  "graph": graph or KNN},
+        "data": {"image_size": 32, "batch_size": batch},
         "training": {"precision": "fp32", "epochs": 5, "warmup_epochs": 1,
                      **training},
     }
 
 
-def setup(seed=0, **training):
-    raw = tiny_raw(**training)
+def setup(seed=0, graph=None, batch=BATCH, **training):
+    raw = tiny_raw(graph, batch, **training)
     jcfg = jax_from_dict(raw)
     jmodel = jax_build_model(jcfg.model, precision="fp32")
-    params = jax.tree.map(np.asarray,
-                          jax_init_params(jmodel, jax.random.key(seed)))
-    for j in range(2):
-        params[f"graph_{j}"]["gate"] = np.float32(GATE)
+    model = init_params(build_model(from_dict(raw).model),
+                        torch.Generator().manual_seed(seed))
+    g = torch.Generator().manual_seed(seed + 100)
+    with torch.no_grad():
+        for gb in model.graphs:
+            gb.gate.fill_(GATE)
+            if gb.adj_logits is not None:
+                gb.adj_logits.copy_(torch.randn(gb.adj_logits.shape,
+                                                generator=g))
+    params = to_flax_tree(model)
+    want = jax.eval_shape(lambda k: jax_init_params(jmodel, k),
+                          jax.random.key(0))
+    assert {k: v.shape for k, v in flatten_tree(params).items()} == {
+        "/".join(p.key for p in path): leaf.shape
+        for path, leaf in jax.tree_util.tree_flatten_with_path(want)[0]}
     rng = np.random.default_rng(seed)
-    imgs = rng.integers(0, 256, (BATCH, 32, 32, 3), np.uint8)
+    imgs = rng.integers(0, 256, (batch, 32, 32, 3), np.uint8)
     x = val_preprocess(torch.from_numpy(imgs)).numpy()
-    labels = (rng.random((BATCH, 14)) < 0.3).astype(np.float32)
+    labels = (rng.random((batch, 14)) < 0.3).astype(np.float32)
     pos_weight = rng.uniform(0.5, 4.0, 14).astype(np.float32)
     return raw, jcfg, jmodel, params, x, labels, pos_weight
 
@@ -98,8 +118,9 @@ def _assert_tree_close(got: dict, want: dict, *, rel=None, atol=None):
         assert err <= tol, f"{key}: max err {err:.3e} > {tol:.3e}"
 
 
-def test_loss_logits_and_grads_match_jax():
-    raw, jcfg, jmodel, params, x, labels, pos_weight = setup()
+def _check_loss_logits_and_grads(graph=None, batch=BATCH):
+    raw, jcfg, jmodel, params, x, labels, pos_weight = setup(graph=graph,
+                                                             batch=batch)
     jparams = {"model": params,
                "criterion": jlosses.init_criterion_params()}
     (jloss, jlogits), jgrads = jax.jit(jax.value_and_grad(
@@ -127,9 +148,23 @@ def test_loss_logits_and_grads_match_jax():
     _assert_tree_close({n: p.grad.numpy() for n, p in crit.named_parameters()},
                        jax.tree.map(np.asarray, jgrads["criterion"]),
                        rel=1e-4)
+    return grads
+
+
+def test_loss_logits_and_grads_match_jax():
+    grads = _check_loss_logits_and_grads()
     # the graph branch is live in the gradient (graph_1 sits after the last
     # block, where no attention carries the patch tokens to the CLS token)
     assert np.abs(grads["graph_0"]["value"]["kernel"]).max() > 1e-6
+
+
+def test_learned_static_loss_logits_and_grads_match_jax():
+    """The 384-px fine-tune's graph (learned_static) at the tiny size, batch
+    3: the adjacency logits' gradient is held like every other."""
+    grads = _check_loss_logits_and_grads(LEARNED, batch=3)
+    # small (one block carries the patches to the CLS token, through weights
+    # of σ 0.02) but not vacuous: held above at 1e-4 of its largest entry
+    assert np.abs(grads["graph_0"]["adj_logits"]).max() > 1e-8
 
 
 def test_loss_matches_jax_with_lambdas():
@@ -170,14 +205,19 @@ def test_schedule_and_decay_mask_match_jax():
     assert not any(n.endswith("qkv.weight") for n in masked)
 
 
-@pytest.mark.parametrize("decay_all", [True, False])
-def test_decay_groups_match_jax_mask(decay_all):
+@pytest.mark.parametrize("decay_all,graph", [
+    pytest.param(True, KNN, id="True"),
+    pytest.param(False, KNN, id="False"),
+    pytest.param(False, LEARNED, id="learned_static"),
+])
+def test_decay_groups_match_jax_mask(decay_all, graph):
     """Each parameter, the λ included, sits in a group of the port's AdamW
-    with weight decay exactly where the JAX package's optimizer decays it.
-    The JAX side is read off optax's second update (the first runs at lr 0)
-    at zero gradients on parameters of ones: Adam's step is 0 there, so a
-    leaf moves only if it decays."""
-    raw = tiny_raw(weight_decay_all_params=decay_all)
+    with weight decay exactly where the JAX package's optimizer decays it
+    (the learned-static adjacency logits included). The JAX side is read
+    off optax's second update (the first runs at lr 0) at zero gradients on
+    parameters of ones: Adam's step is 0 there, so a leaf moves only if it
+    decays."""
+    raw = tiny_raw(graph, weight_decay_all_params=decay_all)
     model = build_model(from_dict(raw).model)
     crit = DynamicWeightedLoss()
     ones = jax.tree.map(jnp.ones_like,
@@ -200,3 +240,5 @@ def test_decay_groups_match_jax_mask(decay_all):
     assert got == want
     assert any(want.values())
     assert all(want.values()) == decay_all  # the mask exempts some leaves
+    if graph is LEARNED:
+        assert want["model/graph_0/adj_logits"]

@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port's bf16 training step, on a card.
 
-    python3 tools/profile_torch_training.py [--batch 128] [--iters 5] \
-        [--out build/profile_train]
+    python3 tools/profile_torch_training.py [--config configs/vit_b16_graph2.yaml] \
+        [--batch 128] [--iters 5] [--out build/profile_train]
 
-Builds ``configs/vit_b16_graph2.yaml`` (dropout 0.1, graph gates 0.5,
-weights from a seed) through ``scripts/train_torch.py``'s trainer at the
-given batch, takes 3 warm-up steps on synthetic uint8 batches, then:
+Builds the configuration (``configs/vit_b16_graph2.yaml`` by default;
+``configs/finetune_384.yaml`` for the 384-px fine-tune, at its batch 16
+unless ``--batch`` says otherwise; dropout 0.1, graph gates 0.5, weights
+from a seed) through ``scripts/train_torch.py``'s trainer, takes 3 warm-up
+steps on synthetic uint8 batches, then:
 
 * times the step on the host clock around ``train_step`` and a
   synchronize (median over ``--iters``);
 * runs ``torch.profiler`` over ``--iters`` more steps and prints the device
   time per step grouped by kernel family (the port's kernels A, A′, C, D,
-  D′, F by name; cuBLAS GEMMs; LayerNorm; elementwise and reductions), the
+  D′, F, H, H′, K, K′ by name; cuBLAS GEMMs; LayerNorm; elementwise and reductions), the
   top kernels, the device busy time per step and the idle share of the
   wall time (1 - busy / wall);
 * writes a Chrome trace under ``--out``.
@@ -35,6 +37,9 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 # fragments of the (demangled) kernel names → family, first match wins
 FAMILIES = (
+    ("attn_long_fwd", "K long attention forward (attention_long.cu)"),
+    ("attn_long_bwd_q", "K′ query-major: dq, row statistics (attention_long.cu)"),
+    ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
     ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
     ("attn_fwd", "A attention forward (attention.cu)"),
     ("gemm_kernel<true, 3>", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
@@ -43,7 +48,12 @@ FAMILIES = (
     ("gemm_kernel<false, 1>", "D fc1 + GELU + mask (mlp.cu)"),
     ("gemm_kernel<false, 2>", "D fc2 + mask (mlp.cu)"),
     ("gemm_kernel<false, 0>", "B inference MLP (mlp.cu)"),
-    ("dropout_kernel", "F dropout (dropout.cu)"),
+    # dropout.cu's kernel sits in an anonymous namespace; PyTorch's own
+    # at::native::elementwise_kernel<128, ...> must not match
+    ("namespace)::elementwise_kernel<0,", "F dropout (dropout.cu)"),
+    ("namespace)::elementwise_kernel<1,", "H GELU + dropout (dropout.cu)"),
+    ("namespace)::elementwise_kernel<2,",
+     "H′ GELU + dropout backward (dropout.cu)"),
     ("graph_", "C graph op (graph.cu)"),
     ("layer_norm", "LayerNorm forward and backward"),
     ("nvjet", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
@@ -68,7 +78,9 @@ def family(name: str) -> str:
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--config", default="configs/vit_b16_graph2.yaml")
+    p.add_argument("--batch", type=int, default=None,
+                   help="default: 128 for vit_b16_graph2, else the file's")
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--out", default="build/profile_train")
     args = p.parse_args()
@@ -84,12 +96,15 @@ def main():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = load_config(str(ROOT / "configs" / "vit_b16_graph2.yaml"),
-                      [f"data.batch_size={args.batch}"])
+    path = ROOT / args.config
+    batch = args.batch or (128 if path.stem == "vit_b16_graph2" else None)
+    cfg = load_config(str(path),
+                      [f"data.batch_size={batch}"] if batch else [])
+    batch = cfg.data.batch_size
     dataset = train_torch.create_dataset(cfg)
     trainer = train_torch.build_trainer(cfg, dataset, "cuda", gate=0.5)
     images, labels = (torch.from_numpy(a) for a in next(
-        train_torch.batches(dataset, args.batch, 0)))
+        train_torch.batches(dataset, batch, 0)))
     card = torch.cuda.get_device_name(0)
     for _ in range(3):
         trainer.train_step(images, labels)
@@ -119,8 +134,9 @@ def main():
     busy_ms = sum(e.self_device_time_total for e in events) / 1000
     n = args.iters
     step = statistics.median(times)
-    print(f"[profile] train step b{args.batch} bf16 on {card}: {step:.3f} ms "
-          f"(host clock, median of {n}), {args.batch / step * 1000:.1f} "
+    print(f"[profile] {path.stem} train step b{batch} bf16 on {card}: "
+          f"{step:.3f} ms (host clock, median of {n}), "
+          f"{batch / step * 1000:.1f} "
           f"img/s; under the profiler wall {wall_ms / n:.3f} ms, device busy "
           f"{busy_ms / n:.3f} ms per step, idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
@@ -138,7 +154,8 @@ def main():
               f"ms/step {e.count // n:4d}x/step  {e.key[:100]}")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(out / f"trace_train_b{args.batch}.json"))
+    prof.export_chrome_trace(
+        str(out / f"trace_train_{path.stem}_b{batch}.json"))
 
 
 if __name__ == "__main__":
