@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths on
 one CUDA card: ViT-B/16 with two kNN graph blocks at 224 px
-(``configs/vit_b16_graph2.yaml``) and its 384-px fine-tune with a
-learned-static graph block (``configs/finetune_384.yaml``).
+(``configs/vit_b16_graph2.yaml``), its 384-px fine-tune with a
+learned-static graph block (``configs/finetune_384.yaml``), and ViT-B/16
+with 8-expert top-2 MoE MLPs in blocks 1, 3, ..., 11 and two kNN graph
+blocks (``configs/examples/vit_b16_moe.yaml``, one card: its mesh is read
+and not used).
 
     python3 chip_smoke.py
 
@@ -17,19 +20,24 @@ before the last line:
    the serving shapes of ViT-B/16 at 224 px; F (dropout), D and D′ (training
    MLP) and A′ (attention backward) at the training shapes (batch 128); K
    and K′ (long-sequence attention) at 384 px (N=577, b1 and b16), H and H′
-   (GELU + dropout) at the 384 fine-tune's hidden rows [16·577, 3072];
+   (GELU + dropout) at the 384 fine-tune's hidden rows [16·577, 3072]; M,
+   M′ and tgmm (the MoE expert MLP forward, backward and grouped dW) at the
+   b128 routing (T = 50432 pairs, tm = 256) of a seeded router, and with a
+   hot and an empty expert;
 4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
    (and the learned adjacency logits drawn from a normal), through the
    kernels (``impl='auto'``) and through the plain versions
    (``impl='reference'``) on the same weights: 8 images at 224 px, 16 at
-   384 px with the launch counts of that forward;
+   384 px, 64 (grouped engine) and 1 (dense engine) of the MoE model, with
+   the launch counts of that forward;
 5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a warmed
    224-px Predictor; every response must be 200 and match the plain-version
    Predictor; the kernels' launch counters, zeroed just before, must show
    that the requests went through every serving kernel;
 6. train: each configuration through ``scripts/train_torch.py``'s trainer
    (preprocess → forward with dropout 0.1 → loss → backward → AdamW),
-   vit_b16_graph2 at batch 128 and finetune_384 at its batch 16: 5 steps
+   vit_b16_graph2 and the MoE model at batch 128 (the MoE objective with
+   its auxiliary loss) and finetune_384 at its batch 16: 5 steps
    through the kernels against 5 through the plain versions from the same
    start (losses, and every gradient of the first step), the launch counts
    of one step, then 30 steps through the kernels that must lower the loss;
@@ -37,7 +45,8 @@ before the last line:
    events, median), Predictor p50 for one image at 224 and 384 px,
    images/s of the bf16 forward (224 px b64, 384 px b16) and of the train
    step (224 px b128, 384 px b16), and the 384 MLP's two routes (kernels
-   D/D′ against the chain of H/H′ and F) at M = 9232.
+   D/D′ against the chain of H/H′ and F) at M = 9232; the MoE kernels at
+   b128, its b64 forward, b128 train step and b1 p50.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -45,6 +54,7 @@ The last two lines are one JSON object describing the kernels and then
 
 from __future__ import annotations
 
+import contextlib
 import io
 import itertools
 import json
@@ -60,10 +70,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "vit_b16_graph2.yaml"
 CONFIG_384 = ROOT / "configs" / "finetune_384.yaml"
+CONFIG_MOE = ROOT / "configs" / "examples" / "vit_b16_moe.yaml"
 SEED = 0
 GATE = 0.5
 HEADS, HEAD_DIM, N_TOKENS, DIM, HIDDEN = 12, 64, 197, 768, 3072
 N_384, BATCH_384 = 577, 16  # tokens at 384 px, the fine-tune's batch
+EXPERTS, TOP_K = 8, 2  # the MoE example's experts and choices per token
 DTYPES = {"bf16": "bfloat16", "fp32": "float32"}  # names of torch dtypes
 
 # tolerances, with why:
@@ -457,6 +469,155 @@ def check_attention_bwd(dev, results, batch=TRAIN_BATCH, n=N_TOKENS,
     results["A′"]["cases"].append((qkv, do))
 
 
+def moe_case(dev, routing="router", batch=TRAIN_BATCH, n=N_TOKENS,
+             dim=DIM, hidden=HIDDEN):
+    """The MoE expert MLP's inputs at the b128 training shapes: T = batch·n·2
+    pairs routed by a seeded fp32 router over random tokens (``'router'``),
+    all on expert 5 (``'hot'``), or never on experts 0 and 7 (``'empty'``);
+    the tiled grouping at ``fused_tm(T)``; x_sorted gathered from the
+    tokens (pad rows hold token 0); bf16 weights; dy zero on pad rows, as
+    the combine's backward gives it."""
+    import torch
+
+    from gavit_tpu_torch.models.moe import router_topk
+    from gavit_tpu_torch.ops import moe_fused as MF
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 51)
+    bf = torch.bfloat16
+    tokens = torch.randn(batch * n, dim, device=dev, generator=g).to(bf)
+    router = torch.randn(dim, EXPERTS, device=dev, generator=g) * 0.02
+    _, idx, _ = router_topk((tokens.float() @ router).reshape(batch, n, -1),
+                            TOP_K)
+    if routing == "hot":
+        idx = torch.full_like(idx, 5)
+    elif routing == "empty":
+        idx = 1 + idx % (EXPERTS - 2)
+    t = idx.numel()
+    tm = MF.fused_tm(t, EXPERTS)
+    _, src, used, tg, gs = MF.group_by_expert_tiled(idx, EXPERTS, tm)
+    x = tokens[src // TOP_K]
+    w1, b1, w2, b2 = ((torch.randn(*shape, device=dev, generator=g) * 0.02)
+                      .to(bf) for shape in ((EXPERTS, dim, hidden),
+                                            (EXPERTS, hidden),
+                                            (EXPERTS, hidden, dim),
+                                            (EXPERTS, dim)))
+    dy = (torch.randn(x.shape, device=dev, generator=g) * 0.01).to(bf) \
+        * used[:, None]
+    return dict(x=x, w=(w1, b1, w2, b2), dy=dy, tg=tg, gs=gs, tm=tm, t=t,
+                used=used)
+
+
+def mask_applied(got, want, keep):
+    """Whether ``got`` applies exactly the Philox mask ``keep``: zero at
+    every dropped element; at a kept one zero only where the value is zero
+    within the rounding noise of the comparison (the largest difference of
+    the two on kept elements: h1 one bf16 ulp apart moves y by ~1e-4, and at
+    10^7-10^8 elements a sum cancels to exactly 0 on one side now and then),
+    and at most one kept element in a million. A mask that dropped a kept
+    element at random would miss both. Returns (ok, a summary)."""
+    dropped_nonzero = int((got[~keep] != 0).sum())
+    kept_zero = keep & ((got == 0) | (want == 0))
+    n = int(kept_zero.sum())
+    noise = torch_max_abs(got.float() - want.float(), keep & ~kept_zero)
+    at = max(torch_max_abs(want, kept_zero), torch_max_abs(got, kept_zero))
+    ok = (dropped_nonzero == 0 and n <= max(1, keep.numel() // 10 ** 6)
+          and at <= noise)
+    return ok, (f"{n} kept elements zero on one side, |value| there at most "
+                f"{at:.3e} against a rounding noise of {noise:.3e}; "
+                f"{dropped_nonzero} dropped elements not zero")
+
+
+def torch_max_abs(t, where) -> float:
+    sel = t.float()[where]
+    return sel.abs().max().item() if sel.numel() else 0.0
+
+
+def check_moe(dev, results):
+    """M (erf with dropout 0.1, and tanh at rate 0), M′ and tgmm against
+    their plain versions at the b128 routing, and with a hot and an empty
+    expert: the masks (zero patterns) bit-exact, y, h1, dx, go and dh1
+    within the bf16 tolerance of D and D′ relative to the tensor's largest,
+    dye bit-exact, db1 and db2 within BIAS_REL_TOL, dW1 and dW2 (rounded to
+    bf16 once from fp32 sums) within GRAD_REL_TOL. The masks: y and dye
+    hold the output mask and go the hidden one exactly (``mask_applied``
+    against ``ops/philox.py``'s bits)."""
+    import torch
+
+    from gavit_tpu_torch.ops import moe_fused as MF
+    from gavit_tpu_torch.ops import philox
+
+    seed, sites = philox.step_seed(SEED, 6), (5, 6)
+    f = HIDDEN
+    for routing in ("router", "hot", "empty"):
+        c = moe_case(dev, routing)
+        x, (w1, b1, w2, b2), dy, tg, tm = (c["x"], c["w"], c["dy"], c["tg"],
+                                           c["tm"])
+        cap = x.shape[0]
+        keep_h = philox.keep_mask((cap, f), seed, sites[0], DROP_RATE,
+                                  device=dev)
+        keep_o = philox.keep_mask((cap, DIM), seed, sites[1], DROP_RATE,
+                                  device=dev)
+        for rate, approx in ((DROP_RATE, False), (0.0, True)):
+            y, h1 = MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm, seed, sites,
+                                      rate, rate, approx)
+            y_ref, h1_ref = MF.moe_fwd_reference(x, w1, b1, w2, b2, tg, tm,
+                                                 seed, sites, rate, rate,
+                                                 approx)
+            torch.cuda.synchronize()
+            masked, how = mask_applied(y, y_ref, keep_o if rate else
+                                       torch.ones_like(keep_o))
+            uh = ulps(h1, h1_ref)
+            ry = rel_err(y, y_ref)
+            err = max(max_err(y, y_ref), max_err(h1, h1_ref))
+            check("M moe expert mlp fwd", masked and uh <= 1
+                  and ry <= GRAD_REL_TOL and torch.isfinite(y).all().item(),
+                  f"bf16 {routing} T={c['t']} cap={cap} tm={tm} "
+                  f"{'tanh' if approx else 'erf'} rate {rate}: y holds the "
+                  f"output mask exactly {masked} ({how}), h1 within "
+                  f"{uh:.0f} ulp (tol 1), y rel "
+                  f"to max {ry:.3e} (tol {GRAD_REL_TOL:.0e}); max_abs_err "
+                  f"{err:.3e}")
+            results["M"]["errs"].append(err)
+            if routing == "router" and not approx:
+                results["M"]["cases"].append(c)
+        got = MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed, sites,
+                                DROP_RATE, DROP_RATE, False)
+        want = MF.moe_bwd_reference(dy, h1_ref, w1, w2, tg, tm, seed, sites,
+                                    DROP_RATE, DROP_RATE, False)
+        torch.cuda.synchronize()
+        names = ("dx", "go", "dh1", "db1", "db2", "dye")
+        rels = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
+        pads = (got[2][~c["used"]] == 0).all().item()
+        masked, how = mask_applied(got[1], want[1], keep_h)
+        ok = (all(rels[n] <= GRAD_REL_TOL for n in ("dx", "go", "dh1"))
+              and all(rels[n] <= BIAS_REL_TOL for n in ("db1", "db2"))
+              and torch.equal(got[5], want[5]) and pads and masked
+              and all(torch.isfinite(a).all().item() for a in got))
+        err = max(max_err(a, b) for a, b in zip(got, want))
+        check("M′ moe expert mlp bwd", ok,
+              f"bf16 {routing} rate {DROP_RATE}: rel to max " + ", ".join(
+                  f"{n} {v:.3e}" for n, v in rels.items())
+              + f" (tol {GRAD_REL_TOL:.0e}; db1, db2 {BIAS_REL_TOL:.0e}); "
+              f"dye bit-exact {torch.equal(got[5], want[5])}, go holds the "
+              f"hidden mask exactly {masked} ({how}), dh1 zero on pad rows "
+              f"{pads}; max_abs_err {err:.3e}")
+        results["M′"]["errs"].append(err)
+        _, go, dh1, _, _, dye = got
+        for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
+            k = MF.tgmm_kernel(a, b, c["gs"])
+            r = MF.tgmm_reference(a, b, c["gs"], torch.bfloat16)
+            torch.cuda.synchronize()
+            rel = rel_err(k, r)
+            check("tgmm grouped dW", rel <= GRAD_REL_TOL
+                  and torch.isfinite(k).all().item(),
+                  f"bf16 {routing} {what} [{EXPERTS}, {a.shape[1]}, "
+                  f"{b.shape[1]}] over {cap} rows: rel to max {rel:.3e} (tol "
+                  f"{GRAD_REL_TOL:.0e}); max_abs_err {max_err(k, r):.3e}")
+            results["tgmm"]["errs"].append(max_err(k, r))
+        if routing == "router":
+            results["M′"]["cases"].append((dy, h1_ref, go, dh1, dye))
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -487,10 +648,65 @@ def gated_weights(cfg) -> dict:
     return out
 
 
-def phase_slice(cfg, weights, dev, name, n_images=8, expect=None):
+class PinnedRouting:
+    """Records the expert choices of the MoE blocks in one forward and hands
+    them to later forwards: ``models.moe.router_topk`` wrapped, its gates
+    taken from each forward's own fp32 probabilities at the recorded
+    choices. A router at init (σ 0.02) ties experts to within bf16 noise,
+    so a forward through other but equally right roundings flips some top-2
+    choices, and each flip changes a token's branch outright; with the
+    choices pinned the comparison holds the kernels' arithmetic, and
+    ``flips`` counts the choices the replayed forwards would have made
+    otherwise."""
+
+    def __init__(self):
+        from gavit_tpu_torch.models import moe
+
+        self.moe, self.original = moe, moe.router_topk
+        self.recorded, self.replay, self.i = [], False, 0
+        self.choices, self.flips = 0, []  # per replayed forward
+
+    def __enter__(self):
+        self.moe.router_topk = self.topk
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.router_topk = self.original
+
+    def start_record(self):
+        self.recorded, self.replay = [], False
+
+    def start_replay(self):
+        self.replay, self.i, self.choices = True, 0, 0
+        self.flips.append(0)
+
+    def topk(self, logits, k, *, normalize_gates=True):
+        import torch
+
+        vals, idx, aux = self.original(logits, k,
+                                       normalize_gates=normalize_gates)
+        if not self.replay:
+            self.recorded.append(idx)
+            return vals, idx, aux
+        pinned = self.recorded[self.i]
+        self.i += 1
+        self.choices += idx.numel()
+        self.flips[-1] += int((torch.sort(idx, -1).values
+                               != torch.sort(pinned, -1).values).sum())
+        vals = torch.gather(torch.softmax(logits.float(), -1), -1, pinned)
+        if normalize_gates:
+            vals = vals / vals.sum(-1, keepdim=True)
+        return vals, pinned, aux
+
+
+def phase_slice(cfg, weights, dev, name, n_images=8, expect=None,
+                ref_cfg=None):
     """The bf16 forward of ``n_images`` through the kernels against the
     plain versions (and fp32 plain versions, for scale). ``expect``: the
-    nonzero launch counts of the kernels' forward, asserted."""
+    nonzero launch counts of the kernels' forward, asserted. ``ref_cfg``:
+    the plain versions' config, where it must pin what ``cfg`` resolves on
+    the card (the MoE engine: 'auto' takes another threshold without the
+    kernels)."""
     import numpy as np
     import torch
 
@@ -502,31 +718,41 @@ def phase_slice(cfg, weights, dev, name, n_images=8, expect=None):
         0, 256, (n_images, s, s, 3), np.uint8)
     x = val_preprocess(torch.from_numpy(imgs).to(dev))
     probs, counts = {}, None
-    for precision, impl in (("bf16", "auto"), ("bf16", "reference"),
-                            ("fp32", "reference")):
-        model = Predictor(cfg, weights, precision=precision, device=dev,
-                          impl=impl).model
-        if impl == "auto":
-            torch.cuda.synchronize()
-            reset_counts()
-        with torch.inference_mode():
-            logits = model(x)
-        if impl == "auto":
-            torch.cuda.synchronize()
-            counts = read_counts()
-        if logits.shape != (n_images, cfg.model.num_classes) or \
-                not torch.isfinite(logits).all():
-            raise AssertionError(f"{precision}/{impl} logits: bad shape "
-                                 f"{tuple(logits.shape)} or non-finite")
-        probs[(precision, impl)] = torch.sigmoid(logits.float())
-        del model
+    pinned = PinnedRouting() if cfg.model.moe.enabled else None
+    with pinned or contextlib.nullcontext():
+        for precision, impl in (("bf16", "auto"), ("bf16", "reference"),
+                                ("fp32", "reference")):
+            model = Predictor(cfg if impl == "auto" else (ref_cfg or cfg),
+                              weights, precision=precision, device=dev,
+                              impl=impl).model
+            if impl == "auto":
+                torch.cuda.synchronize()
+                reset_counts()
+            elif pinned is not None:
+                pinned.start_replay()
+            with torch.inference_mode():
+                logits = model(x)
+            if impl == "auto":
+                torch.cuda.synchronize()
+                counts = read_counts()
+            if logits.shape != (n_images, cfg.model.num_classes) or \
+                    not torch.isfinite(logits).all():
+                raise AssertionError(f"{precision}/{impl} logits: bad shape "
+                                     f"{tuple(logits.shape)} or non-finite")
+            probs[(precision, impl)] = torch.sigmoid(logits.float())
+            del model
     err = max_err(probs[("bf16", "auto")], probs[("bf16", "reference")])
     err32 = max_err(probs[("bf16", "auto")], probs[("fp32", "reference")])
     ok = err <= PROB_TOL
+    pin = ("" if pinned is None else
+           f" (the plain forwards on the kernels' expert choices: without "
+           f"them the bf16 and fp32 ones would have made "
+           f"{' and '.join(map(str, pinned.flips))} of {pinned.choices} "
+           f"choices otherwise)")
     log(f"[slice] {name} {s} px bf16, gates {GATE}, {n_images} images: "
         f"kernels vs plain versions max |dp| {err:.3e} (tol {PROB_TOL:.0e}) "
         f"{'ok' if ok else 'FAIL'}; bf16 kernels vs fp32 plain max |dp| "
-        f"{err32:.3e}")
+        f"{err32:.3e}{pin}")
     if not ok:
         raise AssertionError("the slice through the kernels disagrees with "
                              "the plain versions")
@@ -549,7 +775,10 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "K": ("attention", "LONG_KERNEL_LAUNCHES"),
             "K′": ("attention", "LONG_BWD_KERNEL_LAUNCHES"),
             "H": ("dropout", "GELU_LAUNCHES"),
-            "H′": ("dropout", "GELU_BWD_LAUNCHES")}
+            "H′": ("dropout", "GELU_BWD_LAUNCHES"),
+            "M": ("moe_fused", "KERNEL_LAUNCHES"),
+            "M′": ("moe_fused", "BWD_KERNEL_LAUNCHES"),
+            "tgmm": ("moe_fused", "TGMM_LAUNCHES")}
 
 
 def expected(nonzero: dict) -> dict:
@@ -715,27 +944,42 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
         train_torch.batches(dataset, bs, cfg.training.seed),
         max(steps_compare, steps_learn)))
     losses = {impl: [] for impl in trainers}
+    aux = {impl: [] for impl in trainers}  # MoE: the loss's aux part
     first_grads = {}
     counts = None
     held = data[:5]  # the learning check's fixed batches
     before = held_loss(trainers["auto"], held)
-    for i in range(steps_compare):
-        images, labels = (torch.from_numpy(a) for a in data[i])
-        for impl, tr in trainers.items():
-            if impl == "auto" and i == 1:
-                torch.cuda.synchronize()
-                reset_counts()
-            m = tr.train_step(images, labels)
-            if impl == "auto" and i == 1:
-                torch.cuda.synchronize()
-                counts = read_counts()
-            loss = m["loss"].item()
-            if not math.isfinite(loss):
-                raise AssertionError(f"{impl} step {i}: loss {loss}")
-            losses[impl].append(loss)
-            if i == 0:
-                first_grads[impl] = [(n, p.grad.detach().float().flatten())
-                                     for n, p in tr.model.named_parameters()]
+    # an MoE model's plain step replays the kernels' step's expert choices
+    pinned = PinnedRouting() if cfg.model.moe.enabled else None
+    with pinned or contextlib.nullcontext():
+        for i in range(steps_compare):
+            images, labels = (torch.from_numpy(a) for a in data[i])
+            for impl, tr in trainers.items():
+                if pinned is not None:
+                    (pinned.start_record if impl == "auto"
+                     else pinned.start_replay)()
+                if impl == "auto" and i == 1:
+                    torch.cuda.synchronize()
+                    reset_counts()
+                m = tr.train_step(images, labels)
+                if impl == "auto" and i == 1:
+                    torch.cuda.synchronize()
+                    counts = read_counts()
+                loss = m["loss"].item()
+                if not math.isfinite(loss):
+                    raise AssertionError(f"{impl} step {i}: loss {loss}")
+                losses[impl].append(loss)
+                if "moe_aux" in m:
+                    aux[impl].append(m["moe_aux"].item())
+                if i == 0:
+                    first_grads[impl] = [
+                        (n, p.grad.detach().float().flatten())
+                        for n, p in tr.model.named_parameters()]
+    if pinned is not None:
+        log(f"[train] {name}: each plain step on the kernels' step's expert "
+            f"choices; without them it would have made "
+            f"{', '.join(map(str, pinned.flips))} of {pinned.choices} "
+            f"choices otherwise")
     rels = [abs(a - b) / abs(b) for a, b in zip(losses["auto"],
                                                  losses["reference"])]
     ok = max(rels) <= LOSS_REL_TOL
@@ -748,6 +992,18 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
     if not ok:
         raise AssertionError("training through the kernels disagrees with "
                              "the plain versions")
+    if aux["auto"]:
+        rels = [abs(a - b) / abs(b) for a, b in zip(aux["auto"],
+                                                     aux["reference"])]
+        ok = max(rels) <= LOSS_REL_TOL
+        log(f"[train] {name}: the losses' MoE aux part through the kernels "
+            f"{[round(v, 6) for v in aux['auto']]}, through the plain "
+            f"versions {[round(v, 6) for v in aux['reference']]}; max rel "
+            f"diff {max(rels):.3e} (tol {LOSS_REL_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the MoE aux loss through the kernels "
+                                 "disagrees with the plain versions")
     cos = []
     for (param, a), (_, b) in zip(first_grads["auto"],
                                   first_grads["reference"]):
@@ -758,10 +1014,13 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
     worst = min(cos)
     ok = worst[0] >= GRAD_COSINE
     graph = [f"{p} {c:.6f}" for c, p in cos if p.startswith("graphs.")]
+    moe = [c for c, p in cos if ".moe." in p]
     log(f"[train] first-step gradients, kernels vs plain versions: lowest "
         f"cosine {worst[0]:.6f} ({worst[1]}) over {len(cos)} parameters "
         f"(need {GRAD_COSINE}) {'ok' if ok else 'FAIL'}; the graph blocks': "
-        + ", ".join(graph))
+        + ", ".join(graph) + (f"; the MoE routers' and banks' lowest "
+                              f"{min(moe):.6f} over {len(moe)}" if moe
+                              else ""))
     if not ok:
         raise AssertionError("a gradient through the kernels points away "
                              "from the plain version's")
@@ -1144,10 +1403,205 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
     return rows
 
 
+def moe_library(c):
+    """The library yardsticks of M, M′ and tgmm on a moe_case, and the name
+    of what they call: ``torch._grouped_mm`` (bf16 grouped GEMMs over the
+    expert row offsets, no bias: it takes none) where this torch has it and
+    it runs on these inputs, else a loop of one ``torch.matmul`` per
+    expert. M: GEMM, GELU, dropout, GEMM, dropout; M′: that chain's
+    backward to x; tgmm: one dW, ``lib["tgmm"](a, b)`` as the kernel's
+    ``tgmm_kernel(a, b, group_sizes)``."""
+    import torch
+    import torch.nn.functional as F
+
+    x, (w1, _, w2, _), dy = c["x"], c["w"], c["dy"]
+    offs = torch.cumsum(c["gs"], 0, dtype=torch.int32)
+    bounds = [0] + offs.tolist()
+    grouped = getattr(torch, "_grouped_mm", None)
+
+    def gmm(a, w):
+        if grouped is not None:
+            return grouped(a, w, offs=offs)
+        return torch.cat([a[lo:hi] @ w[e] for e, (lo, hi) in
+                          enumerate(zip(bounds[:-1], bounds[1:]))])
+
+    def tgmm(a, b):
+        if grouped is not None:
+            return grouped(a.t(), b, offs=offs)
+        return torch.stack([a[lo:hi].t() @ b[lo:hi] for lo, hi in
+                            zip(bounds[:-1], bounds[1:])])
+
+    xg = x.detach().clone().requires_grad_(True)
+
+    def chain():
+        h = F.dropout(F.gelu(gmm(xg, w1)), DROP_RATE)
+        return F.dropout(gmm(h, w2), DROP_RATE)
+
+    name = "torch._grouped_mm"
+    if grouped is not None:
+        try:
+            chain()
+            tgmm(x, x)
+            torch.cuda.synchronize()
+        except (RuntimeError, TypeError) as e:  # a yardstick, not the port
+            log(f"[time] torch._grouped_mm does not take these inputs ({e}); "
+                f"the library yardstick is a loop of matmuls")
+            grouped, name = None, "a loop of 8 torch.matmul"
+    else:
+        name = "a loop of 8 torch.matmul"
+    y = chain()
+    return {"M": chain,
+            "M′": lambda: torch.autograd.grad(y, xg, dy, retain_graph=True),
+            "tgmm": tgmm, "name": name}
+
+
+def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
+    """M, M′ and tgmm at the b128 routing against their plain versions, a
+    library call and the bound; the MoE model's bf16 forward at b64 through
+    the kernels and the plain versions (CUDA events), its b128 train step
+    (host clock, median of 10) and the b1 Predictor p50."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+    from gavit_tpu_torch.ops import moe_fused as MF
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+
+    c = results["M"]["cases"][0]
+    x, (w1, b1, w2, b2), tg, tm, gs = c["x"], c["w"], c["tg"], c["tm"], c["gs"]
+    dy, h1, go, dh1, dye = results["M′"]["cases"][0]
+    seed, sites = 1, (5, 6)
+    cap, e, t = x.shape[0], EXPERTS, c["t"]
+    lib = moe_library(c)
+    log(f"[time] MoE library yardstick: {lib['name']}")
+    # the work this routing needs: T real rows (the kernels also run cap - T
+    # pad rows)
+    wbytes = 2 * e * DIM * HIDDEN * 2
+    rows = {
+        "M": (cuda_ms(lambda: MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm,
+                                                seed, sites, DROP_RATE,
+                                                DROP_RATE, False)),
+              cuda_ms(lambda: MF.moe_fwd_reference(
+                  x, w1, b1, w2, b2, tg, tm, seed, sites, DROP_RATE,
+                  DROP_RATE, False), iters=3, warmup=1),
+              cuda_ms(lib["M"])) + bound(
+            4 * t * DIM * HIDDEN, (2 * t * DIM + t * HIDDEN) * 2 + wbytes),
+        "M′": (cuda_ms(lambda: MF.moe_bwd_kernel(dy, h1, w1, w2, tg, tm,
+                                                 seed, sites, DROP_RATE,
+                                                 DROP_RATE, False)),
+               cuda_ms(lambda: MF.moe_bwd_reference(
+                   dy, h1, w1, w2, tg, tm, seed, sites, DROP_RATE, DROP_RATE,
+                   False), iters=3, warmup=1),
+               cuda_ms(lib["M′"])) + bound(
+            4 * t * DIM * HIDDEN,
+            (3 * t * DIM + 3 * t * HIDDEN) * 2 + wbytes
+            + e * (HIDDEN + DIM) * 4),
+        "tgmm": (cuda_ms(lambda: MF.tgmm_kernel(x, dh1, gs)),
+                 cuda_ms(lambda: MF.tgmm_reference(x, dh1, gs,
+                                                   torch.bfloat16),
+                         iters=3, warmup=1),
+                 cuda_ms(lambda: lib["tgmm"](x, dh1))) + bound(
+            2 * t * DIM * HIDDEN,
+            (t * DIM + t * HIDDEN) * 2 + e * DIM * HIDDEN * 2),
+    }
+    for key, (km, pm, lm, bms, by) in rows.items():
+        log(f"[time] {key} at b{TRAIN_BATCH} (T={t}, cap={cap}, tm={tm}): "
+            f"kernel {km:.4f} ms, plain {pm:.4f} ms, library {lm:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}) ({card})")
+
+    s = cfg.data.image_size
+    predictor = Predictor(cfg, weights, precision="bf16", device=dev)
+    # every bucket once: the dense engine at 1, 8 and 32, the grouped one
+    # (kernel M) at 128
+    torch.cuda.synchronize()
+    reset_counts()
+    predictor.warmup()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    depth, n = cfg.model.depth, len(predictor.buckets)
+    want = expected({"A": depth * n, "B": depth // 2 * n, "C": 2 * n,
+                     "M": depth // 2})
+    log(f"[serve] MoE Predictor buckets {predictor.buckets}: kernel launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f" {'ok' if counts == want else 'FAIL'}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    img = np.random.default_rng(SEED + 2).integers(0, 256, (s, s, 3),
+                                                   np.uint8)
+    for _ in range(5):
+        predictor.predict_proba(img)
+    lat = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        predictor.predict_proba(img)
+        lat.append((time.perf_counter() - t0) * 1000)
+    log(f"[time] MoE Predictor.predict_proba 1 image bf16 (dense engine): "
+        f"p50 {statistics.median(lat):.3f} ms over 50 calls ({card})")
+    plain = Predictor(grouped_engine(cfg), weights, precision="bf16",
+                      device=dev, impl="reference")
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, 256, (64, s, s, 3), np.uint8)).to(dev)
+    xb = val_preprocess(imgs)
+    for impl, model in (("auto", predictor.model), ("reference", plain.model)):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(xb), iters=10, warmup=2)
+        log(f"[time] MoE bf16 forward b64 (grouped engine) impl={impl}: "
+            f"{ms:.3f} ms, {64 / (ms / 1000):.1f} img/s ({card})")
+    del predictor, plain
+
+    dataset = train_torch.create_dataset(tcfg)
+    ref = train_torch.build_trainer(tcfg, dataset, dev, impl="reference",
+                                    gate=GATE)
+    images, labels = (torch.from_numpy(a) for a in batch)
+    step_ms = {"auto": [], "reference": []}
+    for tr in (trainer, ref):
+        tr.train_step(images, labels)
+    torch.cuda.synchronize()
+    for i in range(10):
+        for impl, tr in (("auto", trainer), ("reference", ref)):
+            if impl == "reference" and i % 5:
+                continue  # the plain versions' step: 2 samples
+            t0 = time.perf_counter()
+            tr.train_step(images, labels)
+            torch.cuda.synchronize()
+            step_ms[impl].append((time.perf_counter() - t0) * 1000)
+    for impl, ts in step_ms.items():
+        ms = statistics.median(ts)
+        log(f"[time] MoE train step b{TRAIN_BATCH} "
+            f"{tcfg.training.precision} impl={impl}: {ms:.3f} ms (median of "
+            f"{len(ts)}), {TRAIN_BATCH / (ms / 1000):.1f} img/s ({card})")
+    return rows
+
+
+def grouped_engine(cfg):
+    """``cfg`` with the MoE engine pinned to 'grouped': the plain versions'
+    Predictor at b64 then runs the engine that 'auto' picks with the
+    kernels."""
+    import dataclasses
+
+    model = dataclasses.replace(cfg.model, moe=dataclasses.replace(
+        cfg.model.moe, impl="grouped"))
+    return dataclasses.replace(cfg, model=model)
+
+
+def train_config_moe():
+    """The MoE example at its batch 128 with a warmup of 5 steps (5 steps an
+    epoch of a 640-image synthetic set with learnable class stripes)."""
+    from gavit_tpu_torch import load_config
+
+    return load_config(str(CONFIG_MOE), [
+        f"data.batch_size={TRAIN_BATCH}", "data.synthetic_size=640",
+        "data.synthetic_learnable=true", "training.warmup_epochs=1",
+        f"training.seed={SEED}"])
+
+
 def kernels_json(results, serve_counts, train_counts, rows):
     """One row per kernel. ``launches``: from a training step for the
     kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
-    K, K′, H, H′), from the served requests for B."""
+    K, K′, H, H′; the MoE model at b128 for M, M′, tgmm), from the served
+    requests for B."""
     spec = [
         ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
          "gavit_tpu/ops/attention.py:583"),
@@ -1174,12 +1628,19 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu/ops/dropout.py:252"),
         ("H′", "fused_gelu_dropout_bwd", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:261"),
+        ("M", "fused_grouped_mlp", "gavit_tpu_torch/csrc/moe.cu",
+         "gavit_tpu/ops/moe_fused.py:116"),
+        ("M′", "fused_grouped_mlp_bwd", "gavit_tpu_torch/csrc/moe.cu",
+         "gavit_tpu/ops/moe_fused.py:167"),
+        ("tgmm", "grouped_dw_tgmm", "gavit_tpu_torch/csrc/moe.cu",
+         "gavit_tpu/ops/moe_fused.py:411"),
     ]
     out = []
     for key, name, src, rep in spec:
         km, pm, lm, bms, by = rows[key]
         counts = serve_counts if key == "B" else train_counts[
-            "384" if key in ("K", "K′", "H", "H′") else "224"]
+            "384" if key in ("K", "K′", "H", "H′") else
+            "moe" if key in ("M", "M′", "tgmm") else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
@@ -1240,6 +1701,30 @@ def main():
     del trainer
     rows.update(phase_384_times(cfg384, tcfg384, dev, results, weights384,
                                 trainer384, batch384, card))
+    del trainer384, weights384
+
+    # the MoE example (12 blocks, MoE MLPs in blocks 1, 3, ..., 11, 2 kNN
+    # graph blocks): at b64 the grouped engine (M in 6 blocks, B in the
+    # other 6), at b1 the dense one (einsums, no M)
+    check_moe(dev, results)
+    cfg_moe = load_config(str(CONFIG_MOE))
+    weights_moe = gated_weights(cfg_moe)
+    phase_slice(cfg_moe, weights_moe, dev, "vit_b16_moe", n_images=64,
+                expect={"A": depth, "B": depth // 2, "C": 2, "M": depth // 2},
+                ref_cfg=grouped_engine(cfg_moe))
+    phase_slice(cfg_moe, weights_moe, dev, "vit_b16_moe", n_images=1,
+                expect={"A": depth, "B": depth // 2, "C": 2})
+    # per step A, A′ in 12 blocks; D, D′ in the 6 dense ones; M, M′ in the 6
+    # MoE ones with two tgmm each; C at 2 graph blocks; F as vit_b16_graph2
+    tcfg_moe = train_config_moe()
+    trainer_moe, batch_moe, counts_moe = phase_train(
+        tcfg_moe, dev, "vit_b16_moe",
+        {"A": depth, "A′": depth, "C": 2, "D": depth // 2,
+         "D′": depth // 2, "M": depth // 2, "M′": depth // 2,
+         "tgmm": depth, "F": 2 * (1 + depth + 2)})
+    rows.update(phase_moe_times(cfg_moe, tcfg_moe, dev, results, weights_moe,
+                                trainer_moe, batch_moe, card))
+    del trainer_moe
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:
@@ -1247,7 +1732,8 @@ def main():
     log(f"[env] nothing of jax, flax or gavit_tpu imported; {card}")
     print(card)
     print(json.dumps(kernels_json(results, serve_counts,
-                                  {"224": counts_224, "384": counts_384},
+                                  {"224": counts_224, "384": counts_384,
+                                   "moe": counts_moe},
                                   rows), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

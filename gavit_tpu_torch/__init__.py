@@ -4,11 +4,13 @@ A second package beside the JAX one, with the same layout and module names:
 
   config.py  — the typed YAML config (the port's own copy of the schema)
   data/      — the label list and the synthetic dataset
-  models/    — ViT + graph message-passing blocks (nn.Module; ``eval()`` is
-               the deterministic forward, ``train()`` the dropout one)
+  models/    — ViT + graph message-passing blocks + MoE MLPs (nn.Module;
+               ``eval()`` is the deterministic forward, ``train()`` the
+               dropout one)
   ops/       — the plain PyTorch versions and the wrappers of the hand-written
                Hopper kernels (attention forward and backward, inference and
-               training MLP, dropout, fused graph op)
+               training MLP, dropout, GELU + dropout, fused graph op, the
+               MoE expert MLP and its grouped dW GEMM)
   csrc/      — the CUDA C++ sources of those kernels, built on first use
   training/  — the loss, schedule, optimizer and the train step
   utils/     — the weight bridge to and from the JAX parameter tree

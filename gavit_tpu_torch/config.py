@@ -499,3 +499,16 @@ def load_config(path: str, overrides: list[str] | None = None) -> Config:
                 raise ValueError(f"override {key!r} crosses a non-dict node")
         node[parts[-1]] = yaml.safe_load(value)
     return from_dict(raw)
+
+
+def mesh_note(cfg: Config) -> str | None:
+    """A log line for a config whose ``mesh`` asks for more than one device
+    (the MoE example's ``data: 4, model: 2``): the port reads the mesh and
+    runs on one card all the same, as the JAX package does on one device;
+    its parallel modes wait for ROADMAP Queue 1 item 13."""
+    m = cfg.mesh
+    if max(m.data, m.model, m.pipe) <= 1 and not (m.fsdp or m.sp):
+        return None
+    return (f"config mesh data={m.data} model={m.model} pipe={m.pipe} "
+            f"fsdp={m.fsdp} sp={m.sp} read and not used: the port runs on "
+            f"one card")

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gavit_tpu_torch.models.moe import MoEMlp
 from gavit_tpu_torch.ops.attention import fused_qkv_attention
 from gavit_tpu_torch.ops.dropout import fused_dropout
 from gavit_tpu_torch.ops.mlp import fused_mlp, fused_mlp_inference
@@ -186,12 +187,15 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block with stochastic depth (layers.py:459-538).
     Its dropout sites are ``site`` (attention projection), ``site + 1`` and
-    ``site + 2`` (the MLP's hidden and output masks)."""
+    ``site + 2`` (the MLP's hidden and output masks). With ``moe`` (a
+    ``MoEConfig``) the MLP is a mixture of experts, the submodule ``moe``
+    in place of ``mlp``, on the same two sites."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
                  qkv_bias: bool = True, drop: float = 0.0,
                  drop_path_rate: float = 0.0, site: int = 0,
-                 dtype=torch.float32, impl: str = "auto", device=None):
+                 dtype=torch.float32, impl: str = "auto", moe=None,
+                 device=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
@@ -199,12 +203,19 @@ class Block(nn.Module):
                               proj_drop=drop, site=site, dtype=dtype,
                               impl=impl, device=device)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop, site=site + 1,
-                       dtype=dtype, impl=impl, device=device)
+        if moe is not None:
+            self.moe = MoEMlp(moe, dim, int(dim * mlp_ratio), drop=drop,
+                              site=site + 1, dtype=dtype, impl=impl,
+                              device=device)
+        else:
+            self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop,
+                           site=site + 1, dtype=dtype, impl=impl,
+                           device=device)
 
     def forward(self, x, seed=None, generator=None):
         rate = self.drop_path_rate
         x = x + drop_path(self.attn(self.norm1(x), seed), rate,
                           self.training, generator)
-        return x + drop_path(self.mlp(self.norm2(x), seed), rate,
-                             self.training, generator)
+        mlp = self.moe if hasattr(self, "moe") else self.mlp
+        return x + drop_path(mlp(self.norm2(x), seed), rate, self.training,
+                             generator)

@@ -4,7 +4,10 @@
 NHWC images in (already normalised), the image cast to the compute dtype
 before patchify → +CLS → +position embeddings → embedding dropout → blocks
 (stochastic depth linearly spaced over depth), with graph blocks after the
-configured blocks → final LayerNorm → CLS → head → fp32 logits.
+configured blocks → final LayerNorm → CLS → head → fp32 logits. The
+blocks of ``cfg.moe_sites()`` carry a mixture-of-experts MLP
+(``models/moe.py``); :meth:`VisionTransformer.moe_aux_loss` reads the
+summed, config-weighted auxiliary loss of the last training forward.
 
 ``eval()`` (the state ``build_model`` returns) is the deterministic
 forward. In ``train()`` mode the forward takes the step's dropout seed
@@ -20,6 +23,7 @@ from torch import nn
 
 from gavit_tpu_torch.config import ModelConfig
 from gavit_tpu_torch.models.graph import GraphBlock
+from gavit_tpu_torch.models.moe import MoEMlp
 from gavit_tpu_torch.models.layers import (
     Block,
     Dense,
@@ -55,9 +59,6 @@ class VisionTransformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
                  impl: str = "auto", device=None):
         super().__init__()
-        if cfg.moe.enabled:
-            raise NotImplementedError(
-                "MoE blocks wait for ROADMAP Queue 1 item 11")
         self.cfg = cfg
         self.dtype = dtype
         d = cfg.embed_dim
@@ -72,11 +73,13 @@ class VisionTransformer(nn.Module):
         self.pos_drop = Dropout(cfg.drop_rate, sites["embed"], impl)
         dpr = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
                for i in range(cfg.depth)]
+        moe_sites = set(cfg.moe_sites())
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                   drop=cfg.drop_rate, drop_path_rate=dpr[i],
                   site=sites[f"blocks.{i}.attn"], dtype=dtype,
-                  impl=impl, device=device)
+                  impl=impl, moe=cfg.moe if i in moe_sites else None,
+                  device=device)
             for i in range(cfg.depth)
         )
         self.graphs = nn.ModuleList(
@@ -108,6 +111,16 @@ class VisionTransformer(nn.Module):
         x = self.norm(x)
         return self.head(x[:, 0]).float()
 
+    def moe_aux_loss(self):
+        """The sum of the MoE blocks' config-weighted auxiliary losses
+        (load balance and router z) of the last training forward; an fp32
+        zero when there is none (no MoE block, or an eval forward)."""
+        losses = [b.moe.aux_loss for b in self.blocks
+                  if hasattr(b, "moe") and b.moe.aux_loss is not None]
+        if not losses:
+            return torch.zeros((), device=self.pos_embed.device)
+        return torch.stack(losses).sum()
+
 
 def build_model(cfg: ModelConfig, *, precision: str = "fp32",
                 impl: str = "auto", device=None) -> VisionTransformer:
@@ -126,9 +139,10 @@ def build_model(cfg: ModelConfig, *, precision: str = "fp32",
 @torch.no_grad()
 def init_params(model: VisionTransformer, generator: torch.Generator):
     """The JAX package's initialisers: truncated normal (σ=0.02, cut at ±2σ)
-    for Dense kernels, CLS and position embeddings; Xavier uniform for the
-    patch projection; zeros for biases, graph gates and learned-static
-    adjacency logits; LayerNorm scale 1.
+    for Dense kernels, MoE routers and expert kernels, CLS and position
+    embeddings; Xavier uniform for the patch projection; zeros for biases
+    (the expert banks' too), graph gates and learned-static adjacency
+    logits; LayerNorm scale 1.
 
     The draws come from ``generator`` on the CPU and are copied to the
     parameters' device, so a seed gives the same weights on every device.
@@ -155,6 +169,11 @@ def init_params(model: VisionTransformer, generator: torch.Generator):
                 fill(mod.weight, trunc)
             if mod.bias is not None:
                 mod.bias.zero_()
+        elif isinstance(mod, MoEMlp):
+            for p in (mod.router, mod.fc1_kernel, mod.fc2_kernel):
+                fill(p, trunc)
+            mod.fc1_bias.zero_()
+            mod.fc2_bias.zero_()
         elif isinstance(mod, GraphBlock):
             mod.gate.zero_()
             if mod.adj_logits is not None:

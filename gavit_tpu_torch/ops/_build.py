@@ -61,6 +61,12 @@ _SIGNATURES = {
     "gavit_gelu_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_gelu_dropout_bwd": (
         (_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
+    "gavit_moe_fwd": (
+        (_P,) * 9 + (_I,) * 6 + (_U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
+    "gavit_moe_bwd_partial_rows": ((_I, _I, _I), _I),
+    "gavit_moe_bwd": (
+        (_P,) * 13 + (_I,) * 6 + (_U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
+    "gavit_moe_tgmm": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "gavit_graph_fits": ((_I,), _I),
     "gavit_graph_fwd": (
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P), _I),

@@ -67,17 +67,22 @@ def _bucketed_predict(images_u8, buckets, image_size, call) -> np.ndarray:
     return np.concatenate(outs)
 
 
+# parameters the model reads in fp32 whatever its compute dtype
+_FP32_PARAMS = ("adj_logits", "router")
+
+
 @torch.no_grad()
 def _cast_weights_(model: torch.nn.Module, dtype: torch.dtype) -> None:
     """Store every weight in the compute dtype once, instead of casting it
     on every call; the numbers are the same. LayerNorm's stay fp32, and so
     do a learned-static graph's adjacency logits, whose softmax the model
-    takes in fp32."""
+    takes in fp32, and an MoE router, whose logits it takes in fp32 (a bf16
+    router would flip expert choices)."""
     for mod in model.modules():
         if isinstance(mod, LayerNorm):
             continue
         for name, p in mod.named_parameters(recurse=False):
-            if name != "adj_logits":
+            if name not in _FP32_PARAMS:
                 p.data = p.data.to(dtype)
 
 

@@ -6,8 +6,9 @@
 β = (beta1, beta2), ε and decoupled weight decay from the config. With
 ``weight_decay_all_params`` (the default, as torch AdamW and the reference)
 every parameter decays; otherwise biases, LayerNorm scales, graph gates,
-the CLS token, the position embeddings and every parameter with fewer than
-two dimensions (the λ included) are exempt, as the JAX package's mask is.
+the CLS token, the position embeddings, every ``*_bias`` (the MoE expert
+banks' ``[E, F]`` biases too) and every parameter with fewer than two
+dimensions (the λ included) are exempt, as the JAX package's mask is.
 The model's gradients are clipped to ``max_grad_norm`` by their global norm
 before the update, as ``optax.clip_by_global_norm`` does; the λ are not.
 """
@@ -24,10 +25,13 @@ _EXEMPT = ("cls_token", "pos_embed", "gate")
 
 
 def decays(name: str, p: torch.Tensor) -> bool:
-    """The JAX mask's rule for one parameter (weight_decay_all_params off):
-    LayerNorm weights and every bias are 1-D, so ``ndim >= 2`` covers
-    them."""
-    return p.ndim >= 2 and name.rpartition(".")[2] not in _EXEMPT
+    """The JAX mask's rule for one parameter (weight_decay_all_params off,
+    gavit_tpu/training/optimizer.py:37-50): LayerNorm weights and Dense
+    biases are 1-D, so ``ndim >= 2`` covers them; the expert banks'
+    ``fc1_bias``/``fc2_bias`` are 2-D and exempt by name."""
+    leaf = name.rpartition(".")[2]
+    return (p.ndim >= 2 and leaf not in _EXEMPT
+            and not leaf.endswith("_bias"))
 
 
 def make_optimizer(cfg: Config, model: nn.Module, criterion: nn.Module,

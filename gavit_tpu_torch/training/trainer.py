@@ -1,14 +1,16 @@
 """The training step (counterpart of the ``grad_accum_steps == 1`` branch of
 ``gavit_tpu/training/trainer.py::Trainer._build_train_step``, without
-pipeline, MoE or QAT).
+pipeline or QAT).
 
 One :meth:`Trainer.train_step` is: uint8 NHWC images → ``train_preprocess``
 on the device (flip + colour jitter, draws from the trainer's generator) →
 the forward in the model's compute dtype with dropout (the step's Philox
-seed) → ``DynamicWeightedLoss`` in fp32 → the backward → global-norm
-clipping of the model's gradients → the two-group AdamW update at the
-schedule's lr for this step (0 at step 0). The parameters, the λ and the
-optimizer state are fp32 on the device.
+seed) → ``DynamicWeightedLoss`` in fp32, plus the MoE blocks' weighted
+auxiliary loss when ``model.moe`` is enabled
+(gavit_tpu/training/trainer.py:317-345; reported as ``moe_aux``) → the
+backward → global-norm clipping of the model's gradients → the two-group
+AdamW update at the schedule's lr for this step (0 at step 0). The
+parameters, the λ and the optimizer state are fp32 on the device.
 
 Checkpointing, validation, early stopping, preemption and gradient
 accumulation wait for ROADMAP Queue 1 item 6.
@@ -33,10 +35,10 @@ class Trainer:
         (moved to ``device`` here); ``pos_weight``: the per-class WBCE
         weights ``[num_classes]``."""
         tr = config.training
-        if tr.grad_accum_steps != 1 or tr.qat or config.model.moe.enabled:
+        if tr.grad_accum_steps != 1 or tr.qat:
             raise NotImplementedError(
-                "gradient accumulation, QAT and MoE training wait for ROADMAP "
-                "Queue 1 items 6, 8 and 11")
+                "gradient accumulation and QAT wait for ROADMAP Queue 1 "
+                "items 6 and 8")
         self.config = config
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
@@ -48,6 +50,7 @@ class Trainer:
             config, self.model, self.criterion, steps_per_epoch)
         self.model_params = [p for g in self.optimizer.param_groups
                              if g["role"] == "model" for p in g["params"]]
+        self.moe = config.model.moe.enabled
         self.max_grad_norm = tr.max_grad_norm
         self.use_affine = config.data.augment_affine
         self.seed = tr.seed
@@ -60,8 +63,9 @@ class Trainer:
         """One optimizer step. ``images``: uint8 ``[B, S, S, 3]`` (augmented
         and normalised here) or already-normalised floats (used as given);
         ``labels``: ``[B, num_classes]``. Returns device tensors: the loss,
-        its components, the λ weights, the pre-clip gradient norm and the
-        model lr of this step."""
+        its components (and ``moe_aux``, which the loss includes, for an MoE
+        model), the λ weights, the pre-clip gradient norm and the model lr
+        of this step."""
         images = images.to(self.device, non_blocking=True)
         labels = labels.to(self.device, non_blocking=True)
         if images.dtype == torch.uint8:
@@ -72,6 +76,10 @@ class Trainer:
         logits = self.model(x, seed=philox.step_seed(self.seed, self.step),
                             generator=self.generator)
         loss, comps = self.criterion(logits, labels, self.pos_weight)
+        if self.moe:
+            aux = self.model.moe_aux_loss()
+            loss = loss + aux
+            comps = {**comps, "moe_aux": aux.detach()}
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grad_norm = None

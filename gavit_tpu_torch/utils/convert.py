@@ -4,7 +4,9 @@
 arrays (``jax.tree.map(np.asarray, params)``), or the path of an ``.npz``
 whose keys are the '/'-joined Flax paths (``blocks_0/attn/qkv/kernel``).
 Dense kernels ``[in, out]`` are transposed into ``nn.Linear``'s
-``[out, in]``; LayerNorm ``scale`` becomes ``weight``. Strict: a missing or
+``[out, in]``; LayerNorm ``scale`` becomes ``weight``; an MoE block's
+``blocks_{i}/moe/{router, fc1_kernel, fc1_bias, fc2_kernel, fc2_bias}``
+keep the Flax layout both ways, with no transpose. Strict: a missing or
 unexpected key, or a shape mismatch, raises. ``to_flax_tree`` is the
 reverse direction (port → nested dicts of numpy arrays in the Flax layout).
 ``load_criterion_params`` / ``criterion_tree`` carry the loss's λ
@@ -59,7 +61,7 @@ def flax_layout(model: nn.Module) -> dict:
         elif isinstance(mod, Dense):
             leaf, transpose = {"weight": "kernel", "bias": "bias"}[p_name], \
                 p_name == "weight"
-        else:  # cls_token, pos_embed, graph gate
+        else:  # cls_token, pos_embed, graph gate, MoE router and banks
             leaf, transpose = p_name, False
         path = f"{_flax_module_path(mod_name)}/{leaf}" if mod_name else leaf
         layout[path] = (p, transpose)

@@ -9,7 +9,10 @@ Stdlib-only HTTP server wrapping :class:`gavit_tpu_torch.serving.Predictor`
         [--host 127.0.0.1] [--port 8476] [--no-warmup] [--set key=value]
 
 ``--weights`` is an ``.npz`` whose keys are the '/'-joined Flax parameter
-paths of the JAX model; without it the weights are random, from a seed.
+paths of the JAX model; without it the weights are random, from a seed. A
+MoE config (``configs/examples/vit_b16_moe.yaml``) serves its small
+buckets on the dense engine and its large ones on the grouped one; a
+config's ``mesh`` is read and not used: the port runs on one card.
 
 Endpoints (same bodies as ``scripts/serve.py``):
   GET  /healthz   → {"status": "ok", "model": ..., "image_size": ...}
@@ -106,7 +109,10 @@ def build_handler(predictor, image_size: int, model_desc: str,
 
 def model_desc(config) -> str:
     m = config.model
-    return f"{m.name}+graph{m.graph.num_blocks}" if m.graph.enabled else m.name
+    desc = m.name
+    if m.moe.enabled:
+        desc += f"+moe{m.moe.num_experts}x{len(m.moe_sites())}"
+    return f"{desc}+graph{m.graph.num_blocks}" if m.graph.enabled else desc
 
 
 def main():
@@ -126,10 +132,13 @@ def main():
     args = p.parse_args()
     logging.basicConfig(level=logging.INFO)
 
-    from gavit_tpu_torch import load_config
+    from gavit_tpu_torch.config import load_config, mesh_note
     from gavit_tpu_torch.serving import Predictor
 
     config = load_config(args.config, args.overrides)
+    note = mesh_note(config)
+    if note:
+        logger.info(note)
     predictor = Predictor(config, args.weights or None,
                           precision=args.precision, device=args.device)
     if not args.no_warmup:

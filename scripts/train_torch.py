@@ -13,7 +13,10 @@ step preprocessed, run forward and backward and applied on the device
 weights and images/s of every step.
 
 It runs on ``cuda`` unless ``--device cpu`` is given; on the card the
-Hopper kernels build on first use. Checkpointing, validation, early
+Hopper kernels build on first use. A MoE config
+(``configs/examples/vit_b16_moe.yaml``) trains with its auxiliary loss in
+the objective; a config's ``mesh`` is read and not used: the port runs on
+one card. Checkpointing, validation, early
 stopping, preemption and gradient accumulation wait for ROADMAP Queue 1
 item 6; only the synthetic data path exists so far.
 """
@@ -89,9 +92,12 @@ def parse_args(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = parse_args(argv)
-    from gavit_tpu_torch import load_config
+    from gavit_tpu_torch.config import load_config, mesh_note
 
     config = load_config(args.config, args.overrides)
+    note = mesh_note(config)
+    if note:
+        logger.info(note)
     if not (args.synthetic or config.data.synthetic):
         raise SystemExit("train_torch: only --synthetic data is ported so far "
                          "(the image-folder loader waits for ROADMAP Queue 1 "
@@ -114,9 +120,10 @@ def main(argv=None):
         loss = m["loss"].item()  # waits for the step
         dt = time.perf_counter() - t0
         w = [round(v, 4) for v in m["loss_weights"].tolist()]
+        aux = f" moe_aux {m['moe_aux'].item():.4f}" if "moe_aux" in m else ""
         logger.info(f"step {trainer.step}: loss {loss:.4f} (wbce "
                     f"{m['wbce'].item():.4f} focal {m['focal'].item():.4f} "
-                    f"asl {m['asl'].item():.4f}) loss weights {w} lr "
+                    f"asl {m['asl'].item():.4f}{aux}) loss weights {w} lr "
                     f"{m['lr']:.3e} {bs / dt:.1f} img/s")
     return trainer
 

@@ -216,19 +216,34 @@ def test_http_handler_healthz_and_predict():
 def test_port_never_imports_jax():
     """Nothing of jax, flax or gavit_tpu loads while the port is imported
     and driven: the package, its serving and training modules, and both
-    CLIs (the trainer takes one tiny step on the CPU)."""
+    CLIs (the trainer takes one tiny step on the CPU), for the graph model
+    and for the MoE example: a trainer step on its grouped engine, and its
+    Predictor behind the serving handler on the dense engine, which
+    ``impl: auto`` picks at this size."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
             "--set", "model.embed_dim=64", "--set", "model.depth=2",
             "--set", "model.num_heads=2", "--set", "data.image_size=32",
             "--set", "data.batch_size=2", "--set", "data.synthetic_size=8"]
+    moe = "configs/examples/vit_b16_moe.yaml"
     code = (
         "import sys, runpy\n"
+        "import numpy as np\n"
         "import gavit_tpu_torch, gavit_tpu_torch.serving\n"
         "import gavit_tpu_torch.training.trainer\n"
-        f"runpy.run_path({str(ROOT / 'scripts' / 'serve_torch.py')!r})\n"
+        f"serve = runpy.run_path({str(ROOT / 'scripts' / 'serve_torch.py')!r})\n"
         f"train = runpy.run_path({str(ROOT / 'scripts' / 'train_torch.py')!r})\n"
-        "train['main'](['--config', 'configs/vit_b16_graph2.yaml', "
-        f"'--synthetic', '--steps', '1', '--device', 'cpu', *{tiny!r}])\n"
+        "for cfg, extra in (('configs/vit_b16_graph2.yaml', []), "
+        f"({moe!r}, ['--set', 'model.moe.impl=grouped'])):\n"
+        "    train['main'](['--config', cfg, "
+        f"'--synthetic', '--steps', '1', '--device', 'cpu', *{tiny!r}, "
+        "*extra])\n"
+        "config = gavit_tpu_torch.load_config("
+        f"{moe!r}, {tiny[1::2]!r})\n"
+        "pred = gavit_tpu_torch.serving.Predictor(config, device='cpu', "
+        "buckets=(1,))\n"
+        "serve['build_handler'](pred, 32, serve['model_desc'](config))\n"
+        "assert pred.predict_proba(np.zeros((1, 32, 32, 3), np.uint8))"
+        ".shape == (1, 14)\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'gavit_tpu')]\n"
         "assert not bad, bad\n"

@@ -5,16 +5,18 @@
         [--batch 128] [--iters 5] [--out build/profile_train]
 
 Builds the configuration (``configs/vit_b16_graph2.yaml`` by default;
-``configs/finetune_384.yaml`` for the 384-px fine-tune, at its batch 16
-unless ``--batch`` says otherwise; dropout 0.1, graph gates 0.5, weights
-from a seed) through ``scripts/train_torch.py``'s trainer, takes 3 warm-up
+``configs/finetune_384.yaml`` for the 384-px fine-tune, at its batch 16,
+and ``configs/examples/vit_b16_moe.yaml`` for the MoE model, at its batch
+128, unless ``--batch`` says otherwise; dropout 0.1, graph gates 0.5,
+weights from a seed) through ``scripts/train_torch.py``'s trainer, takes 3 warm-up
 steps on synthetic uint8 batches, then:
 
 * times the step on the host clock around ``train_step`` and a
   synchronize (median over ``--iters``);
 * runs ``torch.profiler`` over ``--iters`` more steps and prints the device
   time per step grouped by kernel family (the port's kernels A, A′, C, D,
-  D′, F, H, H′, K, K′ by name; cuBLAS GEMMs; LayerNorm; elementwise and reductions), the
+  D′, F, H, H′, K, K′, M, M′, tgmm by name; cuBLAS GEMMs; LayerNorm; the
+  MoE routing's sorts, scans and gathers; elementwise and reductions), the
   top kernels, the device busy time per step and the idle share of the
   wall time (1 - busy / wall);
 * writes a Chrome trace under ``--out``.
@@ -42,6 +44,14 @@ FAMILIES = (
     ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
     ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
     ("attn_fwd", "A attention forward (attention.cu)"),
+    # moe.cu's before mlp.cu's: "gemm_kernel<false, 2" is in both names
+    ("moe_gemm_kernel<true, 0,", "M fc1 + GELU + mask (moe.cu)"),
+    ("moe_gemm_kernel<true, 1,", "M fc2 + mask (moe.cu)"),
+    ("moe_gemm_kernel<false, 2,", "M′ dh GEMM + GELU′ epilogue (moe.cu)"),
+    ("moe_gemm_kernel<false, 3,", "M′ dx GEMM (moe.cu)"),
+    ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
+    ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
+    ("moe_tgmm_kernel", "tgmm grouped dW1, dW2 (moe.cu)"),
     ("gemm_kernel<true, 3>", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
     ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
@@ -61,6 +71,11 @@ FAMILIES = (
     ("sgemm", "cuBLAS fp32 GEMMs (graph backward)"),
     ("gemm", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
     ("multi_tensor_apply", "AdamW (foreach)"),
+    ("Sort", "sorts (MoE top-k)"),
+    ("sort", "sorts (MoE top-k)"),
+    ("Scan", "scans (MoE grouping cumsums)"),
+    ("scan", "scans (MoE grouping cumsums)"),
+    ("index", "gathers and index_put (MoE grouping, dispatch, combine)"),
     ("reduce", "reductions (bias grads, norms, loss)"),
     ("copy_kernel", "dtype casts (weights to bf16, LayerNorm inputs to fp32)"),
     ("elementwise", "elementwise (adds, scales, preprocess, loss)"),
