@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths on
 one CUDA card: ViT-B/16 with two kNN graph blocks at 224 px
-(``configs/vit_b16_graph2.yaml``), its 384-px fine-tune with a
-learned-static graph block (``configs/finetune_384.yaml``), and ViT-B/16
-with 8-expert top-2 MoE MLPs in blocks 1, 3, ..., 11 and two kNN graph
-blocks (``configs/examples/vit_b16_moe.yaml``, one card: its mesh is read
-and not used).
+(``configs/vit_b16_graph2.yaml``), the same model at 512 and 1024 px
+(``--set model.img_size=... --set data.image_size=...``; 1024 px trains
+with ``model.remat``), its 384-px fine-tune with a learned-static graph
+block (``configs/finetune_384.yaml``), and ViT-B/16 with 8-expert top-2 MoE
+MLPs in blocks 1, 3, ..., 11 and two kNN graph blocks
+(``configs/examples/vit_b16_moe.yaml``, one card: its mesh is read and not
+used).
 
     python3 chip_smoke.py
 
@@ -23,30 +25,39 @@ before the last line:
    (GELU + dropout) at the 384 fine-tune's hidden rows [16·577, 3072]; M,
    M′ and tgmm (the MoE expert MLP forward, backward and grouped dW) at the
    b128 routing (T = 50432 pairs, tm = 256) of a seeded router, and with a
-   hot and an empty expert;
+   hot and an empty expert; L and L′ (blockwise attention) at N = 750, 1025
+   (b32), 1088 and 4097, and the chunked graph path (tensor ops) at 1024
+   and 4096 patch tokens;
 4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
    (and the learned adjacency logits drawn from a normal), through the
    kernels (``impl='auto'``) and through the plain versions
    (``impl='reference'``) on the same weights: 8 images at 224 px, 16 at
-   384 px, 64 (grouped engine) and 1 (dense engine) of the MoE model, with
-   the launch counts of that forward;
+   384 px, 8 at 512 px, 2 at 1024 px, 64 (grouped engine) and 1 (dense
+   engine) of the MoE model, with the launch counts of that forward;
 5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a warmed
    224-px Predictor; every response must be 200 and match the plain-version
    Predictor; the kernels' launch counters, zeroed just before, must show
-   that the requests went through every serving kernel;
+   that the requests went through every serving kernel; the 512- and
+   1024-px Predictors (buckets 1 and 8, 1 and 4) against their plain
+   versions, with the launches of their warm-up;
 6. train: each configuration through ``scripts/train_torch.py``'s trainer
    (preprocess → forward with dropout 0.1 → loss → backward → AdamW),
    vit_b16_graph2 and the MoE model at batch 128 (the MoE objective with
-   its auxiliary loss) and finetune_384 at its batch 16: 5 steps
-   through the kernels against 5 through the plain versions from the same
-   start (losses, and every gradient of the first step), the launch counts
-   of one step, then 30 steps through the kernels that must lower the loss;
+   its auxiliary loss), finetune_384 at its batch 16 and vit_b16_graph2 at
+   512 px b32: 5 steps through the kernels against 5 through the plain
+   versions from the same start (losses, and every gradient of the first
+   step), the launch counts of one step, then 30 steps through the kernels
+   that must lower the loss; at 1024 px b4 with remat 3 compared steps and
+   their launches, then one step with remat on against one with it off;
 7. times: each kernel against its plain version and a library call (CUDA
    events, median), Predictor p50 for one image at 224 and 384 px,
    images/s of the bf16 forward (224 px b64, 384 px b16) and of the train
    step (224 px b128, 384 px b16), and the 384 MLP's two routes (kernels
    D/D′ against the chain of H/H′ and F) at M = 9232; the MoE kernels at
-   b128, its b64 forward, b128 train step and b1 p50.
+   b128, its b64 forward, b128 train step and b1 p50; L and L′ at 512 px
+   b32, the chunked graph op at both sizes' training shapes, the 512-px b32
+   forward, the 512-px b32 and 1024-px b4 train steps, the b1 p50 at 512
+   and 1024 px.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -75,6 +86,8 @@ SEED = 0
 GATE = 0.5
 HEADS, HEAD_DIM, N_TOKENS, DIM, HIDDEN = 12, 64, 197, 768, 3072
 N_384, BATCH_384 = 577, 16  # tokens at 384 px, the fine-tune's batch
+N_512, BATCH_512 = 1025, 32  # tokens at 512 px, the config's own batch
+N_1024, BATCH_1024 = 4097, 4  # tokens at 1024 px, a batch that trains
 EXPERTS, TOP_K = 8, 2  # the MoE example's experts and choices per token
 DTYPES = {"bf16": "bfloat16", "fp32": "float32"}  # names of torch dtypes
 
@@ -99,6 +112,18 @@ DROP_RATE = 0.1
 TRAIN_BATCH = 128
 LOSS_REL_TOL = 2e-2  # per-step loss, kernels vs plain versions, bf16
 GRAD_COSINE = 0.99  # each parameter's first gradient, kernels vs plain
+# L's fp32 log-sum-exp: the same terms summed in another order (the online
+# softmax over 64-key tiles against one pass over the row), up to 4097 keys
+LSE_TOL = 1e-3
+# a kNN selection decided by less than this may go either way between two
+# summation orders of the same fp32 products: such rows are counted, and
+# left out of the comparison (as in tests/test_torch_cuda.py)
+TIE_MARGIN = 1e-5
+# one 1024-px step with remat on against one with it off, from the same
+# start: the recompute runs the same operations on the same inputs, so the
+# same bits are expected; each gradient is held within this share of its
+# tensor's largest value (fp32 reassociation), and bit-equality is reported
+REMAT_REL_TOL = 1e-6
 # the H100 SXM's published dense peaks (the bound of each kernel's work)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -232,6 +257,123 @@ def check_long_attention(dev, results):
           f"max {rel:.3e} (tol {GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}")
     results["K′"]["errs"].append(err)
     results["K′"]["cases"].append((qkv, do))
+
+
+def check_blockwise_attention(dev, results,
+                              cases=((750, 1), (N_512, BATCH_512), (1088, 2),
+                                     (N_1024, 2))):
+    """L and L′ against their plain versions: at the route's boundary (N =
+    750, b1), 512 px at the training batch (b32; its tensors are kept for
+    the times), an exact tile multiple (1088 = 17·64) and 1024 px (b2); dO
+    as the output projection's backward hands it over; L′ twice, for the
+    same bits."""
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+
+    scale = HEAD_DIM ** -0.5
+    bf = torch.bfloat16
+    routes = tuple(A.attention_route(n, bf) for n in (A.K_MAX_N,
+                                                      A.K_MAX_N + 1))
+    check("L route", routes == ("K", "L"),
+          f"bf16 N={A.K_MAX_N} takes {routes[0]}, N={A.K_MAX_N + 1} takes "
+          f"{routes[1]}")
+    for n, b in cases:
+        g = torch.Generator(device=dev).manual_seed(SEED + 61 + n)
+        qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device=dev,
+                          generator=g).to(bf)
+        o, lse = A.qkv_attention_large_kernel(qkv, scale, HEADS)
+        want_o, want_lse = A.blockwise_attention_reference(qkv, scale, HEADS)
+        torch.cuda.synchronize()
+        err, lerr = max_err(o, want_o), max_err(lse, want_lse)
+        del want_o, want_lse
+        check("L blockwise attention", torch.isfinite(o).all().item()
+              and err <= ATTN_TOL["bf16"] and lerr <= LSE_TOL,
+              f"bf16 B={b} N={n} H={HEADS} d={HEAD_DIM}: o max_abs_err "
+              f"{err:.3e} (tol {ATTN_TOL['bf16']:.0e}), lse max_abs_err "
+              f"{lerr:.3e} (tol {LSE_TOL:.0e})")
+        results["L"]["errs"].append(err)
+        do = torch.randn(b, n, HEADS, HEAD_DIM, device=dev,
+                         generator=g).to(bf).transpose(1, 2)
+        got = A.qkv_attention_large_bwd_kernel(qkv, o, lse, do, scale, HEADS)
+        again = A.qkv_attention_large_bwd_kernel(qkv, o, lse, do, scale,
+                                                 HEADS)
+        want = A.blockwise_attention_backward_reference(qkv, o, lse, do,
+                                                        scale, HEADS)
+        torch.cuda.synchronize()
+        rel, err = rel_err(got, want), max_err(got, want)
+        same = torch.equal(got, again)
+        del want
+        check("L′ blockwise attention bwd", rel <= GRAD_REL_TOL and same
+              and torch.isfinite(got).all().item(),
+              f"bf16 B={b} N={n} H={HEADS} d={HEAD_DIM}: dqkv rel to max "
+              f"{rel:.3e} (tol {GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}; "
+              f"a second run bit-equal {same}")
+        results["L′"]["errs"].append(err)
+        if n == N_512:
+            results["L"]["cases"].append(qkv)
+            results["L′"]["cases"].append((qkv, o, lse, do))
+        torch.cuda.empty_cache()
+
+
+def near_tie_rows(tokens, k):
+    """Rows whose k-th and (k+1)-th non-self cosine similarity lie within
+    TIE_MARGIN: their neighbour set may differ between two summation
+    orders."""
+    import torch
+
+    from gavit_tpu_torch.ops import graph_ops as G
+
+    sim = G.cosine_similarity(tokens)
+    eye = torch.eye(sim.shape[-1], dtype=torch.bool, device=sim.device)
+    top = torch.topk(sim.masked_fill(eye, -1e30), k + 1, dim=-1).values
+    return top[..., k - 1] - top[..., k] < TIE_MARGIN
+
+
+def check_graph_chunked(dev, cases=((8, 1024), (1, 4096))):
+    """The large-N graph path (tensor ops, no kernel: the JAX package writes
+    it in XLA) on the card, bf16 kNN at ViT-B width, against the
+    materialised plain version: the 512-px graph (1024 patch tokens, b8)
+    and the 1024-px one (4096, b1). Rows at a near-tie are counted and left
+    out: the upstream gradient is zero there, so they move no gradient."""
+    import torch
+
+    from gavit_tpu_torch.ops import graph_ops as G
+
+    bf = torch.bfloat16
+    for b, n in cases:
+        g = torch.Generator(device=dev).manual_seed(SEED + 71 + n)
+        t, v, up = (torch.randn(b, n, DIM, device=dev, generator=g).to(bf)
+                    for _ in range(3))
+        near = near_tie_rows(t, 8)
+        share = 1.0 - near.float().mean().item()
+        up = up * (~near)[..., None]
+        outs, grads = {}, {}
+        for impl in ("auto", "reference"):
+            tt, tv = (a.detach().clone().requires_grad_(True) for a in (t, v))
+            before = G.KERNEL_LAUNCHES
+            out = G.fused_graph_aggregate(tt, tv, "knn", 8, impl=impl)
+            if G.KERNEL_LAUNCHES != before:
+                raise AssertionError(f"kernel C launched at N = {n}")
+            grads[impl] = torch.autograd.grad(out, (tt, tv), up)
+            outs[impl] = out.detach()
+        torch.cuda.synchronize()
+        row_err = (outs["auto"].float() - outs["reference"].float()).abs() \
+            .amax(-1)
+        err = row_err[~near].max().item()
+        rels = [rel_err(a, r) for a, r in zip(grads["auto"],
+                                               grads["reference"])]
+        check("chunked graph (tensor ops)", share >= GRAPH_SAME_ROWS["bf16"]
+              and err <= GRAPH_TOL["bf16"] and max(rels) <= GRAD_REL_TOL
+              and torch.isfinite(outs["auto"]).all().item(),
+              f"bf16 knn B={b} N={n} D={DIM} chunk {G._pick_chunk(n)}: "
+              f"{share:.4%} of rows clear of a near-tie (need "
+              f"{GRAPH_SAME_ROWS['bf16']:.0%}); max_abs_err on those rows "
+              f"{err:.3e} (tol {GRAPH_TOL['bf16']:.0e}); d tokens, d values "
+              f"rel to max {rels[0]:.3e}, {rels[1]:.3e} (tol "
+              f"{GRAD_REL_TOL:.0e}); kernel C launched 0 times")
+        del outs, grads
+        torch.cuda.empty_cache()
 
 
 def check_gelu_dropout(dev, results):
@@ -774,6 +916,8 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "F": ("dropout", "KERNEL_LAUNCHES"),
             "K": ("attention", "LONG_KERNEL_LAUNCHES"),
             "K′": ("attention", "LONG_BWD_KERNEL_LAUNCHES"),
+            "L": ("attention", "LARGE_KERNEL_LAUNCHES"),
+            "L′": ("attention", "LARGE_BWD_KERNEL_LAUNCHES"),
             "H": ("dropout", "GELU_LAUNCHES"),
             "H′": ("dropout", "GELU_BWD_LAUNCHES"),
             "M": ("moe_fused", "KERNEL_LAUNCHES"),
@@ -905,6 +1049,24 @@ def train_config_384():
         f"training.seed={SEED}"])
 
 
+def large_config(size: int, overrides=()):
+    """vit_b16_graph2 at ``size`` px (512 or 1024), as a user selects it:
+    ``model.img_size`` and ``data.image_size`` set on the command line."""
+    from gavit_tpu_torch import load_config
+
+    return load_config(str(CONFIG), [f"model.img_size={size}",
+                                     f"data.image_size={size}", *overrides])
+
+
+def train_config_large(size: int, batch: int, remat: bool):
+    """vit_b16_graph2 at ``size`` px and ``batch`` with a warmup of 5 steps
+    (5 steps an epoch of a synthetic set with learnable class stripes)."""
+    return large_config(size, [
+        f"data.batch_size={batch}", f"data.synthetic_size={5 * batch}",
+        "data.synthetic_learnable=true", "training.warmup_epochs=1",
+        f"training.seed={SEED}", f"model.remat={str(remat).lower()}"])
+
+
 def held_loss(trainer, batches) -> float:
     """The mean loss of the trainer's model over ``batches`` in eval mode
     (no dropout) on the validation preprocessing: the same number for the
@@ -929,7 +1091,9 @@ def held_loss(trainer, batches) -> float:
 
 def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
     """The training step through scripts/train_torch.py's entry points;
-    ``expect``: the nonzero launch counts of one step, asserted."""
+    ``expect``: the nonzero launch counts of one step, asserted. The
+    learning check (``steps_learn`` steps must lower the held loss) is left
+    out when ``steps_learn`` is not past ``steps_compare``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -948,7 +1112,8 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
     first_grads = {}
     counts = None
     held = data[:5]  # the learning check's fixed batches
-    before = held_loss(trainers["auto"], held)
+    learn = steps_learn > steps_compare
+    before = held_loss(trainers["auto"], held) if learn else None
     # an MoE model's plain step replays the kernels' step's expert choices
     pinned = PinnedRouting() if cfg.model.moe.enabled else None
     with pinned or contextlib.nullcontext():
@@ -1033,6 +1198,8 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
     # keep training through the kernels: the loss must come down
     del trainers["reference"]
     tr = trainers["auto"]
+    if not learn:
+        return tr, data[0], counts
     for i in range(steps_compare, steps_learn):
         images, labels = (torch.from_numpy(a) for a in data[i])
         losses["auto"].append(tr.train_step(images, labels)["loss"].item())
@@ -1048,6 +1215,223 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
         raise AssertionError("30 steps through the kernels did not lower "
                              "the loss")
     return tr, data[0], counts
+
+
+def p50_ms(predictor, calls: int = 50) -> float:
+    """Predictor.predict_proba's median host time for one image."""
+    import numpy as np
+
+    s = predictor.image_size
+    img = np.random.default_rng(SEED + 2).integers(0, 256, (s, s, 3),
+                                                   np.uint8)
+    for _ in range(5):
+        predictor.predict_proba(img)
+    lat = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        predictor.predict_proba(img)
+        lat.append((time.perf_counter() - t0) * 1000)
+    return statistics.median(lat)
+
+
+def phase_serve_large(cfg, weights, dev, buckets, card):
+    """``Predictor`` at 512 or 1024 px over ``buckets`` (the default top
+    bucket, 128, is more than a 1024-px server batches): warmed, then one
+    image and a full top bucket, each against the plain-version Predictor;
+    the launches of the warm-up (L and B in every block, C never: the graph
+    blocks take the chunked path); the b1 p50."""
+    import numpy as np
+
+    from gavit_tpu_torch.serving import Predictor
+
+    predictor = Predictor(cfg, weights, precision="bf16", device=dev,
+                          buckets=buckets)
+    reference = Predictor(cfg, weights, precision="bf16", device=dev,
+                          buckets=buckets, impl="reference")
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    predictor.warmup()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    depth, s = cfg.model.depth, cfg.data.image_size
+    want = expected({"L": depth * len(buckets), "B": depth * len(buckets)})
+    log(f"[serve] {s} px Predictor buckets {buckets}: kernel launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f" {'ok' if counts == want else 'FAIL'}")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+    rng = np.random.default_rng(SEED + 4)
+    for n in (1, buckets[-1]):
+        imgs = rng.integers(0, 256, (n, s, s, 3), np.uint8)
+        got, ref = predictor.predict_proba(imgs), reference.predict_proba(imgs)
+        err = float(np.abs(got - ref).max())
+        ok = (got.shape == (n, cfg.model.num_classes)
+              and np.isfinite(got).all() and err <= PROB_TOL)
+        log(f"[serve] {s} px Predictor {n} image(s): probabilities "
+            f"{list(got.shape)}, max |dp| vs plain-version Predictor "
+            f"{err:.3e} (tol {PROB_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"the {s}-px Predictor disagrees with the "
+                                 "plain versions")
+    del reference
+    p50 = p50_ms(predictor)
+    log(f"[time] Predictor.predict_proba 1 image bf16 at {s} px: p50 "
+        f"{p50:.3f} ms over 50 calls ({card})")
+    return predictor
+
+
+def phase_remat(cfg, dev, batch, card):
+    """One 1024-px step with ``model.remat`` on and one with it off, from
+    the same weights, generator and batch: losses and every gradient (after
+    clipping, before the update reads them) within REMAT_REL_TOL of the
+    tensor's largest value; bit-equality reported."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+
+    dataset = train_torch.create_dataset(cfg)
+    images, labels = (torch.from_numpy(a) for a in batch)
+    out = {}
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, remat=remat))
+        tr = train_torch.build_trainer(c, dataset, dev, gate=GATE)
+        torch.cuda.reset_peak_memory_stats()
+        loss = tr.train_step(images, labels)["loss"]
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[remat] = (loss, [(n, p.grad.detach().clone())
+                             for n, p in tr.model.named_parameters()], peak)
+        del tr
+        torch.cuda.empty_cache()
+    (l1, g1, m1), (l0, g0, m0) = out[True], out[False]
+    rel = max(rel_err(a, b) for (_, a), (_, b) in zip(g1, g0))
+    bits = torch.equal(l1, l0) and all(torch.equal(a, b)
+                                       for (_, a), (_, b) in zip(g1, g0))
+    ok = (torch.equal(l1, l0) or abs(l1.item() - l0.item())
+          <= REMAT_REL_TOL * abs(l0.item())) and rel <= REMAT_REL_TOL
+    log(f"[train] 1024 px b{cfg.data.batch_size} one step remat on vs off: "
+        f"loss {l1.item():.6f} vs {l0.item():.6f}, every gradient within "
+        f"{rel:.3e} of its largest (tol {REMAT_REL_TOL:.0e}), bit-equal "
+        f"{bits}; peak memory {m1:.2f} GiB with remat, {m0:.2f} GiB without "
+        f"({card}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("remat changed the training step")
+
+
+def phase_large_times(cfg512, weights512, dev, results, predictor512,
+                      trainers, card):
+    """L and L′ at 512 px b32 against their plain versions, the library's
+    attention and the bound; the chunked graph op (tensor ops) at the
+    training shapes of both sizes; the 512-px b32 forward through the
+    kernels and the plain versions; the 512-px b32 and 1024-px b4 train
+    steps. ``trainers``: {name: (trainer, batch, cfg)} through the
+    kernels."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import graph_ops as G
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+
+    rows = {}
+    b, n, h, d = BATCH_512, N_512, HEADS, HEAD_DIM
+    scale = d ** -0.5
+    qkv, o, lse, do = results["L′"]["cases"][0]
+    q, k, v = (t.detach().clone().requires_grad_(True)
+               for t in A._split_heads(qkv, h))
+    do_c = do.contiguous()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), do_c)
+
+    rows["L"] = (cuda_ms(lambda: A.qkv_attention_large_kernel(qkv, scale, h)),
+                 cuda_ms(lambda: A.blockwise_attention_reference(
+                     qkv, scale, h), iters=3, warmup=1),
+                 cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                 ) + bound(4 * b * h * n * n * d,
+                           4 * b * n * h * d * 2 + b * h * n * 4)
+    rows["L′"] = (cuda_ms(lambda: A.qkv_attention_large_bwd_kernel(
+                      qkv, o, lse, do, scale, h)),
+                  cuda_ms(lambda: A.blockwise_attention_backward_reference(
+                      qkv, o, lse, do, scale, h), iters=3, warmup=1),
+                  cuda_ms(sdpa_fwd_bwd)
+                  ) + bound(10 * b * h * n * n * d,
+                            8 * b * n * h * d * 2 + b * h * n * 4)
+    del q, k, v
+    for key in ("L", "L′"):
+        km, pm, lm, bms, by = rows[key]
+        log(f"[time] {key} at 512 px b{b} (N={n}): kernel {km:.4f} ms, "
+            f"plain {pm:.4f} ms, library (sdpa{' fwd+bwd' if key == 'L′' else ''}) "
+            f"{lm:.4f} ms, bound {bms:.4f} ms ({by}) ({card})")
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 81)
+    for gb, gn in ((BATCH_512, N_512 - 1), (BATCH_1024, N_1024 - 1)):
+        t, vals, up = (torch.randn(gb, gn, DIM, device=dev, generator=g)
+                       .to(torch.bfloat16) for _ in range(3))
+        tt, tv = (a.clone().requires_grad_(True) for a in (t, vals))
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: G.graph_aggregate_chunked(t, vals, "knn", 8),
+                          iters=5)
+        both = cuda_ms(lambda: torch.autograd.grad(
+            G.graph_aggregate_chunked(tt, tv, "knn", 8), (tt, tv), up),
+            iters=5)
+        log(f"[time] chunked graph (tensor ops, no kernel) bf16 knn B={gb} "
+            f"N={gn} chunk {G._pick_chunk(gn)}: forward {fwd:.3f} ms, "
+            f"forward + backward {both:.3f} ms ({card})")
+        del t, vals, up, tt, tv
+
+    s = cfg512.data.image_size
+    plain = Predictor(cfg512, weights512, precision="bf16", device=dev,
+                      impl="reference")
+    imgs = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+        0, 256, (b, s, s, 3), np.uint8)).to(dev)
+    xb = val_preprocess(imgs)
+    for impl, model in (("auto", predictor512.model),
+                        ("reference", plain.model)):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(xb), iters=5 if impl == "auto" else 2,
+                         warmup=1)
+        log(f"[time] bf16 forward at {s} px b{b} impl={impl}: {ms:.3f} ms, "
+            f"{b / (ms / 1000):.1f} img/s ({card})")
+    del plain, xb
+
+    for name, (trainer, batch, tcfg) in trainers.items():
+        dataset = train_torch.create_dataset(tcfg)
+        ref = train_torch.build_trainer(tcfg, dataset, dev, impl="reference",
+                                        gate=GATE)
+        images, labels = (torch.from_numpy(a) for a in batch)
+        bs = tcfg.data.batch_size
+        step_ms = {"auto": [], "reference": []}
+        for tr in (trainer, ref):
+            tr.train_step(images, labels)
+        torch.cuda.synchronize()
+        for i in range(5):
+            for impl, tr in (("auto", trainer), ("reference", ref)):
+                if impl == "reference" and i % 3:
+                    continue  # the plain versions' step: 2 samples
+                t0 = time.perf_counter()
+                tr.train_step(images, labels)
+                torch.cuda.synchronize()
+                step_ms[impl].append((time.perf_counter() - t0) * 1000)
+        for impl, ts in step_ms.items():
+            ms = statistics.median(ts)
+            log(f"[time] train step {name} b{bs} bf16 impl={impl}: {ms:.3f} "
+                f"ms (median of {len(ts)}), {bs / (ms / 1000):.1f} img/s "
+                f"({card})")
+        del ref
+        torch.cuda.empty_cache()
+    return rows
 
 
 def phase_times(cfg, dev, results, predictors, card):
@@ -1100,17 +1484,8 @@ def phase_times(cfg, dev, results, predictors, card):
 
     predictor, reference = predictors
     s = cfg.data.image_size
-    img = np.random.default_rng(SEED + 2).integers(0, 256, (s, s, 3), np.uint8)
-    for _ in range(5):
-        predictor.predict_proba(img)
-    lat = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        predictor.predict_proba(img)
-        lat.append((time.perf_counter() - t0) * 1000)
-    p50 = statistics.median(lat)
-    log(f"[time] Predictor.predict_proba 1 image bf16: p50 {p50:.3f} ms "
-        f"over 50 calls ({card})")
+    log(f"[time] Predictor.predict_proba 1 image bf16: p50 "
+        f"{p50_ms(predictor):.3f} ms over 50 calls ({card})")
 
     batch = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
         0, 256, (64, s, s, 3), np.uint8)).to(dev)
@@ -1357,17 +1732,8 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
 
     predictor = Predictor(cfg, weights, precision="bf16", device=dev)
     s = cfg.data.image_size
-    img = np.random.default_rng(SEED + 2).integers(0, 256, (s, s, 3),
-                                                   np.uint8)
-    for _ in range(5):
-        predictor.predict_proba(img)
-    lat = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        predictor.predict_proba(img)
-        lat.append((time.perf_counter() - t0) * 1000)
     log(f"[time] Predictor.predict_proba 1 image bf16 at {s} px: p50 "
-        f"{statistics.median(lat):.3f} ms over 50 calls ({card})")
+        f"{p50_ms(predictor):.3f} ms over 50 calls ({card})")
     plain = Predictor(cfg, weights, precision="bf16", device=dev,
                       impl="reference")
     imgs = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
@@ -1528,17 +1894,8 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
         + f" {'ok' if counts == want else 'FAIL'}")
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
-    img = np.random.default_rng(SEED + 2).integers(0, 256, (s, s, 3),
-                                                   np.uint8)
-    for _ in range(5):
-        predictor.predict_proba(img)
-    lat = []
-    for _ in range(50):
-        t0 = time.perf_counter()
-        predictor.predict_proba(img)
-        lat.append((time.perf_counter() - t0) * 1000)
     log(f"[time] MoE Predictor.predict_proba 1 image bf16 (dense engine): "
-        f"p50 {statistics.median(lat):.3f} ms over 50 calls ({card})")
+        f"p50 {p50_ms(predictor):.3f} ms over 50 calls ({card})")
     plain = Predictor(grouped_engine(cfg), weights, precision="bf16",
                       device=dev, impl="reference")
     imgs = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
@@ -1600,8 +1957,8 @@ def train_config_moe():
 def kernels_json(results, serve_counts, train_counts, rows):
     """One row per kernel. ``launches``: from a training step for the
     kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
-    K, K′, H, H′; the MoE model at b128 for M, M′, tgmm), from the served
-    requests for B."""
+    K, K′, H, H′; 512 px b32 for L, L′; the MoE model at b128 for M, M′,
+    tgmm), from the served requests for B."""
     spec = [
         ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
          "gavit_tpu/ops/attention.py:583"),
@@ -1624,6 +1981,12 @@ def kernels_json(results, serve_counts, train_counts, rows):
         ("K′", "fused_qkv_attention_long_bwd",
          "gavit_tpu_torch/csrc/attention_long.cu",
          "gavit_tpu/ops/attention.py:475"),
+        ("L", "fused_qkv_attention_large",
+         "gavit_tpu_torch/csrc/attention_large.cu",
+         "gavit_tpu/ops/attention.py:803"),
+        ("L′", "fused_qkv_attention_large_bwd",
+         "gavit_tpu_torch/csrc/attention_large.cu",
+         "gavit_tpu/ops/attention.py:852"),
         ("H", "fused_gelu_dropout", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:252"),
         ("H′", "fused_gelu_dropout_bwd", "gavit_tpu_torch/csrc/dropout.cu",
@@ -1640,6 +2003,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
         km, pm, lm, bms, by = rows[key]
         counts = serve_counts if key == "B" else train_counts[
             "384" if key in ("K", "K′", "H", "H′") else
+            "512" if key in ("L", "L′") else
             "moe" if key in ("M", "M′", "tgmm") else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
@@ -1703,6 +2067,46 @@ def main():
                                 trainer384, batch384, card))
     del trainer384, weights384
 
+    # 512 and 1024 px: vit_b16_graph2 with model.img_size and
+    # data.image_size set; attention through L (L′ in training), the graph
+    # blocks through the chunked tensor ops (kernel C never). At 512 px b32
+    # M = 32·1025 has a row block: the MLP trains through D/D′; at 1024 px
+    # b4 M = 4·4097 has none: fc1, H, fc2, F.
+    check_blockwise_attention(dev, results)
+    check_graph_chunked(dev)
+    cfg512 = large_config(512)
+    weights512 = gated_weights(cfg512)
+    phase_slice(cfg512, weights512, dev, "vit_b16_graph2", n_images=8,
+                expect={"L": depth, "B": depth})
+    predictor512 = phase_serve_large(cfg512, weights512, dev, (1, 8), card)
+    tcfg512 = train_config_large(512, BATCH_512, remat=False)
+    # per step L, L′, D, D′ in 12 blocks; F as at 224 px
+    trainer512, batch512, counts_512 = phase_train(
+        tcfg512, dev, "vit_b16_graph2 512 px",
+        {"L": depth, "L′": depth, "D": depth, "D′": depth,
+         "F": 2 * (1 + depth + 2)})
+    cfg1024 = large_config(1024)
+    weights1024 = gated_weights(cfg1024)
+    phase_slice(cfg1024, weights1024, dev, "vit_b16_graph2", n_images=2,
+                expect={"L": depth, "B": depth})
+    phase_serve_large(cfg1024, weights1024, dev, (1, BATCH_1024), card)
+    del weights1024
+    tcfg1024 = train_config_large(1024, BATCH_1024, remat=True)
+    # remat recomputes each block in the backward: per block L and H twice
+    # (forward, recompute), L′ and H′ once, F at the attention and MLP
+    # outputs 3 times each (forward, recompute, backward); F at the
+    # embedding and the 2 graph projections forward and backward
+    trainer1024, batch1024, _ = phase_train(
+        tcfg1024, dev, "vit_b16_graph2 1024 px remat",
+        {"L": 2 * depth, "L′": depth, "H": 2 * depth, "H′": depth,
+         "F": 2 * (1 + 2) + 6 * depth}, steps_compare=3, steps_learn=0)
+    phase_remat(tcfg1024, dev, batch1024, card)
+    rows.update(phase_large_times(
+        cfg512, weights512, dev, results, predictor512,
+        {"512 px": (trainer512, batch512, tcfg512),
+         "1024 px remat": (trainer1024, batch1024, tcfg1024)}, card))
+    del trainer512, trainer1024, predictor512, weights512
+
     # the MoE example (12 blocks, MoE MLPs in blocks 1, 3, ..., 11, 2 kNN
     # graph blocks): at b64 the grouped engine (M in 6 blocks, B in the
     # other 6), at b1 the dense one (einsums, no M)
@@ -1733,7 +2137,7 @@ def main():
     print(card)
     print(json.dumps(kernels_json(results, serve_counts,
                                   {"224": counts_224, "384": counts_384,
-                                   "moe": counts_moe},
+                                   "512": counts_512, "moe": counts_moe},
                                   rows), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

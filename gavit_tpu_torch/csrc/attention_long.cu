@@ -51,71 +51,9 @@
 // 0.04 ms (K') at b16. This first version spends 1.5x (K) and 2x (K') the
 // FLOPs on recomputation, uses mma.sync rather than wgmma and loads tiles
 // synchronously, so neither bound is near.
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 64;
-constexpr int kWarps = 4;
-constexpr int kRows = kWarps * 16;  // rows a block owns (queries, or keys in K' kv)
-constexpr int kTile = 64;           // rows of a streamed tile
-constexpr int kStride = kD + 8;     // 72 bf16: fragment loads hit 8 different bank groups
-constexpr int kThreads = kWarps * 32;
-
-// rows r0 .. r0+63 of one 64-column operand (row i at src + i*row_stride),
-// in 16-byte chunks, into s[64][72]; rows at or past n are zeros
-__device__ __forceinline__ void stage(bf16* s, const bf16* src, long long row_stride, int r0,
-                                      int n) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int c = threadIdx.x; c < kTile * 8; c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(s + r * kStride + col) =
-        r0 + r < n ? *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + col) : zero;
-  }
-}
-
-// the A fragments (4 k-steps of 16) of the 16-row tile whose row g, column
-// 2t starts at rows
-__device__ __forceinline__ void frag_rows(uint32_t (*a)[4], const bf16* rows) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = ld32(rows + kk * 16);
-    a[kk][1] = ld32(rows + 8 * kStride + kk * 16);
-    a[kk][2] = ld32(rows + kk * 16 + 8);
-    a[kk][3] = ld32(rows + 8 * kStride + kk * 16 + 8);
-  }
-}
-
-// c = A.B^T for one 16x8 tile: A in fragments, B's 8 rows (keys) at
-// tile[j*8 .. j*8+7] of a staged [64][72] array
-__device__ __forceinline__ void mma_rows(float* c, const uint32_t (*a)[4], const bf16* tile,
-                                         int j, int g, int t) {
-  c[0] = c[1] = c[2] = c[3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bf16* p = tile + (j * 8 + g) * kStride + kk * 16 + 2 * t;
-    const uint32_t b[2] = {ld32(p), ld32(p + 8)};
-    mma_16816(c, a[kk], b);
-  }
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// s * scale for keys < n, -inf past n; key of element e of n8 tile j
-__device__ __forceinline__ void scale_mask(float* s, int key0, int t, int n, float scale) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) s[e] = key0 + 2 * t + (e & 1) < n ? s[e] * scale : -INFINITY;
-}
 
 // Pass 1 of K and pass a of K' (query-major): stream the K tiles of one
 // head and return each of the thread's two rows' max (m0: row g, m1: row

@@ -21,6 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from gavit_tpu_torch.models.moe import MoEMlp
 from gavit_tpu_torch.ops.attention import fused_qkv_attention
@@ -79,16 +80,31 @@ class Dropout(nn.Module):
         return fused_dropout(x, seed, self.site, self.rate, impl=self.impl)
 
 
+def drop_path_keep(x, rate: float, training: bool, generator=None):
+    """Stochastic depth's per-sample keep mask (layers.py:323-338), drawn
+    from ``generator`` (on x's device): ``[B, 1, ...]`` bool, or None where
+    nothing is dropped (eval mode or rate 0)."""
+    if not training or rate == 0.0:
+        return None
+    keep = torch.rand(x.shape[0], generator=generator, device=x.device) \
+        < 1.0 - rate
+    return keep.reshape((-1,) + (1,) * (x.ndim - 1))
+
+
+def apply_drop_path(x, keep, rate: float):
+    """The residual branch ``x`` zeroed for the samples ``keep`` (from
+    :func:`drop_path_keep`) drops, the kept ones scaled by 1/(1-rate)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 def drop_path(x, rate: float, training: bool, generator=None):
     """Stochastic depth (layers.py:323-338): drop whole residual branches per
     sample with probability ``rate``, the kept ones scaled by 1/(1-rate).
     The draw comes from ``generator`` (on x's device)."""
-    if not training or rate == 0.0:
-        return x
-    keep = 1.0 - rate
-    mask = torch.rand(x.shape[0], generator=generator, device=x.device) < keep
-    mask = mask.reshape((-1,) + (1,) * (x.ndim - 1))
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    return apply_drop_path(x, drop_path_keep(x, rate, training, generator),
+                           rate)
 
 
 class PatchEmbed(nn.Module):
@@ -212,10 +228,27 @@ class Block(nn.Module):
                            site=site + 1, dtype=dtype, impl=impl,
                            device=device)
 
-    def forward(self, x, seed=None, generator=None):
+    def forward(self, x, seed=None, generator=None, remat: bool = False):
+        """``remat``: rematerialise the block in the backward
+        (``torch.utils.checkpoint``, the JAX model's ``nn.remat(Block)``):
+        only its input is kept, and the backward runs its forward again.
+        drop_path's two keep masks are drawn here, before the checkpointed
+        part, and handed to it: a checkpoint restores the global RNGs for
+        the recompute, not a caller's generator, so a draw inside would
+        give the recompute other masks. Dropout needs nothing: its masks
+        are a function of (seed, site)."""
+        keep = tuple(drop_path_keep(x, self.drop_path_rate, self.training,
+                                    generator) for _ in range(2))
+        if not remat:
+            return self._branches(x, seed, keep)
+        # the whole block again (no early stop): the recompute launches
+        # every kernel of the block once more, a count chip_smoke.py holds
+        with set_checkpoint_early_stop(False):
+            return checkpoint(self._branches, x, seed, keep,
+                              use_reentrant=False, preserve_rng_state=False)
+
+    def _branches(self, x, seed, keep):
         rate = self.drop_path_rate
-        x = x + drop_path(self.attn(self.norm1(x), seed), rate,
-                          self.training, generator)
+        x = x + apply_drop_path(self.attn(self.norm1(x), seed), keep[0], rate)
         mlp = self.moe if hasattr(self, "moe") else self.mlp
-        return x + drop_path(mlp(self.norm2(x), seed), rate, self.training,
-                             generator)
+        return x + apply_drop_path(mlp(self.norm2(x), seed), keep[1], rate)

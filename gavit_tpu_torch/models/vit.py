@@ -13,7 +13,9 @@ summed, config-weighted auxiliary loss of the last training forward.
 forward. In ``train()`` mode the forward takes the step's dropout seed
 (``ops/philox.py::step_seed``) and a generator for drop_path; every dropout
 site has a fixed id (:func:`dropout_sites`), so the backward regenerates its
-mask.
+mask. With ``model.remat`` a training forward keeps only each transformer
+block's input and recomputes the block in the backward (the same numbers,
+less memory: the 1024-px step).
 """
 
 from __future__ import annotations
@@ -104,8 +106,11 @@ class VisionTransformer(nn.Module):
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         x = self.pos_drop(x, seed)
         graphs = dict(zip(self.graph_sites, self.graphs))
+        # model.remat: each transformer block (not the graph blocks, as in
+        # the JAX model) rematerialised in the backward of a training step
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for i, block in enumerate(self.blocks):
-            x = block(x, seed, generator)
+            x = block(x, seed, generator, remat=remat)
             if i in graphs:
                 x = graphs[i](x, seed)
         x = self.norm(x)

@@ -57,6 +57,9 @@ _SIGNATURES = {
     "gavit_attention_long_fwd": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_long_bwd": (
         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),
+    "gavit_attention_large_fwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
+    "gavit_attention_large_bwd": (
+        (_P,) * 6 + (_I,) * 4 + (_L,) * 6 + (_F, _P), _I),
     "gavit_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_gelu_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_gelu_dropout_bwd": (

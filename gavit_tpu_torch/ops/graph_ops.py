@@ -10,10 +10,17 @@
   fp32 adjacency (softmax and cosine-similarity chain rules), in plain
   tensor ops with fp32 products: the JAX package computes it with einsums,
   not a Pallas kernel. Selection is not differentiated, as there.
+* :func:`graph_aggregate_chunked` — the large-N path (512 px: N = 1024
+  patch tokens, 1024 px: 4096): the same function over query-row chunks,
+  each ``[B, chunk, N]`` slice recomputed in the backward, so neither pass
+  holds ``[B, N, N]``. The JAX package writes it in XLA, not Pallas
+  (``graph_aggregate_chunked``, graph_ops.py:327); here it is tensor ops.
 
-kNN selection keeps the JAX package's tie rule on both paths: among equal
+kNN selection keeps the JAX package's tie rule on every path: among equal
 similarities the lower index is taken first (``jax.lax.top_k`` is stable;
-here a stable descending sort, and k leftmost-max passes in the kernel).
+here a stable descending sort, and k leftmost-max passes in the kernel and
+in the chunked path). :func:`fused_graph_aggregate` picks the path by size
+as the JAX package's does (:func:`needs_chunked`).
 Under autograd the forward keeps the adjacency (kernel C with
 ``return_adjacency``) and the backward is :func:`graph_backward`.
 """
@@ -21,6 +28,7 @@ Under autograd the forward keeps the adjacency (kernel C with
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from gavit_tpu_torch.ops import _build
 
@@ -30,6 +38,39 @@ MODES = {"dense": 0, "knn": 1, "threshold": 2}
 
 # launches of kernel C since the last reset (chip_smoke.py reads it)
 KERNEL_LAUNCHES = 0
+
+# The JAX package's size switch (gavit_tpu/ops/graph_ops.py:276-281): its
+# single-pass kernel holds ~5 [N, N] fp32 buffers and the tokens in a 12 MiB
+# VMEM budget; past it the row-chunked path takes over. Kept here as the
+# port's own switch, so both packages take the same path at every shape
+# (bf16 at ViT-B width: kernel C up to N = 686, chunks from 687). Kernel C
+# itself ends at N = 768, so below width ~100 (the switch past 768) the
+# N in between raises on the card instead of running.
+_KERNEL_VMEM_BUDGET = 12 * 1024 * 1024
+# [chunk, N] elements of one chunk's slice at most (graph_ops.py:306-313)
+_CHUNK_ELEMS = 600_000
+
+
+def _kernel_vmem_need(n: int, d: int, itemsize: int) -> int:
+    return 5 * n * n * 4 + 3 * n * d * itemsize
+
+
+def needs_chunked(n: int, d: int, itemsize: int) -> bool:
+    """Whether ``N`` tokens of width ``d`` take the row-chunked path."""
+    return _kernel_vmem_need(n, d, itemsize) > _KERNEL_VMEM_BUDGET
+
+
+def _pick_chunk(n: int) -> int:
+    """Query rows a chunk takes (graph_ops.py:316-324): the smallest padded
+    total, the largest chunk on ties, at most ``_CHUNK_ELEMS`` elements a
+    slice (N = 1024 → 512, N = 4096 → 128)."""
+    if n <= 64:
+        return n
+    cands = [c for c in (512, 384, 256, 128)
+             if c < n and c * n <= _CHUNK_ELEMS]
+    if not cands:
+        return max(8, _CHUNK_ELEMS // n // 8 * 8)
+    return min(cands, key=lambda c: (-(-n // c) * c, -c))
 
 
 def cosine_similarity(tokens):
@@ -156,15 +197,87 @@ class _FusedGraphAggregate(torch.autograd.Function):
         return dt, dv, None, None, None, None, None
 
 
+def _chunk_body(tq, tnorm, values, r0: int, mode: str, k: int,
+                threshold: float, temperature: float):
+    """Rows ``r0 ..`` of ``graph_aggregate(build_adjacency(...), values)``
+    from the normalised tokens: ``tq [B, c, D]`` (those rows), ``tnorm
+    [B, N, D]``, fp32 similarity of the rounded values."""
+    n = tnorm.shape[1]
+    sim = torch.matmul(tq.float(), tnorm.float().transpose(-1, -2))
+    rows = torch.arange(r0, r0 + tq.shape[1], device=tq.device)
+    cols = torch.arange(n, device=tq.device)
+    eye = rows[:, None] == cols[None, :]                     # [c, N]
+    if mode == "dense":
+        mask = (~eye).expand(sim.shape)
+    elif mode == "knn":
+        # k leftmost-max extraction passes, the kernel's loop: among equal
+        # similarities the lower column is taken first (jax.lax.top_k's
+        # rule; torch.topk promises no order among ties on CUDA)
+        colf = cols.to(torch.float32)
+        work = sim.detach().masked_fill(eye, _NEG_INF)
+        mask = torch.zeros(sim.shape, dtype=torch.bool, device=sim.device)
+        for _ in range(min(k, n - 1)):
+            top = work.amax(-1, keepdim=True)
+            first = torch.where(work >= top, colf, float(n)).amin(
+                -1, keepdim=True)
+            hit = colf == first
+            mask |= hit
+            work = work.masked_fill(hit, _NEG_INF)
+        mask &= ~eye
+    elif mode == "threshold":
+        mask = (sim > threshold) & ~eye
+        mask = torch.where(mask.any(-1, keepdim=True), mask, eye)
+    else:
+        raise ValueError(f"unknown adjacency mode: {mode!r}")
+    adj = torch.softmax(torch.where(mask, sim / temperature, _NEG_INF), -1)
+    return graph_aggregate(adj, values)
+
+
+def graph_aggregate_chunked(tokens, values, mode: str = "knn", k: int = 8,
+                            threshold: float = 0.0, temperature: float = 1.0,
+                            chunk: int = 0):
+    """``graph_aggregate(build_adjacency(tokens), values)`` without a
+    ``[B, N, N]`` tensor: the tokens normalised in fp32 and rounded back to
+    their dtype (graph_ops.py:344-347), then one ``[B, chunk, N]`` slice of
+    query rows at a time: similarity, selection, masked softmax with
+    temperature, ``A·V``. Under autograd each chunk is recomputed in the
+    backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` there), so
+    autograd memory stays O(N·chunk); gradients flow through the softmax
+    weights only. ``chunk``: rows a slice takes (0: :func:`_pick_chunk`)."""
+    n = tokens.shape[1]
+    cn = min(chunk or _pick_chunk(n), n)
+    t32 = tokens.float()
+    t32 = t32 * torch.rsqrt((t32 * t32).sum(-1, keepdim=True) + _EPS)
+    tnorm = t32.to(tokens.dtype)
+    remat = torch.is_grad_enabled() and (tokens.requires_grad
+                                         or values.requires_grad)
+    outs = []
+    for r0 in range(0, n, cn):
+        args = (tnorm[:, r0:r0 + cn], tnorm, values, r0, mode, k, threshold,
+                temperature)
+        # the body draws no random numbers: no RNG state to keep
+        outs.append(checkpoint(_chunk_body, *args, use_reentrant=False,
+                               preserve_rng_state=False) if remat
+                    else _chunk_body(*args))
+    return torch.cat(outs, 1)
+
+
 def fused_graph_aggregate(tokens, values, mode: str = "knn", k: int = 8,
                           threshold: float = 0.0, temperature: float = 1.0,
                           impl: str = "auto"):
     """``graph_aggregate(build_adjacency(tokens), values)`` without the
     adjacency leaving the chip (it is written once, for the backward, when
-    a gradient is needed). ``impl='auto'`` launches kernel C for a CUDA
-    tensor and takes the plain version for a CPU tensor; ``'reference'``
-    always takes the plain version."""
+    a gradient is needed). ``impl='auto'`` takes, as the JAX package's
+    dispatcher does, :func:`graph_aggregate_chunked` where
+    :func:`needs_chunked` says so (on either device), else kernel C for a
+    CUDA tensor and the plain version for a CPU tensor; ``'reference'``
+    always takes the plain version, with the ``[B, N, N]`` adjacency
+    materialised."""
     _build.check_impl(impl)
+    if impl == "auto" and needs_chunked(tokens.shape[1], tokens.shape[2],
+                                        tokens.element_size()):
+        return graph_aggregate_chunked(tokens, values, mode, k, threshold,
+                                       temperature)
     use_kernel = impl == "auto" and tokens.device.type != "cpu"
     if torch.is_grad_enabled() and (tokens.requires_grad
                                     or values.requires_grad):

@@ -107,9 +107,9 @@ def test_long_attention_plain_versions_match_jax_v3(n, dtype):
 
 def test_route_picks_the_jax_dispatchers_family():
     """At ViT-B's shapes (12 heads, d 64, bf16) the JAX dispatcher takes v4
-    at 224 px (N=197) and v3 at 384 px (N=577), where the port takes A and
-    K; past v3's bound both leave the exact kernels (the port raises until
-    L/L′ are ported)."""
+    at 224 px (N=197), v3 at 384 px (N=577) and the blockwise v5 past v3's
+    bound (512 px, N=1025), where the port takes A, K and L; fp32 past
+    kernel A's forward raises on the card."""
     bf = torch.bfloat16
     assert jattn._v4_fits(12, 197, 64, 2)
     assert tattn.attention_route(197, bf) == "A"
@@ -119,9 +119,10 @@ def test_route_picks_the_jax_dispatchers_family():
     assert jattn._v3_fits(k_max, 64, 2) and not jattn._v3_fits(k_max + 1,
                                                               64, 2)
     assert tattn.attention_route(k_max, bf) == "K"
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tattn.attention_route(k_max + 1, bf)
+    assert tattn.attention_route(k_max + 1, bf) == "L"
+    assert not jattn._v3_fits(1025, 64, 2)
+    assert tattn.attention_route(1025, bf) == "L"
     assert tattn.attention_route(225, bf) == "K"
     assert tattn.attention_route(416, torch.float32) == "A"
-    with pytest.raises(NotImplementedError, match="L/L′"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         tattn.attention_route(417, torch.float32)

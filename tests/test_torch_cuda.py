@@ -431,7 +431,7 @@ def test_attention_gradients_match_autograd_through_plain(dev):
 
 def test_attention_bwd_kernel_refuses_what_it_does_not_take(dev):
     qkv = torch.zeros(1, 5, 3 * 64, device=dev)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         A.qkv_attention_bwd_kernel(qkv, torch.zeros(1, 1, 5, 64, device=dev),
                                    0.125, 1)
     qkv = torch.zeros(1, 225, 3 * 64, device=dev, dtype=torch.bfloat16)
@@ -517,12 +517,17 @@ def test_long_attention_gradients_match_autograd_through_plain(dev):
 
 
 def test_route_raises_past_the_long_kernels_bound(dev):
+    """Past K_MAX_N kernel K raises and the route takes L instead; fp32
+    past kernel A's forward raises, naming the ROADMAP item."""
     n = A.K_MAX_N + 1
     qkv = torch.zeros(1, n, 3 * 64, device=dev, dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="L/L′"):
-        A.fused_qkv_attention(qkv.view(1, n, 3, 1, 64), 0.125)
-    with pytest.raises(NotImplementedError, match="Queue 2 item 10"):
+    before = A.LARGE_KERNEL_LAUNCHES
+    A.fused_qkv_attention(qkv.view(1, n, 3, 1, 64), 0.125)
+    assert A.LARGE_KERNEL_LAUNCHES == before + 1
+    with pytest.raises(ValueError, match="L/L′"):
         A.qkv_attention_long_kernel(qkv, 0.125, 1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        A.fused_qkv_attention(qkv.float().view(1, n, 3, 1, 64), 0.125)
     with pytest.raises(TypeError, match="bfloat16"):
         A.qkv_attention_long_kernel(qkv[:, :5].float().contiguous(), 0.125, 1)
     # kernel A's fp32 body ends where the route says it does

@@ -217,14 +217,20 @@ def test_port_never_imports_jax():
     """Nothing of jax, flax or gavit_tpu loads while the port is imported
     and driven: the package, its serving and training modules, and both
     CLIs (the trainer takes one tiny step on the CPU), for the graph model
-    and for the MoE example: a trainer step on its grouped engine, and its
-    Predictor behind the serving handler on the dense engine, which
-    ``impl: auto`` picks at this size."""
+    (also at 512 px with remat, through the blockwise attention's and the
+    chunked graph's plain paths) and for the MoE example: a trainer step on
+    its grouped engine, and its Predictor behind the serving handler on the
+    dense engine, which ``impl: auto`` picks at this size."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
             "--set", "model.embed_dim=64", "--set", "model.depth=2",
             "--set", "model.num_heads=2", "--set", "data.image_size=32",
             "--set", "data.batch_size=2", "--set", "data.synthetic_size=8"]
     moe = "configs/examples/vit_b16_moe.yaml"
+    px512 = ["--set", "model.img_size=512", "--set", "model.patch_size=16",
+             "--set", "model.embed_dim=32", "--set", "model.depth=1",
+             "--set", "model.num_heads=2", "--set", "data.image_size=512",
+             "--set", "data.batch_size=1", "--set", "data.synthetic_size=2",
+             "--set", "model.remat=true"]
     code = (
         "import sys, runpy\n"
         "import numpy as np\n"
@@ -237,6 +243,8 @@ def test_port_never_imports_jax():
         "    train['main'](['--config', cfg, "
         f"'--synthetic', '--steps', '1', '--device', 'cpu', *{tiny!r}, "
         "*extra])\n"
+        "train['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--synthetic', '--steps', '1', '--device', 'cpu', *{px512!r}])\n"
         "config = gavit_tpu_torch.load_config("
         f"{moe!r}, {tiny[1::2]!r})\n"
         "pred = gavit_tpu_torch.serving.Predictor(config, device='cpu', "

@@ -2,20 +2,22 @@
 """Where the time goes in the PyTorch port's bf16 training step, on a card.
 
     python3 tools/profile_torch_training.py [--config configs/vit_b16_graph2.yaml] \
-        [--batch 128] [--iters 5] [--out build/profile_train]
+        [--batch 128] [--iters 5] [--out build/profile_train] [--set KEY=VALUE]
 
 Builds the configuration (``configs/vit_b16_graph2.yaml`` by default;
 ``configs/finetune_384.yaml`` for the 384-px fine-tune, at its batch 16,
 and ``configs/examples/vit_b16_moe.yaml`` for the MoE model, at its batch
-128, unless ``--batch`` says otherwise; dropout 0.1, graph gates 0.5,
-weights from a seed) through ``scripts/train_torch.py``'s trainer, takes 3 warm-up
-steps on synthetic uint8 batches, then:
+128, unless ``--batch`` says otherwise; ``--set`` overrides as the CLIs
+take them, e.g. the 1024-px step: ``--batch 4 --set model.img_size=1024
+--set data.image_size=1024 --set model.remat=true``; dropout 0.1, graph
+gates 0.5, weights from a seed) through ``scripts/train_torch.py``'s
+trainer, takes 3 warm-up steps on synthetic uint8 batches, then:
 
 * times the step on the host clock around ``train_step`` and a
   synchronize (median over ``--iters``);
 * runs ``torch.profiler`` over ``--iters`` more steps and prints the device
   time per step grouped by kernel family (the port's kernels A, A′, C, D,
-  D′, F, H, H′, K, K′, M, M′, tgmm by name; cuBLAS GEMMs; LayerNorm; the
+  D′, F, H, H′, K, K′, L, L′, M, M′, tgmm by name; cuBLAS GEMMs; LayerNorm; the
   MoE routing's sorts, scans and gathers; elementwise and reductions), the
   top kernels, the device busy time per step and the idle share of the
   wall time (1 - busy / wall);
@@ -39,6 +41,9 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 # fragments of the (demangled) kernel names → family, first match wins
 FAMILIES = (
+    ("attn_large_fwd", "L blockwise attention forward (attention_large.cu)"),
+    ("attn_large_bwd_q", "L′ query-major: delta, dq (attention_large.cu)"),
+    ("attn_large_bwd_kv", "L′ key-major: dk, dv (attention_large.cu)"),
     ("attn_long_fwd", "K long attention forward (attention_long.cu)"),
     ("attn_long_bwd_q", "K′ query-major: dq, row statistics (attention_long.cu)"),
     ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
@@ -98,6 +103,8 @@ def main():
                    help="default: 128 for vit_b16_graph2, else the file's")
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--out", default="build/profile_train")
+    p.add_argument("--set", action="append", default=[], dest="overrides",
+                   metavar="KEY=VALUE", help="config override, repeatable")
     args = p.parse_args()
 
     import torch
@@ -114,7 +121,8 @@ def main():
     path = ROOT / args.config
     batch = args.batch or (128 if path.stem == "vit_b16_graph2" else None)
     cfg = load_config(str(path),
-                      [f"data.batch_size={batch}"] if batch else [])
+                      ([f"data.batch_size={batch}"] if batch else [])
+                      + args.overrides)
     batch = cfg.data.batch_size
     dataset = train_torch.create_dataset(cfg)
     trainer = train_torch.build_trainer(cfg, dataset, "cuda", gate=0.5)
@@ -149,7 +157,8 @@ def main():
     busy_ms = sum(e.self_device_time_total for e in events) / 1000
     n = args.iters
     step = statistics.median(times)
-    print(f"[profile] {path.stem} train step b{batch} bf16 on {card}: "
+    print(f"[profile] {path.stem} {cfg.data.image_size} px train step "
+          f"b{batch} bf16 on {card}: "
           f"{step:.3f} ms (host clock, median of {n}), "
           f"{batch / step * 1000:.1f} "
           f"img/s; under the profiler wall {wall_ms / n:.3f} ms, device busy "
