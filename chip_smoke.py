@@ -7,7 +7,8 @@ with ``model.remat``), its 384-px fine-tune with a learned-static graph
 block (``configs/finetune_384.yaml``), and ViT-B/16 with 8-expert top-2 MoE
 MLPs in blocks 1, 3, ..., 11 and two kNN graph blocks
 (``configs/examples/vit_b16_moe.yaml``, one card: its mesh is read and not
-used).
+used), on its fused grouped engine and, with ``GAVIT_MOE_FUSED=0``, on
+its unfused one.
 
     python3 chip_smoke.py
 
@@ -27,13 +28,17 @@ before the last line:
    b128 routing (T = 50432 pairs, tm = 256) of a seeded router, and with a
    hot and an empty expert; L and L′ (blockwise attention) at N = 750, 1025
    (b32), 1088 and 4097, and the chunked graph path (tensor ops) at 1024
-   and 4096 patch tokens;
+   and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
+   in both forms at the b128 routing, with a hot and an empty expert and
+   at b127 (T = 50038, no multiple of the row tile), the same bits again;
 4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
    (and the learned adjacency logits drawn from a normal), through the
    kernels (``impl='auto'``) and through the plain versions
    (``impl='reference'``) on the same weights: 8 images at 224 px, 16 at
    384 px, 8 at 512 px, 2 at 1024 px, 64 (grouped engine) and 1 (dense
-   engine) of the MoE model, with the launch counts of that forward;
+   engine) of the MoE model, 128 with the fused gate off (the unfused
+   engine), with the launch counts of that forward; the upcycled MoE model
+   against the dense one through both grouped engines;
 5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a warmed
    224-px Predictor; every response must be 200 and match the plain-version
    Predictor; the kernels' launch counters, zeroed just before, must show
@@ -47,8 +52,15 @@ before the last line:
    512 px b32: 5 steps through the kernels against 5 through the plain
    versions from the same start (losses, and every gradient of the first
    step), the launch counts of one step, then 30 steps through the kernels
-   that must lower the loss; at 1024 px b4 with remat 3 compared steps and
-   their launches, then one step with remat on against one with it off;
+   that must lower the loss; vit_b16_graph2 again with drop_path 0.1 (3
+   compared steps, 20 that must lower the loss) and at b32 with
+   attn_drop 0.1 (A and A′ not launched; 3 compared steps, 15 that must
+   lower the loss); at 1024 px b4 with remat
+   3 compared steps and their launches, then one step with remat on
+   against one with it off; the MoE model again with the fused gate off,
+   then one such step with ``model.moe.grouped_remat`` on against one with
+   it off (bit-equal, lower peak memory); the unfused MoE engine against
+   the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
    events, median), Predictor p50 for one image at 224 and 384 px,
    images/s of the bf16 forward (224 px b64, 384 px b16) and of the train
@@ -57,7 +69,8 @@ before the last line:
    b128, its b64 forward, b128 train step and b1 p50; L and L′ at 512 px
    b32, the chunked graph op at both sizes' training shapes, the 512-px b32
    forward, the 512-px b32 and 1024-px b4 train steps, the b1 p50 at 512
-   and 1024 px.
+   and 1024 px; N-gmm in both forms at b128 against ``torch._grouped_mm``,
+   the two MoE engines alone, the MoE b128 forward and train step on each.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -611,6 +624,26 @@ def check_attention_bwd(dev, results, batch=TRAIN_BATCH, n=N_TOKENS,
     results["A′"]["cases"].append((qkv, do))
 
 
+def routed_tokens(dev, g, routing, batch, n, dim):
+    """``batch·n`` random bf16 tokens and their top-2 of EXPERTS from
+    ``g``: by a seeded fp32 router (``'router'``), all on expert 5
+    (``'hot'``), or never on experts 0 and 7 (``'empty'``)."""
+    import torch
+
+    from gavit_tpu_torch.models.moe import router_topk
+
+    tokens = torch.randn(batch * n, dim, device=dev, generator=g).to(
+        torch.bfloat16)
+    router = torch.randn(dim, EXPERTS, device=dev, generator=g) * 0.02
+    _, idx, _ = router_topk((tokens.float() @ router).reshape(batch, n, -1),
+                            TOP_K)
+    if routing == "hot":
+        idx = torch.full_like(idx, 5)
+    elif routing == "empty":
+        idx = 1 + idx % (EXPERTS - 2)
+    return tokens, idx
+
+
 def moe_case(dev, routing="router", batch=TRAIN_BATCH, n=N_TOKENS,
              dim=DIM, hidden=HIDDEN):
     """The MoE expert MLP's inputs at the b128 training shapes: T = batch·n·2
@@ -621,19 +654,11 @@ def moe_case(dev, routing="router", batch=TRAIN_BATCH, n=N_TOKENS,
     the combine's backward gives it."""
     import torch
 
-    from gavit_tpu_torch.models.moe import router_topk
     from gavit_tpu_torch.ops import moe_fused as MF
 
     g = torch.Generator(device=dev).manual_seed(SEED + 51)
     bf = torch.bfloat16
-    tokens = torch.randn(batch * n, dim, device=dev, generator=g).to(bf)
-    router = torch.randn(dim, EXPERTS, device=dev, generator=g) * 0.02
-    _, idx, _ = router_topk((tokens.float() @ router).reshape(batch, n, -1),
-                            TOP_K)
-    if routing == "hot":
-        idx = torch.full_like(idx, 5)
-    elif routing == "empty":
-        idx = 1 + idx % (EXPERTS - 2)
+    tokens, idx = routed_tokens(dev, g, routing, batch, n, dim)
     t = idx.numel()
     tm = MF.fused_tm(t, EXPERTS)
     _, src, used, tg, gs = MF.group_by_expert_tiled(idx, EXPERTS, tm)
@@ -685,6 +710,7 @@ def check_moe(dev, results):
     against ``ops/philox.py``'s bits)."""
     import torch
 
+    from gavit_tpu_torch.ops import gmm as GM
     from gavit_tpu_torch.ops import moe_fused as MF
     from gavit_tpu_torch.ops import philox
 
@@ -746,8 +772,8 @@ def check_moe(dev, results):
         results["M′"]["errs"].append(err)
         _, go, dh1, _, _, dye = got
         for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
-            k = MF.tgmm_kernel(a, b, c["gs"])
-            r = MF.tgmm_reference(a, b, c["gs"], torch.bfloat16)
+            k = GM.tgmm_kernel(a, b, c["gs"])
+            r = GM.tgmm_reference(a, b, c["gs"], torch.bfloat16)
             torch.cuda.synchronize()
             rel = rel_err(k, r)
             check("tgmm grouped dW", rel <= GRAD_REL_TOL
@@ -758,6 +784,90 @@ def check_moe(dev, results):
             results["tgmm"]["errs"].append(max_err(k, r))
         if routing == "router":
             results["M′"]["cases"].append((dy, h1_ref, go, dh1, dye))
+
+
+def gmm_case(dev, routing="router", batch=TRAIN_BATCH, n=N_TOKENS, dim=DIM,
+             hidden=HIDDEN):
+    """Kernel N-gmm's inputs as the unfused engine gives them: the pairs of
+    ``batch`` images routed as in ``moe_case`` (T = batch·n·2), grouped by
+    expert with no padding (``group_by_expert``), x the pairs' token rows
+    [T, D], bf16 W1 [E, D, F] and W2 [E, F, D], the group sizes on the
+    card; random h [T, F] (fc2's input), dh [T, F] (fc1's dx = dh·W1ᵀ) and
+    dy [T, D] (fc2's dh = dy·W2ᵀ)."""
+    import torch
+
+    from gavit_tpu_torch.ops import moe_grouped as MG
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 52)
+    tokens, idx = routed_tokens(dev, g, routing, batch, n, dim)
+    _, src, sizes = MG.group_by_expert(idx, EXPERTS)
+    t = src.numel()
+
+    def draw(*shape, scale):
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(
+            torch.bfloat16)
+
+    w1 = draw(EXPERTS, dim, hidden, scale=0.02)
+    dh = draw(t, hidden, scale=0.01)
+    w2 = draw(EXPERTS, hidden, dim, scale=0.02)
+    h = draw(t, hidden, scale=0.5)
+    dy = draw(t, dim, scale=0.01)
+    return dict(x=tokens[src // TOP_K], w1=w1, w2=w2, h=h, dh=dh, dy=dy,
+                gs=sizes, t=t, routing=routing)
+
+
+def check_gmm(dev, results):
+    """N-gmm in both forms at each of the unfused engine's four GEMMs (fc1
+    x·W1 and its dx dh·W1ᵀ, fc2 h·W2 and its dh dy·W2ᵀ) against its plain
+    version at the b128 routing, with a hot and an empty expert, and at
+    b127 (T = 50038, no multiple of the 128-row tile): within GRAD_REL_TOL
+    of the largest value (bf16 outputs of fp32 sums taken in another
+    order), the same bits when run again; and the differentiable op,
+    forward and both gradients, on the b127 rows as they are."""
+    import torch
+
+    from gavit_tpu_torch.ops import gmm as GM
+
+    for routing, batch in (("router", TRAIN_BATCH), ("hot", TRAIN_BATCH),
+                           ("empty", TRAIN_BATCH),
+                           ("router", TRAIN_BATCH - 1)):
+        c = gmm_case(dev, routing, batch)
+        gs = c["gs"]
+        for form, a, w, tr in (("fwd", c["x"], c["w1"], False),
+                               ("transposed", c["dh"], c["w1"], True),
+                               ("fwd", c["h"], c["w2"], False),
+                               ("transposed", c["dy"], c["w2"], True)):
+            got = GM.gmm_kernel(a, w, gs, tr)
+            again = GM.gmm_kernel(a, w, gs, tr)
+            want = GM.gmm_reference(a, w, gs, tr)
+            torch.cuda.synchronize()
+            rel, same = rel_err(got, want), torch.equal(got, again)
+            err = max_err(got, want)
+            check(f"N-gmm {form}", rel <= GRAD_REL_TOL and same
+                  and torch.isfinite(got).all().item(),
+                  f"bf16 {routing} T={c['t']} groups {gs.tolist()} "
+                  f"[{a.shape[1]}] x {list(w.shape)}{'ᵀ' if tr else ''} → "
+                  f"{list(got.shape)}: rel to max {rel:.3e} (tol "
+                  f"{GRAD_REL_TOL:.0e}), the same bits again {same}; "
+                  f"max_abs_err {err:.3e}")
+            results["N-gmm"]["errs"].append(err)
+        if routing == "router" and batch == TRAIN_BATCH:  # for the times
+            results["N-gmm"]["cases"].append(
+                {k: c[k] for k in ("x", "w1", "dh", "gs", "t")})
+    x, w1, dh, gs = c["x"], c["w1"], c["dh"], c["gs"]
+    got, refs = {}, {}
+    for impl, out in (("auto", got), ("reference", refs)):
+        xi, wi = (a.detach().clone().requires_grad_(True) for a in (x, w1))
+        y = GM.ragged_matmul(xi, wi, gs, impl=impl)
+        y.backward(dh)
+        out.update(y=y.detach(), dx=xi.grad, dw=wi.grad)
+    rels = {k: rel_err(got[k], refs[k]) for k in got}
+    check("N-gmm op", got["y"].shape == (c["t"], HIDDEN)
+          and max(rels.values()) <= GRAD_REL_TOL,
+          f"ragged_matmul on T={c['t']} rows (no multiple of the tile, not "
+          f"padded) against impl='reference': rel to max " + ", ".join(
+              f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {GRAD_REL_TOL:.0e})")
 
 
 # ---------------------------------------------------------------------------
@@ -922,7 +1032,8 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "H′": ("dropout", "GELU_BWD_LAUNCHES"),
             "M": ("moe_fused", "KERNEL_LAUNCHES"),
             "M′": ("moe_fused", "BWD_KERNEL_LAUNCHES"),
-            "tgmm": ("moe_fused", "TGMM_LAUNCHES")}
+            "tgmm": ("gmm", "TGMM_LAUNCHES"),
+            "N-gmm": ("gmm", "KERNEL_LAUNCHES")}
 
 
 def expected(nonzero: dict) -> dict:
@@ -1831,6 +1942,7 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
 
     sys.path.insert(0, str(ROOT / "scripts"))
     import train_torch
+    from gavit_tpu_torch.ops import gmm as GM
     from gavit_tpu_torch.ops import moe_fused as MF
     from gavit_tpu_torch.ops.preprocess import val_preprocess
     from gavit_tpu_torch.serving import Predictor
@@ -1864,8 +1976,8 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
             4 * t * DIM * HIDDEN,
             (3 * t * DIM + 3 * t * HIDDEN) * 2 + wbytes
             + e * (HIDDEN + DIM) * 4),
-        "tgmm": (cuda_ms(lambda: MF.tgmm_kernel(x, dh1, gs)),
-                 cuda_ms(lambda: MF.tgmm_reference(x, dh1, gs,
+        "tgmm": (cuda_ms(lambda: GM.tgmm_kernel(x, dh1, gs)),
+                 cuda_ms(lambda: GM.tgmm_reference(x, dh1, gs,
                                                    torch.bfloat16),
                          iters=3, warmup=1),
                  cuda_ms(lambda: lib["tgmm"](x, dh1))) + bound(
@@ -1932,6 +2044,281 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
     return rows
 
 
+@contextlib.contextmanager
+def fused_gate(value: str):
+    """``GAVIT_MOE_FUSED`` set to ``value`` ('0': the MoE model's grouped
+    engine is the unfused one, through N-gmm) for the block, as a user sets
+    it; the gate reads it at every forward."""
+    import os
+
+    old = os.environ.get("GAVIT_MOE_FUSED")
+    os.environ["GAVIT_MOE_FUSED"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GAVIT_MOE_FUSED"]
+        else:
+            os.environ["GAVIT_MOE_FUSED"] = old
+
+
+def phase_grouped_remat(cfg, dev, batch, card):
+    """One MoE b128 step with ``model.moe.grouped_remat`` on and one with it
+    off, the fused gate off, from the same weights, generator and batch:
+    the loss and every gradient bit-equal (the recompute runs the same
+    kernels on the same inputs, its masks drawn again from their sites),
+    the launches of the remat step (N-gmm 36: the forward's 12 again in
+    the backward, then its 12), and the peak memory of each."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+
+    dataset = train_torch.create_dataset(cfg)
+    images, labels = (torch.from_numpy(a) for a in batch)
+    out = {}
+    depth = cfg.model.depth
+    for remat in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, moe=dataclasses.replace(cfg.model.moe,
+                                               grouped_remat=remat)))
+        tr = train_torch.build_trainer(c, dataset, dev, gate=GATE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss = tr.train_step(images, labels)["loss"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        out[remat] = (loss, [p.grad.detach().clone()
+                             for p in tr.model.parameters()], peak, counts)
+        del tr
+        torch.cuda.empty_cache()
+    (l1, g1, m1, c1), (l0, g0, m0, _) = out[True], out[False]
+    bits = torch.equal(l1, l0) and all(torch.equal(a, b)
+                                       for a, b in zip(g1, g0))
+    want = expected({"A": depth, "A′": depth, "C": 2, "D": depth // 2,
+                     "D′": depth // 2, "N-gmm": 3 * depth, "tgmm": depth,
+                     "F": 2 * (1 + depth + 2) + 6 * (depth // 2)})
+    ok = bits and m1 < m0 and c1 == want
+    log(f"[train] vit_b16_moe unfused b{cfg.data.batch_size} one step "
+        f"grouped_remat on vs off: loss {l1.item():.6f} vs {l0.item():.6f}, "
+        f"loss and every gradient bit-equal {bits}; peak memory {m1:.2f} GiB "
+        f"with grouped_remat, {m0:.2f} GiB without ({card}); launches with "
+        f"it: " + ", ".join(f"{k} {v}" for k, v in c1.items())
+        + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"grouped_remat changed the step, did not lower "
+                             f"the peak, or launched {c1} (expected {want})")
+
+
+def engine_case(dev):
+    """The b128 MoE engine's inputs: tokens [128, 197, 768] routed by a
+    seeded router (moe_case's), fp32 gates, bf16 expert banks."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 53)
+    tokens, idx = routed_tokens(dev, g, "router", TRAIN_BATCH, N_TOKENS, DIM)
+    gv = torch.rand(idx.shape, device=dev, generator=g)
+    w = [(torch.randn(*shape, device=dev, generator=g) * 0.02).to(
+        torch.bfloat16) for shape in ((EXPERTS, DIM, HIDDEN),
+                                      (EXPERTS, HIDDEN),
+                                      (EXPERTS, HIDDEN, DIM), (EXPERTS, DIM))]
+    return tokens.reshape(TRAIN_BATCH, N_TOKENS, DIM), gv, idx, w
+
+
+def phase_engines(dev, card):
+    """The unfused engine (N-gmm, tgmm, F) against the fused one (M, M′,
+    tgmm) on the same b128 routing at drop 0: the output and the gradients
+    of x, the gates and every weight within GRAD_REL_TOL of the largest
+    (the two round at other points, and M's GELU is the A&S erf); then each
+    engine's forward and forward + backward at drop 0.1 (CUDA events)."""
+    import torch
+
+    from gavit_tpu_torch.ops import moe_fused as MF
+    from gavit_tpu_torch.ops import moe_grouped as MG
+    from gavit_tpu_torch.ops import philox
+
+    x, gv, idx, w = engine_case(dev)
+    seed, sites = philox.step_seed(SEED, 9), (5, 6)
+    engines = {"fused": MF.grouped_moe_mlp_fused,
+               "unfused": MG.grouped_moe_mlp}
+    dy = torch.randn(x.shape, device=dev).to(torch.bfloat16)
+    got = {}
+    for name, fn in engines.items():
+        leaves = [t.detach().clone().requires_grad_(True) for t in
+                  [x, gv, *w]]
+        out = fn(leaves[0], leaves[1], idx, *leaves[2:], seed, sites)
+        out.backward(dy)
+        got[name] = [out.detach()] + [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    names = ("out", "dx", "dgates", "dw1", "db1", "dw2", "db2")
+    rels = {n: rel_err(a, b) for n, a, b in zip(names, got["unfused"],
+                                                 got["fused"])}
+    check("unfused vs fused MoE engine", max(rels.values()) <= GRAD_REL_TOL,
+          f"bf16 b{TRAIN_BATCH} (T={idx.numel()}) drop 0, rel to max "
+          + ", ".join(f"{n} {v:.3e}" for n, v in rels.items())
+          + f" (tol {GRAD_REL_TOL:.0e})")
+    leaves = [t.detach().clone().requires_grad_(True) for t in [x, gv, *w]]
+    for name in ("fused", "unfused", "unfused", "fused"):
+        fn = engines[name]
+
+        def run():
+            return fn(leaves[0], leaves[1], idx, *leaves[2:], seed, sites,
+                      drop=DROP_RATE)
+
+        with torch.no_grad():
+            fwd = cuda_ms(run, iters=10)
+        both = cuda_ms(lambda: run().backward(dy), iters=10)
+        log(f"[time] MoE {name} engine b{TRAIN_BATCH} bf16 drop "
+            f"{DROP_RATE}: forward {fwd:.4f} ms, forward + backward "
+            f"{both:.4f} ms ({card})")
+
+
+def phase_upcycle(cfg, dev, n_images=32):
+    """``upcycle_params`` of a dense ViT-B/16 (the MoE config with MoE off,
+    random weights from SEED, graph gates at GATE, the MLP biases drawn
+    from a normal: at init they are zero) into the MoE model, the grouped
+    engine pinned: its bf16 forward through the fused engine (M) and
+    through the unfused one (N-gmm) against the dense model's forward
+    (kernels B in every block), probabilities within PROB_TOL. The zero
+    router ties all experts: each token takes experts 0 and 1, which hold
+    the same weights, so the gate-weighted sum is the dense MLP."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gavit_tpu_torch.config import MoEConfig
+    from gavit_tpu_torch.models import moe
+    from gavit_tpu_torch.models.vit import build_model, init_params
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.utils.convert import load_flax_params, to_flax_tree
+
+    mcfg = grouped_engine(cfg).model
+    dense = init_params(build_model(dataclasses.replace(
+        mcfg, moe=MoEConfig(enabled=False)), precision="bf16"),
+        torch.Generator().manual_seed(SEED))
+    g = torch.Generator().manual_seed(SEED + 7)
+    with torch.no_grad():
+        for gb in dense.graphs:
+            gb.gate.fill_(GATE)
+        for blk in dense.blocks:
+            for fc in (blk.mlp.fc1, blk.mlp.fc2):
+                fc.bias.copy_(torch.randn(fc.bias.shape, generator=g) * 0.02)
+    sparse = build_model(mcfg, precision="bf16")
+    tree = moe.upcycle_params(to_flax_tree(dense), to_flax_tree(init_params(
+        sparse, torch.Generator().manual_seed(SEED + 1))), mcfg)
+    load_flax_params(sparse, tree)
+    dense, sparse = dense.to(dev), sparse.to(dev)
+    s = cfg.data.image_size
+    x = val_preprocess(torch.from_numpy(np.random.default_rng(SEED + 6)
+                                        .integers(0, 256, (n_images, s, s, 3),
+                                                  np.uint8)).to(dev))
+    choices = []
+    topk = moe.router_topk
+
+    def record(logits, k, **kw):
+        vals, idx, aux = topk(logits, k, **kw)
+        choices.append(idx)
+        return vals, idx, aux
+
+    with torch.inference_mode():
+        want = torch.sigmoid(dense(x).float())
+        for gate, kernel in (("1", "M"), ("0", "N-gmm")):
+            with fused_gate(gate):
+                torch.cuda.synchronize()
+                reset_counts()
+                moe.router_topk = record
+                try:
+                    got = torch.sigmoid(sparse(x).float())
+                finally:
+                    moe.router_topk = topk
+                torch.cuda.synchronize()
+                counts = read_counts()
+            err = max_err(got, want)
+            ties = all((c[..., 0] == 0).all().item()
+                       and (c[..., 1] == 1).all().item() for c in choices)
+            ok = err <= PROB_TOL and counts[kernel] > 0 and ties
+            log(f"[slice] upcycled vit_b16_moe ({'fused' if gate == '1' else 'unfused'} "
+                f"engine, {kernel} launched {counts[kernel]} times) against "
+                f"the dense model, {n_images} images bf16: max |dp| "
+                f"{err:.3e} (tol {PROB_TOL:.0e}); every token on experts 0 "
+                f"and 1 {ties} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the upcycled MoE model does not compute "
+                                     "the dense model's function")
+            choices.clear()
+
+
+def phase_unfused_times(cfg, dev, results, weights, trainers, batch, card):
+    """N-gmm in both forms at the b128 routing against its plain version,
+    ``torch._grouped_mm`` and the bound; the MoE model's bf16 forward at
+    b128 with the fused gate on and off (the same model, CUDA events); its
+    b128 train step through the fused and the unfused engine (``trainers``,
+    host clock, alternating, median of 10)."""
+    import numpy as np
+    import torch
+
+    from gavit_tpu_torch.ops import gmm as GM
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+
+    c = results["N-gmm"]["cases"][0]
+    x, w1, dh, gs, t = c["x"], c["w1"], c["dh"], c["gs"], c["t"]
+    grouped = getattr(torch, "_grouped_mm", None)
+    offs = torch.cumsum(gs, 0, dtype=torch.int32)
+    rows = {}
+    for key, a, tr in (("N-gmm", x, False), ("N-gmm transposed", dh, True)):
+        b = w1.transpose(1, 2) if tr else w1
+        lib = (None if grouped is None  # a yardstick the port never calls
+               else cuda_ms(lambda: grouped(a, b, offs=offs)))
+        rows[key] = (cuda_ms(lambda: GM.gmm_kernel(a, w1, gs, tr)),
+                     cuda_ms(lambda: GM.gmm_reference(a, w1, gs, tr), iters=3,
+                             warmup=1), lib) + bound(
+            2 * t * DIM * HIDDEN,
+            (t * a.shape[1] + EXPERTS * DIM * HIDDEN
+             + t * (DIM + HIDDEN - a.shape[1])) * 2)
+        km, pm, lm, bms, by = rows[key]
+        log(f"[time] {key} at b{TRAIN_BATCH} (T={t}, groups {gs.tolist()}): "
+            f"kernel {km:.4f} ms, plain {pm:.4f} ms, torch._grouped_mm "
+            f"{'n/a' if lm is None else f'{lm:.4f} ms'}, bound {bms:.4f} ms "
+            f"({by}) ({card})")
+
+    s = cfg.data.image_size
+    model = Predictor(cfg, weights, precision="bf16", device=dev).model
+    xb = val_preprocess(torch.from_numpy(np.random.default_rng(SEED + 3)
+                                         .integers(0, 256, (TRAIN_BATCH, s, s,
+                                                            3), np.uint8)
+                                         ).to(dev))
+    for gate in ("1", "0", "0", "1"):
+        with fused_gate(gate), torch.inference_mode():
+            ms = cuda_ms(lambda: model(xb), iters=10, warmup=2)
+        log(f"[time] MoE bf16 forward b{TRAIN_BATCH} (grouped engine, "
+            f"{'fused' if gate == '1' else 'unfused'}): {ms:.3f} ms, "
+            f"{TRAIN_BATCH / (ms / 1000):.1f} img/s ({card})")
+    del model, xb
+
+    images, labels = (torch.from_numpy(a) for a in batch)
+    step_ms = {name: [] for name in trainers}
+    for i in range(11):
+        for name, tr in trainers.items():
+            with fused_gate("1" if name == "fused" else "0"):
+                t0 = time.perf_counter()
+                tr.train_step(images, labels)
+                torch.cuda.synchronize()
+            if i:  # the first of each: warm-up
+                step_ms[name].append((time.perf_counter() - t0) * 1000)
+    for name, ts in step_ms.items():
+        ms = statistics.median(ts)
+        log(f"[time] MoE train step b{TRAIN_BATCH} bf16 {name} engine: "
+            f"{ms:.3f} ms (median of {len(ts)}), "
+            f"{TRAIN_BATCH / (ms / 1000):.1f} img/s ({card})")
+    return rows
+
+
 def grouped_engine(cfg):
     """``cfg`` with the MoE engine pinned to 'grouped': the plain versions'
     Predictor at b64 then runs the engine that 'auto' picks with the
@@ -1958,7 +2345,9 @@ def kernels_json(results, serve_counts, train_counts, rows):
     """One row per kernel. ``launches``: from a training step for the
     kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
     K, K′, H, H′; 512 px b32 for L, L′; the MoE model at b128 for M, M′,
-    tgmm), from the served requests for B."""
+    tgmm; the MoE model at b128 with the fused gate off for N-gmm, both
+    forms counted), from the served requests for B. N-gmm's times are its
+    forward form's; ``transposed`` holds the transposed form's."""
     spec = [
         ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
          "gavit_tpu/ops/attention.py:583"),
@@ -1997,6 +2386,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu/ops/moe_fused.py:167"),
         ("tgmm", "grouped_dw_tgmm", "gavit_tpu_torch/csrc/moe.cu",
          "gavit_tpu/ops/moe_fused.py:411"),
+        ("N-gmm", "grouped_gemm_gmm", "gavit_tpu_torch/csrc/moe.cu",
+         "gavit_tpu/ops/moe_grouped.py:138"),
     ]
     out = []
     for key, name, src, rep in spec:
@@ -2004,12 +2395,16 @@ def kernels_json(results, serve_counts, train_counts, rows):
         counts = serve_counts if key == "B" else train_counts[
             "384" if key in ("K", "K′", "H", "H′") else
             "512" if key in ("L", "L′") else
-            "moe" if key in ("M", "M′", "tgmm") else "224"]
+            "moe" if key in ("M", "M′", "tgmm") else
+            "moe_unfused" if key == "N-gmm" else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
                     "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                     "library_ms": lm})
+    km, pm, lm, bms, by = rows["N-gmm transposed"]
+    out[-1]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
+                             "bound_by": by, "library_ms": lm}
     return {"kernels": out}
 
 
@@ -2044,6 +2439,23 @@ def main():
         tcfg, dev, "vit_b16_graph2",
         {"A": depth, "A′": depth, "C": 2, "D": depth, "D′": depth,
          "F": 2 * (1 + depth + 2)})
+    # the same with stochastic depth at 0.1 (no shipped config sets it): the
+    # kernels' step against the plain versions' (the same generator draws
+    # the same per-sample masks), launches as above, and fewer steps that
+    # must lower the loss
+    phase_train(train_config(["model.drop_path_rate=0.1"]), dev,
+                "vit_b16_graph2 drop_path 0.1",
+                {"A": depth, "A′": depth, "C": 2, "D": depth, "D′": depth,
+                 "F": 2 * (1 + depth + 2)}, steps_compare=3, steps_learn=20)
+    # attention-probability dropout at 0.1 (no shipped config sets it): the
+    # attention leaves kernels A/A′ for the plain attention with a Philox
+    # mask in both trainers; b32 over a 160-image set (a warmup of 5 steps)
+    # keeps its [B, 12, 197, 197] fp32 probabilities small
+    phase_train(train_config(["model.attn_drop_rate=0.1", "data.batch_size=32",
+                              "data.synthetic_size=160"]), dev,
+                "vit_b16_graph2 attn_drop 0.1",
+                {"C": 2, "D": depth, "D′": depth, "F": 2 * (1 + depth + 2)},
+                steps_compare=3, steps_learn=15)
 
     # 384 px: finetune_384 (12 blocks, 1 learned-static graph block): K and
     # B in the forward; in training K, K′, H, H′ per block (M = 16·577 has
@@ -2128,7 +2540,32 @@ def main():
          "tgmm": depth, "F": 2 * (1 + depth + 2)})
     rows.update(phase_moe_times(cfg_moe, tcfg_moe, dev, results, weights_moe,
                                 trainer_moe, batch_moe, card))
-    del trainer_moe
+
+    # the MoE example with the fused kernels switched off
+    # (GAVIT_MOE_FUSED=0): the unfused grouped engine, N-gmm for the expert
+    # GEMMs and, transposed, for their input gradients, tgmm for dW, F for
+    # the MLP's dropout. auto picks it past GROUPED_MIN_PAIRS: at b128, not
+    # at b64. Per step as the fused engine's, with N-gmm 4 and tgmm 2 in
+    # each of the 6 MoE blocks in place of M, M′ and tgmm 2, and F at their
+    # two sites, forward and backward.
+    check_gmm(dev, results)
+    with fused_gate("0"):
+        phase_slice(cfg_moe, weights_moe, dev, "vit_b16_moe unfused",
+                    n_images=TRAIN_BATCH,
+                    expect={"A": depth, "B": depth // 2, "C": 2,
+                            "N-gmm": depth})
+        trainer_unf, _, counts_unfused = phase_train(
+            tcfg_moe, dev, "vit_b16_moe unfused",
+            {"A": depth, "A′": depth, "C": 2, "D": depth // 2,
+             "D′": depth // 2, "N-gmm": 2 * depth, "tgmm": depth,
+             "F": 2 * (1 + depth + 2) + 2 * 2 * (depth // 2)})
+        phase_grouped_remat(tcfg_moe, dev, batch_moe, card)
+    phase_engines(dev, card)
+    phase_upcycle(cfg_moe, dev)
+    rows.update(phase_unfused_times(
+        cfg_moe, dev, results, weights_moe,
+        {"fused": trainer_moe, "unfused": trainer_unf}, batch_moe, card))
+    del trainer_moe, trainer_unf
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:
@@ -2137,7 +2574,8 @@ def main():
     print(card)
     print(json.dumps(kernels_json(results, serve_counts,
                                   {"224": counts_224, "384": counts_384,
-                                   "512": counts_512, "moe": counts_moe},
+                                   "512": counts_512, "moe": counts_moe,
+                                   "moe_unfused": counts_unfused},
                                   rows), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

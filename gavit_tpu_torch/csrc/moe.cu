@@ -1,5 +1,5 @@
-// Kernels M, M' and tgmm: the expert MLP of the dropless grouped
-// mixture-of-experts engine on the tensor cores, in bf16.
+// Kernels M, M', tgmm and N-gmm: the expert MLP of the dropless grouped
+// mixture-of-experts engines on the tensor cores, in bf16.
 //
 // Replaces:
 // * M: gavit_tpu/ops/moe_fused.py::_fwd_kernel (launched by _run_fwd, reached
@@ -7,7 +7,12 @@
 // * M': gavit_tpu/ops/moe_fused.py::_bwd_kernel (launched by _run_bwd, the
 //   VJP of fused_grouped_mlp);
 // * tgmm: megablox tgmm (JAX-library Pallas), which moe_fused.py::_fused_bwd
-//   calls twice for the expert weight gradients dW1 and dW2.
+//   calls twice for the expert weight gradients dW1 and dW2 (and the unfused
+//   engine's VJP once per GEMM);
+// * N-gmm: megablox gmm (JAX-library Pallas), which
+//   gavit_tpu/ops/moe_grouped.py::ragged_matmul launches for the unfused
+//   grouped engine (grouped_moe_mlp with the fused kernels switched off), in
+//   both of its forms: x . W[e] and, in the VJP, dy . W[e]^T.
 //
 // The rows: x_sorted [cap, D] holds the routed (token, choice) pairs grouped
 // by expert, each expert's region padded to a multiple of the row tile tm
@@ -38,6 +43,17 @@
 //   row-major, the groups given by group_sizes [E] on the device. Each block
 //   owns one 128x128 tile of one expert's [K, N] output and walks that
 //   expert's rows 64 at a time, accumulating in fp32, and rounds to bf16 once.
+//
+// * N-gmm: C[T, N] = A[T, K] . W[e] (W [E, K, N]) or, transposed,
+//   A . W[e]^T (W [E, N, K], read row by row along K as M''s dh reads W2)
+//   over expert-contiguous rows, group_sizes [E] on the device. The groups
+//   are not tile-aligned: a block's 128-row tile may straddle several
+//   groups, lie in one hot group or in none. Each block walks the groups
+//   that overlap its rows and runs the main loop once for each, keeping
+//   that group's rows in the epilogue (as M's split tiles do); an empty
+//   group is skipped; rows past the last group are written as zeros. Each
+//   output element is written by one block from one fp32 sum: no atomics,
+//   reruns give the same bits.
 //
 // A block's row tile must belong to one expert to use one expert's weights.
 // With tm >= 128 (ViT-B at b64 and b128: tm = 256) it always does. With a
@@ -458,6 +474,39 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+// Kernel N-gmm: C[M, N] = A[M, K] . B_e over the groups of group_sizes[E]
+// (consecutive rows, in expert order). kKN: B [E, K, N]; else B [E, N, K]
+// (the transpose_rhs form). Two blocks an SM (at most 128 registers a
+// thread): the walk over the groups would otherwise take ~180, and one
+// block an SM hides too little of the cp.async ring's latency.
+template <bool kKN>
+__global__ void __launch_bounds__(kThreads, 2)
+    moe_gmm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+                   const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ C, int M,
+                   int N, int K, int E) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m_end = min(m0 + BM, M);
+  EpiArgs ep{};
+  ep.out = C;
+  int start = 0;
+  for (int e = 0; e < E && start < m_end; ++e) {
+    const int end = start + group_sizes[e];
+    const int lo = max(start, m0), hi = min(end, m_end);
+    if (lo < hi) {
+      __syncthreads();  // the previous segment's readers of shared memory are done
+      gemm_segment<kKN, EPI_STORE, ACT_ERF>(A, B, M, N, K, e, lo, hi, BM, ep, smem_raw);
+    }
+    start = end;
+  }
+  // rows of the tile past the last group: zeros
+  const int z0 = max(start, m0);
+  for (int i = threadIdx.x; i < (m_end - z0) * (BN / 2); i += kThreads) {
+    const int row = z0 + i / (BN / 2), col = n0 + (i % (BN / 2)) * 2;
+    if (col < N) store2(C + (long)row * N + col, 0.f, 0.f);
+  }
+}
+
 // M' prologue: dye = bf16(dy * keep_out * scale) (only when the output mask
 // is on), and the column sums of float(dye) over each chunk of `rows` rows
 // (a chunk lies inside one row tile, so inside one expert). Thread j owns
@@ -624,5 +673,32 @@ GAVIT_EXPORT int gavit_moe_tgmm(const void* a, const void* b, const void* group_
   moe_tgmm_kernel<<<grid, kThreads, kTgmmSmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
       static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(c), kd, n);
+  return cudaGetLastError();
+}
+
+// Kernel N-gmm. a [m, k], group_sizes [e] int32 on the device (rows in
+// expert order, past their sum written as zeros); b [e, k, n], or [e, n, k]
+// with transpose_rhs; writes c [m, n] in bf16.
+GAVIT_EXPORT int gavit_gmm(const void* a, const void* b, const void* group_sizes, void* c, int m,
+                           int k, int n, int e, int transpose_rhs, void* stream) {
+  if (m <= 0 || k <= 0 || n <= 0 || e <= 0 || k % 8 || n % 8 || m > 65535 * BM)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  const auto* A = static_cast<const __nv_bfloat16*>(a);
+  const auto* B = static_cast<const __nv_bfloat16*>(b);
+  const int* gs = static_cast<const int*>(group_sizes);
+  auto* C = static_cast<__nv_bfloat16*>(c);
+  if (transpose_rhs) {
+    constexpr int smem = smem_bytes<false>();
+    cudaError_t err = set_smem(moe_gmm_kernel<false>, smem);
+    if (err != cudaSuccess) return err;
+    moe_gmm_kernel<false><<<grid, kThreads, smem, s>>>(A, B, gs, C, m, n, k, e);
+  } else {
+    constexpr int smem = smem_bytes<true>();
+    cudaError_t err = set_smem(moe_gmm_kernel<true>, smem);
+    if (err != cudaSuccess) return err;
+    moe_gmm_kernel<true><<<grid, kThreads, smem, s>>>(A, B, gs, C, m, n, k, e);
+  }
   return cudaGetLastError();
 }

@@ -24,7 +24,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from gavit_tpu_torch.models.moe import MoEMlp
-from gavit_tpu_torch.ops.attention import fused_qkv_attention
+from gavit_tpu_torch.ops import philox
+from gavit_tpu_torch.ops.attention import (attention_reference,
+                                           fused_qkv_attention)
 from gavit_tpu_torch.ops.dropout import fused_dropout
 from gavit_tpu_torch.ops.mlp import fused_mlp, fused_mlp_inference
 
@@ -139,16 +141,26 @@ class HeadMergeProj(Dense):
 
 
 class Attention(nn.Module):
-    """Fused-QKV multi-head self-attention: qkv GEMM → kernel A or K on the
-    raw rows by sequence length (A′ or K′ in the backward) → head-merging
-    output projection → projection dropout (layers.py:425)."""
+    """Fused-QKV multi-head self-attention: qkv GEMM → kernel A, K or L on
+    the raw rows by sequence length (A′, K′ or L′ in the backward) →
+    head-merging output projection → projection dropout (layers.py:425).
+
+    In training with ``attn_drop`` > 0 the attention leaves the kernels, as
+    the JAX model's leaves Pallas (layers.py:409-452): the plain
+    ``attention_reference`` in tensor ops drops the fp32 probabilities by
+    the Philox mask of (step seed, ``attn_site``), element ``((b·H + h)·N
+    + i)·N + j`` of ``[B, H, N, N]``; a recompute (``model.remat``) draws
+    the same mask."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
-                 proj_drop: float = 0.0, site: int = 0, dtype=torch.float32,
+                 attn_drop: float = 0.0, proj_drop: float = 0.0,
+                 site: int = 0, attn_site: int = 0, dtype=torch.float32,
                  impl: str = "auto", device=None):
         super().__init__()
         self.num_heads = num_heads
         self.impl = impl
+        self.attn_drop = attn_drop
+        self.attn_site = attn_site
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
                          device=device)
         self.proj = HeadMergeProj(dim, dim, dtype=dtype, device=device)
@@ -159,8 +171,18 @@ class Attention(nn.Module):
         h = self.num_heads
         hd = c // h
         qkv = self.qkv(x).view(b, n, 3, h, hd)
-        out4 = fused_qkv_attention(qkv, hd ** -0.5, merge_heads=False,
-                                   impl=self.impl)
+        if self.training and self.attn_drop > 0.0:
+            if seed is None:
+                raise ValueError("attention dropout with a rate > 0 needs a "
+                                 "seed")
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)
+            keep = philox.keep_mask((b, h, n, n), seed, self.attn_site,
+                                    self.attn_drop, device=x.device)
+            out4 = attention_reference(q, k, v, hd ** -0.5, self.attn_drop,
+                                       keep)
+        else:
+            out4 = fused_qkv_attention(qkv, hd ** -0.5, merge_heads=False,
+                                       impl=self.impl)
         return self.proj_drop(self.proj(out4), seed)
 
 
@@ -203,21 +225,23 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block with stochastic depth (layers.py:459-538).
     Its dropout sites are ``site`` (attention projection), ``site + 1`` and
-    ``site + 2`` (the MLP's hidden and output masks). With ``moe`` (a
+    ``site + 2`` (the MLP's hidden and output masks), and ``attn_site``
+    (attention probabilities, at ``attn_drop`` > 0). With ``moe`` (a
     ``MoEConfig``) the MLP is a mixture of experts, the submodule ``moe``
     in place of ``mlp``, on the same two sites."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
                  qkv_bias: bool = True, drop: float = 0.0,
-                 drop_path_rate: float = 0.0, site: int = 0,
-                 dtype=torch.float32, impl: str = "auto", moe=None,
-                 device=None):
+                 attn_drop: float = 0.0, drop_path_rate: float = 0.0,
+                 site: int = 0, attn_site: int = 0, dtype=torch.float32,
+                 impl: str = "auto", moe=None, device=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
-                              proj_drop=drop, site=site, dtype=dtype,
-                              impl=impl, device=device)
+                              attn_drop=attn_drop, proj_drop=drop, site=site,
+                              attn_site=attn_site, dtype=dtype, impl=impl,
+                              device=device)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         if moe is not None:
             self.moe = MoEMlp(moe, dim, int(dim * mlp_ratio), drop=drop,

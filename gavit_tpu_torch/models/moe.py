@@ -11,9 +11,16 @@ Two engines compute it, resolved per call shape by
   one-hot dispatch and combine einsums (the JAX package leaves these GEMMs
   to XLA; here they are ``torch.einsum``); pairs past an expert's capacity
   are dropped in choice-major order and pass through the residual;
-* **grouped** — dropless: the pairs grouped by expert on tile-aligned rows
-  and the expert MLP through kernels M, M′ and tgmm on the card
-  (``ops/moe_fused.py``), their plain versions on the CPU.
+* **grouped** — dropless, in one of two forms, as the JAX package's
+  ``use_fused`` gate picks (``ops/moe_fused.py::use_fused``, off with
+  ``GAVIT_MOE_FUSED=0`` or ``GAVIT_MOE_MATMUL=ragged_dot``): fused, the
+  pairs grouped by expert on tile-aligned rows and the expert MLP through
+  kernels M, M′ and tgmm on the card (``ops/moe_fused.py``); or unfused,
+  the pairs packed by expert and the two expert GEMMs through the ragged
+  grouped GEMM N-gmm (tgmm for dW) with the GELU and kernel F's dropout
+  between them (``ops/moe_grouped.py::grouped_moe_mlp``). The plain
+  versions stand in for the kernels on the CPU. ``grouped_remat``
+  recomputes either in the backward.
 
 The engines differ in which tokens they drop at saturated experts, so one
 model gives different answers at batches that resolve to different engines,
@@ -25,30 +32,40 @@ zero router, as ``upcycle_params`` makes, ties every expert). The
 config-weighted ``load_balance`` and ``router_z`` auxiliary losses of a
 training forward are kept on the module (:attr:`MoEMlp.aux_loss`);
 ``VisionTransformer.moe_aux_loss`` sums them.
+
+:func:`upcycle_params` turns a dense model's weights into an MoE model's
+(sparse upcycling, moe.py:344-394), on the weight bridge's Flax-layout
+trees (``utils/convert.py``).
 """
 
 from __future__ import annotations
 
 import logging
 import math
+import os
 import threading
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
 
 from gavit_tpu_torch.config import MoEConfig
 from gavit_tpu_torch.ops import _build
 from gavit_tpu_torch.ops.dropout import fused_dropout
-from gavit_tpu_torch.ops.moe_fused import grouped_moe_mlp_fused
+from gavit_tpu_torch.ops.moe_fused import grouped_moe_mlp_fused, use_fused
+from gavit_tpu_torch.ops.moe_grouped import grouped_moe_mlp
 
 logger = logging.getLogger(__name__)
 
 # The JAX package's crossovers (routed pairs per device, moe.py:63-64),
 # copied as they are: the dropless grouped engine at or above the
 # threshold, the dense engine below. FUSED_MIN_PAIRS applies where the fused
-# kernels run (a CUDA tensor with impl 'auto'), GROUPED_MIN_PAIRS elsewhere.
-# They were measured on a TPU; the H100's crossover is not measured yet.
+# kernels run (a CUDA tensor with impl 'auto' and the fused gate on),
+# GROUPED_MIN_PAIRS elsewhere; GAVIT_MOE_AUTO_PAIRS overrides either, as in
+# the JAX package. They were measured on a TPU; the H100's crossover is not
+# measured yet.
 GROUPED_MIN_PAIRS = 37824
 FUSED_MIN_PAIRS = 15760
 
@@ -60,13 +77,17 @@ _tf32_lock = threading.Lock()
 
 def resolve_moe_impl(impl: str, pairs: int, fused_live: bool) -> str:
     """``model.moe.impl`` for one call: 'dense' and 'grouped' are returned
-    as they are; 'auto' takes 'grouped' when ``pairs`` (B·S·k) reaches
-    FUSED_MIN_PAIRS (``fused_live``) or GROUPED_MIN_PAIRS, else 'dense'."""
+    as they are; 'auto' takes 'grouped' when ``pairs`` (B·S·k) reaches the
+    threshold, else 'dense'. The threshold: ``GAVIT_MOE_AUTO_PAIRS`` when
+    set, else FUSED_MIN_PAIRS where the fused kernels run (``fused_live``),
+    else GROUPED_MIN_PAIRS (moe.py:68-71, 98-109)."""
     if impl != "auto":
         if impl not in ("dense", "grouped"):
             raise ValueError(f"unknown model.moe.impl {impl!r}")
         return impl
-    thresh = FUSED_MIN_PAIRS if fused_live else GROUPED_MIN_PAIRS
+    thresh = int(os.environ.get(
+        "GAVIT_MOE_AUTO_PAIRS",
+        FUSED_MIN_PAIRS if fused_live else GROUPED_MIN_PAIRS))
     choice = "grouped" if pairs >= thresh else "dense"
     if (pairs, choice) not in _logged_choices:
         _logged_choices.add((pairs, choice))
@@ -148,7 +169,10 @@ class MoEMlp(nn.Module):
     """Drop-in for ``models.layers.Mlp`` on ``[B, N, D]``: each image's N
     tokens form one routing group. ``sites`` = the (hidden, output) dropout
     sites of the block's MLP. ``impl`` as the model's: 'auto' launches the
-    kernels on CUDA tensors, 'reference' takes the plain versions."""
+    kernels on CUDA tensors, 'reference' takes the plain versions. With
+    ``cfg.grouped_remat`` a training forward keeps none of the grouped
+    engine's insides and recomputes them in the backward; its masks come
+    from (seed, site), so the recompute draws the same ones."""
 
     def __init__(self, cfg: MoEConfig, dim: int, hidden_dim: int, *,
                  drop: float = 0.0, site: int = 0, dtype=torch.float32,
@@ -157,9 +181,6 @@ class MoEMlp(nn.Module):
         if cfg.k > cfg.num_experts:
             raise ValueError(f"model.moe.k={cfg.k} cannot exceed "
                              f"num_experts={cfg.num_experts}")
-        if cfg.grouped_remat:
-            raise NotImplementedError(
-                "model.moe.grouped_remat waits for ROADMAP Queue 1 item 11")
         _build.check_impl(impl)
         self.cfg = cfg
         self.dtype = dtype
@@ -190,13 +211,24 @@ class MoEMlp(nn.Module):
         approx = dt == torch.bfloat16 and not self.training
         w1, b1 = self.fc1_kernel.to(dt), self.fc1_bias.to(dt)
         w2, b2 = self.fc2_kernel.to(dt), self.fc2_bias.to(dt)
-        fused_live = x.is_cuda and self.impl == "auto"
+        fused = use_fused()
+        fused_live = fused and x.is_cuda and self.impl == "auto"
         if resolve_moe_impl(cfg.impl, g * s * k, fused_live) == "grouped":
             gate_vals, gate_idx, aux = router_topk(
                 logits, k, normalize_gates=cfg.normalize_gates)
-            out = grouped_moe_mlp_fused(
-                x.to(dt), gate_vals, gate_idx, w1, b1, w2, b2, seed,
-                self.sites, drop=rate, approx_gelu=approx, impl=self.impl)
+            engine = grouped_moe_mlp_fused if fused else grouped_moe_mlp
+            args = (x.to(dt), gate_vals, gate_idx, w1, b1, w2, b2, seed,
+                    self.sites)
+            kw = dict(drop=rate, approx_gelu=approx, impl=self.impl)
+            if cfg.grouped_remat and self.training and \
+                    torch.is_grad_enabled():
+                # (moe.py:291-297) the whole engine again in the backward,
+                # no early stop: every kernel of it launches once more
+                with set_checkpoint_early_stop(False):
+                    out = checkpoint(engine, *args, **kw, use_reentrant=False,
+                                     preserve_rng_state=False)
+            else:
+                out = engine(*args, **kw)
         else:
             cap = expert_capacity(s, cfg.num_experts, k, cfg.capacity_factor)
             combine, aux = router_dispatch(
@@ -223,3 +255,46 @@ class MoEMlp(nn.Module):
         slot_gate = combine.sum(1)                              # [g,e,c]
         y = (y.float() * slot_gate[..., None]).to(dt)
         return torch.einsum("gsec,gecd->gsd", dispatch, y)
+
+
+def upcycle_params(dense_params: dict, moe_params: dict, model_cfg) -> dict:
+    """Sparse upcycling (moe.py:344-394): an MoE model's weights from a
+    dense model's. Both trees are the weight bridge's nested dicts in the
+    Flax layout (``utils/convert.py::to_flax_tree``; ``load_flax_params``
+    fills a model from the result). At every MoE site each expert becomes a
+    copy of the dense block's ``fc1``/``fc2`` and the router zero (uniform
+    routing: every expert tied, experts 0 and 1 chosen); every other leaf
+    is copied from the dense tree where the shapes match, else kept from
+    ``moe_params``. With normalised gates the upcycled grouped forward is
+    the dense forward (dropless: no token dropped at any capacity)."""
+    e = model_cfg.moe.num_experts
+
+    def copy_matching(dst: dict, src: dict) -> dict:
+        out = {}
+        for key, val in dst.items():
+            if key in src and isinstance(val, dict):
+                out[key] = copy_matching(val, src[key])
+            elif key in src and np.shape(val) == np.shape(src[key]):
+                out[key] = src[key]
+            else:
+                out[key] = val
+        return out
+
+    out = copy_matching(moe_params, dense_params)
+    for i in sorted(set(model_cfg.moe_sites())):
+        blk = dict(out[f"blocks_{i}"])
+        mlp = dense_params[f"blocks_{i}"]["mlp"]
+
+        def tile(a):
+            a = np.asarray(a)
+            return np.tile(a[None], (e,) + (1,) * a.ndim)
+
+        blk["moe"] = {
+            "router": np.zeros_like(np.asarray(blk["moe"]["router"])),
+            "fc1_kernel": tile(mlp["fc1"]["kernel"]),
+            "fc1_bias": tile(mlp["fc1"]["bias"]),
+            "fc2_kernel": tile(mlp["fc2"]["kernel"]),
+            "fc2_bias": tile(mlp["fc2"]["bias"]),
+        }
+        out[f"blocks_{i}"] = blk
+    return out

@@ -50,6 +50,13 @@ def dropout_sites(depth: int, n_graph: int) -> dict:
     return sites
 
 
+def attention_probs_sites(depth: int, n_graph: int) -> list[int]:
+    """The site of block i's attention-probability mask (``attn_drop_rate``
+    > 0): 1+3·depth+n_graph+i, past every id of :func:`dropout_sites`, so
+    no other mask moves."""
+    return [1 + 3 * depth + n_graph + i for i in range(depth)]
+
+
 class VisionTransformer(nn.Module):
     """ViT backbone with interleaved graph blocks.
 
@@ -72,14 +79,16 @@ class VisionTransformer(nn.Module):
         # a set, as in the JAX model: two blocks placed at one site are one
         self.graph_sites = tuple(sorted(set(cfg.graph_insert_after())))
         sites = dropout_sites(cfg.depth, len(self.graph_sites))
+        attn_sites = attention_probs_sites(cfg.depth, len(self.graph_sites))
         self.pos_drop = Dropout(cfg.drop_rate, sites["embed"], impl)
         dpr = [cfg.drop_path_rate * i / max(cfg.depth - 1, 1)
                for i in range(cfg.depth)]
         moe_sites = set(cfg.moe_sites())
         self.blocks = nn.ModuleList(
             Block(d, cfg.num_heads, cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
-                  drop=cfg.drop_rate, drop_path_rate=dpr[i],
-                  site=sites[f"blocks.{i}.attn"], dtype=dtype,
+                  drop=cfg.drop_rate, attn_drop=cfg.attn_drop_rate,
+                  drop_path_rate=dpr[i], site=sites[f"blocks.{i}.attn"],
+                  attn_site=attn_sites[i], dtype=dtype,
                   impl=impl, moe=cfg.moe if i in moe_sites else None,
                   device=device)
             for i in range(cfg.depth)

@@ -3,7 +3,9 @@
 * :func:`attention_reference` — the plain PyTorch version: materialises the
   ``[B, H, N, N]`` scores, fp32 softmax, ``p`` rounded to the value dtype
   before ``p·v``. CPU tensors take it, and ``chip_smoke.py`` holds the
-  kernels to it on the card.
+  kernels to it on the card. With a keep mask it also drops attention
+  probabilities: the training path of ``model.attn_drop_rate`` > 0, which
+  leaves the kernels, as the JAX model leaves its Pallas kernels for XLA.
 * :func:`attention_backward_reference` — the plain version of the TPU
   backwards ``_bwd_kernel_v4`` and ``_bwd_kernel_v3``: P recomputed,
   delta = rowsum(dP∘P), dq, dk, dv packed back into the ``[B, N, 3·H·d]``
@@ -78,14 +80,21 @@ def plain_route(n: int) -> str:
     return "L" if n > K_MAX_N else "A"
 
 
-def attention_reference(q, k, v, scale: float):
+def attention_reference(q, k, v, scale: float, dropout_rate: float = 0.0,
+                        keep=None):
     """softmax(q kᵀ · scale) v for q, k, v ``[B, H, N, d]``.
 
     Products are taken in fp32 from the inputs' values (a bf16 product is
-    exact in fp32), as ``preferred_element_type=float32`` does in JAX.
+    exact in fp32), as ``preferred_element_type=float32`` does in JAX. With
+    ``keep`` (bool ``[B, H, N, N]``) the fp32 probabilities are dropped where
+    it is false and the rest scaled by 1/(1 - ``dropout_rate``), as
+    ``gavit_tpu.ops.attention.attention_reference`` drops them
+    (attention.py:68-92); the model draws ``keep`` from Philox.
     """
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
+    if keep is not None:
+        p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
     out = torch.matmul(p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
 

@@ -6,22 +6,24 @@
   ``tm`` (and to at least one tile), all on the device with no host sync:
   ``cap`` is static (:func:`fused_cap`), the group sizes and the tile →
   expert map stay tensors.
-* :func:`moe_fwd_reference`, :func:`moe_bwd_reference`,
-  :func:`tgmm_reference` — the plain PyTorch versions of the TPU kernels
-  ``_fwd_kernel`` and ``_bwd_kernel`` and of megablox ``tgmm``: per-expert
-  loops over the tile map, fp32 accumulation, the kernels' rounding points
-  (h1 rounded before the GELU, g before fc2, dh1 before dx, tgmm's output
-  in the weights' dtype), the masks of ``ops/philox.py`` (the hidden mask
-  is element row·F + col of the ``[cap, F]`` buffer at the hidden site, the
-  output mask element row·D + col of ``[cap, D]`` at the output site).
-* :func:`moe_fwd_kernel`, :func:`moe_bwd_kernel`, :func:`tgmm_kernel` —
-  kernels M, M′ and tgmm (``csrc/moe.cu``) on CUDA bf16 tensors.
+* :func:`moe_fwd_reference`, :func:`moe_bwd_reference` — the plain
+  PyTorch versions of the TPU kernels ``_fwd_kernel`` and ``_bwd_kernel``:
+  per-expert loops over the tile map, fp32 accumulation, the kernels'
+  rounding points (h1 rounded before the GELU, g before fc2, dh1 before
+  dx), the masks of ``ops/philox.py`` (the hidden mask is element
+  row·F + col of the ``[cap, F]`` buffer at the hidden site, the output
+  mask element row·D + col of ``[cap, D]`` at the output site).
+* :func:`moe_fwd_kernel`, :func:`moe_bwd_kernel` — kernels M and M′
+  (``csrc/moe.cu``) on CUDA bf16 tensors.
 * :func:`fused_grouped_mlp` — the differentiable op: M forward; M′ and two
-  tgmm calls (dW1, dW2) backward. :func:`combine_rows_padded` gathers the
-  pairs' rows back, its backward a masked inverse gather, so pad rows get
-  exactly zero gradient (their rows hold token 0, finite, never read).
+  calls of kernel tgmm (``ops/gmm.py``: dW1, dW2) backward.
+  :func:`combine_rows_padded` gathers the pairs' rows back, its backward a
+  masked inverse gather, so pad rows get exactly zero gradient (their rows
+  hold token 0, finite, never read).
 * :func:`grouped_moe_mlp_fused` — grouping → dispatch → op → combine → the
   fp32 gate-weighted sum over the k choices.
+* :func:`use_fused` — the gate between this engine and the unfused one
+  (``ops/moe_grouped.py::grouped_moe_mlp``), read from the environment.
 
 Weights keep the Flax layout: ``w1 [E, D, F]``, ``b1 [E, F]``,
 ``w2 [E, F, D]``, ``b2 [E, D]``.
@@ -29,17 +31,18 @@ Weights keep the Flax layout: ``w1 [E, D, F]``, ``b1 [E, F]``,
 
 from __future__ import annotations
 
+import os
+
 import torch
 
-from gavit_tpu_torch.ops import _build, philox
+from gavit_tpu_torch.ops import _build, gmm, philox
 from gavit_tpu_torch.ops.dropout import gelu_and_grad, site_args
-from gavit_tpu_torch.ops.moe_grouped import dispatch_rows
+from gavit_tpu_torch.ops.moe_grouped import dispatch_rows, resolve_matmul_impl
 
 # launches since the last reset (chip_smoke.py reads them): kernels M
-# (forward), M′ (backward) and tgmm (two per backward)
+# (forward) and M′ (backward); tgmm counts in ops/gmm.py
 KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
-TGMM_LAUNCHES = 0
 
 
 def _round_up(n: int, t: int) -> int:
@@ -62,6 +65,20 @@ def fused_tm(t: int, e: int = 8) -> int:
         if e * tm * 8 <= t:
             return tm
     return 8
+
+
+def use_fused() -> bool:
+    """The fused engine's gate (moe_fused.py:589-603), with the JAX
+    package's switches: off with ``GAVIT_MOE_FUSED=0``, or when
+    ``GAVIT_MOE_MATMUL`` takes the grouped GEMM away from megablox
+    (``ragged_dot``); the grouped engine is then the unfused one. The JAX
+    gate also asks for a TPU, the only place its kernels run; the port's
+    plain versions stand in for its kernels on the CPU, so this gate does
+    not look at the device (``models/moe.py::resolve_moe_impl``'s crossover
+    does)."""
+    if os.environ.get("GAVIT_MOE_FUSED", "1") == "0":
+        return False
+    return resolve_matmul_impl("auto") == "megablox"
 
 
 def group_by_expert_tiled(gate_idx, num_experts: int, tm: int):
@@ -187,16 +204,6 @@ def moe_bwd_reference(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
     return dx.to(dt), g.to(dt), dh1_r, db1, db2, dye
 
 
-def tgmm_reference(a, b, group_sizes, out_dtype):
-    """``[E, K, N]``: for each expert e, ``a[rows of e]ᵀ · b[rows of e]``
-    in fp32 over its ``group_sizes[e]`` consecutive rows, rounded to
-    ``out_dtype``."""
-    bounds = [0] + torch.cumsum(group_sizes.long(), 0).tolist()
-    return torch.stack([
-        (a[lo:hi].float().t() @ b[lo:hi].float()).to(out_dtype)
-        for lo, hi in zip(bounds[:-1], bounds[1:])])
-
-
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
@@ -294,32 +301,6 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
     return dx, go, dh1, db1, db2, dye
 
 
-def tgmm_kernel(a, b, group_sizes, out_dtype=torch.bfloat16):
-    """Kernel tgmm on CUDA bf16 ``a [R, K]``, ``b [R, N]`` and int32
-    ``group_sizes [E]`` (on the device, summing to R) → bf16 ``[E, K, N]``."""
-    global TGMM_LAUNCHES
-    rows, kd = a.shape
-    n = b.shape[1]
-    e = group_sizes.shape[0]
-    if b.shape[0] != rows or kd % 8 or n % 8:
-        raise ValueError(f"tgmm shapes a {tuple(a.shape)} b {tuple(b.shape)}: "
-                         f"rows must match, widths divisible by 8")
-    if group_sizes.dtype != torch.int32 or group_sizes.ndim != 1:
-        raise ValueError("tgmm takes int32 group sizes [E]")
-    _check_bf16("kernel tgmm", a, b)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"kernel tgmm writes bfloat16, not {out_dtype}")
-    _build.require_cuda(a, b, group_sizes)
-    c = torch.empty((e, kd, n), dtype=torch.bfloat16, device=a.device)
-    lib = _build.library()
-    _build.check(lib.gavit_moe_tgmm(
-        a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), c.data_ptr(),
-        rows, kd, n, e, _build.stream(a.device)), "grouped dW kernel")
-    with _build.count_lock:
-        TGMM_LAUNCHES += 1
-    return c
-
-
 # ---------------------------------------------------------------------------
 # differentiable op
 # ---------------------------------------------------------------------------
@@ -346,7 +327,7 @@ class _FusedGroupedMlp(torch.autograd.Function):
         dx, go, dh1, db1, db2, dye = bwd(dy, h1, w1, w2, tile_group, tm,
                                          seed, sites, rate, out_rate, approx)
         # dW over each expert's padded rows; pad rows carry zero dh1 and dye
-        tgmm = tgmm_kernel if use_kernel else tgmm_reference
+        tgmm = gmm.tgmm_kernel if use_kernel else gmm.tgmm_reference
         dw1 = tgmm(x_sorted, dh1, group_sizes, w1.dtype)
         dw2 = tgmm(go, dye, group_sizes, w2.dtype)
         return (dx, dw1, db1.to(ctx.bias_dtypes[0]), dw2,

@@ -15,16 +15,23 @@ weights and images/s of every step.
 It runs on ``cuda`` unless ``--device cpu`` is given; on the card the
 Hopper kernels build on first use. A MoE config
 (``configs/examples/vit_b16_moe.yaml``) trains with its auxiliary loss in
-the objective; a config's ``mesh`` is read and not used: the port runs on
-one card. Checkpointing, validation, early
-stopping, preemption and gradient accumulation wait for ROADMAP Queue 1
-item 6; only the synthetic data path exists so far.
+the objective (``GAVIT_MOE_FUSED=0`` in the environment switches its
+grouped engine from the fused kernels to the unfused one); a config's
+``mesh`` is read and not used: the port runs on one card. Checkpointing,
+validation, early stopping, preemption and gradient accumulation wait for
+ROADMAP Queue 1 item 6; only the synthetic data path exists so far.
+
+Loading ``model.pretrained_path`` waits for ROADMAP Queue 1 item 1: where
+that file exists the JAX CLI fine-tunes from it, so this one exits with an
+error instead of training from random weights; an absent file is ignored,
+as there.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 import time
 from pathlib import Path
@@ -95,6 +102,13 @@ def main(argv=None):
     from gavit_tpu_torch.config import load_config, mesh_note
 
     config = load_config(args.config, args.overrides)
+    pretrained = config.model.pretrained_path
+    if pretrained and os.path.exists(pretrained):
+        raise SystemExit(
+            f"train_torch: model.pretrained_path {pretrained!r} exists, and "
+            f"loading it waits for ROADMAP Queue 1 item 1; refusing to train "
+            f"from random weights in its place (set model.pretrained_path= "
+            f"to train from scratch)")
     note = mesh_note(config)
     if note:
         logger.info(note)

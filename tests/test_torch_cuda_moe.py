@@ -1,11 +1,14 @@
-"""Kernels M, M′ and tgmm (``csrc/moe.cu``) against their plain PyTorch
-versions on the card, at the edges chip_smoke.py's b128 shapes do not reach:
-row tiles 8, 16 (a 128-row block spans several experts) and 256, an empty
-expert, a hot expert (every pair on one), a pair count that is not a
-multiple of the tile, dropout rates 0 and 0.1 with the masks (zero
-patterns) identical to the plain version's; the differentiable engine
-against ``impl='reference'``; and a non-bf16 CUDA input refused instead of
-run through a plain version.
+"""Kernels M, M′, tgmm and N-gmm (``csrc/moe.cu``) against their plain
+PyTorch versions on the card, at the edges chip_smoke.py's b128 shapes do
+not reach: row tiles 8, 16 (a 128-row block spans several experts) and 256,
+an empty expert, a hot expert (every pair on one), a pair count that is not
+a multiple of the tile, dropout rates 0 and 0.1 with the masks (zero
+patterns) identical to the plain version's; N-gmm in both forms on ragged
+groups (boundaries inside a row tile, an empty and a hot expert, rows past
+the groups, T not a multiple of the tile), the same bits on a rerun; both
+differentiable engines against ``impl='reference'``, with their launches;
+a zero router's tie picking experts 0 and 1; and a non-bf16 CUDA input
+refused instead of run through a plain version.
 
 Marked ``cuda``: they skip without a card. JAX-free, so they run on a
 machine without it:
@@ -21,7 +24,10 @@ fp32 bias gradients 1e-3 (summation order only).
 import pytest
 import torch
 
+from gavit_tpu_torch.models.moe import router_topk
+from gavit_tpu_torch.ops import gmm as GM
 from gavit_tpu_torch.ops import moe_fused as MF
+from gavit_tpu_torch.ops import moe_grouped as MG
 from gavit_tpu_torch.ops import philox
 
 pytestmark = pytest.mark.cuda
@@ -107,8 +113,8 @@ def test_moe_kernels_match_plain(dev, tm, routing, rate):
         # pad rows carry exactly zero gradient
         assert (dh1[~used] == 0).all() and (dx[~used] == 0).all()
     for a, b in ((x, dh1), (go, dye)):
-        k = MF.tgmm_kernel(a, b, gs)
-        r = MF.tgmm_reference(a, b, gs, torch.bfloat16)
+        k = GM.tgmm_kernel(a, b, gs)
+        r = GM.tgmm_reference(a, b, gs, torch.bfloat16)
         torch.cuda.synchronize()
         assert k.shape == (E, a.shape[1], b.shape[1])
         assert _rel(k, r) <= REL
@@ -131,12 +137,12 @@ def test_grouped_engine_matches_plain_end_to_end(dev):
     for impl in ("auto", "reference"):
         leaves = [t.detach().clone().requires_grad_(True) for t in [x, gv, *w]]
         before = (MF.KERNEL_LAUNCHES, MF.BWD_KERNEL_LAUNCHES,
-                  MF.TGMM_LAUNCHES)
+                  GM.TGMM_LAUNCHES)
         out = MF.grouped_moe_mlp_fused(leaves[0], leaves[1], idx, *leaves[2:],
                                        seed, (2, 3), drop=0.1, impl=impl)
         out.float().square().sum().backward()
         after = (MF.KERNEL_LAUNCHES, MF.BWD_KERNEL_LAUNCHES,
-                 MF.TGMM_LAUNCHES)
+                 GM.TGMM_LAUNCHES)
         assert [b - a for a, b in zip(before, after)] == (
             [1, 1, 2] if impl == "auto" else [0, 0, 0])
         outs[impl], grads[impl] = out, [t.grad for t in leaves]
@@ -157,7 +163,7 @@ def test_moe_kernels_refuse_what_they_do_not_take(dev):
                           w1.float(), w2.float(), tg, 16, 0, (2, 3), 0.0,
                           0.0, False)
     with pytest.raises(TypeError, match="bfloat16"):
-        MF.tgmm_kernel(x.float(), dy.float(), gs)
+        GM.tgmm_kernel(x.float(), dy.float(), gs)
     with pytest.raises(ValueError, match="tile_group"):
         MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg.long(), 16, 0, (2, 3), 0.0,
                           0.0, False)
@@ -167,3 +173,89 @@ def test_moe_kernels_refuse_what_they_do_not_take(dev):
         MF.grouped_moe_mlp_fused(x[:185].float().reshape(5, 37, D), gv,
                                  _routing(dev, "random"), *f32[1:], None,
                                  (2, 3))
+
+
+# N-gmm: (rows, group sizes) — boundaries inside 128-row tiles with an
+# empty expert, one hot expert, rows past the groups (the zero tail), and a
+# row count no tile divides
+GMM_CASES = {"ragged": (370, [37, 0, 190, 143]),
+             "hot": (512, [0, 512, 0, 0]),
+             "tail": (300, [5, 41, 17, 33]),
+             "one_row_groups": (131, [1, 1, 128, 1])}
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True], ids=["fwd", "t"])
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_gmm_kernel_matches_plain(dev, case, transpose_rhs):
+    t, sizes = GMM_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    x = torch.randn(t, D, device=dev, generator=g).to(bf)
+    shape = (E, F, D) if transpose_rhs else (E, D, F)
+    w = (torch.randn(*shape, device=dev, generator=g) * 0.05).to(bf)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = GM.KERNEL_LAUNCHES
+    got = GM.gmm_kernel(x, w, gs, transpose_rhs)
+    again = GM.gmm_kernel(x, w, gs, transpose_rhs)
+    want = GM.gmm_reference(x, w, gs, transpose_rhs)
+    torch.cuda.synchronize()
+    assert GM.KERNEL_LAUNCHES - before == 2
+    assert got.shape == (t, F) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= REL
+    end = sum(sizes)
+    if end < t:
+        assert not got[end:].any()
+
+
+@pytest.mark.parametrize("s", [37, 64], ids=["T370", "T640"])
+def test_unfused_engine_matches_plain_end_to_end(dev, s):
+    """grouped_moe_mlp through N-gmm and tgmm against impl='reference' at
+    rate 0.1: the forward, and the gradients of x, the gates and every
+    weight; two N-gmm launches in the forward, two (transposed) and two of
+    tgmm in the backward, kernel F at both sites. T = 370 pairs is no
+    multiple of the 128-row tile, T = 640 is (the group sizes go to the
+    kernels as the grouping made them)."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    idx = _routing(dev, "hot", s=s, seed=4)
+    gv = torch.rand(idx.shape, device=dev, generator=g)
+    x = torch.randn(5, s, D, device=dev, generator=g).to(torch.bfloat16)
+    w = [(torch.randn(*shape, device=dev, generator=g) * 0.05).to(
+        torch.bfloat16) for shape in ((E, D, F), (E, F), (E, F, D), (E, D))]
+    seed = philox.step_seed(1, 3)
+    outs, grads = {}, {}
+    for impl in ("auto", "reference"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in [x, gv, *w]]
+        before = (GM.KERNEL_LAUNCHES, GM.TGMM_LAUNCHES, MF.KERNEL_LAUNCHES)
+        out = MG.grouped_moe_mlp(leaves[0], leaves[1], idx, *leaves[2:],
+                                 seed, (2, 3), drop=0.1, impl=impl)
+        out.float().square().sum().backward()
+        after = (GM.KERNEL_LAUNCHES, GM.TGMM_LAUNCHES, MF.KERNEL_LAUNCHES)
+        launched = [b - a for a, b in zip(before, after)]
+        assert launched == ([4, 2, 0] if impl == "auto" else [0, 0, 0])
+        outs[impl], grads[impl] = out, [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    assert _rel(outs["auto"], outs["reference"]) <= REL
+    for name, a, b in zip(("x", "gates", "w1", "b1", "w2", "b2"),
+                          grads["auto"], grads["reference"]):
+        assert _rel(a, b) <= REL, name
+
+
+def test_zero_router_ties_pick_experts_0_and_1(dev):
+    _, idx, _ = router_topk(torch.zeros(4, 197, E, device=dev), K)
+    assert (idx[..., 0] == 0).all() and (idx[..., 1] == 1).all()
+
+
+def test_gmm_refuses_what_it_does_not_take(dev):
+    x = torch.randn(64, D, device=dev)
+    w = torch.randn(E, D, F, device=dev)
+    gs = torch.tensor([16, 16, 16, 16], dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="10.7"):
+        GM.gmm_kernel(x, w, gs)
+    with pytest.raises(ValueError, match="int32"):
+        GM.gmm_kernel(x.bfloat16(), w.bfloat16(), gs.long())
+    with pytest.raises(ValueError, match="inner dims"):
+        GM.gmm_kernel(x.bfloat16(), w.bfloat16(), gs, transpose_rhs=True)
+    # the op on fp32 CUDA tensors raises in the kernel: no plain fallback
+    with pytest.raises(TypeError, match="bfloat16"):
+        GM.ragged_matmul(x, w, gs)

@@ -7,7 +7,8 @@
 Builds the configuration (``configs/vit_b16_graph2.yaml`` by default;
 ``configs/finetune_384.yaml`` for the 384-px fine-tune, at its batch 16,
 and ``configs/examples/vit_b16_moe.yaml`` for the MoE model, at its batch
-128, unless ``--batch`` says otherwise; ``--set`` overrides as the CLIs
+128, unless ``--batch`` says otherwise; with ``GAVIT_MOE_FUSED=0`` in the
+environment its unfused grouped engine; ``--set`` overrides as the CLIs
 take them, e.g. the 1024-px step: ``--batch 4 --set model.img_size=1024
 --set data.image_size=1024 --set model.remat=true``; dropout 0.1, graph
 gates 0.5, weights from a seed) through ``scripts/train_torch.py``'s
@@ -17,10 +18,10 @@ trainer, takes 3 warm-up steps on synthetic uint8 batches, then:
   synchronize (median over ``--iters``);
 * runs ``torch.profiler`` over ``--iters`` more steps and prints the device
   time per step grouped by kernel family (the port's kernels A, A′, C, D,
-  D′, F, H, H′, K, K′, L, L′, M, M′, tgmm by name; cuBLAS GEMMs; LayerNorm; the
-  MoE routing's sorts, scans and gathers; elementwise and reductions), the
-  top kernels, the device busy time per step and the idle share of the
-  wall time (1 - busy / wall);
+  D′, F, H, H′, K, K′, L, L′, M, M′, tgmm, N-gmm by name; cuBLAS GEMMs;
+  LayerNorm; the MoE routing's sorts, scans and gathers; elementwise and
+  reductions), the top kernels, the device busy time per step and the idle
+  share of the wall time (1 - busy / wall);
 * writes a Chrome trace under ``--out``.
 
 It needs a CUDA device and exits nonzero without one.
@@ -57,6 +58,8 @@ FAMILIES = (
     ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
     ("moe_tgmm_kernel", "tgmm grouped dW1, dW2 (moe.cu)"),
+    ("moe_gmm_kernel<true>", "N-gmm x·W[e] (moe.cu)"),
+    ("moe_gmm_kernel<false>", "N-gmm transposed dy·W[e]ᵀ (moe.cu)"),
     ("gemm_kernel<true, 3>", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
     ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
