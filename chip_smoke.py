@@ -31,6 +31,14 @@ before the last line:
    and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
    in both forms at the b128 routing, with a hot and an empty expert and
    at b127 (T = 50038, no multiple of the row tile), the same bits again;
+   then the JAX package's op-level entry points, counts zeroed before and
+   read after: ``multi_head_attention`` and ``fused_attention_v2`` forward
+   and backward at b128 × 12 × 197 × 64 (I, I′ and J, J′), ``fused_dropout_add``
+   at [128, 197, 768] (G, F in its backward), ``kernel_mask`` (E) at the
+   b128 MLP rows and the training MLP (D, D′) held to a plain MLP armed
+   with E's masks, bench.py's self-check; I/I′ and J/J′ again at N = 1, 50,
+   577, 640 (J also 1025), bit-equal on a rerun, and N = 641 through
+   ``attention_pallas`` on L/L′;
 4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
    (and the learned adjacency logits drawn from a normal), through the
    kernels (``impl='auto'``) and through the plain versions
@@ -70,7 +78,8 @@ before the last line:
    b32, the chunked graph op at both sizes' training shapes, the 512-px b32
    forward, the 512-px b32 and 1024-px b4 train steps, the b1 p50 at 512
    and 1024 px; N-gmm in both forms at b128 against ``torch._grouped_mm``,
-   the two MoE engines alone, the MoE b128 forward and train step on each.
+   the two MoE engines alone, the MoE b128 forward and train step on each;
+   I, I′, J, J′ at b128 against sdpa, G and E against their plain versions.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -873,6 +882,254 @@ def check_gmm(dev, results):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's op-level entry points: kernels I/I′, J/J′, G and E
+# ---------------------------------------------------------------------------
+
+
+def bhnd_inputs(dev, b, n, seed, heads=HEADS):
+    """q, k, v and dO ``[b, heads, n, 64]`` bf16, each contiguous."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(b, heads, n, HEAD_DIM, device=dev,
+                        generator=g).to(torch.bfloat16) for _ in range(4)]
+
+
+def phase_ops(dev, results, batch=TRAIN_BATCH, n=N_TOKENS):
+    """The slice's main path, through the entry points a user of the JAX
+    package's ops calls, at the 224-px step's shapes: counts zeroed, then
+    ``multi_head_attention`` (impl 'auto': kernels I, I′) and
+    ``fused_attention_v2`` (J, J′) forward and backward at b128 × 12 heads
+    × 197 × 64; ``fused_dropout_add`` (G, and F in its backward) at the
+    block's residual sites [128, 197, 768]; and the self-check bench.py
+    runs on the TPU: ``kernel_mask`` (E at both sites) at the b128 MLP rows,
+    then the training MLP (D, D′) held to a plain MLP armed with E's masks.
+    The counts are read just after; then every output is held to its plain
+    version. Returns those counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import dropout as DR
+    from gavit_tpu_torch.ops import mlp as M
+    from gavit_tpu_torch.ops import philox
+
+    m = batch * n
+    bf, scale = torch.bfloat16, HEAD_DIM ** -0.5
+    q, k, v, do = bhnd_inputs(dev, batch, n, SEED + 81)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    g = torch.Generator(device=dev).manual_seed(SEED + 82)
+    y, r, gy = (torch.randn(batch, n, DIM, device=dev, generator=g).to(bf)
+                for _ in range(3))
+    y, r = y.requires_grad_(True), r.requires_grad_(True)
+    gseed, gsite = philox.step_seed(SEED, 8), 7
+    x, w1, b1, w2, b2 = mlp_inputs(dev, m)
+    mseed, sites = philox.step_seed(SEED, 9), (2, 3)
+    mleaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+
+    reset_counts()
+    outs = {}
+    for key, fn in (("I", lambda *a: A.multi_head_attention(*a, impl="auto")),
+                    ("J", A.fused_attention_v2)):
+        o = fn(*leaves, scale)
+        outs[key] = (o.detach(), torch.autograd.grad(o, leaves, do))
+    out_g = DR.fused_dropout_add(y, r, gseed, gsite, DROP_RATE)
+    grads_g = torch.autograd.grad(out_g, (y, r), gy)
+    hm, om = M.kernel_mask(mseed, sites, m, HIDDEN, DROP_RATE, d=DIM,
+                           out_rate=DROP_RATE)
+    y_mlp = M.fused_mlp(*mleaves, mseed, sites, DROP_RATE, DROP_RATE)
+    grads_mlp = torch.autograd.grad((y_mlp.float() ** 2).sum(), mleaves)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = expected({"I": 1, "I′": 1, "J": 1, "J′": 1, "G": 1, "F": 1,
+                     "E": 2, "D": 1, "D′": 1})
+    if counts != want:
+        raise AssertionError(f"ops: launches {counts}, expected {want}")
+    log(f"[ops] multi_head_attention, fused_attention_v2, fused_dropout_add, "
+        f"kernel_mask + fused_mlp launched {counts}")
+
+    want_o = A.attention_reference(q, k, v, scale)
+    want_d = A.attention_bhnd_backward_reference(q, k, v, do, scale)
+    for key, (o, grads) in outs.items():
+        rels = [rel_err(o, want_o)] + [rel_err(a, w)
+                                       for a, w in zip(grads, want_d)]
+        check(f"{key}/{key}′ attention [B, H, N, d]", max(rels) <= ATTN_TOL[
+            "bf16"] and torch.isfinite(o).all().item(),
+              f"bf16 B={batch} H={HEADS} N={n} d={HEAD_DIM}: o, dq, dk, dv "
+              f"rel to max " + ", ".join(f"{x:.3e}" for x in rels)
+              + f" (tol {ATTN_TOL['bf16']:.0e})")
+        results[key]["errs"].append(max_err(o, want_o))
+        results[f"{key}′"]["errs"].append(max(max_err(a, w) for a, w in zip(
+            grads, want_d)))
+    del want_d, outs
+
+    want_g = r.detach() + DR.dropout_reference(y.detach(), gseed, gsite,
+                                               DROP_RATE)
+    same = (torch.equal(out_g, want_g),
+            torch.equal(grads_g[0], DR.dropout_reference(gy, gseed, gsite,
+                                                         DROP_RATE)),
+            torch.equal(grads_g[1], gy))
+    check("G dropout add", all(same),
+          f"bf16 [{batch}, {n}, {DIM}] rate {DROP_RATE}: out bit-equal to "
+          f"r + F(y) {same[0]}; d_y bit-equal to F(g) {same[1]}, d_r to g "
+          f"{same[2]} (max_abs_err {max_err(out_g, want_g):.3e})")
+    results["G"]["errs"].append(max_err(out_g, want_g))
+    results["G"]["cases"].append((y.detach(), r.detach(), gseed, gsite))
+
+    same = [torch.equal(mk, philox.keep_mask(
+        mk.shape, mseed, s, DROP_RATE, device=dev).float())
+        for mk, s in ((hm, sites[0]), (om, sites[1]))]
+    rates = [mk.mean().item() for mk in (hm, om)]
+    check("E kernel_mask", all(same) and all(
+        abs(x - (1 - DROP_RATE)) <= 0.02 for x in rates),
+          f"[{m}, {HIDDEN}] site {sites[0]} and [{m}, {DIM}] site "
+          f"{sites[1]} rate {DROP_RATE}: bit-equal to keep_mask {same}, "
+          f"keep rates {rates[0]:.5f}, {rates[1]:.5f} (within 0.02 of "
+          f"{1 - DROP_RATE})")
+    results["E"]["errs"].append(0.0)
+    results["E"]["cases"].append((mseed, sites, m))
+
+    def armed(x, w1, b1, w2, b2):
+        """The plain MLP with E's masks, in tensor ops (fp32 products)."""
+        h1 = (torch.matmul(x.float(), w1.float().t()) + b1.float()).to(bf)
+        hid = torch.where(hm > 0.5, F.gelu(h1.float()) / (1 - DROP_RATE),
+                          0.0)
+        out = torch.matmul(hid.to(bf).float(), w2.float().t()) + b2.float()
+        return torch.where(om > 0.5, out / (1 - DROP_RATE), 0.0).to(bf)
+
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+    y_ref = armed(*ref_leaves)
+    grads_ref = torch.autograd.grad((y_ref.float() ** 2).sum(), ref_leaves)
+    rels = [rel_err(y_mlp, y_ref)] + [rel_err(a, w) for a, w in zip(
+        grads_mlp, grads_ref)]
+    check("D/D′ against E's masks", max(rels) <= GRAD_REL_TOL,
+          f"bf16 M={m} D={DIM} F={HIDDEN}: y, dx, dw1, db1, dw2, db2 rel to "
+          f"max " + ", ".join(f"{x:.3e}" for x in rels)
+          + f" (tol {GRAD_REL_TOL:.0e})")
+    return counts
+
+
+def check_bhnd_attention(dev, results, cases=((1, 2), (50, 8), (577, 4),
+                                               (640, 4), (N_512, 2))):
+    """I/I′ and J/J′ against their plain versions within 2e-2 of the
+    largest value (o, dq, dk, dv) at one token, a partial tile, 384 px and
+    I's last length, each rerun for the same bits (J alone at 512 px, 1025
+    tokens, past I's range); then 641 tokens through ``attention_pallas``:
+    L and L′ launched, no I."""
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+
+    scale = HEAD_DIM ** -0.5
+    entries = {"I": "v1", "J": "v2"}
+    for n, b in cases:
+        q, k, v, do = bhnd_inputs(dev, b, n, SEED + 83 + n)
+        want_o = A.attention_reference(q, k, v, scale)
+        want_d = A.attention_bhnd_backward_reference(q, k, v, do, scale)
+        for key in ("I", "J") if A.pallas_route(n, HEAD_DIM, q.dtype) == "I" \
+                else ("J",):
+            e = entries[key]
+            o, o2 = (A.bhnd_kernel(e, False, q, k, v, scale)
+                     for _ in range(2))
+            grads, grads2 = (A.bhnd_kernel(e, True, q, k, v, do, scale)
+                             for _ in range(2))
+            torch.cuda.synchronize()
+            rels = [rel_err(o, want_o)] + [rel_err(a, w) for a, w in zip(
+                grads, want_d)]
+            same = torch.equal(o, o2) and all(
+                torch.equal(a, a2) for a, a2 in zip(grads, grads2))
+            check(f"{key}/{key}′ attention [B, H, N, d]",
+                  max(rels) <= ATTN_TOL["bf16"] and same
+                  and torch.isfinite(o).all().item(),
+                  f"bf16 B={b} H={HEADS} N={n}: o, dq, dk, dv rel to max "
+                  + ", ".join(f"{x:.3e}" for x in rels)
+                  + f" (tol {ATTN_TOL['bf16']:.0e}); a rerun bit-equal "
+                  f"{same}")
+            results[key]["errs"].append(max_err(o, want_o))
+            results[f"{key}′"]["errs"].append(max(
+                max_err(a, w) for a, w in zip(grads, want_d)))
+        del want_d
+
+    n, b = 641, 2
+    q, k, v, do = bhnd_inputs(dev, b, n, SEED + 84)
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    before = read_counts()
+    o = A.attention_pallas(*leaves, scale)
+    grads = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    moved = {key: c - before[key] for key, c in read_counts().items()}
+    want_o = A.attention_reference(q, k, v, scale)
+    want_d = A.attention_bhnd_backward_reference(q, k, v, do, scale)
+    rels = [rel_err(o, want_o)] + [rel_err(a, w) for a, w in zip(grads,
+                                                                  want_d)]
+    launched = {key: c for key, c in moved.items() if c}
+    check("attention_pallas past I", moved == expected({"L": 1, "L′": 1})
+          and max(rels) <= ATTN_TOL["bf16"],
+          f"bf16 B={b} H={HEADS} N={n} takes route "
+          f"{A.pallas_route(n, HEAD_DIM, o.dtype)}: launched {launched}; o, "
+          f"dq, dk, dv rel to max " + ", ".join(f"{x:.3e}" for x in rels))
+
+
+def phase_op_times(dev, results, card, batch=TRAIN_BATCH, n=N_TOKENS):
+    """I, I′, J, J′ at b128 × 12 × 197 × 64 against the plain versions and
+    sdpa (forward; forward and backward), G at [128, 197, 768] and E at
+    the b128 MLP rows (both sites) against their plain versions (no one
+    PyTorch call computes either)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import dropout as DR
+    from gavit_tpu_torch.ops import mlp as M
+    from gavit_tpu_torch.ops import philox
+
+    rows = {}
+    h, d, scale = HEADS, HEAD_DIM, HEAD_DIM ** -0.5
+    q, k, v, do = bhnd_inputs(dev, batch, n, SEED + 81)
+    lq, lk, lv = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(lq, lk, lv)
+        torch.autograd.grad(out, (lq, lk, lv), do)
+
+    fwd_bound = bound(4 * batch * h * n * n * d, 4 * batch * h * n * d * 2)
+    bwd_bound = bound(10 * batch * h * n * n * d, 7 * batch * h * n * d * 2)
+    p_fwd = cuda_ms(lambda: A.attention_reference(q, k, v, scale), iters=5)
+    p_bwd = cuda_ms(lambda: A.attention_bhnd_backward_reference(
+        q, k, v, do, scale), iters=5)
+    l_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    l_bwd = cuda_ms(sdpa_fwd_bwd)
+    for key, e in (("I", "v1"), ("J", "v2")):
+        rows[key] = (cuda_ms(lambda: A.bhnd_kernel(e, False, q, k, v, scale)),
+                     p_fwd, l_fwd) + fwd_bound
+        rows[f"{key}′"] = (cuda_ms(lambda: A.bhnd_kernel(
+            e, True, q, k, v, do, scale)), p_bwd, l_bwd) + bwd_bound
+
+    y, r, gseed, gsite = results["G"]["cases"][0]
+    rows["G"] = (cuda_ms(lambda: DR.dropout_add_kernel(y, r, gseed, gsite,
+                                                       DROP_RATE)),
+                 cuda_ms(lambda: DR.dropout_add_reference(
+                     y, r, gseed, gsite, DROP_RATE), iters=5),
+                 None) + bound(0, 3 * y.numel() * y.element_size())
+
+    mseed, sites, m = results["E"]["cases"][0]
+    rows["E"] = (cuda_ms(lambda: M.kernel_mask(mseed, sites, m, HIDDEN,
+                                               DROP_RATE, d=DIM,
+                                               out_rate=DROP_RATE)),
+                 cuda_ms(lambda: [philox.keep_mask(
+                     shape, mseed, s, DROP_RATE, device=dev).float()
+                     for shape, s in (((m, HIDDEN), sites[0]),
+                                      ((m, DIM), sites[1]))], iters=5),
+                 None) + bound(0, m * (HIDDEN + DIM) * 4)
+    for key in ("I", "I′", "J", "J′", "G", "E"):
+        km, pm, lm, bms, by = rows[key]
+        log(f"[time] {key}: kernel {km:.4f} ms, plain {pm:.4f} ms, library "
+            f"{'n/a' if lm is None else f'{lm:.4f} ms'}, bound {bms:.4f} ms "
+            f"({by}) ({card})")
+    return rows
+
+
 def gated_weights(cfg) -> dict:
     """Weights from SEED with the graph gates at GATE and learned adjacency
     logits drawn from a standard normal, keyed by '/'-joined Flax paths as
@@ -1033,7 +1290,13 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "M": ("moe_fused", "KERNEL_LAUNCHES"),
             "M′": ("moe_fused", "BWD_KERNEL_LAUNCHES"),
             "tgmm": ("gmm", "TGMM_LAUNCHES"),
-            "N-gmm": ("gmm", "KERNEL_LAUNCHES")}
+            "N-gmm": ("gmm", "KERNEL_LAUNCHES"),
+            "I": ("attention", "V1_KERNEL_LAUNCHES"),
+            "I′": ("attention", "V1_BWD_KERNEL_LAUNCHES"),
+            "J": ("attention", "V2_KERNEL_LAUNCHES"),
+            "J′": ("attention", "V2_BWD_KERNEL_LAUNCHES"),
+            "G": ("dropout", "ADD_LAUNCHES"),
+            "E": ("mlp", "MASK_LAUNCHES")}
 
 
 def expected(nonzero: dict) -> dict:
@@ -2346,7 +2609,9 @@ def kernels_json(results, serve_counts, train_counts, rows):
     kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
     K, K′, H, H′; 512 px b32 for L, L′; the MoE model at b128 for M, M′,
     tgmm; the MoE model at b128 with the fused gate off for N-gmm, both
-    forms counted), from the served requests for B. N-gmm's times are its
+    forms counted), from the served requests for B, from the op-level
+    phase for I, I′, J, J′, G and E (no training or serving path launches
+    them). N-gmm's times are its
     forward form's; ``transposed`` holds the transposed form's."""
     spec = [
         ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
@@ -2388,6 +2653,20 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu/ops/moe_fused.py:411"),
         ("N-gmm", "grouped_gemm_gmm", "gavit_tpu_torch/csrc/moe.cu",
          "gavit_tpu/ops/moe_grouped.py:138"),
+        ("I", "attention_pallas", "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu/ops/attention.py:102"),
+        ("I′", "attention_pallas_bwd",
+         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu/ops/attention.py:125"),
+        ("J", "fused_attention_v2", "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu/ops/attention.py:301"),
+        ("J′", "fused_attention_v2_bwd",
+         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu/ops/attention.py:321"),
+        ("G", "fused_dropout_add", "gavit_tpu_torch/csrc/dropout.cu",
+         "gavit_tpu/ops/dropout.py:115"),
+        ("E", "kernel_mask", "gavit_tpu_torch/csrc/dropout.cu",
+         "gavit_tpu/ops/mlp.py:340"),
     ]
     out = []
     for key, name, src, rep in spec:
@@ -2396,14 +2675,16 @@ def kernels_json(results, serve_counts, train_counts, rows):
             "384" if key in ("K", "K′", "H", "H′") else
             "512" if key in ("L", "L′") else
             "moe" if key in ("M", "M′", "tgmm") else
-            "moe_unfused" if key == "N-gmm" else "224"]
+            "moe_unfused" if key == "N-gmm" else
+            "ops" if key in ("I", "I′", "J", "J′", "G", "E") else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
                     "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                     "library_ms": lm})
     km, pm, lm, bms, by = rows["N-gmm transposed"]
-    out[-1]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
+    ngmm, = [row for row in out if row["name"] == "grouped_gemm_gmm"]
+    ngmm["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                              "bound_by": by, "library_ms": lm}
     return {"kernels": out}
 
@@ -2425,6 +2706,11 @@ def main():
     check_attention_bwd(dev, results)
     check_long_attention(dev, results)
     check_gelu_dropout(dev, results)
+    # the JAX package's op-level entry points (the counts of their own run),
+    # then I/I′ and J/J′ at other lengths, and their times
+    counts_ops = phase_ops(dev, results)
+    check_bhnd_attention(dev, results)
+    op_rows = phase_op_times(dev, results, card)
 
     # 224 px: vit_b16_graph2 (12 blocks, 2 kNN graph blocks)
     cfg = load_config(str(CONFIG))
@@ -2474,6 +2760,7 @@ def main():
     phase_times(cfg, dev, results, (predictor, reference), card)
     del predictor, reference
     rows, _ = phase_train_times(tcfg, dev, results, trainer, batch, card)
+    rows.update(op_rows)
     del trainer
     rows.update(phase_384_times(cfg384, tcfg384, dev, results, weights384,
                                 trainer384, batch384, card))
@@ -2575,7 +2862,8 @@ def main():
     print(json.dumps(kernels_json(results, serve_counts,
                                   {"224": counts_224, "384": counts_384,
                                    "512": counts_512, "moe": counts_moe,
-                                   "moe_unfused": counts_unfused},
+                                   "moe_unfused": counts_unfused,
+                                   "ops": counts_ops},
                                   rows), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,34 @@
 // Kernels K and K': exact multi-head self-attention forward and backward at
-// long sequence lengths (384 px: N = 577), on the packed qkv rows.
+// long sequence lengths (384 px: N = 577), on the packed qkv rows; the same
+// kernels are I and I', and J and J', on separate q, k, v [B, H, N, d].
 //
 // Replaces: gavit_tpu/ops/attention.py::_fwd_kernel_v3 (launched by
 // _run_fwd_v3_impl) and ::_bwd_kernel_v3 (launched by _run_bwd_v3_impl), the
 // pair fused_qkv_attention dispatches to when the v4 row no longer fits the
-// TPU's VMEM budget and before the blockwise v5 kernels take over.
+// TPU's VMEM budget and before the blockwise v5 kernels take over; and, as
+// I/I' and J/J', ::_fwd_kernel / ::_bwd_kernel (v1, launched by
+// _run_fwd_v1_impl / _run_bwd_v1_impl under attention_pallas) and
+// ::_fwd_kernel_v2 / ::_bwd_kernel_v2 (launched by _run_fwd_v2_impl /
+// _run_bwd_v2_impl under fused_attention_v2).
 //
 // Computes what kernels A and A' compute, with the same fp32 softmax over
 // the whole key row (p = exp(s - m) / l with the row's true max m, p rounded
 // to bf16 before p.v) and the same backward formulas:
 //   dv = bf16(p)^T . do,  dp = do . v^T,  delta = rowsum(dp * p),
 //   ds = bf16(p * (dp - delta) * scale),  dq = ds . k,  dk = ds^T . q.
-// q, k and v are read straight out of the qkv GEMM's [B, N, 3*H*d] rows
-// through strides; o is written as [B, N, H, d] (the Python wrapper returns
-// the [B, H, N, d] view, as for A) and dq, dk, dv into the packed layout.
-// The TPU kernels transpose qkv to [B, 3, H, N, d] first, for VMEM's sake;
-// nothing here needs that copy.
+// v1, v2 and v3 compute this one function and differ only in their TPU
+// grids: v1 one program per (image, head) over N padded to 128, v2 one per
+// image over a chunk of heads sized for VMEM, v3 the packed rows transposed
+// first. On the card each reduces to a block per (image, head, 64 queries),
+// so one kernel pair serves all three, and every operand is addressed
+// through (batch, head, row) strides (attention_tiles.cuh's Heads): K reads
+// q, k and v straight out of the qkv GEMM's [B, N, 3*H*d] rows, writes o as
+// [B, N, H, d] (the Python wrapper returns the [B, H, N, d] view, as for A)
+// and dq, dk, dv into the packed layout; I and J read and write [B, H, N, d]
+// tensors. The TPU kernels transpose qkv to [B, 3, H, N, d] first, for
+// VMEM's sake; nothing here needs that copy. N runs from 1 up: rows past N
+// are staged as zeros, keys past N are -inf, and the padding of v1 has no
+// counterpart.
 //
 // Why not A and A': they keep a 16-row tile's scores for every key in mma
 // fragments (224 keys at most), and A' stages Q, K, V and dO of a head at
@@ -48,9 +61,10 @@
 // What bounds it on the H100: the work is 4*N^2*d FLOPs a head forward and
 // 10*N^2*d backward against ~4*N*d*2 and ~7*N*d*2 bytes, 150-360 FLOP/byte at
 // N = 577, around the card's ridge; the bound is about 0.02 ms (K) and
-// 0.04 ms (K') at b16. This first version spends 1.5x (K) and 2x (K') the
-// FLOPs on recomputation, uses mma.sync rather than wgmma and loads tiles
-// synchronously, so neither bound is near.
+// 0.04 ms (K') at b16; at N = 197, b128 (I, J) the bytes bound it, 0.046 ms
+// forward and 0.081 ms backward. This first version spends 1.5x (K) and 2x
+// (K') the FLOPs on recomputation, uses mma.sync rather than wgmma and loads
+// tiles synchronously, so neither bound is near.
 #include "attention_tiles.cuh"
 
 namespace {
@@ -93,35 +107,32 @@ __device__ __forceinline__ void row_stats(const uint32_t (*qa)[4], bf16* sk, con
 }
 
 __global__ void __launch_bounds__(kThreads)
-    attn_long_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out, int n, int heads,
-                         float scale) {
+    attn_long_fwd_kernel(InHeads q, InHeads k, InHeads v, OutHeads o, int n, float scale) {
   __shared__ __align__(16) bf16 sq[kTile * kStride];
   __shared__ __align__(16) bf16 sk[kTile * kStride];
   __shared__ __align__(16) bf16 sv[kTile * kStride];
   const int q_begin = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long rs = 3LL * heads * kD;
-  const bf16* base = qkv + (long long)b * n * rs;
-  const bf16* kcol = base + (heads + h) * kD;
-  const bf16* vcol = base + (2 * heads + h) * kD;
+  const bf16* kcol = k.at(b, h);
+  const bf16* vcol = v.at(b, h);
 
-  stage(sq, base + h * kD, rs, q_begin, n);
+  stage(sq, q.at(b, h), q.sn, q_begin, n);
   __syncthreads();
   uint32_t qa[4][4];
   frag_rows(qa, sq + (warp * 16 + g) * kStride + 2 * t);
 
   float m0, m1, inv0, inv1;
-  row_stats(qa, sk, kcol, rs, n, scale, g, t, m0, m1, inv0, inv1);
+  row_stats(qa, sk, kcol, k.sn, n, scale, g, t, m0, m1, inv0, inv1);
 
   // pass 2: O = P.V, P rebuilt per 16-key step from the row statistics
-  float o[kD / 8][4];
+  float acc[kD / 8][4];
 #pragma unroll
-  for (int d = 0; d < kD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  for (int d = 0; d < kD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
   const int lrow = lane & 15;  // the row this lane addresses for ldmatrix (x2)
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();
-    stage(sk, kcol, rs, k0, n);
-    stage(sv, vcol, rs, k0, n);
+    stage(sk, kcol, k.sn, k0, n);
+    stage(sv, vcol, v.sn, k0, n);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
@@ -141,56 +152,53 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < kD / 8; ++d) {
         uint32_t bb[2];
         ldmatrix_x2_trans(bb, sv + (kk * 16 + lrow) * kStride + d * 8);
-        mma_16816(o[d], a, bb);
+        mma_16816(acc[d], a, bb);
       }
     }
   }
 
-  const long long orow = (long long)heads * kD;  // o is [B, N, H, d] in memory
-  bf16* ob = out + (long long)b * n * orow + h * kD;
+  bf16* ob = o.at(b, h);
   const int r0 = q_begin + warp * 16 + g;
 #pragma unroll
   for (int d = 0; d < kD / 8; ++d) {
     const int col = d * 8 + 2 * t;
-    if (r0 < n) *reinterpret_cast<uint32_t*>(ob + r0 * orow + col) = pack_bf16(o[d][0], o[d][1]);
+    if (r0 < n) *reinterpret_cast<uint32_t*>(ob + r0 * o.sn + col) = pack_bf16(acc[d][0], acc[d][1]);
     if (r0 + 8 < n)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * orow + col) = pack_bf16(o[d][2], o[d][3]);
+      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * o.sn + col) = pack_bf16(acc[d][2], acc[d][3]);
   }
 }
 
 // K', query-major: dq into dqkv, and the rows' statistics (max, 1/l, delta)
 // into stats [3][B*H][n].
 __global__ void __launch_bounds__(kThreads)
-    attn_long_bwd_q_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                           bf16* __restrict__ dqkv, float* __restrict__ stats, int n, int heads,
-                           long long do_sb, long long do_sh, long long do_sn, float scale) {
+    attn_long_bwd_q_kernel(InHeads q, InHeads k, InHeads v, InHeads dout, OutHeads dq_out,
+                           float* __restrict__ stats, int n, float scale) {
   __shared__ __align__(16) bf16 sq[kTile * kStride];
   __shared__ __align__(16) bf16 sdo[kTile * kStride];
   __shared__ __align__(16) bf16 sk[kTile * kStride];
   __shared__ __align__(16) bf16 sv[kTile * kStride];
   const int q_begin = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long rs = 3LL * heads * kD;
-  const bf16* base = qkv + (long long)b * n * rs;
-  const bf16* kcol = base + (heads + h) * kD;
-  const bf16* vcol = base + (2 * heads + h) * kD;
+  const int heads = gridDim.y;
+  const bf16* kcol = k.at(b, h);
+  const bf16* vcol = v.at(b, h);
 
-  stage(sq, base + h * kD, rs, q_begin, n);
-  stage(sdo, dout + b * do_sb + h * do_sh, do_sn, q_begin, n);
+  stage(sq, q.at(b, h), q.sn, q_begin, n);
+  stage(sdo, dout.at(b, h), dout.sn, q_begin, n);
   __syncthreads();
   uint32_t qa[4][4], da[4][4];
   frag_rows(qa, sq + (warp * 16 + g) * kStride + 2 * t);
   frag_rows(da, sdo + (warp * 16 + g) * kStride + 2 * t);
 
   float m0, m1, inv0, inv1;
-  row_stats(qa, sk, kcol, rs, n, scale, g, t, m0, m1, inv0, inv1);
+  row_stats(qa, sk, kcol, k.sn, n, scale, g, t, m0, m1, inv0, inv1);
 
   // pass b: delta = rowsum(dp * p), p in fp32
   float d0 = 0.f, d1 = 0.f;
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();
-    stage(sk, kcol, rs, k0, n);
-    stage(sv, vcol, rs, k0, n);
+    stage(sk, kcol, k.sn, k0, n);
+    stage(sv, vcol, v.sn, k0, n);
     __syncthreads();
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -212,8 +220,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lrow = lane & 15;
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();
-    stage(sk, kcol, rs, k0, n);
-    stage(sv, vcol, rs, k0, n);
+    stage(sk, kcol, k.sn, k0, n);
+    stage(sv, vcol, v.sn, k0, n);
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) {
@@ -239,7 +247,8 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  bf16* ob = dqkv + (long long)b * n * rs + h * kD;
+  bf16* ob = dq_out.at(b, h);
+  const long long rs = dq_out.sn;
   const int r0 = q_begin + warp * 16 + g;
 #pragma unroll
   for (int d = 0; d < kD / 8; ++d) {
@@ -258,9 +267,8 @@ __global__ void __launch_bounds__(kThreads)
 
 // K', key-major: dk and dv of a block of 64 keys into dqkv.
 __global__ void __launch_bounds__(kThreads)
-    attn_long_bwd_kv_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                            bf16* __restrict__ dqkv, const float* __restrict__ stats, int n,
-                            int heads, long long do_sb, long long do_sh, long long do_sn,
+    attn_long_bwd_kv_kernel(InHeads q, InHeads k, InHeads v, InHeads dout, OutHeads dk_out,
+                            OutHeads dv_out, const float* __restrict__ stats, int n,
                             float scale) {
   __shared__ __align__(16) bf16 sk[kRows * kStride];
   __shared__ __align__(16) bf16 sv[kRows * kStride];
@@ -269,15 +277,14 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float s_m[kTile], s_inv[kTile], s_delta[kTile];
   const int k_begin = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long rs = 3LL * heads * kD;
-  const bf16* base = qkv + (long long)b * n * rs;
-  const bf16* qcol = base + h * kD;
-  const bf16* docol = dout + b * do_sb + h * do_sh;
+  const int heads = gridDim.y;
+  const bf16* qcol = q.at(b, h);
+  const bf16* docol = dout.at(b, h);
   const long long plane = (long long)gridDim.z * heads * n;
   const float* st = stats + ((long long)b * heads + h) * n;
 
-  stage(sk, base + (heads + h) * kD, rs, k_begin, n);
-  stage(sv, base + (2 * heads + h) * kD, rs, k_begin, n);
+  stage(sk, k.at(b, h), k.sn, k_begin, n);
+  stage(sv, v.at(b, h), v.sn, k_begin, n);
 
   float dk[kD / 8][4], dv[kD / 8][4];
 #pragma unroll
@@ -289,8 +296,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kw = warp * 16;  // this warp's keys within the block
   for (int q0 = 0; q0 < n; q0 += kTile) {
     __syncthreads();  // the previous tiles are consumed (and sk, sv staged)
-    stage(sq, qcol, rs, q0, n);
-    stage(sdo, docol, do_sn, q0, n);
+    stage(sq, qcol, q.sn, q0, n);
+    stage(sdo, docol, dout.sn, q0, n);
     if (threadIdx.x < kTile) {
       // rows past n: p = exp(0 - 0) * 0 = 0 and ds = 0, so they add nothing
       const int r = q0 + threadIdx.x;
@@ -341,19 +348,19 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  bf16* ob = dqkv + (long long)b * n * rs;
+  bf16* kb = dk_out.at(b, h);
+  bf16* vb = dv_out.at(b, h);
   const int r0 = k_begin + kw + g;
 #pragma unroll
   for (int d = 0; d < kD / 8; ++d) {
-    const int kc = (heads + h) * kD + d * 8 + 2 * t;
-    const int vc = (2 * heads + h) * kD + d * 8 + 2 * t;
+    const int col = d * 8 + 2 * t;
     if (r0 < n) {
-      *reinterpret_cast<uint32_t*>(ob + r0 * rs + kc) = pack_bf16(dk[d][0], dk[d][1]);
-      *reinterpret_cast<uint32_t*>(ob + r0 * rs + vc) = pack_bf16(dv[d][0], dv[d][1]);
+      *reinterpret_cast<uint32_t*>(kb + r0 * dk_out.sn + col) = pack_bf16(dk[d][0], dk[d][1]);
+      *reinterpret_cast<uint32_t*>(vb + r0 * dv_out.sn + col) = pack_bf16(dv[d][0], dv[d][1]);
     }
     if (r0 + 8 < n) {
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * rs + kc) = pack_bf16(dk[d][2], dk[d][3]);
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * rs + vc) = pack_bf16(dv[d][2], dv[d][3]);
+      *reinterpret_cast<uint32_t*>(kb + (r0 + 8) * dk_out.sn + col) = pack_bf16(dk[d][2], dk[d][3]);
+      *reinterpret_cast<uint32_t*>(vb + (r0 + 8) * dv_out.sn + col) = pack_bf16(dv[d][2], dv[d][3]);
     }
   }
 }
@@ -362,19 +369,51 @@ bool shape_ok(int batch, int n, int heads, int head_dim) {
   return head_dim == kD && batch > 0 && batch <= 65535 && heads > 0 && heads <= 65535 && n > 0;
 }
 
-}  // namespace
-
-// qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16
-GAVIT_EXPORT int gavit_attention_long_fwd(const void* qkv, void* out, int batch, int n, int heads,
-                                          int head_dim, float scale, void* stream) {
-  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
+int launch_fwd(InHeads q, InHeads k, InHeads v, OutHeads o, int batch, int n, int heads,
+               float scale, cudaStream_t s) {
   dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  attn_long_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), n, heads, scale);
+  attn_long_fwd_kernel<<<grid, kThreads, 0, s>>>(q, k, v, o, n, scale);
   return cudaGetLastError();
 }
 
-// qkv [batch, n, 3*heads*64] bf16; dout element (b, h, i, c) at
+int launch_bwd(InHeads q, InHeads k, InHeads v, InHeads dout, OutHeads dq, OutHeads dk,
+               OutHeads dv, float* stats, int batch, int n, int heads, float scale,
+               cudaStream_t s) {
+  dim3 grid((n + kRows - 1) / kRows, heads, batch);
+  attn_long_bwd_q_kernel<<<grid, kThreads, 0, s>>>(q, k, v, dout, dq, stats, n, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  attn_long_bwd_kv_kernel<<<grid, kThreads, 0, s>>>(q, k, v, dout, dk, dv, stats, n, scale);
+  return cudaGetLastError();
+}
+
+// the q, k or v columns (which = 0, 1, 2) of packed [batch, n, 3*heads*64] rows
+template <typename T>
+Heads<T> packed(T* qkv, int which, int n, int heads) {
+  const long long rs = 3LL * heads * kD;
+  return Heads<T>{qkv + (long long)which * heads * kD, n * rs, kD, rs};
+}
+
+// strides[3*i .. 3*i+2] = (sb, sh, sn) of operand i
+template <typename T>
+Heads<T> strided(T* p, const long long* strides, int i) {
+  return Heads<T>{p, strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+}  // namespace
+
+// K: qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16
+GAVIT_EXPORT int gavit_attention_long_fwd(const void* qkv, void* out, int batch, int n, int heads,
+                                          int head_dim, float scale, void* stream) {
+  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
+  const bf16* rows = static_cast<const bf16*>(qkv);
+  const long long orow = (long long)heads * kD;  // o is [B, N, H, d] in memory
+  return launch_fwd(packed(rows, 0, n, heads), packed(rows, 1, n, heads),
+                    packed(rows, 2, n, heads), OutHeads{static_cast<bf16*>(out), n * orow, kD, orow},
+                    batch, n, heads, scale, static_cast<cudaStream_t>(stream));
+}
+
+// K': qkv [batch, n, 3*heads*64] bf16; dout element (b, h, i, c) at
 // dout + b*do_sb + h*do_sh + i*do_sn + c (rows 16-byte aligned); dqkv like
 // qkv; stats: 3*batch*heads*n floats of scratch.
 GAVIT_EXPORT int gavit_attention_long_bwd(const void* qkv, const void* dout, void* dqkv,
@@ -382,17 +421,43 @@ GAVIT_EXPORT int gavit_attention_long_bwd(const void* qkv, const void* dout, voi
                                           long long do_sb, long long do_sh, long long do_sn,
                                           float scale, void* stream) {
   if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* d = static_cast<const bf16*>(dout);
-  bf16* dq = static_cast<bf16*>(dqkv);
-  float* st = static_cast<float*>(stats);
-  attn_long_bwd_q_kernel<<<grid, kThreads, 0, s>>>(q, d, dq, st, n, heads, do_sb, do_sh, do_sn,
-                                                   scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  attn_long_bwd_kv_kernel<<<grid, kThreads, 0, s>>>(q, d, dq, st, n, heads, do_sb, do_sh, do_sn,
-                                                    scale);
-  return cudaGetLastError();
+  const bf16* rows = static_cast<const bf16*>(qkv);
+  bf16* drows = static_cast<bf16*>(dqkv);
+  return launch_bwd(packed(rows, 0, n, heads), packed(rows, 1, n, heads),
+                    packed(rows, 2, n, heads),
+                    InHeads{static_cast<const bf16*>(dout), do_sb, do_sh, do_sn},
+                    packed(drows, 0, n, heads), packed(drows, 1, n, heads),
+                    packed(drows, 2, n, heads), static_cast<float*>(stats), batch, n, heads,
+                    scale, static_cast<cudaStream_t>(stream));
+}
+
+// I and J: q, k, v [batch, heads, n, 64] bf16 -> o [batch, heads, n, 64] bf16, each through
+// strides (sb, sh, sn) in strides[0..11] in the order q, k, v, o (rows 16-byte aligned)
+GAVIT_EXPORT int gavit_attention_bhnd_fwd(const void* q, const void* k, const void* v, void* o,
+                                          const long long* strides, int batch, int n, int heads,
+                                          int head_dim, float scale, void* stream) {
+  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
+  return launch_fwd(strided(static_cast<const bf16*>(q), strides, 0),
+                    strided(static_cast<const bf16*>(k), strides, 1),
+                    strided(static_cast<const bf16*>(v), strides, 2),
+                    strided(static_cast<bf16*>(o), strides, 3), batch, n, heads, scale,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// I' and J': q, k, v, dout -> dq, dk, dv, all [batch, heads, n, 64] bf16 through strides
+// (sb, sh, sn) in strides[0..20] in that order; stats: 3*batch*heads*n floats of scratch.
+GAVIT_EXPORT int gavit_attention_bhnd_bwd(const void* q, const void* k, const void* v,
+                                          const void* dout, void* dq, void* dk, void* dv,
+                                          void* stats, const long long* strides, int batch,
+                                          int n, int heads, int head_dim, float scale,
+                                          void* stream) {
+  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
+  return launch_bwd(strided(static_cast<const bf16*>(q), strides, 0),
+                    strided(static_cast<const bf16*>(k), strides, 1),
+                    strided(static_cast<const bf16*>(v), strides, 2),
+                    strided(static_cast<const bf16*>(dout), strides, 3),
+                    strided(static_cast<bf16*>(dq), strides, 4),
+                    strided(static_cast<bf16*>(dk), strides, 5),
+                    strided(static_cast<bf16*>(dv), strides, 6), static_cast<float*>(stats),
+                    batch, n, heads, scale, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-// Tile helpers shared by the exact long-sequence kernels K/K' (attention_long.cu)
+// Tile helpers shared by the exact kernels K/K', I/I' and J/J' (attention_long.cu)
 // and the blockwise kernels L/L' (attention_large.cu): head_dim 64, blocks of
 // four warps that own 16 rows each, operands staged as [64][72] bf16 arrays
 // (a row padded to 72 so that fragment loads hit 8 different bank groups),
@@ -20,6 +20,18 @@ constexpr int kRows = kWarps * 16;  // rows a block owns (queries, or keys in K'
 constexpr int kTile = 64;           // rows of a streamed tile
 constexpr int kStride = kD + 8;     // 72 bf16: fragment loads hit 8 different bank groups
 constexpr int kThreads = kWarps * 32;
+
+// one [B, H, N, 64] operand addressed through strides: element (b, h, i, c)
+// at p + b*sb + h*sh + i*sn + c (c contiguous, rows 16-byte aligned). The
+// packed qkv rows and a separate [B, H, N, d] tensor are both such operands.
+template <typename T>
+struct Heads {
+  T* p;
+  long long sb, sh, sn;
+  __device__ __forceinline__ T* at(int b, int h) const { return p + b * sb + h * sh; }
+};
+using InHeads = Heads<const bf16>;
+using OutHeads = Heads<bf16>;
 
 // rows r0 .. r0+63 of one 64-column operand (row i at src + i*row_stride),
 // in 16-byte chunks, into s[64][72]; rows at or past n are zeros

@@ -21,12 +21,31 @@
 // _run_gelu_dropout_bwd_kernel, reached through fused_gelu_dropout, the MLP's
 // hidden site when no row block divides M).
 //
+// Kernel G: out = r + dropout(y), the residual add after dropout in one
+// pass: keep ? y * scale : 0 with F's mask and F's scale rounded to y's
+// dtype, rounded to that dtype, then added to r and rounded again, so that
+// G gives the bits of r + F(y). Its backward is F on the gradient (for y)
+// and the gradient itself (for r), as the JAX custom VJP has it.
+//
+// Replaces: gavit_tpu/ops/dropout.py::_dropout_add_kernel (launched by
+// _run_add_kernel, reached through fused_dropout_add).
+//
+// Kernel E: the keep mask of one (seed, site) written out as 0/1 fp32, the
+// mask that F, G, H and the MLP kernels D/D' draw for element e of a
+// tensor of that site (philox.cuh's contract), for on-card self-checks.
+//
+// Replaces: gavit_tpu/ops/mlp.py::kernel_mask (its inner kern), which
+// writes the TPU MLP kernels' masks from the core's generator in their row
+// blocks and f-chunks; here the stream does not depend on a block.
+//
 // What bounds them on the H100: one read and one write of x for F and H
 // (4 bytes a bf16 element), two reads and a write for H', against ~40
 // integer multiplies of Philox per 4 elements and, for H and H', ~25 fp32
-// operations and one exp per element; at 3.35 TB/s the traffic is the bound
+// operations and one exp per element; G reads two tensors and writes one,
+// E writes 4 bytes an element; at 3.35 TB/s the traffic is the bound
 // (one [128, 197, 768] bf16 site of F is 38.7 MB, 11.6 us; H at
-// [16, 577, 3072] bf16 113 MB, 34 us). Each thread takes 8 consecutive
+// [16, 577, 3072] bf16 113 MB, 34 us; G at [128, 197, 768] bf16 116 MB,
+// 35 us; E over [25216, 3072 + 768] fp32 387 MB, 116 us). Each thread takes 8 consecutive
 // elements (one 16-byte bf16 vector, two for fp32) and two Philox calls; the
 // ragged tail is done element by element.
 #include "common.cuh"
@@ -36,12 +55,25 @@ namespace {
 
 constexpr int kThreads = 256;
 
-enum Op { kDropout = 0, kGeluDropout = 1, kGeluDropoutBwd = 2 };
+enum Op { kDropout = 0, kGeluDropout = 1, kGeluDropoutBwd = 2, kDropoutAdd = 3, kMask = 4 };
+
+// the ops that read a second tensor g (H''s gradient, G's residual), and the one that reads none
+__host__ __device__ constexpr bool reads_g(int op) {
+  return op == kGeluDropoutBwd || op == kDropoutAdd;
+}
+__host__ __device__ constexpr bool reads_x(int op) { return op != kMask; }
 
 // one element of op; scale_t is the scale rounded to T (F's rule)
 template <int kOp, typename T>
 __device__ __forceinline__ T apply_one(T x, T g, uint32_t bits, const DropSite& s,
                                        float scale_t) {
+  if (kOp == kMask) return from_f32<T>(bits < s.threshold ? 0.f : 1.f);
+  if (kOp == kDropoutAdd) {
+    // F's output, rounded to T, then the residual add rounded again (no
+    // contraction into an FMA: r + F(y) rounds twice)
+    const float f = bits < s.threshold ? 0.f : to_f32(from_f32<T>(__fmul_rn(to_f32(x), scale_t)));
+    return from_f32<T>(__fadd_rn(to_f32(g), f));
+  }
   if (bits < s.threshold) return from_f32<T>(0.f);
   if (kOp == kDropout) return from_f32<T>(to_f32(x) * scale_t);
   float gl, dg;
@@ -65,10 +97,10 @@ __global__ void __launch_bounds__(kThreads)
       constexpr int kVec = 16 / sizeof(T);  // elements of one 16-byte vector
 #pragma unroll
       for (int h = 0; h < 8 / kVec; ++h) {
-        const uint4 in = *reinterpret_cast<const uint4*>(x + e0 + h * kVec);
-        const uint4 gin = kOp == kGeluDropoutBwd
-                              ? *reinterpret_cast<const uint4*>(g + e0 + h * kVec)
-                              : make_uint4(0, 0, 0, 0);
+        const uint4 in = reads_x(kOp) ? *reinterpret_cast<const uint4*>(x + e0 + h * kVec)
+                                      : make_uint4(0, 0, 0, 0);
+        const uint4 gin = reads_g(kOp) ? *reinterpret_cast<const uint4*>(g + e0 + h * kVec)
+                                       : make_uint4(0, 0, 0, 0);
         uint4 out;
         const T* xi = reinterpret_cast<const T*>(&in);
         const T* gi = reinterpret_cast<const T*>(&gin);
@@ -79,9 +111,10 @@ __global__ void __launch_bounds__(kThreads)
         *reinterpret_cast<uint4*>(y + e0 + h * kVec) = out;
       }
     } else {
-      for (long long e = e0; e < n; ++e)
-        y[e] = apply_one<kOp>(x[e], kOp == kGeluDropoutBwd ? g[e] : x[e], bits[e - e0], s,
-                              scale_t);
+      for (long long e = e0; e < n; ++e) {
+        const T xe = reads_x(kOp) ? x[e] : from_f32<T>(0.f);
+        y[e] = apply_one<kOp>(xe, reads_g(kOp) ? g[e] : xe, bits[e - e0], s, scale_t);
+      }
     }
   }
 }
@@ -132,4 +165,20 @@ GAVIT_EXPORT int gavit_gelu_dropout_bwd(const void* x, const void* g, void* dx, 
                                         unsigned threshold, float scale, int dtype,
                                         void* stream) {
   return dispatch<kGeluDropoutBwd>(x, g, dx, n, k0, k1, site, threshold, scale, dtype, stream);
+}
+
+// out = r + dropout(y) over n contiguous elements of y, r and out (one shape
+// and dtype), the arguments as gavit_dropout's.
+GAVIT_EXPORT int gavit_dropout_add(const void* y, const void* r, void* out, long long n,
+                                   unsigned k0, unsigned k1, unsigned site, unsigned threshold,
+                                   float scale, int dtype, void* stream) {
+  return dispatch<kDropoutAdd>(y, r, out, n, k0, k1, site, threshold, scale, dtype, stream);
+}
+
+// out[e] = 1.f where element e of the site is kept, else 0.f, over n fp32
+// elements (threshold 0 at rate 0: all ones).
+GAVIT_EXPORT int gavit_keep_mask(void* out, long long n, unsigned k0, unsigned k1, unsigned site,
+                                 unsigned threshold, void* stream) {
+  return dispatch<kMask>(nullptr, nullptr, out, n, k0, k1, site, threshold, 1.f, GAVIT_F32,
+                         stream);
 }

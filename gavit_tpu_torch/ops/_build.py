@@ -40,6 +40,7 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "gavit_error_string": ((_I,), ctypes.c_char_p),
     "gavit_set_device": ((_I,), _I),
@@ -57,10 +58,16 @@ _SIGNATURES = {
     "gavit_attention_long_fwd": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_long_bwd": (
         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),
+    "gavit_attention_bhnd_fwd": (
+        (_P, _P, _P, _P, _LP, _I, _I, _I, _I, _F, _P), _I),
+    "gavit_attention_bhnd_bwd": (
+        (_P,) * 8 + (_LP, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_large_fwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_large_bwd": (
         (_P,) * 6 + (_I,) * 4 + (_L,) * 6 + (_F, _P), _I),
     "gavit_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
+    "gavit_dropout_add": ((_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
+    "gavit_keep_mask": ((_P, _L, _U, _U, _U, _U, _P), _I),
     "gavit_gelu_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_gelu_dropout_bwd": (
         (_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
@@ -194,6 +201,13 @@ def check_impl(impl: str) -> None:
     tensor. ``'reference'``: always the plain version."""
     if impl not in ("auto", "reference"):
         raise ValueError(f"impl must be 'auto' or 'reference', not {impl!r}")
+
+
+def strides(*tensors: torch.Tensor):
+    """The (batch, head, row) strides of ``[B, H, N, d]`` tensors, flattened
+    into the ``long long`` array the attention launchers take."""
+    vals = [x for t in tensors for x in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def require_cuda(*tensors: torch.Tensor) -> None:

@@ -24,13 +24,25 @@
   :func:`blockwise_attention_backward_reference` — the plain versions of L
   and L′: the forward also returns the fp32 log-sum-exp of each row, which
   the backward reads instead of recomputing the row statistics.
+* :func:`multi_head_attention`, :func:`attention_pallas` and
+  :func:`fused_attention_v2` — MHSA over separate q, k, v ``[B, H, N, d]``,
+  differentiable, dispatched as the JAX functions of those names are. On a
+  CUDA tensor :func:`attention_pallas` launches kernel I with I′ in the
+  backward (replace ``_fwd_kernel``/``_bwd_kernel``, v1) up to the length
+  :func:`pallas_route` gives, and L/L′ past it; :func:`fused_attention_v2`
+  launches kernel J with J′ (replace ``_fwd_kernel_v2``/``_bwd_kernel_v2``)
+  at every length. I, I′, J and J′ are K/K′'s kernel pair
+  (``csrc/attention_long.cu``) reading and writing ``[B, H, N, d]`` through
+  strides, each entry point with its own launch counts; their plain
+  versions are :func:`attention_reference` and
+  :func:`attention_bhnd_backward_reference`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from gavit_tpu_torch.ops import _build
+from gavit_tpu_torch.ops import _build, philox
 
 # launches since the last reset (chip_smoke.py reads them): kernels A, A′,
 # K, K′, L and L′
@@ -40,6 +52,11 @@ LONG_KERNEL_LAUNCHES = 0
 LONG_BWD_KERNEL_LAUNCHES = 0
 LARGE_KERNEL_LAUNCHES = 0
 LARGE_BWD_KERNEL_LAUNCHES = 0
+# and kernels I, I′ (attention_pallas) and J, J′ (fused_attention_v2)
+V1_KERNEL_LAUNCHES = 0
+V1_BWD_KERNEL_LAUNCHES = 0
+V2_KERNEL_LAUNCHES = 0
+V2_BWD_KERNEL_LAUNCHES = 0
 
 # the longest rows kernel A takes: its tensor-core body keeps the scores of
 # 224 keys in registers (bf16); its fp32 body stages K and V of a head in
@@ -53,7 +70,34 @@ A_MAX_N = {torch.bfloat16: 224, torch.float32: 416}
 K_MAX_N = 749
 # what card attention in fp32 past kernel A's forward waits for (A′, K/K′
 # and L/L′ are bf16 only)
-_FP32_TODO = "fp32 attention on the card waits for ROADMAP Queue 1 item 10"
+_FP32_TODO = ("fp32 attention on the card waits for ROADMAP Queue 2 item "
+              "10.7 (Queue 1 item 10)")
+# attention_pallas's switch from v1 to the blockwise v5, copied from the JAX
+# package (attention.py:53-58, :1083-1086, its 12 MiB VMEM budget): tokens
+# padded to a multiple of 128 lanes, and the exact backward's estimate at
+# one head per program within the budget
+_LANE = 128
+_VMEM_BUDGET = 12 * 1024 * 1024
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _v3_fits(n: int, d: int, itemsize: int) -> bool:
+    return 2 * 7 * n * d * itemsize + 5 * n * n * 4 <= _VMEM_BUDGET
+
+
+def pallas_route(n: int, d: int, dtype: torch.dtype) -> str:
+    """The family :func:`attention_pallas` takes for ``n`` tokens of head_dim
+    ``d`` in ``dtype``: ``'I'`` (I/I′) where the JAX package runs its v1
+    kernels, ``'L'`` (L/L′) where it runs v5 — N up to 640 and from 641 at
+    head_dim 64, in bf16 and fp32 alike."""
+    if n < 1:
+        raise ValueError(f"attention over {n} tokens")
+    n_pad = max(_round_up(n, _LANE), _LANE)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return "I" if _v3_fits(n_pad, d, itemsize) else "L"
 
 
 def attention_route(n: int, dtype: torch.dtype) -> str:
@@ -156,18 +200,14 @@ def qkv_attention_kernel(qkv3, scale: float, heads: int):
     return out.transpose(1, 2)
 
 
-def attention_backward_reference(qkv3, dout, scale: float, heads: int):
-    """The VJP of :func:`attention_reference` on the packed rows:
-    ``qkv3 [B, N, 3·H·d]`` and ``dout [B, H, N, d]`` → ``dqkv3`` like qkv3.
-
-    As the TPU kernels: p in fp32, dv = bf16(p)ᵀ·do, dp = do·vᵀ,
+def attention_bhnd_backward_reference(q, k, v, dout, scale: float):
+    """The VJP of :func:`attention_reference` for q, k, v and ``dout``
+    ``[B, H, N, d]`` → ``(dq, dk, dv)`` in q's dtype, as the TPU backward
+    kernels compute it: p in fp32, dv = bf16(p)ᵀ·do, dp = do·vᵀ,
     delta = rowsum(dp∘p), ds = (p∘(dp − delta)·scale) rounded to the input
-    dtype, dq = ds·k, dk = dsᵀ·q, fp32 products from the inputs' values.
-    """
-    dt = qkv3.dtype
-    b, n, f = qkv3.shape
-    q, k, v = (t.float() for t in _split_heads(qkv3, heads))
-    do = dout.float()
+    dtype, dq = ds·k, dk = dsᵀ·q, fp32 products from the inputs' values."""
+    dt = q.dtype
+    q, k, v, do = (t.float() for t in (q, k, v, dout))
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
     dv = torch.matmul(p.to(dt).float().transpose(-1, -2), do)
     dp = torch.matmul(do, v.transpose(-1, -2))
@@ -175,9 +215,19 @@ def attention_backward_reference(qkv3, dout, scale: float, heads: int):
     ds = (p * (dp - delta) * scale).to(dt).float()
     dq = torch.matmul(ds, k)
     dk = torch.matmul(ds.transpose(-1, -2), q)
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def attention_backward_reference(qkv3, dout, scale: float, heads: int):
+    """:func:`attention_bhnd_backward_reference` on the packed rows:
+    ``qkv3 [B, N, 3·H·d]`` and ``dout [B, H, N, d]`` → ``dqkv3`` like
+    qkv3."""
+    b, n, f = qkv3.shape
+    grads = attention_bhnd_backward_reference(*_split_heads(qkv3, heads),
+                                              dout, scale)
     # [3, B, H, N, d] → [B, N, 3, H, d] → rows
-    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4)
-    return dqkv.reshape(b, n, f).to(dt)
+    dqkv = torch.stack(grads).permute(1, 3, 0, 2, 4)
+    return dqkv.reshape(b, n, f)
 
 
 def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
@@ -386,6 +436,16 @@ class _FusedQkvAttention(torch.autograd.Function):
         return dqkv, None, None, None, None
 
 
+def _qkv_attention(qkv3, scale: float, heads: int, route: str, kernel: bool):
+    """``[B, N, 3·H·d]`` rows → o ``[B, H, N, d]`` through ``route``,
+    differentiable where the rows need a gradient."""
+    if torch.is_grad_enabled() and qkv3.requires_grad:
+        return _FusedQkvAttention.apply(qkv3, float(scale), heads, route,
+                                        kernel)
+    out = _forward(qkv3, scale, heads, route, kernel)
+    return out[0] if route == "L" else out
+
+
 def fused_qkv_attention(qkv, scale: float, merge_heads: bool = True,
                         impl: str = "auto"):
     """MHSA on the packed projection ``[B, N, 3, H, d]`` (a free view of the
@@ -402,12 +462,190 @@ def fused_qkv_attention(qkv, scale: float, merge_heads: bool = True,
     qkv3 = qkv.reshape(b, n, three * h * d)
     kernel = impl == "auto" and qkv.device.type != "cpu"
     route = attention_route(n, qkv.dtype) if kernel else plain_route(n)
-    if torch.is_grad_enabled() and qkv.requires_grad:
-        out = _FusedQkvAttention.apply(qkv3, float(scale), h, route, kernel)
-    else:
-        out = _forward(qkv3, scale, h, route, kernel)
-        if route == "L":
-            out = out[0]
+    out = _qkv_attention(qkv3, scale, h, route, kernel)
     if merge_heads:
         return out.transpose(1, 2)
     return out
+
+
+# ---------------------------------------------------------------------------
+# separate q, k, v [B, H, N, d]: kernels I/I′ and J/J′
+# ---------------------------------------------------------------------------
+
+
+def _card_kernels(q, k, v, what: str) -> bool:
+    """True for CUDA tensors, which take the kernels (bf16 at head_dim 64,
+    else NotImplementedError); False for CPU tensors, which take the plain
+    versions. q, k and v must agree in shape, dtype and device."""
+    if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype
+                           or t.device != q.device for t in (k, v)):
+        raise ValueError(f"{what} takes q, k, v of one [B, H, N, d] shape, "
+                         f"dtype and device, got {tuple(q.shape)} "
+                         f"{tuple(k.shape)} {tuple(v.shape)}")
+    if q.device.type == "cpu":
+        return False
+    if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
+        raise NotImplementedError(
+            f"{what} on the card takes bfloat16 at head_dim 64, got "
+            f"{q.dtype} at head_dim {q.shape[-1]}: {_FP32_TODO}")
+    return True
+
+
+def _aligned_rows(t):
+    """``t`` itself where its last dim is contiguous and every row starts
+    16 bytes aligned (bf16), else a contiguous copy."""
+    if (t.stride(-1) != 1 or any(x % 8 for x in t.stride()[:-1])
+            or t.data_ptr() % 16):
+        return t.contiguous()
+    return t
+
+
+def _bhnd_forward(q, k, v, scale: float, what: str):
+    """K's kernel on CUDA bf16 q, k, v ``[B, H, N, 64]`` (read through
+    their strides) → o ``[B, H, N, 64]``."""
+    _card_kernels(q, k, v, what)
+    if q.device.type != "cuda":
+        raise ValueError(f"the Hopper kernels take CUDA tensors, not "
+                         f"{q.device}")
+    b, h, n, d = q.shape
+    q, k, v = (_aligned_rows(t) for t in (q, k, v))
+    o = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    lib = _build.library()
+    _build.check(lib.gavit_attention_bhnd_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        _build.strides(q, k, v, o), b, n, h, d, float(scale),
+        _build.stream(q.device)), what)
+    return o
+
+
+def _bhnd_backward(q, k, v, dout, scale: float, what: str):
+    """K′'s two launches on CUDA bf16 ``[B, H, N, 64]`` q, k, v and dout
+    (read through their strides) → ``(dq, dk, dv)``; they share a
+    ``[3, B, H, N]`` fp32 scratch of row statistics."""
+    _card_kernels(q, k, v, what)
+    if dout.shape != q.shape or dout.dtype != q.dtype or \
+            dout.device != q.device or q.device.type != "cuda":
+        raise ValueError(f"{what}: dout {tuple(dout.shape)} {dout.dtype} on "
+                         f"{dout.device} does not match CUDA q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    b, h, n, d = q.shape
+    q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
+    dq, dk, dv = torch.empty((3, b, h, n, d), dtype=q.dtype,
+                             device=q.device).unbind(0)
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    _build.check(lib.gavit_attention_bhnd_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        _build.strides(q, k, v, dout, dq, dk, dv), b, n, h, d, float(scale),
+        _build.stream(q.device)), what)
+    return dq, dk, dv
+
+
+# each entry point's launch counter and error label, forward then backward
+_BHND = {"v1": (("V1_KERNEL_LAUNCHES", "kernel I"),
+                ("V1_BWD_KERNEL_LAUNCHES", "kernel I′")),
+         "v2": (("V2_KERNEL_LAUNCHES", "kernel J"),
+                ("V2_BWD_KERNEL_LAUNCHES", "kernel J′"))}
+
+
+def bhnd_kernel(entry: str, bwd: bool, *args):
+    """Kernel I (``entry='v1'``, ``attention_pallas``) or J (``'v2'``,
+    ``fused_attention_v2``) on CUDA bf16 ``(q, k, v, scale)`` ``[B, H, N,
+    64]`` → o; with ``bwd``, I′ or J′ on ``(q, k, v, dout, scale)`` →
+    ``(dq, dk, dv)``. Both entry points launch one kernel pair; each counts
+    its own launches."""
+    counter, what = _BHND[entry][bwd]
+    out = (_bhnd_backward if bwd else _bhnd_forward)(*args, what)
+    with _build.count_lock:
+        globals()[counter] += 1
+    return out
+
+
+class _BhndAttention(torch.autograd.Function):
+    """q, k, v ``[B, H, N, d]`` → o; only the inputs are saved and the
+    backward recomputes P, as the JAX package's v1 and v2 VJPs do.
+    ``entry``: ``'v1'`` or ``'v2'``, whose kernels run, or None for the
+    plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, entry):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (scale, entry)
+        if entry is None:
+            return attention_reference(q, k, v, scale)
+        return bhnd_kernel(entry, False, q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        scale, entry = ctx.args
+        if entry is None:
+            grads = attention_bhnd_backward_reference(q, k, v, g, scale)
+        else:
+            grads = bhnd_kernel(entry, True, q, k, v, g, scale)
+        return (*grads, None, None)
+
+
+def attention_pallas(q, k, v, scale: float):
+    """Exact MHSA ``[B, H, N, d]`` → ``[B, H, N, d]``, routed as the JAX
+    package's ``attention_pallas``: :func:`pallas_route` ``'I'`` launches
+    kernels I/I′ on a CUDA tensor; ``'L'`` packs q, k, v into the
+    ``[B, N, 3·H·d]`` rows kernel L takes and saves L's o and lse for L′, as
+    the JAX package hands that length to ``flash_attention_large``. A CPU
+    tensor takes the route's plain versions. On the card fp32 and head_dim
+    other than 64 raise."""
+    kernel = _card_kernels(q, k, v, "attention_pallas")
+    b, h, n, d = q.shape
+    if pallas_route(n, d, q.dtype) == "I":
+        return _BhndAttention.apply(q, k, v, float(scale),
+                                    "v1" if kernel else None)
+    qkv3 = torch.stack((q, k, v)).permute(1, 3, 0, 2, 4).reshape(
+        b, n, 3 * h * d)
+    return _qkv_attention(qkv3, scale, h, "L", kernel)
+
+
+def fused_attention_v2(q, k, v, scale: float):
+    """Exact MHSA ``[B, H, N, d]`` → ``[B, H, N, d]`` through kernels J/J′
+    on a CUDA tensor, at every N. The JAX function sizes its head chunks
+    for the TPU's VMEM (``_head_chunk``) and has no other route; the
+    streaming kernel needs neither. A CPU tensor takes the plain versions;
+    on the card fp32 and head_dim other than 64 raise."""
+    kernel = _card_kernels(q, k, v, "fused_attention_v2")
+    return _BhndAttention.apply(q, k, v, float(scale),
+                                "v2" if kernel else None)
+
+
+def multi_head_attention(q, k, v, scale: float | None = None, *,
+                         impl: str = "auto", dropout_rate: float = 0.0,
+                         seed: int | None = None, site: int | None = None):
+    """Dispatching MHSA over ``[B, H, N, d]``, as the JAX package's
+    ``multi_head_attention`` routes (attention.py:1138-1148): attention
+    dropout is on with ``dropout_rate`` > 0 and a ``seed``, its keep mask
+    the Philox mask of (``seed``, ``site``) over ``[B, H, N, N]``.
+
+    * ``'reference'``, or ``'auto'`` with dropout: :func:`attention_reference`;
+    * ``'xla'``: the framework's own attention in tensor ops, the plain
+      :func:`attention_reference` (fp32 products in IEEE fp32); the port
+      calls no library attention;
+    * any other ``impl`` with dropout raises;
+    * otherwise :func:`attention_pallas`.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    use_dropout = dropout_rate > 0.0 and seed is not None
+    if impl == "reference" or (impl == "auto" and use_dropout):
+        if not use_dropout:
+            return attention_reference(q, k, v, scale)
+        if site is None:
+            raise ValueError("attention dropout needs the site of its mask")
+        b, h, n, _ = q.shape
+        keep = philox.keep_mask((b, h, n, n), seed, site, dropout_rate,
+                                device=q.device)
+        return attention_reference(q, k, v, scale, dropout_rate, keep)
+    if use_dropout:
+        raise ValueError(
+            f"attention impl {impl!r} does not support attention dropout")
+    if impl == "xla":
+        return attention_reference(q, k, v, scale)
+    return attention_pallas(q, k, v, scale)

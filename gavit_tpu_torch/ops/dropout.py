@@ -9,6 +9,13 @@
   ``_dropout_kernel``; the backward is the same kernel on the gradient with
   the same (seed, site), so the mask is never stored. A rate of 0 is the
   identity and launches nothing.
+* :func:`dropout_add_reference` — the plain version of ``r + dropout(y)``:
+  :func:`dropout_reference` of y, then the residual add in y's dtype.
+* :func:`fused_dropout_add` — an autograd op. On a CUDA tensor it launches
+  kernel G (``csrc/dropout.cu``), which replaces the TPU kernel
+  ``_dropout_add_kernel``: F's mask and scale and the add in one pass, the
+  bits of ``r + fused_dropout(y)``. The backward is F on the gradient for
+  y and the gradient itself for r.
 * :func:`gelu_dropout_reference` / :func:`gelu_dropout_bwd_reference` — the
   plain versions of GELU + dropout and its backward: the A&S erf GELU of
   :func:`gelu_and_grad`, the mask of ``(seed, site)``, the scale
@@ -27,9 +34,10 @@ import torch
 
 from gavit_tpu_torch.ops import _build, philox
 
-# launches since the last reset (chip_smoke.py reads them): kernel F, and
-# kernels H and H′
+# launches since the last reset (chip_smoke.py reads them): kernel F,
+# kernel G, and kernels H and H′
 KERNEL_LAUNCHES = 0
+ADD_LAUNCHES = 0
 GELU_LAUNCHES = 0
 GELU_BWD_LAUNCHES = 0
 
@@ -106,6 +114,72 @@ def fused_dropout(x, seed: int | None, site: int, rate: float,
     if seed is None:
         raise ValueError("dropout with a rate > 0 needs a seed")
     return _FusedDropout.apply(x, int(seed), int(site), float(rate), impl)
+
+
+# ---------------------------------------------------------------------------
+# dropout + residual add
+# ---------------------------------------------------------------------------
+
+
+def dropout_add_reference(y, r, seed: int, site: int, rate: float):
+    """``r + dropout(y)`` in y's dtype, the mask of (``seed``, ``site``)."""
+    return r + dropout_reference(y, seed, site, rate)
+
+
+def dropout_add_kernel(y, r, seed: int, site: int, rate: float):
+    """Kernel G on contiguous CUDA tensors y and r of one shape and dtype
+    (bf16 or fp32) → ``r + dropout(y)``."""
+    global ADD_LAUNCHES
+    _build.require_cuda(y, r)
+    code = _build.dtype_code(y.dtype)
+    out = torch.empty_like(y)
+    if not y.numel():
+        return out
+    lib = _build.library()
+    _build.check(lib.gavit_dropout_add(
+        y.data_ptr(), r.data_ptr(), out.data_ptr(), y.numel(),
+        *site_args(seed, site, rate), code, _build.stream(y.device)),
+        "dropout add kernel")
+    with _build.count_lock:
+        ADD_LAUNCHES += 1
+    return out
+
+
+class _FusedDropoutAdd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, y, r, seed, site, rate):
+        ctx.args = (seed, site, rate)
+        if y.device.type == "cpu":
+            return dropout_add_reference(y, r, seed, site, rate)
+        return dropout_add_kernel(y.contiguous(), r.contiguous(), seed, site,
+                                  rate)
+
+    @staticmethod
+    def backward(ctx, g):
+        # d_y = dropout(g) with the forward's mask (kernel F), d_r = g
+        return _run(g, *ctx.args, "auto"), g, None, None, None
+
+
+def fused_dropout_add(y, residual, seed: int | None, site: int, rate: float):
+    """``residual + dropout(y)`` at ``rate`` with the mask of (``seed``,
+    ``site``), the counterpart of the JAX package's ``fused_dropout_add``.
+    y and residual must have one shape and dtype. At rate 0 it is the plain
+    sum and launches nothing.
+
+    CUDA tensors launch kernel G (F in the backward); CPU tensors take
+    :func:`dropout_add_reference`.
+    """
+    if y.shape != residual.shape or y.dtype != residual.dtype:
+        raise ValueError(f"y {tuple(y.shape)} {y.dtype} and residual "
+                         f"{tuple(residual.shape)} {residual.dtype} differ")
+    if rate == 0.0:
+        return residual + y
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+    if seed is None:
+        raise ValueError("dropout with a rate > 0 needs a seed")
+    return _FusedDropoutAdd.apply(y, residual, int(seed), int(site),
+                                  float(rate))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,14 @@ Training:
   dW1 and dW2 are ``torch.matmul`` over their outputs, as the JAX package
   leaves them to XLA) or the chain.
 
+Self-check:
+
+* :func:`kernel_mask` — the keep masks kernels D and D′ draw for a step
+  seed, as 0/1 fp32, for holding them to a plain MLP armed with the same
+  masks on the card. On the card it launches kernel E (``csrc/dropout.cu``,
+  replaces the TPU's ``kernel_mask``) once a site; its plain version is
+  ``philox.keep_mask``.
+
 Weights use ``nn.Linear``'s layout: ``w1 [F, D]``, ``w2 [D, F]``.
 """
 
@@ -35,11 +43,12 @@ from gavit_tpu_torch.ops import _build, philox
 from gavit_tpu_torch.ops.dropout import (fused_dropout, fused_gelu_dropout,
                                          gelu_and_grad, site_args)
 
-# launches since the last reset (chip_smoke.py reads them): kernel B, and
-# the training kernels D (forward) and D′ (backward)
+# launches since the last reset (chip_smoke.py reads them): kernel B, the
+# training kernels D (forward) and D′ (backward), and the mask writer E
 KERNEL_LAUNCHES = 0
 TRAIN_FWD_LAUNCHES = 0
 TRAIN_BWD_LAUNCHES = 0
+MASK_LAUNCHES = 0
 
 
 def _chain_infer(x2, w1, b1, w2, b2, approximate: bool):
@@ -340,3 +349,55 @@ def fused_mlp(x, w1, b1, w2, b2, seed, sites, rate: float,
         y = _FusedMlp.apply(x2, w1, b1, w2, b2, seed, tuple(sites),
                             float(rate), float(out_rate), use_kernel)
     return y.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels' masks, for self-checks
+# ---------------------------------------------------------------------------
+
+
+def keep_mask_kernel(shape, seed, site: int, rate: float, device):
+    """Kernel E: the keep mask of (``seed``, ``site``) over a tensor of
+    ``shape``, as 0/1 fp32 on a CUDA ``device``."""
+    global MASK_LAUNCHES
+    out = torch.empty(shape, dtype=torch.float32, device=device)
+    if out.device.type != "cuda":
+        raise ValueError(f"kernel E writes to a CUDA device, not {device}")
+    if not out.numel():
+        return out
+    k0, k1, site32, thr, _ = site_args(seed, site, rate)
+    lib = _build.library()
+    _build.check(lib.gavit_keep_mask(out.data_ptr(), out.numel(), k0, k1,
+                                     site32, thr, _build.stream(out.device)),
+                 "keep mask kernel")
+    with _build.count_lock:
+        MASK_LAUNCHES += 1
+    return out
+
+
+def kernel_mask(seed, sites, m: int, f: int, rate: float, d: int = 0,
+                out_rate: float = 0.0, device="cuda"):
+    """The keep masks kernels D and D′ apply for the step seed ``seed``:
+    ``(hidden [m, f], out [m, d] or None)``, 0/1 fp32, the hidden mask of
+    site ``sites[0]`` at ``rate`` and, when ``out_rate`` > 0, the output
+    mask of ``sites[1]`` at ``out_rate`` (the counterpart of the JAX
+    package's ``kernel_mask``, for on-card self-checks only).
+
+    The TPU version takes the row block ``bm`` of its kernels, because the
+    core's generator is seeded per program and consumed chunk by chunk;
+    Philox's mask is a pure function of (seed, site, element), whatever
+    the launch geometry, so the port has no such argument.
+
+    On a CUDA ``device`` (the default) kernel E writes each mask; on the CPU
+    they are ``philox.keep_mask``.
+    """
+    device = torch.device(device)
+
+    def one(shape, site, r):
+        if device.type == "cpu":
+            return _mask(shape, seed, site, r, device).float()
+        return keep_mask_kernel(shape, seed, site, r, device)
+
+    hidden = one((m, f), sites[0], rate)
+    return hidden, (one((m, d), sites[1], out_rate) if out_rate > 0.0
+                    else None)

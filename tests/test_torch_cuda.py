@@ -5,8 +5,10 @@ fallback, each body's dispatch bound (attention's kernel A up to 224 keys
 and K past it, the graph's tensor-core body up to 256), dropout (F) and
 GELU + dropout (H, H′) at rates 0 and 0.1 with the masks bit-identical to
 the plain version's, the MLP's two routes, and the training kernels'
-gradients against torch.autograd through the plain versions. chip_smoke.py
-covers the serving and training shapes themselves.
+gradients against torch.autograd through the plain versions; the
+[B, H, N, d] attention kernels I/I′ and J/J′ from one token to 641, the
+dropout-add G bit for bit, and the mask writer E. chip_smoke.py covers the
+serving and training shapes themselves.
 
 Marked ``cuda``: they skip without a card. This file imports nothing of JAX,
 so it runs on a machine without it, where the JAX-importing conftest is left
@@ -538,3 +540,110 @@ def test_route_raises_past_the_long_kernels_bound(dev):
     bf = A._build.dtype_code(torch.bfloat16)
     assert lib.gavit_attention_fits(224, bf) == 1
     assert lib.gavit_attention_fits(225, bf) == 0
+
+
+BHND_CASES = [(1, 1, 1), (2, 2, 7), (1, 3, 64), (2, 2, 65), (1, 12, 197),
+              (1, 2, 640)]
+
+
+@pytest.mark.parametrize("entry", ["I", "J"])
+@pytest.mark.parametrize("b,heads,n", BHND_CASES)
+def test_bhnd_attention_kernels_match_plain(dev, entry, b, heads, n):
+    """I/I′ (attention_pallas) and J/J′ (fused_attention_v2) on [B, H, N,
+    64] at one token, partial and whole tiles, 224 px and I's last length;
+    q, k, v as views of [B, N, H, d] memory (strided) and dO contiguous;
+    the same bits on a rerun; only the entry point's own counters move."""
+    bf = torch.bfloat16
+    qkv = [_randn(dev, b, n, heads, 64, seed=n + i).to(bf).transpose(1, 2)
+           for i in range(3)]
+    do = _randn(dev, b, heads, n, 64, seed=n + 3).to(bf)
+    e = {"I": "v1", "J": "v2"}[entry]
+    names = {"I": ("V1_KERNEL_LAUNCHES", "V1_BWD_KERNEL_LAUNCHES"),
+             "J": ("V2_KERNEL_LAUNCHES", "V2_BWD_KERNEL_LAUNCHES")}
+    counters = [n_ for pair in names.values() for n_ in pair]
+    before = {c: getattr(A, c) for c in counters}
+    got = A.bhnd_kernel(e, False, *qkv, 0.125)
+    grads = A.bhnd_kernel(e, True, *qkv, do, 0.125)
+    again = A.bhnd_kernel(e, True, *qkv, do, 0.125)
+    want = A.attention_reference(*qkv, 0.125)
+    dwant = A.attention_bhnd_backward_reference(*qkv, do, 0.125)
+    torch.cuda.synchronize()
+    assert got.shape == (b, heads, n, 64) and got.dtype == bf
+    assert _err(got, want) <= TOL[bf]
+    for a, w, a2 in zip(grads, dwant, again):
+        assert a.shape == w.shape and _rel(a, w) <= 2e-2
+        assert torch.equal(a, a2)
+    moved = {c: getattr(A, c) - before[c] for c in counters}
+    fc, bc = names[entry]
+    assert moved == {c: {fc: 1, bc: 2}.get(c, 0) for c in counters}
+
+
+def test_bhnd_entry_points_route_and_refuse(dev):
+    """attention_pallas takes I up to 640 tokens and L/L′ from 641; J
+    takes 641 too; gradients through autograd match the plain versions';
+    fp32 and head_dim other than 64 raise, naming the ROADMAP item."""
+    bf = torch.bfloat16
+    for n, counter in ((640, "V1_KERNEL_LAUNCHES"),
+                       (641, "LARGE_KERNEL_LAUNCHES")):
+        q, k, v = (_randn(dev, 1, 2, n, 64, seed=i).to(bf).requires_grad_(
+            True) for i in range(3))
+        before = getattr(A, counter)
+        out = A.attention_pallas(q, k, v, 0.125)
+        assert getattr(A, counter) == before + 1
+        g = _randn(dev, 1, 2, n, 64, seed=5).to(bf)
+        got = torch.autograd.grad(out, (q, k, v), g)
+        want = A.attention_bhnd_backward_reference(q, k, v, g, 0.125)
+        assert _err(out, A.attention_reference(q, k, v, 0.125)) <= TOL[bf]
+        for a, w in zip(got, want):
+            assert _rel(a, w) <= 2e-2
+        before = A.V2_KERNEL_LAUNCHES
+        A.fused_attention_v2(q, k, v, 0.125)
+        assert A.V2_KERNEL_LAUNCHES == before + 1
+    for fn in (A.attention_pallas, A.fused_attention_v2,
+               A.multi_head_attention):
+        x = torch.zeros(1, 1, 5, 64, device=dev)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 10.7"):
+            fn(x, x, x, 0.125)
+        x = torch.zeros(1, 1, 5, 32, device=dev, dtype=bf)
+        with pytest.raises(NotImplementedError, match="head_dim"):
+            fn(x, x, x, 0.125)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (2, 197, 768)])
+def test_dropout_add_kernel_is_bit_exact(dev, dtype, shape):
+    """G gives the bits of r + F(y); through autograd its gradients are
+    (F(g), g), F launched once for the backward."""
+    seed = philox.step_seed(4, 1)
+    y = _randn(dev, *shape, seed=1).to(dtype).requires_grad_(True)
+    r = _randn(dev, *shape, seed=2).to(dtype).requires_grad_(True)
+    before = (DR.ADD_LAUNCHES, DR.KERNEL_LAUNCHES)
+    out = DR.fused_dropout_add(y, r, seed, 5, 0.1)
+    g = _randn(dev, *shape, seed=3).to(dtype)
+    dy, dr = torch.autograd.grad(out, (y, r), g)
+    assert (DR.ADD_LAUNCHES, DR.KERNEL_LAUNCHES) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = r + DR.dropout_reference(y, seed, 5, 0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert torch.equal(dy, DR.dropout_reference(g, seed, 5, 0.1))
+    assert torch.equal(dr, g)
+
+
+@pytest.mark.parametrize("m,f,d", [(1, 8, 0), (3, 13, 5), (197, 3072, 768)])
+def test_kernel_mask_matches_keep_mask(dev, m, f, d):
+    seed, sites = philox.step_seed(9, 3), (4, 5)
+    before = M.MASK_LAUNCHES
+    hidden, out = M.kernel_mask(seed, sites, m, f, 0.1, d=d,
+                                out_rate=0.1 if d else 0.0)
+    assert M.MASK_LAUNCHES == before + (2 if d else 1)
+    torch.cuda.synchronize()
+    assert hidden.dtype == torch.float32 and hidden.device.type == "cuda"
+    assert torch.equal(hidden.bool(), philox.keep_mask(
+        (m, f), seed, sites[0], 0.1, device=dev))
+    assert torch.equal(hidden.bool().float(), hidden)
+    if d:
+        assert torch.equal(out.bool(), philox.keep_mask(
+            (m, d), seed, sites[1], 0.1, device=dev))
+    else:
+        assert out is None
