@@ -37,7 +37,7 @@ before the last line:
    at [128, 197, 768] (G, F in its backward), ``kernel_mask`` (E) at the
    b128 MLP rows and the training MLP (D, D′) held to a plain MLP armed
    with E's masks, bench.py's self-check; I/I′ and J/J′ again at N = 1, 50,
-   577, 640 (J also 1025), bit-equal on a rerun, and N = 641 through
+   197, 577, 640 (J also 1025), bit-equal on a rerun, and N = 641 through
    ``attention_pallas`` on L/L′;
 4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
    (and the learned adjacency logits drawn from a normal), through the
@@ -70,7 +70,9 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), Predictor p50 for one image at 224 and 384 px,
+   events, median), the host time of one kernel-A call at b1 (its four
+   tensor-map encodes included) beside sdpa's, Predictor p50 for one image
+   at 224 and 384 px,
    images/s of the bf16 forward (224 px b64, 384 px b16) and of the train
    step (224 px b128, 384 px b16), and the 384 MLP's two routes (kernels
    D/D′ against the chain of H/H′ and F) at M = 9232; the MoE kernels at
@@ -182,6 +184,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def host_us(fn, calls: int = 200) -> float:
+    """Host time of one call of ``fn`` in us: ``calls`` back to back,
+    with no synchronisation in between."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
 
@@ -214,7 +231,8 @@ def phase_build():
         f"{time.perf_counter() - t0:.1f} s (nvcc "
         f"{'%.1f s' % _build.build_seconds if _build.build_seconds else 'cached'})")
     for line in (_build.build_log or "").splitlines():
-        if "Compiling entry" in line or "Used" in line or "spill" in line:
+        if ("Compiling entry" in line or "Used" in line or "spill" in line
+                or "Performance Loss" in line):
             log(f"[build] {line.strip()}")
 
 
@@ -1010,13 +1028,15 @@ def phase_ops(dev, results, batch=TRAIN_BATCH, n=N_TOKENS):
     return counts
 
 
-def check_bhnd_attention(dev, results, cases=((1, 2), (50, 8), (577, 4),
-                                               (640, 4), (N_512, 2))):
+def check_bhnd_attention(dev, results, cases=((1, 2), (50, 8), (197, 4),
+                                               (577, 4), (640, 4),
+                                               (N_512, 2))):
     """I/I′ and J/J′ against their plain versions within 2e-2 of the
-    largest value (o, dq, dk, dv) at one token, a partial tile, 384 px and
-    I's last length, each rerun for the same bits (J alone at 512 px, 1025
-    tokens, past I's range); then 641 tokens through ``attention_pallas``:
-    L and L′ launched, no I."""
+    largest value (o, dq, dk, dv) at one token, a partial tile, 224 px (the
+    forward's single pass), 384 px and I's last length (its streamed pass),
+    each rerun for the same bits (J alone at 512 px, 1025 tokens, past I's
+    range); then 641 tokens through ``attention_pallas``: L and L′
+    launched, no I."""
     import torch
 
     from gavit_tpu_torch.ops import attention as A
@@ -1830,6 +1850,14 @@ def phase_times(cfg, dev, results, predictors, card):
         log(f"[time] A attention {dtype_name} B={b}: kernel {k:.4f} ms, "
             f"plain {p:.4f} ms, torch sdpa {sdpa:.4f} ms, bound {bms:.4f} ms "
             f"({by}) ({card})")
+        if dtype_name == "bf16" and b == 1:
+            # the host's share of a b1 call: the wrapper, four tensor-map
+            # encodes and the launch, against sdpa's
+            log(f"[time] A attention bf16 B=1 host: "
+                f"{host_us(lambda: A.qkv_attention_kernel(qkv, scale, HEADS)):.1f}"
+                f" us a call, torch sdpa "
+                f"{host_us(lambda: F.scaled_dot_product_attention(q, k_, v)):.1f}"
+                f" us ({card})")
     for dtype_name, m, args in results["B"]["cases"]:
         x, w1, b1, w2, b2 = args
         k = cuda_ms(lambda: M.mlp_inference_kernel(*args, True))
@@ -2614,7 +2642,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
     them). N-gmm's times are its
     forward form's; ``transposed`` holds the transposed form's."""
     spec = [
-        ("A", "fused_qkv_attention", "gavit_tpu_torch/csrc/attention.cu",
+        ("A", "fused_qkv_attention",
+         "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:583"),
         ("A′", "fused_qkv_attention_bwd",
          "gavit_tpu_torch/csrc/attention_bwd.cu",
@@ -2630,7 +2659,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
         ("F", "fused_dropout", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:33"),
         ("K", "fused_qkv_attention_long",
-         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:453"),
         ("K′", "fused_qkv_attention_long_bwd",
          "gavit_tpu_torch/csrc/attention_long.cu",
@@ -2653,12 +2682,14 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu/ops/moe_fused.py:411"),
         ("N-gmm", "grouped_gemm_gmm", "gavit_tpu_torch/csrc/moe.cu",
          "gavit_tpu/ops/moe_grouped.py:138"),
-        ("I", "attention_pallas", "gavit_tpu_torch/csrc/attention_long.cu",
+        ("I", "attention_pallas",
+         "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:102"),
         ("I′", "attention_pallas_bwd",
          "gavit_tpu_torch/csrc/attention_long.cu",
          "gavit_tpu/ops/attention.py:125"),
-        ("J", "fused_attention_v2", "gavit_tpu_torch/csrc/attention_long.cu",
+        ("J", "fused_attention_v2",
+         "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:301"),
         ("J′", "fused_attention_v2_bwd",
          "gavit_tpu_torch/csrc/attention_long.cu",

@@ -1,0 +1,526 @@
+// The bf16 exact attention forwards A, K, I and J for Hopper: wgmma on
+// TMA-fed tiles, with the TPU kernels' exact softmax.
+//
+// Replaces: gavit_tpu/ops/attention.py::_fwd_kernel_v4 (A, on the packed
+// qkv rows up to 224 tokens), ::_fwd_kernel_v3 (K, packed rows past 224),
+// ::_fwd_kernel (I, v1 under attention_pallas) and ::_fwd_kernel_v2 (J,
+// fused_attention_v2), the last two on [B, H, N, d] tensors. The four
+// compute one function, and one kernel serves them all through rank-4
+// tensor maps over (64, N, H, B) with each operand's (row, head, image)
+// strides: the packed rows (q at column h*64, k at (H+h)*64, v at
+// (2H+h)*64 of [B, N, 3*H*64]) and strided [B, H, N, 64] views alike. A
+// and K write o as [B, N, H, 64] memory (the Python wrappers return the
+// [B, H, N, d] view); I and J write o through its strides. Kernel A's fp32
+// body stays in attention.cu; the backward kernels A', K', I', J' are
+// unchanged (attention_bwd.cu, attention_long.cu).
+//
+// The function, as the TPU kernels compute it: s = (q.k^T) * scale in fp32,
+// the row's true max m, p = exp(s - m) * (1/l) with l the row's sum, p
+// rounded to bf16 before p.v, fp32 accumulation, o rounded to bf16. No
+// online rescaling of a rounded p, no atomics, every sum in a fixed order:
+// reruns give the same bits.
+//
+// What bounds it on the H100: per (image, head) 4*N^2*64 FLOPs against
+// 4*N*64*2 bytes (q, k, v read once, o written once): N/2 FLOP/byte, 98 at
+// N = 197 and 288 at N = 577, under the card's ridge of ~295, so the bytes
+// bound both (b128 at 197: 0.046 ms; b16 at 577: 0.017 ms). Past the
+// bytes, the work that costs is the softmax's per-score arithmetic on the
+// CUDA cores (about 8 instructions a score, exp included), which the
+// design keeps in registers and overlaps with other blocks' loads and
+// tensor-core work.
+//
+// Design (one block = one consumer warpgroup + one producer warp):
+// * The producer warp's lane 0 issues every load by TMA into 128-byte
+//   swizzled shared memory and signals mbarriers: the 64-row query tiles
+//   through a ring of 2, and the keys and values.
+// * The consumer warpgroup owns a 64-row query tile. S = Q.K^T is wgmma
+//   with both operands K-major in shared memory, one instruction per 16 of
+//   the 64 columns (m64n224k16 in the single pass, m64n64k16 streamed).
+//   The softmax runs on the accumulator registers (a row spreads over a
+//   quad: quad shuffles for max and sum; exp on the SFU as ex2.approx);
+//   p is rounded to bf16 and packed straight into the register A
+//   fragments of O = P.V, wgmma m64n64k16 per 16 keys with V as the
+//   MN-major (transposed) B operand. O goes through a swizzled staging
+//   tile to a TMA store, which drops rows past N.
+// * N <= 224, single pass (A at every N it takes; K, I, J up to 224): the
+//   whole key row is one 224-row tile (TMA zero-fills rows past N; keys
+//   past N are set to -inf in S). Its scores stay in registers (112 fp32
+//   a thread; 145 registers in all, no spills), so there is no recompute,
+//   and K and V are read once per block. The block takes a run of query
+//   tiles of one (image, head); the launcher splits a head's tiles over
+//   blocks until about two blocks per SM exist (b1: 12 heads x 4 tiles =
+//   48 blocks; b128: 1536 blocks of 4 tiles). Two blocks fit an SM: each
+//   SM sub-partition holds 3 of their 10 warps, so ptxas allows 168
+//   registers.
+// * N > 224, streamed (K at 577, I up to 640, J at any N): one query tile a
+//   block, key tiles of 64 rows through TMA rings (K: 3 stages, V: 2). Pass
+//   1 streams K and keeps each row's running max and sum (the sum rescaled
+//   when the max moves), which gives the true max m and 1/l; pass 2
+//   streams K and V, recomputes S, forms p = exp(s - m) * (1/l) and
+//   accumulates P.V. That is 1.5x the tensor-core FLOPs of one pass, which
+//   at wgmma rates costs ~0.008 ms at b16, N = 577; keeping the fp32 scores
+//   in shared memory instead would take 64*N*4 bytes (160 KB at N = 640)
+//   and could not run J at 1025. 93 registers; three blocks fit an SM.
+// * No setmaxnreg: with a producer warpgroup giving its registers to the
+//   consumers (24 / 232 at two blocks an SM), ptxas still allocated every
+//   region within the launch's 128 registers, and the spills and
+//   serialised wgmma made A at b128 0.35 ms against 0.09 here (an H100
+//   80GB HBM3 at 700 W). A lone producer warp cannot give registers to all
+//   four consumer warps either: each SM sub-partition has its own file.
+// * Every register a wgmma touches asynchronously is pinned (fence_regs)
+//   before wgmma_fence and after wgmma_wait. A branch around the softmax
+//   (skipping warps whose rows all lie past N) doubled the code and made
+//   ptxas spill and serialise the wgmmas; every warp runs it.
+#include "common.cuh"
+#include "sm90.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kD = 64;                       // head_dim
+constexpr int kRowBytes = kD * 2;            // one bf16 row: one 128-byte swizzle row
+constexpr int kTileRows = 64;                // query rows of a tile; key rows of a ring tile
+constexpr int kTileBytes = kTileRows * kRowBytes;
+constexpr int kChunk = 32;                   // keys in 16 accumulators a thread
+constexpr int kChunkBytes = kChunk * kRowBytes;
+constexpr int kSingleKeys = 224;             // the single pass's key row
+constexpr int kSingleChunks = kSingleKeys / kChunk;
+constexpr int kStreamChunks = kTileRows / kChunk;
+constexpr int kKStages = 3, kVStages = 2;    // streamed rings
+constexpr int kConsumers = 128;              // one warpgroup
+constexpr int kThreads = kConsumers + 32;    // and the producer warp
+
+template <bool kSingle>
+struct Shape {
+  static constexpr int kBlocksPerSm = kSingle ? 2 : 3;
+  static constexpr int kKeyRows = kSingle ? kSingleKeys : kTileRows;  // a K or V box
+};
+
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+struct Params {
+  Maps maps;
+  int n;
+  int tiles;  // query tiles a block takes
+  float scale;
+};
+
+struct Barriers {
+  uint64_t q_full[2], q_empty[2];
+  uint64_t k_full[kKStages], k_empty[kKStages];
+  uint64_t v_full[kVStages], v_empty[kVStages];
+};
+
+// shared memory from a 1024-byte aligned base: K, V, the Q ring, the O
+// staging tile, the barriers
+template <bool kSingle>
+struct Layout {
+  static constexpr int kK = kSingle ? kSingleKeys * kRowBytes : kKStages * kTileBytes;
+  static constexpr int kV = kSingle ? kSingleKeys * kRowBytes : kVStages * kTileBytes;
+  static constexpr int kQ = kK + kV;
+  static constexpr int kO = kQ + 2 * kTileBytes;
+  static constexpr int kBars = kO + kTileBytes;
+  // what the launch asks for: the layout, the barriers, the alignment slack
+  static constexpr int kBytes = kBars + (int)sizeof(Barriers) + 1024;
+};
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp(x) as 2^(x log2 e) on the SFU (ex2.approx: within 2 ulp; results
+// under 2^-126 flush to 0, far below what p's bf16 rounding keeps)
+__device__ __forceinline__ float exp_f32(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// issue S = Q.K^T for a 64-row Q tile and the key rows at k_addr, both
+// swizzled in shared memory: one wgmma per 16 of the 64 columns, as wide
+// as the keys (C chunks of 32 in s, one accumulator array to the wgmma)
+template <int C>
+__device__ __forceinline__ void issue_s(float (&s)[C][16], uint32_t q_addr, uint32_t k_addr) {
+  float(&d)[C * 16] = *reinterpret_cast<float(*)[C * 16]>(&s[0][0]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t a = kmajor_desc(q_addr + 32 * kk), b = kmajor_desc(k_addr + 32 * kk);
+    if constexpr (C == kSingleChunks)
+      wgmma_m64n224k16_ss(d, a, b, kk > 0);
+    else
+      wgmma_m64n64k16_ss(d, a, b, kk > 0);
+  }
+}
+
+// s * scale, and -inf for keys at or past n, over one chunk whose first key is key0
+__device__ __forceinline__ void scale_mask(float (&s)[16], int key0, int t, int n, float scale) {
+  const bool edge = key0 + kChunk > n;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float x = s[i] * scale;
+    s[i] = edge && key0 + (i >> 2) * 8 + 2 * t + (i & 1) >= n ? -INFINITY : x;
+  }
+}
+
+__device__ __forceinline__ void chunk_max(const float (&s)[16], float& m0, float& m1) {
+#pragma unroll
+  for (int i = 0; i < 16; i += 4) {
+    m0 = fmaxf(m0, fmaxf(s[i], s[i + 1]));
+    m1 = fmaxf(m1, fmaxf(s[i + 2], s[i + 3]));
+  }
+}
+
+// s = exp(s - m) over one chunk (elements 4j, 4j+1 are row g's, 4j+2,
+// 4j+3 row g+8's)
+__device__ __forceinline__ void chunk_exp(float (&s)[16], float m0, float m1) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) s[i] = exp_f32(s[i] - (i & 2 ? m1 : m0));
+}
+
+__device__ __forceinline__ void chunk_sum(const float (&e)[16], float& l0, float& l1) {
+#pragma unroll
+  for (int i = 0; i < 16; i += 4) {
+    l0 += e[i] + e[i + 1];
+    l1 += e[i + 2] + e[i + 3];
+  }
+}
+
+// p = e * inv of one chunk's exponentials, rounded to bf16, as the A
+// fragments of its two 16-key steps of P.V
+__device__ __forceinline__ void chunk_p(uint32_t (*pa)[4], const float (&e)[16], float inv0,
+                                        float inv1) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float* x = e + 8 * h;  // n8 blocks 2h (keys +0..7) and 2h+1 (keys +8..15)
+    pa[h][0] = pack_bf16(x[0] * inv0, x[1] * inv0);
+    pa[h][1] = pack_bf16(x[2] * inv1, x[3] * inv1);
+    pa[h][2] = pack_bf16(x[4] * inv0, x[5] * inv0);
+    pa[h][3] = pack_bf16(x[6] * inv1, x[7] * inv1);
+  }
+}
+
+// issue O (+)= P.V over the 16-key steps of one chunk, V's swizzled rows
+// from v_addr; `first`: the chunk starts the sum
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (*pa)[4], uint32_t v_addr,
+                                         bool first) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    wgmma_m64n64k16_mnmajor(o, pa[h], mnmajor_desc(v_addr + 2048 * h), !first || h > 0);
+}
+
+// o rounded to bf16 into this warp's rows of the swizzled staging tile
+__device__ __forceinline__ void stage_o(const float (&o)[32], uint8_t* tile, int warp, int g,
+                                        int t) {
+  uint8_t* r0 = tile + (warp * 16 + g) * kRowBytes + 4 * t;
+  uint8_t* r1 = r0 + 8 * kRowBytes;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = (j ^ g) << 4;
+    *reinterpret_cast<uint32_t*>(r0 + c) = pack_bf16(o[4 * j], o[4 * j + 1]);
+    *reinterpret_cast<uint32_t*>(r1 + c) = pack_bf16(o[4 * j + 2], o[4 * j + 3]);
+  }
+}
+
+// P's fragments settled before wgmma_fence
+template <int N>
+__device__ __forceinline__ void settle_p(uint32_t (&pa)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) fence_regs(pa[i]);
+}
+
+template <bool kSingle>
+__global__ void __launch_bounds__(kThreads, Shape<kSingle>::kBlocksPerSm)
+    attn_fwd_sm90_kernel(const __grid_constant__ Params p) {
+  using L = Layout<kSingle>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = smem;
+  uint8_t* sv = smem + L::kK;
+  uint8_t* sq = smem + L::kQ;
+  uint8_t* so = smem + L::kO;
+  Barriers& bar = *reinterpret_cast<Barriers*>(smem + L::kBars);
+
+  const int n = p.n, h = blockIdx.y, b = blockIdx.z;
+  const int nt = (n + kTileRows - 1) / kTileRows;
+  const int t_begin = blockIdx.x * p.tiles;
+  const int t_end = min(t_begin + p.tiles, nt);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) mbar_init(&bar.q_full[i], 1), mbar_init(&bar.q_empty[i], kConsumers);
+    for (int i = 0; i < kKStages; ++i)
+      mbar_init(&bar.k_full[i], 1), mbar_init(&bar.k_empty[i], kConsumers);
+    for (int i = 0; i < kVStages; ++i)
+      mbar_init(&bar.v_full[i], 1), mbar_init(&bar.v_empty[i], kConsumers);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: one lane issues every TMA load ----
+    if (threadIdx.x == kConsumers) {
+      int ki = 0, vi = 0;
+      for (int tile = t_begin, qi = 0; tile < t_end; ++tile, ++qi) {
+        const int qs = qi & 1;
+        mbar_wait(&bar.q_empty[qs], ((qi >> 1) & 1) ^ 1);
+        mbar_expect_tx(&bar.q_full[qs], kTileBytes);
+        tma_load_4d(sq + qs * kTileBytes, &p.maps.q, &bar.q_full[qs], 0, tile * kTileRows, h, b);
+        if constexpr (kSingle) {
+          if (tile == t_begin) {  // the whole key row, once a block
+            mbar_expect_tx(&bar.k_full[0], L::kK);
+            tma_load_4d(sk, &p.maps.k, &bar.k_full[0], 0, 0, h, b);
+            mbar_expect_tx(&bar.v_full[0], L::kV);
+            tma_load_4d(sv, &p.maps.v, &bar.v_full[0], 0, 0, h, b);
+          }
+        } else {
+          // pass 1: K tiles; pass 2: K and V tiles
+          for (int pass = 0; pass < 2; ++pass) {
+            for (int k0 = 0; k0 < n; k0 += kTileRows) {
+              const int ks = ki % kKStages;
+              mbar_wait(&bar.k_empty[ks], ((ki / kKStages) & 1) ^ 1);
+              mbar_expect_tx(&bar.k_full[ks], kTileBytes);
+              tma_load_4d(sk + ks * kTileBytes, &p.maps.k, &bar.k_full[ks], 0, k0, h, b);
+              ++ki;
+              if (pass == 1) {
+                const int vs = vi % kVStages;
+                mbar_wait(&bar.v_empty[vs], ((vi / kVStages) & 1) ^ 1);
+                mbar_expect_tx(&bar.v_full[vs], kTileBytes);
+                tma_load_4d(sv + vs * kTileBytes, &p.maps.v, &bar.v_full[vs], 0, k0, h, b);
+                ++vi;
+              }
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the warpgroup computes one 64-row query tile at a time ----
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float scale = p.scale;
+  const uint32_t k_base = smem_u32(sk), v_base = smem_u32(sv);
+  int ki = 0, vi = 0;
+  for (int tile = t_begin, qi = 0; tile < t_end; ++tile, ++qi) {
+    const int qs = qi & 1;
+    const uint32_t q_addr = smem_u32(sq + qs * kTileBytes);
+    mbar_wait(&bar.q_full[qs], (qi >> 1) & 1);
+
+    float o[32];
+    if constexpr (kSingle) {
+      if (tile == t_begin) mbar_wait(&bar.k_full[0], 0);
+      float s[kSingleChunks][16];
+      wgmma_fence();
+      issue_s(s, q_addr, k_base);
+      wgmma_commit();
+      wgmma_wait<0>();
+      mbar_arrive(&bar.q_empty[qs]);
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kSingleChunks; ++c) {
+        fence_regs(s[c]);
+        scale_mask(s[c], c * kChunk, t, n, scale);
+        chunk_max(s[c], m0, m1);
+      }
+      m0 = quad_max(m0), m1 = quad_max(m1);
+      float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+      for (int c = 0; c < kSingleChunks; ++c) {
+        chunk_exp(s[c], m0, m1);
+        chunk_sum(s[c], l0, l1);
+      }
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      uint32_t pa[2 * kSingleChunks][4];
+#pragma unroll
+      for (int c = 0; c < kSingleChunks; ++c) chunk_p(pa + 2 * c, s[c], inv0, inv1);
+      settle_p(pa);
+      if (tile == t_begin) mbar_wait(&bar.v_full[0], 0);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < kSingleChunks; ++c)
+        issue_pv(o, pa + 2 * c, v_base + c * kChunkBytes, c == 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    } else {
+      float s[kStreamChunks][16];
+      // pass 1: the row's max and 1/sum
+      float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+      for (int k0 = 0; k0 < n; k0 += kTileRows, ++ki) {
+        const int ks = ki % kKStages;
+        mbar_wait(&bar.k_full[ks], (ki / kKStages) & 1);
+        wgmma_fence();
+        issue_s(s, q_addr, k_base + ks * kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        mbar_arrive(&bar.k_empty[ks]);
+        float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+        for (int c = 0; c < kStreamChunks; ++c) {
+          fence_regs(s[c]);
+          scale_mask(s[c], k0 + c * kChunk, t, n, scale);
+          chunk_max(s[c], t0, t1);
+        }
+        // every tile holds a key < n, so the new max is finite; exp(-inf)
+        // = 0 drops the empty sum of the first tile
+        const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
+        l0 *= exp_f32(m0 - n0);
+        l1 *= exp_f32(m1 - n1);
+#pragma unroll
+        for (int c = 0; c < kStreamChunks; ++c) {
+          chunk_exp(s[c], n0, n1);
+          chunk_sum(s[c], l0, l1);
+        }
+        m0 = n0, m1 = n1;
+      }
+      const float inv0 = 1.f / quad_sum(l0), inv1 = 1.f / quad_sum(l1);
+      // pass 2: O = P.V, S recomputed tile by tile
+      for (int k0 = 0; k0 < n; k0 += kTileRows, ++ki, ++vi) {
+        const int ks = ki % kKStages, vs = vi % kVStages;
+        mbar_wait(&bar.k_full[ks], (ki / kKStages) & 1);
+        wgmma_fence();
+        issue_s(s, q_addr, k_base + ks * kTileBytes);
+        wgmma_commit();
+        wgmma_wait<0>();
+        mbar_arrive(&bar.k_empty[ks]);
+        uint32_t pa[2 * kStreamChunks][4];
+#pragma unroll
+        for (int c = 0; c < kStreamChunks; ++c) {
+          fence_regs(s[c]);
+          scale_mask(s[c], k0 + c * kChunk, t, n, scale);
+          chunk_exp(s[c], m0, m1);
+          chunk_p(pa + 2 * c, s[c], inv0, inv1);
+        }
+        settle_p(pa);
+        mbar_wait(&bar.v_full[vs], (vi / kVStages) & 1);
+        wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < kStreamChunks; ++c)
+          issue_pv(o, pa + 2 * c, v_base + vs * kTileBytes + c * kChunkBytes, k0 == 0 && c == 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o);
+        mbar_arrive(&bar.v_empty[vs]);
+      }
+      mbar_arrive(&bar.q_empty[qs]);
+    }
+
+    // epilogue: the staging tile is free once the previous tile's store
+    // has read it; then o -> bf16 -> staging -> one TMA store
+    if (threadIdx.x == 0) bulk_wait_read<0>();
+    named_sync(1, kConsumers);
+    stage_o(o, so, warp, g, t);
+    fence_proxy_async();
+    named_sync(1, kConsumers);
+    if (threadIdx.x == 0) {
+      tma_store_4d(&p.maps.o, so, 0, tile * kTileRows, h, b);
+      bulk_commit();
+    }
+  }
+  if (threadIdx.x == 0) bulk_wait<0>();
+}
+
+// one operand through its element strides: (b, h, i, c) at p + b*sb + h*sh + i*sn + c
+struct Operand {
+  const void* p;
+  long long sb, sh, sn;
+};
+
+// Once a process: the SM's shared memory carved out in full, so that two
+// (single pass) or three (streamed) blocks share it.
+template <bool kSingle>
+cudaError_t prepare() {
+  static const cudaError_t state = [] {
+    cudaError_t err = cudaFuncSetAttribute(attn_fwd_sm90_kernel<kSingle>,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess) err = set_smem(attn_fwd_sm90_kernel<kSingle>, Layout<kSingle>::kBytes);
+    return err;
+  }();
+  return state;
+}
+
+template <bool kSingle>
+int launch(const Operand& q, const Operand& k, const Operand& v, const Operand& o, int batch,
+           int n, int heads, float scale, cudaStream_t stream) {
+  Params p;
+  p.n = n;
+  p.scale = scale;
+  const int nt = (n + kTileRows - 1) / kTileRows;
+  cudaError_t err = prepare<kSingle>();
+  const Operand* ops[4] = {&q, &k, &v, &o};
+  CUtensorMap* maps[4] = {&p.maps.q, &p.maps.k, &p.maps.v, &p.maps.o};
+  const int rows[4] = {kTileRows, Shape<kSingle>::kKeyRows, Shape<kSingle>::kKeyRows, kTileRows};
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i)
+    err = encode_rows_map(maps[i], ops[i]->p, n, heads, batch, ops[i]->sn, ops[i]->sh,
+                          ops[i]->sb, rows[i]);
+  if (err != cudaSuccess) return err;
+  p.tiles = 1;
+  if (kSingle) {
+    // split a head's query tiles over blocks only while the (image, head)
+    // blocks alone would leave the card short of two blocks per SM
+    int dev = 0, sms = 0;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const long long pairs = (long long)batch * heads;
+    const long long want = Shape<kSingle>::kBlocksPerSm * (long long)sms;
+    const long long fill = (want + pairs - 1) / pairs;
+    const int split = fill < nt ? (int)fill : nt;
+    p.tiles = (nt + split - 1) / split;
+  }
+  dim3 grid((nt + p.tiles - 1) / p.tiles, heads, batch);
+  attn_fwd_sm90_kernel<kSingle><<<grid, kThreads, Layout<kSingle>::kBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+int launch_fwd(const Operand& q, const Operand& k, const Operand& v, const Operand& o, int batch,
+               int n, int heads, float scale, cudaStream_t stream) {
+  if (batch <= 0 || batch > 65535 || heads <= 0 || heads > 65535 || n <= 0)
+    return cudaErrorInvalidValue;
+  return n <= kSingleKeys ? launch<true>(q, k, v, o, batch, n, heads, scale, stream)
+                          : launch<false>(q, k, v, o, batch, n, heads, scale, stream);
+}
+
+}  // namespace
+
+// A and K: qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16
+int attention_fwd_packed(const void* qkv, void* out, int batch, int n, int heads, float scale,
+                         cudaStream_t stream) {
+  const bf16* rows = static_cast<const bf16*>(qkv);
+  const long long rs = 3LL * heads * kD, orow = (long long)heads * kD;
+  const Operand q{rows, n * rs, kD, rs}, k{rows + heads * kD, n * rs, kD, rs},
+      v{rows + 2 * heads * kD, n * rs, kD, rs}, o{out, n * orow, kD, orow};
+  return launch_fwd(q, k, v, o, batch, n, heads, scale, stream);
+}
+
+// K: the packed rows at any n (past 224 on the model's path)
+GAVIT_EXPORT int gavit_attention_long_fwd(const void* qkv, void* out, int batch, int n, int heads,
+                                          int head_dim, float scale, void* stream) {
+  if (head_dim != kD) return cudaErrorInvalidValue;
+  return attention_fwd_packed(qkv, out, batch, n, heads, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// I and J: q, k, v [batch, heads, n, 64] bf16 -> o [batch, heads, n, 64] bf16, each through
+// strides (sb, sh, sn) in strides[0..11] in the order q, k, v, o (rows 16-byte aligned)
+GAVIT_EXPORT int gavit_attention_bhnd_fwd(const void* q, const void* k, const void* v, void* o,
+                                          const long long* strides, int batch, int n, int heads,
+                                          int head_dim, float scale, void* stream) {
+  if (head_dim != kD) return cudaErrorInvalidValue;
+  const Operand ops[4] = {{q, strides[0], strides[1], strides[2]},
+                          {k, strides[3], strides[4], strides[5]},
+                          {v, strides[6], strides[7], strides[8]},
+                          {o, strides[9], strides[10], strides[11]}};
+  return launch_fwd(ops[0], ops[1], ops[2], ops[3], batch, n, heads, scale,
+                    static_cast<cudaStream_t>(stream));
+}

@@ -1,77 +1,66 @@
-// Kernels K and K': exact multi-head self-attention forward and backward at
-// long sequence lengths (384 px: N = 577), on the packed qkv rows; the same
-// kernels are I and I', and J and J', on separate q, k, v [B, H, N, d].
+// Kernel K': exact multi-head self-attention backward at long sequence
+// lengths (384 px: N = 577), on the packed qkv rows; the same kernels are
+// I' and J' on separate q, k, v [B, H, N, d]. The bf16 forwards K, I and J
+// (and A) are attention_fwd_sm90.cu's Hopper kernel, whose note gives their
+// bound and design.
 //
-// Replaces: gavit_tpu/ops/attention.py::_fwd_kernel_v3 (launched by
-// _run_fwd_v3_impl) and ::_bwd_kernel_v3 (launched by _run_bwd_v3_impl), the
-// pair fused_qkv_attention dispatches to when the v4 row no longer fits the
-// TPU's VMEM budget and before the blockwise v5 kernels take over; and, as
-// I/I' and J/J', ::_fwd_kernel / ::_bwd_kernel (v1, launched by
-// _run_fwd_v1_impl / _run_bwd_v1_impl under attention_pallas) and
-// ::_fwd_kernel_v2 / ::_bwd_kernel_v2 (launched by _run_fwd_v2_impl /
-// _run_bwd_v2_impl under fused_attention_v2).
+// Replaces: gavit_tpu/ops/attention.py::_bwd_kernel_v3 (launched by
+// _run_bwd_v3_impl), the backward fused_qkv_attention dispatches to when
+// the v4 row no longer fits the TPU's VMEM budget and before the blockwise
+// v5 kernels take over; and, as I' and J', ::_bwd_kernel (v1, launched by
+// _run_bwd_v1_impl under attention_pallas) and ::_bwd_kernel_v2 (launched
+// by _run_bwd_v2_impl under fused_attention_v2).
 //
-// Computes what kernels A and A' compute, with the same fp32 softmax over
-// the whole key row (p = exp(s - m) / l with the row's true max m, p rounded
-// to bf16 before p.v) and the same backward formulas:
+// Computes the backward of the forward's function (p = exp(s - m) / l with
+// the row's true max m, p rounded to bf16 before p.v) with A''s formulas:
 //   dv = bf16(p)^T . do,  dp = do . v^T,  delta = rowsum(dp * p),
 //   ds = bf16(p * (dp - delta) * scale),  dq = ds . k,  dk = ds^T . q.
 // v1, v2 and v3 compute this one function and differ only in their TPU
 // grids: v1 one program per (image, head) over N padded to 128, v2 one per
 // image over a chunk of heads sized for VMEM, v3 the packed rows transposed
-// first. On the card each reduces to a block per (image, head, 64 queries),
-// so one kernel pair serves all three, and every operand is addressed
-// through (batch, head, row) strides (attention_tiles.cuh's Heads): K reads
-// q, k and v straight out of the qkv GEMM's [B, N, 3*H*d] rows, writes o as
-// [B, N, H, d] (the Python wrapper returns the [B, H, N, d] view, as for A)
-// and dq, dk, dv into the packed layout; I and J read and write [B, H, N, d]
+// first. On the card each reduces to blocks per (image, head, 64 rows), so
+// one kernel pair serves all three, and every operand is addressed through
+// (batch, head, row) strides (attention_tiles.cuh's Heads): K' reads q, k
+// and v straight out of the qkv GEMM's [B, N, 3*H*d] rows and writes dq,
+// dk, dv into the packed layout; I' and J' read and write [B, H, N, d]
 // tensors. The TPU kernels transpose qkv to [B, 3, H, N, d] first, for
 // VMEM's sake; nothing here needs that copy. N runs from 1 up: rows past N
 // are staged as zeros, keys past N are -inf, and the padding of v1 has no
 // counterpart.
 //
-// Why not A and A': they keep a 16-row tile's scores for every key in mma
-// fragments (224 keys at most), and A' stages Q, K, V and dO of a head at
-// once (295 KB at N = 577, over the 227 KB a block may have). Here every
-// kernel streams tiles of 64 rows through 36 KB of static shared memory and
-// recomputes what it needs instead of keeping it:
-//
-// * K (attn_long_fwd_kernel): grid (query block of 64 rows, head, image),
-//   1920 blocks at b16 (120 at b1), 4 warps of 16 query rows each, Q held in
-//   A fragments. Pass 1 streams K tiles and keeps each row's running max and
+// Why not A': it stages Q, K, V and dO of a head at once (295 KB at N =
+// 577, over the 227 KB a block may have). Here both kernels stream tiles
+// of 64 rows through static shared memory and recompute what they need
+// instead of keeping it. K' is two launches, each without a reduction
+// across blocks or warps (no atomics: deterministic), as A' has two sweeps:
+// * query-major (attn_long_bwd_q_kernel), grid (query block of 64 rows,
+//   head, image), 4 warps of 16 query rows, Q and dO held in A fragments:
+//   pass a (row_stats) streams K tiles and keeps each row's running max and
 //   sum (the sum rescaled when the max moves), which gives the row's true
-//   max m and 1/l. Pass 2 streams K and V tiles, recomputes S, forms
-//   p = exp(s - m) * (1/l), rounds it to bf16 straight into A fragments and
-//   accumulates o = p.v in registers. Ragged N: keys past N are -inf, query
-//   rows past N are zero rows that are never written.
-// * K' is two launches, each without a reduction across blocks or warps (no
-//   atomics: deterministic), as A' has two sweeps:
-//   - query-major (attn_long_bwd_q_kernel), grid as K's: pass a is K's pass
-//     1; pass b streams K and V and sums delta = rowsum(dp * p) in fp32;
-//     pass c streams them again and accumulates dq = ds.K in registers
-//     (K read with ldmatrix.trans). The row max, 1/l and delta go to a
-//     [3, B, H, N] fp32 scratch the wrapper allocates.
-//   - key-major (attn_long_bwd_kv_kernel), grid (key block of 64, head,
-//     image): each warp keeps 16 keys; it streams Q and dO tiles with their
-//     rows' statistics, recomputes the 16x16 tiles of s, p (the same
-//     operations as the query-major kernel, so the same bits) and dp, and
-//     accumulates dv += p^T.dO and dk += ds^T.Q in registers, p and ds
-//     transposed by movmatrix (A''s sweep 2).
+//   max m and 1/l; pass b streams K and V and sums delta = rowsum(dp * p)
+//   in fp32; pass c streams them again and accumulates dq = ds.K in
+//   registers (K read with ldmatrix.trans). The row max, 1/l and delta go
+//   to a [3, B, H, N] fp32 scratch the wrapper allocates.
+// * key-major (attn_long_bwd_kv_kernel), grid (key block of 64, head,
+//   image): each warp keeps 16 keys; it streams Q and dO tiles with their
+//   rows' statistics, recomputes the 16x16 tiles of s, p (the same
+//   operations as the query-major kernel, so the same bits) and dp, and
+//   accumulates dv += p^T.dO and dk += ds^T.Q in registers, p and ds
+//   transposed by movmatrix (A''s sweep 2).
 //
-// What bounds it on the H100: the work is 4*N^2*d FLOPs a head forward and
-// 10*N^2*d backward against ~4*N*d*2 and ~7*N*d*2 bytes, 150-360 FLOP/byte at
-// N = 577, around the card's ridge; the bound is about 0.02 ms (K) and
-// 0.04 ms (K') at b16; at N = 197, b128 (I, J) the bytes bound it, 0.046 ms
-// forward and 0.081 ms backward. This first version spends 1.5x (K) and 2x
-// (K') the FLOPs on recomputation, uses mma.sync rather than wgmma and loads
-// tiles synchronously, so neither bound is near.
+// What bounds it on the H100: the work is 10*N^2*d FLOPs a head against
+// ~7*N*d*2 bytes, about 360 FLOP/byte at N = 577, around the card's ridge;
+// the bound is about 0.04 ms at b16; at N = 197, b128 (I', J') the bytes
+// bound it, 0.081 ms. These kernels spend 2x the FLOPs on recomputation,
+// use mma.sync rather than wgmma and load tiles synchronously, so the
+// bound is not near (ROADMAP Queue 2 lists their redesign).
 #include "attention_tiles.cuh"
 
 namespace {
 
-// Pass 1 of K and pass a of K' (query-major): stream the K tiles of one
-// head and return each of the thread's two rows' max (m0: row g, m1: row
-// g+8) and 1/sum of exp(s - m). sk is a [64][72] staging buffer.
+// Pass a of K' (query-major): stream the K tiles of one head and return
+// each of the thread's two rows' max (m0: row g, m1: row g+8) and 1/sum of
+// exp(s - m). sk is a [64][72] staging buffer.
 __device__ __forceinline__ void row_stats(const uint32_t (*qa)[4], bf16* sk, const bf16* kcol,
                                           long long rs, int n, float scale, int g, int t,
                                           float& m0, float& m1, float& inv0, float& inv1) {
@@ -104,68 +93,6 @@ __device__ __forceinline__ void row_stats(const uint32_t (*qa)[4], bf16* sk, con
   }
   inv0 = 1.f / quad_sum(l0);
   inv1 = 1.f / quad_sum(l1);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    attn_long_fwd_kernel(InHeads q, InHeads k, InHeads v, OutHeads o, int n, float scale) {
-  __shared__ __align__(16) bf16 sq[kTile * kStride];
-  __shared__ __align__(16) bf16 sk[kTile * kStride];
-  __shared__ __align__(16) bf16 sv[kTile * kStride];
-  const int q_begin = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const bf16* kcol = k.at(b, h);
-  const bf16* vcol = v.at(b, h);
-
-  stage(sq, q.at(b, h), q.sn, q_begin, n);
-  __syncthreads();
-  uint32_t qa[4][4];
-  frag_rows(qa, sq + (warp * 16 + g) * kStride + 2 * t);
-
-  float m0, m1, inv0, inv1;
-  row_stats(qa, sk, kcol, k.sn, n, scale, g, t, m0, m1, inv0, inv1);
-
-  // pass 2: O = P.V, P rebuilt per 16-key step from the row statistics
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int d = 0; d < kD / 8; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  const int lrow = lane & 15;  // the row this lane addresses for ldmatrix (x2)
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    __syncthreads();
-    stage(sk, kcol, k.sn, k0, n);
-    stage(sv, vcol, v.sn, k0, n);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-#pragma unroll
-      for (int hlf = 0; hlf < 2; ++hlf) {
-        const int j = 2 * kk + hlf;
-        float s[4];
-        mma_rows(s, qa, sk, j, g, t);
-        scale_mask(s, k0 + j * 8, t, n, scale);
-        a[2 * hlf] = pack_bf16(expf(s[0] - m0) * inv0, expf(s[1] - m0) * inv0);
-        a[2 * hlf + 1] = pack_bf16(expf(s[2] - m1) * inv1, expf(s[3] - m1) * inv1);
-      }
-      // a = {rows g / keys 2t.. of tile 2kk, rows g+8 / 2kk, rows g / 2kk+1,
-      // rows g+8 / 2kk+1}: the A fragment of the 16x16 block of P
-#pragma unroll
-      for (int d = 0; d < kD / 8; ++d) {
-        uint32_t bb[2];
-        ldmatrix_x2_trans(bb, sv + (kk * 16 + lrow) * kStride + d * 8);
-        mma_16816(acc[d], a, bb);
-      }
-    }
-  }
-
-  bf16* ob = o.at(b, h);
-  const int r0 = q_begin + warp * 16 + g;
-#pragma unroll
-  for (int d = 0; d < kD / 8; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (r0 < n) *reinterpret_cast<uint32_t*>(ob + r0 * o.sn + col) = pack_bf16(acc[d][0], acc[d][1]);
-    if (r0 + 8 < n)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * o.sn + col) = pack_bf16(acc[d][2], acc[d][3]);
-  }
 }
 
 // K', query-major: dq into dqkv, and the rows' statistics (max, 1/l, delta)
@@ -369,13 +296,6 @@ bool shape_ok(int batch, int n, int heads, int head_dim) {
   return head_dim == kD && batch > 0 && batch <= 65535 && heads > 0 && heads <= 65535 && n > 0;
 }
 
-int launch_fwd(InHeads q, InHeads k, InHeads v, OutHeads o, int batch, int n, int heads,
-               float scale, cudaStream_t s) {
-  dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  attn_long_fwd_kernel<<<grid, kThreads, 0, s>>>(q, k, v, o, n, scale);
-  return cudaGetLastError();
-}
-
 int launch_bwd(InHeads q, InHeads k, InHeads v, InHeads dout, OutHeads dq, OutHeads dk,
                OutHeads dv, float* stats, int batch, int n, int heads, float scale,
                cudaStream_t s) {
@@ -402,17 +322,6 @@ Heads<T> strided(T* p, const long long* strides, int i) {
 
 }  // namespace
 
-// K: qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16
-GAVIT_EXPORT int gavit_attention_long_fwd(const void* qkv, void* out, int batch, int n, int heads,
-                                          int head_dim, float scale, void* stream) {
-  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
-  const bf16* rows = static_cast<const bf16*>(qkv);
-  const long long orow = (long long)heads * kD;  // o is [B, N, H, d] in memory
-  return launch_fwd(packed(rows, 0, n, heads), packed(rows, 1, n, heads),
-                    packed(rows, 2, n, heads), OutHeads{static_cast<bf16*>(out), n * orow, kD, orow},
-                    batch, n, heads, scale, static_cast<cudaStream_t>(stream));
-}
-
 // K': qkv [batch, n, 3*heads*64] bf16; dout element (b, h, i, c) at
 // dout + b*do_sb + h*do_sh + i*do_sn + c (rows 16-byte aligned); dqkv like
 // qkv; stats: 3*batch*heads*n floats of scratch.
@@ -429,19 +338,6 @@ GAVIT_EXPORT int gavit_attention_long_bwd(const void* qkv, const void* dout, voi
                     packed(drows, 0, n, heads), packed(drows, 1, n, heads),
                     packed(drows, 2, n, heads), static_cast<float*>(stats), batch, n, heads,
                     scale, static_cast<cudaStream_t>(stream));
-}
-
-// I and J: q, k, v [batch, heads, n, 64] bf16 -> o [batch, heads, n, 64] bf16, each through
-// strides (sb, sh, sn) in strides[0..11] in the order q, k, v, o (rows 16-byte aligned)
-GAVIT_EXPORT int gavit_attention_bhnd_fwd(const void* q, const void* k, const void* v, void* o,
-                                          const long long* strides, int batch, int n, int heads,
-                                          int head_dim, float scale, void* stream) {
-  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
-  return launch_fwd(strided(static_cast<const bf16*>(q), strides, 0),
-                    strided(static_cast<const bf16*>(k), strides, 1),
-                    strided(static_cast<const bf16*>(v), strides, 2),
-                    strided(static_cast<bf16*>(o), strides, 3), batch, n, heads, scale,
-                    static_cast<cudaStream_t>(stream));
 }
 
 // I' and J': q, k, v, dout -> dq, dk, dv, all [batch, heads, n, 64] bf16 through strides

@@ -1,4 +1,4 @@
-// Tile helpers shared by the exact kernels K/K', I/I' and J/J' (attention_long.cu)
+// Tile helpers shared by the exact backward K' (I', J'; attention_long.cu)
 // and the blockwise kernels L/L' (attention_large.cu): head_dim 64, blocks of
 // four warps that own 16 rows each, operands staged as [64][72] bf16 arrays
 // (a row padded to 72 so that fragment loads hit 8 different bank groups),

@@ -13,10 +13,12 @@
 * :func:`fused_qkv_attention` — the qkv GEMM's raw ``[B, N, 3·H·d]`` rows
   in, ``[B, H, N, d]`` out, differentiable. On a CUDA tensor it launches the
   kernels :func:`attention_route` names for the sequence length and dtype:
-  kernel A (``csrc/attention.cu``, replaces ``_fwd_kernel_v4``) with A′ in
-  the backward (``csrc/attention_bwd.cu``, replaces ``_bwd_kernel_v4``), or
-  kernel K with K′ (``csrc/attention_long.cu``, replace ``_fwd_kernel_v3``
-  and ``_bwd_kernel_v3``), or the blockwise kernel L with L′
+  kernel A (replaces ``_fwd_kernel_v4``; bf16 in
+  ``csrc/attention_fwd_sm90.cu``, fp32 in ``csrc/attention.cu``) with A′
+  in the backward (``csrc/attention_bwd.cu``, replaces ``_bwd_kernel_v4``),
+  or kernel K with K′ (``csrc/attention_fwd_sm90.cu`` and
+  ``csrc/attention_long.cu``, replace ``_fwd_kernel_v3`` and
+  ``_bwd_kernel_v3``), or the blockwise kernel L with L′
   (``csrc/attention_large.cu``, replace ``_fwd_kernel_v5``,
   ``_dq_kernel_v5`` and ``_dkv_kernel_v5``); it raises for anything those
   kernels do not take.
@@ -31,9 +33,10 @@
   backward (replace ``_fwd_kernel``/``_bwd_kernel``, v1) up to the length
   :func:`pallas_route` gives, and L/L′ past it; :func:`fused_attention_v2`
   launches kernel J with J′ (replace ``_fwd_kernel_v2``/``_bwd_kernel_v2``)
-  at every length. I, I′, J and J′ are K/K′'s kernel pair
-  (``csrc/attention_long.cu``) reading and writing ``[B, H, N, d]`` through
-  strides, each entry point with its own launch counts; their plain
+  at every length. I and J are the bf16 attention forward of A and K
+  (``csrc/attention_fwd_sm90.cu``), I′ and J′ K′'s kernel pair
+  (``csrc/attention_long.cu``), all reading and writing ``[B, H, N, d]``
+  through strides, each entry point with its own launch counts; their plain
   versions are :func:`attention_reference` and
   :func:`attention_bhnd_backward_reference`.
 """
@@ -58,9 +61,10 @@ V1_BWD_KERNEL_LAUNCHES = 0
 V2_KERNEL_LAUNCHES = 0
 V2_BWD_KERNEL_LAUNCHES = 0
 
-# the longest rows kernel A takes: its tensor-core body keeps the scores of
-# 224 keys in registers (bf16); its fp32 body stages K and V of a head in
-# shared memory (attn_smem_bytes(416) = 231,680 of 232,448 bytes)
+# the longest rows kernel A takes: its bf16 body (the single pass of
+# csrc/attention_fwd_sm90.cu) keeps the scores of 224 keys in registers;
+# its fp32 body stages K and V of a head in shared memory
+# (attn_smem_bytes(416) = 231,680 of 232,448 bytes)
 A_MAX_N = {torch.bfloat16: 224, torch.float32: 416}
 # the longest rows kernels K/K′ take. They stream key tiles and would run at
 # any N; the bound is the JAX package's own switch from the exact v3 kernels
@@ -493,16 +497,18 @@ def _card_kernels(q, k, v, what: str) -> bool:
 
 def _aligned_rows(t):
     """``t`` itself where its last dim is contiguous and every row starts
-    16 bytes aligned (bf16), else a contiguous copy."""
-    if (t.stride(-1) != 1 or any(x % 8 for x in t.stride()[:-1])
+    16 bytes aligned (bf16), as the forward's tensor maps need, else a
+    contiguous copy; a broadcast (stride-0) dim is copied too."""
+    lead = t.stride()[:-1]
+    if (t.stride(-1) != 1 or any(x % 8 for x in lead) or 0 in lead
             or t.data_ptr() % 16):
         return t.contiguous()
     return t
 
 
 def _bhnd_forward(q, k, v, scale: float, what: str):
-    """K's kernel on CUDA bf16 q, k, v ``[B, H, N, 64]`` (read through
-    their strides) → o ``[B, H, N, 64]``."""
+    """The bf16 attention forward (A and K's kernel) on CUDA q, k, v
+    ``[B, H, N, 64]`` (read through their strides) → o ``[B, H, N, 64]``."""
     _card_kernels(q, k, v, what)
     if q.device.type != "cuda":
         raise ValueError(f"the Hopper kernels take CUDA tensors, not "

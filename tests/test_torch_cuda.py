@@ -57,9 +57,15 @@ def _err(a, b):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (3, 13, 2), (2, 17, 12),
-                                       (1, 224, 3), (1, 225, 3), (2, 400, 1)])
+@pytest.mark.parametrize("b,n,heads", [
+    (1, 1, 1), (3, 13, 2), (2, 15, 3), (1, 16, 12), (2, 17, 12), (3, 64, 2),
+    (2, 65, 1), (1, 197, 12), (2, 208, 4), (1, 224, 3), (1, 225, 3),
+    (1, 256, 2), (2, 257, 3), (2, 400, 1)])
 def test_attention_kernel_matches_plain(dev, dtype, b, n, heads):
+    """Kernel A (bf16 up to 224 tokens: the single-pass body, whose key row
+    is one 224-row tile; fp32 up to 416) and K past 224 (its streamed body)
+    through ``fused_qkv_attention``, at one token, partial and whole 16-,
+    32- and 64-row tiles and both sides of each bound."""
     qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(dtype)
     # bf16 past 224 keys takes kernel K
     counter = {"A": "KERNEL_LAUNCHES", "K": "LONG_KERNEL_LAUNCHES"}[
@@ -472,15 +478,18 @@ def test_small_vit_training_step_through_kernels(dev):
             assert cos.item() >= 0.99
 
 
-LONG_CASES = [(1, 1, 1), (2, 17, 2), (1, 64, 3), (1, 65, 3), (3, 130, 2),
-              (1, 577, 12), (2, 749, 2)]
+LONG_CASES = [(1, 1, 1), (2, 15, 3), (1, 16, 1), (2, 17, 2), (1, 64, 3),
+              (1, 65, 3), (3, 130, 2), (1, 197, 12), (2, 208, 2), (1, 224, 2),
+              (1, 225, 3), (2, 256, 2), (1, 257, 2), (1, 577, 12),
+              (2, 640, 2), (1, 641, 3), (2, 749, 2)]
 
 
 @pytest.mark.parametrize("b,n,heads", LONG_CASES)
 def test_long_attention_kernels_match_plain(dev, b, n, heads):
-    """K and K′ at ragged N (one token, a partial tile, exactly one and
-    just past one 64-row tile, 384 px, K′'s bound), dO through the strides
-    it arrives with and contiguous."""
+    """K and K′ at ragged N (one token, partial and whole tiles, K's single
+    pass up to 224 and its streamed pass from 225, 384 px, I's last length
+    and K′'s bound), dO through the strides it arrives with and
+    contiguous."""
     bf = torch.bfloat16
     qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(bf)
     before = (A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES)
@@ -498,6 +507,20 @@ def test_long_attention_kernels_match_plain(dev, b, n, heads):
     assert (A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES) == (
         before[0] + 1, before[1] + 2)
     assert got.shape == (b, heads, n, 64) and _err(got, want) <= TOL[bf]
+
+
+@pytest.mark.parametrize("kernel,b,n", [("A", 8, 197), ("K", 2, 197),
+                                          ("K", 16, 577)])
+def test_attention_forward_reruns_are_bit_equal(dev, kernel, b, n):
+    """The forward has no atomics and sums in a fixed order: two runs of A
+    and of K on the same rows give the same bits (K at 197 takes the single
+    pass, at 577 the streamed one)."""
+    qkv = _randn(dev, b, n, 3 * 12 * 64, seed=n).to(torch.bfloat16)
+    fn = {"A": A.qkv_attention_kernel, "K": A.qkv_attention_long_kernel}[kernel]
+    first, second = fn(qkv, 0.125, 12), fn(qkv, 0.125, 12)
+    torch.cuda.synchronize()
+    assert torch.isfinite(first).all()
+    assert torch.equal(first, second)
 
 
 def test_long_attention_gradients_match_autograd_through_plain(dev):
@@ -543,7 +566,7 @@ def test_route_raises_past_the_long_kernels_bound(dev):
 
 
 BHND_CASES = [(1, 1, 1), (2, 2, 7), (1, 3, 64), (2, 2, 65), (1, 12, 197),
-              (1, 2, 640)]
+              (1, 2, 256), (2, 3, 257), (1, 2, 640)]
 
 
 @pytest.mark.parametrize("entry", ["I", "J"])

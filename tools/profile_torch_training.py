@@ -45,11 +45,11 @@ FAMILIES = (
     ("attn_large_fwd", "L blockwise attention forward (attention_large.cu)"),
     ("attn_large_bwd_q", "L′ query-major: delta, dq (attention_large.cu)"),
     ("attn_large_bwd_kv", "L′ key-major: dk, dv (attention_large.cu)"),
-    ("attn_long_fwd", "K long attention forward (attention_long.cu)"),
+    ("attn_fwd_sm90", "A/K attention forward, wgmma (attention_fwd_sm90.cu)"),
     ("attn_long_bwd_q", "K′ query-major: dq, row statistics (attention_long.cu)"),
     ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
     ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
-    ("attn_fwd", "A attention forward (attention.cu)"),
+    ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
     # moe.cu's before mlp.cu's: "gemm_kernel<false, 2" is in both names
     ("moe_gemm_kernel<true, 0,", "M fc1 + GELU + mask (moe.cu)"),
     ("moe_gemm_kernel<true, 1,", "M fc2 + mask (moe.cu)"),
