@@ -30,7 +30,8 @@ before the last line:
    (b32), 1088 and 4097, and the chunked graph path (tensor ops) at 1024
    and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
    in both forms at the b128 routing, with a hot and an empty expert and
-   at b127 (T = 50038, no multiple of the row tile), the same bits again;
+   at b127 (T = 50038, no multiple of the row tile), the same bits again
+   (B too);
    then the JAX package's op-level entry points, counts zeroed before and
    read after: ``multi_head_attention`` and ``fused_attention_v2`` forward
    and backward at b128 × 12 × 197 × 64 (I, I′ and J, J′), ``fused_dropout_add``
@@ -70,8 +71,10 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), the host time of one kernel-A call at b1 (its four
-   tensor-map encodes included) beside sdpa's, Predictor p50 for one image
+   events, median), for B and N-gmm also the device time alone (20
+   launches between two events) beside the library call's, the host time
+   of one kernel-A call and one kernel-B call at b1 (tensor-map encodes
+   included) beside sdpa's and the cuBLAS chain's, Predictor p50 for one image
    at 224 and 384 px,
    images/s of the bf16 forward (224 px b64, 384 px b16) and of the train
    step (224 px b128, 384 px b16), and the 384 MLP's two routes (kernels
@@ -182,6 +185,25 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, launches: int = 20, warmup: int = 3) -> float:
+    """Device time of one ``fn()`` in ms: ``launches`` calls back to back
+    between two CUDA events, so the host's gap between calls is not inside
+    (``cuda_ms`` times each call between its own events)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def host_us(fn, calls: int = 200) -> float:
@@ -472,13 +494,14 @@ def check_mlp(dev, results):
     for m in (N_TOKENS, 8 * N_TOKENS, 64 * N_TOKENS):
         args = mlp_inputs(dev, m)
         got = M.mlp_inference_kernel(*args, True)
+        again = M.mlp_inference_kernel(*args, True)
         want = M._chain_infer(*args, True)
         torch.cuda.synchronize()
-        err = max_err(got, want)
-        ok = torch.isfinite(got).all().item() and err <= MLP_TOL
+        err, same = max_err(got, want), torch.equal(got, again)
+        ok = torch.isfinite(got).all().item() and err <= MLP_TOL and same
         log(f"[check] B mlp bf16 tanh M={m} D={DIM} F={HIDDEN}: "
-            f"max_abs_err {err:.3e} (tol {MLP_TOL:.0e}) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"max_abs_err {err:.3e} (tol {MLP_TOL:.0e}), the same bits "
+            f"again {same} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("kernel B disagrees with its plain version")
         results["B"]["errs"].append(err)
@@ -1871,6 +1894,14 @@ def phase_times(cfg, dev, results, predictors, card):
         log(f"[time] B mlp {dtype_name} M={m}: kernel {k:.4f} ms, plain "
             f"{p:.4f} ms, bf16 cuBLAS chain {blas:.4f} ms, bound {bms:.4f} "
             f"ms ({by}) ({card})")
+        if m == N_TOKENS:
+            # the host's share of a b1 call: the wrapper, the tensor maps
+            # (cached) and two launches, against the chain's three calls
+            hk = host_us(lambda: M.mlp_inference_kernel(*args, True))
+            hl = host_us(lambda: F.linear(F.gelu(F.linear(x, w1, b1),
+                                                 approximate="tanh"), w2, b2))
+            log(f"[time] B mlp bf16 M={m} host: {hk:.1f} us a call, bf16 "
+                f"cuBLAS chain {hl:.1f} us ({card})")
     for dtype_name, b, (t, v) in results["C"]["cases"]:
         for mode, kw in GRAPH_MODES:
             k_, thr = kw.get("k", 8), kw.get("threshold", 0.0)
@@ -1962,6 +1993,13 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     rows["B"] = (kB, pB, lB) + bound(4 * m64 * DIM * HIDDEN,
                                      (2 * m64 * DIM + 2 * DIM * HIDDEN
                                       + HIDDEN + DIM) * 2)
+    results["B"]["device"] = (
+        device_ms(lambda: M.mlp_inference_kernel(*args_b, True)),
+        device_ms(lambda: F.linear(F.gelu(F.linear(x, w1, b1),
+                                          approximate="tanh"), w2, b2)))
+    log(f"[time] B at M={m64}, device alone (20 launches between two "
+        f"events): kernel {results['B']['device'][0]:.4f} ms, bf16 cuBLAS "
+        f"chain {results['B']['device'][1]:.4f} ms ({card})")
 
     # C at b128 with the adjacency kept for the backward, as training runs it
     t = torch.randn(b, n - 1, DIM, device=dev, generator=g).to(bf)
@@ -2572,11 +2610,17 @@ def phase_unfused_times(cfg, dev, results, weights, trainers, batch, card):
             2 * t * DIM * HIDDEN,
             (t * a.shape[1] + EXPERTS * DIM * HIDDEN
              + t * (DIM + HIDDEN - a.shape[1])) * 2)
+        dk = device_ms(lambda: GM.gmm_kernel(a, w1, gs, tr))
+        dl = None if grouped is None else device_ms(
+            lambda: grouped(a, b, offs=offs))
+        results["N-gmm"][key.replace("N-gmm", "device")] = (dk, dl)
         km, pm, lm, bms, by = rows[key]
         log(f"[time] {key} at b{TRAIN_BATCH} (T={t}, groups {gs.tolist()}): "
             f"kernel {km:.4f} ms, plain {pm:.4f} ms, torch._grouped_mm "
             f"{'n/a' if lm is None else f'{lm:.4f} ms'}, bound {bms:.4f} ms "
-            f"({by}) ({card})")
+            f"({by}); device alone (20 launches between two events): kernel "
+            f"{dk:.4f} ms, torch._grouped_mm "
+            f"{'n/a' if dl is None else f'{dl:.4f} ms'} ({card})")
 
     s = cfg.data.image_size
     model = Predictor(cfg, weights, precision="bf16", device=dev).model
@@ -2640,7 +2684,9 @@ def kernels_json(results, serve_counts, train_counts, rows):
     forms counted), from the served requests for B, from the op-level
     phase for I, I′, J, J′, G and E (no training or serving path launches
     them). N-gmm's times are its
-    forward form's; ``transposed`` holds the transposed form's."""
+    forward form's; ``transposed`` holds the transposed form's. B and N-gmm,
+    redesigned on the TMA-fed wgmma mainloop, also carry ``device_ms`` and
+    ``library_device_ms``: 20 launches between two events, no host gap."""
     spec = [
         ("A", "fused_qkv_attention",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
@@ -2717,6 +2763,14 @@ def kernels_json(results, serve_counts, train_counts, rows):
     ngmm, = [row for row in out if row["name"] == "grouped_gemm_gmm"]
     ngmm["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                              "bound_by": by, "library_ms": lm}
+    mlp, = [row for row in out if row["name"] == "fused_mlp_inference"]
+    for row, where in ((mlp, results["B"]["device"]),
+                       (ngmm, results["N-gmm"]["device"]),
+                       (ngmm["transposed"],
+                        results["N-gmm"]["device transposed"])):
+        row["device_ms"], row["library_device_ms"] = where
+    for row in (mlp, ngmm):
+        row["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
     return {"kernels": out}
 
 

@@ -15,7 +15,9 @@
 // memory. So each kernel here is launches of one hand-written tensor-core
 // GEMM with a fused epilogue:
 // * B: fc1 with bias + round + GELU (tanh or erf) + round -> h, then fc2
-//   with bias -> y.
+//   with bias -> y, on the TMA-fed wgmma mainloop of gemm_sm90.cuh (the
+//   hidden h makes one bf16 round trip through device memory: 77 MB at
+//   b64, about 46 us of the card's memory rate).
 // * D: fc1 with bias + round -> h1 (stored: the backward's residual, as on
 //   the TPU), then erf-GELU in fp32 on the rounded h1, the hidden dropout
 //   mask and scale, round -> g; then fc2 with bias, the output mask and
@@ -38,18 +40,19 @@
 //
 // What bounds it on the H100: at M = B*197 rows, D=768, F=3072 each GEMM is
 // 2*M*D*F FLOPs against ~(M*D + M*F + D*F)*2 bytes, far above the card's
-// ~295 FLOP/byte ridge at b128, so the tensor cores bound it. This version
-// feeds them with mma.sync m16n8k16 (bf16 in, fp32 accumulate), fragments
-// loaded with ldmatrix from a 3-stage cp.async ring; wgmma, TMA and warp
-// specialisation come later.
+// ~295 FLOP/byte ridge at b128, so the tensor cores bound it. B feeds them
+// with wgmma (gemm_sm90.cuh). D and D' still feed them with mma.sync
+// m16n8k16 (bf16 in, fp32 accumulate), fragments loaded with ldmatrix from a
+// 3-stage cp.async ring; their move to the wgmma mainloop comes later.
 //
-// Layout: A [M, K] row-major; B either [N, K] row-major (kKN = false: fc1 and
-// fc2, whose weights are [out, in]) or [K, N] row-major (kKN = true: dh =
-// dye . W2 with W2 [D, F]). Tiles are 128x128x64 for 8 warps (each 64x32),
+// D and D''s layout: A [M, K] row-major; B either [N, K] row-major (kKN =
+// false: fc1 and fc2, whose weights are [out, in]) or [K, N] row-major (kKN
+// = true: dh = dye . W2 with W2 [D, F]). Tiles are 128x128x64 for 8 warps (each 64x32),
 // 3 stages; shared rows of 72 (A, [N][K] B) or 136 (B as [K][N]) bf16 keep
 // the ldmatrix phases bank-conflict free. Ragged M and N are masked; K and N
 // must be multiples of 8 (16-byte rows).
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -68,27 +71,60 @@ __host__ __device__ constexpr int smem_bytes() {
   return kStages * stage_elems<kKN>() * (int)sizeof(__nv_bfloat16);
 }
 
-enum Act { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_ERF = 2 };
-// epilogues: B's bias + activation; D's fc1 and fc2; D''s dh
-enum Epi { EPI_INFER = 0, EPI_FC1_TRAIN = 1, EPI_FC2_TRAIN = 2, EPI_DH = 3 };
+// D and D''s epilogues: D's fc1 and fc2; D''s dh
+enum Epi { EPI_FC1_TRAIN = 1, EPI_FC2_TRAIN = 2, EPI_DH = 3 };
 
 struct EpiArgs {
-  const __nv_bfloat16* bias;  // INFER, FC1, FC2
-  int act;                    // INFER
-  __nv_bfloat16* out;         // INFER h or y; FC1 g; FC2 y; DH dh1
+  const __nv_bfloat16* bias;  // FC1, FC2
+  __nv_bfloat16* out;         // FC1 g; FC2 y; DH dh1
   __nv_bfloat16* out2;        // FC1 h1; DH go
   const __nv_bfloat16* h1;    // DH: the forward's h1 [M, N]
   float* colsum;              // DH: column partials [gridDim.y][N]
   DropSite drop;              // FC1 and DH: hidden mask; FC2: output mask
 };
 
-__device__ __forceinline__ float infer_act(float acc, float bias, int act) {
-  const float h = round_to<__nv_bfloat16>(acc + bias);
-  if (act == ACT_GELU_TANH)
-    return 0.5f * h * (1.f + tanhf(0.7978845608028654f * (h + 0.044715f * h * h * h)));
-  if (act == ACT_GELU_ERF) return 0.5f * h * (1.f + erff(h * 0.7071067811865476f));
+// ---- kernel B: epilogues of the wgmma mainloop -----------------------------
+
+enum Act { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_ERF = 2 };
+
+// GELU (tanh or erf) in fp32 of a value already rounded to bf16, as the TPU
+// kernel rounds; each step one rounded operation, so nvcc contracts none of
+// them into an FMA. The tanh form 0.5 h (1 + tanh(u)), u = sqrt(2/pi) (h +
+// 0.044715 h^3), is taken as h / (1 + exp(-2u)), the same function: one
+// expf and one reciprocal, no branch (tanhf branches on |u|, which kept the
+// epilogue warps from overlapping one value's latency with the next's);
+// within a few fp32 ulps of the tanh form, far below the bf16 rounding
+// that follows. Large |u| gives h or -0, as the tanh form does.
+template <int kAct>
+__device__ __forceinline__ float infer_gelu(float h) {
+  if (kAct == ACT_GELU_TANH) {
+    const float cube = __fmul_rn(__fmul_rn(h, h), h);
+    const float minus_2u =
+        __fmul_rn(-1.5957691216057308f, __fadd_rn(h, __fmul_rn(0.044715f, cube)));
+    return __fdividef(h, __fadd_rn(1.f, expf(minus_2u)));
+  }
+  if (kAct == ACT_GELU_ERF)
+    return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, erff(__fmul_rn(h, 0.7071067811865476f))));
   return h;
 }
+
+// fc1 (kAct a GELU) and fc2 (ACT_NONE): the consumers add the bias (the
+// mainloop rounds the sum to bf16 as it stages it); fc1's epilogue warps
+// then take the GELU of each staged value (rounded to bf16 again on store)
+template <int kAct>
+struct InferEpi {
+  static constexpr bool kFinish = kAct != ACT_NONE;
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, float (&v)[4]) {
+    if (col >= p.n) return;  // past N: never stored
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
+    const float b0 = __low2float(b), b1 = __high2float(b);
+    v[0] = __fadd_rn(v[0], b0), v[1] = __fadd_rn(v[1], b1);
+    v[2] = __fadd_rn(v[2], b0), v[3] = __fadd_rn(v[3], b1);
+  }
+  static __device__ __forceinline__ float finish(float h) { return infer_gelu<kAct>(h); }
+};
+
+// ---- kernels D and D': mma.sync -------------------------------------------
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
@@ -207,9 +243,7 @@ __global__ void __launch_bounds__(kThreads)
         if (row >= M) continue;
         const float v0 = acc[mi][ni][half * 2], v1 = acc[mi][ni][half * 2 + 1];
         const long idx = (long)row * N + col;
-        if (kEpi == EPI_INFER) {
-          store2(ep.out + idx, infer_act(v0, b0, ep.act), infer_act(v1, b1, ep.act));
-        } else if (kEpi == EPI_FC1_TRAIN) {
+        if (kEpi == EPI_FC1_TRAIN) {
           const float h0 = round_to<__nv_bfloat16>(v0 + b0);
           const float h1 = round_to<__nv_bfloat16>(v1 + b1);
           store2(ep.out2 + idx, h0, h1);
@@ -355,22 +389,28 @@ bool bad_shape(int m, int d, int f) {
 }  // namespace
 
 // Kernel B. x [m, d], w1 [f, d], b1 [f], w2 [d, f], b2 [d]; h [m, f] is the
-// caller's scratch for the bf16 hidden activations; y [m, d].
+// caller's scratch for the bf16 hidden activations; y [m, d]. Two launches
+// of the wgmma mainloop, both weights K-major: fc1 with the bias + GELU
+// epilogue into h, fc2 with the bias epilogue into y.
 GAVIT_EXPORT int gavit_mlp_infer(const void* x, const void* w1, const void* b1,
                                  const void* w2, const void* b2, void* h, void* y, int m,
                                  int d, int f, int approximate, void* stream) {
-  if (bad_shape(m, d, f)) return cudaErrorInvalidValue;
+  if (gemm90::bad_shape(m, f, d)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  EpiArgs ep{};
-  ep.bias = static_cast<const __nv_bfloat16*>(b1);
-  ep.act = approximate ? ACT_GELU_TANH : ACT_GELU_ERF;
-  ep.out = static_cast<__nv_bfloat16*>(h);
-  cudaError_t err = gemm<false, EPI_INFER>(x, w1, m, f, d, ep, s);
+  gemm90::Params p{};
+  p.m = m, p.n = f, p.k = d, p.experts = 1;
+  p.bias = static_cast<const __nv_bfloat16*>(b1);
+  cudaError_t err = gemm90::row_maps(p, x, h);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, w1, false);
+  if (err == cudaSuccess)
+    err = approximate ? gemm90::launch<InferEpi<ACT_GELU_TANH>, false>(p, s)
+                      : gemm90::launch<InferEpi<ACT_GELU_ERF>, false>(p, s);
   if (err != cudaSuccess) return err;
-  ep.bias = static_cast<const __nv_bfloat16*>(b2);
-  ep.act = ACT_NONE;
-  ep.out = static_cast<__nv_bfloat16*>(y);
-  return gemm<false, EPI_INFER>(h, w2, m, d, f, ep, s);
+  p.n = d, p.k = f;
+  p.bias = static_cast<const __nv_bfloat16*>(b2);
+  err = gemm90::row_maps(p, h, y);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, w2, false);
+  return err == cudaSuccess ? gemm90::launch<InferEpi<ACT_NONE>, false>(p, s) : err;
 }
 
 // Kernel D. As B, plus h1 [m, f] (written: the backward's residual) and g

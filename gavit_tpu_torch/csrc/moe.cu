@@ -44,16 +44,16 @@
 //   owns one 128x128 tile of one expert's [K, N] output and walks that
 //   expert's rows 64 at a time, accumulating in fp32, and rounds to bf16 once.
 //
-// * N-gmm: C[T, N] = A[T, K] . W[e] (W [E, K, N]) or, transposed,
-//   A . W[e]^T (W [E, N, K], read row by row along K as M''s dh reads W2)
-//   over expert-contiguous rows, group_sizes [E] on the device. The groups
-//   are not tile-aligned: a block's 128-row tile may straddle several
-//   groups, lie in one hot group or in none. Each block walks the groups
-//   that overlap its rows and runs the main loop once for each, keeping
-//   that group's rows in the epilogue (as M's split tiles do); an empty
-//   group is skipped; rows past the last group are written as zeros. Each
-//   output element is written by one block from one fp32 sum: no atomics,
-//   reruns give the same bits.
+// * N-gmm: C[T, N] = A[T, K] . W[e] (W [E, K, N], the MN-major B operand)
+//   or, transposed, A . W[e]^T (W [E, N, K], K-major) over expert-contiguous
+//   rows, group_sizes [E] on the device, on the TMA-fed wgmma mainloop of
+//   gemm_sm90.cuh with its store epilogue. The groups are not tile-aligned:
+//   a block's 128-row tile may straddle several groups, lie in one hot group
+//   or in none. Each block walks the groups that overlap its rows and runs
+//   the main loop once for each, keeping that group's rows; an empty group
+//   is skipped; rows past the last group are written as zeros. Each output
+//   element is written once from one fp32 sum: no atomics, reruns give the
+//   same bits.
 //
 // A block's row tile must belong to one expert to use one expert's weights.
 // With tm >= 128 (ViT-B at b64 and b128: tm = 256) it always does. With a
@@ -71,10 +71,11 @@
 //
 // What bounds it on the H100: each GEMM is 2*cap*D*F FLOPs (cap = 52480 rows
 // at ViT-B b128) against ~(cap*(D+F) + D*F*E)*2 bytes, far above the card's
-// ~295 FLOP/byte ridge, so the tensor cores bound M, M' and tgmm. This
-// version feeds them with mma.sync; wgmma, TMA and warp specialisation come
-// later.
+// ~295 FLOP/byte ridge, so the tensor cores bound M, M', tgmm and N-gmm.
+// N-gmm feeds them with wgmma (gemm_sm90.cuh); M, M' and tgmm still with
+// mma.sync, their move to the wgmma mainloop comes later.
 #include "common.cuh"
+#include "gemm_sm90.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -474,39 +475,6 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
-// Kernel N-gmm: C[M, N] = A[M, K] . B_e over the groups of group_sizes[E]
-// (consecutive rows, in expert order). kKN: B [E, K, N]; else B [E, N, K]
-// (the transpose_rhs form). Two blocks an SM (at most 128 registers a
-// thread): the walk over the groups would otherwise take ~180, and one
-// block an SM hides too little of the cp.async ring's latency.
-template <bool kKN>
-__global__ void __launch_bounds__(kThreads, 2)
-    moe_gmm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-                   const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ C, int M,
-                   int N, int K, int E) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int m_end = min(m0 + BM, M);
-  EpiArgs ep{};
-  ep.out = C;
-  int start = 0;
-  for (int e = 0; e < E && start < m_end; ++e) {
-    const int end = start + group_sizes[e];
-    const int lo = max(start, m0), hi = min(end, m_end);
-    if (lo < hi) {
-      __syncthreads();  // the previous segment's readers of shared memory are done
-      gemm_segment<kKN, EPI_STORE, ACT_ERF>(A, B, M, N, K, e, lo, hi, BM, ep, smem_raw);
-    }
-    start = end;
-  }
-  // rows of the tile past the last group: zeros
-  const int z0 = max(start, m0);
-  for (int i = threadIdx.x; i < (m_end - z0) * (BN / 2); i += kThreads) {
-    const int row = z0 + i / (BN / 2), col = n0 + (i % (BN / 2)) * 2;
-    if (col < N) store2(C + (long)row * N + col, 0.f, 0.f);
-  }
-}
-
 // M' prologue: dye = bf16(dy * keep_out * scale) (only when the output mask
 // is on), and the column sums of float(dye) over each chunk of `rows` rows
 // (a chunk lies inside one row tile, so inside one expert). Thread j owns
@@ -677,28 +645,19 @@ GAVIT_EXPORT int gavit_moe_tgmm(const void* a, const void* b, const void* group_
 }
 
 // Kernel N-gmm. a [m, k], group_sizes [e] int32 on the device (rows in
-// expert order, past their sum written as zeros); b [e, k, n], or [e, n, k]
-// with transpose_rhs; writes c [m, n] in bf16.
+// expert order, past their sum written as zeros); b [e, k, n] (the MN-major
+// B operand), or [e, n, k] with transpose_rhs (K-major); writes c [m, n] in
+// bf16.
 GAVIT_EXPORT int gavit_gmm(const void* a, const void* b, const void* group_sizes, void* c, int m,
                            int k, int n, int e, int transpose_rhs, void* stream) {
-  if (m <= 0 || k <= 0 || n <= 0 || e <= 0 || k % 8 || n % 8 || m > 65535 * BM)
-    return cudaErrorInvalidValue;
+  if (gemm90::bad_shape(m, n, k) || e <= 0) return cudaErrorInvalidValue;
+  gemm90::Params p{};
+  p.m = m, p.n = n, p.k = k, p.experts = e;
+  p.group_sizes = static_cast<const int*>(group_sizes);
+  cudaError_t err = gemm90::row_maps(p, a, c);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, b, !transpose_rhs);
+  if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  const auto* A = static_cast<const __nv_bfloat16*>(a);
-  const auto* B = static_cast<const __nv_bfloat16*>(b);
-  const int* gs = static_cast<const int*>(group_sizes);
-  auto* C = static_cast<__nv_bfloat16*>(c);
-  if (transpose_rhs) {
-    constexpr int smem = smem_bytes<false>();
-    cudaError_t err = set_smem(moe_gmm_kernel<false>, smem);
-    if (err != cudaSuccess) return err;
-    moe_gmm_kernel<false><<<grid, kThreads, smem, s>>>(A, B, gs, C, m, n, k, e);
-  } else {
-    constexpr int smem = smem_bytes<true>();
-    cudaError_t err = set_smem(moe_gmm_kernel<true>, smem);
-    if (err != cudaSuccess) return err;
-    moe_gmm_kernel<true><<<grid, kThreads, smem, s>>>(A, B, gs, C, m, n, k, e);
-  }
-  return cudaGetLastError();
+  return transpose_rhs ? gemm90::launch<gemm90::StoreEpi, false>(p, s)
+                       : gemm90::launch<gemm90::StoreEpi, true>(p, s);
 }

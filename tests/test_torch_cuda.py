@@ -97,8 +97,14 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("m,d,f", [(1, 64, 256), (5, 72, 136), (129, 64, 256),
-                                   (197, 768, 3072), (300, 136, 520)])
+                                   (1, 768, 3072), (197, 768, 3072),
+                                   (300, 136, 520), (9232, 768, 3072),
+                                   (12608, 768, 3072)])
 def test_mlp_kernel_matches_plain(dev, m, d, f):
+    """Kernel B at ragged widths (d = 72, 136: a K tail; f = 136, 520: a
+    partial column tile) and at the served rows of ViT-B (b1, 197 = one
+    image, 9232 = 384 px b16, 12608 = b64), both GELU forms, the same bits
+    on a rerun."""
     bf = torch.bfloat16
     x = _randn(dev, m, d, seed=1).to(bf)
     w1 = _randn(dev, f, d, seed=2, scale=d ** -0.5).to(bf)
@@ -109,10 +115,12 @@ def test_mlp_kernel_matches_plain(dev, m, d, f):
     for approximate in (True, False):
         before = M.KERNEL_LAUNCHES
         got = M.mlp_inference_kernel(x, w1, b1, w2, b2, approximate)
-        assert M.KERNEL_LAUNCHES == before + 1
+        again = M.mlp_inference_kernel(x, w1, b1, w2, b2, approximate)
+        assert M.KERNEL_LAUNCHES == before + 2
         want = M._chain_infer(x, w1, b1, w2, b2, approximate)
         torch.cuda.synchronize()
         assert got.shape == (m, d) and got.dtype == bf
+        assert torch.equal(got, again)
         assert _err(got, want) <= TOL[bf]
 
 

@@ -4,8 +4,11 @@ not reach: row tiles 8, 16 (a 128-row block spans several experts) and 256,
 an empty expert, a hot expert (every pair on one), a pair count that is not
 a multiple of the tile, dropout rates 0 and 0.1 with the masks (zero
 patterns) identical to the plain version's; N-gmm in both forms on ragged
-groups (boundaries inside a row tile, an empty and a hot expert, rows past
-the groups, T not a multiple of the tile), the same bits on a rerun; both
+groups (boundaries inside a row tile and at its rows 127, 128 and 129,
+groups of one row, an empty and a hot expert, an empty first and last
+group, rows past the groups, T not a multiple of the tile, T = 50038), the
+same bits on a rerun, and its wide MN-major operand exactly against
+torch.matmul; both
 differentiable engines against ``impl='reference'``, with their launches;
 a zero router's tie picking experts 0 and 1; and a non-bf16 CUDA input
 refused instead of run through a plain version.
@@ -177,11 +180,16 @@ def test_moe_kernels_refuse_what_they_do_not_take(dev):
 
 # N-gmm: (rows, group sizes) — boundaries inside 128-row tiles with an
 # empty expert, one hot expert, rows past the groups (the zero tail), and a
-# row count no tile divides
+# row count no tile divides; boundaries at rows 127, 128 and 129 (the last
+# row of a tile, the edge, the first past it) with groups of one row; an
+# empty first and last group; T = 50038 (the b127 routing's pair count)
 GMM_CASES = {"ragged": (370, [37, 0, 190, 143]),
              "hot": (512, [0, 512, 0, 0]),
              "tail": (300, [5, 41, 17, 33]),
-             "one_row_groups": (131, [1, 1, 128, 1])}
+             "one_row_groups": (131, [1, 1, 128, 1]),
+             "tile_edges": (300, [127, 1, 1, 171]),
+             "empty_ends": (300, [0, 150, 150, 0]),
+             "b127": (50038, [12001, 0, 25000, 13037])}
 
 
 @pytest.mark.parametrize("transpose_rhs", [False, True], ids=["fwd", "t"])
@@ -206,6 +214,25 @@ def test_gmm_kernel_matches_plain(dev, case, transpose_rhs):
     end = sum(sizes)
     if end < t:
         assert not got[end:].any()
+
+
+@pytest.mark.parametrize("transpose_rhs", [False, True], ids=["fwd", "t"])
+def test_gmm_wide_operand_descriptor_is_exact(dev, transpose_rhs):
+    """One group at n = 256 (a B tile of several 64-column swizzle atoms:
+    the forward's MN-major descriptor steps between them by its LBO)
+    against torch.matmul. Entries in {-1, 0, 1} over K = 128 give integer
+    sums of at most 128, exact in fp32 and in bf16, so any element read
+    from the wrong place shows as a mismatch."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    t, kd, n = 200, 128, 256
+    x = torch.randint(-1, 2, (t, kd), device=dev, generator=g).to(torch.bfloat16)
+    w = torch.randint(-1, 2, (1, kd, n), device=dev, generator=g).to(torch.bfloat16)
+    gs = torch.tensor([t], dtype=torch.int32, device=dev)
+    wk = w.transpose(1, 2).contiguous() if transpose_rhs else w
+    got = GM.gmm_kernel(x, wk, gs, transpose_rhs)
+    want = torch.matmul(x.float(), w[0].float()).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("s", [37, 64], ids=["T370", "T640"])

@@ -58,14 +58,15 @@ FAMILIES = (
     ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
     ("moe_tgmm_kernel", "tgmm grouped dW1, dW2 (moe.cu)"),
-    ("moe_gmm_kernel<true>", "N-gmm x·W[e] (moe.cu)"),
-    ("moe_gmm_kernel<false>", "N-gmm transposed dy·W[e]ᵀ (moe.cu)"),
+    ("StoreEpi, true>", "N-gmm x·W[e], wgmma (gemm_sm90.cuh)"),
+    ("StoreEpi, false>", "N-gmm transposed dy·W[e]ᵀ, wgmma (gemm_sm90.cuh)"),
     ("gemm_kernel<true, 3>", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
     ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
     ("gemm_kernel<false, 1>", "D fc1 + GELU + mask (mlp.cu)"),
     ("gemm_kernel<false, 2>", "D fc2 + mask (mlp.cu)"),
-    ("gemm_kernel<false, 0>", "B inference MLP (mlp.cu)"),
+    ("InferEpi<0>", "B fc2 + bias, wgmma (gemm_sm90.cuh)"),
+    ("InferEpi<", "B fc1 + bias + GELU, wgmma (gemm_sm90.cuh)"),
     # dropout.cu's kernel sits in an anonymous namespace; PyTorch's own
     # at::native::elementwise_kernel<128, ...> must not match
     ("namespace)::elementwise_kernel<0,", "F dropout (dropout.cu)"),
