@@ -31,7 +31,9 @@ before the last line:
    and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
    in both forms at the b128 routing, with a hot and an empty expert and
    at b127 (T = 50038, no multiple of the row tile), the same bits again
-   (B too);
+   (B too), and tgmm's two dW on the same packed rows as well as on the
+   fused engine's cap-padded ones (empty experts zero, the same bits
+   again);
    then the JAX package's op-level entry points, counts zeroed before and
    read after: ``multi_head_attention`` and ``fused_attention_v2`` forward
    and backward at b128 × 12 × 197 × 64 (I, I′ and J, J′), ``fused_dropout_add``
@@ -71,7 +73,8 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), for B and N-gmm also the device time alone (20
+   events, median), for B, D, N-gmm and tgmm (both dW, cap-padded and
+   packed rows, and one hot expert) also the device time alone (20
    launches between two events) beside the library call's, the host time
    of one kernel-A call and one kernel-B call at b1 (tensor-map encodes
    included) beside sdpa's and the cuBLAS chain's, Predictor p50 for one image
@@ -749,6 +752,32 @@ def torch_max_abs(t, where) -> float:
     return sel.abs().max().item() if sel.numel() else 0.0
 
 
+def check_tgmm(results, what, a, b, gs):
+    """Kernel tgmm on ``a [R, K]ᵀ · b [R, N]`` grouped by ``gs`` against
+    tgmm_reference: within GRAD_REL_TOL of the largest value (one fp32 sum
+    rounded once, in another order), finite, an empty expert's dW exactly
+    zero, the same bits when run again."""
+    import torch
+
+    from gavit_tpu_torch.ops import gmm as GM
+
+    k = GM.tgmm_kernel(a, b, gs)
+    again = GM.tgmm_kernel(a, b, gs)
+    r = GM.tgmm_reference(a, b, gs, torch.bfloat16)
+    torch.cuda.synchronize()
+    rel, same = rel_err(k, r), torch.equal(k, again)
+    empty = gs == 0
+    zeros = not k[empty].any().item()
+    check("tgmm grouped dW", rel <= GRAD_REL_TOL and same and zeros
+          and torch.isfinite(k).all().item(),
+          f"bf16 {what} [{EXPERTS}, {a.shape[1]}, {b.shape[1]}], groups "
+          f"{gs.tolist()}: rel to max {rel:.3e} (tol {GRAD_REL_TOL:.0e}), "
+          f"the same bits again {same}, empty experts "
+          f"{empty.nonzero().flatten().tolist()} zero {zeros}; max_abs_err "
+          f"{max_err(k, r):.3e}")
+    results["tgmm"]["errs"].append(max_err(k, r))
+
+
 def check_moe(dev, results):
     """M (erf with dropout 0.1, and tanh at rate 0), M′ and tgmm against
     their plain versions at the b128 routing, and with a hot and an empty
@@ -822,16 +851,8 @@ def check_moe(dev, results):
         results["M′"]["errs"].append(err)
         _, go, dh1, _, _, dye = got
         for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
-            k = GM.tgmm_kernel(a, b, c["gs"])
-            r = GM.tgmm_reference(a, b, c["gs"], torch.bfloat16)
-            torch.cuda.synchronize()
-            rel = rel_err(k, r)
-            check("tgmm grouped dW", rel <= GRAD_REL_TOL
-                  and torch.isfinite(k).all().item(),
-                  f"bf16 {routing} {what} [{EXPERTS}, {a.shape[1]}, "
-                  f"{b.shape[1]}] over {cap} rows: rel to max {rel:.3e} (tol "
-                  f"{GRAD_REL_TOL:.0e}); max_abs_err {max_err(k, r):.3e}")
-            results["tgmm"]["errs"].append(max_err(k, r))
+            check_tgmm(results, f"{routing} {what} over the {cap} cap-padded "
+                       f"rows", a, b, c["gs"])
         if routing == "router":
             results["M′"]["cases"].append((dy, h1_ref, go, dh1, dye))
 
@@ -872,8 +893,9 @@ def check_gmm(dev, results):
     version at the b128 routing, with a hot and an empty expert, and at
     b127 (T = 50038, no multiple of the 128-row tile): within GRAD_REL_TOL
     of the largest value (bf16 outputs of fp32 sums taken in another
-    order), the same bits when run again; and the differentiable op,
-    forward and both gradients, on the b127 rows as they are."""
+    order), the same bits when run again; tgmm's two dW on the same packed
+    rows (``check_tgmm``); and the differentiable op, forward and both
+    gradients, on the b127 rows as they are."""
     import torch
 
     from gavit_tpu_torch.ops import gmm as GM
@@ -901,9 +923,14 @@ def check_gmm(dev, results):
                   f"{GRAD_REL_TOL:.0e}), the same bits again {same}; "
                   f"max_abs_err {err:.3e}")
             results["N-gmm"]["errs"].append(err)
+        # tgmm on the same packed rows, as the unfused engine's backward
+        # takes them: dW1 = xᵀ·dh and dW2 = hᵀ·dy
+        for what, a, b in (("dW1", c["x"], c["dh"]), ("dW2", c["h"], c["dy"])):
+            check_tgmm(results, f"{routing} {what} over the T={c['t']} packed "
+                       f"rows", a, b, gs)
         if routing == "router" and batch == TRAIN_BATCH:  # for the times
             results["N-gmm"]["cases"].append(
-                {k: c[k] for k in ("x", "w1", "dh", "gs", "t")})
+                {k: c[k] for k in ("x", "w1", "h", "dh", "dy", "gs", "t")})
     x, w1, dh, gs = c["x"], c["w1"], c["dh"], c["gs"]
     got, refs = {}, {}
     for impl, out in (("auto", got), ("reference", refs)):
@@ -2034,6 +2061,16 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     rows["D"] = (kd, pd, ld) + bound(
         4 * m * DIM * HIDDEN,
         (m * DIM + 2 * DIM * HIDDEN + HIDDEN + DIM + m * HIDDEN + m * DIM) * 2)
+    with torch.no_grad():  # the chain's forward alone, as the kernel's
+        results["D"]["device"] = (
+            device_ms(lambda: M.mlp_train_kernel(x, w1, b1, w2, b2, seed,
+                                                 sites, DROP_RATE,
+                                                 DROP_RATE)),
+            device_ms(chain))
+    log(f"[time] D at M={m} rate {DROP_RATE}, device alone (20 launches "
+        f"between two events): kernel {results['D']['device'][0]:.4f} ms, "
+        f"bf16 chain F.linear → F.gelu → F.dropout → F.linear → F.dropout "
+        f"{results['D']['device'][1]:.4f} ms ({card})")
     kd2 = cuda_ms(lambda: M.mlp_train_bwd_kernel(dy, h1, w2, seed, sites,
                                                  DROP_RATE, DROP_RATE))
     pd2 = cuda_ms(lambda: M.mlp_train_bwd_reference(
@@ -2317,6 +2354,16 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
         log(f"[time] {key} at b{TRAIN_BATCH} (T={t}, cap={cap}, tm={tm}): "
             f"kernel {km:.4f} ms, plain {pm:.4f} ms, library {lm:.4f} ms, "
             f"bound {bms:.4f} ms ({by}) ({card})")
+    # tgmm alone on the device over the cap-padded rows, both dW
+    device = results["tgmm"].setdefault("device", {})
+    for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
+        device[f"{what} cap-padded"] = (
+            device_ms(lambda: GM.tgmm_kernel(a, b, gs)),
+            device_ms(lambda: lib["tgmm"](a, b)))
+        log(f"[time] tgmm {what} over the {cap} cap-padded rows, device "
+            f"alone (20 launches between two events): kernel "
+            f"{device[f'{what} cap-padded'][0]:.4f} ms, {lib['name']} "
+            f"{device[f'{what} cap-padded'][1]:.4f} ms ({card})")
 
     s = cfg.data.image_size
     predictor = Predictor(cfg, weights, precision="bf16", device=dev)
@@ -2597,6 +2644,7 @@ def phase_unfused_times(cfg, dev, results, weights, trainers, batch, card):
 
     c = results["N-gmm"]["cases"][0]
     x, w1, dh, gs, t = c["x"], c["w1"], c["dh"], c["gs"], c["t"]
+    h, dy = c["h"], c["dy"]
     grouped = getattr(torch, "_grouped_mm", None)
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
     rows = {}
@@ -2621,6 +2669,22 @@ def phase_unfused_times(cfg, dev, results, weights, trainers, batch, card):
             f"({by}); device alone (20 launches between two events): kernel "
             f"{dk:.4f} ms, torch._grouped_mm "
             f"{'n/a' if dl is None else f'{dl:.4f} ms'} ({card})")
+    # tgmm alone on the device over the packed rows, both dW, and dW1 with
+    # every row on expert 5 (96 of its 768 tiles have work)
+    device = results["tgmm"].setdefault("device", {})
+    for what, a, b in (("dW1", x, dh), ("dW2", h, dy)):
+        device[f"{what} packed"] = (
+            device_ms(lambda: GM.tgmm_kernel(a, b, gs)),
+            None if grouped is None
+            else device_ms(lambda: grouped(a.t(), b, offs=offs)))
+    hot = torch.zeros_like(gs)
+    hot[5] = t
+    device["dW1 one hot expert"] = (
+        device_ms(lambda: GM.tgmm_kernel(x, dh, hot)), None)
+    for what, (dk, dl) in device.items():
+        log(f"[time] tgmm {what}, device alone: kernel {dk:.4f} ms, "
+            f"torch._grouped_mm {'n/a' if dl is None else f'{dl:.4f} ms'} "
+            f"({card})")
 
     s = cfg.data.image_size
     model = Predictor(cfg, weights, precision="bf16", device=dev).model
@@ -2684,9 +2748,12 @@ def kernels_json(results, serve_counts, train_counts, rows):
     forms counted), from the served requests for B, from the op-level
     phase for I, I′, J, J′, G and E (no training or serving path launches
     them). N-gmm's times are its
-    forward form's; ``transposed`` holds the transposed form's. B and N-gmm,
-    redesigned on the TMA-fed wgmma mainloop, also carry ``device_ms`` and
-    ``library_device_ms``: 20 launches between two events, no host gap."""
+    forward form's; ``transposed`` holds the transposed form's. B, D, N-gmm
+    and tgmm, redesigned on the TMA-fed wgmma mainloop, also carry
+    ``device_ms`` and ``library_device_ms``: 20 launches between two
+    events, no host gap (tgmm's: dW1 over the cap-padded rows, its
+    ``device`` both dW over the cap-padded and the packed rows and dW1 with
+    one hot expert)."""
     spec = [
         ("A", "fused_qkv_attention",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
@@ -2764,12 +2831,19 @@ def kernels_json(results, serve_counts, train_counts, rows):
     ngmm["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                              "bound_by": by, "library_ms": lm}
     mlp, = [row for row in out if row["name"] == "fused_mlp_inference"]
+    train, = [row for row in out if row["name"] == "fused_mlp_train_fwd"]
+    tgmm, = [row for row in out if row["name"] == "grouped_dw_tgmm"]
+    tgmm_device = results["tgmm"]["device"]
     for row, where in ((mlp, results["B"]["device"]),
                        (ngmm, results["N-gmm"]["device"]),
                        (ngmm["transposed"],
-                        results["N-gmm"]["device transposed"])):
+                        results["N-gmm"]["device transposed"]),
+                       (train, results["D"]["device"]),
+                       (tgmm, tgmm_device["dW1 cap-padded"])):
         row["device_ms"], row["library_device_ms"] = where
-    for row in (mlp, ngmm):
+    tgmm["device"] = {what: {"ms": dk, "library_ms": dl}
+                      for what, (dk, dl) in tgmm_device.items()}
+    for row in (mlp, ngmm, train, tgmm):
         row["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
     return {"kernels": out}
 

@@ -1,24 +1,29 @@
-// One bf16 GEMM mainloop for Hopper, shared by kernel B (mlp.cu: the serving
-// MLP's fc1 and fc2) and kernel N-gmm (moe.cu: megablox gmm in both forms):
-// TMA-fed, warp-specialised wgmma with pluggable epilogues.
+// One bf16 GEMM mainloop for Hopper, shared by kernels B and D (mlp.cu: the
+// serving and the training MLP's fc1 and fc2), N-gmm (moe.cu: megablox gmm
+// in both forms) and tgmm (moe.cu: megablox tgmm, the grouped weight
+// gradient): TMA-fed, warp-specialised wgmma with two tile schedules and
+// pluggable epilogues.
 //
-//   C[M, N] = A[M, K] . B_e    for the rows of each group e of group_sizes,
+// * RowTiles (B, D, N-gmm): C[M, N] = A[M, K] . B_e for the rows of each
+//   group e of group_sizes, with A row-major (K-major) and B_e either
+//   K-major ([N, K] rows: nn.Linear's weights, gmm's transposed form) or
+//   MN-major ([K, N] rows: gmm's forward W[e]). A dense GEMM is one group
+//   of every row (group_sizes null).
+// * GroupedK (tgmm): C[e] = A[rows of e]^T . B[rows of e] for A [R, M], B
+//   [R, N] row-major and C [E, M, N]: both operands MN-major, and the K loop
+//   runs over the rows of one group.
 //
-// with A row-major (K-major) and B_e either K-major ([N, K] rows: nn.Linear's
-// weights, gmm's transposed form) or MN-major ([K, N] rows: gmm's forward
-// W[e]). A dense GEMM is one group of every row (group_sizes null).
-//
-// What bounds it on the H100: at the main shapes (B: M = 12608, K, N = 768,
-// 3072; N-gmm: T = 50432) a GEMM does 2*M*K*N FLOPs against (M*K + K*N*E +
-// M*N)*2 bytes, far above the card's ~295 FLOP/byte ridge: the tensor cores
-// bound it, fed from L2 (every operand fits the 50 MB cache).
+// What bounds it on the H100: at the main shapes (B: M = 12608, D: M =
+// 25216, K, N = 768, 3072; N-gmm and tgmm: T = 50432) a GEMM does 2*M*K*N
+// FLOPs against (M*K + K*N*E + M*N)*2 bytes, far above the card's ~295
+// FLOP/byte ridge: the tensor cores bound it, fed from L2.
 //
 // Design (one persistent block an SM, 384 threads):
 // * Tiles of 128 x 192 output elements, walked by the blocks in turn (tile
-//   t by block t mod grid), N fastest. 192 divides 768 and 3072, and the
-//   tile counts at the main shapes fill whole waves of 132 SMs (fc1 1584 =
-//   12 waves, fc2 396 = 3); a persistent loop also lifts gridDim.y's limit
-//   on M.
+//   t by block t mod grid), N fastest (GroupedK: then M, then the group).
+//   192 divides 768 and 3072, and the tile counts at the main shapes fill
+//   whole waves of 132 SMs (B's fc1 1584 = 12 waves, fc2 396 = 3); a
+//   persistent loop also lifts gridDim.y's limit on M.
 // * Warpgroup 0 is the producer: one thread issues every TMA load into a
 //   4-stage ring of 128-byte swizzled tiles (A 128 x 64, B 192 x 64: 40 KB a
 //   stage) and signals full barriers; the consumers free a stage through its
@@ -32,38 +37,53 @@
 //   every region by the launch bound whatever setmaxnreg asks, as the
 //   attention forward found).
 // * Epilogue, in two parts. The consumers map each accumulator quad (two
-//   columns, rows g and g+8) in registers (a bias) and round it to bf16
-//   into a 128-byte swizzled staging tile per warpgroup (64 x 192: three
-//   64-column atoms), then hand the tile over through an mbarrier. The
-//   epilogue warps apply the epilogue's elementwise finish to the staged
-//   values in shared memory (B's GELU) and store the tile by TMA, which
-//   drops rows past M and columns past N; once the store has read it, the
-//   tile goes back to its consumers. The finish and the store of one tile
-//   overlap the next tile's mainloop: run by the consumers themselves, fc1's
-//   GELU (about 35 instructions a value, tanhf among them) took nearly as
-//   long as its mainloop, with the tensor cores idle.
-// * Groups (N-gmm): each block walks the groups that overlap its 128-row
-//   tile and runs the mainloop once for each (a GEMM row needs no other row,
-//   so the whole tile is multiplied by group e's weights and only e's rows
-//   are kept). The segments of one tile write disjoint rows of the same
-//   staging tile, rows past the last group are staged as zeros, and the
-//   tile leaves in one store: every element is written once, from one fp32
-//   sum, with no atomics, so reruns give the same bits. Straddling tiles
-//   cost one extra mainloop per group boundary (at most E - 1 a column of
-//   tiles). Nothing reads a group size on the host.
+//   columns of rows r0 and r0 + 8) in registers (a bias; D's output mask)
+//   and round it to bf16 into a 128-byte swizzled staging tile per
+//   warpgroup (64 x 192: three 64-column atoms), then hand the tile over
+//   through an mbarrier. The epilogue warps apply the epilogue's finish to
+//   the staged values in shared memory (B's GELU) and store the tile by
+//   TMA, which drops rows past M and columns past N; once the store has
+//   read it, the tile goes back to its consumers. The finish and the store
+//   of one tile overlap the next tile's mainloop: run by the consumers
+//   themselves, B's fc1 GELU (about 35 instructions a value, tanhf among
+//   them) took nearly as long as its mainloop, with the tensor cores idle.
+// * D's training epilogues: epilogue warps 2-3 draw each tile's Philox keep
+//   bits (one bit an element, 3 KB a tile, double-buffered) ahead of the
+//   consumers, which apply them in registers (fc2) or when they read their
+//   staged h1 back and write g = GELU(h1) * keep * scale themselves (fc1);
+//   warp 1 stores. Run on the three epilogue warps, the exact-erf GELU and
+//   Philox held fc1 to 3.5 times its bare GEMM's time (PERF.md §6).
+// * RowTiles' groups (N-gmm): each block walks the groups that overlap its
+//   128-row tile and runs the mainloop once for each (a GEMM row needs no
+//   other row, so the whole tile is multiplied by group e's weights and
+//   only e's rows are kept). The segments of one tile write disjoint rows
+//   of the same staging tile, rows past the last group are staged as
+//   zeros, and the tile leaves in one store: every element is written once,
+//   from one fp32 sum, with no atomics, so reruns give the same bits.
+//   Straddling tiles cost one extra mainloop per group boundary (at most E
+//   - 1 a column of tiles). Nothing reads a group size on the host.
+// * GroupedK (tgmm): a tile of C[e] walks e's rows [r_begin, r_end) in
+//   64-row steps from r_begin (TMA box coordinates need no alignment). A
+//   consumer warpgroup's A operand is one 64 x 64 atom A[r.., m0 + 64 wg
+//   ..]^T, read with wgmma's transpose-A bit. The last step's rows at or
+//   past r_end belong to the next group or lie past R: both consumer
+//   warpgroups zero them in shared memory, in A and in B, before any wgmma
+//   reads the stage, so they add exactly nothing (Inf and NaN included).
+//   An empty group's tile takes no ring step and stages zeros. Each element
+//   is one fp32 sum rounded once: reruns give the same bits.
 // * Edges: rows past M and the K tail arrive as zeros through TMA's
-//   out-of-bounds fill; a B atom wholly past N is not loaded (the columns it
-//   would feed are never stored).
-// * Tensor maps: A [K, M], C [N, M] and B [K or N, N or K, E], rank 3, are
-//   encoded on the host and cached by (address, extents, box): weights hit
-//   the cache on every call after the first, and activations too once
-//   PyTorch's allocator hands out the same blocks again, so a served call
-//   pays no encode in steady state.
+//   out-of-bounds fill; an atom wholly past M or N is not loaded (the rows
+//   or columns it would feed are never stored).
+// * Tensor maps: rank 3 ([depth, rows, inner]), encoded on the host and
+//   cached by (address, extents, box): weights hit the cache on every call
+//   after the first, and activations too once PyTorch's allocator hands out
+//   the same blocks again, so a served call pays no encode in steady state.
 #pragma once
 
 #include <mutex>
 
 #include "common.cuh"
+#include "philox.cuh"
 #include "sm90.cuh"
 
 namespace {
@@ -80,19 +100,23 @@ constexpr int kBBytes = BN * BK * 2;            // 24 KB
 constexpr int kStageBytes = kABytes + kBBytes;  // 40 KB
 constexpr int kWgRows = 64;                     // rows of a consumer warpgroup
 constexpr int kOutBytes = kWgRows * BN * 2;     // a warpgroup's staging tile, 24 KB
+constexpr int kMaskBytes = BM * BN / 8;        // a tile's keep bits, a byte per 8 columns
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;
+static_assert(kWgRows * 128 == kAtomBytes, "a warpgroup's K-major A rows are one atom");
 
 struct Barriers {
   uint64_t full[kStages], empty[kStages];  // the ring
   uint64_t out_full[2], out_empty[2];      // the consumers' staging tiles
+  uint64_t mask_full[2], mask_empty[2];    // the keep bits of two tiles
 };
 
 // shared memory from a 1024-byte aligned base: the ring, the two staging
-// tiles, the barriers
+// tiles, the keep bits of two tiles, the barriers
 struct Layout {
   static constexpr int kOut = kStages * kStageBytes;
-  static constexpr int kBars = kOut + 2 * kOutBytes;
+  static constexpr int kMask = kOut + 2 * kOutBytes;
+  static constexpr int kBars = kMask + 2 * kMaskBytes;
   static constexpr int kBytes = kBars + (int)sizeof(Barriers) + 1024;
 };
 static_assert(Layout::kBytes <= kMaxSmemBytes, "the GEMM's shared memory exceeds a block's");
@@ -103,55 +127,152 @@ struct Params {
   const int* group_sizes;  // [experts] on the device; null: one group of all rows
   int experts;
   const bf16* bias;        // for the epilogues that take one ([N])
+  DropSite drop;           // for the epilogues that mask (D)
+  bf16* out2;              // a second output [M, N], for the epilogues that write one (D's g)
+};
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// An output tile: rows m0.., columns n0.. of slice `depth` of C.
+struct Tile {
+  int m0, n0, depth;
+};
+
+// Rows [lo, hi) of a tile keep the product over K indices [k0, k1) with
+// group e's operands; `end` is the first row past group e (RowTiles) or past
+// the tile (GroupedK). A schedule's next() steps a segment, starting from
+// kNoSegment, to the tile's next one and returns false past the last, with
+// `end` then the first row of the tile past every group. The walk is a plain
+// loop in the kernel, no callback, so that the mainloop's accumulator never
+// has its address taken and stays in registers.
+struct Segment {
+  int e, k0, k1, lo, hi, end;
+};
+constexpr Segment kNoSegment{-1, 0, 0, 0, 0, 0};
+
+// The row schedule: C [M, N], N fastest; a tile's segments are the groups
+// that hold its rows, in order, each over the whole of K.
+struct RowTiles {
+  static constexpr bool kTransA = false;
+  static __host__ __device__ long long count(const Params& p) {
+    return (long long)cdiv(p.m, BM) * cdiv(p.n, BN);
+  }
+  static __device__ __forceinline__ Tile at(const Params& p, int t) {
+    const int nt = cdiv(p.n, BN);
+    return Tile{t / nt * BM, t % nt * BN, 0};
+  }
+  static __device__ __forceinline__ bool next(const Params& p, const Tile& t, Segment& sg) {
+    const int m_end = min(t.m0 + BM, p.m);
+    if (p.group_sizes == nullptr) {
+      if (sg.e >= 0) return false;
+      sg = Segment{0, 0, p.k, t.m0, m_end, m_end};
+      return true;
+    }
+    for (int e = sg.e + 1; e < p.experts && sg.end < m_end; ++e) {
+      const int start = sg.end, end = start + p.group_sizes[e];
+      sg.e = e, sg.end = end;
+      const int lo = max(start, t.m0), hi = min(end, m_end);
+      if (lo < hi) {
+        sg.k0 = 0, sg.k1 = p.k, sg.lo = lo, sg.hi = hi;
+        return true;
+      }
+    }
+    return false;
+  }
+};
+
+// The grouped-K schedule: C [E, M, N], N fastest, then M, then the group;
+// one segment a tile, K over its group's rows of A [R, M] and B [R, N].
+struct GroupedK {
+  static constexpr bool kTransA = true;
+  static __host__ __device__ long long count(const Params& p) {
+    return (long long)p.experts * cdiv(p.m, BM) * cdiv(p.n, BN);
+  }
+  static __device__ __forceinline__ Tile at(const Params& p, int t) {
+    const int nt = cdiv(p.n, BN), per = cdiv(p.m, BM) * nt;
+    const int r = t % per;
+    return Tile{r / nt * BM, r % nt * BN, t / per};
+  }
+  static __device__ __forceinline__ bool next(const Params& p, const Tile& t, Segment& sg) {
+    if (sg.e >= 0) return false;
+    int r_begin = 0;
+    for (int e = 0; e < t.depth; ++e) r_begin += p.group_sizes[e];
+    sg = Segment{t.depth, r_begin, r_begin + p.group_sizes[t.depth], t.m0, t.m0 + BM,
+                 t.m0 + BM};
+    return true;
+  }
 };
 
 // An epilogue: `apply` maps an accumulator quad (columns col and col + 1 of
-// rows g and g + 8) in the consumers' registers before the values are
-// rounded to bf16 and staged; with kFinish, the epilogue warps then map
-// every staged value x to finish(x), rounded to bf16 again, in shared
-// memory, while the consumers run the next tile's mainloop.
+// two rows, r0 and r0 + 8) in the consumers' registers before the values
+// are rounded to bf16 and staged. With kFinish, the epilogue warps then map
+// each 16-byte chunk of 8 staged values (row, columns col..col + 7) with
+// finish(), in shared memory, while the consumers run the next tile's
+// mainloop. With kReadBack, the consumers themselves map each chunk of
+// their staged tile with read_back(), which writes a second output (D's g)
+// and leaves the staged values as they are. With kDrawBits, the epilogue
+// warps draw each tile's keep bits with keep8() (bit i: column col + i of
+// a row) ahead of its consumers, Philox's arithmetic off the tensor cores'
+// path; apply() gets its quad's 4 bits (columns col, col + 1 of row r0,
+// then of r0 + 8), read_back() the 8 of its chunk.
 // The epilogue that stores the sums as they are:
 struct StoreEpi {
-  static constexpr bool kFinish = false;
-  static __device__ __forceinline__ void apply(const Params&, int, float (&)[4]) {}
+  static constexpr bool kFinish = false, kReadBack = false, kDrawBits = false;
+  static __device__ __forceinline__ void apply(const Params&, int, uint32_t, float (&)[4]) {}
 };
 
-// Calls f(e, lo, hi) for each group e that holds rows [lo, hi) of the tile
-// at m0, in order; returns the first row of the tile past the last group.
-template <class F>
-__device__ __forceinline__ int walk_groups(const Params& p, int m0, F&& f) {
-  const int m_end = min(m0 + BM, p.m);
-  if (p.group_sizes == nullptr) {
-    f(0, m0, m_end);
-    return m_end;
-  }
-  int start = 0;
-  for (int e = 0; e < p.experts && start < m_end; ++e) {
-    const int end = start + p.group_sizes[e];
-    const int lo = max(start, m0), hi = min(end, m_end);
-    if (lo < hi) f(e, lo, hi);
-    start = end;
-  }
-  return max(start, m0);
+// The row and the first column of the 8 values in 16-byte chunk c of a
+// staging tile whose rows start at m0 and columns at n0: atom c / 512, row
+// (c / 8) % 64, logical chunk (c % 8) ^ (row % 8) of the 128-byte swizzle.
+__device__ __forceinline__ int chunk_row(int m0, int c) { return m0 + ((c >> 3) & 63); }
+__device__ __forceinline__ int chunk_col(int n0, int c) {
+  return n0 + (c >> 9) * kAtom + (((c & 7) ^ ((c >> 3) & 7)) << 3);
 }
 
-// acc = (this warpgroup's 64 rows of A) . B over every K step; `it` counts
-// the ring's uses in the block's order (the producer's).
-template <bool kMnB>
-__device__ __forceinline__ void mainloop(float (&acc)[96], uint32_t ring, int wg, int k_steps,
-                                         uint32_t& it, Barriers& bar) {
-  for (int ks = 0; ks < k_steps; ++ks, ++it) {
+// GroupedK's last step of a group: rows [valid, BK) of the stage hold the
+// next group's rows or TMA's zeros past R. Warpgroup wg zeros them in its
+// own A atom, the two consumer warpgroups together in B's atoms; both then
+// wait for each other, so that no wgmma reads the stage before every zero
+// is visible to the async proxy. Whole 128-byte rows: the swizzle does not
+// matter.
+__device__ __forceinline__ void zero_tail(uint8_t* stage, int wg, int valid) {
+  const int ct = threadIdx.x - 128;     // 0..255 over both consumer warpgroups
+  const int chunks = (BK - valid) * 8;  // 16-byte chunks of an atom's rows past valid
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+  uint8_t* a = stage + wg * kAtomBytes + valid * 128;
+  for (int c = ct & 127; c < chunks; c += 128) *reinterpret_cast<uint4*>(a + 16 * c) = z;
+  uint8_t* b = stage + kABytes + valid * 128;
+  for (int c = ct; c < kAtoms * chunks; c += kConsumers)
+    *reinterpret_cast<uint4*>(b + (c / chunks) * kAtomBytes + 16 * (c % chunks)) = z;
+  fence_proxy_async();
+  named_sync(2, kConsumers);
+}
+
+// acc = (this warpgroup's 64 rows of A) . B over the segment's K indices;
+// `it` counts the ring's uses in the block's order (the producer's). A
+// segment of no K index (GroupedK's empty group) takes no step and leaves
+// acc as it was.
+template <bool kMnB, bool kTransA>
+__device__ __forceinline__ void mainloop(float (&acc)[96], uint8_t* smem, int wg,
+                                         const Segment& sg, uint32_t& it, Barriers& bar) {
+  const uint32_t ring = smem_u32(smem);
+  const int steps = cdiv(sg.k1 - sg.k0, BK);
+  for (int ks = 0; ks < steps; ++ks, ++it) {
     const int s = it % kStages;
     mbar_wait(&bar.full[s], (it / kStages) & 1);
-    const uint32_t a = ring + s * kStageBytes + wg * kWgRows * 128;
+    if (kTransA) {
+      const int valid = sg.k1 - sg.k0 - ks * BK;
+      if (valid < BK) zero_tail(smem + s * kStageBytes, wg, valid);
+    }
+    const uint32_t a = ring + s * kStageBytes + wg * kAtomBytes;
     const uint32_t b = ring + s * kStageBytes + kABytes;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint64_t da = kmajor_desc(a + 32 * kk);
+      const uint64_t da = kTransA ? mnmajor_desc(a + 2048 * kk) : kmajor_desc(a + 32 * kk);
       const uint64_t db =
           kMnB ? mnmajor_wide_desc(b + 2048 * kk, kAtomBytes) : kmajor_desc(b + 32 * kk);
-      wgmma_m64n192k16_ss<kMnB ? 1 : 0>(acc, da, db, ks > 0 || kk > 0);
+      wgmma_m64n192k16_ss<kTransA ? 1 : 0, kMnB ? 1 : 0>(acc, da, db, ks > 0 || kk > 0);
     }
     wgmma_commit();
     wgmma_wait<1>();  // the previous step's wgmmas are done: free its stage
@@ -159,10 +280,10 @@ __device__ __forceinline__ void mainloop(float (&acc)[96], uint32_t ring, int wg
   }
   wgmma_wait<0>();
   fence_regs(acc);
-  mbar_arrive(&bar.empty[(it - 1) % kStages]);
+  if (steps > 0) mbar_arrive(&bar.empty[(it - 1) % kStages]);
 }
 
-template <class Epi, bool kMnB>
+template <class Epi, bool kMnB, class Sched>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) uint8_t gemm_smem[];
   uint8_t* smem = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
@@ -171,50 +292,76 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s)
       mbar_init(&bar.full[s], 1), mbar_init(&bar.empty[s], kConsumers);
-    for (int w = 0; w < 2; ++w)
+    for (int w = 0; w < 2; ++w) {
       mbar_init(&bar.out_full[w], kConsumers / 2), mbar_init(&bar.out_empty[w], 1);
+      mbar_init(&bar.mask_full[w], 64), mbar_init(&bar.mask_empty[w], kConsumers);
+    }
     fence_mbar_init();
   }
   __syncthreads();
 
-  const int n_tiles = (p.n + BN - 1) / BN;
-  const int tiles = (p.m + BM - 1) / BM * n_tiles;
-  const int k_steps = (p.k + BK - 1) / BK;
+  const int tiles = (int)Sched::count(p);
 
   if (threadIdx.x < 128) {
     // ---- producer: one thread issues every TMA load ----
     if (threadIdx.x == 0) {
       uint32_t it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
-        const int atoms = kMnB ? min(kAtoms, (p.n - n0 + kAtom - 1) / kAtom) : 0;
-        const unsigned bytes = kABytes + (kMnB ? atoms * kAtomBytes : kBBytes);
-        walk_groups(p, m0, [&](int e, int, int) {
-          for (int ks = 0; ks < k_steps; ++ks, ++it) {
+        const Tile t = Sched::at(p, tile);
+        const int a_atoms = Sched::kTransA ? min(BM / kAtom, cdiv(p.m - t.m0, kAtom)) : 0;
+        const int b_atoms = kMnB ? min(kAtoms, cdiv(p.n - t.n0, kAtom)) : 0;
+        const unsigned bytes = (Sched::kTransA ? a_atoms * kAtomBytes : kABytes) +
+                               (kMnB ? b_atoms * kAtomBytes : kBBytes);
+        for (Segment sg = kNoSegment; Sched::next(p, t, sg);) {
+          const int depth = Sched::kTransA ? 0 : sg.e;  // B's slice: group e's weights
+          for (int kx = sg.k0; kx < sg.k1; kx += BK, ++it) {
             const int s = it % kStages;
             mbar_wait(&bar.empty[s], ((it / kStages) & 1) ^ 1);
             mbar_expect_tx(&bar.full[s], bytes);
             uint8_t* st = smem + s * kStageBytes;
-            tma_load_3d(st, &p.a, &bar.full[s], ks * BK, m0, 0);
-            if (kMnB) {
-              for (int j = 0; j < atoms; ++j)
-                tma_load_3d(st + kABytes + j * kAtomBytes, &p.b, &bar.full[s], n0 + j * kAtom,
-                            ks * BK, e);
+            if (Sched::kTransA) {
+              for (int j = 0; j < a_atoms; ++j)
+                tma_load_3d(st + j * kAtomBytes, &p.a, &bar.full[s], t.m0 + j * kAtom, kx, 0);
             } else {
-              tma_load_3d(st + kABytes, &p.b, &bar.full[s], ks * BK, n0, e);
+              tma_load_3d(st, &p.a, &bar.full[s], kx, t.m0, 0);
+            }
+            if (kMnB) {
+              for (int j = 0; j < b_atoms; ++j)
+                tma_load_3d(st + kABytes + j * kAtomBytes, &p.b, &bar.full[s], t.n0 + j * kAtom,
+                            kx, depth);
+            } else {
+              tma_load_3d(st + kABytes, &p.b, &bar.full[s], kx, t.n0, depth);
             }
           }
-        });
+        }
       }
     } else if (threadIdx.x >= 32) {
-      // ---- epilogue warps 1-3: finish each staging tile, store it ----
+      // ---- epilogue warps 1-3: finish each staging tile, store it; or,
+      // with kDrawBits, warp 1 stores and warps 2-3 draw the keep bits ----
+      static_assert(!(Epi::kFinish && Epi::kDrawBits), "the finish pass takes warps 2-3");
       const int etid = threadIdx.x - 32;
+      if constexpr (Epi::kDrawBits) {
+        if (etid >= 32) {
+          int ti = 0;
+          for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
+            const Tile t = Sched::at(p, tile);
+            // buffer ti % 2, once its consumers have read tile ti - 2's bits
+            mbar_wait(&bar.mask_empty[ti & 1], ((ti >> 1) & 1) ^ 1);
+            uint8_t* mask = smem + Layout::kMask + (ti & 1) * kMaskBytes;
+            for (int i = etid - 32; i < kMaskBytes; i += 64)
+              mask[i] = (uint8_t)Epi::keep8(p, t.m0 + i / (BN / 8), t.n0 + 8 * (i % (BN / 8)));
+            mbar_arrive(&bar.mask_full[ti & 1]);
+          }
+          return;
+        }
+      }
       if (!Epi::kFinish && etid != 0) return;  // storing takes one thread
       int ti = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
-        const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
+        const Tile t = Sched::at(p, tile);
         for (int w = 0; w < 2; ++w) {
           uint8_t* out = smem + Layout::kOut + w * kOutBytes;
+          const int m0 = t.m0 + w * kWgRows;
           mbar_wait(&bar.out_full[w], ti & 1);
           if constexpr (Epi::kFinish) {
             // elementwise, so the swizzle does not matter: 2 x 16 bytes a
@@ -223,12 +370,8 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
             for (int c = etid; c < kOutBytes / 16; c += 2 * 96) {
               uint4 q[2] = {*reinterpret_cast<const uint4*>(out + 16 * c),
                             *reinterpret_cast<const uint4*>(out + 16 * (c + 96))};
-              uint32_t* u = reinterpret_cast<uint32_t*>(q);
-#pragma unroll
-              for (int i = 0; i < 8; ++i) {
-                const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
-                u[i] = pack_bf16(Epi::finish(__low2float(h)), Epi::finish(__high2float(h)));
-              }
+              Epi::finish(q[0]);
+              Epi::finish(q[1]);
               *reinterpret_cast<uint4*>(out + 16 * c) = q[0];
               *reinterpret_cast<uint4*>(out + 16 * (c + 96)) = q[1];
             }
@@ -236,9 +379,9 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
             named_sync(1, 96);
           }
           if (etid == 0) {
-            if (m0 + w * kWgRows < p.m)
-              for (int j = 0; j < kAtoms && n0 + j * kAtom < p.n; ++j)
-                tma_store_3d(&p.c, out + j * kAtomBytes, n0 + j * kAtom, m0 + w * kWgRows, 0);
+            if (m0 < p.m)
+              for (int j = 0; j < kAtoms && t.n0 + j * kAtom < p.n; ++j)
+                tma_store_3d(&p.c, out + j * kAtomBytes, t.n0 + j * kAtom, m0, t.depth);
             bulk_commit();
             bulk_wait_read<0>();  // the store has read the tile: the consumers may refill it
             mbar_arrive(&bar.out_empty[w]);
@@ -253,38 +396,50 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
   // ---- consumers: warpgroup wg owns rows 64*wg.. of each tile ----
   const int wg = (threadIdx.x >> 7) - 1;
   const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const uint32_t ring = smem_u32(smem);
+  const int g = lane >> 2, q4 = lane & 3;
   uint8_t* out = smem + Layout::kOut + wg * kOutBytes;
   // this thread's two rows of the staging tile (row & 7 == g for both)
-  uint8_t* row0 = out + (warp * 16 + g) * 128 + 4 * t;
+  uint8_t* row0 = out + (warp * 16 + g) * 128 + 4 * q4;
   uint8_t* row1 = row0 + 8 * 128;
   float acc[96];
   uint32_t it = 0;
   int ti = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
-    const int m0 = tile / n_tiles * BM, n0 = tile % n_tiles * BN;
-    const int r0 = m0 + wg * kWgRows + warp * 16 + g, r1 = r0 + 8;
+    const Tile t = Sched::at(p, tile);
+    const int r0 = t.m0 + wg * kWgRows + warp * 16 + g, r1 = r0 + 8;
+    const uint8_t* mask = smem + Layout::kMask + (ti & 1) * kMaskBytes;
     bool staged = false;
-    // the previous tile's store has read the staging tile
-    auto make_room = [&] {
-      mbar_wait(&bar.out_empty[wg], (ti & 1) ^ 1);
-      staged = true;
-    };
-    const int z0 = walk_groups(p, m0, [&](int, int lo, int hi) {
-      mainloop<kMnB>(acc, ring, wg, k_steps, it, bar);
-      if (!staged) make_room();
-      const bool keep0 = r0 >= lo && r0 < hi, keep1 = r1 >= lo && r1 < hi;
+    Segment sg = kNoSegment;
+    while (Sched::next(p, t, sg)) {
+      // no branch around the wgmmas (one cost the attention forward its
+      // registers): an empty group (GroupedK) runs no step, and its C[e]
+      // is staged as zeros
+      mainloop<kMnB, Sched::kTransA>(acc, smem, wg, sg, it, bar);
+      const bool empty = Sched::kTransA && sg.k1 == sg.k0;
+      if (!staged) {
+        // the previous tile's store has read the staging tile, and this
+        // tile's keep bits are drawn
+        mbar_wait(&bar.out_empty[wg], (ti & 1) ^ 1);
+        if (Epi::kDrawBits) mbar_wait(&bar.mask_full[ti & 1], (ti >> 1) & 1);
+        staged = true;
+      }
+      const bool keep0 = r0 >= sg.lo && r0 < sg.hi, keep1 = r1 >= sg.lo && r1 < sg.hi;
+      const uint8_t* bits0 = mask + (r0 - t.m0) * (BN / 8);
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         float v[4] = {acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]};
-        Epi::apply(p, n0 + 8 * j + 2 * t, v);
+        if (empty) v[0] = v[1] = v[2] = v[3] = 0.f;
+        uint32_t k4 = 0xFu;
+        if (Epi::kDrawBits)
+          k4 = (bits0[j] >> (2 * q4) & 3u) | (bits0[8 * (BN / 8) + j] >> (2 * q4) & 3u) << 2;
+        Epi::apply(p, t.n0 + 8 * j + 2 * q4, k4, v);
         const int off = (j >> 3) * kAtomBytes + (((j & 7) ^ g) << 4);
         if (keep0) *reinterpret_cast<uint32_t*>(row0 + off) = pack_bf16(v[0], v[1]);
         if (keep1) *reinterpret_cast<uint32_t*>(row1 + off) = pack_bf16(v[2], v[3]);
       }
-    });
-    if (!staged) make_room();
+    }
+    if (!staged) mbar_wait(&bar.out_empty[wg], (ti & 1) ^ 1);
+    const int z0 = max(sg.end, t.m0);
     if (r0 >= z0 || r1 >= z0) {  // rows past the last group: zeros
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
@@ -293,6 +448,21 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         if (r1 >= z0) *reinterpret_cast<uint32_t*>(row1 + off) = 0u;
       }
     }
+    if constexpr (Epi::kReadBack) {
+      // the warpgroup's staged tile is whole: map it chunk by chunk (16
+      // bytes a thread, a row's 8 chunks from 8 neighbouring threads)
+      named_sync(3 + wg, 128);
+      const int ct = threadIdx.x & 127, m0 = t.m0 + wg * kWgRows;
+      static_assert(kOutBytes / 16 % (2 * 128) == 0, "the read-back's steps");
+#pragma unroll 2
+      for (int c = ct; c < kOutBytes / 16; c += 128) {
+        const int row = chunk_row(m0, c), col = chunk_col(t.n0, c);
+        const uint32_t bits = Epi::kDrawBits ? mask[(row - t.m0) * (BN / 8) + ((col - t.n0) >> 3)]
+                                             : 0xFFu;
+        Epi::read_back(p, row, col, bits, *reinterpret_cast<const uint4*>(out + 16 * c));
+      }
+    }
+    if (Epi::kDrawBits) mbar_arrive(&bar.mask_empty[ti & 1]);
     fence_proxy_async();  // the staged tile, visible to the TMA store
     mbar_arrive(&bar.out_full[wg]);
   }
@@ -371,18 +541,27 @@ inline cudaError_t weight_map(Params& p, const void* b, bool mn_major) {
                   : tensor_map(&p.b, b, p.k, p.n, p.experts, BN);
 }
 
+// GroupedK's maps: A [k, m] and B [k, n] (k = R rows) read in 64-row boxes
+// of 64 columns, C [experts, m, n] written in 64-row boxes.
+inline cudaError_t grouped_k_maps(Params& p, const void* a, const void* b, const void* c) {
+  cudaError_t err = tensor_map(&p.a, a, p.m, p.k, 1, BK);
+  if (err == cudaSuccess) err = tensor_map(&p.b, b, p.n, p.k, 1, BK);
+  if (err == cudaSuccess) err = tensor_map(&p.c, c, p.n, p.m, p.experts, kWgRows);
+  return err;
+}
+
 inline bool bad_shape(int m, int n, int k) {
   return m <= 0 || n <= 0 || k <= 0 || n % 8 || k % 8;
 }
 
-template <class Epi, bool kMnB>
+template <class Epi, bool kMnB, class Sched = RowTiles>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   // once a process: the dynamic shared memory the ring asks for, and the SMs
   static const cudaError_t prepared = [] {
-    cudaError_t err = cudaFuncSetAttribute(gemm_kernel<Epi, kMnB>,
+    cudaError_t err = cudaFuncSetAttribute(gemm_kernel<Epi, kMnB, Sched>,
                                            cudaFuncAttributePreferredSharedMemoryCarveout,
                                            cudaSharedmemCarveoutMaxShared);
-    return err == cudaSuccess ? set_smem(gemm_kernel<Epi, kMnB>, Layout::kBytes) : err;
+    return err == cudaSuccess ? set_smem(gemm_kernel<Epi, kMnB, Sched>, Layout::kBytes) : err;
   }();
   static const int sms = [] {
     int dev = 0, n = 0;
@@ -393,10 +572,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }();
   if (prepared != cudaSuccess) return prepared;
   if (sms <= 0) return cudaErrorInvalidDevice;
-  const long long tiles = (long long)((p.m + BM - 1) / BM) * ((p.n + BN - 1) / BN);
+  const long long tiles = Sched::count(p);
   if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
   const int grid = tiles < sms ? (int)tiles : sms;
-  gemm_kernel<Epi, kMnB><<<grid, kThreads, Layout::kBytes, stream>>>(p);
+  gemm_kernel<Epi, kMnB, Sched><<<grid, kThreads, Layout::kBytes, stream>>>(p);
   return cudaGetLastError();
 }
 

@@ -18,12 +18,16 @@
 //   with bias -> y, on the TMA-fed wgmma mainloop of gemm_sm90.cuh (the
 //   hidden h makes one bf16 round trip through device memory: 77 MB at
 //   b64, about 46 us of the card's memory rate).
-// * D: fc1 with bias + round -> h1 (stored: the backward's residual, as on
-//   the TPU), then erf-GELU in fp32 on the rounded h1, the hidden dropout
-//   mask and scale, round -> g; then fc2 with bias, the output mask and
-//   scale, round -> y. The TPU kept g in VMEM; here it makes one round trip
-//   through device memory (2 x 155 MB at ViT-B b128), the first thing to
-//   fuse later.
+// * D: on the same mainloop, fc1 with bias + round -> h1 (stored: the
+//   backward's residual, as on the TPU); the consumers then read their
+//   staged h1 back and write the erf-GELU in fp32 of the rounded h1, the
+//   hidden mask and scale, round -> g; then fc2 with bias, the output mask
+//   and scale in the consumers' registers, and one round -> y. The epilogue
+//   warps draw both masks' Philox bits a tile ahead. The TPU kept g in
+//   VMEM; here it makes one round trip through device memory (2 x 155 MB at
+//   ViT-B b128). fc1's GELUs (about 40 instructions a value, two of them
+//   MUFU) outweigh its tensor-core work: they set its pace (PERF.md §6
+//   times the placements tried).
 // * D': a prologue applies the output mask to dy -> dye (needed by the dW2
 //   GEMM) and sums dye's columns (db2); the GEMM dh = dye . W2 reads W2 as
 //   stored ([D, F], nn.Linear's layout) through ldmatrix.trans, no transposed
@@ -40,17 +44,15 @@
 //
 // What bounds it on the H100: at M = B*197 rows, D=768, F=3072 each GEMM is
 // 2*M*D*F FLOPs against ~(M*D + M*F + D*F)*2 bytes, far above the card's
-// ~295 FLOP/byte ridge at b128, so the tensor cores bound it. B feeds them
-// with wgmma (gemm_sm90.cuh). D and D' still feed them with mma.sync
+// ~295 FLOP/byte ridge at b128, so the tensor cores bound it. B and D feed
+// them with wgmma (gemm_sm90.cuh). D' still feeds them with mma.sync
 // m16n8k16 (bf16 in, fp32 accumulate), fragments loaded with ldmatrix from a
-// 3-stage cp.async ring; their move to the wgmma mainloop comes later.
+// 3-stage cp.async ring; its move to the wgmma mainloop comes later.
 //
-// D and D''s layout: A [M, K] row-major; B either [N, K] row-major (kKN =
-// false: fc1 and fc2, whose weights are [out, in]) or [K, N] row-major (kKN
-// = true: dh = dye . W2 with W2 [D, F]). Tiles are 128x128x64 for 8 warps (each 64x32),
-// 3 stages; shared rows of 72 (A, [N][K] B) or 136 (B as [K][N]) bf16 keep
-// the ldmatrix phases bank-conflict free. Ragged M and N are masked; K and N
-// must be multiples of 8 (16-byte rows).
+// D''s GEMM: A = dye [M, D] row-major, B = W2 [D, F] row-major ([K][N]).
+// Tiles are 128x128x64 for 8 warps (each 64x32), 3 stages; shared rows of
+// 72 (A) or 136 (B) bf16 keep the ldmatrix phases bank-conflict free.
+// Ragged M and N are masked; K and N must be multiples of 8 (16-byte rows).
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "philox.cuh"
@@ -61,29 +63,19 @@ constexpr int BM = 128, BN = 128, BK = 64, kStages = 3;
 constexpr int LDS = BK + 8;     // 72 bf16 = 36 words: 8 rows of a phase hit 8 bank groups
 constexpr int LDS_KN = BN + 8;  // 136 bf16 = 68 words: the same for [K][N] B tiles
 constexpr int kThreads = 256;   // 8 warps in 2x4, each owning a 64x32 tile
+constexpr int kStageElems = BM * LDS + BK * LDS_KN;
+constexpr int kSmemBytes = kStages * kStageElems * (int)sizeof(__nv_bfloat16);
 
-template <bool kKN>
-__host__ __device__ constexpr int stage_elems() {
-  return BM * LDS + (kKN ? BK * LDS_KN : BN * LDS);
-}
-template <bool kKN>
-__host__ __device__ constexpr int smem_bytes() {
-  return kStages * stage_elems<kKN>() * (int)sizeof(__nv_bfloat16);
-}
-
-// D and D''s epilogues: D's fc1 and fc2; D''s dh
-enum Epi { EPI_FC1_TRAIN = 1, EPI_FC2_TRAIN = 2, EPI_DH = 3 };
-
+// D''s epilogue
 struct EpiArgs {
-  const __nv_bfloat16* bias;  // FC1, FC2
-  __nv_bfloat16* out;         // FC1 g; FC2 y; DH dh1
-  __nv_bfloat16* out2;        // FC1 h1; DH go
-  const __nv_bfloat16* h1;    // DH: the forward's h1 [M, N]
-  float* colsum;              // DH: column partials [gridDim.y][N]
-  DropSite drop;              // FC1 and DH: hidden mask; FC2: output mask
+  __nv_bfloat16* out;         // dh1
+  __nv_bfloat16* out2;        // go
+  const __nv_bfloat16* h1;    // the forward's h1 [M, N]
+  float* colsum;              // column partials [gridDim.y][N]
+  DropSite drop;              // the hidden mask
 };
 
-// ---- kernel B: epilogues of the wgmma mainloop -----------------------------
+// ---- kernels B and D: epilogues of the wgmma mainloop ----------------------
 
 enum Act { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_ERF = 2 };
 
@@ -108,35 +100,120 @@ __device__ __forceinline__ float infer_gelu(float h) {
   return h;
 }
 
-// fc1 (kAct a GELU) and fc2 (ACT_NONE): the consumers add the bias (the
+// the bias of columns col and col + 1, added to an accumulator quad
+__device__ __forceinline__ void add_bias(const gemm90::Params& p, int col, float (&v)[4]) {
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
+  const float b0 = __low2float(b), b1 = __high2float(b);
+  v[0] = __fadd_rn(v[0], b0), v[1] = __fadd_rn(v[1], b1);
+  v[2] = __fadd_rn(v[2], b0), v[3] = __fadd_rn(v[3], b1);
+}
+
+// B's fc1 (kAct a GELU) and fc2 (ACT_NONE): the consumers add the bias (the
 // mainloop rounds the sum to bf16 as it stages it); fc1's epilogue warps
 // then take the GELU of each staged value (rounded to bf16 again on store)
 template <int kAct>
 struct InferEpi {
-  static constexpr bool kFinish = kAct != ACT_NONE;
-  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, float (&v)[4]) {
-    if (col >= p.n) return;  // past N: never stored
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
-    const float b0 = __low2float(b), b1 = __high2float(b);
-    v[0] = __fadd_rn(v[0], b0), v[1] = __fadd_rn(v[1], b1);
-    v[2] = __fadd_rn(v[2], b0), v[3] = __fadd_rn(v[3], b1);
+  static constexpr bool kFinish = kAct != ACT_NONE, kReadBack = false, kDrawBits = false;
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, uint32_t,
+                                               float (&v)[4]) {
+    if (col < p.n) add_bias(p, col, v);  // past N: never stored
   }
-  static __device__ __forceinline__ float finish(float h) { return infer_gelu<kAct>(h); }
+  static __device__ __forceinline__ void finish(uint4& q) {
+    uint32_t* u = reinterpret_cast<uint32_t*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+      u[i] = pack_bf16(infer_gelu<kAct>(__low2float(h)), infer_gelu<kAct>(__high2float(h)));
+    }
+  }
 };
 
-// ---- kernels D and D': mma.sync -------------------------------------------
+// The keep flags of elements row * n + col .. + 7 of site s, bit i for
+// column col + i (all kept when the site is off): two Philox draws, col a
+// multiple of 8 and n % 8 == 0, as mlp_bwd_prologue draws them.
+__device__ __forceinline__ uint32_t keep_bits8(const DropSite& s, int n, int row, int col) {
+  if (!s.on) return 0xFFu;
+  const unsigned long long grp = ((unsigned long long)row * n + col) >> 2;
+  const uint4 a = site_bits(s, grp), b = site_bits(s, grp + 1);
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bits |= (uint32_t)(w[i] >= s.threshold) << i;
+  return bits;
+}
+
+// D's two epilogues: the epilogue warps draw the keep bits of p.drop
+struct DrawsKeepBits {
+  static constexpr bool kDrawBits = true;
+  static __device__ __forceinline__ uint32_t keep8(const gemm90::Params& p, int row, int col) {
+    return keep_bits8(p.drop, p.n, row, col);
+  }
+};
+
+// D's fc1: the epilogue warps draw the tile's hidden keep bits; the
+// consumers add b1 and stage h1 = bf16(x . W1^T + b1) (stored by TMA: the
+// backward's residual), then read their staged h1 back a 16-byte chunk at a
+// time and write g = bf16(GELU_erf(h1) * keep_h * scale_h), computed in fp32
+// from the rounded h1, to out2 with one 16-byte store a chunk.
+struct TrainFc1Epi : DrawsKeepBits {
+  static constexpr bool kFinish = false, kReadBack = true;
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, uint32_t,
+                                               float (&v)[4]) {
+    if (col < p.n) add_bias(p, col, v);
+  }
+  static __device__ __forceinline__ void read_back(const gemm90::Params& p, int row, int col,
+                                                   uint32_t bits, const uint4& h1) {
+    if (row >= p.m || col >= p.n) return;  // past M or N: not stored
+    const DropSite& s = p.drop;
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(&h1);
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+      float g0, g1, d;
+      gelu_and_grad(__low2float(h), g0, d);
+      gelu_and_grad(__high2float(h), g1, d);
+      if (s.on) {
+        g0 = (bits >> (2 * i)) & 1u ? g0 * s.scale : 0.f;
+        g1 = (bits >> (2 * i + 1)) & 1u ? g1 * s.scale : 0.f;
+      }
+      o[i] = pack_bf16(g0, g1);
+    }
+    *reinterpret_cast<uint4*>(p.out2 + (long long)row * p.n + col) = out;
+  }
+};
+
+// D's fc2: the epilogue warps draw the tile's output keep bits; the
+// consumers add b2, apply the mask and scale in registers, and the mainloop
+// rounds once as it stages.
+struct TrainFc2Epi : DrawsKeepBits {
+  static constexpr bool kFinish = false, kReadBack = false;
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, uint32_t k4,
+                                               float (&v)[4]) {
+    if (col >= p.n) return;  // past N: never stored
+    add_bias(p, col, v);
+    const DropSite& s = p.drop;
+    if (!s.on) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (k4 >> i) & 1u ? v[i] * s.scale : 0.f;
+  }
+};
+
+// ---- kernel D': mma.sync ----------------------------------------------------
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<uint32_t*>(p) = pack_bf16(a, b);
 }
 
-template <bool kKN, int kEpi>
+// dh = A . B (A = dye [M, K], B = W2 [K, N]) with the GELU' epilogue: dh1 =
+// dh * GELU'(h1) * keep_h * scale_h and go = GELU(h1) * keep_h * scale_h in
+// bf16, and the column partials of the fp32 dh1.
 __global__ void __launch_bounds__(kThreads)
-    gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B, int M,
-                int N, int K, EpiArgs ep) {
+    dh_gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
+                   int M, int N, int K, EpiArgs ep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  constexpr int kStage = stage_elems<kKN>();
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -144,7 +221,7 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
 
   auto load_tile = [&](int stage, int k0) {
-    __nv_bfloat16* sa = smem + stage * kStage;
+    __nv_bfloat16* sa = smem + stage * kStageElems;
     __nv_bfloat16* sb = sa + BM * LDS;
     // A: 128 rows x 8 chunks of 8 bf16, 4 chunks a thread
     for (int c = tid; c < BM * (BK / 8); c += kThreads) {
@@ -153,20 +230,12 @@ __global__ void __launch_bounds__(kThreads)
       const bool ok = ga < M && gk < K;
       cp_async_16(sa + r * LDS + kc, ok ? A + (long)ga * K + gk : A, ok ? 16 : 0);
     }
-    if (kKN) {  // B [K][N]: 64 k-rows x 16 chunks along n
-      for (int c = tid; c < BK * (BN / 8); c += kThreads) {
-        const int r = c >> 4, nc = (c & 15) * 8;
-        const int gk = k0 + r, gn = n0 + nc;
-        const bool ok = gk < K && gn < N;
-        cp_async_16(sb + r * LDS_KN + nc, ok ? B + (long)gk * N + gn : B, ok ? 16 : 0);
-      }
-    } else {  // B [N][K]: 128 n-rows x 8 chunks along k
-      for (int c = tid; c < BN * (BK / 8); c += kThreads) {
-        const int r = c >> 3, kc = (c & 7) * 8;
-        const int gk = k0 + kc, gb = n0 + r;
-        const bool ok = gb < N && gk < K;
-        cp_async_16(sb + r * LDS + kc, ok ? B + (long)gb * K + gk : B, ok ? 16 : 0);
-      }
+    // B [K][N]: 64 k-rows x 16 chunks along n
+    for (int c = tid; c < BK * (BN / 8); c += kThreads) {
+      const int r = c >> 4, nc = (c & 15) * 8;
+      const int gk = k0 + r, gn = n0 + nc;
+      const bool ok = gk < K && gn < N;
+      cp_async_16(sb + r * LDS_KN + nc, ok ? B + (long)gk * N + gn : B, ok ? 16 : 0);
     }
   };
 
@@ -179,10 +248,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
   // ldmatrix row/column of this lane: A tiles as (rows 0-7 | 8-15) x (k 0-7 |
-  // 8-15); [N][K] B pairs of n8 tiles as (n 0-7: k 0-7 | 8-15) then (n 8-15:
-  // ...); [K][N] B as (k 0-7 | 8-15) x (n 0-7), then the same at n 8-15
+  // 8-15); [K][N] B as (k 0-7 | 8-15) x (n 0-7), then the same at n 8-15
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
-  const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
   const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
 
   const int kt_count = (K + BK - 1) / BK;
@@ -197,7 +264,7 @@ __global__ void __launch_bounds__(kThreads)
     const int next = kt + kStages - 1;
     if (next < kt_count) load_tile(next % kStages, next * BK);
     cp_async_commit();
-    const __nv_bfloat16* a = smem + (kt % kStages) * kStage;
+    const __nv_bfloat16* a = smem + (kt % kStages) * kStageElems;
     const __nv_bfloat16* bs = a + BM * LDS;
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
@@ -208,10 +275,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {
         uint32_t r[4];
-        if (kKN)
-          ldmatrix_x4_trans(r, bs + (ks + t_row) * LDS_KN + wn * 32 + nj * 16 + t_col);
-        else
-          ldmatrix_x4(r, bs + (wn * 32 + nj * 16 + b_row) * LDS + ks + b_col);
+        ldmatrix_x4_trans(r, bs + (ks + t_row) * LDS_KN + wn * 32 + nj * 16 + t_col);
         bf[2 * nj][0] = r[0], bf[2 * nj][1] = r[1];
         bf[2 * nj + 1][0] = r[2], bf[2 * nj + 1][1] = r[3];
       }
@@ -222,7 +286,7 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  float cs[4][2];  // EPI_DH: this thread's column sums of fp32 dh1
+  float cs[4][2];  // this thread's column sums of fp32 dh1
 #pragma unroll
   for (int ni = 0; ni < 4; ++ni) cs[ni][0] = cs[ni][1] = 0.f;
 
@@ -232,102 +296,68 @@ __global__ void __launch_bounds__(kThreads)
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn * 32 + ni * 8 + tig * 2;
       if (col >= N) continue;
-      float b0 = 0.f, b1 = 0.f;
-      if (kEpi != EPI_DH) {
-        b0 = __bfloat162float(ep.bias[col]);
-        b1 = __bfloat162float(ep.bias[col + 1]);
-      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
         if (row >= M) continue;
         const float v0 = acc[mi][ni][half * 2], v1 = acc[mi][ni][half * 2 + 1];
         const long idx = (long)row * N + col;
-        if (kEpi == EPI_FC1_TRAIN) {
-          const float h0 = round_to<__nv_bfloat16>(v0 + b0);
-          const float h1 = round_to<__nv_bfloat16>(v1 + b1);
-          store2(ep.out2 + idx, h0, h1);
-          float g0, g1, d0, d1;
-          gelu_and_grad(h0, g0, d0);
-          gelu_and_grad(h1, g1, d1);
-          if (ep.drop.on) {
-            bool keep0, keep1;
-            keep_pair(ep.drop, (unsigned long long)idx, keep0, keep1);
-            g0 = keep0 ? g0 * ep.drop.scale : 0.f;
-            g1 = keep1 ? g1 * ep.drop.scale : 0.f;
-          }
-          store2(ep.out + idx, g0, g1);
-        } else if (kEpi == EPI_FC2_TRAIN) {
-          float y0 = v0 + b0, y1 = v1 + b1;
-          if (ep.drop.on) {
-            bool keep0, keep1;
-            keep_pair(ep.drop, (unsigned long long)idx, keep0, keep1);
-            y0 = keep0 ? y0 * ep.drop.scale : 0.f;
-            y1 = keep1 ? y1 * ep.drop.scale : 0.f;
-          }
-          store2(ep.out + idx, y0, y1);
-        } else {  // EPI_DH
-          const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(ep.h1 + idx);
-          float g0, g1, d0, d1;
-          gelu_and_grad(__bfloat162float(hv.x), g0, d0);
-          gelu_and_grad(__bfloat162float(hv.y), g1, d1);
-          if (ep.drop.on) {
-            bool keep0, keep1;
-            keep_pair(ep.drop, (unsigned long long)idx, keep0, keep1);
-            const float s = ep.drop.scale;
-            g0 = keep0 ? g0 * s : 0.f, d0 = keep0 ? d0 * s : 0.f;
-            g1 = keep1 ? g1 * s : 0.f, d1 = keep1 ? d1 * s : 0.f;
-          }
-          const float dh0 = v0 * d0, dh1 = v1 * d1;
-          store2(ep.out + idx, dh0, dh1);
-          store2(ep.out2 + idx, g0, g1);
-          cs[ni][0] += dh0;
-          cs[ni][1] += dh1;
+        const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(ep.h1 + idx);
+        float g0, g1, d0, d1;
+        gelu_and_grad(__bfloat162float(hv.x), g0, d0);
+        gelu_and_grad(__bfloat162float(hv.y), g1, d1);
+        if (ep.drop.on) {
+          bool keep0, keep1;
+          keep_pair(ep.drop, (unsigned long long)idx, keep0, keep1);
+          const float s = ep.drop.scale;
+          g0 = keep0 ? g0 * s : 0.f, d0 = keep0 ? d0 * s : 0.f;
+          g1 = keep1 ? g1 * s : 0.f, d1 = keep1 ? d1 * s : 0.f;
         }
+        const float dh0 = v0 * d0, dh1 = v1 * d1;
+        store2(ep.out + idx, dh0, dh1);
+        store2(ep.out2 + idx, g0, g1);
+        cs[ni][0] += dh0;
+        cs[ni][1] += dh1;
       }
     }
   }
 
-  if (kEpi == EPI_DH) {
-    // sum the 8 lanes of a column (same tig), then the two row-warps wm
+  // sum the 8 lanes of a column (same tig), then the two row-warps wm
 #pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
+  for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int o = 4; o < 32; o <<= 1) cs[ni][j] += __shfl_xor_sync(0xffffffffu, cs[ni][j], o);
-    __syncthreads();  // every warp is past its last read of the ring
-    float* red = reinterpret_cast<float*>(smem_raw);  // [BN]
-    if (wm == 1 && g == 0) {
+      for (int o = 4; o < 32; o <<= 1) cs[ni][j] += __shfl_xor_sync(0xffffffffu, cs[ni][j], o);
+  __syncthreads();  // every warp is past its last read of the ring
+  float* red = reinterpret_cast<float*>(smem_raw);  // [BN]
+  if (wm == 1 && g == 0) {
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn * 32 + ni * 8 + tig * 2;
-        red[c] = cs[ni][0], red[c + 1] = cs[ni][1];
-      }
+    for (int ni = 0; ni < 4; ++ni) {
+      const int c = wn * 32 + ni * 8 + tig * 2;
+      red[c] = cs[ni][0], red[c + 1] = cs[ni][1];
     }
-    __syncthreads();
-    if (wm == 0 && g == 0) {
+  }
+  __syncthreads();
+  if (wm == 0 && g == 0) {
 #pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int c = wn * 32 + ni * 8 + tig * 2;
-        if (n0 + c < N) {
-          float* out = ep.colsum + (long)blockIdx.y * N + n0 + c;
-          out[0] = cs[ni][0] + red[c];
-          out[1] = cs[ni][1] + red[c + 1];
-        }
+    for (int ni = 0; ni < 4; ++ni) {
+      const int c = wn * 32 + ni * 8 + tig * 2;
+      if (n0 + c < N) {
+        float* out = ep.colsum + (long)blockIdx.y * N + n0 + c;
+        out[0] = cs[ni][0] + red[c];
+        out[1] = cs[ni][1] + red[c + 1];
       }
     }
   }
 }
 
-template <bool kKN, int kEpi>
-cudaError_t gemm(const void* a, const void* b, int m, int n, int k, const EpiArgs& ep,
-                 cudaStream_t stream) {
-  constexpr int smem = smem_bytes<kKN>();
-  cudaError_t err = set_smem(gemm_kernel<kKN, kEpi>, smem);
+cudaError_t dh_gemm(const void* a, const void* b, int m, int n, int k, const EpiArgs& ep,
+                    cudaStream_t stream) {
+  cudaError_t err = set_smem(dh_gemm_kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  gemm_kernel<kKN, kEpi><<<grid, kThreads, smem, stream>>>(
+  dh_gemm_kernel<<<grid, kThreads, kSmemBytes, stream>>>(
       static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b), m, n, k, ep);
   return cudaGetLastError();
 }
@@ -415,27 +445,32 @@ GAVIT_EXPORT int gavit_mlp_infer(const void* x, const void* w1, const void* b1,
 
 // Kernel D. As B, plus h1 [m, f] (written: the backward's residual) and g
 // [m, f] (scratch); the hidden mask is site_h, the output mask site_o (off
-// at threshold 0 and scale 1).
+// at threshold 0 and scale 1). Two launches of the wgmma mainloop, both
+// weights K-major: fc1 writing h1 and g, fc2 with the bias and the output
+// mask into y.
 GAVIT_EXPORT int gavit_mlp_train_fwd(const void* x, const void* w1, const void* b1,
                                      const void* w2, const void* b2, void* h1, void* g,
                                      void* y, int m, int d, int f, unsigned k0, unsigned k1,
                                      unsigned site_h, unsigned thr_h, float scale_h,
                                      unsigned site_o, unsigned thr_o, float scale_o,
                                      void* stream) {
-  if (bad_shape(m, d, f)) return cudaErrorInvalidValue;
+  if (gemm90::bad_shape(m, f, d)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  EpiArgs ep{};
-  ep.bias = static_cast<const __nv_bfloat16*>(b1);
-  ep.out = static_cast<__nv_bfloat16*>(g);
-  ep.out2 = static_cast<__nv_bfloat16*>(h1);
-  ep.drop = make_site(k0, k1, site_h, thr_h, scale_h);
-  cudaError_t err = gemm<false, EPI_FC1_TRAIN>(x, w1, m, f, d, ep, s);
+  gemm90::Params p{};
+  p.m = m, p.n = f, p.k = d, p.experts = 1;
+  p.bias = static_cast<const __nv_bfloat16*>(b1);
+  p.drop = make_site(k0, k1, site_h, thr_h, scale_h);
+  p.out2 = static_cast<__nv_bfloat16*>(g);
+  cudaError_t err = gemm90::row_maps(p, x, h1);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, w1, false);
+  if (err == cudaSuccess) err = gemm90::launch<TrainFc1Epi, false>(p, s);
   if (err != cudaSuccess) return err;
-  ep = EpiArgs{};
-  ep.bias = static_cast<const __nv_bfloat16*>(b2);
-  ep.out = static_cast<__nv_bfloat16*>(y);
-  ep.drop = make_site(k0, k1, site_o, thr_o, scale_o);
-  return gemm<false, EPI_FC2_TRAIN>(g, w2, m, d, f, ep, s);
+  p.n = d, p.k = f;
+  p.bias = static_cast<const __nv_bfloat16*>(b2);
+  p.drop = make_site(k0, k1, site_o, thr_o, scale_o);
+  err = gemm90::row_maps(p, g, y);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, w2, false);
+  return err == cudaSuccess ? gemm90::launch<TrainFc2Epi, false>(p, s) : err;
 }
 
 // Rows of the column-partial scratch buffers of gavit_mlp_train_bwd.
@@ -472,7 +507,7 @@ GAVIT_EXPORT int gavit_mlp_train_bwd(const void* dy, const void* h1, const void*
   ep.h1 = static_cast<const __nv_bfloat16*>(h1);
   ep.colsum = static_cast<float*>(part1);
   ep.drop = make_site(k0, k1, site_h, thr_h, scale_h);
-  err = gemm<true, EPI_DH>(out_site.on ? dye : dy, w2, m, f, d, ep, s);
+  err = dh_gemm(out_site.on ? dye : dy, w2, m, f, d, ep, s);
   if (err != cudaSuccess) return err;
   colsum_reduce<<<(f + 255) / 256, 256, 0, s>>>(static_cast<const float*>(part1),
                                                 static_cast<float*>(db1),

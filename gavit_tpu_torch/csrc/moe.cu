@@ -26,8 +26,8 @@
 // weights resident in VMEM and keep the GELU output on chip. As for D and D'
 // (mlp.cu), the weights of one expert (4.7 MB each at ViT-B) do not fit a
 // block's 227 KB of shared memory, so each kernel here is launches of
-// hand-written tensor-core GEMMs with fused epilogues, the same 128x128x64
-// mma.sync tiles on a 3-stage cp.async ring as mlp.cu:
+// hand-written tensor-core GEMMs with fused epilogues (M and M': 128x128x64
+// mma.sync tiles on a 3-stage cp.async ring, as mlp.cu's D'):
 // * M: fc1 (x . W1[e], W1 read as [K][N]) with bias + round -> h1 (stored, the
 //   backward's residual), GELU (erf, or tanh on the deterministic bf16 path)
 //   on the rounded h1, the hidden mask and scale, round -> g; then fc2
@@ -39,10 +39,16 @@
 //   the TPU kernel also computes inside (moe_fused.py:213-216). The
 //   per-expert bias gradients db1 [E, F] and db2 [E, D] are reduced from the
 //   partials in a fixed order: deterministic, no atomics.
-// * tgmm: C[e] = A[rows of e]^T . B[rows of e] for A [cap, K], B [cap, N]
-//   row-major, the groups given by group_sizes [E] on the device. Each block
-//   owns one 128x128 tile of one expert's [K, N] output and walks that
-//   expert's rows 64 at a time, accumulating in fp32, and rounds to bf16 once.
+// * tgmm: C[e] = A[rows of e]^T . B[rows of e] for A [R, K], B [R, N]
+//   row-major, the groups given by group_sizes [E] on the device, on the
+//   TMA-fed wgmma mainloop of gemm_sm90.cuh with its grouped-K schedule:
+//   both operands MN-major (A through wgmma's transpose-A bit), each 128 x
+//   192 tile of one expert's [K, N] output walking that expert's rows 64 at
+//   a time from its first (any row), the rows of the last step past the
+//   group zeroed in shared memory, accumulating in fp32 and rounding to bf16
+//   once; an empty expert's tiles are stored as zeros. The fused engine
+//   passes the cap-padded rows (groups multiples of tm), the unfused one the
+//   packed rows (boundaries anywhere).
 //
 // * N-gmm: C[T, N] = A[T, K] . W[e] (W [E, K, N], the MN-major B operand)
 //   or, transposed, A . W[e]^T (W [E, N, K], K-major) over expert-contiguous
@@ -72,7 +78,7 @@
 // What bounds it on the H100: each GEMM is 2*cap*D*F FLOPs (cap = 52480 rows
 // at ViT-B b128) against ~(cap*(D+F) + D*F*E)*2 bytes, far above the card's
 // ~295 FLOP/byte ridge, so the tensor cores bound M, M', tgmm and N-gmm.
-// N-gmm feeds them with wgmma (gemm_sm90.cuh); M, M' and tgmm still with
+// N-gmm and tgmm feed them with wgmma (gemm_sm90.cuh); M and M' still with
 // mma.sync, their move to the wgmma mainloop comes later.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
@@ -82,9 +88,8 @@ namespace {
 
 constexpr int BM = 128, BN = 128, BK = 64, kStages = 3;
 constexpr int LDS = BK + 8;     // 72 bf16: 8 rows of an ldmatrix phase hit 8 bank groups
-constexpr int LDS_KN = BN + 8;  // 136 bf16: the same for [K][N] (and tgmm's [K][M]) tiles
+constexpr int LDS_KN = BN + 8;  // 136 bf16: the same for [K][N] tiles
 constexpr int kThreads = 256;   // 8 warps in 2x4, each owning a 64x32 tile
-static_assert(BM == BN, "tgmm stages its A and B tiles with one row pitch");
 
 template <bool kKN>
 __host__ __device__ constexpr int stage_elems() {
@@ -94,8 +99,6 @@ template <bool kKN>
 __host__ __device__ constexpr int smem_bytes() {
   return kStages * stage_elems<kKN>() * (int)sizeof(__nv_bfloat16);
 }
-constexpr int kTgmmStage = 2 * BK * LDS_KN;
-constexpr int kTgmmSmem = kStages * kTgmmStage * (int)sizeof(__nv_bfloat16);
 
 enum Act { ACT_ERF = 0, ACT_TANH = 1 };
 // epilogues: M's fc1 and fc2; M''s dh and dx
@@ -380,101 +383,6 @@ cudaError_t moe_gemm(const void* a, const void* b, int m, int n, int k, Groups g
   return cudaGetLastError();
 }
 
-// C[e] (bf16 [Kd, N]) = sum over the rows r of group e of A[r, :]^T B[r, :].
-__global__ void __launch_bounds__(kThreads)
-    moe_tgmm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
-                    const int* __restrict__ group_sizes, __nv_bfloat16* __restrict__ C, int Kd,
-                    int N) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int e = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  int r_begin = 0;
-  for (int i = 0; i < e; ++i) r_begin += group_sizes[i];
-  const int r_end = r_begin + group_sizes[e];
-
-  // both tiles are [BK rows][128 columns]: A's columns are C's rows (m)
-  auto load_tile = [&](int stage, int r0) {
-    __nv_bfloat16* sa = smem + stage * kTgmmStage;
-    __nv_bfloat16* sb = sa + BK * LDS_KN;
-    for (int c = tid; c < BK * (BM / 8); c += kThreads) {
-      const int r = c >> 4, cc = (c & 15) * 8;
-      const int gr = r0 + r;
-      const bool oka = gr < r_end && m0 + cc < Kd;
-      cp_async_16(sa + r * LDS_KN + cc, oka ? A + (long)gr * Kd + m0 + cc : A, oka ? 16 : 0);
-      const bool okb = gr < r_end && n0 + cc < N;
-      cp_async_16(sb + r * LDS_KN + cc, okb ? B + (long)gr * N + n0 + cc : B, okb ? 16 : 0);
-    }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
-
-  // A fragments from the [k][m] tile by ldmatrix.trans: matrix i of lane
-  // 8i..8i+7 covers k rows (i/2)*8.. and m columns (i%2)*8.., which hands
-  // each thread a0..a3 of the m16n8k16 A operand; B as mlp.cu's [K][N] tiles
-  const int at_row = (lane & 7) + ((lane >> 4) << 3), at_col = ((lane >> 3) & 1) * 8;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
-
-  const int kt_count = (r_end - r_begin + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < kt_count) load_tile(s, r_begin + s * BK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < kt_count; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = kt + kStages - 1;
-    if (next < kt_count) load_tile(next % kStages, r_begin + next * BK);
-    cp_async_commit();
-    const __nv_bfloat16* a = smem + (kt % kStages) * kTgmmStage;
-    const __nv_bfloat16* bs = a + BK * LDS_KN;
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-        ldmatrix_x4_trans(af[mi], a + (ks + at_row) * LDS_KN + wm * 64 + mi * 16 + at_col);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (ks + t_row) * LDS_KN + wn * 32 + nj * 16 + t_col);
-        bf[2 * nj][0] = r[0], bf[2 * nj][1] = r[1];
-        bf[2 * nj + 1][0] = r[2], bf[2 * nj + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_16816(acc[mi][ni], af[mi], bf[ni]);
-    }
-  }
-
-  __nv_bfloat16* Ce = C + (long)e * Kd * N;
-#pragma unroll
-  for (int mi = 0; mi < 4; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni) {
-      const int col = n0 + wn * 32 + ni * 8 + tig * 2;
-      if (col >= N) continue;
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
-        if (row < Kd)
-          store2(Ce + (long)row * N + col, acc[mi][ni][half * 2], acc[mi][ni][half * 2 + 1]);
-      }
-    }
-}
-
 // M' prologue: dye = bf16(dy * keep_out * scale) (only when the output mask
 // is on), and the column sums of float(dye) over each chunk of `rows` rows
 // (a chunk lies inside one row tile, so inside one expert). Thread j owns
@@ -630,18 +538,19 @@ GAVIT_EXPORT int gavit_moe_bwd(const void* dy, const void* h1, const void* w1, c
 }
 
 // Kernel tgmm. a [rows, kd], b [rows, n], group_sizes [e] int32 on the
-// device (summing to rows); writes c [e, kd, n] in bf16.
+// device (rows in expert order; rows past their sum are read by no group);
+// writes c [e, kd, n] in bf16.
 GAVIT_EXPORT int gavit_moe_tgmm(const void* a, const void* b, const void* group_sizes, void* c,
                                 int rows, int kd, int n, int e, void* stream) {
-  if (rows <= 0 || kd <= 0 || n <= 0 || e <= 0 || kd % 8 || n % 8 || e > 65535)
+  if (rows <= 0 || kd <= 0 || n <= 0 || e <= 0 || kd % 8 || n % 8)
     return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(moe_tgmm_kernel, kTgmmSmem);
+  gemm90::Params p{};
+  p.m = kd, p.n = n, p.k = rows, p.experts = e;
+  p.group_sizes = static_cast<const int*>(group_sizes);
+  const cudaError_t err = gemm90::grouped_k_maps(p, a, b, c);
   if (err != cudaSuccess) return err;
-  dim3 grid((n + BN - 1) / BN, (kd + BM - 1) / BM, e);
-  moe_tgmm_kernel<<<grid, kThreads, kTgmmSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-      static_cast<const int*>(group_sizes), static_cast<__nv_bfloat16*>(c), kd, n);
-  return cudaGetLastError();
+  return gemm90::launch<gemm90::StoreEpi, true, gemm90::GroupedK>(
+      p, static_cast<cudaStream_t>(stream));
 }
 
 // Kernel N-gmm. a [m, k], group_sizes [e] int32 on the device (rows in

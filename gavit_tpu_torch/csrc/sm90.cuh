@@ -219,10 +219,11 @@ __device__ __forceinline__ uint64_t kmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 16, 1024);
 }
 
-// B operand stored MN-major: its K rows are 128-byte swizzled rows of 64
-// elements along N (one swizzle atom, so the stride between atoms, LBO,
-// is never taken). A k16 step starts 16 rows (2048 bytes) further; 8-row
-// groups lie 1024 bytes apart (SBO).
+// Operand stored MN-major (B as K rows of N, or A as K rows of M): its K
+// rows are 128-byte swizzled rows of 64 elements along N or M (one swizzle
+// atom, so the stride between atoms, LBO, is never taken). A k16 step
+// starts 16 rows (2048 bytes) further; 8-row groups lie 1024 bytes apart
+// (SBO).
 __device__ __forceinline__ uint64_t mnmajor_desc(uint32_t addr) {
   return sw128_desc(addr, 1024, 1024);
 }
@@ -308,8 +309,9 @@ __device__ __forceinline__ void wgmma_m64n224k16_ss(float (&d)[112], uint64_t de
 }
 
 // D[64x192] = A[64x16] . B[16x192] (+ D if accumulate), both operands in
-// shared memory (descriptors), fp32 accumulate; kTransB: B stored MN-major.
-template <int kTransB>
+// shared memory (descriptors), fp32 accumulate; kTransA: A stored MN-major
+// (its K rows hold 64 elements along M), kTransB: B stored MN-major.
+template <int kTransA, int kTransB>
 __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t desc_a,
                                                     uint64_t desc_b, int accumulate) {
   asm volatile(
@@ -330,7 +332,7 @@ __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t des
       "%72, %73, %74, %75, %76, %77, %78, %79, "
       "%80, %81, %82, %83, %84, %85, %86, %87, "
       "%88, %89, %90, %91, %92, %93, %94, %95"
-      "}, %96, %97, p, 1, 1, 0, %99;\n"
+      "}, %96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -348,7 +350,7 @@ __device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t des
         "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
         "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
 
 // D[64x64] = A[64x16] . B[16x64] (+ D if accumulate), A in registers, B

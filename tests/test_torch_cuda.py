@@ -290,8 +290,9 @@ def test_dropout_kernel_is_bit_exact(dev, dtype, shape):
     assert DR.fused_dropout(x, SEED, 17, 0.0) is x
 
 
+# (2050, 768, 3072): 2 x 1025 tokens, as at 512 px, partial 128-row tiles
 MLP_SHAPES = [(1, 64, 256), (5, 72, 136), (129, 64, 256), (394, 768, 3072),
-              (300, 136, 520)]
+              (300, 136, 520), (2050, 768, 3072)]
 
 
 def _mlp_train_inputs(dev, m, d, f):
@@ -318,7 +319,10 @@ def test_mlp_train_kernels_match_plain(dev, m, d, f, rate):
                                      rate)
     assert (M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES) == \
         (before[0] + 1, before[1] + 1)
+    y_again, h1_again = M.mlp_train_kernel(*args, SEED, sites, rate, rate)
     torch.cuda.synchronize()
+    # one fp32 sum an element, no atomics: a rerun gives the same bits
+    assert torch.equal(y, y_again) and torch.equal(h1, h1_again)
     assert _ulps(h1, h1_ref) <= 1, f"h1 off by {_ulps(h1, h1_ref)} ulp"
     # y against the plain second half on the kernel's own h1 (a one-ulp h1
     # difference moves GELU and y by more than y's ulp)
@@ -337,6 +341,24 @@ def test_mlp_train_kernels_match_plain(dev, m, d, f, rate):
     if rate:  # the hidden mask regenerated in the backward
         keep_h = philox.keep_mask((m, f), SEED, sites[0], rate, device=dev)
         assert bool((go[~keep_h] == 0).all()) and bool((dh1[~keep_h] == 0).all())
+
+
+def test_mlp_train_kernel_hidden_mask_is_exact(dev):
+    """Kernel D's hidden mask seen through y: with W2 the identity, b2 zero
+    and the output site off, y = g exactly (one nonzero product a sum), so
+    y holds GELU(h1)·keep·scale rounded, bit for bit the plain version's,
+    and zero at every dropped element of the hidden site."""
+    m, d = 300, 256
+    x, w1, b1, _, _ = _mlp_train_inputs(dev, m, d, d)
+    eye = torch.eye(d, device=dev, dtype=torch.bfloat16)
+    zero = torch.zeros(d, device=dev, dtype=torch.bfloat16)
+    sites = (5, 6)
+    y, h1 = M.mlp_train_kernel(x, w1, b1, eye, zero, SEED, sites, 0.1, 0.0)
+    g = M.mlp_train_fc2_reference(h1, eye, zero, SEED, sites, 0.1, 0.0)
+    keep_h = philox.keep_mask((m, d), SEED, sites[0], 0.1, device=dev)
+    torch.cuda.synchronize()
+    assert torch.equal(y, g)
+    assert bool((y[~keep_h] == 0).all()) and bool((y[keep_h] != 0).any())
 
 
 @pytest.mark.parametrize("m,d,f", [(197, 64, 256), (394, 768, 3072),

@@ -8,8 +8,9 @@ groups (boundaries inside a row tile and at its rows 127, 128 and 129,
 groups of one row, an empty and a hot expert, an empty first and last
 group, rows past the groups, T not a multiple of the tile, T = 50038), the
 same bits on a rerun, and its wide MN-major operand exactly against
-torch.matmul; both
-differentiable engines against ``impl='reference'``, with their launches;
+torch.matmul; tgmm at the same groupings in both dW forms (an empty
+expert's dW zero, the same bits on a rerun, NaN in the rows past a group
+leaving its dW unchanged); both differentiable engines against ``impl='reference'``, with their launches;
 a zero router's tie picking experts 0 and 1; and a non-bf16 CUDA input
 refused instead of run through a plain version.
 
@@ -214,6 +215,71 @@ def test_gmm_kernel_matches_plain(dev, case, transpose_rhs):
     end = sum(sizes)
     if end < t:
         assert not got[end:].any()
+
+
+# tgmm's two dW forms at ViT-B's widths: dW1 = x [T, 768]ᵀ · dh1 [T, 3072]
+# and dW2 = go [T, 3072]ᵀ · dye [T, 768]; past 4096 rows (b127) at narrow
+# widths, 136 and 200, that leave partial 128-row and 192-column tiles and
+# atoms wholly past the output
+TGMM_FORMS = {"dW1": (768, 3072), "dW2": (3072, 768)}
+
+
+def _tgmm_inputs(dev, t, kd, n, seed=9):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(t, kd, device=dev, generator=g).to(torch.bfloat16)
+    b = (torch.randn(t, n, device=dev, generator=g) * 0.1).to(torch.bfloat16)
+    return a, b
+
+
+@pytest.mark.parametrize("form", sorted(TGMM_FORMS))
+@pytest.mark.parametrize("case", sorted(GMM_CASES))
+def test_tgmm_kernel_matches_plain(dev, case, form):
+    """Kernel tgmm at every N-gmm grouping in both dW forms against
+    tgmm_reference: an empty expert's dW exactly zero, rows past the groups
+    read by none, the same bits on a rerun."""
+    t, sizes = GMM_CASES[case]
+    kd, n = TGMM_FORMS[form] if t <= 4096 else \
+        (136, 200) if form == "dW1" else (200, 136)
+    a, b = _tgmm_inputs(dev, t, kd, n)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    before = GM.TGMM_LAUNCHES
+    got = GM.tgmm_kernel(a, b, gs)
+    again = GM.tgmm_kernel(a, b, gs)
+    want = GM.tgmm_reference(a, b, gs, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert GM.TGMM_LAUNCHES - before == 2
+    assert got.shape == (E, kd, n) and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert _rel(got, want) <= REL
+    for e, size in enumerate(sizes):
+        if not size:
+            assert not got[e].any(), f"expert {e} is empty"
+
+
+@pytest.mark.parametrize("planted", [(1, 3), (2, 4)], ids=["e1e3", "e2tail"])
+def test_tgmm_ignores_the_rows_past_a_group(dev, planted):
+    """NaN in the first rows after a group's end (the next expert's, or
+    rows past every group) leaves that group's dW finite and bit-equal to
+    the clean run's: the last row step of a group reads them, and they add
+    exactly nothing. ``planted`` names the groups whose first rows (4: the
+    rows past the last group) get the NaN; the group before each is
+    checked."""
+    t, sizes = GMM_CASES["tail"]  # groups end at rows 5, 46, 63 and 96
+    a, b = _tgmm_inputs(dev, t, *TGMM_FORMS["dW1"])
+    gs = torch.tensor(sizes, dtype=torch.int32, device=dev)
+    clean = GM.tgmm_kernel(a, b, gs)
+    starts = [0, 5, 46, 63, 96]
+    an, bn = a.clone(), b.clone()
+    for e in planted:
+        an[starts[e]:starts[e] + 3] = float("nan")
+        bn[starts[e]:starts[e] + 3] = float("nan")
+    got = GM.tgmm_kernel(an, bn, gs)
+    torch.cuda.synchronize()
+    for e in planted:
+        assert torch.isfinite(got[e - 1]).all(), f"expert {e - 1}"
+        assert torch.equal(got[e - 1], clean[e - 1]), f"expert {e - 1}"
+        if e < E:  # the planted group itself takes its NaN rows
+            assert torch.isnan(got[e]).any()
 
 
 @pytest.mark.parametrize("transpose_rhs", [False, True], ids=["fwd", "t"])

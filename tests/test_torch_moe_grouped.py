@@ -10,6 +10,10 @@ the same inputs made with numpy:
   kernel's 128-row tile boundaries of a longer buffer, an empty expert and
   row counts no tile divides (T = 96 and 300), within 1e-5 of the largest
   value; the transposed form against megablox ``gmm(transpose_rhs=True)``;
+* ``tgmm_reference`` (the plain version of kernel tgmm) against megablox
+  ``tgmm`` in interpret mode on two packed groupings (an empty expert,
+  boundaries inside megablox's row tile, rows past every group) and one
+  padded to a row tile;
 * ``grouped_moe_mlp`` against the JAX engine with ``matmul_impl=
   'ragged_dot'`` at rate 0: the output and the gradients of x, the gates
   and every weight within 1e-4, erf and tanh GELU; and against the port's
@@ -26,6 +30,7 @@ the same inputs made with numpy:
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -142,6 +147,37 @@ def test_transposed_form_matches_megablox():
     got = tgmm.gmm_reference(torch.from_numpy(y), torch.from_numpy(w),
                              torch.from_numpy(gs), transpose_rhs=True)
     _max_close(got.numpy(), want, 1e-5, "gmm transpose_rhs")
+
+
+# tgmm's groupings: the packed ones above (rows past every group in
+# "straddle"), with megablox's row tile inside the groups, and one padded to
+# the fused engine's row tile (every group a multiple of tm = 16)
+TGMM_CASES = {"ragged_empty_pad": (*GMM_CASES["ragged_empty_pad"], 4),
+              "straddle": (*GMM_CASES["straddle"], 8),
+              "tm_padded": (128, [32, 16, 0, 80], 16)}
+
+
+@pytest.mark.parametrize("case", sorted(TGMM_CASES))
+def test_plain_tgmm_matches_megablox(case):
+    """The plain grouped dW (tgmm_reference, what kernel tgmm is held to on
+    the card) against megablox ``tgmm`` in interpret mode: each group's
+    ``aᵀ·b`` over its rows, an empty group's exactly zero."""
+    t, sizes, tm = TGMM_CASES[case]
+    rng = np.random.default_rng(5)
+    a = rng.standard_normal((t, D)).astype(np.float32)
+    b = rng.standard_normal((t, F)).astype(np.float32)
+    gs = np.asarray(sizes, np.int32)
+    backend = importlib.import_module(
+        "jax.experimental.pallas.ops.tpu.megablox.gmm")
+    want = jax.jit(lambda a, b, g: backend.tgmm(
+        a.T, b, g, jnp.float32, (tm, D, F), interpret=True))(
+        jnp.asarray(a), jnp.asarray(b), jnp.asarray(gs))
+    got = tgmm.tgmm_reference(torch.from_numpy(a), torch.from_numpy(b),
+                              torch.from_numpy(gs), torch.float32)
+    assert got.shape == (E, D, F)
+    _max_close(got.numpy(), want, 1e-5, "tgmm")
+    for e in np.flatnonzero(gs == 0):
+        assert not got[e].any()
 
 
 def test_plain_gmm_zeroes_rows_past_the_groups():

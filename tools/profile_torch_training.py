@@ -50,21 +50,23 @@ FAMILIES = (
     ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
     ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
-    # moe.cu's before mlp.cu's: "gemm_kernel<false, 2" is in both names
+    # the M/M′ mma.sync kernels of moe.cu; D′'s of mlp.cu
     ("moe_gemm_kernel<true, 0,", "M fc1 + GELU + mask (moe.cu)"),
     ("moe_gemm_kernel<true, 1,", "M fc2 + mask (moe.cu)"),
     ("moe_gemm_kernel<false, 2,", "M′ dh GEMM + GELU′ epilogue (moe.cu)"),
     ("moe_gemm_kernel<false, 3,", "M′ dx GEMM (moe.cu)"),
     ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
-    ("moe_tgmm_kernel", "tgmm grouped dW1, dW2 (moe.cu)"),
-    ("StoreEpi, true>", "N-gmm x·W[e], wgmma (gemm_sm90.cuh)"),
-    ("StoreEpi, false>", "N-gmm transposed dy·W[e]ᵀ, wgmma (gemm_sm90.cuh)"),
-    ("gemm_kernel<true, 3>", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
+    ("dh_gemm_kernel", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
     ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
-    ("gemm_kernel<false, 1>", "D fc1 + GELU + mask (mlp.cu)"),
-    ("gemm_kernel<false, 2>", "D fc2 + mask (mlp.cu)"),
+    # the wgmma mainloop's instantiations (gemm_sm90.cuh): tgmm's GroupedK
+    # before N-gmm's "StoreEpi, true", D's before B's "InferEpi<"
+    ("GroupedK", "tgmm grouped dW1, dW2, wgmma (gemm_sm90.cuh)"),
+    ("StoreEpi, true", "N-gmm x·W[e], wgmma (gemm_sm90.cuh)"),
+    ("StoreEpi, false", "N-gmm transposed dy·W[e]ᵀ, wgmma (gemm_sm90.cuh)"),
+    ("TrainFc1Epi", "D fc1 + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),
+    ("TrainFc2Epi", "D fc2 + mask, wgmma (gemm_sm90.cuh)"),
     ("InferEpi<0>", "B fc2 + bias, wgmma (gemm_sm90.cuh)"),
     ("InferEpi<", "B fc1 + bias + GELU, wgmma (gemm_sm90.cuh)"),
     # dropout.cu's kernel sits in an anonymous namespace; PyTorch's own

@@ -7,8 +7,16 @@ the main path's shapes, on one CUDA card:
   D = 768, F = 3072, against the bf16 cuBLAS chain ``F.linear → F.gelu →
   F.linear``; fc1 and fc2 alone as bare GEMMs through N-gmm with one group
   (the same mainloop with a store epilogue) against ``F.linear``;
+* kernel D (the training MLP forward, dropout 0.1 at both sites) at M =
+  25216 (224 px b128) against the bf16 chain ``F.linear → F.gelu →
+  F.dropout → F.linear → F.dropout``, and its two GEMMs bare;
 * kernel N-gmm in both forms at T = 50432 (MoE b128), E = 8, against
   ``torch._grouped_mm``;
+* kernel tgmm (the grouped dW) for dW1 ``[8, 768, 3072]`` and dW2 ``[8,
+  3072, 768]`` over the packed T = 50432 rows (the unfused engine) and over
+  the cap-padded rows (each group rounded up to 256, the fused engine),
+  against ``torch._grouped_mm(a.t(), b, offs=...)``; and dW1 with every row
+  on one expert;
 * the host time of one kernel-B call at one image (M = 197) against the
   chain's.
 
@@ -16,11 +24,12 @@ Device times: 20 launches back to back between two CUDA events, after 3
 warm-up calls, so the host's gap between calls is not inside. Each line is
 printed twice (two rounds), kernel and library call in turns.
 
-    python3 tools/time_gemm_sm90.py
+    python3 tools/time_gemm_sm90.py [--only B,D,N-gmm,tgmm,host]
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
@@ -28,13 +37,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import card_line, device_ms, host_us  # noqa: E402
 
-M_B64, M_B1, DIM, HIDDEN = 64 * 197, 197, 768, 3072
-T_B128, EXPERTS = 2 * 128 * 197, 8
+M_B64, M_B1, M_B128, DIM, HIDDEN = 64 * 197, 197, 128 * 197, 768, 3072
+T_B128, EXPERTS, TM = 2 * 128 * 197, 8, 256
+SIZES = [6000, 7000, 5500, 6800, 6200, 6500, 6100]  # the 8th takes the rest
 
 
 def main() -> int:
     import torch
     import torch.nn.functional as F
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="B,D,N-gmm,tgmm,host",
+                    help="comma-separated kernels to time")
+    only = set(ap.parse_args().only.split(","))
 
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -50,22 +65,38 @@ def main() -> int:
     def draw(*shape, scale=1.0):
         return (torch.randn(*shape, device=dev, generator=gen) * scale).to(bf)
 
+    def int32(values):
+        return torch.tensor(values, dtype=torch.int32, device=dev)
+
     x, h = draw(M_B64, DIM), draw(M_B64, HIDDEN)
     w1, b1 = draw(HIDDEN, DIM, scale=0.02), draw(HIDDEN, scale=0.02)
     w2, b2 = draw(DIM, HIDDEN, scale=0.02), draw(DIM, scale=0.02)
-    one = torch.tensor([M_B64], dtype=torch.int32, device=dev)
-    sizes = [6000, 7000, 5500, 6800, 6200, 6500, 6100]
-    gs = torch.tensor(sizes + [T_B128 - sum(sizes)], dtype=torch.int32,
-                      device=dev)
+    one = int32([M_B64])
+    gs = int32(SIZES + [T_B128 - sum(SIZES)])
     offs = torch.cumsum(gs, 0, dtype=torch.int32)
     a, dh = draw(T_B128, DIM), draw(T_B128, HIDDEN)
     w = draw(EXPERTS, DIM, HIDDEN, scale=0.02)
+    # D at b128
+    xd, hd = draw(M_B128, DIM), draw(M_B128, HIDDEN)
+    one_d = int32([M_B128])
+    seed, sites = 12345, (2, 3)
+    # tgmm: the packed rows (a, dh over gs) and the cap-padded ones
+    padded = [-(-s // TM) * TM for s in gs.tolist()]
+    gs_cap = int32(padded)
+    offs_cap = torch.cumsum(gs_cap, 0, dtype=torch.int32)
+    cap = sum(padded)
+    a_cap, dh_cap = draw(cap, DIM), draw(cap, HIDDEN, scale=0.01)
+    hot = int32([0] * 5 + [T_B128] + [0] * 2)
 
     def chain(xx):
         return F.linear(F.gelu(F.linear(xx, w1, b1), approximate="tanh"),
                         w2, b2)
 
-    for _ in range(2):
+    def train_chain(xx):
+        hid = F.dropout(F.gelu(F.linear(xx, w1, b1)), 0.1)
+        return F.dropout(F.linear(hid, w2, b2), 0.1)
+
+    def time_b():
         print(f"B M={M_B64}: kernel "
               f"{device_ms(lambda: M.mlp_inference_kernel(x, w1, b1, w2, b2, True)):.4f}"
               f" ms, cuBLAS chain {device_ms(lambda: chain(x)):.4f} ms; bare "
@@ -74,6 +105,19 @@ def main() -> int:
               f"bare fc2 {device_ms(lambda: GM.gmm_kernel(h, w2[None], one, True)):.4f}"
               f" ms (F.linear {device_ms(lambda: F.linear(h, w2, b2)):.4f}) "
               f"({card})", flush=True)
+
+    def time_d():
+        with torch.no_grad():
+            print(f"D M={M_B128} rate 0.1: kernel "
+                  f"{device_ms(lambda: M.mlp_train_kernel(xd, w1, b1, w2, b2, seed, sites, 0.1, 0.1)):.4f}"
+                  f" ms, bf16 chain {device_ms(lambda: train_chain(xd)):.4f} "
+                  f"ms; bare fc1 "
+                  f"{device_ms(lambda: GM.gmm_kernel(xd, w1[None], one_d, True)):.4f}"
+                  f" ms, bare fc2 "
+                  f"{device_ms(lambda: GM.gmm_kernel(hd, w2[None], one_d, True)):.4f}"
+                  f" ms ({card})", flush=True)
+
+    def time_ngmm():
         print(f"N-gmm T={T_B128} E={EXPERTS}: forward "
               f"{device_ms(lambda: GM.gmm_kernel(a, w, gs, False)):.4f} ms, "
               f"torch._grouped_mm "
@@ -83,11 +127,35 @@ def main() -> int:
               f"torch._grouped_mm "
               f"{device_ms(lambda: torch._grouped_mm(dh, w.transpose(1, 2), offs=offs)):.4f}"
               f" ms ({card})", flush=True)
-    xs = x[:M_B1].contiguous()
-    print(f"B M={M_B1} host: kernel "
-          f"{host_us(lambda: M.mlp_inference_kernel(xs, w1, b1, w2, b2, True)):.1f}"
-          f" us a call, cuBLAS chain {host_us(lambda: chain(xs)):.1f} us "
-          f"({card})", flush=True)
+
+    def time_tgmm():
+        for rows, lhs, rhs, g, o in (("packed T", a, dh, gs, offs),
+                                     (f"cap {cap}", a_cap, dh_cap, gs_cap,
+                                      offs_cap)):
+            print(f"tgmm {rows} E={EXPERTS}: dW1 "
+                  f"{device_ms(lambda: GM.tgmm_kernel(lhs, rhs, g)):.4f} ms, "
+                  f"torch._grouped_mm "
+                  f"{device_ms(lambda: torch._grouped_mm(lhs.t(), rhs, offs=o)):.4f}"
+                  f" ms; dW2 "
+                  f"{device_ms(lambda: GM.tgmm_kernel(rhs, lhs, g)):.4f} ms, "
+                  f"torch._grouped_mm "
+                  f"{device_ms(lambda: torch._grouped_mm(rhs.t(), lhs, offs=o)):.4f}"
+                  f" ms ({card})", flush=True)
+        print(f"tgmm T={T_B128} all on expert 5: dW1 "
+              f"{device_ms(lambda: GM.tgmm_kernel(a, dh, hot)):.4f} ms "
+              f"({card})", flush=True)
+
+    for _ in range(2):
+        for name, fn in (("B", time_b), ("D", time_d), ("N-gmm", time_ngmm),
+                         ("tgmm", time_tgmm)):
+            if name in only:
+                fn()
+    if "host" in only:
+        xs = x[:M_B1].contiguous()
+        print(f"B M={M_B1} host: kernel "
+              f"{host_us(lambda: M.mlp_inference_kernel(xs, w1, b1, w2, b2, True)):.1f}"
+              f" us a call, cuBLAS chain {host_us(lambda: chain(xs)):.1f} us "
+              f"({card})", flush=True)
     return 0
 
 
