@@ -25,10 +25,11 @@ before the last line:
    and K′ (long-sequence attention) at 384 px (N=577, b1 and b16), H and H′
    (GELU + dropout) at the 384 fine-tune's hidden rows [16·577, 3072]; M,
    M′ and tgmm (the MoE expert MLP forward, backward and grouped dW) at the
-   b128 routing (T = 50432 pairs, tm = 256) of a seeded router, and with a
-   hot and an empty expert; L and L′ (blockwise attention) at N = 750, 1025
-   (b32), 1088 and 4097, and the chunked graph path (tensor ops) at 1024
-   and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
+   b128 routing (T = 50432 pairs, tm = 256) of a seeded router, with a
+   hot and an empty expert, and at b8 (T = 3152, tm = 32), M's reruns
+   bit-equal; L and L′ (blockwise attention) at N = 750, 1025 (b32), 1088
+   and 4097, each run twice for the same bits, and the chunked graph path
+   (tensor ops) at 1024 and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
    in both forms at the b128 routing, with a hot and an empty expert and
    at b127 (T = 50038, no multiple of the row tile), the same bits again
    (B too), and tgmm's two dW on the same packed rows as well as on the
@@ -73,9 +74,10 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), for B, D, N-gmm and tgmm (both dW, cap-padded and
-   packed rows, and one hot expert) also the device time alone (20
-   launches between two events) beside the library call's, the host time
+   events, median), for B, D, L, M, N-gmm and tgmm (both dW, cap-padded
+   and packed rows, and one hot expert) also the device time alone (20
+   launches between two events) beside the library call's (L's beside
+   its tensor bound and the floor of its exponentials on the SFUs), the host time
    of one kernel-A call and one kernel-B call at b1 (tensor-map encodes
    included) beside sdpa's and the cuBLAS chain's, Predictor p50 for one image
    at 224 and 384 px,
@@ -157,6 +159,8 @@ REMAT_REL_TOL = 1e-6
 # the H100 SXM's published dense peaks (the bound of each kernel's work)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# exponentials an SM's special-function units issue a clock (ex2, fp32)
+SFU_EX2_PER_CLOCK = 16
 
 
 def log(msg: str) -> None:
@@ -226,6 +230,21 @@ def host_us(fn, calls: int = 200) -> float:
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def sfu_floor_ms(exps: float) -> float:
+    """The least time the card's special-function units take for ``exps``
+    fp32 exponentials: SFU_EX2_PER_CLOCK a clock on every SM at the card's
+    highest SM clock (``nvidia-smi``'s clocks.max.sm)."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    hz = float(out.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return exps / (SFU_EX2_PER_CLOCK * sms * hz) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -330,8 +349,8 @@ def check_blockwise_attention(dev, results,
     """L and L′ against their plain versions: at the route's boundary (N =
     750, b1), 512 px at the training batch (b32; its tensors are kept for
     the times), an exact tile multiple (1088 = 17·64) and 1024 px (b2); dO
-    as the output projection's backward hands it over; L′ twice, for the
-    same bits."""
+    as the output projection's backward hands it over; L and L′ twice
+    each, for the same bits; lse finite on every row."""
     import torch
 
     from gavit_tpu_torch.ops import attention as A
@@ -348,15 +367,20 @@ def check_blockwise_attention(dev, results,
         qkv = torch.randn(b, n, 3 * HEADS * HEAD_DIM, device=dev,
                           generator=g).to(bf)
         o, lse = A.qkv_attention_large_kernel(qkv, scale, HEADS)
+        o2, lse2 = A.qkv_attention_large_kernel(qkv, scale, HEADS)
         want_o, want_lse = A.blockwise_attention_reference(qkv, scale, HEADS)
         torch.cuda.synchronize()
         err, lerr = max_err(o, want_o), max_err(lse, want_lse)
-        del want_o, want_lse
-        check("L blockwise attention", torch.isfinite(o).all().item()
+        same = torch.equal(o, o2) and torch.equal(lse, lse2)
+        finite = (torch.isfinite(o).all().item()
+                  and torch.isfinite(lse).all().item())
+        del want_o, want_lse, o2, lse2
+        check("L blockwise attention", finite and same
               and err <= ATTN_TOL["bf16"] and lerr <= LSE_TOL,
               f"bf16 B={b} N={n} H={HEADS} d={HEAD_DIM}: o max_abs_err "
               f"{err:.3e} (tol {ATTN_TOL['bf16']:.0e}), lse max_abs_err "
-              f"{lerr:.3e} (tol {LSE_TOL:.0e})")
+              f"{lerr:.3e} (tol {LSE_TOL:.0e}), o and lse finite {finite}; "
+              f"a second run bit-equal {same}")
         results["L"]["errs"].append(err)
         do = torch.randn(b, n, HEADS, HEAD_DIM, device=dev,
                          generator=g).to(bf).transpose(1, 2)
@@ -780,13 +804,15 @@ def check_tgmm(results, what, a, b, gs):
 
 def check_moe(dev, results):
     """M (erf with dropout 0.1, and tanh at rate 0), M′ and tgmm against
-    their plain versions at the b128 routing, and with a hot and an empty
-    expert: the masks (zero patterns) bit-exact, y, h1, dx, go and dh1
-    within the bf16 tolerance of D and D′ relative to the tensor's largest,
-    dye bit-exact, db1 and db2 within BIAS_REL_TOL, dW1 and dW2 (rounded to
-    bf16 once from fp32 sums) within GRAD_REL_TOL. The masks: y and dye
-    hold the output mask and go the hidden one exactly (``mask_applied``
-    against ``ops/philox.py``'s bits)."""
+    their plain versions at the b128 routing, with a hot and an empty
+    expert, and at b8 (T = 3152 pairs, where ``fused_tm`` gives tm = 32 and
+    a 128-row tile straddles experts): the masks (zero patterns)
+    bit-exact, h1 within 1 ulp, y, dx, go and dh1 within the bf16
+    tolerance of D and D′ relative to the tensor's largest, M's reruns
+    bit-equal, dye bit-exact, db1 and db2 within BIAS_REL_TOL, dW1 and dW2
+    (rounded to bf16 once from fp32 sums) within GRAD_REL_TOL. The masks:
+    y and dye hold the output mask and go the hidden one exactly
+    (``mask_applied`` against ``ops/philox.py``'s bits)."""
     import torch
 
     from gavit_tpu_torch.ops import gmm as GM
@@ -795,8 +821,9 @@ def check_moe(dev, results):
 
     seed, sites = philox.step_seed(SEED, 6), (5, 6)
     f = HIDDEN
-    for routing in ("router", "hot", "empty"):
-        c = moe_case(dev, routing)
+    for routing, batch in (("router", TRAIN_BATCH), ("hot", TRAIN_BATCH),
+                           ("empty", TRAIN_BATCH), ("router", 8)):
+        c = moe_case(dev, routing, batch)
         x, (w1, b1, w2, b2), dy, tg, tm = (c["x"], c["w"], c["dy"], c["tg"],
                                            c["tm"])
         cap = x.shape[0]
@@ -807,25 +834,29 @@ def check_moe(dev, results):
         for rate, approx in ((DROP_RATE, False), (0.0, True)):
             y, h1 = MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm, seed, sites,
                                       rate, rate, approx)
+            y2, h12 = MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm, seed,
+                                        sites, rate, rate, approx)
             y_ref, h1_ref = MF.moe_fwd_reference(x, w1, b1, w2, b2, tg, tm,
                                                  seed, sites, rate, rate,
                                                  approx)
             torch.cuda.synchronize()
+            same = torch.equal(y, y2) and torch.equal(h1, h12)
+            del y2, h12
             masked, how = mask_applied(y, y_ref, keep_o if rate else
                                        torch.ones_like(keep_o))
             uh = ulps(h1, h1_ref)
             ry = rel_err(y, y_ref)
             err = max(max_err(y, y_ref), max_err(h1, h1_ref))
-            check("M moe expert mlp fwd", masked and uh <= 1
+            check("M moe expert mlp fwd", masked and uh <= 1 and same
                   and ry <= GRAD_REL_TOL and torch.isfinite(y).all().item(),
-                  f"bf16 {routing} T={c['t']} cap={cap} tm={tm} "
+                  f"bf16 {routing} b{batch} T={c['t']} cap={cap} tm={tm} "
                   f"{'tanh' if approx else 'erf'} rate {rate}: y holds the "
                   f"output mask exactly {masked} ({how}), h1 within "
                   f"{uh:.0f} ulp (tol 1), y rel "
-                  f"to max {ry:.3e} (tol {GRAD_REL_TOL:.0e}); max_abs_err "
-                  f"{err:.3e}")
+                  f"to max {ry:.3e} (tol {GRAD_REL_TOL:.0e}), a second run "
+                  f"bit-equal {same}; max_abs_err {err:.3e}")
             results["M"]["errs"].append(err)
-            if routing == "router" and not approx:
+            if routing == "router" and batch == TRAIN_BATCH and not approx:
                 results["M"]["cases"].append(c)
         got = MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed, sites,
                                 DROP_RATE, DROP_RATE, False)
@@ -842,7 +873,8 @@ def check_moe(dev, results):
               and all(torch.isfinite(a).all().item() for a in got))
         err = max(max_err(a, b) for a, b in zip(got, want))
         check("M′ moe expert mlp bwd", ok,
-              f"bf16 {routing} rate {DROP_RATE}: rel to max " + ", ".join(
+              f"bf16 {routing} b{batch} tm={tm} rate {DROP_RATE}: rel to "
+              f"max " + ", ".join(
                   f"{n} {v:.3e}" for n, v in rels.items())
               + f" (tol {GRAD_REL_TOL:.0e}; db1, db2 {BIAS_REL_TOL:.0e}); "
               f"dye bit-exact {torch.equal(got[5], want[5])}, go holds the "
@@ -853,7 +885,7 @@ def check_moe(dev, results):
         for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
             check_tgmm(results, f"{routing} {what} over the {cap} cap-padded "
                        f"rows", a, b, c["gs"])
-        if routing == "router":
+        if routing == "router" and batch == TRAIN_BATCH:
             results["M′"]["cases"].append((dy, h1_ref, go, dh1, dye))
 
 
@@ -1805,6 +1837,10 @@ def phase_large_times(cfg512, weights512, dev, results, predictor512,
                  cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
                  ) + bound(4 * b * h * n * n * d,
                            4 * b * n * h * d * 2 + b * h * n * 4)
+    # L alone on the device, beside sdpa timed the same way
+    results["L"]["device"] = (
+        device_ms(lambda: A.qkv_attention_large_kernel(qkv, scale, h)),
+        device_ms(lambda: F.scaled_dot_product_attention(q, k, v)))
     rows["L′"] = (cuda_ms(lambda: A.qkv_attention_large_bwd_kernel(
                       qkv, o, lse, do, scale, h)),
                   cuda_ms(lambda: A.blockwise_attention_backward_reference(
@@ -1818,6 +1854,13 @@ def phase_large_times(cfg512, weights512, dev, results, predictor512,
         log(f"[time] {key} at 512 px b{b} (N={n}): kernel {km:.4f} ms, "
             f"plain {pm:.4f} ms, library (sdpa{' fwd+bwd' if key == 'L′' else ''}) "
             f"{lm:.4f} ms, bound {bms:.4f} ms ({by}) ({card})")
+    scores = b * h * n * n
+    dk, dl = results["L"]["device"]
+    log(f"[time] L alone on the device (20 launches between two events): "
+        f"kernel {dk:.4f} ms, sdpa {dl:.4f} ms; {scores} scores, one "
+        f"exponential each: SFU floor {sfu_floor_ms(scores):.4f} ms "
+        f"({SFU_EX2_PER_CLOCK} ex2 a clock an SM) beside the tensor bound "
+        f"{rows['L'][3]:.4f} ms ({card})")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 81)
     for gb, gn in ((BATCH_512, N_512 - 1), (BATCH_1024, N_1024 - 1)):
@@ -2326,7 +2369,7 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
     rows = {
         "M": (cuda_ms(lambda: MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm,
                                                 seed, sites, DROP_RATE,
-                                                DROP_RATE, False)),
+                                                DROP_RATE, False, gs)),
               cuda_ms(lambda: MF.moe_fwd_reference(
                   x, w1, b1, w2, b2, tg, tm, seed, sites, DROP_RATE,
                   DROP_RATE, False), iters=3, warmup=1),
@@ -2354,6 +2397,15 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
         log(f"[time] {key} at b{TRAIN_BATCH} (T={t}, cap={cap}, tm={tm}): "
             f"kernel {km:.4f} ms, plain {pm:.4f} ms, library {lm:.4f} ms, "
             f"bound {bms:.4f} ms ({by}) ({card})")
+    # M alone on the device, beside the library chain timed the same way
+    results["M"]["device"] = (
+        device_ms(lambda: MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm, seed,
+                                            sites, DROP_RATE, DROP_RATE,
+                                            False, gs)),
+        device_ms(lib["M"]))
+    log(f"[time] M at b{TRAIN_BATCH} alone on the device (20 launches "
+        f"between two events): kernel {results['M']['device'][0]:.4f} ms, "
+        f"{lib['name']} chain {results['M']['device'][1]:.4f} ms ({card})")
     # tgmm alone on the device over the cap-padded rows, both dW
     device = results["tgmm"].setdefault("device", {})
     for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
@@ -2748,12 +2800,12 @@ def kernels_json(results, serve_counts, train_counts, rows):
     forms counted), from the served requests for B, from the op-level
     phase for I, I′, J, J′, G and E (no training or serving path launches
     them). N-gmm's times are its
-    forward form's; ``transposed`` holds the transposed form's. B, D, N-gmm
-    and tgmm, redesigned on the TMA-fed wgmma mainloop, also carry
-    ``device_ms`` and ``library_device_ms``: 20 launches between two
-    events, no host gap (tgmm's: dW1 over the cap-padded rows, its
-    ``device`` both dW over the cap-padded and the packed rows and dW1 with
-    one hot expert)."""
+    forward form's; ``transposed`` holds the transposed form's. B, D, M,
+    N-gmm and tgmm, redesigned on the TMA-fed wgmma mainloop, and L,
+    redesigned as a TMA-fed wgmma attention, also carry ``device_ms`` and
+    ``library_device_ms``: 20 launches between two events, no host gap
+    (tgmm's: dW1 over the cap-padded rows, its ``device`` both dW over the
+    cap-padded and the packed rows and dW1 with one hot expert)."""
     spec = [
         ("A", "fused_qkv_attention",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
@@ -2778,7 +2830,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu_torch/csrc/attention_long.cu",
          "gavit_tpu/ops/attention.py:475"),
         ("L", "fused_qkv_attention_large",
-         "gavit_tpu_torch/csrc/attention_large.cu",
+         "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:803"),
         ("L′", "fused_qkv_attention_large_bwd",
          "gavit_tpu_torch/csrc/attention_large.cu",
@@ -2833,18 +2885,24 @@ def kernels_json(results, serve_counts, train_counts, rows):
     mlp, = [row for row in out if row["name"] == "fused_mlp_inference"]
     train, = [row for row in out if row["name"] == "fused_mlp_train_fwd"]
     tgmm, = [row for row in out if row["name"] == "grouped_dw_tgmm"]
+    large, = [row for row in out if row["name"] == "fused_qkv_attention_large"]
+    moe, = [row for row in out if row["name"] == "fused_grouped_mlp"]
     tgmm_device = results["tgmm"]["device"]
     for row, where in ((mlp, results["B"]["device"]),
                        (ngmm, results["N-gmm"]["device"]),
                        (ngmm["transposed"],
                         results["N-gmm"]["device transposed"]),
                        (train, results["D"]["device"]),
-                       (tgmm, tgmm_device["dW1 cap-padded"])):
+                       (tgmm, tgmm_device["dW1 cap-padded"]),
+                       (large, results["L"]["device"]),
+                       (moe, results["M"]["device"])):
         row["device_ms"], row["library_device_ms"] = where
     tgmm["device"] = {what: {"ms": dk, "library_ms": dl}
                       for what, (dk, dl) in tgmm_device.items()}
-    for row in (mlp, ngmm, train, tgmm):
+    for row in (mlp, ngmm, train, tgmm, moe):
         row["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
+    large["redesigned"] = ("TMA-fed wgmma, one-pass online softmax, "
+                           "csrc/attention_fwd_sm90.cu")
     return {"kernels": out}
 
 

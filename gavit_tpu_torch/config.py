@@ -512,3 +512,20 @@ def mesh_note(cfg: Config) -> str | None:
     return (f"config mesh data={m.data} model={m.model} pipe={m.pipe} "
             f"fsdp={m.fsdp} sp={m.sp} read and not used: the port runs on "
             f"one card")
+
+
+def unused_note(cfg: Config) -> str | None:
+    """A log line naming each training field that is set away from its
+    default and that the port reads and does not use yet:
+    ``training.log_grad_norm`` (the JAX Trainer logs the global gradient
+    norm) and ``training.steps_per_call`` (it fuses that many steps into one
+    dispatch); both wait for ROADMAP Queue 1 item 6. None when neither
+    is set."""
+    default = TrainingConfig()
+    fields = [f"training.{name}={getattr(cfg.training, name)}"
+              for name in ("log_grad_norm", "steps_per_call")
+              if getattr(cfg.training, name) != getattr(default, name)]
+    if not fields:
+        return None
+    return (f"config {', '.join(fields)} read and not used: the port's "
+            f"trainer takes one step a call and logs no gradient norm")

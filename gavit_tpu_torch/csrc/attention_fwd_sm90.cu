@@ -1,5 +1,6 @@
-// The bf16 exact attention forwards A, K, I and J for Hopper: wgmma on
-// TMA-fed tiles, with the TPU kernels' exact softmax.
+// The bf16 attention forwards for Hopper, wgmma on TMA-fed tiles: A, K, I
+// and J with the TPU kernels' exact softmax, and the blockwise L with its
+// online softmax (at the end of the file).
 //
 // Replaces: gavit_tpu/ops/attention.py::_fwd_kernel_v4 (A, on the packed
 // qkv rows up to 224 tokens), ::_fwd_kernel_v3 (K, packed rows past 224),
@@ -491,6 +492,314 @@ int launch_fwd(const Operand& q, const Operand& k, const Operand& v, const Opera
                           : launch<false>(q, k, v, o, batch, n, heads, scale, stream);
 }
 
+// ---- kernel L: one pass, online softmax ------------------------------------
+//
+// Replaces: gavit_tpu/ops/attention.py::_fwd_kernel_v5 (launched by
+// _run_fwd_v5_impl): the forward of flash_attention_large, which
+// fused_qkv_attention takes past the exact kernels' range (N > 749 in bf16
+// at head_dim 64; attention_route 'L' in the port: 512 px, N = 1025, and
+// 1024 px, N = 4097). Its backward L' (attention_large.cu) reads the o and
+// lse written here.
+//
+// The function, with v5's rounding points: s = q.k^T * scale in fp32, keys
+// at or past N at -inf; over the key tiles in order, each row keeps a
+// running max m and sum l; when m moves, l and o are rescaled by
+// exp(m_old - m_new); p = exp(s - m) against the running max is rounded to
+// bf16 before p.v, l sums the unrounded fp32 p; o = acc / l rounded to bf16
+// ([B, N, H, 64] memory: the wrapper returns the [B, H, N, d] view) and
+// lse = m + log l in fp32 [B, H, N] (logf, the accurate form: L' recomputes
+// p from it). q, k, v come from the packed [B, N, 3*H*64] rows through
+// rank-4 tensor maps, as A's. No atomics, every sum in a fixed order:
+// reruns give the same bits.
+//
+// What bounds it on the H100: 4*N^2*64 tensor FLOPs a head (0.104 ms at
+// 512 px b32) and one exponential a score on the SFUs (16 ex2 a clock an
+// SM: about 0.1 ms for the 4.0e8 scores at 512 px b32), each about the
+// other's size at head_dim 64, with ~4 more CUDA-core instructions a score
+// (the max, the scaled subtraction as one FFMA in base 2, the sum, half a
+// pack). The bytes (q, k, v read once, o written once) are far below.
+//
+// Design (one block = one consumer warpgroup + one producer warp, one
+// 64-row query tile a block, three blocks an SM):
+// * The producer warp's lane 0 loads the Q tile and streams 64-key K and V
+//   tiles by TMA through 3-stage rings with full/empty mbarriers, 128-byte
+//   swizzled.
+// * One pass over the key tiles, FlashAttention-3's intra-warpgroup
+//   overlap: at tile j the warpgroup issues S_j = Q.K_j^T (wgmma
+//   m64n64k16, both operands K-major in shared memory) and O += P_{j-1} .
+//   V_{j-1} (register A fragments, V the MN-major B operand) back to back,
+//   waits for S_j only, runs the online softmax of S_j in registers while
+//   P_{j-1}.V_{j-1} is on the tensor cores (a second set of P fragments),
+//   then waits for it and rescales O by the step's exp(m_old - m_new). The
+//   softmax works in base 2: x = s * scale * log2(e) and p = ex2(x - m) as
+//   one FFMA and one ex2.approx; the keys past N are masked on the last
+//   key tile only, behind a uniform branch (a select on every tile made
+//   the kernel 1.27x slower at 512 px b32). Three blocks an SM (106
+//   registers, no spills) keep three warpgroups' softmax and tensor work
+//   interleaved.
+// * O goes through the Q tile's shared memory (the last S is done with it)
+//   to one TMA store, which drops rows past N; lse is written for rows < N.
+// * The first key tile always holds a key < N, so the first running max is
+//   finite and exp(-inf - m) = 0 clears the empty sums; the ragged last
+//   query tile's rows past N multiply TMA's zeros and are never stored.
+// * Tried and measured (PERF.md §6, PR 11): two or three warpgroups a block
+//   sharing the K/V tiles (a third of the K/V traffic, slower: the
+//   warpgroups' softmax and wgmmas line up instead of interleaving),
+//   FlashAttention-3's ping-pong between two warpgroups, S_{j+1} issued
+//   before the softmax of S_j (two S tiles), a persistent item loop with a
+//   double-buffered Q, 128-key tiles (best at N = 4097 by 8%, 6% behind at
+//   1025).
+
+// 2^x on the SFU (ex2.approx, within 2 ulp; -inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// L's block: one consumer warpgroup owning a 64-row query tile, and the
+// producer warp; 64-key tiles through 3-stage K and V rings
+constexpr int kLargeStages = 3;
+constexpr int kLargeBlocksPerSm = 3;
+
+struct LargeBarriers {
+  uint64_t q_full, k_full[kLargeStages], k_empty[kLargeStages], v_full[kLargeStages],
+      v_empty[kLargeStages];
+};
+
+// shared memory from a 1024-byte aligned base: the K ring, the V ring, the
+// Q tile (the O staging tile once the last S is done), the barriers
+struct LargeLayout {
+  static constexpr int kV = kLargeStages * kTileBytes;
+  static constexpr int kQ = 2 * kV;
+  static constexpr int kBars = kQ + kTileBytes;
+  static constexpr int kBytes = kBars + (int)sizeof(LargeBarriers) + 1024;
+};
+
+struct LargeParams {
+  Maps maps;
+  float* lse;
+  int n;
+  float scale_log2;  // scale * log2(e): the scores in base-2 units
+};
+
+// The running softmax over one key tile of raw scores s whose first key is
+// key0 (keys at or past n set to -inf): the row maxima m (base-2 units of
+// the scaled scores) move to cover the tile, a returns exp(m_old - m_new)
+// for each row, l (this thread's share of the row sums) is rescaled and
+// takes the tile's p = exp(s * scale - m) in fp32, and p leaves rounded to
+// bf16 as the A fragments of the tile's P.V. Every key tile holds a key <
+// n, so the new maxima are finite; on the first tile (m = -inf) a = 0.
+template <int C>
+__device__ __forceinline__ void online_softmax(float (&s)[C][16], uint32_t (&pa)[2 * C][4],
+                                               int key0, int t, int n, float c, float& m0,
+                                               float& m1, float& l0, float& l1, float& a0,
+                                               float& a1) {
+  if (key0 + C * kChunk > n) {  // the last key tile only: a uniform branch
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        if (key0 + ch * kChunk + (i >> 2) * 8 + 2 * t + (i & 1) >= n) s[ch][i] = -INFINITY;
+  }
+  float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) chunk_max(s[ch], t0, t1);
+  const float n0 = fmaxf(m0, quad_max(t0) * c), n1 = fmaxf(m1, quad_max(t1) * c);
+  a0 = ex2(m0 - n0), a1 = ex2(m1 - n1);
+  m0 = n0, m1 = n1;
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) s[ch][i] = ex2(fmaf(s[ch][i], c, i & 2 ? -n1 : -n0));
+    chunk_sum(s[ch], s0, s1);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float* x = s[ch] + 8 * h;
+      uint32_t* f = pa[2 * ch + h];
+      f[0] = pack_bf16(x[0], x[1]), f[1] = pack_bf16(x[2], x[3]);
+      f[2] = pack_bf16(x[4], x[5]), f[3] = pack_bf16(x[6], x[7]);
+    }
+  }
+  l0 = fmaf(l0, a0, s0), l1 = fmaf(l1, a1, s1);
+}
+
+// issue O += P.V over one key tile (its 16-key steps), V's swizzled rows
+// from v_addr
+template <int C>
+__device__ __forceinline__ void issue_pv_tile(float (&o)[32], const uint32_t (&pa)[2 * C][4],
+                                              uint32_t v_addr) {
+#pragma unroll
+  for (int k = 0; k < 2 * C; ++k)
+    wgmma_m64n64k16_mnmajor(o, pa[k], mnmajor_desc(v_addr + 2048 * k), 1);
+}
+
+__global__ void __launch_bounds__(kThreads, kLargeBlocksPerSm)
+    attn_large_sm90_kernel(const __grid_constant__ LargeParams p) {
+  using L = LargeLayout;
+  constexpr int C = kStreamChunks, S = kLargeStages;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sk = smem;
+  uint8_t* sv = smem + L::kV;
+  uint8_t* sq = smem + L::kQ;
+  LargeBarriers& bar = *reinterpret_cast<LargeBarriers*>(smem + L::kBars);
+
+  const int n = p.n, tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int key_tiles = (n + kTileRows - 1) / kTileRows;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&bar.q_full, 1);
+    for (int i = 0; i < S; ++i) {
+      mbar_init(&bar.k_full[i], 1), mbar_init(&bar.k_empty[i], kConsumers);
+      mbar_init(&bar.v_full[i], 1), mbar_init(&bar.v_empty[i], kConsumers);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: one lane issues every TMA load ----
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(&bar.q_full, kTileBytes);
+      tma_load_4d(sq, &p.maps.q, &bar.q_full, 0, tile * kTileRows, h, b);
+      for (int j = 0; j < key_tiles; ++j) {
+        const int s = j % S;
+        const unsigned ph = ((j / S) & 1) ^ 1;
+        mbar_wait(&bar.k_empty[s], ph);
+        mbar_expect_tx(&bar.k_full[s], kTileBytes);
+        tma_load_4d(sk + s * kTileBytes, &p.maps.k, &bar.k_full[s], 0, j * kTileRows, h, b);
+        mbar_wait(&bar.v_empty[s], ph);
+        mbar_expect_tx(&bar.v_full[s], kTileBytes);
+        tma_load_4d(sv + s * kTileBytes, &p.maps.v, &bar.v_full[s], 0, j * kTileRows, h, b);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: the warpgroup computes the block's query tile ----
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float c = p.scale_log2;
+  const uint32_t q_addr = smem_u32(sq), k_base = smem_u32(sk), v_base = smem_u32(sv);
+  float s[C][16], o[32];
+  uint32_t pa[2 * C][4];
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f, a0, a1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  mbar_wait(&bar.q_full, 0);
+
+  uint32_t pn[2 * C][4];
+  // key tile 0: S, then its softmax
+  mbar_wait(&bar.k_full[0], 0);
+  wgmma_fence();
+  issue_s(s, q_addr, k_base);
+  wgmma_commit();
+  wgmma_wait<0>();
+  mbar_arrive(&bar.k_empty[0]);
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) fence_regs(s[ch]);
+  online_softmax(s, pa, 0, t, n, c, m0, m1, l0, l1, a0, a1);
+  // key tile j: issue S_j and O += P_{j-1}.V_{j-1}; the softmax of S_j
+  // runs while P_{j-1}.V_{j-1} is on the tensor cores; then O is
+  // rescaled to the new maxima
+  for (int j = 1; j < key_tiles; ++j) {
+    const int sj = j % S, sp = (j - 1) % S;
+    mbar_wait(&bar.k_full[sj], (j / S) & 1);
+    mbar_wait(&bar.v_full[sp], ((j - 1) / S) & 1);
+    settle_p(pa);
+    fence_regs(o);
+    wgmma_fence();
+    issue_s(s, q_addr, k_base + sj * kTileBytes);
+    wgmma_commit();
+    issue_pv_tile<C>(o, pa, v_base + sp * kTileBytes);
+    wgmma_commit();
+    wgmma_wait<1>();
+    mbar_arrive(&bar.k_empty[sj]);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) fence_regs(s[ch]);
+    online_softmax(s, pn, j * kTileRows, t, n, c, m0, m1, l0, l1, a0, a1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    settle_p(pa);
+    mbar_arrive(&bar.v_empty[sp]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= i & 2 ? a1 : a0;
+#pragma unroll
+    for (int k = 0; k < 2 * C; ++k)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) pa[k][r] = pn[k][r];
+  }
+  const int sp = (key_tiles - 1) % S;
+  mbar_wait(&bar.v_full[sp], ((key_tiles - 1) / S) & 1);
+  settle_p(pa);
+  fence_regs(o);
+  wgmma_fence();
+  issue_pv_tile<C>(o, pa, v_base + sp * kTileBytes);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  mbar_arrive(&bar.v_empty[sp]);
+
+  // o / l and lse = m + log l (m back in natural units), for the rows < n
+  l0 = quad_sum(l0), l1 = quad_sum(l1);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] *= i & 2 ? inv1 : inv0;
+  const int r0 = tile * kTileRows + warp * 16 + g;
+  if (t == 0) {
+    float* lse = p.lse + ((long long)b * gridDim.y + h) * n;
+    if (r0 < n) lse[r0] = m0 * 0.6931471805599453f + logf(l0);
+    if (r0 + 8 < n) lse[r0 + 8] = m1 * 0.6931471805599453f + logf(l1);
+  }
+  // the S wgmmas are done with the Q tile: stage O there, then one TMA
+  // store, which drops rows past n
+  named_sync(1, kConsumers);
+  stage_o(o, sq, warp, g, t);
+  fence_proxy_async();
+  named_sync(1, kConsumers);
+  if (threadIdx.x == 0) {
+    tma_store_4d(&p.maps.o, sq, 0, tile * kTileRows, h, b);
+    bulk_commit();
+    bulk_wait<0>();
+  }
+}
+
+// L: qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16 and
+// lse [batch, heads, n] fp32
+int large_fwd(const void* qkv, void* out, float* lse, int batch, int n, int heads,
+              float scale, cudaStream_t stream) {
+  if (batch <= 0 || batch > 65535 || heads <= 0 || heads > 65535 || n <= 0)
+    return cudaErrorInvalidValue;
+  // once a process: the SM's shared memory carved out in full, so that
+  // three blocks share it
+  static const cudaError_t prepared = [] {
+    cudaError_t err = cudaFuncSetAttribute(attn_large_sm90_kernel,
+                                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                                           cudaSharedmemCarveoutMaxShared);
+    return err == cudaSuccess ? set_smem(attn_large_sm90_kernel, LargeLayout::kBytes) : err;
+  }();
+  if (prepared != cudaSuccess) return prepared;
+  const bf16* rows = static_cast<const bf16*>(qkv);
+  const long long rs = 3LL * heads * kD, orow = (long long)heads * kD;
+  LargeParams p;
+  p.lse = lse;
+  p.n = n;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  const void* bases[4] = {rows, rows + heads * kD, rows + 2 * heads * kD, out};
+  CUtensorMap* maps[4] = {&p.maps.q, &p.maps.k, &p.maps.v, &p.maps.o};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < 4 && err == cudaSuccess; ++i) {
+    const long long sn = i < 3 ? rs : orow;
+    err = encode_rows_map(maps[i], bases[i], n, heads, batch, sn, kD, n * sn, kTileRows);
+  }
+  if (err != cudaSuccess) return err;
+  dim3 grid((n + kTileRows - 1) / kTileRows, heads, batch);
+  attn_large_sm90_kernel<<<grid, kThreads, LargeLayout::kBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // A and K: qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16
@@ -523,4 +832,14 @@ GAVIT_EXPORT int gavit_attention_bhnd_fwd(const void* q, const void* k, const vo
                           {o, strides[9], strides[10], strides[11]}};
   return launch_fwd(ops[0], ops[1], ops[2], ops[3], batch, n, heads, scale,
                     static_cast<cudaStream_t>(stream));
+}
+
+// L: qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16 and
+// lse [batch, heads, n] fp32
+GAVIT_EXPORT int gavit_attention_large_fwd(const void* qkv, void* out, void* lse, int batch,
+                                           int n, int heads, int head_dim, float scale,
+                                           void* stream) {
+  if (head_dim != kD) return cudaErrorInvalidValue;
+  return large_fwd(qkv, out, static_cast<float*>(lse), batch, n, heads, scale,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -1,52 +1,42 @@
-// Kernels L and L': blockwise multi-head self-attention forward and backward
-// for sequences past the exact kernels' range (512 px: N = 1025, 1024 px:
-// N = 4097), on the packed qkv rows.
+// Kernel L': the blockwise multi-head self-attention backward for sequences
+// past the exact kernels' range (512 px: N = 1025, 1024 px: N = 4097), on
+// the packed qkv rows. Its forward L is the TMA-fed wgmma kernel of
+// attention_fwd_sm90.cu, which writes the o and lse this file reads.
 //
-// Replaces: gavit_tpu/ops/attention.py::_fwd_kernel_v5 (launched by
-// _run_fwd_v5_impl), ::_dq_kernel_v5 and ::_dkv_kernel_v5 (launched by
-// _run_bwd_v5_impl): flash_attention_large, which fused_qkv_attention takes
-// once the exact v3 kernels no longer fit the TPU's VMEM (N > 749 in bf16 at
-// head_dim 64; attention_route 'L' in the port).
+// Replaces: gavit_tpu/ops/attention.py::_dq_kernel_v5 and ::_dkv_kernel_v5
+// (launched by _run_bwd_v5_impl): the backward of flash_attention_large,
+// which fused_qkv_attention takes once the exact v3 kernels no longer fit
+// the TPU's VMEM (N > 749 in bf16 at head_dim 64; attention_route 'L' in
+// the port).
 //
-// What they compute, with v5's rounding points:
-//   forward   s = q.k^T * scale (fp32), online softmax over 64-key tiles:
-//             p = exp(s - m) with m the running row max, rounded to bf16
-//             before p.v; o = (sum p.v) / l, lse = m + log l (fp32);
-//   backward  delta = rowsum(do * o) (fp32), p = exp(s - lse),
-//             dv = bf16(p)^T . do, dp = do . v^T,
-//             ds = bf16(p * (dp - delta) * scale), dq = ds . k, dk = ds^T . q.
-// q, k and v are read straight out of the qkv GEMM's [B, N, 3*H*d] rows
-// through strides, with no host transpose or pad (the TPU kernels transpose
-// to [3, B*H, N_pad, d] first); o is written as [B, N, H, d] (the Python
-// wrapper returns the [B, H, N, d] view, as for A and K), lse as [B, H, N],
-// and dq, dk, dv into the packed layout. The ragged tail is masked in the
+// What it computes, with v5's rounding points: delta = rowsum(do * o)
+// (fp32), p = exp(s - lse) with s = q.k^T * scale (fp32),
+// dv = bf16(p)^T . do, dp = do . v^T, ds = bf16(p * (dp - delta) * scale),
+// dq = ds . k, dk = ds^T . q. q, k and v are read straight out of the qkv
+// GEMM's [B, N, 3*H*d] rows through strides, with no host transpose or pad
+// (the TPU kernels transpose to [3, B*H, N_pad, d] first); o ([B, N, H, d]
+// memory as L writes it) and do through their strides, lse as [B, H, N];
+// dq, dk, dv go into the packed layout. The ragged tail is masked in the
 // kernels: keys at or past N score -inf, query rows past N are zero rows
 // that are never written, and their lse is never read.
 //
-// * L (attn_large_fwd_kernel): grid (query block of 64 rows, head, image),
-//   6528 blocks at 512 px b32, 780 at 1024 px b1; 4 warps of 16 query rows,
-//   Q held in A fragments. One pass over the key tiles: K and V tiles are
-//   double-buffered in shared memory with cp.async (the next tile's copy in
-//   flight while this one is multiplied), the row max and sum kept in fp32
-//   and o rescaled in registers when the max moves (K makes two passes,
-//   because it needs the true max before it rounds p).
-// * L' is two launches without atomics (deterministic), as v5's two kernels:
-//   - query-major (attn_large_bwd_q_kernel), grid as L's: delta of the
-//     block's rows from o and do (fp32, written to a [B, H, N] scratch for the
-//     second launch), then one pass over double-buffered K and V tiles that
-//     accumulates dq = ds.K in registers (K read with ldmatrix.trans).
-//   - key-major (attn_large_bwd_kv_kernel), grid (key block of 64, head,
-//     image): each warp keeps 16 keys; Q and dO tiles stream through a
-//     double-buffered ring with their rows' lse and delta; s, p and dp are
-//     recomputed per 16x16 tile, p and ds transposed by movmatrix, and
-//     dv += p^T.dO, dk += ds^T.Q accumulate in registers.
+// Two launches without atomics (deterministic), as v5's two kernels:
+// * query-major (attn_large_bwd_q_kernel), grid (query block of 64 rows,
+//   head, image): delta of the block's rows from o and do (fp32, written to
+//   a [B, H, N] scratch for the second launch), then one pass over
+//   double-buffered K and V tiles that accumulates dq = ds.K in registers
+//   (K read with ldmatrix.trans).
+// * key-major (attn_large_bwd_kv_kernel), grid (key block of 64, head,
+//   image): each warp keeps 16 keys; Q and dO tiles stream through a
+//   double-buffered ring with their rows' lse and delta; s, p and dp are
+//   recomputed per 16x16 tile, p and ds transposed by movmatrix, and
+//   dv += p^T.dO, dk += ds^T.Q accumulate in registers.
 //
-// What bounds it on the H100: 4*N^2*d FLOPs a head forward and 10*N^2*d
-// backward (recomputing s and dp in both launches: 14*N^2*d done) against
-// ~4*N*d*2 and ~8*N*d*2 bytes: 500-2000 FLOP/byte at N = 1025-4097, far
-// above the card's ridge (~295), so the bound is the tensor cores: about
-// 0.10 ms (L) and 0.26 ms (L') at 512 px b32. This first version issues
-// mma.sync, not wgmma, and 4 warps a block, so it will not reach it.
+// What bounds it on the H100: 10*N^2*d FLOPs a head (recomputing s and dp
+// in both launches: 14*N^2*d done) against ~8*N*d*2 bytes: far above the
+// card's ridge (~295 FLOP/byte) at N = 1025-4097, so the bound is the
+// tensor cores: about 0.26 ms at 512 px b32. This version issues mma.sync,
+// not wgmma, and 4 warps a block, so it will not reach it.
 #include "attention_tiles.cuh"
 
 namespace {
@@ -65,111 +55,6 @@ __device__ __forceinline__ float row_dot(const bf16* a, const bf16* b) {
     for (int e = 0; e < 8; ++e) acc += __bfloat162float(pa[e]) * __bfloat162float(pb[e]);
   }
   return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    attn_large_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                          float* __restrict__ lse, int n, int heads, float scale) {
-  __shared__ __align__(16) bf16 sq[kTile * kStride];
-  __shared__ __align__(16) bf16 sk[2][kTile * kStride];
-  __shared__ __align__(16) bf16 sv[2][kTile * kStride];
-  const int q_begin = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long long rs = 3LL * heads * kD;
-  const bf16* base = qkv + (long long)b * n * rs;
-  const bf16* kcol = base + (heads + h) * kD;
-  const bf16* vcol = base + (2 * heads + h) * kD;
-  const int tiles = (n + kTile - 1) / kTile;
-
-  stage_async(sq, base + h * kD, rs, q_begin, n);
-  stage_async(sk[0], kcol, rs, 0, n);
-  stage_async(sv[0], vcol, rs, 0, n);
-  cp_async_commit();
-
-  uint32_t qa[4][4];
-  float o[kD / 8][4];
-#pragma unroll
-  for (int d = 0; d < kD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const int lrow = lane & 15;  // the row this lane addresses for ldmatrix (x2)
-  for (int it = 0; it < tiles; ++it) {
-    const int cur = it & 1;
-    __syncthreads();  // the tile in slot cur ^ 1 is consumed
-    if (it + 1 < tiles) {
-      stage_async(sk[cur ^ 1], kcol, rs, (it + 1) * kTile, n);
-      stage_async(sv[cur ^ 1], vcol, rs, (it + 1) * kTile, n);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();  // every group but the one just committed: tile it (and Q)
-    __syncthreads();
-    if (it == 0) frag_rows(qa, sq + (warp * 16 + g) * kStride + 2 * t);
-    const int k0 = it * kTile;
-    float s[8][4];
-    float t0 = -INFINITY, t1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      mma_rows(s[j], qa, sk[cur], j, g, t);
-      scale_mask(s[j], k0 + j * 8, t, n, scale);
-      t0 = fmaxf(t0, fmaxf(s[j][0], s[j][1]));
-      t1 = fmaxf(t1, fmaxf(s[j][2], s[j][3]));
-    }
-    // every tile holds a key < n, so the new max is finite; on the first
-    // tile exp(-inf - max) = 0 clears the empty sums
-    const float n0 = fmaxf(m0, quad_max(t0)), n1 = fmaxf(m1, quad_max(t1));
-    const float a0 = expf(m0 - n0), a1 = expf(m1 - n1);
-    m0 = n0, m1 = n1;
-    l0 *= a0;
-    l1 *= a1;
-#pragma unroll
-    for (int d = 0; d < kD / 8; ++d) {
-      o[d][0] *= a0, o[d][1] *= a0;
-      o[d][2] *= a1, o[d][3] *= a1;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-#pragma unroll
-      for (int hlf = 0; hlf < 2; ++hlf) {
-        const float* sj = s[2 * kk + hlf];
-        const float p0 = expf(sj[0] - m0), p1 = expf(sj[1] - m0);
-        const float p2 = expf(sj[2] - m1), p3 = expf(sj[3] - m1);
-        l0 += p0 + p1;
-        l1 += p2 + p3;
-        a[2 * hlf] = pack_bf16(p0, p1);
-        a[2 * hlf + 1] = pack_bf16(p2, p3);
-      }
-      // a: the A fragment of the 16x16 block of p (rows g, g+8; keys of
-      // n8 tiles 2kk and 2kk+1)
-#pragma unroll
-      for (int d = 0; d < kD / 8; ++d) {
-        uint32_t bb[2];
-        ldmatrix_x2_trans(bb, sv[cur] + (kk * 16 + lrow) * kStride + d * 8);
-        mma_16816(o[d], a, bb);
-      }
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-
-  const long long orow = (long long)heads * kD;  // o is [B, N, H, d] in memory
-  bf16* ob = out + (long long)b * n * orow + h * kD;
-  const int r0 = q_begin + warp * 16 + g;
-#pragma unroll
-  for (int d = 0; d < kD / 8; ++d) {
-    const int col = d * 8 + 2 * t;
-    if (r0 < n)
-      *reinterpret_cast<uint32_t*>(ob + r0 * orow + col) =
-          pack_bf16(o[d][0] * inv0, o[d][1] * inv0);
-    if (r0 + 8 < n)
-      *reinterpret_cast<uint32_t*>(ob + (r0 + 8) * orow + col) =
-          pack_bf16(o[d][2] * inv1, o[d][3] * inv1);
-  }
-  if (t == 0) {
-    float* lb = lse + ((long long)b * heads + h) * n;
-    if (r0 < n) lb[r0] = m0 + logf(l0);
-    if (r0 + 8 < n) lb[r0 + 8] = m1 + logf(l1);
-  }
 }
 
 // L', query-major: delta of the block's rows into delta [B, H, n], dq into
@@ -404,19 +289,6 @@ bool shape_ok(int batch, int n, int heads, int head_dim) {
 }
 
 }  // namespace
-
-// qkv [batch, n, 3*heads*64] bf16 -> out [batch, n, heads, 64] bf16 and
-// lse [batch, heads, n] fp32
-GAVIT_EXPORT int gavit_attention_large_fwd(const void* qkv, void* out, void* lse, int batch,
-                                           int n, int heads, int head_dim, float scale,
-                                           void* stream) {
-  if (!shape_ok(batch, n, heads, head_dim)) return cudaErrorInvalidValue;
-  dim3 grid((n + kRows - 1) / kRows, heads, batch);
-  attn_large_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<float*>(lse), n,
-      heads, scale);
-  return cudaGetLastError();
-}
 
 // qkv [batch, n, 3*heads*64] bf16; o and dout: element (b, h, i, c) at
 // ptr + b*sb + h*sh + i*sn + c (rows 16-byte aligned); lse [batch, heads, n]

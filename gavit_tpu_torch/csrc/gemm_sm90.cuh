@@ -1,10 +1,11 @@
 // One bf16 GEMM mainloop for Hopper, shared by kernels B and D (mlp.cu: the
-// serving and the training MLP's fc1 and fc2), N-gmm (moe.cu: megablox gmm
-// in both forms) and tgmm (moe.cu: megablox tgmm, the grouped weight
-// gradient): TMA-fed, warp-specialised wgmma with two tile schedules and
-// pluggable epilogues.
+// serving and the training MLP's fc1 and fc2), M (moe.cu: the MoE expert
+// MLP's fc1 and fc2), N-gmm (moe.cu: megablox gmm in both forms) and tgmm
+// (moe.cu: megablox tgmm, the grouped weight gradient): TMA-fed,
+// warp-specialised wgmma with two tile schedules and pluggable epilogues
+// (train_epilogues.cuh holds B's, D's and M's).
 //
-// * RowTiles (B, D, N-gmm): C[M, N] = A[M, K] . B_e for the rows of each
+// * RowTiles (B, D, M, N-gmm): C[M, N] = A[M, K] . B_e for the rows of each
 //   group e of group_sizes, with A row-major (K-major) and B_e either
 //   K-major ([N, K] rows: nn.Linear's weights, gmm's transposed form) or
 //   MN-major ([K, N] rows: gmm's forward W[e]). A dense GEMM is one group
@@ -47,13 +48,15 @@
 //   of one tile overlap the next tile's mainloop: run by the consumers
 //   themselves, B's fc1 GELU (about 35 instructions a value, tanhf among
 //   them) took nearly as long as its mainloop, with the tensor cores idle.
-// * D's training epilogues: epilogue warps 2-3 draw each tile's Philox keep
-//   bits (one bit an element, 3 KB a tile, double-buffered) ahead of the
-//   consumers, which apply them in registers (fc2) or when they read their
-//   staged h1 back and write g = GELU(h1) * keep * scale themselves (fc1);
-//   warp 1 stores. Run on the three epilogue warps, the exact-erf GELU and
-//   Philox held fc1 to 3.5 times its bare GEMM's time (PERF.md §6).
-// * RowTiles' groups (N-gmm): each block walks the groups that overlap its
+// * D's and M's training epilogues: epilogue warps 2-3 draw each tile's
+//   Philox keep bits (one bit an element, 3 KB a tile, double-buffered;
+//   nothing at rate 0) ahead of the consumers, which apply them in
+//   registers (fc2) or when they read their staged h1 back and write g =
+//   GELU(h1) * keep * scale themselves (fc1); warp 1 stores. Run on the
+//   three epilogue warps, the exact-erf GELU and Philox held fc1 to 3.5
+//   times its bare GEMM's time (PERF.md §6). M's add the bias row of the
+//   segment's group (apply gets the group's index).
+// * RowTiles' groups (M, N-gmm): each block walks the groups that overlap its
 //   128-row tile and runs the mainloop once for each (a GEMM row needs no
 //   other row, so the whole tile is multiplied by group e's weights and
 //   only e's rows are kept). The segments of one tile write disjoint rows
@@ -126,9 +129,10 @@ struct Params {
   int m, n, k;
   const int* group_sizes;  // [experts] on the device; null: one group of all rows
   int experts;
-  const bf16* bias;        // for the epilogues that take one ([N])
-  DropSite drop;           // for the epilogues that mask (D)
-  bf16* out2;              // a second output [M, N], for the epilogues that write one (D's g)
+  const bf16* bias;        // for the epilogues that take one: [N], or a row a group
+  int bias_stride;         // elements from one group's bias row to the next's (0: one row)
+  DropSite drop;           // for the epilogues that mask (D, M)
+  bf16* out2;              // a second output [M, N], for the epilogues that write one (g)
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -204,13 +208,14 @@ struct GroupedK {
 };
 
 // An epilogue: `apply` maps an accumulator quad (columns col and col + 1 of
-// two rows, r0 and r0 + 8) in the consumers' registers before the values
-// are rounded to bf16 and staged. With kFinish, the epilogue warps then map
-// each 16-byte chunk of 8 staged values (row, columns col..col + 7) with
-// finish(), in shared memory, while the consumers run the next tile's
-// mainloop. With kReadBack, the consumers themselves map each chunk of
-// their staged tile with read_back(), which writes a second output (D's g)
-// and leaves the staged values as they are. With kDrawBits, the epilogue
+// two rows, r0 and r0 + 8, of group e's segment) in the consumers'
+// registers before the values are rounded to bf16 and staged. With
+// kFinish, the epilogue warps then map each 16-byte chunk of 8 staged
+// values (row, columns col..col + 7) with finish(), in shared memory, while
+// the consumers run the next tile's mainloop. With kReadBack, the
+// consumers themselves map each chunk of their staged tile with
+// read_back(), which writes a second output (D's and M's g) and leaves the
+// staged values as they are. With kDrawBits, the epilogue
 // warps draw each tile's keep bits with keep8() (bit i: column col + i of
 // a row) ahead of its consumers, Philox's arithmetic off the tensor cores'
 // path; apply() gets its quad's 4 bits (columns col, col + 1 of row r0,
@@ -218,7 +223,7 @@ struct GroupedK {
 // The epilogue that stores the sums as they are:
 struct StoreEpi {
   static constexpr bool kFinish = false, kReadBack = false, kDrawBits = false;
-  static __device__ __forceinline__ void apply(const Params&, int, uint32_t, float (&)[4]) {}
+  static __device__ __forceinline__ void apply(const Params&, int, int, uint32_t, float (&)[4]) {}
 };
 
 // The row and the first column of the 8 values in 16-byte chunk c of a
@@ -348,8 +353,9 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
             // buffer ti % 2, once its consumers have read tile ti - 2's bits
             mbar_wait(&bar.mask_empty[ti & 1], ((ti >> 1) & 1) ^ 1);
             uint8_t* mask = smem + Layout::kMask + (ti & 1) * kMaskBytes;
-            for (int i = etid - 32; i < kMaskBytes; i += 64)
-              mask[i] = (uint8_t)Epi::keep8(p, t.m0 + i / (BN / 8), t.n0 + 8 * (i % (BN / 8)));
+            if (p.drop.on)  // at rate 0 the bits are never read
+              for (int i = etid - 32; i < kMaskBytes; i += 64)
+                mask[i] = (uint8_t)Epi::keep8(p, t.m0 + i / (BN / 8), t.n0 + 8 * (i % (BN / 8)));
             mbar_arrive(&bar.mask_full[ti & 1]);
           }
           return;
@@ -403,8 +409,12 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
   uint8_t* row1 = row0 + 8 * 128;
   float acc[96];
   uint32_t it = 0;
-  int ti = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
+  // the tile recomputed from its count each round, not carried: one
+  // register fewer, which M's fc1 (a bias row an expert) needs to spill
+  // nothing
+  for (int ti = 0;; ++ti) {
+    const int tile = blockIdx.x + ti * gridDim.x;
+    if (tile >= tiles) break;
     const Tile t = Sched::at(p, tile);
     const int r0 = t.m0 + wg * kWgRows + warp * 16 + g, r1 = r0 + 8;
     const uint8_t* mask = smem + Layout::kMask + (ti & 1) * kMaskBytes;
@@ -432,7 +442,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         uint32_t k4 = 0xFu;
         if (Epi::kDrawBits)
           k4 = (bits0[j] >> (2 * q4) & 3u) | (bits0[8 * (BN / 8) + j] >> (2 * q4) & 3u) << 2;
-        Epi::apply(p, t.n0 + 8 * j + 2 * q4, k4, v);
+        Epi::apply(p, sg.e, t.n0 + 8 * j + 2 * q4, k4, v);
         const int off = (j >> 3) * kAtomBytes + (((j & 7) ^ g) << 4);
         if (keep0) *reinterpret_cast<uint32_t*>(row0 + off) = pack_bf16(v[0], v[1]);
         if (keep1) *reinterpret_cast<uint32_t*>(row1 + off) = pack_bf16(v[2], v[3]);

@@ -27,7 +27,8 @@
 //   VMEM; here it makes one round trip through device memory (2 x 155 MB at
 //   ViT-B b128). fc1's GELUs (about 40 instructions a value, two of them
 //   MUFU) outweigh its tensor-core work: they set its pace (PERF.md §6
-//   times the placements tried).
+//   times the placements tried). B's and D's epilogues live in
+//   train_epilogues.cuh, which the MoE expert MLP M (moe.cu) shares.
 // * D': a prologue applies the output mask to dy -> dye (needed by the dW2
 //   GEMM) and sums dye's columns (db2); the GEMM dh = dye . W2 reads W2 as
 //   stored ([D, F], nn.Linear's layout) through ldmatrix.trans, no transposed
@@ -56,6 +57,7 @@
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "philox.cuh"
+#include "train_epilogues.cuh"
 
 namespace {
 
@@ -77,46 +79,15 @@ struct EpiArgs {
 
 // ---- kernels B and D: epilogues of the wgmma mainloop ----------------------
 
-enum Act { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_ERF = 2 };
-
-// GELU (tanh or erf) in fp32 of a value already rounded to bf16, as the TPU
-// kernel rounds; each step one rounded operation, so nvcc contracts none of
-// them into an FMA. The tanh form 0.5 h (1 + tanh(u)), u = sqrt(2/pi) (h +
-// 0.044715 h^3), is taken as h / (1 + exp(-2u)), the same function: one
-// expf and one reciprocal, no branch (tanhf branches on |u|, which kept the
-// epilogue warps from overlapping one value's latency with the next's);
-// within a few fp32 ulps of the tanh form, far below the bf16 rounding
-// that follows. Large |u| gives h or -0, as the tanh form does.
-template <int kAct>
-__device__ __forceinline__ float infer_gelu(float h) {
-  if (kAct == ACT_GELU_TANH) {
-    const float cube = __fmul_rn(__fmul_rn(h, h), h);
-    const float minus_2u =
-        __fmul_rn(-1.5957691216057308f, __fadd_rn(h, __fmul_rn(0.044715f, cube)));
-    return __fdividef(h, __fadd_rn(1.f, expf(minus_2u)));
-  }
-  if (kAct == ACT_GELU_ERF)
-    return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, erff(__fmul_rn(h, 0.7071067811865476f))));
-  return h;
-}
-
-// the bias of columns col and col + 1, added to an accumulator quad
-__device__ __forceinline__ void add_bias(const gemm90::Params& p, int col, float (&v)[4]) {
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(p.bias + col);
-  const float b0 = __low2float(b), b1 = __high2float(b);
-  v[0] = __fadd_rn(v[0], b0), v[1] = __fadd_rn(v[1], b1);
-  v[2] = __fadd_rn(v[2], b0), v[3] = __fadd_rn(v[3], b1);
-}
-
 // B's fc1 (kAct a GELU) and fc2 (ACT_NONE): the consumers add the bias (the
 // mainloop rounds the sum to bf16 as it stages it); fc1's epilogue warps
 // then take the GELU of each staged value (rounded to bf16 again on store)
 template <int kAct>
 struct InferEpi {
   static constexpr bool kFinish = kAct != ACT_NONE, kReadBack = false, kDrawBits = false;
-  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, uint32_t,
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int e, int col, uint32_t,
                                                float (&v)[4]) {
-    if (col < p.n) add_bias(p, col, v);  // past N: never stored
+    if (col < p.n) add_bias(p, 0, col, v);  // past N: never stored
   }
   static __device__ __forceinline__ void finish(uint4& q) {
     uint32_t* u = reinterpret_cast<uint32_t*>(&q);
@@ -125,78 +96,6 @@ struct InferEpi {
       const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
       u[i] = pack_bf16(infer_gelu<kAct>(__low2float(h)), infer_gelu<kAct>(__high2float(h)));
     }
-  }
-};
-
-// The keep flags of elements row * n + col .. + 7 of site s, bit i for
-// column col + i (all kept when the site is off): two Philox draws, col a
-// multiple of 8 and n % 8 == 0, as mlp_bwd_prologue draws them.
-__device__ __forceinline__ uint32_t keep_bits8(const DropSite& s, int n, int row, int col) {
-  if (!s.on) return 0xFFu;
-  const unsigned long long grp = ((unsigned long long)row * n + col) >> 2;
-  const uint4 a = site_bits(s, grp), b = site_bits(s, grp + 1);
-  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-  uint32_t bits = 0;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) bits |= (uint32_t)(w[i] >= s.threshold) << i;
-  return bits;
-}
-
-// D's two epilogues: the epilogue warps draw the keep bits of p.drop
-struct DrawsKeepBits {
-  static constexpr bool kDrawBits = true;
-  static __device__ __forceinline__ uint32_t keep8(const gemm90::Params& p, int row, int col) {
-    return keep_bits8(p.drop, p.n, row, col);
-  }
-};
-
-// D's fc1: the epilogue warps draw the tile's hidden keep bits; the
-// consumers add b1 and stage h1 = bf16(x . W1^T + b1) (stored by TMA: the
-// backward's residual), then read their staged h1 back a 16-byte chunk at a
-// time and write g = bf16(GELU_erf(h1) * keep_h * scale_h), computed in fp32
-// from the rounded h1, to out2 with one 16-byte store a chunk.
-struct TrainFc1Epi : DrawsKeepBits {
-  static constexpr bool kFinish = false, kReadBack = true;
-  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, uint32_t,
-                                               float (&v)[4]) {
-    if (col < p.n) add_bias(p, col, v);
-  }
-  static __device__ __forceinline__ void read_back(const gemm90::Params& p, int row, int col,
-                                                   uint32_t bits, const uint4& h1) {
-    if (row >= p.m || col >= p.n) return;  // past M or N: not stored
-    const DropSite& s = p.drop;
-    const uint32_t* u = reinterpret_cast<const uint32_t*>(&h1);
-    uint4 out;
-    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
-      float g0, g1, d;
-      gelu_and_grad(__low2float(h), g0, d);
-      gelu_and_grad(__high2float(h), g1, d);
-      if (s.on) {
-        g0 = (bits >> (2 * i)) & 1u ? g0 * s.scale : 0.f;
-        g1 = (bits >> (2 * i + 1)) & 1u ? g1 * s.scale : 0.f;
-      }
-      o[i] = pack_bf16(g0, g1);
-    }
-    *reinterpret_cast<uint4*>(p.out2 + (long long)row * p.n + col) = out;
-  }
-};
-
-// D's fc2: the epilogue warps draw the tile's output keep bits; the
-// consumers add b2, apply the mask and scale in registers, and the mainloop
-// rounds once as it stages.
-struct TrainFc2Epi : DrawsKeepBits {
-  static constexpr bool kFinish = false, kReadBack = false;
-  static __device__ __forceinline__ void apply(const gemm90::Params& p, int col, uint32_t k4,
-                                               float (&v)[4]) {
-    if (col >= p.n) return;  // past N: never stored
-    add_bias(p, col, v);
-    const DropSite& s = p.drop;
-    if (!s.on) return;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = (k4 >> i) & 1u ? v[i] * s.scale : 0.f;
   }
 };
 
@@ -407,11 +306,6 @@ __global__ void colsum_reduce(const float* __restrict__ part, float* __restrict_
   out[c] = s;
 }
 
-// a site is off (rate 0) when the caller passes threshold 0 and scale 1
-DropSite make_site(unsigned k0, unsigned k1, unsigned site, unsigned threshold, float scale) {
-  return DropSite{k0, k1, site, threshold, scale, threshold > 0 || scale != 1.f};
-}
-
 bool bad_shape(int m, int d, int f) {
   return m <= 0 || d <= 0 || f <= 0 || d % 8 || f % 8 || m > 65535 * BM;
 }
@@ -463,14 +357,14 @@ GAVIT_EXPORT int gavit_mlp_train_fwd(const void* x, const void* w1, const void* 
   p.out2 = static_cast<__nv_bfloat16*>(g);
   cudaError_t err = gemm90::row_maps(p, x, h1);
   if (err == cudaSuccess) err = gemm90::weight_map(p, w1, false);
-  if (err == cudaSuccess) err = gemm90::launch<TrainFc1Epi, false>(p, s);
+  if (err == cudaSuccess) err = gemm90::launch<TrainFc1Epi<ACT_GELU_ERF, false>, false>(p, s);
   if (err != cudaSuccess) return err;
   p.n = d, p.k = f;
   p.bias = static_cast<const __nv_bfloat16*>(b2);
   p.drop = make_site(k0, k1, site_o, thr_o, scale_o);
   err = gemm90::row_maps(p, g, y);
   if (err == cudaSuccess) err = gemm90::weight_map(p, w2, false);
-  return err == cudaSuccess ? gemm90::launch<TrainFc2Epi, false>(p, s) : err;
+  return err == cudaSuccess ? gemm90::launch<TrainFc2Epi<false>, false>(p, s) : err;
 }
 
 // Rows of the column-partial scratch buffers of gavit_mlp_train_bwd.

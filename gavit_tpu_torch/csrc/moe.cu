@@ -17,21 +17,30 @@
 // The rows: x_sorted [cap, D] holds the routed (token, choice) pairs grouped
 // by expert, each expert's region padded to a multiple of the row tile tm
 // and to at least one tile (ops/moe_fused.py::group_by_expert_tiled), and
-// tile_group[cap / tm] names the expert of each tile. Pad rows hold finite
-// rows of the token buffer and get exactly zero upstream gradient. The
-// weights keep the Flax layout: W1 [E, D, F], b1 [E, F], W2 [E, F, D],
-// b2 [E, D]. Nothing here reads a group size on the host.
+// tile_group[cap / tm] names the expert of each tile (M takes the same
+// grouping as group_sizes[E], each expert's padded rows, the last expert's
+// summing to cap). Pad rows hold finite rows of the token buffer and get
+// exactly zero upstream gradient. The weights keep the Flax layout: W1 [E,
+// D, F], b1 [E, F], W2 [E, F, D], b2 [E, D]. Nothing here reads a group
+// size on the host.
 //
 // The TPU kernels run one grid step per row tile with the tile's expert
 // weights resident in VMEM and keep the GELU output on chip. As for D and D'
 // (mlp.cu), the weights of one expert (4.7 MB each at ViT-B) do not fit a
 // block's 227 KB of shared memory, so each kernel here is launches of
-// hand-written tensor-core GEMMs with fused epilogues (M and M': 128x128x64
+// hand-written tensor-core GEMMs with fused epilogues (M': 128x128x64
 // mma.sync tiles on a 3-stage cp.async ring, as mlp.cu's D'):
-// * M: fc1 (x . W1[e], W1 read as [K][N]) with bias + round -> h1 (stored, the
-//   backward's residual), GELU (erf, or tanh on the deterministic bf16 path)
-//   on the rounded h1, the hidden mask and scale, round -> g; then fc2
-//   (g . W2[e]) with bias, the output mask and scale, round -> y.
+// * M: fc1 (x . W1[e]) with b1[e] + round -> h1 (stored, the backward's
+//   residual), GELU (erf, or tanh on the deterministic bf16 path) on the
+//   rounded h1, the hidden mask and scale, round -> g; then fc2 (g . W2[e])
+//   with b2[e], the output mask and scale, round -> y. Both are D's
+//   training epilogues (train_epilogues.cuh) on the TMA-fed wgmma mainloop
+//   of gemm_sm90.cuh with its row schedule over group_sizes, W1[e] and
+//   W2[e] the MN-major B operand as N-gmm's forward form reads it: each
+//   128-row tile runs the mainloop once per expert segment it holds (one
+//   at tm >= 128), the epilogue adds the segment's expert's bias row and
+//   keeps the segment's rows, and epilogue warps 2-3 draw the tile's keep
+//   bits by global row a tile ahead (nothing at rate 0).
 // * M': a prologue masks dy -> dye and sums its columns per row chunk; the
 //   GEMM dh = dye . W2[e]^T (W2[e] [F, D] read as [N][K]) with D''s epilogue
 //   (GELU and GELU' from the stored h1, the hidden mask -> dh1 and go, fp32
@@ -61,13 +70,14 @@
 //   element is written once from one fp32 sum: no atomics, reruns give the
 //   same bits.
 //
-// A block's row tile must belong to one expert to use one expert's weights.
-// With tm >= 128 (ViT-B at b64 and b128: tm = 256) it always does. With a
-// smaller tm a 128-row tile can span experts: the block then runs the main
-// loop once per run of same-expert tiles inside it and keeps only that run's
-// rows in the epilogue (the other rows' sums use the wrong weights and are
-// discarded). That costs up to 128/tm main loops per block, only at the small
-// token counts that pick such a tm.
+// M''s block row tile must belong to one expert to use one expert's
+// weights. With tm >= 128 (ViT-B at b64 and b128: tm = 256) it always does.
+// With a smaller tm a 128-row tile can span experts: the block then runs the
+// main loop once per run of same-expert tiles inside it and keeps only that
+// run's rows in the epilogue (the other rows' sums use the wrong weights and
+// are discarded). That costs up to 128/tm main loops per block, only at the
+// small token counts that pick such a tm. M's row schedule does the same
+// per group segment.
 //
 // The masks come from Philox (philox.cuh): the hidden mask is element
 // row*F + col of the [cap, F] buffer at the hidden site, the output mask
@@ -78,31 +88,24 @@
 // What bounds it on the H100: each GEMM is 2*cap*D*F FLOPs (cap = 52480 rows
 // at ViT-B b128) against ~(cap*(D+F) + D*F*E)*2 bytes, far above the card's
 // ~295 FLOP/byte ridge, so the tensor cores bound M, M', tgmm and N-gmm.
-// N-gmm and tgmm feed them with wgmma (gemm_sm90.cuh); M and M' still with
-// mma.sync, their move to the wgmma mainloop comes later.
+// M, N-gmm and tgmm feed them with wgmma (gemm_sm90.cuh); M' still with
+// mma.sync, its move to the wgmma mainloop comes later.
 #include "common.cuh"
 #include "gemm_sm90.cuh"
 #include "philox.cuh"
+#include "train_epilogues.cuh"
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 64, kStages = 3;
 constexpr int LDS = BK + 8;     // 72 bf16: 8 rows of an ldmatrix phase hit 8 bank groups
-constexpr int LDS_KN = BN + 8;  // 136 bf16: the same for [K][N] tiles
 constexpr int kThreads = 256;   // 8 warps in 2x4, each owning a 64x32 tile
 
-template <bool kKN>
-__host__ __device__ constexpr int stage_elems() {
-  return BM * LDS + (kKN ? BK * LDS_KN : BN * LDS);
-}
-template <bool kKN>
-__host__ __device__ constexpr int smem_bytes() {
-  return kStages * stage_elems<kKN>() * (int)sizeof(__nv_bfloat16);
-}
+constexpr int kStageElems = BM * LDS + BN * LDS;
+constexpr int kSmemBytes = kStages * kStageElems * (int)sizeof(__nv_bfloat16);
 
-enum Act { ACT_ERF = 0, ACT_TANH = 1 };
-// epilogues: M's fc1 and fc2; M''s dh and dx
-enum Epi { EPI_FC1 = 0, EPI_FC2 = 1, EPI_DH = 2, EPI_STORE = 3 };
+// M''s epilogues: dh and dx
+enum Epi { EPI_DH = 0, EPI_STORE = 1 };
 
 struct Groups {
   const int* tile_group;  // [M / tm] expert of each row tile
@@ -110,12 +113,11 @@ struct Groups {
 };
 
 struct EpiArgs {
-  const __nv_bfloat16* bias;  // FC1, FC2: [E, N]
-  __nv_bfloat16* out;         // FC1 g; FC2 y; DH dh1; STORE the product
-  __nv_bfloat16* out2;        // FC1 h1; DH go
+  __nv_bfloat16* out;         // DH dh1; STORE the product
+  __nv_bfloat16* out2;        // DH go
   const __nv_bfloat16* h1;    // DH: the forward's h1 [M, N]
   float* colsum;              // DH: column partials, one row per segment start unit
-  DropSite drop;              // FC1 and DH: hidden mask; FC2: output mask
+  DropSite drop;              // DH: the hidden mask
 };
 
 // tanh-GELU and its derivative from one tanh (moe_fused.py::_gelu_tanh_and_grad_f32)
@@ -128,17 +130,10 @@ __device__ __forceinline__ void gelu_tanh_and_grad(float x, float& g, float& dg)
 
 template <int kAct>
 __device__ __forceinline__ void act_and_grad(float x, float& g, float& dg) {
-  if (kAct == ACT_TANH)
+  if (kAct == ACT_GELU_TANH)
     gelu_tanh_and_grad(x, g, dg);
   else
     gelu_and_grad(x, g, dg);
-}
-
-template <int kAct>
-__device__ __forceinline__ float gelu(float x) {
-  float g, dg;
-  act_and_grad<kAct>(x, g, dg);
-  return g;
 }
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
@@ -152,13 +147,13 @@ int unit_rows(int tm) { return tm < BM ? tm : BM; }
 // One segment of a block's row tile: rows [lo, hi) of [m0, m0 + BM), all of
 // expert e. The main loop runs over every row of the tile (a GEMM row's sum
 // needs no other row), the epilogue keeps [lo, hi).
-template <bool kKN, int kEpi, int kAct>
+template <int kEpi, int kAct>
 __device__ __forceinline__ void gemm_segment(const __nv_bfloat16* __restrict__ A,
                                              const __nv_bfloat16* __restrict__ B, int M, int N,
                                              int K, int e, int lo, int hi, int unit,
                                              const EpiArgs& ep, unsigned char* smem_raw) {
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  constexpr int kStage = stage_elems<kKN>();
+  constexpr int kStage = kStageElems;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, tig = lane & 3;
@@ -175,20 +170,11 @@ __device__ __forceinline__ void gemm_segment(const __nv_bfloat16* __restrict__ A
       const bool ok = ga < M && gk < K;
       cp_async_16(sa + r * LDS + kc, ok ? A + (long)ga * K + gk : A, ok ? 16 : 0);
     }
-    if (kKN) {  // B_e [K][N]
-      for (int c = tid; c < BK * (BN / 8); c += kThreads) {
-        const int r = c >> 4, nc = (c & 15) * 8;
-        const int gk = k0 + r, gn = n0 + nc;
-        const bool ok = gk < K && gn < N;
-        cp_async_16(sb + r * LDS_KN + nc, ok ? Be + (long)gk * N + gn : Be, ok ? 16 : 0);
-      }
-    } else {  // B_e [N][K]
-      for (int c = tid; c < BN * (BK / 8); c += kThreads) {
-        const int r = c >> 3, kc = (c & 7) * 8;
-        const int gk = k0 + kc, gb = n0 + r;
-        const bool ok = gb < N && gk < K;
-        cp_async_16(sb + r * LDS + kc, ok ? Be + (long)gb * K + gk : Be, ok ? 16 : 0);
-      }
+    for (int c = tid; c < BN * (BK / 8); c += kThreads) {  // B_e [N][K]
+      const int r = c >> 3, kc = (c & 7) * 8;
+      const int gk = k0 + kc, gb = n0 + r;
+      const bool ok = gb < N && gk < K;
+      cp_async_16(sb + r * LDS + kc, ok ? Be + (long)gb * K + gk : Be, ok ? 16 : 0);
     }
   };
 
@@ -203,7 +189,6 @@ __device__ __forceinline__ void gemm_segment(const __nv_bfloat16* __restrict__ A
   // ldmatrix row/column of this lane (see mlp.cu)
   const int a_row = lane & 15, a_col = (lane >> 4) * 8;
   const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3), t_col = (lane >> 4) * 8;
 
   const int kt_count = (K + BK - 1) / BK;
 #pragma unroll
@@ -228,10 +213,7 @@ __device__ __forceinline__ void gemm_segment(const __nv_bfloat16* __restrict__ A
 #pragma unroll
       for (int nj = 0; nj < 2; ++nj) {
         uint32_t r[4];
-        if (kKN)
-          ldmatrix_x4_trans(r, bs + (ks + t_row) * LDS_KN + wn * 32 + nj * 16 + t_col);
-        else
-          ldmatrix_x4(r, bs + (wn * 32 + nj * 16 + b_row) * LDS + ks + b_col);
+        ldmatrix_x4(r, bs + (wn * 32 + nj * 16 + b_row) * LDS + ks + b_col);
         bf[2 * nj][0] = r[0], bf[2 * nj][1] = r[1];
         bf[2 * nj + 1][0] = r[2], bf[2 * nj + 1][1] = r[3];
       }
@@ -252,39 +234,13 @@ __device__ __forceinline__ void gemm_segment(const __nv_bfloat16* __restrict__ A
     for (int ni = 0; ni < 4; ++ni) {
       const int col = n0 + wn * 32 + ni * 8 + tig * 2;
       if (col >= N) continue;
-      float b0 = 0.f, b1 = 0.f;
-      if (kEpi == EPI_FC1 || kEpi == EPI_FC2) {
-        b0 = __bfloat162float(ep.bias[(long)e * N + col]);
-        b1 = __bfloat162float(ep.bias[(long)e * N + col + 1]);
-      }
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int row = m0 + wm * 64 + mi * 16 + g + half * 8;
         if (row < lo || row >= hi) continue;
         const float v0 = acc[mi][ni][half * 2], v1 = acc[mi][ni][half * 2 + 1];
         const long idx = (long)row * N + col;
-        if (kEpi == EPI_FC1) {
-          const float h0 = round_to<__nv_bfloat16>(v0 + b0);
-          const float h1 = round_to<__nv_bfloat16>(v1 + b1);
-          store2(ep.out2 + idx, h0, h1);
-          float g0 = gelu<kAct>(h0), g1 = gelu<kAct>(h1);
-          if (ep.drop.on) {
-            bool keep0, keep1;
-            keep_pair(ep.drop, (unsigned long long)idx, keep0, keep1);
-            g0 = keep0 ? g0 * ep.drop.scale : 0.f;
-            g1 = keep1 ? g1 * ep.drop.scale : 0.f;
-          }
-          store2(ep.out + idx, g0, g1);
-        } else if (kEpi == EPI_FC2) {
-          float y0 = v0 + b0, y1 = v1 + b1;
-          if (ep.drop.on) {
-            bool keep0, keep1;
-            keep_pair(ep.drop, (unsigned long long)idx, keep0, keep1);
-            y0 = keep0 ? y0 * ep.drop.scale : 0.f;
-            y1 = keep1 ? y1 * ep.drop.scale : 0.f;
-          }
-          store2(ep.out + idx, y0, y1);
-        } else if (kEpi == EPI_DH) {
+        if (kEpi == EPI_DH) {
           const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(ep.h1 + idx);
           float g0, g1, d0, d1;
           act_and_grad<kAct>(__bfloat162float(hv.x), g0, d0);
@@ -343,7 +299,7 @@ __device__ __forceinline__ void gemm_segment(const __nv_bfloat16* __restrict__ A
 // C[M, N] = A[M, K] . B_e, B_e = B + e*K*N for the expert e of each row's
 // tile. kSplit = false (tm >= BM): a block's rows are one expert's, one
 // segment. kSplit = true (tm < BM): one segment per run of same-expert tiles.
-template <bool kKN, int kEpi, int kAct, bool kSplit>
+template <int kEpi, int kAct, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
     moe_gemm_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ B,
                     int M, int N, int K, Groups grp, EpiArgs ep) {
@@ -352,8 +308,8 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = blockIdx.y * BM;
   const int m_end = min(m0 + BM, M);
   if (!kSplit) {
-    gemm_segment<kKN, kEpi, kAct>(A, B, M, N, K, grp.tile_group[m0 / tm], m0, m_end, BM, ep,
-                                  smem_raw);
+    gemm_segment<kEpi, kAct>(A, B, M, N, K, grp.tile_group[m0 / tm], m0, m_end, BM, ep,
+                             smem_raw);
     return;
   }
   for (int lo = m0; lo < m_end;) {
@@ -362,22 +318,20 @@ __global__ void __launch_bounds__(kThreads)
     while (hi < m_end && grp.tile_group[hi / tm] == e) hi += tm;
     hi = min(hi, m_end);
     __syncthreads();  // the previous segment's readers of shared memory are done
-    gemm_segment<kKN, kEpi, kAct>(A, B, M, N, K, e, lo, hi, tm, ep, smem_raw);
+    gemm_segment<kEpi, kAct>(A, B, M, N, K, e, lo, hi, tm, ep, smem_raw);
     lo = hi;
   }
 }
 
-template <bool kKN, int kEpi, int kAct>
+template <int kEpi, int kAct>
 cudaError_t moe_gemm(const void* a, const void* b, int m, int n, int k, Groups grp,
                      const EpiArgs& ep, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<kKN>();
   const bool split = grp.tm < BM;
-  auto kernel = split ? moe_gemm_kernel<kKN, kEpi, kAct, true>
-                      : moe_gemm_kernel<kKN, kEpi, kAct, false>;
-  cudaError_t err = set_smem(kernel, smem);
+  auto kernel = split ? moe_gemm_kernel<kEpi, kAct, true> : moe_gemm_kernel<kEpi, kAct, false>;
+  cudaError_t err = set_smem(kernel, kSmemBytes);
   if (err != cudaSuccess) return err;
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const __nv_bfloat16*>(a),
+  kernel<<<grid, kThreads, kSmemBytes, stream>>>(static_cast<const __nv_bfloat16*>(a),
                                            static_cast<const __nv_bfloat16*>(b), m, n, k, grp,
                                            ep);
   return cudaGetLastError();
@@ -443,11 +397,6 @@ cudaError_t colsum(const float* part, float* out, const int* tile_group, int tm,
   return cudaGetLastError();
 }
 
-// a site is off (rate 0) when the caller passes threshold 0 and scale 1
-DropSite make_site(unsigned k0, unsigned k1, unsigned site, unsigned threshold, float scale) {
-  return DropSite{k0, k1, site, threshold, scale, threshold > 0 || scale != 1.f};
-}
-
 // rows of a chunk of M''s dye column sums: divides tm, so one expert's
 int prologue_rows(int tm) { return tm < 64 ? tm : 64; }
 
@@ -459,32 +408,42 @@ bool bad_shape(int cap, int d, int f, int e, int tm) {
 }  // namespace
 
 // Kernel M. x [cap, d], w1 [e, d, f], b1 [e, f], w2 [e, f, d], b2 [e, d],
-// tile_group [cap / tm] int32; writes h1 [cap, f] (the backward's residual),
-// g [cap, f] (scratch) and y [cap, d]. act: 0 erf GELU, 1 tanh. The hidden
-// mask is site_h, the output mask site_o (off at threshold 0 and scale 1).
+// group_sizes [e] int32 on the device (each expert's cap-padded rows, a
+// multiple of tm; summing to cap); writes h1 [cap, f] (the backward's
+// residual), g [cap, f] (scratch) and y [cap, d]. act: 0 erf GELU, 1 tanh.
+// The hidden mask is site_h, the output mask site_o (off at threshold 0 and
+// scale 1). Two launches of the wgmma mainloop with the row schedule over
+// the groups, both weights MN-major: fc1 writing h1 and g, fc2 with b2 and
+// the output mask into y.
 GAVIT_EXPORT int gavit_moe_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                               const void* b2, const void* tile_group, void* h1, void* g,
+                               const void* b2, const void* group_sizes, void* h1, void* g,
                                void* y, int cap, int d, int f, int e, int tm, int act,
                                unsigned k0, unsigned k1, unsigned site_h, unsigned thr_h,
                                float scale_h, unsigned site_o, unsigned thr_o, float scale_o,
                                void* stream) {
-  if (bad_shape(cap, d, f, e, tm)) return cudaErrorInvalidValue;
+  if (bad_shape(cap, d, f, e, tm) || gemm90::bad_shape(cap, f, d)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Groups grp{static_cast<const int*>(tile_group), tm};
-  EpiArgs ep{};
-  ep.bias = static_cast<const __nv_bfloat16*>(b1);
-  ep.out = static_cast<__nv_bfloat16*>(g);
-  ep.out2 = static_cast<__nv_bfloat16*>(h1);
-  ep.drop = make_site(k0, k1, site_h, thr_h, scale_h);
-  cudaError_t err = act == ACT_TANH
-                        ? moe_gemm<true, EPI_FC1, ACT_TANH>(x, w1, cap, f, d, grp, ep, s)
-                        : moe_gemm<true, EPI_FC1, ACT_ERF>(x, w1, cap, f, d, grp, ep, s);
+  gemm90::Params p{};
+  p.m = cap, p.n = f, p.k = d, p.experts = e;
+  p.group_sizes = static_cast<const int*>(group_sizes);
+  p.bias = static_cast<const __nv_bfloat16*>(b1);
+  p.bias_stride = f;
+  p.drop = make_site(k0, k1, site_h, thr_h, scale_h);
+  p.out2 = static_cast<__nv_bfloat16*>(g);
+  cudaError_t err = gemm90::row_maps(p, x, h1);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, w1, true);
+  if (err == cudaSuccess)
+    err = act ? gemm90::launch<TrainFc1Epi<ACT_GELU_TANH, true>, true>(p, s)
+              : gemm90::launch<TrainFc1Epi<ACT_GELU_ERF, true>, true>(p, s);
   if (err != cudaSuccess) return err;
-  ep = EpiArgs{};
-  ep.bias = static_cast<const __nv_bfloat16*>(b2);
-  ep.out = static_cast<__nv_bfloat16*>(y);
-  ep.drop = make_site(k0, k1, site_o, thr_o, scale_o);
-  return moe_gemm<true, EPI_FC2, ACT_ERF>(g, w2, cap, d, f, grp, ep, s);
+  p.n = d, p.k = f;
+  p.bias = static_cast<const __nv_bfloat16*>(b2);
+  p.bias_stride = d;
+  p.drop = make_site(k0, k1, site_o, thr_o, scale_o);
+  p.out2 = nullptr;
+  err = gemm90::row_maps(p, g, y);
+  if (err == cudaSuccess) err = gemm90::weight_map(p, w2, true);
+  return err == cudaSuccess ? gemm90::launch<TrainFc2Epi<true>, true>(p, s) : err;
 }
 
 // Rows of M''s fp32 scratch: which 0 the dh1 partials [rows, f], 1 the dye
@@ -525,16 +484,15 @@ GAVIT_EXPORT int gavit_moe_bwd(const void* dy, const void* h1, const void* w1, c
   ep.colsum = static_cast<float*>(part1);
   ep.drop = make_site(k0, k1, site_h, thr_h, scale_h);
   const void* dy_eff = out_site.on ? dye : dy;
-  err = act == ACT_TANH
-            ? moe_gemm<false, EPI_DH, ACT_TANH>(dy_eff, w2, cap, f, d, grp, ep, s)
-            : moe_gemm<false, EPI_DH, ACT_ERF>(dy_eff, w2, cap, f, d, grp, ep, s);
+  err = act ? moe_gemm<EPI_DH, ACT_GELU_TANH>(dy_eff, w2, cap, f, d, grp, ep, s)
+            : moe_gemm<EPI_DH, ACT_GELU_ERF>(dy_eff, w2, cap, f, d, grp, ep, s);
   if (err != cudaSuccess) return err;
   err = colsum(static_cast<const float*>(part1), static_cast<float*>(db1), tg, tm,
                cap / unit_rows(tm), unit_rows(tm), 1, f, e, s);
   if (err != cudaSuccess) return err;
   ep = EpiArgs{};
   ep.out = static_cast<__nv_bfloat16*>(dx);
-  return moe_gemm<false, EPI_STORE, ACT_ERF>(dh1, w1, cap, d, f, grp, ep, s);
+  return moe_gemm<EPI_STORE, ACT_GELU_ERF>(dh1, w1, cap, d, f, grp, ep, s);
 }
 
 // Kernel tgmm. a [rows, kd], b [rows, n], group_sizes [e] int32 on the

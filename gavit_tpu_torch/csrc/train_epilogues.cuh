@@ -1,0 +1,146 @@
+// The epilogues of gemm_sm90.cuh's mainloop shared by the MLP kernels B and
+// D (mlp.cu) and the MoE expert MLP forward M (moe.cu): the bias of the
+// segment's group, the GELU forms, the Philox keep bits and D's and M's
+// training epilogues (fc1: h1, then g = GELU(h1) * keep * scale; fc2: y =
+// (sum + bias) * keep * scale).
+//
+// Every GELU step is one IEEE-rounded operation (the _rn intrinsics keep
+// nvcc from contracting them into FMAs), so the training forms give the
+// plain versions' bits (gavit_tpu_torch/ops/mlp.py, ops/moe_fused.py).
+#pragma once
+
+#include "common.cuh"
+#include "gemm_sm90.cuh"
+#include "philox.cuh"
+
+namespace {
+
+enum Act { ACT_NONE = 0, ACT_GELU_TANH = 1, ACT_GELU_ERF = 2 };
+
+// GELU (tanh or erf) in fp32 of a value already rounded to bf16, as the TPU
+// kernel rounds; each step one rounded operation, so nvcc contracts none of
+// them into an FMA. The tanh form 0.5 h (1 + tanh(u)), u = sqrt(2/pi) (h +
+// 0.044715 h^3), is taken as h / (1 + exp(-2u)), the same function: one
+// expf and one reciprocal, no branch (tanhf branches on |u|, which kept the
+// epilogue warps from overlapping one value's latency with the next's);
+// within a few fp32 ulps of the tanh form, far below the bf16 rounding
+// that follows. Large |u| gives h or -0, as the tanh form does.
+template <int kAct>
+__device__ __forceinline__ float infer_gelu(float h) {
+  if (kAct == ACT_GELU_TANH) {
+    const float cube = __fmul_rn(__fmul_rn(h, h), h);
+    const float minus_2u =
+        __fmul_rn(-1.5957691216057308f, __fadd_rn(h, __fmul_rn(0.044715f, cube)));
+    return __fdividef(h, __fadd_rn(1.f, expf(minus_2u)));
+  }
+  if (kAct == ACT_GELU_ERF)
+    return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.f, erff(__fmul_rn(h, 0.7071067811865476f))));
+  return h;
+}
+
+// The training GELU of a rounded h1: the A&S erf form of the TPU kernels'
+// _gelu_and_grad_f32 (D, and M by default), or the tanh form (M's
+// deterministic bf16 path).
+template <int kAct>
+__device__ __forceinline__ float train_gelu(float h) {
+  if (kAct == ACT_GELU_TANH) return infer_gelu<ACT_GELU_TANH>(h);
+  float g, dg;
+  gelu_and_grad(h, g, dg);
+  return g;
+}
+
+// the bias of group e's columns col and col + 1, added to an accumulator
+// quad (group e's bias row lies e * bias_stride elements in). The
+// epilogues of one bias row pass e = 0, which folds away: the group's index
+// costs their consumers registers they do not have to spare.
+__device__ __forceinline__ void add_bias(const gemm90::Params& p, int e, int col,
+                                         float (&v)[4]) {
+  const __nv_bfloat162 b =
+      *reinterpret_cast<const __nv_bfloat162*>(p.bias + e * p.bias_stride + col);
+  const float b0 = __low2float(b), b1 = __high2float(b);
+  v[0] = __fadd_rn(v[0], b0), v[1] = __fadd_rn(v[1], b1);
+  v[2] = __fadd_rn(v[2], b0), v[3] = __fadd_rn(v[3], b1);
+}
+
+// The keep flags of elements row * n + col .. + 7 of site s, bit i for
+// column col + i (all kept when the site is off): two Philox draws, col a
+// multiple of 8 and n % 8 == 0, as mlp_bwd_prologue draws them.
+__device__ __forceinline__ uint32_t keep_bits8(const DropSite& s, int n, int row, int col) {
+  if (!s.on) return 0xFFu;
+  const unsigned long long grp = ((unsigned long long)row * n + col) >> 2;
+  const uint4 a = site_bits(s, grp), b = site_bits(s, grp + 1);
+  const uint32_t w[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+  uint32_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) bits |= (uint32_t)(w[i] >= s.threshold) << i;
+  return bits;
+}
+
+// a site is off (rate 0) when the caller passes threshold 0 and scale 1
+inline DropSite make_site(unsigned k0, unsigned k1, unsigned site, unsigned threshold,
+                          float scale) {
+  return DropSite{k0, k1, site, threshold, scale, threshold > 0 || scale != 1.f};
+}
+
+// the training epilogues: the epilogue warps draw the keep bits of p.drop
+// (nothing at rate 0), global rows: element row * N + col of the [M, N]
+// output
+struct DrawsKeepBits {
+  static constexpr bool kDrawBits = true;
+  static __device__ __forceinline__ uint32_t keep8(const gemm90::Params& p, int row, int col) {
+    return keep_bits8(p.drop, p.n, row, col);
+  }
+};
+
+// fc1: the epilogue warps draw the tile's hidden keep bits; the consumers
+// add b1 (kGrouped: the segment's group's row) and stage h1 = bf16(x . W1 +
+// b1) (stored by TMA: the backward's residual), then read their staged h1
+// back a 16-byte chunk at a time and write g = bf16(GELU(h1) * keep_h *
+// scale_h), computed in fp32 from the rounded h1, to out2 with one 16-byte
+// store a chunk.
+template <int kAct, bool kGrouped>
+struct TrainFc1Epi : DrawsKeepBits {
+  static constexpr bool kFinish = false, kReadBack = true;
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int e, int col, uint32_t,
+                                               float (&v)[4]) {
+    if (col < p.n) add_bias(p, kGrouped ? e : 0, col, v);
+  }
+  static __device__ __forceinline__ void read_back(const gemm90::Params& p, int row, int col,
+                                                   uint32_t bits, const uint4& h1) {
+    if (row >= p.m || col >= p.n) return;  // past M or N: not stored
+    const DropSite& s = p.drop;
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(&h1);
+    uint4 out;
+    uint32_t* o = reinterpret_cast<uint32_t*>(&out);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&u[i]);
+      float g0 = train_gelu<kAct>(__low2float(h)), g1 = train_gelu<kAct>(__high2float(h));
+      if (s.on) {
+        g0 = (bits >> (2 * i)) & 1u ? g0 * s.scale : 0.f;
+        g1 = (bits >> (2 * i + 1)) & 1u ? g1 * s.scale : 0.f;
+      }
+      o[i] = pack_bf16(g0, g1);
+    }
+    *reinterpret_cast<uint4*>(p.out2 + (long long)row * p.n + col) = out;
+  }
+};
+
+// fc2: the epilogue warps draw the tile's output keep bits; the consumers
+// add b2 (kGrouped: the segment's group's row), apply the mask and scale in
+// registers, and the mainloop rounds once as it stages.
+template <bool kGrouped>
+struct TrainFc2Epi : DrawsKeepBits {
+  static constexpr bool kFinish = false, kReadBack = false;
+  static __device__ __forceinline__ void apply(const gemm90::Params& p, int e, int col,
+                                               uint32_t k4, float (&v)[4]) {
+    if (col >= p.n) return;  // past N: never stored
+    add_bias(p, kGrouped ? e : 0, col, v);
+    const DropSite& s = p.drop;
+    if (!s.on) return;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = (k4 >> i) & 1u ? v[i] * s.scale : 0.f;
+  }
+};
+
+}  // namespace

@@ -19,9 +19,9 @@
   or kernel K with K′ (``csrc/attention_fwd_sm90.cu`` and
   ``csrc/attention_long.cu``, replace ``_fwd_kernel_v3`` and
   ``_bwd_kernel_v3``), or the blockwise kernel L with L′
-  (``csrc/attention_large.cu``, replace ``_fwd_kernel_v5``,
-  ``_dq_kernel_v5`` and ``_dkv_kernel_v5``); it raises for anything those
-  kernels do not take.
+  (``csrc/attention_fwd_sm90.cu`` and ``csrc/attention_large.cu``,
+  replace ``_fwd_kernel_v5``, ``_dq_kernel_v5`` and ``_dkv_kernel_v5``);
+  it raises for anything those kernels do not take.
 * :func:`blockwise_attention_reference` and
   :func:`blockwise_attention_backward_reference` — the plain versions of L
   and L′: the forward also returns the fp32 log-sum-exp of each row, which

@@ -14,7 +14,9 @@
   row·F + col of the ``[cap, F]`` buffer at the hidden site, the output
   mask element row·D + col of ``[cap, D]`` at the output site).
 * :func:`moe_fwd_kernel`, :func:`moe_bwd_kernel` — kernels M and M′
-  (``csrc/moe.cu``) on CUDA bf16 tensors.
+  (``csrc/moe.cu``) on CUDA bf16 tensors; M runs over the grouping's
+  ``group_sizes`` (:func:`tile_group_sizes` derives them from the tile
+  map), M′ over the tile map.
 * :func:`fused_grouped_mlp` — the differentiable op: M forward; M′ and two
   calls of kernel tgmm (``ops/gmm.py``: dW1, dW2) backward.
   :func:`combine_rows_padded` gathers the pairs' rows back, its backward a
@@ -229,9 +231,21 @@ def _sites(seed, sites, rate, out_rate):
             *site_args(seed, sites[1], out_rate)[2:])
 
 
+def tile_group_sizes(tile_group, num_experts: int, tm: int):
+    """The padded rows of each expert, ``[E]`` int32, from the tile → expert
+    map (each tile counts ``tm`` rows to its expert): the ``group_sizes``
+    of :func:`group_by_expert_tiled`, on the device."""
+    experts = torch.arange(num_experts, device=tile_group.device)
+    return ((tile_group[None, :] == experts[:, None]).sum(1) * tm).to(
+        torch.int32)
+
+
 def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
-                   sites, rate: float, out_rate: float, approx: bool):
-    """Kernel M on CUDA bf16 tensors → ``(y, h1)``."""
+                   sites, rate: float, out_rate: float, approx: bool,
+                   group_sizes=None):
+    """Kernel M on CUDA bf16 tensors → ``(y, h1)``. ``group_sizes``: the
+    grouping's padded rows per expert, as :func:`group_by_expert_tiled`
+    returns them (derived from ``tile_group`` when not given)."""
     global KERNEL_LAUNCHES
     cap, d = x_sorted.shape
     e, _, f = w1.shape
@@ -244,14 +258,19 @@ def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
         raise ValueError(f"kernel M takes widths divisible by 8, got {d}, {f}")
     _check_bf16("kernel M", x_sorted, w1, b1, w2, b2)
     _check_map(tile_group, cap, tm, e)
-    _build.require_cuda(x_sorted, w1, b1, w2, b2, tile_group)
+    if group_sizes is None:
+        group_sizes = tile_group_sizes(tile_group, e, tm)
+    if group_sizes.dtype != torch.int32 or group_sizes.shape != (e,):
+        raise ValueError(f"group_sizes must be int32 [{e}], got "
+                         f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
+    _build.require_cuda(x_sorted, w1, b1, w2, b2, tile_group, group_sizes)
     h1 = torch.empty((cap, f), dtype=x_sorted.dtype, device=x_sorted.device)
     g = torch.empty_like(h1)
     y = torch.empty_like(x_sorted)
     lib = _build.library()
     _build.check(lib.gavit_moe_fwd(
         x_sorted.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-        b2.data_ptr(), tile_group.data_ptr(), h1.data_ptr(), g.data_ptr(),
+        b2.data_ptr(), group_sizes.data_ptr(), h1.data_ptr(), g.data_ptr(),
         y.data_ptr(), cap, d, f, e, tm, int(approx),
         *_sites(seed, sites, rate, out_rate),
         _build.stream(x_sorted.device)), "MoE expert MLP kernel")
@@ -310,9 +329,13 @@ class _FusedGroupedMlp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x_sorted, w1, b1, w2, b2, tile_group, group_sizes, seed,
                 sites, rate, out_rate, approx, tm, use_kernel):
-        fwd = moe_fwd_kernel if use_kernel else moe_fwd_reference
-        y, h1 = fwd(x_sorted, w1, b1, w2, b2, tile_group, tm, seed, sites,
-                    rate, out_rate, approx)
+        if use_kernel:
+            y, h1 = moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm,
+                                   seed, sites, rate, out_rate, approx,
+                                   group_sizes)
+        else:
+            y, h1 = moe_fwd_reference(x_sorted, w1, b1, w2, b2, tile_group,
+                                      tm, seed, sites, rate, out_rate, approx)
         ctx.save_for_backward(x_sorted, h1, w1, w2, tile_group, group_sizes)
         ctx.args = (seed, sites, rate, out_rate, approx, tm, use_kernel)
         ctx.bias_dtypes = (b1.dtype, b2.dtype)

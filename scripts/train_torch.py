@@ -99,7 +99,7 @@ def parse_args(argv=None):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = parse_args(argv)
-    from gavit_tpu_torch.config import load_config, mesh_note
+    from gavit_tpu_torch.config import load_config, mesh_note, unused_note
 
     config = load_config(args.config, args.overrides)
     pretrained = config.model.pretrained_path
@@ -109,9 +109,9 @@ def main(argv=None):
             f"loading it waits for ROADMAP Queue 1 item 1; refusing to train "
             f"from random weights in its place (set model.pretrained_path= "
             f"to train from scratch)")
-    note = mesh_note(config)
-    if note:
-        logger.info(note)
+    for note in (mesh_note(config), unused_note(config)):
+        if note:
+            logger.info(note)
     if not (args.synthetic or config.data.synthetic):
         raise SystemExit("train_torch: only --synthetic data is ported so far "
                          "(the image-folder loader waits for ROADMAP Queue 1 "

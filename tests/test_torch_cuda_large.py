@@ -2,7 +2,8 @@
 card, at the edges chip_smoke.py does not reach: the route boundary
 (N = 750), ragged and exact-multiple tails (1025 = 16·64 + 1, 1088 = 17·64),
 1024 px (4097), a dO that is not contiguous, a grid with fewer blocks than
-the card has SMs, bit-equal repeat runs, gradients through autograd against
+the card has SMs, bit-equal repeat runs (L at both ragged tails, with
+every row's lse finite), gradients through autograd against
 the plain versions, the graph op's size dispatch on a CUDA tensor, and a
 small bf16 ViT at 512 px trained one step with and without remat.
 
@@ -88,6 +89,25 @@ def test_blockwise_kernels_repeat_bit_for_bit(dev):
     o2, l2 = A.qkv_attention_large_kernel(qkv, 0.125, 12)
     torch.cuda.synchronize()
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+@pytest.mark.parametrize("b,n", [(3, 1025), (1, 4097)])
+def test_blockwise_forward_reruns_and_finite_lse(dev, b, n):
+    """L at the two ragged tails (one key in the last key tile, one row in
+    the last query tile): the same bits on a rerun, o and the lse of every
+    row < N finite, and the lse of each row at least its largest score (a
+    log-sum-exp is never below its largest term)."""
+    heads = 2
+    qkv = _randn(dev, b, n, 3 * heads * 64, seed=n + 11).to(BF)
+    o1, l1 = A.qkv_attention_large_kernel(qkv, 0.125, heads)
+    o2, l2 = A.qkv_attention_large_kernel(qkv, 0.125, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    assert l1.shape == (b, heads, n)
+    assert torch.isfinite(l1).all() and torch.isfinite(o1).all()
+    q, k, _ = A._split_heads(qkv, heads)
+    top = (torch.matmul(q.float(), k.float().transpose(-1, -2)) * 0.125).amax(-1)
+    assert (l1 >= top - 1e-3).all()
 
 
 def test_blockwise_bwd_reads_dout_and_o_through_strides(dev):

@@ -1,9 +1,12 @@
 """Kernels M, M′, tgmm and N-gmm (``csrc/moe.cu``) against their plain
 PyTorch versions on the card, at the edges chip_smoke.py's b128 shapes do
-not reach: row tiles 8, 16 (a 128-row block spans several experts) and 256,
-an empty expert, a hot expert (every pair on one), a pair count that is not
-a multiple of the tile, dropout rates 0 and 0.1 with the masks (zero
-patterns) identical to the plain version's; N-gmm in both forms on ragged
+not reach: row tiles 8, 16, 32 (a 128-row block spans several experts)
+and 256, an empty expert, a hot expert (every pair on one), a pair count
+that is not a multiple of the tile, dropout rates 0 and 0.1 with the masks
+(zero patterns) identical to the plain version's; M with biases far apart
+per expert (a segment given another expert's bias shows), its hidden
+mask seen bit for bit through an identity W2, and with NaN planted next
+to the pad rows that a straddling tile reads; N-gmm in both forms on ragged
 groups (boundaries inside a row tile and at its rows 127, 128 and 129,
 groups of one row, an empty and a hot expert, an empty first and last
 group, rows past the groups, T not a multiple of the tile, T = 50038), the
@@ -86,7 +89,7 @@ def _case(dev, tm, routing, seed=0):
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("routing", ["random", "hot", "empty"])
-@pytest.mark.parametrize("tm", [8, 16, 256])
+@pytest.mark.parametrize("tm", [8, 16, 32, 256])
 def test_moe_kernels_match_plain(dev, tm, routing, rate):
     x, (w1, b1, w2, b2), dy, tg, gs, used = _case(dev, tm, routing)
     seed, sites = philox.step_seed(0, 7), (5, 6)
@@ -124,6 +127,91 @@ def test_moe_kernels_match_plain(dev, tm, routing, rate):
         assert _rel(k, r) <= REL
     if routing == "empty":
         assert (k[0] == 0).all() and (k[3] == 0).all()
+
+
+def _ulps(got, want):
+    """The largest distance of two bf16 tensors in units of the larger's
+    last place (values under 2^-10 compared on that floor's ulp)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp(min=2.0 ** -10)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return ((g - w).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("tm", [8, 32, 256])
+def test_moe_fwd_adds_each_segments_expert_bias(dev, tm):
+    """Biases far apart per expert (b1[e] = e + 1, b2[e] = 4 (e + 1)), so
+    that a row given another expert's bias is off by a whole unit: h1
+    within 1 ulp and y within REL of the plain version, at row tiles that
+    straddle experts (8, 32) and at one that never does (256); the same
+    bits on a rerun."""
+    x, (w1, _, w2, _), _, tg, gs, _ = _case(dev, tm, "random", seed=3)
+    steps = torch.arange(1, E + 1, device=dev, dtype=torch.float32)
+    b1 = (steps[:, None] * torch.ones(E, F, device=dev)).to(torch.bfloat16)
+    b2 = (4 * steps[:, None] * torch.ones(E, D, device=dev)).to(
+        torch.bfloat16)
+    seed, sites = philox.step_seed(0, 9), (5, 6)
+    for rate, approx in ((0.1, False), (0.0, True)):
+        args = (x, w1, b1, w2, b2, tg, tm, seed, sites, rate, rate, approx)
+        y, h1 = MF.moe_fwd_kernel(*args)
+        y2, h12 = MF.moe_fwd_kernel(*args, group_sizes=gs)
+        y_ref, h1_ref = MF.moe_fwd_reference(*args)
+        torch.cuda.synchronize()
+        assert _ulps(h1, h1_ref) <= 1
+        assert _rel(y, y_ref) <= REL
+        assert torch.equal(y, y2) and torch.equal(h1, h12)
+
+
+@pytest.mark.parametrize("tm", [8, 256])
+def test_moe_fwd_hidden_mask_is_exact(dev, tm):
+    """Kernel M's hidden mask seen through y: with each W2[e] the identity
+    on its first D hidden units, b2 zero and the output site off, y =
+    g[:, :D] exactly (one nonzero product a sum), so y holds
+    GELU(h1)·keep·scale rounded, bit for bit the plain version's from the
+    kernel's h1, and zero at every dropped element of the hidden site."""
+    x, (w1, b1, _, _), _, tg, _, _ = _case(dev, tm, "random", seed=5)
+    bf = torch.bfloat16
+    w2 = torch.zeros(E, F, D, device=dev, dtype=bf)
+    w2[:, :D] = torch.eye(D, device=dev, dtype=bf)
+    b2 = torch.zeros(E, D, device=dev, dtype=bf)
+    seed, sites = philox.step_seed(0, 13), (5, 6)
+    y, h1 = MF.moe_fwd_kernel(x, w1, b1, w2, b2, tg, tm, seed, sites, 0.1,
+                              0.0, False)
+    g = MF._masked(MF._act_and_grad(h1.float(), False)[0], seed, sites[0],
+                   0.1).to(bf)
+    keep = philox.keep_mask(h1.shape, seed, sites[0], 0.1, device=dev)[:, :D]
+    torch.cuda.synchronize()
+    assert torch.equal(y, g[:, :D])
+    assert bool((y[~keep] == 0).all()) and bool((y[keep] != 0).any())
+
+
+@pytest.mark.parametrize("tm", [8, 32])
+def test_moe_fwd_keeps_nan_rows_to_themselves(dev, tm):
+    """NaN planted in the first row of every expert's region after the
+    first (the neighbour of the previous expert's pad rows) and in its last
+    pad row: a 128-row tile that straddles experts multiplies those rows
+    by the other experts' weights and must keep none of it. The planted
+    rows' outputs are NaN where the plain version's are (dropped elements
+    zero in both), every other row finite and within REL."""
+    x, (w1, b1, w2, b2), _, tg, gs, _ = _case(dev, tm, "random", seed=4)
+    bounds = torch.cumsum(gs.long(), 0)
+    planted = torch.cat([bounds[:-1], bounds[1:] - 1])
+    planted = planted[planted < x.shape[0]]
+    x = x.clone()
+    x[planted] = float("nan")
+    seed, sites = philox.step_seed(0, 11), (5, 6)
+    args = (x, w1, b1, w2, b2, tg, tm, seed, sites, 0.1, 0.1, False)
+    y, h1 = MF.moe_fwd_kernel(*args)
+    y_ref, h1_ref = MF.moe_fwd_reference(*args)
+    torch.cuda.synchronize()
+    rows = torch.zeros(x.shape[0], dtype=torch.bool, device=dev)
+    rows[planted] = True
+    assert torch.equal(torch.isnan(y), torch.isnan(y_ref))
+    assert torch.equal(torch.isnan(h1), torch.isnan(h1_ref))
+    assert torch.isnan(h1[rows]).all()
+    assert torch.isfinite(y[~rows]).all() and torch.isfinite(h1[~rows]).all()
+    assert _rel(y[~rows], y_ref[~rows]) <= REL
+    assert _ulps(h1[~rows], h1_ref[~rows]) <= 1
 
 
 def test_grouped_engine_matches_plain_end_to_end(dev):

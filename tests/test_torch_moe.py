@@ -98,6 +98,24 @@ def test_group_by_expert_tiled_matches_jax(tm, case):
     assert got[1].shape[0] == tfused.fused_cap(G * S * K, E, tm)
 
 
+@pytest.mark.parametrize("tm", [8, 16])
+@pytest.mark.parametrize("case", [dict(), dict(hot=1), dict(empty=(0, 3))],
+                         ids=["random", "hot", "empty"])
+def test_tile_group_sizes_match_the_grouping(tm, case):
+    """Kernel M's group sizes, derived on the device from the tile map when
+    a caller passes none: the JAX grouping's padded rows per expert (the
+    tail booked to the last), summing to cap."""
+    lg = _logits(seed=6, **case)
+    _, ji, _ = jmoe.router_topk(jnp.asarray(lg), K)
+    want = jfused.group_by_expert_tiled(ji, E, tm)[4]
+    tile_group = tfused.group_by_expert_tiled(
+        torch.from_numpy(np.array(ji)), E, tm)[3]
+    got = tfused.tile_group_sizes(tile_group, E, tm)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.sum().item() == tile_group.numel() * tm
+
+
 def _jax_fused_vjp(approx):
     """value_and_grad of Σ out·r through the JAX fused engine (interpret
     mode), jitted once per GELU form."""

@@ -1,4 +1,4 @@
-"""Two options the port used to read and drop, now taken:
+"""Options the port used to read and drop, now taken or reported:
 
 * ``model.attn_drop_rate``: in training with a rate above 0 the port's
   ``Attention`` leaves the kernels for ``attention_reference`` in tensor
@@ -11,6 +11,9 @@
 * ``model.pretrained_path``: ``scripts/train_torch.py`` exits nonzero when
   the file exists (loading it is still to come) and trains as before when
   it does not.
+* ``training.log_grad_norm`` and ``training.steps_per_call``: still unused
+  by the port's trainer; ``config.unused_note`` names each one set away
+  from its default, and ``scripts/train_torch.py`` logs that line.
 """
 
 import sys
@@ -23,7 +26,7 @@ import pytest
 import torch
 
 from gavit_tpu.ops.attention import attention_reference as jax_reference
-from gavit_tpu_torch.config import from_dict
+from gavit_tpu_torch.config import from_dict, unused_note
 from gavit_tpu_torch.models import layers
 from gavit_tpu_torch.models.vit import (attention_probs_sites, build_model,
                                         dropout_sites, init_params)
@@ -166,3 +169,42 @@ def test_train_cli_refuses_an_existing_pretrained_path(tmp_path):
     trainer = _train_main()(
         [*TINY, "--set", f"model.pretrained_path={tmp_path / 'absent.pth'}"])
     assert trainer.step == 1
+
+
+@pytest.mark.parametrize("training,named", [
+    ({}, []),
+    ({"log_grad_norm": True}, ["training.log_grad_norm=True"]),
+    ({"steps_per_call": 4}, ["training.steps_per_call=4"]),
+    ({"log_grad_norm": True, "steps_per_call": 2},
+     ["training.log_grad_norm=True", "training.steps_per_call=2"]),
+    ({"log_grad_norm": False, "steps_per_call": 1}, []),
+], ids=["defaults", "grad_norm", "steps_per_call", "both", "defaults_set"])
+def test_unused_note_names_each_field_set(training, named):
+    note = unused_note(from_dict({"training": training}))
+    if not named:
+        assert note is None
+        return
+    assert "read and not used" in note
+    for field in named:
+        assert field in note
+    for other in {"training.log_grad_norm", "training.steps_per_call"} - {
+            f.split("=")[0] for f in named}:
+        assert other not in note
+
+
+def test_train_cli_logs_the_unused_note(caplog):
+    caplog.set_level("INFO")
+    trainer = _train_main()(
+        [*TINY, "--set", "training.log_grad_norm=true", "--set",
+         "training.steps_per_call=2"])
+    assert trainer.step == 1  # one step a call, as before
+    lines = [r.getMessage() for r in caplog.records
+             if "read and not used" in r.getMessage()
+             and "training." in r.getMessage()]
+    assert len(lines) == 1
+    assert "training.log_grad_norm=True" in lines[0]
+    assert "training.steps_per_call=2" in lines[0]
+    caplog.clear()
+    _train_main()(TINY)
+    assert not [r for r in caplog.records if "training.log_grad_norm" in
+                r.getMessage() or "training.steps_per_call" in r.getMessage()]

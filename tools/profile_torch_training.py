@@ -42,7 +42,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 # fragments of the (demangled) kernel names → family, first match wins
 FAMILIES = (
-    ("attn_large_fwd", "L blockwise attention forward (attention_large.cu)"),
+    ("attn_large_sm90", "L blockwise attention forward, wgmma (attention_fwd_sm90.cu)"),
     ("attn_large_bwd_q", "L′ query-major: delta, dq (attention_large.cu)"),
     ("attn_large_bwd_kv", "L′ key-major: dk, dv (attention_large.cu)"),
     ("attn_fwd_sm90", "A/K attention forward, wgmma (attention_fwd_sm90.cu)"),
@@ -50,23 +50,24 @@ FAMILIES = (
     ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
     ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
-    # the M/M′ mma.sync kernels of moe.cu; D′'s of mlp.cu
-    ("moe_gemm_kernel<true, 0,", "M fc1 + GELU + mask (moe.cu)"),
-    ("moe_gemm_kernel<true, 1,", "M fc2 + mask (moe.cu)"),
-    ("moe_gemm_kernel<false, 2,", "M′ dh GEMM + GELU′ epilogue (moe.cu)"),
-    ("moe_gemm_kernel<false, 3,", "M′ dx GEMM (moe.cu)"),
+    # the M′ mma.sync kernels of moe.cu; D′'s of mlp.cu
+    ("moe_gemm_kernel<0,", "M′ dh GEMM + GELU′ epilogue (moe.cu)"),
+    ("moe_gemm_kernel<1,", "M′ dx GEMM (moe.cu)"),
     ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
     ("dh_gemm_kernel", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
     ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
     # the wgmma mainloop's instantiations (gemm_sm90.cuh): tgmm's GroupedK
-    # before N-gmm's "StoreEpi, true", D's before B's "InferEpi<"
+    # before N-gmm's "StoreEpi, true", D's (one bias row) before M's (a
+    # bias row an expert), B's "InferEpi<0>" before "InferEpi<"
     ("GroupedK", "tgmm grouped dW1, dW2, wgmma (gemm_sm90.cuh)"),
     ("StoreEpi, true", "N-gmm x·W[e], wgmma (gemm_sm90.cuh)"),
     ("StoreEpi, false", "N-gmm transposed dy·W[e]ᵀ, wgmma (gemm_sm90.cuh)"),
-    ("TrainFc1Epi", "D fc1 + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),
-    ("TrainFc2Epi", "D fc2 + mask, wgmma (gemm_sm90.cuh)"),
+    ("TrainFc1Epi<2, false>", "D fc1 + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),
+    ("TrainFc2Epi<false>", "D fc2 + mask, wgmma (gemm_sm90.cuh)"),
+    ("TrainFc1Epi<", "M fc1 + b1[e] + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),
+    ("TrainFc2Epi<true>", "M fc2 + b2[e] + mask, wgmma (gemm_sm90.cuh)"),
     ("InferEpi<0>", "B fc2 + bias, wgmma (gemm_sm90.cuh)"),
     ("InferEpi<", "B fc1 + bias + GELU, wgmma (gemm_sm90.cuh)"),
     # dropout.cu's kernel sits in an anonymous namespace; PyTorch's own
@@ -134,7 +135,9 @@ def main():
     trainer = train_torch.build_trainer(cfg, dataset, "cuda", gate=0.5)
     images, labels = (torch.from_numpy(a) for a in next(
         train_torch.batches(dataset, batch, 0)))
-    card = torch.cuda.get_device_name(0)
+    from chip_smoke import card_line
+
+    card = card_line()
     for _ in range(3):
         trainer.train_step(images, labels)
     torch.cuda.synchronize()

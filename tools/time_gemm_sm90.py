@@ -12,6 +12,13 @@ the main path's shapes, on one CUDA card:
   F.dropout → F.linear → F.dropout``, and its two GEMMs bare;
 * kernel N-gmm in both forms at T = 50432 (MoE b128), E = 8, against
   ``torch._grouped_mm``;
+* kernel M (the fused MoE expert MLP forward: fc1 + b1[e] → h1, GELU,
+  hidden dropout → g, fc2 + b2[e], output dropout) over the cap-padded
+  rows of the same grouping (each group rounded up to 256), erf at rate
+  0.1 and tanh at rate 0, against the bf16 chain ``torch._grouped_mm →
+  F.gelu → F.dropout → torch._grouped_mm → F.dropout`` on the same rows;
+  its fc1 and fc2 apart (``torch.profiler``'s device time of each of its
+  two launches) beside the same two GEMMs bare through N-gmm;
 * kernel tgmm (the grouped dW) for dW1 ``[8, 768, 3072]`` and dW2 ``[8,
   3072, 768]`` over the packed T = 50432 rows (the unfused engine) and over
   the cap-padded rows (each group rounded up to 256, the fused engine),
@@ -24,7 +31,7 @@ Device times: 20 launches back to back between two CUDA events, after 3
 warm-up calls, so the host's gap between calls is not inside. Each line is
 printed twice (two rounds), kernel and library call in turns.
 
-    python3 tools/time_gemm_sm90.py [--only B,D,N-gmm,tgmm,host]
+    python3 tools/time_gemm_sm90.py [--only B,D,M,N-gmm,tgmm,host]
 """
 
 from __future__ import annotations
@@ -47,7 +54,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="B,D,N-gmm,tgmm,host",
+    ap.add_argument("--only", default="B,D,M,N-gmm,tgmm,host",
                     help="comma-separated kernels to time")
     only = set(ap.parse_args().only.split(","))
 
@@ -56,6 +63,7 @@ def main() -> int:
         return 1
     from gavit_tpu_torch.ops import gmm as GM
     from gavit_tpu_torch.ops import mlp as M
+    from gavit_tpu_torch.ops import moe_fused as MF
 
     card = card_line()
     dev = torch.device("cuda", 0)
@@ -87,6 +95,11 @@ def main() -> int:
     cap = sum(padded)
     a_cap, dh_cap = draw(cap, DIM), draw(cap, HIDDEN, scale=0.01)
     hot = int32([0] * 5 + [T_B128] + [0] * 2)
+    # M: the cap-padded rows with each expert's weights and biases
+    we1, we2 = w, draw(EXPERTS, HIDDEN, DIM, scale=0.02)
+    be1, be2 = draw(EXPERTS, HIDDEN, scale=0.02), draw(EXPERTS, DIM, scale=0.02)
+    tg_cap = torch.repeat_interleave(
+        torch.arange(EXPERTS, device=dev, dtype=torch.int32), gs_cap // TM)
 
     def chain(xx):
         return F.linear(F.gelu(F.linear(xx, w1, b1), approximate="tanh"),
@@ -128,6 +141,38 @@ def main() -> int:
               f"{device_ms(lambda: torch._grouped_mm(dh, w.transpose(1, 2), offs=offs)):.4f}"
               f" ms ({card})", flush=True)
 
+    def moe_chain(xx):
+        hid = F.dropout(F.gelu(torch._grouped_mm(xx, we1, offs=offs_cap)), 0.1)
+        return F.dropout(torch._grouped_mm(hid, we2, offs=offs_cap), 0.1)
+
+    def time_m():
+        with torch.no_grad():
+            for rate, approx in ((0.1, False), (0.0, True)):
+                def kernel():
+                    return MF.moe_fwd_kernel(a_cap, we1, be1, we2, be2, tg_cap,
+                                             TM, seed, sites, rate, rate,
+                                             approx, gs_cap)
+                alone = device_ms(kernel)
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(10):
+                        kernel()
+                    torch.cuda.synchronize()
+                parts = {"fc1": 0.0, "fc2": 0.0}
+                for ev in prof.key_averages():
+                    if "TrainFc1Epi" in ev.key or "TrainFc2Epi" in ev.key:
+                        part = "fc1" if "TrainFc1Epi" in ev.key else "fc2"
+                        parts[part] += ev.self_device_time_total / 1e3 / 10
+                print(f"M cap={cap} {'tanh' if approx else 'erf'} rate "
+                      f"{rate}: kernel {alone:.4f} ms (fc1 {parts['fc1']:.4f}"
+                      f", fc2 {parts['fc2']:.4f} by the profiler); bare fc1 "
+                      f"{device_ms(lambda: GM.gmm_kernel(a_cap, we1, gs_cap, False)):.4f}"
+                      f" ms, bare fc2 "
+                      f"{device_ms(lambda: GM.gmm_kernel(dh_cap, we2, gs_cap, False)):.4f}"
+                      f" ms; grouped_mm chain "
+                      f"{device_ms(lambda: moe_chain(a_cap)):.4f} ms ({card})",
+                      flush=True)
+
     def time_tgmm():
         for rows, lhs, rhs, g, o in (("packed T", a, dh, gs, offs),
                                      (f"cap {cap}", a_cap, dh_cap, gs_cap,
@@ -146,8 +191,8 @@ def main() -> int:
               f"({card})", flush=True)
 
     for _ in range(2):
-        for name, fn in (("B", time_b), ("D", time_d), ("N-gmm", time_ngmm),
-                         ("tgmm", time_tgmm)):
+        for name, fn in (("B", time_b), ("D", time_d), ("M", time_m),
+                         ("N-gmm", time_ngmm), ("tgmm", time_tgmm)):
             if name in only:
                 fn()
     if "host" in only:
