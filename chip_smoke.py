@@ -74,9 +74,10 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), for B, D, L, M, N-gmm and tgmm (both dW, cap-padded
-   and packed rows, and one hot expert) also the device time alone (20
-   launches between two events) beside the library call's (L's beside
+   events, median), for B, D, L, M, M′, N-gmm, tgmm (both dW, cap-padded
+   and packed rows, and one hot expert), K′, I′ and J′ also the device
+   time alone (20 launches between two events) beside the library call's
+   (the K′ pair also at A′'s shape beside A′; L's beside
    its tensor bound and the floor of its exponentials on the SFUs), the host time
    of one kernel-A call and one kernel-B call at b1 (tensor-map encodes
    included) beside sdpa's and the cuBLAS chain's, Predictor p50 for one image
@@ -808,9 +809,10 @@ def check_moe(dev, results):
     expert, and at b8 (T = 3152 pairs, where ``fused_tm`` gives tm = 32 and
     a 128-row tile straddles experts): the masks (zero patterns)
     bit-exact, h1 within 1 ulp, y, dx, go and dh1 within the bf16
-    tolerance of D and D′ relative to the tensor's largest, M's reruns
-    bit-equal, dye bit-exact, db1 and db2 within BIAS_REL_TOL, dW1 and dW2
-    (rounded to bf16 once from fp32 sums) within GRAD_REL_TOL. The masks:
+    tolerance of D and D′ relative to the tensor's largest, M's and M′'s
+    reruns bit-equal, M′'s dh1 and dx zero on pad rows, dye bit-exact, db1
+    and db2 within BIAS_REL_TOL, dW1 and dW2 (rounded to bf16 once from
+    fp32 sums) within GRAD_REL_TOL. The masks:
     y and dye hold the output mask and go the hidden one exactly
     (``mask_applied`` against ``ops/philox.py``'s bits)."""
     import torch
@@ -858,18 +860,22 @@ def check_moe(dev, results):
             results["M"]["errs"].append(err)
             if routing == "router" and batch == TRAIN_BATCH and not approx:
                 results["M"]["cases"].append(c)
-        got = MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed, sites,
-                                DROP_RATE, DROP_RATE, False)
+        got, again = (MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed,
+                                        sites, DROP_RATE, DROP_RATE, False,
+                                        c["gs"]) for _ in range(2))
         want = MF.moe_bwd_reference(dy, h1_ref, w1, w2, tg, tm, seed, sites,
                                     DROP_RATE, DROP_RATE, False)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, a2) for a, a2 in zip(got, again))
+        del again
         names = ("dx", "go", "dh1", "db1", "db2", "dye")
         rels = {n: rel_err(a, b) for n, a, b in zip(names, got, want)}
-        pads = (got[2][~c["used"]] == 0).all().item()
+        pad = ~c["used"]
+        pads = ((got[2][pad] == 0).all() and (got[0][pad] == 0).all()).item()
         masked, how = mask_applied(got[1], want[1], keep_h)
         ok = (all(rels[n] <= GRAD_REL_TOL for n in ("dx", "go", "dh1"))
               and all(rels[n] <= BIAS_REL_TOL for n in ("db1", "db2"))
-              and torch.equal(got[5], want[5]) and pads and masked
+              and torch.equal(got[5], want[5]) and pads and masked and same
               and all(torch.isfinite(a).all().item() for a in got))
         err = max(max_err(a, b) for a, b in zip(got, want))
         check("M′ moe expert mlp bwd", ok,
@@ -878,8 +884,9 @@ def check_moe(dev, results):
                   f"{n} {v:.3e}" for n, v in rels.items())
               + f" (tol {GRAD_REL_TOL:.0e}; db1, db2 {BIAS_REL_TOL:.0e}); "
               f"dye bit-exact {torch.equal(got[5], want[5])}, go holds the "
-              f"hidden mask exactly {masked} ({how}), dh1 zero on pad rows "
-              f"{pads}; max_abs_err {err:.3e}")
+              f"hidden mask exactly {masked} ({how}), dh1 and dx zero on "
+              f"pad rows {pads}, a second run bit-equal {same}; max_abs_err "
+              f"{err:.3e}")
         results["M′"]["errs"].append(err)
         _, go, dh1, _, _, dye = got
         for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
@@ -1229,6 +1236,14 @@ def phase_op_times(dev, results, card, batch=TRAIN_BATCH, n=N_TOKENS):
         log(f"[time] {key}: kernel {km:.4f} ms, plain {pm:.4f} ms, library "
             f"{'n/a' if lm is None else f'{lm:.4f} ms'}, bound {bms:.4f} ms "
             f"({by}) ({card})")
+    # I′ and J′ alone on the device, beside sdpa's forward and backward
+    lib_alone = device_ms(sdpa_fwd_bwd)
+    for key, e in (("I′", "v1"), ("J′", "v2")):
+        results[key]["device"] = (device_ms(lambda: A.bhnd_kernel(
+            e, True, q, k, v, do, scale)), lib_alone)
+        log(f"[time] {key} at b{batch} alone on the device (20 launches "
+            f"between two events): kernel {results[key]['device'][0]:.4f} "
+            f"ms, sdpa fwd+bwd {lib_alone:.4f} ms ({card})")
     return rows
 
 
@@ -2051,6 +2066,14 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     lb = cuda_ms(sdpa_fwd_bwd)
     rows["A′"] = (kb, pb, lb) + bound(10 * b * h * n * n * d,
                                       7 * b * n * h * d * 2)
+    # the K′/I′/J′ pair at A′'s shape, alone on the device beside A′
+    pair = (device_ms(lambda: A.qkv_attention_long_bwd_kernel(qkv, do, scale,
+                                                               h)),
+            device_ms(lambda: A.qkv_attention_bwd_kernel(qkv, do, scale, h)),
+            device_ms(sdpa_fwd_bwd))
+    log(f"[time] at A′'s shape b{b} N={n}, device alone (20 launches "
+        f"between two events): the K′ pair {pair[0]:.4f} ms, A′ "
+        f"{pair[1]:.4f} ms, sdpa fwd+bwd {pair[2]:.4f} ms ({card})")
 
     # B at the serving b64 shape (its main path), against a bf16 cuBLAS chain
     m64 = 64 * N_TOKENS
@@ -2228,6 +2251,13 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
         log(f"[time] {key} at 384 px b{b}: kernel {km:.4f} ms, plain "
             f"{pm:.4f} ms, library {lm:.4f} ms, bound {bms:.4f} ms ({by}) "
             f"({card})")
+    # K′ alone on the device, beside sdpa's forward and backward
+    results["K′"]["device"] = (
+        device_ms(lambda: A.qkv_attention_long_bwd_kernel(qkv, do, scale, h)),
+        device_ms(sdpa_fwd_bwd))
+    log(f"[time] K′ at 384 px b{b} alone on the device (20 launches between "
+        f"two events): kernel {results['K′']['device'][0]:.4f} ms, sdpa "
+        f"fwd+bwd {results['K′']['device'][1]:.4f} ms ({card})")
 
     # the MLP's two routes at M = 9232: D/D′ against fc1 → H → fc2 → F
     m = b * n
@@ -2377,7 +2407,7 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
             4 * t * DIM * HIDDEN, (2 * t * DIM + t * HIDDEN) * 2 + wbytes),
         "M′": (cuda_ms(lambda: MF.moe_bwd_kernel(dy, h1, w1, w2, tg, tm,
                                                  seed, sites, DROP_RATE,
-                                                 DROP_RATE, False)),
+                                                 DROP_RATE, False, gs)),
                cuda_ms(lambda: MF.moe_bwd_reference(
                    dy, h1, w1, w2, tg, tm, seed, sites, DROP_RATE, DROP_RATE,
                    False), iters=3, warmup=1),
@@ -2406,6 +2436,16 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
     log(f"[time] M at b{TRAIN_BATCH} alone on the device (20 launches "
         f"between two events): kernel {results['M']['device'][0]:.4f} ms, "
         f"{lib['name']} chain {results['M']['device'][1]:.4f} ms ({card})")
+    # M′ alone, beside the chain's backward to x timed the same way
+    results["M′"]["device"] = (
+        device_ms(lambda: MF.moe_bwd_kernel(dy, h1, w1, w2, tg, tm, seed,
+                                            sites, DROP_RATE, DROP_RATE,
+                                            False, gs)),
+        device_ms(lib["M′"]))
+    log(f"[time] M′ at b{TRAIN_BATCH} alone on the device (20 launches "
+        f"between two events): kernel {results['M′']['device'][0]:.4f} ms, "
+        f"{lib['name']} chain's backward to x "
+        f"{results['M′']['device'][1]:.4f} ms ({card})")
     # tgmm alone on the device over the cap-padded rows, both dW
     device = results["tgmm"].setdefault("device", {})
     for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
@@ -2801,8 +2841,9 @@ def kernels_json(results, serve_counts, train_counts, rows):
     phase for I, I′, J, J′, G and E (no training or serving path launches
     them). N-gmm's times are its
     forward form's; ``transposed`` holds the transposed form's. B, D, M,
-    N-gmm and tgmm, redesigned on the TMA-fed wgmma mainloop, and L,
-    redesigned as a TMA-fed wgmma attention, also carry ``device_ms`` and
+    N-gmm, tgmm and M′, redesigned on the TMA-fed wgmma mainloop, and L, K′,
+    I′ and J′, redesigned as TMA-fed wgmma attention, also carry
+    ``device_ms`` and
     ``library_device_ms``: 20 launches between two events, no host gap
     (tgmm's: dW1 over the cap-padded rows, its ``device`` both dW over the
     cap-padded and the packed rows and dW1 with one hot expert)."""
@@ -2827,7 +2868,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:453"),
         ("K′", "fused_qkv_attention_long_bwd",
-         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
          "gavit_tpu/ops/attention.py:475"),
         ("L", "fused_qkv_attention_large",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
@@ -2851,13 +2892,13 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:102"),
         ("I′", "attention_pallas_bwd",
-         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
          "gavit_tpu/ops/attention.py:125"),
         ("J", "fused_attention_v2",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:301"),
         ("J′", "fused_attention_v2_bwd",
-         "gavit_tpu_torch/csrc/attention_long.cu",
+         "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
          "gavit_tpu/ops/attention.py:321"),
         ("G", "fused_dropout_add", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:115"),
@@ -2887,6 +2928,9 @@ def kernels_json(results, serve_counts, train_counts, rows):
     tgmm, = [row for row in out if row["name"] == "grouped_dw_tgmm"]
     large, = [row for row in out if row["name"] == "fused_qkv_attention_large"]
     moe, = [row for row in out if row["name"] == "fused_grouped_mlp"]
+    moe_bwd, = [row for row in out if row["name"] == "fused_grouped_mlp_bwd"]
+    pair = {key: [row for row in out if row["replaces"] == rep][0]
+            for key, _, _, rep in spec if key in ("K′", "I′", "J′")}
     tgmm_device = results["tgmm"]["device"]
     for row, where in ((mlp, results["B"]["device"]),
                        (ngmm, results["N-gmm"]["device"]),
@@ -2895,12 +2939,18 @@ def kernels_json(results, serve_counts, train_counts, rows):
                        (train, results["D"]["device"]),
                        (tgmm, tgmm_device["dW1 cap-padded"]),
                        (large, results["L"]["device"]),
-                       (moe, results["M"]["device"])):
+                       (moe, results["M"]["device"]),
+                       (moe_bwd, results["M′"]["device"]),
+                       *((pair[key], results[key]["device"])
+                         for key in ("K′", "I′", "J′"))):
         row["device_ms"], row["library_device_ms"] = where
     tgmm["device"] = {what: {"ms": dk, "library_ms": dl}
                       for what, (dk, dl) in tgmm_device.items()}
-    for row in (mlp, ngmm, train, tgmm, moe):
+    for row in (mlp, ngmm, train, tgmm, moe, moe_bwd):
         row["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
+    for row in pair.values():
+        row["redesigned"] = ("TMA-fed wgmma, query-major and key-major "
+                             "launches, csrc/attention_bwd_sm90.cu")
     large["redesigned"] = ("TMA-fed wgmma, one-pass online softmax, "
                            "csrc/attention_fwd_sm90.cu")
     return {"kernels": out}

@@ -12,8 +12,8 @@
 // (2H+h)*64 of [B, N, 3*H*64]) and strided [B, H, N, 64] views alike. A
 // and K write o as [B, N, H, 64] memory (the Python wrappers return the
 // [B, H, N, d] view); I and J write o through its strides. Kernel A's fp32
-// body stays in attention.cu; the backward kernels A', K', I', J' are
-// unchanged (attention_bwd.cu, attention_long.cu).
+// body stays in attention.cu; the backward kernels K', I', J' are
+// attention_bwd_sm90.cu's (A' is attention_bwd.cu's).
 //
 // The function, as the TPU kernels compute it: s = (q.k^T) * scale in fp32,
 // the row's true max m, p = exp(s - m) * (1/l) with l the row's sum, p
@@ -72,25 +72,16 @@
 //   before wgmma_fence and after wgmma_wait. A branch around the softmax
 //   (skipping warps whose rows all lie past N) doubled the code and made
 //   ptxas spill and serialise the wgmmas; every warp runs it.
-#include "common.cuh"
-#include "sm90.cuh"
+#include "attention_sm90.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kD = 64;                       // head_dim
-constexpr int kRowBytes = kD * 2;            // one bf16 row: one 128-byte swizzle row
-constexpr int kTileRows = 64;                // query rows of a tile; key rows of a ring tile
-constexpr int kTileBytes = kTileRows * kRowBytes;
 constexpr int kChunk = 32;                   // keys in 16 accumulators a thread
 constexpr int kChunkBytes = kChunk * kRowBytes;
 constexpr int kSingleKeys = 224;             // the single pass's key row
 constexpr int kSingleChunks = kSingleKeys / kChunk;
 constexpr int kStreamChunks = kTileRows / kChunk;
 constexpr int kKStages = 3, kVStages = 2;    // streamed rings
-constexpr int kConsumers = 128;              // one warpgroup
-constexpr int kThreads = kConsumers + 32;    // and the producer warp
 
 template <bool kSingle>
 struct Shape {
@@ -127,16 +118,6 @@ struct Layout {
   // what the launch asks for: the layout, the barriers, the alignment slack
   static constexpr int kBytes = kBars + (int)sizeof(Barriers) + 1024;
 };
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // exp(x) as 2^(x log2 e) on the SFU (ex2.approx: within 2 ulp; results
 // under 2^-126 flush to 0, far below what p's bf16 rounding keeps)
@@ -216,26 +197,6 @@ __device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (*pa)[4]
 #pragma unroll
   for (int h = 0; h < 2; ++h)
     wgmma_m64n64k16_mnmajor(o, pa[h], mnmajor_desc(v_addr + 2048 * h), !first || h > 0);
-}
-
-// o rounded to bf16 into this warp's rows of the swizzled staging tile
-__device__ __forceinline__ void stage_o(const float (&o)[32], uint8_t* tile, int warp, int g,
-                                        int t) {
-  uint8_t* r0 = tile + (warp * 16 + g) * kRowBytes + 4 * t;
-  uint8_t* r1 = r0 + 8 * kRowBytes;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = (j ^ g) << 4;
-    *reinterpret_cast<uint32_t*>(r0 + c) = pack_bf16(o[4 * j], o[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(r1 + c) = pack_bf16(o[4 * j + 2], o[4 * j + 3]);
-  }
-}
-
-// P's fragments settled before wgmma_fence
-template <int N>
-__device__ __forceinline__ void settle_p(uint32_t (&pa)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) fence_regs(pa[i]);
 }
 
 template <bool kSingle>
@@ -430,12 +391,6 @@ __global__ void __launch_bounds__(kThreads, Shape<kSingle>::kBlocksPerSm)
   if (threadIdx.x == 0) bulk_wait<0>();
 }
 
-// one operand through its element strides: (b, h, i, c) at p + b*sb + h*sh + i*sn + c
-struct Operand {
-  const void* p;
-  long long sb, sh, sn;
-};
-
 // Once a process: the SM's shared memory carved out in full, so that two
 // (single pass) or three (streamed) blocks share it.
 template <bool kSingle>
@@ -549,13 +504,6 @@ int launch_fwd(const Operand& q, const Operand& k, const Operand& v, const Opera
 //   before the softmax of S_j (two S tiles), a persistent item loop with a
 //   double-buffered Q, 128-key tiles (best at N = 4097 by 8%, 6% behind at
 //   1025).
-
-// 2^x on the SFU (ex2.approx, within 2 ulp; -inf gives 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // L's block: one consumer warpgroup owning a 64-row query tile, and the
 // producer warp; 64-key tiles through 3-stage K and V rings

@@ -1,6 +1,6 @@
-// Tile helpers shared by the exact backward K' (I', J'; attention_long.cu)
-// and the blockwise kernels L/L' (attention_large.cu): head_dim 64, blocks of
-// four warps that own 16 rows each, operands staged as [64][72] bf16 arrays
+// Tile helpers of the blockwise backward L' (attention_large.cu): head_dim
+// 64, blocks of four warps that own 16 rows each, operands staged as
+// [64][72] bf16 arrays
 // (a row padded to 72 so that fragment loads hit 8 different bank groups),
 // and the mma.sync m16n8k16 fragment layout of common.cuh.
 //
@@ -16,34 +16,10 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kD = 64;
 constexpr int kWarps = 4;
-constexpr int kRows = kWarps * 16;  // rows a block owns (queries, or keys in K' kv)
+constexpr int kRows = kWarps * 16;  // rows a block owns (queries, or keys in the kv kernel)
 constexpr int kTile = 64;           // rows of a streamed tile
 constexpr int kStride = kD + 8;     // 72 bf16: fragment loads hit 8 different bank groups
 constexpr int kThreads = kWarps * 32;
-
-// one [B, H, N, 64] operand addressed through strides: element (b, h, i, c)
-// at p + b*sb + h*sh + i*sn + c (c contiguous, rows 16-byte aligned). The
-// packed qkv rows and a separate [B, H, N, d] tensor are both such operands.
-template <typename T>
-struct Heads {
-  T* p;
-  long long sb, sh, sn;
-  __device__ __forceinline__ T* at(int b, int h) const { return p + b * sb + h * sh; }
-};
-using InHeads = Heads<const bf16>;
-using OutHeads = Heads<bf16>;
-
-// rows r0 .. r0+63 of one 64-column operand (row i at src + i*row_stride),
-// in 16-byte chunks, into s[64][72]; rows at or past n are zeros
-__device__ __forceinline__ void stage(bf16* s, const bf16* src, long long row_stride, int r0,
-                                      int n) {
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int c = threadIdx.x; c < kTile * 8; c += kThreads) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    *reinterpret_cast<uint4*>(s + r * kStride + col) =
-        r0 + r < n ? *reinterpret_cast<const uint4*>(src + (r0 + r) * row_stride + col) : zero;
-  }
-}
 
 // the A fragments (4 k-steps of 16) of the 16-row tile whose row g, column
 // 2t starts at rows
@@ -70,24 +46,16 @@ __device__ __forceinline__ void mma_rows(float* c, const uint32_t (*a)[4], const
   }
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
 // s * scale for keys < n, -inf past n; key of element e of n8 tile j
 __device__ __forceinline__ void scale_mask(float* s, int key0, int t, int n, float scale) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) s[e] = key0 + 2 * t + (e & 1) < n ? s[e] * scale : -INFINITY;
 }
 
-// cp.async form of stage(): the copies land after cp_async_wait; rows at or
-// past n are zero-filled (their source address clamped to row 0)
+// rows r0 .. r0+63 of one 64-column operand (row i at src + i*row_stride)
+// into s[64][72] by cp.async, in 16-byte chunks: the copies land after
+// cp_async_wait; rows at or past n are zero-filled (their source address
+// clamped to row 0)
 __device__ __forceinline__ void stage_async(bf16* s, const bf16* src, long long row_stride,
                                             int r0, int n) {
   for (int c = threadIdx.x; c < kTile * 8; c += kThreads) {

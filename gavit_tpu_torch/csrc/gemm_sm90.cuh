@@ -56,6 +56,17 @@
 //   three epilogue warps, the exact-erf GELU and Philox held fc1 to 3.5
 //   times its bare GEMM's time (PERF.md §6). M's add the bias row of the
 //   segment's group (apply gets the group's index).
+// * M''s dh epilogue (kStagedIn): epilogue warp 1 loads each
+//   warpgroup's 64 x 192 tile of a second input (p.c2: the forward's h1)
+//   by TMA into the warpgroup's staging tile as soon as the previous
+//   tile's store has read it, so the load overlaps the mainloop; the
+//   consumers read each accumulator quad's inputs back from where they
+//   will stage its result, map both (apply_in), and overwrite them in
+//   place. They then sum each segment's mapped fp32 values by column in a
+//   fixed order (the 8 rows of a quad's lanes by shuffles, then the 8
+//   consumer warps through shared memory) into one row of p.part per
+//   segment: row lo / p.part_unit for the segment's first row lo, which
+//   the caller's grouping makes a multiple of part_unit. No atomics.
 // * RowTiles' groups (M, N-gmm): each block walks the groups that overlap its
 //   128-row tile and runs the mainloop once for each (a GEMM row needs no
 //   other row, so the whole tile is multiplied by group e's weights and
@@ -104,6 +115,7 @@ constexpr int kStageBytes = kABytes + kBBytes;  // 40 KB
 constexpr int kWgRows = 64;                     // rows of a consumer warpgroup
 constexpr int kOutBytes = kWgRows * BN * 2;     // a warpgroup's staging tile, 24 KB
 constexpr int kMaskBytes = BM * BN / 8;        // a tile's keep bits, a byte per 8 columns
+constexpr int kRedBytes = 8 * BN * 4;           // kStagedIn: a column sum row per consumer warp
 constexpr int kConsumers = 256;
 constexpr int kThreads = kConsumers + 128;
 static_assert(kWgRows * 128 == kAtomBytes, "a warpgroup's K-major A rows are one atom");
@@ -112,20 +124,23 @@ struct Barriers {
   uint64_t full[kStages], empty[kStages];  // the ring
   uint64_t out_full[2], out_empty[2];      // the consumers' staging tiles
   uint64_t mask_full[2], mask_empty[2];    // the keep bits of two tiles
+  uint64_t in_full[2];                     // kStagedIn: a staging tile holds its input
 };
 
 // shared memory from a 1024-byte aligned base: the ring, the two staging
-// tiles, the keep bits of two tiles, the barriers
+// tiles, the keep bits of two tiles, the column sums' buffer, the barriers
 struct Layout {
   static constexpr int kOut = kStages * kStageBytes;
   static constexpr int kMask = kOut + 2 * kOutBytes;
-  static constexpr int kBars = kMask + 2 * kMaskBytes;
+  static constexpr int kRed = kMask + 2 * kMaskBytes;
+  static constexpr int kBars = kRed + kRedBytes;
   static constexpr int kBytes = kBars + (int)sizeof(Barriers) + 1024;
 };
 static_assert(Layout::kBytes <= kMaxSmemBytes, "the GEMM's shared memory exceeds a block's");
 
 struct Params {
   CUtensorMap a, b, c;
+  CUtensorMap c2;          // kStagedIn: the input tile [M, N] read in C's boxes
   int m, n, k;
   const int* group_sizes;  // [experts] on the device; null: one group of all rows
   int experts;
@@ -133,6 +148,8 @@ struct Params {
   int bias_stride;         // elements from one group's bias row to the next's (0: one row)
   DropSite drop;           // for the epilogues that mask (D, M)
   bf16* out2;              // a second output [M, N], for the epilogues that write one (g)
+  float* part;             // kStagedIn: [segments, N] column sums, a row per segment
+  int part_unit;           // kStagedIn: a segment's partial row is its first row / part_unit
 };
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -219,10 +236,15 @@ struct GroupedK {
 // warps draw each tile's keep bits with keep8() (bit i: column col + i of
 // a row) ahead of its consumers, Philox's arithmetic off the tensor cores'
 // path; apply() gets its quad's 4 bits (columns col, col + 1 of row r0,
-// then of r0 + 8), read_back() the 8 of its chunk.
+// then of r0 + 8), read_back() the 8 of its chunk. With kStagedIn,
+// apply_in() takes the place of apply() and also gets the quad's two
+// staged input pairs and whether each of its rows is the segment's, and
+// the mapped values of the segment's rows are summed by column into
+// p.part.
 // The epilogue that stores the sums as they are:
 struct StoreEpi {
   static constexpr bool kFinish = false, kReadBack = false, kDrawBits = false;
+  static constexpr bool kStagedIn = false;
   static __device__ __forceinline__ void apply(const Params&, int, int, uint32_t, float (&)[4]) {}
 };
 
@@ -288,6 +310,58 @@ __device__ __forceinline__ void mainloop(float (&acc)[96], uint8_t* smem, int wg
   if (steps > 0) mbar_arrive(&bar.empty[(it - 1) % kStages]);
 }
 
+// kStagedIn: load staging tile w's input, the 64 x 192 box of p.c2 at the
+// tile's rows m0 + 64 w and columns n0 (the atoms past N, and every atom
+// when the rows lie past M, are not loaded: those values are never stored)
+__device__ __forceinline__ void load_input(const Params& p, const Tile& t, int w, uint8_t* out,
+                                           uint64_t* full) {
+  const int m0 = t.m0 + w * kWgRows;
+  const int atoms = m0 < p.m ? min(kAtoms, cdiv(p.n - t.n0, kAtom)) : 0;
+  mbar_expect_tx(full, atoms * kAtomBytes);
+  for (int j = 0; j < atoms; ++j)
+    tma_load_3d(out + j * kAtomBytes, &p.c2, full, t.n0 + j * kAtom, m0, 0);
+}
+
+// kStagedIn, as each accumulator quad is mapped: the sums s0, s1 of its two
+// columns over the quad's two rows, summed over the warp's 8 row lanes by
+// shuffles into the warp's column-sum row (at the quad's first column), so
+// that no mapped value stays live for the sums
+__device__ __forceinline__ void quad_col_sums(float* at, int g, float s0, float s1) {
+#pragma unroll
+  for (int o = 4; o < 32; o <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+  }
+  if (g == 0) at[0] = s0, at[1] = s1;
+}
+
+// kStagedIn, after a segment's quads: the 8 consumer warps' column-sum rows
+// summed in order into row sg.lo / p.part_unit of p.part. Both consumer
+// warpgroups call it for the same segment.
+__device__ __forceinline__ void col_sums(const Params& p, float* red, const Tile& t,
+                                         const Segment& sg) {
+  named_sync(5, kConsumers);
+  const int c = threadIdx.x - 128;
+  if (c < BN && t.n0 + c < p.n) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < 8; ++w) s += red[w * BN + c];
+    p.part[(long long)(sg.lo / p.part_unit) * p.n + t.n0 + c] = s;
+  }
+  named_sync(5, kConsumers);  // the buffer is free for the next segment
+}
+
+// a consumer warpgroup's wait for its staging tile at tile ti: until the
+// previous tile's store has read it; kStagedIn: until this tile's input
+// (loaded once that store has read it) has landed
+template <class Epi>
+__device__ __forceinline__ void wait_staging(Barriers& bar, int wg, int ti) {
+  if constexpr (Epi::kStagedIn)
+    mbar_wait(&bar.in_full[wg], ti & 1);
+  else
+    mbar_wait(&bar.out_empty[wg], (ti & 1) ^ 1);
+}
+
 template <class Epi, bool kMnB, class Sched>
 __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant__ Params p) {
   extern __shared__ __align__(1024) uint8_t gemm_smem[];
@@ -300,6 +374,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
     for (int w = 0; w < 2; ++w) {
       mbar_init(&bar.out_full[w], kConsumers / 2), mbar_init(&bar.out_empty[w], 1);
       mbar_init(&bar.mask_full[w], 64), mbar_init(&bar.mask_empty[w], kConsumers);
+      mbar_init(&bar.in_full[w], 1);
     }
     fence_mbar_init();
   }
@@ -362,6 +437,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         }
       }
       if (!Epi::kFinish && etid != 0) return;  // storing takes one thread
+      if (Epi::kStagedIn && blockIdx.x < tiles)
+        for (int w = 0; w < 2; ++w)
+          load_input(p, Sched::at(p, blockIdx.x), w, smem + Layout::kOut + w * kOutBytes,
+                     &bar.in_full[w]);
       int ti = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++ti) {
         const Tile t = Sched::at(p, tile);
@@ -390,7 +469,12 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
                 tma_store_3d(&p.c, out + j * kAtomBytes, t.n0 + j * kAtom, m0, t.depth);
             bulk_commit();
             bulk_wait_read<0>();  // the store has read the tile: the consumers may refill it
-            mbar_arrive(&bar.out_empty[w]);
+            if constexpr (Epi::kStagedIn) {  // with the next tile's input
+              if (tile + (int)gridDim.x < tiles)
+                load_input(p, Sched::at(p, tile + gridDim.x), w, out, &bar.in_full[w]);
+            } else {
+              mbar_arrive(&bar.out_empty[w]);
+            }
           }
         }
       }
@@ -407,6 +491,7 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
   // this thread's two rows of the staging tile (row & 7 == g for both)
   uint8_t* row0 = out + (warp * 16 + g) * 128 + 4 * q4;
   uint8_t* row1 = row0 + 8 * 128;
+  float* red = reinterpret_cast<float*>(smem + Layout::kRed);
   float acc[96];
   uint32_t it = 0;
   // the tile recomputed from its count each round, not carried: one
@@ -427,9 +512,10 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
       mainloop<kMnB, Sched::kTransA>(acc, smem, wg, sg, it, bar);
       const bool empty = Sched::kTransA && sg.k1 == sg.k0;
       if (!staged) {
-        // the previous tile's store has read the staging tile, and this
-        // tile's keep bits are drawn
-        mbar_wait(&bar.out_empty[wg], (ti & 1) ^ 1);
+        // the previous tile's store has read the staging tile (kStagedIn:
+        // and this tile's input has landed in it), and this tile's keep
+        // bits are drawn
+        wait_staging<Epi>(bar, wg, ti);
         if (Epi::kDrawBits) mbar_wait(&bar.mask_full[ti & 1], (ti >> 1) & 1);
         staged = true;
       }
@@ -442,13 +528,23 @@ __global__ void __launch_bounds__(kThreads, 1) gemm_kernel(const __grid_constant
         uint32_t k4 = 0xFu;
         if (Epi::kDrawBits)
           k4 = (bits0[j] >> (2 * q4) & 3u) | (bits0[8 * (BN / 8) + j] >> (2 * q4) & 3u) << 2;
-        Epi::apply(p, sg.e, t.n0 + 8 * j + 2 * q4, k4, v);
         const int off = (j >> 3) * kAtomBytes + (((j & 7) ^ g) << 4);
+        if constexpr (Epi::kStagedIn)
+          Epi::apply_in(p, r0, t.n0 + 8 * j + 2 * q4, k4, keep0, keep1,
+                        *reinterpret_cast<const uint32_t*>(row0 + off),
+                        *reinterpret_cast<const uint32_t*>(row1 + off), v);
+        else
+          Epi::apply(p, sg.e, t.n0 + 8 * j + 2 * q4, k4, v);
         if (keep0) *reinterpret_cast<uint32_t*>(row0 + off) = pack_bf16(v[0], v[1]);
         if (keep1) *reinterpret_cast<uint32_t*>(row1 + off) = pack_bf16(v[2], v[3]);
+        if constexpr (Epi::kStagedIn)  // the column sums of the segment's rows
+          quad_col_sums(red + (wg * 4 + warp) * BN + 8 * j + 2 * q4, g,
+                        (keep0 ? v[0] : 0.f) + (keep1 ? v[2] : 0.f),
+                        (keep0 ? v[1] : 0.f) + (keep1 ? v[3] : 0.f));
       }
+      if constexpr (Epi::kStagedIn) col_sums(p, red, t, sg);
     }
-    if (!staged) mbar_wait(&bar.out_empty[wg], (ti & 1) ^ 1);
+    if (!staged) wait_staging<Epi>(bar, wg, ti);
     const int z0 = max(sg.end, t.m0);
     if (r0 >= z0 || r1 >= z0) {  // rows past the last group: zeros
 #pragma unroll

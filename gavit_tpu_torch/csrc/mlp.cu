@@ -85,6 +85,7 @@ struct EpiArgs {
 template <int kAct>
 struct InferEpi {
   static constexpr bool kFinish = kAct != ACT_NONE, kReadBack = false, kDrawBits = false;
+  static constexpr bool kStagedIn = false;
   static __device__ __forceinline__ void apply(const gemm90::Params& p, int e, int col, uint32_t,
                                                float (&v)[4]) {
     if (col < p.n) add_bias(p, 0, col, v);  // past N: never stored

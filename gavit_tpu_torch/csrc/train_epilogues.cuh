@@ -1,8 +1,9 @@
 // The epilogues of gemm_sm90.cuh's mainloop shared by the MLP kernels B and
-// D (mlp.cu) and the MoE expert MLP forward M (moe.cu): the bias of the
-// segment's group, the GELU forms, the Philox keep bits and D's and M's
-// training epilogues (fc1: h1, then g = GELU(h1) * keep * scale; fc2: y =
-// (sum + bias) * keep * scale).
+// D (mlp.cu) and the MoE expert MLP M and M' (moe.cu): the bias of the
+// segment's group, the GELU forms and their derivatives, the Philox keep
+// bits and the training epilogues (fc1: h1, then g = GELU(h1) * keep *
+// scale; fc2: y = (sum + bias) * keep * scale; the backward's dh: dh1 =
+// dh * GELU'(h1) * keep * scale and go = g, with dh1's column sums).
 //
 // Every GELU step is one IEEE-rounded operation (the _rn intrinsics keep
 // nvcc from contracting them into FMAs), so the training forms give the
@@ -49,6 +50,21 @@ __device__ __forceinline__ float train_gelu(float h) {
   return g;
 }
 
+// tanh-GELU and its derivative from one tanhf, each other step one
+// IEEE-rounded operation in the order of the plain version
+// (ops/moe_fused.py::gelu_tanh_and_grad: fp32 tensor ops with the Python
+// constants rounded to fp32, 3a folded first)
+__device__ __forceinline__ void gelu_tanh_and_grad(float x, float& g, float& dg) {
+  const float c = 0.7978845608028654f, a = 0.044715f, a3 = 0.134145f;
+  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(a, x), x), x);
+  const float th = tanhf(__fmul_rn(c, __fadd_rn(x, cube)));
+  const float hx = __fmul_rn(0.5f, x), one_th = __fadd_rn(1.f, th);
+  g = __fmul_rn(hx, one_th);
+  const float poly = __fadd_rn(1.f, __fmul_rn(__fmul_rn(a3, x), x));
+  dg = __fadd_rn(__fmul_rn(0.5f, one_th),
+                 __fmul_rn(__fmul_rn(__fmul_rn(hx, __fsub_rn(1.f, __fmul_rn(th, th))), c), poly));
+}
+
 // the bias of group e's columns col and col + 1, added to an accumulator
 // quad (group e's bias row lies e * bias_stride elements in). The
 // epilogues of one bias row pass e = 0, which folds away: the group's index
@@ -87,6 +103,7 @@ inline DropSite make_site(unsigned k0, unsigned k1, unsigned site, unsigned thre
 // output
 struct DrawsKeepBits {
   static constexpr bool kDrawBits = true;
+  static constexpr bool kStagedIn = false;
   static __device__ __forceinline__ uint32_t keep8(const gemm90::Params& p, int row, int col) {
     return keep_bits8(p.drop, p.n, row, col);
   }
@@ -140,6 +157,48 @@ struct TrainFc2Epi : DrawsKeepBits {
     if (!s.on) return;
 #pragma unroll
     for (int i = 0; i < 4; ++i) v[i] = (k4 >> i) & 1u ? v[i] * s.scale : 0.f;
+  }
+};
+
+// The backward's dh (M' over its groups; one group serves D' the same way):
+// the mainloop's sum is dh = dye . W2[e]^T in fp32. The epilogue warps draw
+// the tile's hidden keep bits, and epilogue warp 1 brings the forward's h1
+// (p.c2) into the staging tiles ahead. The consumers form g and GELU'(h1)
+// from the rounded h1 (erf, or tanh: kAct), mask and scale both, write go =
+// bf16(g) to out2 for the segment's rows, and leave dh1 = dh * GELU' in
+// fp32, which the mainloop rounds once as it stages it over h1 (dh1, stored
+// by TMA) and sums by column into p.part (db1's partials). No group index
+// is read: h1, the masks and the sums go by global row, and the segments
+// the mainloop walks keep each group's rows and partials apart.
+template <int kAct>
+struct TrainDhEpi : DrawsKeepBits {
+  static constexpr bool kFinish = false, kReadBack = false, kStagedIn = true;
+  static __device__ __forceinline__ void apply_in(const gemm90::Params& p, int r0, int col,
+                                                  uint32_t k4, bool keep0, bool keep1,
+                                                  uint32_t h_r0, uint32_t h_r1, float (&v)[4]) {
+    if (col >= p.n) return;  // past N: never stored, never summed
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&h_r0);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&h_r1);
+    const float h[4] = {__low2float(a), __high2float(a), __low2float(b), __high2float(b)};
+    const DropSite& s = p.drop;
+    float g[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float dg;
+      if (kAct == ACT_GELU_TANH)
+        gelu_tanh_and_grad(h[i], g[i], dg);
+      else
+        gelu_and_grad(h[i], g[i], dg);
+      if (s.on) {
+        const bool keep = (k4 >> i) & 1u;
+        g[i] = keep ? __fmul_rn(g[i], s.scale) : 0.f;
+        dg = keep ? __fmul_rn(dg, s.scale) : 0.f;
+      }
+      v[i] = __fmul_rn(v[i], dg);
+    }
+    const long long at = (long long)r0 * p.n + col;
+    if (keep0) *reinterpret_cast<uint32_t*>(p.out2 + at) = pack_bf16(g[0], g[1]);
+    if (keep1) *reinterpret_cast<uint32_t*>(p.out2 + at + 8LL * p.n) = pack_bf16(g[2], g[3]);
   }
 };
 

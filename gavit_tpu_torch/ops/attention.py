@@ -17,7 +17,7 @@
   ``csrc/attention_fwd_sm90.cu``, fp32 in ``csrc/attention.cu``) with A′
   in the backward (``csrc/attention_bwd.cu``, replaces ``_bwd_kernel_v4``),
   or kernel K with K′ (``csrc/attention_fwd_sm90.cu`` and
-  ``csrc/attention_long.cu``, replace ``_fwd_kernel_v3`` and
+  ``csrc/attention_bwd_sm90.cu``, replace ``_fwd_kernel_v3`` and
   ``_bwd_kernel_v3``), or the blockwise kernel L with L′
   (``csrc/attention_fwd_sm90.cu`` and ``csrc/attention_large.cu``,
   replace ``_fwd_kernel_v5``, ``_dq_kernel_v5`` and ``_dkv_kernel_v5``);
@@ -35,7 +35,7 @@
   launches kernel J with J′ (replace ``_fwd_kernel_v2``/``_bwd_kernel_v2``)
   at every length. I and J are the bf16 attention forward of A and K
   (``csrc/attention_fwd_sm90.cu``), I′ and J′ K′'s kernel pair
-  (``csrc/attention_long.cu``), all reading and writing ``[B, H, N, d]``
+  (``csrc/attention_bwd_sm90.cu``), all reading and writing ``[B, H, N, d]``
   through strides, each entry point with its own launch counts; their plain
   versions are :func:`attention_reference` and
   :func:`attention_bhnd_backward_reference`.

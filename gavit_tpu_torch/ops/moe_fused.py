@@ -14,9 +14,9 @@
   row·F + col of the ``[cap, F]`` buffer at the hidden site, the output
   mask element row·D + col of ``[cap, D]`` at the output site).
 * :func:`moe_fwd_kernel`, :func:`moe_bwd_kernel` — kernels M and M′
-  (``csrc/moe.cu``) on CUDA bf16 tensors; M runs over the grouping's
+  (``csrc/moe.cu``) on CUDA bf16 tensors, both over the grouping's
   ``group_sizes`` (:func:`tile_group_sizes` derives them from the tile
-  map), M′ over the tile map.
+  map when not given).
 * :func:`fused_grouped_mlp` — the differentiable op: M forward; M′ and two
   calls of kernel tgmm (``ops/gmm.py``: dW1, dW2) backward.
   :func:`combine_rows_padded` gathers the pairs' rows back, its backward a
@@ -240,6 +240,19 @@ def tile_group_sizes(tile_group, num_experts: int, tm: int):
         torch.int32)
 
 
+def _group_sizes(tile_group, group_sizes, cap: int, tm: int, e: int):
+    """The tile map checked, and the grouping's ``group_sizes`` (int32
+    ``[E]``, derived from the map when None) as kernels M and M′ take
+    them."""
+    _check_map(tile_group, cap, tm, e)
+    if group_sizes is None:
+        group_sizes = tile_group_sizes(tile_group, e, tm)
+    if group_sizes.dtype != torch.int32 or group_sizes.shape != (e,):
+        raise ValueError(f"group_sizes must be int32 [{e}], got "
+                         f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
+    return group_sizes
+
+
 def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
                    sites, rate: float, out_rate: float, approx: bool,
                    group_sizes=None):
@@ -257,12 +270,7 @@ def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
     if d % 8 or f % 8:
         raise ValueError(f"kernel M takes widths divisible by 8, got {d}, {f}")
     _check_bf16("kernel M", x_sorted, w1, b1, w2, b2)
-    _check_map(tile_group, cap, tm, e)
-    if group_sizes is None:
-        group_sizes = tile_group_sizes(tile_group, e, tm)
-    if group_sizes.dtype != torch.int32 or group_sizes.shape != (e,):
-        raise ValueError(f"group_sizes must be int32 [{e}], got "
-                         f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
+    group_sizes = _group_sizes(tile_group, group_sizes, cap, tm, e)
     _build.require_cuda(x_sorted, w1, b1, w2, b2, tile_group, group_sizes)
     h1 = torch.empty((cap, f), dtype=x_sorted.dtype, device=x_sorted.device)
     g = torch.empty_like(h1)
@@ -280,8 +288,10 @@ def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
 
 
 def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
-                   rate: float, out_rate: float, approx: bool):
-    """Kernel M′ on CUDA bf16 tensors → ``(dx, go, dh1, db1, db2, dye)``."""
+                   rate: float, out_rate: float, approx: bool,
+                   group_sizes=None):
+    """Kernel M′ on CUDA bf16 tensors → ``(dx, go, dh1, db1, db2, dye)``.
+    ``group_sizes`` as :func:`moe_fwd_kernel` takes them."""
     global BWD_KERNEL_LAUNCHES
     cap, f = h1.shape
     e, d, _ = w1.shape
@@ -294,8 +304,8 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
         raise ValueError(f"kernel M′ takes widths divisible by 8 (D up to "
                          f"8192), got {d}, {f}")
     _check_bf16("kernel M′", dy, h1, w1, w2)
-    _check_map(tile_group, cap, tm, e)
-    _build.require_cuda(dy, h1, w1, w2, tile_group)
+    group_sizes = _group_sizes(tile_group, group_sizes, cap, tm, e)
+    _build.require_cuda(dy, h1, w1, w2, tile_group, group_sizes)
     dev = dy.device
     lib = _build.library()
     dye = torch.empty_like(dy) if out_rate > 0.0 else dy
@@ -310,7 +320,7 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
                         dtype=torch.float32, device=dev)
     _build.check(lib.gavit_moe_bwd(
         dy.data_ptr(), h1.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        tile_group.data_ptr(), dye.data_ptr(), dh1.data_ptr(), go.data_ptr(),
+        group_sizes.data_ptr(), dye.data_ptr(), dh1.data_ptr(), go.data_ptr(),
         dx.data_ptr(), db1.data_ptr(), db2.data_ptr(), part1.data_ptr(),
         part2.data_ptr(), cap, d, f, e, tm, int(approx),
         *_sites(seed, sites, rate, out_rate), _build.stream(dev)),
@@ -346,9 +356,11 @@ class _FusedGroupedMlp(torch.autograd.Function):
         x_sorted, h1, w1, w2, tile_group, group_sizes = ctx.saved_tensors
         seed, sites, rate, out_rate, approx, tm, use_kernel = ctx.args
         dy = gy.to(x_sorted.dtype).contiguous()
-        bwd = moe_bwd_kernel if use_kernel else moe_bwd_reference
-        dx, go, dh1, db1, db2, dye = bwd(dy, h1, w1, w2, tile_group, tm,
-                                         seed, sites, rate, out_rate, approx)
+        args = (dy, h1, w1, w2, tile_group, tm, seed, sites, rate, out_rate,
+                approx)
+        dx, go, dh1, db1, db2, dye = (
+            moe_bwd_kernel(*args, group_sizes) if use_kernel
+            else moe_bwd_reference(*args))
         # dW over each expert's padded rows; pad rows carry zero dh1 and dye
         tgmm = gmm.tgmm_kernel if use_kernel else gmm.tgmm_reference
         dw1 = tgmm(x_sorted, dh1, group_sizes, w1.dtype)

@@ -83,3 +83,18 @@ def test_parser_reads_a_signature():
     assert [_c_type(p) for p in params.split(",")] == [
         "const void*", "void*", "int", "long long", "const long long*",
         "unsigned", "float"]
+
+
+@pytest.mark.parametrize("name", ["gavit_moe_fwd", "gavit_moe_bwd"])
+def test_moe_launchers_take_the_group_sizes(name):
+    """Kernels M and M′ walk the grouping's ``group_sizes`` [E] on the
+    device, not a tile map: a parameter of that name, where
+    ``ops/moe_fused.py`` passes them, and none named ``tile_group``."""
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for _, found, params in _EXPORT.findall(src.read_text()):
+            if found == name:
+                names = [p.split()[-1].lstrip("*") for p in params.split(",")]
+                assert "group_sizes" in names, names
+                assert "tile_group" not in names
+                return
+    pytest.fail(f"{name} not defined")

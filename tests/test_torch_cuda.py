@@ -519,7 +519,7 @@ def test_long_attention_kernels_match_plain(dev, b, n, heads):
     """K and K′ at ragged N (one token, partial and whole tiles, K's single
     pass up to 224 and its streamed pass from 225, 384 px, I's last length
     and K′'s bound), dO through the strides it arrives with and
-    contiguous."""
+    contiguous; K′ run again for the same bits."""
     bf = torch.bfloat16
     qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(bf)
     before = (A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES)
@@ -534,8 +534,11 @@ def test_long_attention_kernels_match_plain(dev, b, n, heads):
         torch.cuda.synchronize()
         assert dgot.shape == qkv.shape and dgot.dtype == bf
         assert _rel(dgot, dwant) <= 2e-2
+    again = A.qkv_attention_long_bwd_kernel(qkv, dout, 0.125, heads)
+    torch.cuda.synchronize()
+    assert torch.equal(dgot, again)
     assert (A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES) == (
-        before[0] + 1, before[1] + 2)
+        before[0] + 1, before[1] + 3)
     assert got.shape == (b, heads, n, 64) and _err(got, want) <= TOL[bf]
 
 
@@ -596,14 +599,15 @@ def test_route_raises_past_the_long_kernels_bound(dev):
 
 
 BHND_CASES = [(1, 1, 1), (2, 2, 7), (1, 3, 64), (2, 2, 65), (1, 12, 197),
-              (1, 2, 256), (2, 3, 257), (1, 2, 640)]
+              (1, 2, 256), (2, 3, 257), (1, 2, 640), (1, 2, 749)]
 
 
 @pytest.mark.parametrize("entry", ["I", "J"])
 @pytest.mark.parametrize("b,heads,n", BHND_CASES)
 def test_bhnd_attention_kernels_match_plain(dev, entry, b, heads, n):
     """I/I′ (attention_pallas) and J/J′ (fused_attention_v2) on [B, H, N,
-    64] at one token, partial and whole tiles, 224 px and I's last length;
+    64] at one token, partial and whole tiles, 224 px, I's last length
+    and K′'s bound (749);
     q, k, v as views of [B, N, H, d] memory (strided) and dO contiguous;
     the same bits on a rerun; only the entry point's own counters move."""
     bf = torch.bfloat16

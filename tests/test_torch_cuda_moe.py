@@ -13,7 +13,11 @@ group, rows past the groups, T not a multiple of the tile, T = 50038), the
 same bits on a rerun, and its wide MN-major operand exactly against
 torch.matmul; tgmm at the same groupings in both dW forms (an empty
 expert's dW zero, the same bits on a rerun, NaN in the rows past a group
-leaving its dW unchanged); both differentiable engines against ``impl='reference'``, with their launches;
+leaving its dW unchanged); M′ run twice for the same bits, zero bias
+gradients for an expert of pad rows only, and NaN planted in one expert's
+pad rows of h1 kept to those rows and that expert's db1 where a 128-row
+tile straddles the next expert; both differentiable engines against
+``impl='reference'``, with their launches;
 a zero router's tie picking experts 0 and 1; and a non-bf16 CUDA input
 refused instead of run through a plain version.
 
@@ -104,11 +108,13 @@ def test_moe_kernels_match_plain(dev, tm, routing, rate):
         assert torch.isfinite(y).all() and torch.isfinite(h1).all()
         assert _rel(h1, h1_ref) <= REL and _rel(y, y_ref) <= REL
         assert torch.equal(y == 0, y_ref == 0)
-        got = MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed, sites,
-                                rate, rate, approx)
+        got, again = (MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed,
+                                        sites, rate, rate, approx, gs)
+                      for _ in range(2))
         want = MF.moe_bwd_reference(dy, h1_ref, w1, w2, tg, tm, seed, sites,
                                     rate, rate, approx)
         torch.cuda.synchronize()
+        assert all(torch.equal(a, a2) for a, a2 in zip(got, again))
         for name, a, b in zip(("dx", "go", "dh1", "db1", "db2", "dye"), got,
                               want):
             assert torch.isfinite(a).all(), name
@@ -117,8 +123,12 @@ def test_moe_kernels_match_plain(dev, tm, routing, rate):
         dx, go, dh1, _, _, dye = got
         assert torch.equal(go == 0, want[1] == 0)
         assert torch.equal(dye, want[5])
-        # pad rows carry exactly zero gradient
+        # pad rows carry exactly zero gradient, and an expert of pad rows
+        # only has exactly zero bias gradients (its partials are zero)
         assert (dh1[~used] == 0).all() and (dx[~used] == 0).all()
+        if routing == "empty":
+            for db in got[3:5]:
+                assert (db[0] == 0).all() and (db[3] == 0).all()
     for a, b in ((x, dh1), (go, dye)):
         k = GM.tgmm_kernel(a, b, gs)
         r = GM.tgmm_reference(a, b, gs, torch.bfloat16)
@@ -212,6 +222,47 @@ def test_moe_fwd_keeps_nan_rows_to_themselves(dev, tm):
     assert torch.isfinite(y[~rows]).all() and torch.isfinite(h1[~rows]).all()
     assert _rel(y[~rows], y_ref[~rows]) <= REL
     assert _ulps(h1[~rows], h1_ref[~rows]) <= 1
+
+
+@pytest.mark.parametrize("tm", [8, 32])
+def test_moe_bwd_keeps_nan_rows_to_themselves(dev, tm):
+    """NaN planted in h1 at the pad rows of the first expert that has some
+    (dy is zero there): kernel M′ gives them NaN exactly where the plain
+    version does (0·GELU′(NaN), dropped elements zero in both), in dh1, go
+    and dx, and in db1 only for that expert. The 128-row tile those rows
+    share with the next expert's rows keeps the NaN out of the next
+    expert's rows and bias partials; every other value is finite and
+    within REL (BIAS_REL for db1), and the pad rows left finite are
+    exactly zero in dh1 and dx."""
+    x, w, dy, tg, gs, used = _case(dev, tm, "random", seed=6)
+    w1, _, w2, _ = w
+    h1 = MF.moe_fwd_reference(x, *w, tg, tm, 0, (5, 6), 0.0, 0.0, False)[1]
+    bounds = torch.cumsum(gs.long(), 0).tolist()
+    starts = [0] + bounds[:-1]
+    planted = next(e for e in range(E - 1)
+                   if not used[starts[e]:bounds[e]].all())
+    rows = torch.zeros_like(used)
+    rows[starts[planted]:bounds[planted]] = ~used[starts[planted]:
+                                                  bounds[planted]]
+    h1 = h1.clone()
+    h1[rows] = float("nan")
+    seed, sites = philox.step_seed(0, 17), (5, 6)
+    args = (dy, h1, w1, w2, tg, tm, seed, sites, 0.1, 0.1, False)
+    got = MF.moe_bwd_kernel(*args, gs)
+    want = MF.moe_bwd_reference(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "go", "dh1", "db1"), got, want):
+        assert torch.equal(torch.isnan(a), torch.isnan(b)), name
+    db1, db1_ref = got[3], want[3]
+    assert torch.isnan(db1[planted]).any()
+    others = [e for e in range(E) if e != planted]
+    assert torch.isfinite(db1[others]).all()
+    assert _rel(db1[others], db1_ref[others]) <= BIAS_REL
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.isfinite(a[~rows]).all()
+        assert _rel(a[~rows], b[~rows]) <= REL
+    pads = ~used & ~rows
+    assert (got[2][pads] == 0).all() and (got[0][pads] == 0).all()
 
 
 def test_grouped_engine_matches_plain_end_to_end(dev):

@@ -189,3 +189,28 @@ def test_plain_versions_mask_contract():
     assert torch.equal(dye == 0, ~keep_o)
     kept = keep_h.float().mean().item()
     assert 0.6 < kept < 0.8
+
+
+@pytest.mark.parametrize("bad", ["dtype", "shape"])
+def test_moe_kernels_check_group_sizes_before_the_card(bad):
+    """Kernels M and M′ walk the grouping's ``group_sizes`` (int32 ``[E]``):
+    a wrong dtype or shape raises ValueError naming it on tiny CPU tensors,
+    before the wrappers ask for a card, which right ones then do."""
+    bf = torch.bfloat16
+    cap, tm, e, d, f = 16, 8, 2, 8, 16
+    tg = torch.tensor([0, 1], dtype=torch.int32)
+    good = torch.tensor([8, 8], dtype=torch.int32)
+    wrong = good.long() if bad == "dtype" else torch.tensor(
+        [8, 8, 0], dtype=torch.int32)
+    x, dy = torch.zeros(cap, d, dtype=bf), torch.zeros(cap, d, dtype=bf)
+    h1 = torch.zeros(cap, f, dtype=bf)
+    w1, w2 = torch.zeros(e, d, f, dtype=bf), torch.zeros(e, f, d, dtype=bf)
+    b1, b2 = torch.zeros(e, f, dtype=bf), torch.zeros(e, d, dtype=bf)
+    fwd = (x, w1, b1, w2, b2, tg, tm, 0, (5, 6), 0.0, 0.0, False)
+    bwd = (dy, h1, w1, w2, tg, tm, 0, (5, 6), 0.0, 0.0, False)
+    for kernel, args in ((tfused.moe_fwd_kernel, fwd),
+                         (tfused.moe_bwd_kernel, bwd)):
+        with pytest.raises(ValueError, match="group_sizes"):
+            kernel(*args, wrong)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            kernel(*args, good)

@@ -46,13 +46,11 @@ FAMILIES = (
     ("attn_large_bwd_q", "L′ query-major: delta, dq (attention_large.cu)"),
     ("attn_large_bwd_kv", "L′ key-major: dk, dv (attention_large.cu)"),
     ("attn_fwd_sm90", "A/K attention forward, wgmma (attention_fwd_sm90.cu)"),
-    ("attn_long_bwd_q", "K′ query-major: dq, row statistics (attention_long.cu)"),
-    ("attn_long_bwd_kv", "K′ key-major: dk, dv (attention_long.cu)"),
+    ("attn_bwd_q_sm90", "K′ query-major: dq, row statistics, wgmma (attention_bwd_sm90.cu)"),
+    ("attn_bwd_kv_sm90", "K′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
     ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
-    # the M′ mma.sync kernels of moe.cu; D′'s of mlp.cu
-    ("moe_gemm_kernel<0,", "M′ dh GEMM + GELU′ epilogue (moe.cu)"),
-    ("moe_gemm_kernel<1,", "M′ dx GEMM (moe.cu)"),
+    # M′'s helpers of moe.cu; D′'s mma.sync kernels of mlp.cu
     ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
     ("dh_gemm_kernel", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
@@ -63,7 +61,8 @@ FAMILIES = (
     # bias row an expert), B's "InferEpi<0>" before "InferEpi<"
     ("GroupedK", "tgmm grouped dW1, dW2, wgmma (gemm_sm90.cuh)"),
     ("StoreEpi, true", "N-gmm x·W[e], wgmma (gemm_sm90.cuh)"),
-    ("StoreEpi, false", "N-gmm transposed dy·W[e]ᵀ, wgmma (gemm_sm90.cuh)"),
+    ("StoreEpi, false", "M′ dx = dh1·W1[e]ᵀ; N-gmm transposed, wgmma (gemm_sm90.cuh)"),
+    ("TrainDhEpi", "M′ dh + GELU′ + masks → dh1, go, db1 partials, wgmma (gemm_sm90.cuh)"),
     ("TrainFc1Epi<2, false>", "D fc1 + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),
     ("TrainFc2Epi<false>", "D fc2 + mask, wgmma (gemm_sm90.cuh)"),
     ("TrainFc1Epi<", "M fc1 + b1[e] + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),

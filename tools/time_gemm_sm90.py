@@ -19,6 +19,12 @@ the main path's shapes, on one CUDA card:
   F.gelu → F.dropout → torch._grouped_mm → F.dropout`` on the same rows;
   its fc1 and fc2 apart (``torch.profiler``'s device time of each of its
   two launches) beside the same two GEMMs bare through N-gmm;
+* kernel M′ (its backward: the dye prologue, dh = dye·W2[e]ᵀ with GELU′,
+  both masks, go and db1's partials, the bias reductions, dx =
+  dh1·W1[e]ᵀ) over the same rows, erf at rate 0.1 and tanh at rate 0,
+  against that chain's backward to x (``torch.autograd.grad``); its dh
+  and dx launches apart by ``torch.profiler`` beside the same two GEMMs
+  bare through N-gmm's transposed form;
 * kernel tgmm (the grouped dW) for dW1 ``[8, 768, 3072]`` and dW2 ``[8,
   3072, 768]`` over the packed T = 50432 rows (the unfused engine) and over
   the cap-padded rows (each group rounded up to 256, the fused engine),
@@ -31,7 +37,7 @@ Device times: 20 launches back to back between two CUDA events, after 3
 warm-up calls, so the host's gap between calls is not inside. Each line is
 printed twice (two rounds), kernel and library call in turns.
 
-    python3 tools/time_gemm_sm90.py [--only B,D,M,N-gmm,tgmm,host]
+    python3 tools/time_gemm_sm90.py [--only B,D,M,M′,N-gmm,tgmm,host]
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ def main() -> int:
     import torch.nn.functional as F
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="B,D,M,N-gmm,tgmm,host",
+    ap.add_argument("--only", default="B,D,M,M′,N-gmm,tgmm,host",
                     help="comma-separated kernels to time")
     only = set(ap.parse_args().only.split(","))
 
@@ -173,6 +179,37 @@ def main() -> int:
                       f"{device_ms(lambda: moe_chain(a_cap)):.4f} ms ({card})",
                       flush=True)
 
+    def time_m_bwd():
+        dy, h1 = draw(cap, DIM), draw(cap, HIDDEN)
+        xg = a_cap.detach().clone().requires_grad_(True)
+        y = moe_chain(xg)
+        names = {"TrainDhEpi": "dh", "StoreEpi, false": "dx"}
+        for rate, approx in ((0.1, False), (0.0, True)):
+            def kernel():
+                return MF.moe_bwd_kernel(dy, h1, we1, we2, tg_cap, TM, seed,
+                                         sites, rate, rate, approx, gs_cap)
+            alone = device_ms(kernel)
+            with torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(10):
+                    kernel()
+                torch.cuda.synchronize()
+            parts = {"dh": 0.0, "dx": 0.0, "rest": 0.0}
+            for ev in prof.key_averages():
+                part = next((v for k, v in names.items() if k in ev.key),
+                            "rest")
+                parts[part] += ev.self_device_time_total / 1e3 / 10
+            print(f"M′ cap={cap} {'tanh' if approx else 'erf'} rate {rate}: "
+                  f"kernel {alone:.4f} ms (dh {parts['dh']:.4f}, dx "
+                  f"{parts['dx']:.4f}, prologue and reductions "
+                  f"{parts['rest']:.4f} by the profiler); bare dh "
+                  f"{device_ms(lambda: GM.gmm_kernel(dy, we2, gs_cap, True)):.4f}"
+                  f" ms, bare dx "
+                  f"{device_ms(lambda: GM.gmm_kernel(h1, we1, gs_cap, True)):.4f}"
+                  f" ms; grouped_mm chain's backward to x "
+                  f"{device_ms(lambda: torch.autograd.grad(y, xg, dy, retain_graph=True)):.4f}"
+                  f" ms ({card})", flush=True)
+
     def time_tgmm():
         for rows, lhs, rhs, g, o in (("packed T", a, dh, gs, offs),
                                      (f"cap {cap}", a_cap, dh_cap, gs_cap,
@@ -192,7 +229,8 @@ def main() -> int:
 
     for _ in range(2):
         for name, fn in (("B", time_b), ("D", time_d), ("M", time_m),
-                         ("N-gmm", time_ngmm), ("tgmm", time_tgmm)):
+                         ("M′", time_m_bwd), ("N-gmm", time_ngmm),
+                         ("tgmm", time_tgmm)):
             if name in only:
                 fn()
     if "host" in only:
