@@ -74,10 +74,11 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), for B, D, L, M, M′, N-gmm, tgmm (both dW, cap-padded
-   and packed rows, and one hot expert), K′, I′ and J′ also the device
-   time alone (20 launches between two events) beside the library call's
-   (the K′ pair also at A′'s shape beside A′; L's beside
+   events, median), for B, D, L, L′, M, M′, N-gmm, tgmm (both dW,
+   cap-padded and packed rows, and one hot expert), A′, K′, I′ and J′ also
+   the device time alone (20 launches between two events) beside the
+   library call's (A′ also beside the backward pair under K′'s entry at
+   A′'s shape; L's beside
    its tensor bound and the floor of its exponentials on the SFUs), the host time
    of one kernel-A call and one kernel-B call at b1 (tensor-map encodes
    included) beside sdpa's and the cuBLAS chain's, Predictor p50 for one image
@@ -692,12 +693,15 @@ def check_attention_bwd(dev, results, batch=TRAIN_BATCH, n=N_TOKENS,
     do = torch.randn(batch, n, heads, HEAD_DIM, device=dev,
                      generator=g).to(torch.bfloat16).transpose(1, 2)
     got = A.qkv_attention_bwd_kernel(qkv, do, scale, heads)
+    again = A.qkv_attention_bwd_kernel(qkv, do, scale, heads)
     want = A.attention_backward_reference(qkv, do, scale, heads)
     rel, err = rel_err(got, want), max_err(got, want)
-    check("A′ attention bwd", rel <= GRAD_REL_TOL
+    same = torch.equal(got, again)
+    check("A′ attention bwd", rel <= GRAD_REL_TOL and same
           and torch.isfinite(got).all().item(),
           f"bf16 B={batch} N={n} H={heads} d={HEAD_DIM}: dqkv rel to max "
-          f"{rel:.3e} (tol {GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}")
+          f"{rel:.3e} (tol {GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}; a "
+          f"second run bit-equal {same}")
     results["A′"]["errs"].append(err)
     results["A′"]["cases"].append((qkv, do))
 
@@ -1863,6 +1867,12 @@ def phase_large_times(cfg512, weights512, dev, results, predictor512,
                   cuda_ms(sdpa_fwd_bwd)
                   ) + bound(10 * b * h * n * n * d,
                             8 * b * n * h * d * 2 + b * h * n * 4)
+    # L′ alone on the device, beside sdpa's forward and backward timed the
+    # same way
+    results["L′"]["device"] = (
+        device_ms(lambda: A.qkv_attention_large_bwd_kernel(
+            qkv, o, lse, do, scale, h)),
+        device_ms(sdpa_fwd_bwd))
     del q, k, v
     for key in ("L", "L′"):
         km, pm, lm, bms, by = rows[key]
@@ -1876,6 +1886,11 @@ def phase_large_times(cfg512, weights512, dev, results, predictor512,
         f"exponential each: SFU floor {sfu_floor_ms(scores):.4f} ms "
         f"({SFU_EX2_PER_CLOCK} ex2 a clock an SM) beside the tensor bound "
         f"{rows['L'][3]:.4f} ms ({card})")
+    dk, dl = results["L′"]["device"]
+    log(f"[time] L′ alone on the device (20 launches between two events): "
+        f"kernel {dk:.4f} ms, sdpa fwd+bwd {dl:.4f} ms; two exponentials a "
+        f"score: SFU floor {sfu_floor_ms(2 * scores):.4f} ms beside the "
+        f"tensor bound {rows['L′'][3]:.4f} ms ({card})")
 
     g = torch.Generator(device=dev).manual_seed(SEED + 81)
     for gb, gn in ((BATCH_512, N_512 - 1), (BATCH_1024, N_1024 - 1)):
@@ -2066,14 +2081,16 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     lb = cuda_ms(sdpa_fwd_bwd)
     rows["A′"] = (kb, pb, lb) + bound(10 * b * h * n * n * d,
                                       7 * b * n * h * d * 2)
-    # the K′/I′/J′ pair at A′'s shape, alone on the device beside A′
-    pair = (device_ms(lambda: A.qkv_attention_long_bwd_kernel(qkv, do, scale,
-                                                               h)),
-            device_ms(lambda: A.qkv_attention_bwd_kernel(qkv, do, scale, h)),
-            device_ms(sdpa_fwd_bwd))
-    log(f"[time] at A′'s shape b{b} N={n}, device alone (20 launches "
-        f"between two events): the K′ pair {pair[0]:.4f} ms, A′ "
-        f"{pair[1]:.4f} ms, sdpa fwd+bwd {pair[2]:.4f} ms ({card})")
+    # A′ alone on the device, beside the backward pair under K′'s entry
+    # (the generic pair) and sdpa's forward and backward timed the same way
+    alone = device_ms(lambda: A.qkv_attention_bwd_kernel(qkv, do, scale, h))
+    pair = device_ms(lambda: A.qkv_attention_long_bwd_kernel(qkv, do, scale,
+                                                              h))
+    lib_alone = device_ms(sdpa_fwd_bwd)
+    results["A′"]["device"] = (alone, lib_alone)
+    log(f"[time] A′ at b{b} N={n} alone on the device (20 launches between "
+        f"two events): kernel {alone:.4f} ms, the generic pair (K′'s entry) "
+        f"{pair:.4f} ms, sdpa fwd+bwd {lib_alone:.4f} ms ({card})")
 
     # B at the serving b64 shape (its main path), against a bf16 cuBLAS chain
     m64 = 64 * N_TOKENS
@@ -2841,8 +2858,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
     phase for I, I′, J, J′, G and E (no training or serving path launches
     them). N-gmm's times are its
     forward form's; ``transposed`` holds the transposed form's. B, D, M,
-    N-gmm, tgmm and M′, redesigned on the TMA-fed wgmma mainloop, and L, K′,
-    I′ and J′, redesigned as TMA-fed wgmma attention, also carry
+    N-gmm, tgmm and M′, redesigned on the TMA-fed wgmma mainloop, and L, A′,
+    K′, I′, J′ and L′, redesigned as TMA-fed wgmma attention, also carry
     ``device_ms`` and
     ``library_device_ms``: 20 launches between two events, no host gap
     (tgmm's: dW1 over the cap-padded rows, its ``device`` both dW over the
@@ -2852,7 +2869,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:583"),
         ("A′", "fused_qkv_attention_bwd",
-         "gavit_tpu_torch/csrc/attention_bwd.cu",
+         "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
          "gavit_tpu/ops/attention.py:608"),
         ("B", "fused_mlp_inference", "gavit_tpu_torch/csrc/mlp.cu",
          "gavit_tpu/ops/mlp.py:582"),
@@ -2874,7 +2891,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:803"),
         ("L′", "fused_qkv_attention_large_bwd",
-         "gavit_tpu_torch/csrc/attention_large.cu",
+         "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
          "gavit_tpu/ops/attention.py:852"),
         ("H", "fused_gelu_dropout", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:252"),
@@ -2930,7 +2947,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
     moe, = [row for row in out if row["name"] == "fused_grouped_mlp"]
     moe_bwd, = [row for row in out if row["name"] == "fused_grouped_mlp_bwd"]
     pair = {key: [row for row in out if row["replaces"] == rep][0]
-            for key, _, _, rep in spec if key in ("K′", "I′", "J′")}
+            for key, _, _, rep in spec
+            if key in ("A′", "K′", "I′", "J′", "L′")}
     tgmm_device = results["tgmm"]["device"]
     for row, where in ((mlp, results["B"]["device"]),
                        (ngmm, results["N-gmm"]["device"]),
@@ -2941,16 +2959,17 @@ def kernels_json(results, serve_counts, train_counts, rows):
                        (large, results["L"]["device"]),
                        (moe, results["M"]["device"]),
                        (moe_bwd, results["M′"]["device"]),
-                       *((pair[key], results[key]["device"])
-                         for key in ("K′", "I′", "J′"))):
+                       *((row, results[key]["device"])
+                         for key, row in pair.items())):
         row["device_ms"], row["library_device_ms"] = where
     tgmm["device"] = {what: {"ms": dk, "library_ms": dl}
                       for what, (dk, dl) in tgmm_device.items()}
     for row in (mlp, ngmm, train, tgmm, moe, moe_bwd):
         row["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
-    for row in pair.values():
+    for key, row in pair.items():
         row["redesigned"] = ("TMA-fed wgmma, query-major and key-major "
-                             "launches, csrc/attention_bwd_sm90.cu")
+                             "launches, csrc/attention_bwd_sm90.cu"
+                             + (" (lse mode)" if key == "L′" else ""))
     large["redesigned"] = ("TMA-fed wgmma, one-pass online softmax, "
                            "csrc/attention_fwd_sm90.cu")
     return {"kernels": out}

@@ -12,8 +12,8 @@
 // (2H+h)*64 of [B, N, 3*H*64]) and strided [B, H, N, 64] views alike. A
 // and K write o as [B, N, H, 64] memory (the Python wrappers return the
 // [B, H, N, d] view); I and J write o through its strides. Kernel A's fp32
-// body stays in attention.cu; the backward kernels K', I', J' are
-// attention_bwd_sm90.cu's (A' is attention_bwd.cu's).
+// body stays in attention.cu; the backward kernels A', K', I', J' and L'
+// are attention_bwd_sm90.cu's.
 //
 // The function, as the TPU kernels compute it: s = (q.k^T) * scale in fp32,
 // the row's true max m, p = exp(s - m) * (1/l) with l the row's sum, p
@@ -453,8 +453,8 @@ int launch_fwd(const Operand& q, const Operand& k, const Operand& v, const Opera
 // _run_fwd_v5_impl): the forward of flash_attention_large, which
 // fused_qkv_attention takes past the exact kernels' range (N > 749 in bf16
 // at head_dim 64; attention_route 'L' in the port: 512 px, N = 1025, and
-// 1024 px, N = 4097). Its backward L' (attention_large.cu) reads the o and
-// lse written here.
+// 1024 px, N = 4097). Its backward L' (attention_bwd_sm90.cu) reads the o
+// and lse written here.
 //
 // The function, with v5's rounding points: s = q.k^T * scale in fp32, keys
 // at or past N at -inf; over the key tiles in order, each row keeps a

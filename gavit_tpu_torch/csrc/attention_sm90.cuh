@@ -1,6 +1,6 @@
 // Pieces shared by the Hopper attention kernels: the forwards A, K, I, J
-// and L (attention_fwd_sm90.cu) and the backward pair of K', I' and J'
-// (attention_bwd_sm90.cu). Both work on head_dim 64 in 64-row tiles of
+// and L (attention_fwd_sm90.cu) and the backward pair of A', K', I', J' and
+// L' (attention_bwd_sm90.cu). Both work on head_dim 64 in 64-row tiles of
 // 128-byte swizzled rows (one row: one swizzle row), one consumer
 // warpgroup and one producer warp a block, and the wgmma fragment layout
 // of sm90.cuh: accumulator 4j+e of a 64 x 64 tile holds (row g + 8*(e>>1),

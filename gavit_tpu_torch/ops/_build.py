@@ -52,9 +52,8 @@ _SIGNATURES = {
     "gavit_mlp_bwd_partial_rows": ((_I, _I), _I),
     "gavit_mlp_train_bwd": (
         (_P,) * 10 + (_I, _I, _I, _U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
-    "gavit_attention_bwd_fits": ((_I, _I), _I),
     "gavit_attention_bwd": (
-        (_P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _I, _P), _I),
+        (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),
     "gavit_attention_long_fwd": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_long_bwd": (
         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),

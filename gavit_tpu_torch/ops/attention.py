@@ -15,13 +15,14 @@
   kernels :func:`attention_route` names for the sequence length and dtype:
   kernel A (replaces ``_fwd_kernel_v4``; bf16 in
   ``csrc/attention_fwd_sm90.cu``, fp32 in ``csrc/attention.cu``) with A′
-  in the backward (``csrc/attention_bwd.cu``, replaces ``_bwd_kernel_v4``),
-  or kernel K with K′ (``csrc/attention_fwd_sm90.cu`` and
-  ``csrc/attention_bwd_sm90.cu``, replace ``_fwd_kernel_v3`` and
-  ``_bwd_kernel_v3``), or the blockwise kernel L with L′
-  (``csrc/attention_fwd_sm90.cu`` and ``csrc/attention_large.cu``,
-  replace ``_fwd_kernel_v5``, ``_dq_kernel_v5`` and ``_dkv_kernel_v5``);
-  it raises for anything those kernels do not take.
+  in the backward (replaces ``_bwd_kernel_v4``), or kernel K with K′
+  (replace ``_fwd_kernel_v3`` and ``_bwd_kernel_v3``), or the blockwise
+  kernel L with L′ (replace ``_fwd_kernel_v5``, ``_dq_kernel_v5`` and
+  ``_dkv_kernel_v5``); the forwards are ``csrc/attention_fwd_sm90.cu``'s,
+  the backwards ``csrc/attention_bwd_sm90.cu``'s (K′ and L′ one kernel
+  pair, L′ in its mode that reads L's lse and o; A′ two launches of its
+  own for rows of up to 224 tokens); it raises for anything those
+  kernels do not take.
 * :func:`blockwise_attention_reference` and
   :func:`blockwise_attention_backward_reference` — the plain versions of L
   and L′: the forward also returns the fp32 log-sum-exp of each row, which
@@ -34,7 +35,7 @@
   :func:`pallas_route` gives, and L/L′ past it; :func:`fused_attention_v2`
   launches kernel J with J′ (replace ``_fwd_kernel_v2``/``_bwd_kernel_v2``)
   at every length. I and J are the bf16 attention forward of A and K
-  (``csrc/attention_fwd_sm90.cu``), I′ and J′ K′'s kernel pair
+  (``csrc/attention_fwd_sm90.cu``), I′ and J′ the backward pair
   (``csrc/attention_bwd_sm90.cu``), all reading and writing ``[B, H, N, d]``
   through strides, each entry point with its own launch counts; their plain
   versions are :func:`attention_reference` and
@@ -73,7 +74,8 @@ A_MAX_N = {torch.bfloat16: 224, torch.float32: 416}
 # kernels over the same range and the blockwise kernels L/L′ take the rest.
 K_MAX_N = 749
 # what card attention in fp32 past kernel A's forward waits for (A′, K/K′
-# and L/L′ are bf16 only)
+# and L/L′ are bf16 only: the kernels of csrc/attention_bwd_sm90.cu take
+# bf16 at head_dim 64)
 _FP32_TODO = ("fp32 attention on the card waits for ROADMAP Queue 2 item "
               "10.7 (Queue 1 item 10)")
 # attention_pallas's switch from v1 to the blockwise v5, copied from the JAX
@@ -236,22 +238,29 @@ def attention_backward_reference(qkv3, dout, scale: float, heads: int):
 
 def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
     """Kernel A′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` bf16 (contiguous)
-    and ``dout [B, H, N, d]``, read through its strides → ``dqkv3`` like
-    qkv3."""
+    with N up to ``A_MAX_N[bf16]`` and ``dout [B, H, N, d]``, read through
+    its strides → ``dqkv3`` like qkv3. Its two launches (query-major over
+    the whole row of keys, key-major with the head's Q and dO resident)
+    share a ``[3, B, H, N]`` fp32 scratch of row statistics. The refusal
+    comes before the device check, so a CPU tensor of a shape A′ does not
+    take raises the same error."""
     global BWD_KERNEL_LAUNCHES
-    b, n, d = _check_rows(qkv3, heads, "kernel A′")
-    code = _build.dtype_code(qkv3.dtype)
-    lib = _build.library()
-    if not lib.gavit_attention_bwd_fits(n, code):
+    n = qkv3.shape[1]
+    if qkv3.dtype != torch.bfloat16 or n > A_MAX_N[torch.bfloat16]:
         raise NotImplementedError(
-            f"kernel A′ takes bf16 with N <= 224, got {qkv3.dtype} N={n}: "
-            f"longer bf16 rows take kernel K′ or L′; {_FP32_TODO}")
+            f"kernel A′ takes bf16 with N <= {A_MAX_N[torch.bfloat16]}, got "
+            f"{qkv3.dtype} N={n}: longer bf16 rows take kernel K′ or L′; "
+            f"{_FP32_TODO}")
+    b, n, d = _check_rows(qkv3, heads, "kernel A′")
     dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
     dqkv = torch.empty_like(qkv3)
+    stats = torch.empty((3, b, heads, n), dtype=torch.float32,
+                        device=qkv3.device)
+    lib = _build.library()
     _build.check(lib.gavit_attention_bwd(
-        qkv3.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), b, n, heads, d,
-        sb, sh, sn, float(scale), code, _build.stream(qkv3.device)),
-        "attention backward kernel")
+        qkv3.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        b, n, heads, d, sb, sh, sn, float(scale),
+        _build.stream(qkv3.device)), "attention backward kernel")
     with _build.count_lock:
         BWD_KERNEL_LAUNCHES += 1
     return dqkv
@@ -369,8 +378,9 @@ def qkv_attention_large_bwd_kernel(qkv3, o, lse, dout, scale: float,
     """Kernel L′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` bf16 (contiguous),
     kernel L's ``o`` and ``lse``, and ``dout [B, H, N, d]``; o and dout are
     read through their strides → ``dqkv3`` like qkv3. Its two launches
-    share a ``[B, H, N]`` fp32 scratch of delta = rowsum(do∘o), which the
-    query-major launch writes."""
+    (the backward pair in its lse mode) share a ``[3, B, H, N]`` fp32
+    scratch of row statistics: L's lse in base-2 units, the multiplier 1
+    and delta = rowsum(do∘o), which the query-major launch writes."""
     global LARGE_BWD_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel L′", large=True)
     dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
@@ -380,11 +390,12 @@ def qkv_attention_large_bwd_kernel(qkv3, o, lse, dout, scale: float,
                          f"L's [{b}, {heads}, {n}] float32")
     _build.require_cuda(qkv3, lse)
     dqkv = torch.empty_like(qkv3)
-    delta = torch.empty_like(lse)
+    stats = torch.empty((3, b, heads, n), dtype=torch.float32,
+                        device=qkv3.device)
     lib = _build.library()
     _build.check(lib.gavit_attention_large_bwd(
         qkv3.data_ptr(), o.data_ptr(), lse.data_ptr(), dout.data_ptr(),
-        dqkv.data_ptr(), delta.data_ptr(), b, n, heads, d, ob, oh, on,
+        dqkv.data_ptr(), stats.data_ptr(), b, n, heads, d, ob, oh, on,
         sb, sh, sn, float(scale), _build.stream(qkv3.device)),
         "blockwise attention backward kernel")
     with _build.count_lock:

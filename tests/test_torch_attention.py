@@ -75,6 +75,27 @@ def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
             torch.zeros(1, 13, 3 * H * 64), 0.125, H)
 
 
+@pytest.mark.parametrize("dtype,n,error,match", [
+    (torch.float32, 13, NotImplementedError, "Queue 1 item 10"),
+    (torch.bfloat16, 225, NotImplementedError, "N <= 224"),
+    (torch.bfloat16, 577, NotImplementedError, "K′ or L′"),
+    (torch.bfloat16, 197, ValueError, "CUDA"),
+])
+def test_attention_bwd_kernel_refuses_before_the_card(dtype, n, error, match):
+    """Kernel A′'s wrapper refuses what the backward pair does not take
+    under A′'s entry (fp32, or bf16 rows past ``A_MAX_N``) before it looks
+    at the device or builds anything, so a CPU tensor meets the same error
+    as a CUDA one; rows it takes are refused on the CPU for their device
+    rather than computed. No launch is counted."""
+    before = tattn.BWD_KERNEL_LAUNCHES
+    qkv = torch.zeros(1, n, 3 * 64, dtype=dtype)
+    with pytest.raises(error, match=match):
+        tattn.qkv_attention_bwd_kernel(qkv, torch.zeros(1, 1, n, 64,
+                                                        dtype=dtype),
+                                       0.125, 1)
+    assert tattn.BWD_KERNEL_LAUNCHES == before
+
+
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("n", [40, 33])
 def test_long_attention_plain_versions_match_jax_v3(n, dtype):

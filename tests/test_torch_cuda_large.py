@@ -56,12 +56,25 @@ def _rel(a, b):
     return _err(a, b) / max(b.float().abs().max().item(), 1e-30)
 
 
+def _nan_tailed(t):
+    """``t`` copied to the start of a buffer whose next 64·(last dim)
+    elements are NaN: memory right past the last row."""
+    flat = torch.full((t.numel() + 64 * t.shape[-1],), float("nan"),
+                      device=t.device, dtype=t.dtype)
+    flat[:t.numel()] = t.flatten()
+    return flat[:t.numel()].view(t.shape)
+
+
 @pytest.mark.parametrize("b,n,heads", [(1, 750, 2), (2, 1025, 2),
                                        (2, 1088, 1), (1, 4097, 2),
-                                       (1, 750, 1)])
+                                       (1, 750, 1), (3, 1025, 12),
+                                       (1, 1088, 3)])
 def test_blockwise_kernels_match_plain(dev, b, n, heads):
-    """(1, 750, 1): 12 blocks on a card of 132 SMs."""
-    qkv = _randn(dev, b, n, 3 * heads * 64, seed=n).to(BF)
+    """(1, 750, 1): 12 blocks on a card of 132 SMs. qkv and dO are followed
+    in memory by NaN, which a kernel that read the query or key rows past
+    N (the padded rows of the last tile) would take in: the gradients must
+    stay finite, at the full last tile of 1088 = 17·64 and at 4097 too."""
+    qkv = _nan_tailed(_randn(dev, b, n, 3 * heads * 64, seed=n).to(BF))
     before = (A.LARGE_KERNEL_LAUNCHES, A.LARGE_BWD_KERNEL_LAUNCHES)
     o, lse = A.qkv_attention_large_kernel(qkv, 0.125, heads)
     want_o, want_lse = A.blockwise_attention_reference(qkv, 0.125, heads)
@@ -70,7 +83,8 @@ def test_blockwise_kernels_match_plain(dev, b, n, heads):
     assert lse.shape == (b, heads, n) and lse.dtype == torch.float32
     assert _err(o, want_o) <= O_TOL and _err(lse, want_lse) <= LSE_TOL
     # dO as the head-merging projection's backward hands it over
-    do = _randn(dev, b, n, heads, 64, seed=n + 1).to(BF).transpose(1, 2)
+    do = _nan_tailed(_randn(dev, b, n, heads, 64, seed=n + 1).to(
+        BF)).transpose(1, 2)
     want = A.blockwise_attention_backward_reference(qkv, o, lse, do, 0.125,
                                                     heads)
     got = A.qkv_attention_large_bwd_kernel(qkv, o, lse, do, 0.125, heads)

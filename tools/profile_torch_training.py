@@ -43,12 +43,14 @@ sys.path.insert(0, str(ROOT / "scripts"))
 # fragments of the (demangled) kernel names → family, first match wins
 FAMILIES = (
     ("attn_large_sm90", "L blockwise attention forward, wgmma (attention_fwd_sm90.cu)"),
-    ("attn_large_bwd_q", "L′ query-major: delta, dq (attention_large.cu)"),
-    ("attn_large_bwd_kv", "L′ key-major: dk, dv (attention_large.cu)"),
+    # the backward pair under each entry's names (attention_bwd_sm90.cu)
+    ("attn_large_bwd_q", "L′ query-major: delta from o, dq, wgmma (attention_bwd_sm90.cu)"),
+    ("attn_large_bwd_kv", "L′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
+    ("attn_short_bwd_q", "A′ query-major: dq, row statistics, wgmma (attention_bwd_sm90.cu)"),
+    ("attn_short_bwd_kv", "A′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
     ("attn_fwd_sm90", "A/K attention forward, wgmma (attention_fwd_sm90.cu)"),
     ("attn_bwd_q_sm90", "K′ query-major: dq, row statistics, wgmma (attention_bwd_sm90.cu)"),
     ("attn_bwd_kv_sm90", "K′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
-    ("attn_bwd_kernel", "A′ attention backward (attention_bwd.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
     # M′'s helpers of moe.cu; D′'s mma.sync kernels of mlp.cu
     ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
