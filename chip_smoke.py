@@ -74,11 +74,12 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), for B, D, L, L′, M, M′, N-gmm, tgmm (both dW,
-   cap-padded and packed rows, and one hot expert), A′, K′, I′ and J′ also
-   the device time alone (20 launches between two events) beside the
-   library call's (A′ also beside the backward pair under K′'s entry at
-   A′'s shape; L's beside
+   events, median), for B, C, D, D′, F, H, H′, L, L′, M, M′, N-gmm, tgmm
+   (both dW, cap-padded and packed rows, and one hot expert), A′, K′, I′
+   and J′ also the device time alone (20 launches between two events)
+   beside the library call's (D′'s: the chain's backward from y to the
+   fc1 output, with the whole chain's backward beside it; A′ also beside
+   the backward pair under K′'s entry at A′'s shape; L's beside
    its tensor bound and the floor of its exponentials on the SFUs), the host time
    of one kernel-A call and one kernel-B call at b1 (tensor-map encodes
    included) beside sdpa's and the cuBLAS chain's, Predictor p50 for one image
@@ -2121,6 +2122,11 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     rows["C"] = (kc, pc, None) + bound(4 * b * (n - 1) ** 2 * DIM,
                                        3 * b * (n - 1) * DIM * 2
                                        + b * (n - 1) ** 2 * 4)
+    results["C"]["device"] = (device_ms(lambda: G.graph_aggregate_kernel(
+        t, vals, "knn", 8, 0.0, 1.0, return_adjacency=True)), None)
+    log(f"[time] C at b{b} N={n - 1} knn with the adjacency, alone on the "
+        f"device (20 launches between two events): kernel "
+        f"{results['C']['device'][0]:.4f} ms ({card})")
 
     # D and D′ at M = 128 x 197, against F.linear → gelu → dropout → F.linear
     # → dropout in bf16 (its forward, and its backward alone)
@@ -2158,12 +2164,34 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
                                                  DROP_RATE, DROP_RATE))
     pd2 = cuda_ms(lambda: M.mlp_train_bwd_reference(
         dy, h1, w2, seed, sites, DROP_RATE, DROP_RATE), iters=5)
-    ld2 = cuda_ms(lambda: torch.autograd.grad(y_chain, leaves, dy,
-                                              retain_graph=True))
+    # D′'s yardstick: the chain's backward from y to the fc1 output (D′'s
+    # dh1: one GEMM and the elementwise passes); the whole chain's backward
+    # onto x, W1, b1, W2, b2 (four GEMMs) beside it
+    h_pre = h1.detach().clone().requires_grad_(True)
+    y_tail = F.dropout(F.linear(F.dropout(F.gelu(h_pre), DROP_RATE), w2, b2),
+                       DROP_RATE)
+
+    def tail_bwd():
+        return torch.autograd.grad(y_tail, h_pre, dy, retain_graph=True)
+
+    ld2 = cuda_ms(tail_bwd)
+    ld2_full = cuda_ms(lambda: torch.autograd.grad(y_chain, leaves, dy,
+                                                   retain_graph=True))
     rows["D′"] = (kd2, pd2, ld2) + bound(
         2 * m * DIM * HIDDEN,
         (2 * m * DIM + 3 * m * HIDDEN + DIM * HIDDEN) * 2
         + (HIDDEN + DIM) * 4)
+    results["D′"]["device"] = (
+        device_ms(lambda: M.mlp_train_bwd_kernel(dy, h1, w2, seed, sites,
+                                                 DROP_RATE, DROP_RATE)),
+        device_ms(tail_bwd))
+    results["D′"]["full bwd"] = ld2_full
+    log(f"[time] D′ at M={m} rate {DROP_RATE}: per call kernel {kd2:.4f} ms, "
+        f"the chain's backward to the fc1 output {ld2:.4f} ms, the whole "
+        f"chain's backward {ld2_full:.4f} ms; alone on the device (20 "
+        f"launches between two events): kernel "
+        f"{results['D′']['device'][0]:.4f} ms, the chain's backward to the "
+        f"fc1 output {results['D′']['device'][1]:.4f} ms ({card})")
 
     # F on one [128, 197, 768] bf16 site
     xf, fseed = results["F"]["cases"][0]
@@ -2172,6 +2200,12 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
                  iters=5)
     lf = cuda_ms(lambda: F.dropout(xf, DROP_RATE))
     rows["F"] = (kf, pf, lf) + bound(0, 2 * xf.numel() * 2)
+    results["F"]["device"] = (
+        device_ms(lambda: DR.dropout_kernel(xf, fseed, 5, DROP_RATE)),
+        device_ms(lambda: F.dropout(xf, DROP_RATE)))
+    log(f"[time] F on [128, 197, 768] bf16 alone on the device (20 launches "
+        f"between two events): kernel {results['F']['device'][0]:.4f} ms, "
+        f"F.dropout {results['F']['device'][1]:.4f} ms ({card})")
 
     for key, (km, pm, lm, bms, by) in rows.items():
         log(f"[time] {key}: kernel {km:.4f} ms, plain {pm:.4f} ms, library "
@@ -2263,6 +2297,22 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
                   cuda_ms(lambda: torch.autograd.grad(y_lib, xg, dy,
                                                       retain_graph=True))
                   ) + bound(0, 3 * x.numel() * 2)
+    # H and H′ alone on the device, beside F.dropout(F.gelu) and its
+    # backward timed the same way
+    results["H"]["device"] = (
+        device_ms(lambda: DR.gelu_dropout_kernel(x, seed, site, DROP_RATE)),
+        device_ms(lambda: F.dropout(F.gelu(x), DROP_RATE)))
+    results["H′"]["device"] = (
+        device_ms(lambda: DR.gelu_dropout_bwd_kernel(x, dy, seed, site,
+                                                     DROP_RATE)),
+        device_ms(lambda: torch.autograd.grad(y_lib, xg, dy,
+                                              retain_graph=True)))
+    log(f"[time] H and H′ on [{x.shape[0]}, {x.shape[1]}] bf16 alone on the "
+        f"device (20 launches between two events): H "
+        f"{results['H']['device'][0]:.4f} ms, F.dropout(F.gelu) "
+        f"{results['H']['device'][1]:.4f} ms; H′ "
+        f"{results['H′']['device'][0]:.4f} ms, that chain's backward "
+        f"{results['H′']['device'][1]:.4f} ms ({card})")
     for key in ("K", "K′", "H", "H′"):
         km, pm, lm, bms, by = rows[key]
         log(f"[time] {key} at 384 px b{b}: kernel {km:.4f} ms, plain "
@@ -2858,12 +2908,15 @@ def kernels_json(results, serve_counts, train_counts, rows):
     phase for I, I′, J, J′, G and E (no training or serving path launches
     them). N-gmm's times are its
     forward form's; ``transposed`` holds the transposed form's. B, D, M,
-    N-gmm, tgmm and M′, redesigned on the TMA-fed wgmma mainloop, and L, A′,
-    K′, I′, J′ and L′, redesigned as TMA-fed wgmma attention, also carry
-    ``device_ms`` and
-    ``library_device_ms``: 20 launches between two events, no host gap
-    (tgmm's: dW1 over the cap-padded rows, its ``device`` both dW over the
-    cap-padded and the packed rows and dW1 with one hot expert)."""
+    N-gmm, tgmm, M′ and D′, redesigned on the TMA-fed wgmma mainloop, C, L,
+    A′, K′, I′, J′ and L′, redesigned as TMA-fed wgmma kernels, and F, H
+    and H′ also carry ``device_ms`` and ``library_device_ms``: 20 launches
+    between two events, no host gap (tgmm's: dW1 over the cap-padded rows,
+    its ``device`` both dW over the cap-padded and the packed rows and dW1
+    with one hot expert; C's library figure null). D′'s ``library_ms`` is
+    the chain's backward from y to the fc1 output; its
+    ``library_full_bwd_ms`` the whole chain's backward onto x and the
+    weights."""
     spec = [
         ("A", "fused_qkv_attention",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
@@ -2936,42 +2989,33 @@ def kernels_json(results, serve_counts, train_counts, rows):
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
                     "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                     "library_ms": lm})
+    row = dict(zip([key for key, _, _, _ in spec], out))
     km, pm, lm, bms, by = rows["N-gmm transposed"]
-    ngmm, = [row for row in out if row["name"] == "grouped_gemm_gmm"]
-    ngmm["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
-                             "bound_by": by, "library_ms": lm}
-    mlp, = [row for row in out if row["name"] == "fused_mlp_inference"]
-    train, = [row for row in out if row["name"] == "fused_mlp_train_fwd"]
-    tgmm, = [row for row in out if row["name"] == "grouped_dw_tgmm"]
-    large, = [row for row in out if row["name"] == "fused_qkv_attention_large"]
-    moe, = [row for row in out if row["name"] == "fused_grouped_mlp"]
-    moe_bwd, = [row for row in out if row["name"] == "fused_grouped_mlp_bwd"]
-    pair = {key: [row for row in out if row["replaces"] == rep][0]
-            for key, _, _, rep in spec
-            if key in ("A′", "K′", "I′", "J′", "L′")}
+    row["N-gmm"]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
+                                  "bound_by": by, "library_ms": lm}
     tgmm_device = results["tgmm"]["device"]
-    for row, where in ((mlp, results["B"]["device"]),
-                       (ngmm, results["N-gmm"]["device"]),
-                       (ngmm["transposed"],
-                        results["N-gmm"]["device transposed"]),
-                       (train, results["D"]["device"]),
-                       (tgmm, tgmm_device["dW1 cap-padded"]),
-                       (large, results["L"]["device"]),
-                       (moe, results["M"]["device"]),
-                       (moe_bwd, results["M′"]["device"]),
-                       *((row, results[key]["device"])
-                         for key, row in pair.items())):
-        row["device_ms"], row["library_device_ms"] = where
-    tgmm["device"] = {what: {"ms": dk, "library_ms": dl}
-                      for what, (dk, dl) in tgmm_device.items()}
-    for row in (mlp, ngmm, train, tgmm, moe, moe_bwd):
-        row["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
-    for key, row in pair.items():
-        row["redesigned"] = ("TMA-fed wgmma, query-major and key-major "
-                             "launches, csrc/attention_bwd_sm90.cu"
-                             + (" (lse mode)" if key == "L′" else ""))
-    large["redesigned"] = ("TMA-fed wgmma, one-pass online softmax, "
-                           "csrc/attention_fwd_sm90.cu")
+    for key in ("A′", "B", "C", "D", "D′", "F", "H", "H′", "K′", "I′", "J′",
+                "L", "L′", "M", "M′", "N-gmm"):
+        row[key]["device_ms"], row[key]["library_device_ms"] = \
+            results[key]["device"]
+    (row["N-gmm"]["transposed"]["device_ms"],
+     row["N-gmm"]["transposed"]["library_device_ms"]) = \
+        results["N-gmm"]["device transposed"]
+    row["tgmm"]["device_ms"], row["tgmm"]["library_device_ms"] = \
+        tgmm_device["dW1 cap-padded"]
+    row["tgmm"]["device"] = {what: {"ms": dk, "library_ms": dl}
+                             for what, (dk, dl) in tgmm_device.items()}
+    row["D′"]["library_full_bwd_ms"] = results["D′"]["full bwd"]
+    for key in ("B", "N-gmm", "D", "D′", "tgmm", "M", "M′"):
+        row[key]["redesigned"] = "TMA-fed wgmma, csrc/gemm_sm90.cuh"
+    for key in ("A′", "K′", "I′", "J′", "L′"):
+        row[key]["redesigned"] = ("TMA-fed wgmma, query-major and key-major "
+                                  "launches, csrc/attention_bwd_sm90.cu"
+                                  + (" (lse mode)" if key == "L′" else ""))
+    row["L"]["redesigned"] = ("TMA-fed wgmma, one-pass online softmax, "
+                              "csrc/attention_fwd_sm90.cu")
+    row["C"]["redesigned"] = ("TMA-fed wgmma, one kernel a 128-row tile, "
+                              "csrc/graph.cu")
     return {"kernels": out}
 
 

@@ -1,15 +1,16 @@
-// One bf16 GEMM mainloop for Hopper, shared by kernels B and D (mlp.cu: the
-// serving and the training MLP's fc1 and fc2), M (moe.cu: the MoE expert
-// MLP's fc1 and fc2), N-gmm (moe.cu: megablox gmm in both forms) and tgmm
-// (moe.cu: megablox tgmm, the grouped weight gradient): TMA-fed,
-// warp-specialised wgmma with two tile schedules and pluggable epilogues
-// (train_epilogues.cuh holds B's, D's and M's).
+// One bf16 GEMM mainloop for Hopper, shared by kernels B, D and D' (mlp.cu:
+// the serving and the training MLP's fc1 and fc2, the backward's dh), M
+// and M' (moe.cu: the MoE expert MLP's fc1 and fc2, the backward's dh),
+// N-gmm (moe.cu: megablox gmm in both forms) and tgmm (moe.cu: megablox
+// tgmm, the grouped weight gradient): TMA-fed, warp-specialised wgmma with
+// two tile schedules and pluggable epilogues (train_epilogues.cuh holds
+// the training ones).
 //
-// * RowTiles (B, D, M, N-gmm): C[M, N] = A[M, K] . B_e for the rows of each
-//   group e of group_sizes, with A row-major (K-major) and B_e either
+// * RowTiles (B, D, D', M, M', N-gmm): C[M, N] = A[M, K] . B_e for the rows
+//   of each group e of group_sizes, with A row-major (K-major) and B_e either
 //   K-major ([N, K] rows: nn.Linear's weights, gmm's transposed form) or
-//   MN-major ([K, N] rows: gmm's forward W[e]). A dense GEMM is one group
-//   of every row (group_sizes null).
+//   MN-major ([K, N] rows: gmm's forward W[e], D''s W2). A dense GEMM is
+//   one group of every row (group_sizes null: no group size is read).
 // * GroupedK (tgmm): C[e] = A[rows of e]^T . B[rows of e] for A [R, M], B
 //   [R, N] row-major and C [E, M, N]: both operands MN-major, and the K loop
 //   runs over the rows of one group.
@@ -56,7 +57,7 @@
 //   three epilogue warps, the exact-erf GELU and Philox held fc1 to 3.5
 //   times its bare GEMM's time (PERF.md §6). M's add the bias row of the
 //   segment's group (apply gets the group's index).
-// * M''s dh epilogue (kStagedIn): epilogue warp 1 loads each
+// * M''s and D''s dh epilogue (kStagedIn): epilogue warp 1 loads each
 //   warpgroup's 64 x 192 tile of a second input (p.c2: the forward's h1)
 //   by TMA into the warpgroup's staging tile as soon as the previous
 //   tile's store has read it, so the load overlaps the mainloop; the

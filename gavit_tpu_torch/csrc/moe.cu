@@ -39,7 +39,8 @@
 //   at tm >= 128), the epilogue adds the segment's expert's bias row and
 //   keeps the segment's rows, and epilogue warps 2-3 draw the tile's keep
 //   bits by global row a tile ahead (nothing at rate 0).
-// * M': a prologue masks dy -> dye and sums its columns per row chunk;
+// * M': the backward prologue D' shares (train_epilogues.cuh) masks dy ->
+//   dye and sums its columns per row chunk;
 //   then dh = dye . W2[e]^T on the same mainloop and row schedule, W2[e]
 //   [F, D] the K-major B operand (N-gmm's transposed form), with the
 //   training dh epilogue (train_epilogues.cuh's TrainDhEpi): epilogue warps
@@ -107,40 +108,6 @@ namespace {
 // 128-row tile always starts on one)
 int unit_rows(int tm) { return tm < gemm90::BM ? tm : gemm90::BM; }
 
-// M' prologue: dye = bf16(dy * keep_out * scale) (only when the output mask
-// is on), and the column sums of float(dye) over each chunk of `rows` rows
-// (a chunk lies inside one row tile, so inside one expert). Thread j owns
-// columns 8j..8j+7, so blockDim.x = D / 8.
-__global__ void moe_bwd_prologue(const __nv_bfloat16* __restrict__ dy,
-                                 __nv_bfloat16* __restrict__ dye, float* __restrict__ part, int M,
-                                 int D, int rows, DropSite s) {
-  const int c0 = threadIdx.x * 8;
-  const int r0 = blockIdx.x * rows;
-  const int r1 = min(r0 + rows, M);
-  float sum[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) sum[j] = 0.f;
-  for (int r = r0; r < r1; ++r) {
-    const long e = (long)r * D + c0;
-    uint4 in = *reinterpret_cast<const uint4*>(dy + e);
-    __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&in);
-    if (s.on) {
-      const uint4 q0 = site_bits(s, (unsigned long long)e >> 2);
-      const uint4 q1 = site_bits(s, ((unsigned long long)e >> 2) + 1);
-      const uint32_t bits[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = __float2bfloat16_rn(bits[j] >= s.threshold ? __bfloat162float(v[j]) * s.scale
-                                                          : 0.f);
-      *reinterpret_cast<uint4*>(dye + e) = in;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sum[j] += __bfloat162float(v[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) part[(long)blockIdx.x * D + c0 + j] = sum[j];
-}
-
 // out[e][c] = the sum of the partial rows of expert e's units, in order:
 // expert e holds rows [start, start + group_sizes[e]) (start a multiple of
 // unit), unit u's partial row is part[u]. With starts_only, only the units
@@ -168,7 +135,9 @@ cudaError_t colsum(const float* part, float* out, const int* group_sizes, int un
   return cudaGetLastError();
 }
 
-// rows of a chunk of M''s dye column sums: divides tm, so one expert's
+// rows of a chunk of M''s dye column sums (bwd_prologue, train_epilogues.cuh):
+// divides tm, so a chunk lies inside one expert's rows; a multiple of the
+// prologue's 8 warps, as tm >= 8
 int prologue_rows(int tm) { return tm < 64 ? tm : 64; }
 
 bool bad_shape(int cap, int d, int f, int e, int tm) {
@@ -252,16 +221,13 @@ GAVIT_EXPORT int gavit_moe_bwd(const void* dy, const void* h1, const void* w1, c
                                int f, int e, int tm, int act, unsigned k0, unsigned k1,
                                unsigned site_h, unsigned thr_h, float scale_h, unsigned site_o,
                                unsigned thr_o, float scale_o, void* stream) {
-  if (bad_shape(cap, d, f, e, tm) || d / 8 > 1024 || gemm90::bad_shape(cap, f, d))
+  if (bad_shape(cap, d, f, e, tm) || gemm90::bad_shape(cap, f, d))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* gs = static_cast<const int*>(group_sizes);
   const DropSite out_site = make_site(k0, k1, site_o, thr_o, scale_o);
   const int prow = prologue_rows(tm);
-  moe_bwd_prologue<<<cap / prow, d / 8, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dye),
-      static_cast<float*>(part2), cap, d, prow, out_site);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_bwd_prologue(dy, dye, part2, cap, d, prow, out_site, s);
   if (err == cudaSuccess)
     err = colsum(static_cast<const float*>(part2), static_cast<float*>(db2), gs, prow, 0, d, e, s);
   if (err != cudaSuccess) return err;

@@ -37,12 +37,3 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
 __device__ __forceinline__ uint4 site_bits(const DropSite& s, unsigned long long g) {
   return philox4x32_10(make_uint4(static_cast<uint32_t>(g), s.site, 0u, 0u), s.k0, s.k1);
 }
-
-// keep flags of elements e and e+1 for an even e (both in one group)
-__device__ __forceinline__ void keep_pair(const DropSite& s, unsigned long long e, bool& a,
-                                          bool& b) {
-  const uint4 r = site_bits(s, e >> 2);
-  const bool hi = (e & 3) != 0;
-  a = (hi ? r.z : r.x) >= s.threshold;
-  b = (hi ? r.w : r.y) >= s.threshold;
-}

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
 // TMA loads and stores through tensor maps, wgmma with shared-memory
 // descriptors and register A operands, setmaxnreg, named barriers, and the
-// host helper that encodes a tensor map. attention_fwd_sm90.cu and the GEMM
-// mainloop of gemm_sm90.cuh include this header.
+// host helper that encodes a tensor map. The attention kernels, kernel C's
+// tensor-core body (graph.cu) and the GEMM mainloop of gemm_sm90.cuh
+// include this header.
 //
 // The tensor-map encoder comes from the driver through
 // cudaGetDriverEntryPoint, so the library links no -lcuda and stays one
@@ -13,7 +14,7 @@
 //   chunk c of row r lies at r*128 + ((c ^ (r & 7)) << 4); its base is
 //   1024-byte aligned. TMA writes that layout (CU_TENSOR_MAP_SWIZZLE_128B)
 //   and wgmma reads it (layout type 1 in the descriptor).
-// * wgmma's register fragments are those of mma.sync m16n8k16 (common.cuh)
+// * wgmma's register fragments are those of mma.sync m16n8k16
 //   for each warp's 16 rows of the 64-row tile: warp w of the warpgroup
 //   holds rows 16w..16w+15; A register i packs (row g + 8*(i&1), columns
 //   2t + 8*(i>>1) and +1); accumulator 4j+e holds (row g + 8*(e>>1),
@@ -257,6 +258,21 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D[64x8] = A[64x16] . B[16x8] (+ D if accumulate), A and B K-major in
+// shared memory (descriptors), fp32 accumulate.
+__device__ __forceinline__ void wgmma_m64n8k16_ss(float (&d)[4], uint64_t desc_a,
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

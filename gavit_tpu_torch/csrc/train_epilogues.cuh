@@ -3,7 +3,8 @@
 // segment's group, the GELU forms and their derivatives, the Philox keep
 // bits and the training epilogues (fc1: h1, then g = GELU(h1) * keep *
 // scale; fc2: y = (sum + bias) * keep * scale; the backward's dh: dh1 =
-// dh * GELU'(h1) * keep * scale and go = g, with dh1's column sums).
+// dh * GELU'(h1) * keep * scale and go = g, with dh1's column sums), and
+// the backward's dy prologue (dye and db2's partials).
 //
 // Every GELU step is one IEEE-rounded operation (the _rn intrinsics keep
 // nvcc from contracting them into FMAs), so the training forms give the
@@ -201,5 +202,74 @@ struct TrainDhEpi : DrawsKeepBits {
     if (keep1) *reinterpret_cast<uint32_t*>(p.out2 + at + 8LL * p.n) = pack_bf16(g[2], g[3]);
   }
 };
+
+// The backward's prologue (D' and M'): dye = bf16(dy * keep_out * scale)
+// (written only when the output mask is on) and the column sums of
+// float(dye) over each chunk of `rows` rows, one partial row per chunk
+// (db2's; M' keeps a chunk inside one expert). It moves bytes: dy read and
+// dye written once, 77 MB at ViT-B b128. A block takes one chunk and 32
+// groups of 8 columns (a warp reads 512 contiguous bytes of a row); its 8
+// warps each walk rows / 8 consecutive rows of the chunk with one 16-byte
+// load a row and thread, then warp 0 adds the other warps' sums in warp
+// order: many rows in flight, and every sum in a fixed order (no atomics,
+// reruns bit-equal). `rows` is a multiple of kPrologueWarps.
+constexpr int kPrologueGroups = 32, kPrologueWarps = 8;
+
+__global__ void __launch_bounds__(kPrologueGroups * kPrologueWarps)
+    bwd_prologue(const __nv_bfloat16* __restrict__ dy, __nv_bfloat16* __restrict__ dye,
+                 float* __restrict__ part, int m, int d, int rows, DropSite s) {
+  __shared__ float4 red[kPrologueWarps - 1][kPrologueGroups][2];
+  const int x = threadIdx.x, w = threadIdx.y;
+  const int c0 = (blockIdx.y * kPrologueGroups + x) * 8;
+  const int per = rows / kPrologueWarps;
+  const int r0 = blockIdx.x * rows + w * per, r1 = min(r0 + per, m);
+  float sum[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) sum[j] = 0.f;
+  if (c0 < d) {
+#pragma unroll 4
+    for (int r = r0; r < r1; ++r) {
+      const long long e = (long long)r * d + c0;
+      uint4 in = *reinterpret_cast<const uint4*>(dy + e);
+      __nv_bfloat16* v = reinterpret_cast<__nv_bfloat16*>(&in);
+      if (s.on) {
+        const uint4 q0 = site_bits(s, (unsigned long long)e >> 2);
+        const uint4 q1 = site_bits(s, ((unsigned long long)e >> 2) + 1);
+        const uint32_t bits[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          v[j] = __float2bfloat16_rn(bits[j] >= s.threshold ? __bfloat162float(v[j]) * s.scale
+                                                            : 0.f);
+        *reinterpret_cast<uint4*>(dye + e) = in;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) sum[j] += __bfloat162float(v[j]);
+    }
+  }
+  if (w > 0) {
+    red[w - 1][x][0] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+    red[w - 1][x][1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+  }
+  __syncthreads();
+  if (w > 0 || c0 >= d) return;
+  for (int i = 0; i < kPrologueWarps - 1; ++i) {
+    const float4 a = red[i][x][0], b = red[i][x][1];
+    sum[0] += a.x, sum[1] += a.y, sum[2] += a.z, sum[3] += a.w;
+    sum[4] += b.x, sum[5] += b.y, sum[6] += b.z, sum[7] += b.w;
+  }
+  float4* out = reinterpret_cast<float4*>(part + (long long)blockIdx.x * d + c0);
+  out[0] = make_float4(sum[0], sum[1], sum[2], sum[3]);
+  out[1] = make_float4(sum[4], sum[5], sum[6], sum[7]);
+}
+
+inline cudaError_t launch_bwd_prologue(const void* dy, void* dye, void* part, int m, int d,
+                                       int rows, const DropSite& s, cudaStream_t stream) {
+  if (rows <= 0 || rows % kPrologueWarps) return cudaErrorInvalidValue;
+  const dim3 grid(gemm90::cdiv(m, rows), gemm90::cdiv(d / 8, kPrologueGroups));
+  bwd_prologue<<<grid, dim3(kPrologueGroups, kPrologueWarps), 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(dy), static_cast<__nv_bfloat16*>(dye),
+      static_cast<float*>(part), m, d, rows, s);
+  return cudaGetLastError();
+}
 
 }  // namespace

@@ -300,9 +300,9 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
         raise ValueError(f"expert backward shapes dy {tuple(dy.shape)} h1 "
                          f"{tuple(h1.shape)} w1 {tuple(w1.shape)} w2 "
                          f"{tuple(w2.shape)}")
-    if d % 8 or f % 8 or d > 8192:
-        raise ValueError(f"kernel M′ takes widths divisible by 8 (D up to "
-                         f"8192), got {d}, {f}")
+    if d % 8 or f % 8:
+        raise ValueError(f"kernel M′ takes widths divisible by 8, got {d}, "
+                         f"{f}")
     _check_bf16("kernel M′", dy, h1, w1, w2)
     group_sizes = _group_sizes(tile_group, group_sizes, cap, tm, e)
     _build.require_cuda(dy, h1, w1, w2, tile_group, group_sizes)

@@ -5,7 +5,9 @@ fallback, each body's dispatch bound (attention's kernel A up to 224 keys
 and K past it, the graph's tensor-core body up to 256), dropout (F) and
 GELU + dropout (H, H′) at rates 0 and 0.1 with the masks bit-identical to
 the plain version's, the MLP's two routes, and the training kernels'
-gradients against torch.autograd through the plain versions; the
+gradients against torch.autograd through the plain versions; the graph's
+TMA + wgmma body and D′ with NaN planted past their inputs and bit-equal
+reruns; the
 [B, H, N, d] attention kernels I/I′ and J/J′ from one token to 641, the
 dropout-add G bit for bit, and the mask writer E. chip_smoke.py covers the
 serving and training shapes themselves.
@@ -224,6 +226,53 @@ def test_graph_threshold_without_edges_keeps_self(dev):
     torch.testing.assert_close(out, v, rtol=0, atol=0)
 
 
+def _graph_sm90_cases():
+    """(n, mode, k) over the tensor-core body's edges: one and several n8
+    key blocks, a partial 64-row warpgroup and 128-row tile, N = 196 (the
+    224-px patch tokens) and its bound 256; k at 1, 8 and N - 1."""
+    cases = []
+    for n in (2, 8, 64, 65, 196, 197, 256):
+        cases += [(n, "knn", k) for k in sorted({1, 8, n - 1})]
+        cases += [(n, "threshold", 8), (n, "dense", 8)]
+    return cases
+
+
+@pytest.mark.parametrize("with_adj", [False, True], ids=["out", "adj"])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n,mode,k", _graph_sm90_cases())
+def test_graph_sm90_body_edges(dev, n, mode, k, b, with_adj):
+    """Kernel C's TMA + wgmma body in bf16 with NaN in memory right past
+    tokens and values (rows past N must come from TMA's zero fill): the
+    output finite and within tolerance of the plain version on every row
+    whose selection is not a near-tie, the adjacency (when asked for) the
+    plain version's, and the same bits on a rerun."""
+    dim = 768 if n >= 196 else 136  # 136: a partial 64-dim chunk
+    thr, temp = 0.0, 0.5 if mode == "threshold" else 1.0
+    t = _nan_tailed(_randn(dev, b, n, dim, seed=n + k).to(torch.bfloat16))
+    v = _nan_tailed(_randn(dev, b, n, dim, seed=n + k + 1).to(torch.bfloat16))
+    before = G.KERNEL_LAUNCHES
+    runs = [G.graph_aggregate_kernel(t, v, mode, k, thr, temp,
+                                     return_adjacency=with_adj)
+            for _ in range(2)]
+    assert G.KERNEL_LAUNCHES == before + 2
+    ref_adj = G.build_adjacency(t, mode=mode, k=k, threshold=thr,
+                                temperature=temp)
+    want = G.graph_aggregate(ref_adj, v)
+    torch.cuda.synchronize()
+    (out, adj), (out2, adj2) = (r if with_adj else (r, None) for r in runs)
+    assert torch.isfinite(out).all() and torch.equal(out, out2)
+    ok = ~_near_tie(G.cosine_similarity(t), mode, k, thr)
+    if with_adj:
+        assert torch.equal(adj, adj2)
+        same = ((adj > 0) == (ref_adj > 0)).all(-1)
+        assert (same | ~ok).all()
+        ok = ok & same
+        assert _err(adj[ok], ref_adj[ok]) <= TOL[torch.bfloat16]
+        if mode == "knn":
+            assert ((adj > 0).sum(-1) == min(k, n - 1)).all()
+    assert _err(out[ok], want[ok]) <= TOL[torch.bfloat16]
+
+
 @pytest.mark.parametrize("precision", ["fp32", "bf16"])
 @pytest.mark.parametrize("include_cls", [False, True])
 def test_small_vit_kernels_match_plain_versions(dev, precision, include_cls):
@@ -341,6 +390,35 @@ def test_mlp_train_kernels_match_plain(dev, m, d, f, rate):
     if rate:  # the hidden mask regenerated in the backward
         keep_h = philox.keep_mask((m, f), SEED, sites[0], rate, device=dev)
         assert bool((go[~keep_h] == 0).all()) and bool((dh1[~keep_h] == 0).all())
+
+
+@pytest.mark.parametrize("out_on", [False, True], ids=["out_off", "out_on"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("m,d,f", MLP_SHAPES)
+def test_mlp_train_bwd_kernel_tails_and_reruns(dev, m, d, f, rate, out_on):
+    """Kernel D′ (the dh GEMM on the wgmma mainloop) with the output mask on
+    and off independently of the hidden one, and NaN in memory right past
+    h1, dy and W2 (a row read past M or D would take it in): dh1, go, db1
+    and db2 finite, within tolerance of the plain version (go and dye bit
+    for bit), and the same bits on a rerun."""
+    out_rate = 0.1 if out_on else 0.0
+    w2 = _nan_tailed(_mlp_train_inputs(dev, m, d, f)[3])
+    h1 = _nan_tailed(_randn(dev, m, f, seed=7).to(torch.bfloat16))
+    dy = _nan_tailed(_randn(dev, m, d, seed=6).to(torch.bfloat16))
+    sites = (5, 6)
+    before = M.TRAIN_BWD_LAUNCHES
+    got, again = (M.mlp_train_bwd_kernel(dy, h1, w2, SEED, sites, rate,
+                                         out_rate) for _ in range(2))
+    assert M.TRAIN_BWD_LAUNCHES == before + 2
+    want = M.mlp_train_bwd_reference(dy, h1, w2, SEED, sites, rate, out_rate)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dh1", "go", "db1", "db2"), got, again):
+        assert bool(torch.isfinite(a).all()), name
+        assert torch.equal(a, b), name
+    dh1, go, db1, db2, dye = got
+    assert torch.equal(dye, want[4]) and torch.equal(go, want[1])
+    assert _rel(dh1, want[0]) <= 2e-2
+    assert _rel(db1, want[2]) <= 1e-3 and _rel(db2, want[3]) <= 1e-3
 
 
 def test_mlp_train_kernel_hidden_mask_is_exact(dev):

@@ -52,11 +52,9 @@ FAMILIES = (
     ("attn_bwd_q_sm90", "K′ query-major: dq, row statistics, wgmma (attention_bwd_sm90.cu)"),
     ("attn_bwd_kv_sm90", "K′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
-    # M′'s helpers of moe.cu; D′'s mma.sync kernels of mlp.cu
-    ("moe_bwd_prologue", "M′ prologue: out mask + db2 partials (moe.cu)"),
+    # the backward prologue D′ and M′ share; their bias reductions
+    ("bwd_prologue", "D′/M′ prologue: out mask + db2 partials (train_epilogues.cuh)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
-    ("dh_gemm_kernel", "D′ dh GEMM + GELU′ epilogue (mlp.cu)"),
-    ("mlp_bwd_prologue", "D′ prologue: out mask + db2 partials (mlp.cu)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
     # the wgmma mainloop's instantiations (gemm_sm90.cuh): tgmm's GroupedK
     # before N-gmm's "StoreEpi, true", D's (one bias row) before M's (a
@@ -64,6 +62,8 @@ FAMILIES = (
     ("GroupedK", "tgmm grouped dW1, dW2, wgmma (gemm_sm90.cuh)"),
     ("StoreEpi, true", "N-gmm x·W[e], wgmma (gemm_sm90.cuh)"),
     ("StoreEpi, false", "M′ dx = dh1·W1[e]ᵀ; N-gmm transposed, wgmma (gemm_sm90.cuh)"),
+    # D′'s dh reads W2 MN-major ("true"), M′'s W2[e] K-major
+    ("TrainDhEpi<2>, true", "D′ dh + GELU′ + masks → dh1, go, db1 partials, wgmma (gemm_sm90.cuh)"),
     ("TrainDhEpi", "M′ dh + GELU′ + masks → dh1, go, db1 partials, wgmma (gemm_sm90.cuh)"),
     ("TrainFc1Epi<2, false>", "D fc1 + h1 + GELU + mask → g, wgmma (gemm_sm90.cuh)"),
     ("TrainFc2Epi<false>", "D fc2 + mask, wgmma (gemm_sm90.cuh)"),
@@ -77,7 +77,9 @@ FAMILIES = (
     ("namespace)::elementwise_kernel<1,", "H GELU + dropout (dropout.cu)"),
     ("namespace)::elementwise_kernel<2,",
      "H′ GELU + dropout backward (dropout.cu)"),
-    ("graph_", "C graph op (graph.cu)"),
+    ("graph_normalize", "C normalisation (graph.cu)"),
+    ("graph_fwd_sm90", "C similarity, kNN, softmax, A·V, wgmma (graph.cu)"),
+    ("graph_", "C graph op, CUDA cores (graph.cu)"),
     ("layer_norm", "LayerNorm forward and backward"),
     ("nvjet", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
     ("xmma_gemm_f32", "cuBLAS fp32 GEMMs (graph backward)"),

@@ -10,6 +10,12 @@ the main path's shapes, on one CUDA card:
 * kernel D (the training MLP forward, dropout 0.1 at both sites) at M =
   25216 (224 px b128) against the bf16 chain ``F.linear → F.gelu →
   F.dropout → F.linear → F.dropout``, and its two GEMMs bare;
+* kernel D′ (the training MLP backward at rate 0.1: the dye prologue, dh
+  = dye·W2 with GELU′, both masks, go and db1's partials, the bias
+  reductions) at M = 25216 against the chain's backward from y to the fc1
+  output (``torch.autograd.grad`` through ``F.gelu → F.dropout →
+  F.linear → F.dropout``); its dh GEMM, prologue and reductions apart by
+  ``torch.profiler`` beside the same GEMM bare through N-gmm;
 * kernel N-gmm in both forms at T = 50432 (MoE b128), E = 8, against
   ``torch._grouped_mm``;
 * kernel M (the fused MoE expert MLP forward: fc1 + b1[e] → h1, GELU,
@@ -37,7 +43,7 @@ Device times: 20 launches back to back between two CUDA events, after 3
 warm-up calls, so the host's gap between calls is not inside. Each line is
 printed twice (two rounds), kernel and library call in turns.
 
-    python3 tools/time_gemm_sm90.py [--only B,D,M,M′,N-gmm,tgmm,host]
+    python3 tools/time_gemm_sm90.py [--only B,D,D′,M,M′,N-gmm,tgmm,host]
 """
 
 from __future__ import annotations
@@ -55,12 +61,30 @@ T_B128, EXPERTS, TM = 2 * 128 * 197, 8, 256
 SIZES = [6000, 7000, 5500, 6800, 6200, 6500, 6100]  # the 8th takes the rest
 
 
+def profile_parts(fn, names):
+    """Device ms of one ``fn()`` by the first of ``names`` (substring →
+    part) each kernel's name holds, by ``torch.profiler`` over 10 calls."""
+    import torch
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(dict.fromkeys(names.values()), 0.0)
+    for ev in prof.key_averages():
+        part = next((v for k, v in names.items() if k in ev.key), None)
+        if part is not None:
+            parts[part] += ev.self_device_time_total / 1e3 / 10
+    return parts
+
+
 def main() -> int:
     import torch
     import torch.nn.functional as F
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", default="B,D,M,M′,N-gmm,tgmm,host",
+    ap.add_argument("--only", default="B,D,D′,M,M′,N-gmm,tgmm,host",
                     help="comma-separated kernels to time")
     only = set(ap.parse_args().only.split(","))
 
@@ -136,6 +160,26 @@ def main() -> int:
                   f"{device_ms(lambda: GM.gmm_kernel(hd, w2[None], one_d, True)):.4f}"
                   f" ms ({card})", flush=True)
 
+    def time_d_bwd():
+        dy, h1 = draw(M_B128, DIM), draw(M_B128, HIDDEN)
+        h_pre = h1.detach().clone().requires_grad_(True)
+        y = F.dropout(F.linear(F.dropout(F.gelu(h_pre), 0.1), w2, b2), 0.1)
+
+        def kernel():
+            return M.mlp_train_bwd_kernel(dy, h1, w2, seed, sites, 0.1, 0.1)
+        alone = device_ms(kernel)
+        # the dh GEMM under either design's name
+        parts = profile_parts(kernel, {"TrainDhEpi": "dh", "dh_gemm": "dh",
+                                       "prologue": "prologue",
+                                       "colsum": "reductions"})
+        print(f"D′ M={M_B128} rate 0.1: kernel {alone:.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+              + " by the profiler); bare dh "
+              f"{device_ms(lambda: GM.gmm_kernel(dy, w2[None], one_d, False)):.4f}"
+              f" ms; the chain's backward to the fc1 output "
+              f"{device_ms(lambda: torch.autograd.grad(y, h_pre, dy, retain_graph=True)):.4f}"
+              f" ms ({card})", flush=True)
+
     def time_ngmm():
         print(f"N-gmm T={T_B128} E={EXPERTS}: forward "
               f"{device_ms(lambda: GM.gmm_kernel(a, w, gs, False)):.4f} ms, "
@@ -159,16 +203,8 @@ def main() -> int:
                                              TM, seed, sites, rate, rate,
                                              approx, gs_cap)
                 alone = device_ms(kernel)
-                with torch.profiler.profile(activities=[
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    for _ in range(10):
-                        kernel()
-                    torch.cuda.synchronize()
-                parts = {"fc1": 0.0, "fc2": 0.0}
-                for ev in prof.key_averages():
-                    if "TrainFc1Epi" in ev.key or "TrainFc2Epi" in ev.key:
-                        part = "fc1" if "TrainFc1Epi" in ev.key else "fc2"
-                        parts[part] += ev.self_device_time_total / 1e3 / 10
+                parts = profile_parts(kernel, {"TrainFc1Epi": "fc1",
+                                               "TrainFc2Epi": "fc2"})
                 print(f"M cap={cap} {'tanh' if approx else 'erf'} rate "
                       f"{rate}: kernel {alone:.4f} ms (fc1 {parts['fc1']:.4f}"
                       f", fc2 {parts['fc2']:.4f} by the profiler); bare fc1 "
@@ -183,22 +219,13 @@ def main() -> int:
         dy, h1 = draw(cap, DIM), draw(cap, HIDDEN)
         xg = a_cap.detach().clone().requires_grad_(True)
         y = moe_chain(xg)
-        names = {"TrainDhEpi": "dh", "StoreEpi, false": "dx"}
+        names = {"TrainDhEpi": "dh", "StoreEpi, false": "dx", "": "rest"}
         for rate, approx in ((0.1, False), (0.0, True)):
             def kernel():
                 return MF.moe_bwd_kernel(dy, h1, we1, we2, tg_cap, TM, seed,
                                          sites, rate, rate, approx, gs_cap)
             alone = device_ms(kernel)
-            with torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(10):
-                    kernel()
-                torch.cuda.synchronize()
-            parts = {"dh": 0.0, "dx": 0.0, "rest": 0.0}
-            for ev in prof.key_averages():
-                part = next((v for k, v in names.items() if k in ev.key),
-                            "rest")
-                parts[part] += ev.self_device_time_total / 1e3 / 10
+            parts = profile_parts(kernel, names)
             print(f"M′ cap={cap} {'tanh' if approx else 'erf'} rate {rate}: "
                   f"kernel {alone:.4f} ms (dh {parts['dh']:.4f}, dx "
                   f"{parts['dx']:.4f}, prologue and reductions "
@@ -228,7 +255,8 @@ def main() -> int:
               f"({card})", flush=True)
 
     for _ in range(2):
-        for name, fn in (("B", time_b), ("D", time_d), ("M", time_m),
+        for name, fn in (("B", time_b), ("D", time_d), ("D′", time_d_bwd),
+                         ("M", time_m),
                          ("M′", time_m_bwd), ("N-gmm", time_ngmm),
                          ("tgmm", time_tgmm)):
             if name in only:
