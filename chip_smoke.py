@@ -38,9 +38,9 @@ before the last line:
    then the JAX package's op-level entry points, counts zeroed before and
    read after: ``multi_head_attention`` and ``fused_attention_v2`` forward
    and backward at b128 × 12 × 197 × 64 (I, I′ and J, J′), ``fused_dropout_add``
-   at [128, 197, 768] (G, F in its backward), ``kernel_mask`` (E) at the
-   b128 MLP rows and the training MLP (D, D′) held to a plain MLP armed
-   with E's masks, bench.py's self-check; I/I′ and J/J′ again at N = 1, 50,
+   at [128, 197, 768] (G, F in its backward), ``kernel_mask`` (E, both
+   masks in one launch) at the b128 MLP rows and the training MLP (D, D′)
+   held to a plain MLP armed with E's masks, bench.py's self-check; I/I′ and J/J′ again at N = 1, 50,
    197, 577, 640 (J also 1025), bit-equal on a rerun, and N = 641 through
    ``attention_pallas`` on L/L′;
 4. slice: each configuration in bf16 from a seed, graph gates set to 0.5
@@ -74,7 +74,7 @@ before the last line:
    it off (bit-equal, lower peak memory); the unfused MoE engine against
    the fused one at drop 0;
 7. times: each kernel against its plain version and a library call (CUDA
-   events, median), for B, C, D, D′, F, H, H′, L, L′, M, M′, N-gmm, tgmm
+   events, median), for B, C, D, D′, E, F, G, H, H′, L, L′, M, M′, N-gmm, tgmm
    (both dW, cap-padded and packed rows, and one hot expert), A′, K′, I′
    and J′ also the device time alone (20 launches between two events)
    beside the library call's (D′'s: the chain's backward from y to the
@@ -92,7 +92,10 @@ before the last line:
    forward, the 512-px b32 and 1024-px b4 train steps, the b1 p50 at 512
    and 1024 px; N-gmm in both forms at b128 against ``torch._grouped_mm``,
    the two MoE engines alone, the MoE b128 forward and train step on each;
-   I, I′, J, J′ at b128 against sdpa, G and E against their plain versions.
+   I, I′, J, J′ at b128 against sdpa, G and E against their plain versions
+   and alone on the device beside their byte bounds; H's issue floor (the
+   instructions its SASS gives an element, ``tools/sass_issue.py``) beside
+   its byte bound.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -233,6 +236,26 @@ def host_us(fn, calls: int = 200) -> float:
 
 def max_err(a, b) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def log_issue_floor(elements: int, rows, card) -> None:
+    """H's and H′'s issue floors (``tools/sass_issue.py``: the instructions
+    their SASS gives an element, by ``cuobjdump -sass`` on the built
+    library) beside their byte bounds; "not measured" without cuobjdump."""
+    from gavit_tpu_torch.ops import _build
+    from tools import sass_issue
+
+    try:
+        counts = sass_issue.per_element(_build.library_path())
+    except (OSError, subprocess.CalledProcessError) as err:
+        log(f"[time] H and H′ issue floors: not measured ({err})")
+        return
+    for key in ("H", "H′"):
+        per, how = counts[key]
+        log(f"[time] {key} at [{elements}] bf16: {per:.2f} instructions an "
+            f"element ({how}): issue floor "
+            f"{sass_issue.issue_floor_ms(per, elements):.4f} ms beside the "
+            f"byte bound {rows[key][3]:.4f} ms ({card})")
 
 
 def sfu_floor_ms(exps: float) -> float:
@@ -468,6 +491,34 @@ def check_graph_chunked(dev, cases=((8, 1024), (1, 4096))):
         torch.cuda.empty_cache()
 
 
+def gelu_inputs(dev, dtype):
+    """x = 2·N(0, 1) and dy = N(0, 1) at the 384 fine-tune's hidden rows
+    [16·577, 3072], from seed SEED + 41: the inputs H and H′ are checked and
+    timed on (``tools/time_small_kernels.py`` times them too)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    m = BATCH_384 * N_384
+    x = (torch.randn(m, HIDDEN, device=dev, generator=g) * 2).to(dtype)
+    return x, torch.randn(m, HIDDEN, device=dev, generator=g).to(dtype)
+
+
+def gelu_dropout_bwd_library(x, dy):
+    """H′'s yardstick: the backward of ``F.dropout(F.gelu(x), 0.1)`` on dy,
+    as the two aten calls autograd makes for it (``native_dropout_backward``
+    with the forward's mask, then ``gelu_backward``), without autograd's
+    host work, which made ``torch.autograd.grad`` of that chain host-bound
+    (0.3174 ms alone here and 0.1115-0.1178 in tools/time_small_kernels.py,
+    PERF.md §6)."""
+    import torch
+    import torch.nn.functional as F
+
+    _, mask = torch.ops.aten.native_dropout(F.gelu(x), DROP_RATE, True)
+    scale = 1.0 / (1.0 - DROP_RATE)
+    return lambda: torch.ops.aten.gelu_backward(
+        torch.ops.aten.native_dropout_backward(dy, mask, scale), x)
+
+
 def check_gelu_dropout(dev, results):
     """H and H′ at the 384 fine-tune's hidden rows, bf16 and fp32: the
     masks (zero patterns) bit-exact, values within one ulp of the dtype."""
@@ -479,9 +530,7 @@ def check_gelu_dropout(dev, results):
     seed, site, m = philox.step_seed(SEED, 5), 6, BATCH_384 * N_384
     for dtype_name in ("bf16", "fp32"):
         dtype = getattr(torch, DTYPES[dtype_name])
-        g = torch.Generator(device=dev).manual_seed(SEED + 41)
-        x = (torch.randn(m, HIDDEN, device=dev, generator=g) * 2).to(dtype)
-        dy = torch.randn(m, HIDDEN, device=dev, generator=g).to(dtype)
+        x, dy = gelu_inputs(dev, dtype)
         for key, got, want in (
                 ("H", DR.gelu_dropout_kernel(x, seed, site, DROP_RATE),
                  DR.gelu_dropout_reference(x, seed, site, DROP_RATE)),
@@ -1055,7 +1104,7 @@ def phase_ops(dev, results, batch=TRAIN_BATCH, n=N_TOKENS):
     torch.cuda.synchronize()
     counts = read_counts()
     want = expected({"I": 1, "I′": 1, "J": 1, "J′": 1, "G": 1, "F": 1,
-                     "E": 2, "D": 1, "D′": 1})
+                     "E": 1, "D": 1, "D′": 1})
     if counts != want:
         raise AssertionError(f"ops: launches {counts}, expected {want}")
     log(f"[ops] multi_head_attention, fused_attention_v2, fused_dropout_add, "
@@ -1241,6 +1290,16 @@ def phase_op_times(dev, results, card, batch=TRAIN_BATCH, n=N_TOKENS):
         log(f"[time] {key}: kernel {km:.4f} ms, plain {pm:.4f} ms, library "
             f"{'n/a' if lm is None else f'{lm:.4f} ms'}, bound {bms:.4f} ms "
             f"({by}) ({card})")
+    # G and E alone on the device (no one PyTorch call computes either)
+    results["G"]["device"] = (device_ms(lambda: DR.dropout_add_kernel(
+        y, r, gseed, gsite, DROP_RATE)), None)
+    results["E"]["device"] = (device_ms(lambda: M.kernel_mask(
+        mseed, sites, m, HIDDEN, DROP_RATE, d=DIM, out_rate=DROP_RATE)), None)
+    log(f"[time] G on [{batch}, {n}, {DIM}] bf16 and E at both sites of "
+        f"M={m} alone on the device (20 launches between two events): G "
+        f"{results['G']['device'][0]:.4f} ms (bound {rows['G'][3]:.4f}), E "
+        f"{results['E']['device'][0]:.4f} ms (bound {rows['E'][3]:.4f}) "
+        f"({card})")
     # I′ and J′ alone on the device, beside sdpa's forward and backward
     lib_alone = device_ms(sdpa_fwd_bwd)
     for key, e in (("I′", "v1"), ("J′", "v2")):
@@ -2281,8 +2340,7 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
                   ) + bound(10 * b * h * n * n * d, 7 * b * n * h * d * 2)
 
     x, dy, seed, site = results["H"]["cases"][0]
-    xg = x.detach().clone().requires_grad_(True)
-    y_lib = F.dropout(F.gelu(xg), DROP_RATE)
+    bwd_lib = gelu_dropout_bwd_library(x, dy)
     rows["H"] = (cuda_ms(lambda: DR.gelu_dropout_kernel(x, seed, site,
                                                         DROP_RATE)),
                  cuda_ms(lambda: DR.gelu_dropout_reference(x, seed, site,
@@ -2294,9 +2352,7 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
                       x, dy, seed, site, DROP_RATE)),
                   cuda_ms(lambda: DR.gelu_dropout_bwd_reference(
                       x, dy, seed, site, DROP_RATE), iters=5),
-                  cuda_ms(lambda: torch.autograd.grad(y_lib, xg, dy,
-                                                      retain_graph=True))
-                  ) + bound(0, 3 * x.numel() * 2)
+                  cuda_ms(bwd_lib)) + bound(0, 3 * x.numel() * 2)
     # H and H′ alone on the device, beside F.dropout(F.gelu) and its
     # backward timed the same way
     results["H"]["device"] = (
@@ -2305,14 +2361,15 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
     results["H′"]["device"] = (
         device_ms(lambda: DR.gelu_dropout_bwd_kernel(x, dy, seed, site,
                                                      DROP_RATE)),
-        device_ms(lambda: torch.autograd.grad(y_lib, xg, dy,
-                                              retain_graph=True)))
+        device_ms(bwd_lib))
     log(f"[time] H and H′ on [{x.shape[0]}, {x.shape[1]}] bf16 alone on the "
         f"device (20 launches between two events): H "
         f"{results['H']['device'][0]:.4f} ms, F.dropout(F.gelu) "
         f"{results['H']['device'][1]:.4f} ms; H′ "
         f"{results['H′']['device'][0]:.4f} ms, that chain's backward "
+        f"(native_dropout_backward, gelu_backward) "
         f"{results['H′']['device'][1]:.4f} ms ({card})")
+    log_issue_floor(x.numel(), rows, card)
     for key in ("K", "K′", "H", "H′"):
         km, pm, lm, bms, by = rows[key]
         log(f"[time] {key} at 384 px b{b}: kernel {km:.4f} ms, plain "
@@ -2909,9 +2966,10 @@ def kernels_json(results, serve_counts, train_counts, rows):
     them). N-gmm's times are its
     forward form's; ``transposed`` holds the transposed form's. B, D, M,
     N-gmm, tgmm, M′ and D′, redesigned on the TMA-fed wgmma mainloop, C, L,
-    A′, K′, I′, J′ and L′, redesigned as TMA-fed wgmma kernels, and F, H
-    and H′ also carry ``device_ms`` and ``library_device_ms``: 20 launches
-    between two events, no host gap (tgmm's: dW1 over the cap-padded rows,
+    A′, K′, I′, J′ and L′, redesigned as TMA-fed wgmma kernels, and E, F,
+    G, H and H′ also carry ``device_ms`` and ``library_device_ms``: 20
+    launches between two events, no host gap (E's and G's library figures
+    null) (tgmm's: dW1 over the cap-padded rows,
     its ``device`` both dW over the cap-padded and the packed rows and dW1
     with one hot expert; C's library figure null). D′'s ``library_ms`` is
     the chain's backward from y to the fc1 output; its
@@ -2994,8 +3052,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
     row["N-gmm"]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                                   "bound_by": by, "library_ms": lm}
     tgmm_device = results["tgmm"]["device"]
-    for key in ("A′", "B", "C", "D", "D′", "F", "H", "H′", "K′", "I′", "J′",
-                "L", "L′", "M", "M′", "N-gmm"):
+    for key in ("A′", "B", "C", "D", "D′", "E", "F", "G", "H", "H′", "K′",
+                "I′", "J′", "L", "L′", "M", "M′", "N-gmm"):
         row[key]["device_ms"], row[key]["library_device_ms"] = \
             results[key]["device"]
     (row["N-gmm"]["transposed"]["device_ms"],
@@ -3016,6 +3074,12 @@ def kernels_json(results, serve_counts, train_counts, rows):
                               "csrc/attention_fwd_sm90.cu")
     row["C"]["redesigned"] = ("TMA-fed wgmma, one kernel a 128-row tile, "
                               "csrc/graph.cu")
+    for key in ("F", "H", "H′"):
+        row[key]["redesigned"] = ("persistent walk, next units loaded first, "
+                                  "csrc/dropout.cu")
+    row["G"]["redesigned"] = "one 16-byte unit a thread, csrc/dropout.cu"
+    row["E"]["redesigned"] = ("both masks in one launch, 16-byte stores, "
+                              "csrc/dropout.cu")
     return {"kernels": out}
 
 

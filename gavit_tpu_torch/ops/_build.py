@@ -66,7 +66,8 @@ _SIGNATURES = {
         (_P,) * 6 + (_I,) * 4 + (_L,) * 6 + (_F, _P), _I),
     "gavit_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_dropout_add": ((_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
-    "gavit_keep_mask": ((_P, _L, _U, _U, _U, _U, _P), _I),
+    "gavit_elementwise_step": ((_I, _I, _L), _L),
+    "gavit_keep_masks": ((_P, _L, _P, _L, _U, _U, _U, _U, _U, _U, _P), _I),
     "gavit_gelu_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_gelu_dropout_bwd": (
         (_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),

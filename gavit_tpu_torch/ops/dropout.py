@@ -45,6 +45,19 @@ _INV_SQRT2 = 0.7071067811865476
 _INV_SQRT2PI = 0.3989422804014327
 
 
+# the op codes of csrc/dropout.cu's gavit_elementwise_step
+_STEP_OPS = {"F": 0, "H": 1, "H′": 2, "G": 3}
+
+
+def walk_step(kernel: str, dtype, n: int) -> int:
+    """Elements one step of the grid covers when kernel ``kernel`` (F, H, H′
+    or G) runs over ``n`` elements of ``dtype`` on the card: F, H and H′
+    walk a persistent grid in steps of this many, G takes the whole tensor
+    in one (the card tests size ragged tails past it)."""
+    return _build.library().gavit_elementwise_step(
+        _STEP_OPS[kernel], _build.dtype_code(dtype), n)
+
+
 def dropout_reference(x, seed: int, site: int, rate: float):
     keep = philox.keep_mask(x.shape, seed, site, rate, device=x.device)
     scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)

@@ -356,23 +356,31 @@ def fused_mlp(x, w1, b1, w2, b2, seed, sites, rate: float,
 # ---------------------------------------------------------------------------
 
 
-def keep_mask_kernel(shape, seed, site: int, rate: float, device):
-    """Kernel E: the keep mask of (``seed``, ``site``) over a tensor of
-    ``shape``, as 0/1 fp32 on a CUDA ``device``."""
+def keep_mask_kernel(seed, masks, device):
+    """Kernel E: for each of ``masks``, one or two ``(shape, site, rate)``,
+    the keep mask of (``seed``, ``site``) over a tensor of ``shape`` at
+    ``rate``, as 0/1 fp32 on a CUDA ``device``, all written in one launch."""
     global MASK_LAUNCHES
-    out = torch.empty(shape, dtype=torch.float32, device=device)
-    if out.device.type != "cuda":
+    if not 1 <= len(masks) <= 2:
+        raise ValueError(f"kernel E writes one or two masks, not {len(masks)}")
+    outs = [torch.empty(shape, dtype=torch.float32, device=device)
+            for shape, _, _ in masks]
+    if outs[0].device.type != "cuda":
         raise ValueError(f"kernel E writes to a CUDA device, not {device}")
-    if not out.numel():
-        return out
-    k0, k1, site32, thr, _ = site_args(seed, site, rate)
+    if not sum(o.numel() for o in outs):
+        return outs
+    k0, k1, site_a, thr_a, _ = site_args(seed, *masks[0][1:])
+    _, _, site_b, thr_b, _ = site_args(seed, *masks[-1][1:])
+    ptr_b, n_b = ((outs[1].data_ptr(), outs[1].numel()) if len(outs) == 2
+                  else (None, 0))
     lib = _build.library()
-    _build.check(lib.gavit_keep_mask(out.data_ptr(), out.numel(), k0, k1,
-                                     site32, thr, _build.stream(out.device)),
-                 "keep mask kernel")
+    _build.check(lib.gavit_keep_masks(
+        outs[0].data_ptr(), outs[0].numel(), ptr_b, n_b, k0, k1, site_a,
+        thr_a, site_b, thr_b, _build.stream(outs[0].device)),
+        "keep mask kernel")
     with _build.count_lock:
         MASK_LAUNCHES += 1
-    return out
+    return outs
 
 
 def kernel_mask(seed, sites, m: int, f: int, rate: float, d: int = 0,
@@ -388,16 +396,17 @@ def kernel_mask(seed, sites, m: int, f: int, rate: float, d: int = 0,
     Philox's mask is a pure function of (seed, site, element), whatever
     the launch geometry, so the port has no such argument.
 
-    On a CUDA ``device`` (the default) kernel E writes each mask; on the CPU
-    they are ``philox.keep_mask``.
+    On a CUDA ``device`` (the default) kernel E writes both masks in one
+    launch, as the JAX ``kern`` writes both in one call; on the CPU they are
+    ``philox.keep_mask``.
     """
     device = torch.device(device)
-
-    def one(shape, site, r):
-        if device.type == "cpu":
-            return _mask(shape, seed, site, r, device).float()
-        return keep_mask_kernel(shape, seed, site, r, device)
-
-    hidden = one((m, f), sites[0], rate)
-    return hidden, (one((m, d), sites[1], out_rate) if out_rate > 0.0
-                    else None)
+    masks = [((m, f), sites[0], rate)]
+    if out_rate > 0.0:
+        masks.append(((m, d), sites[1], out_rate))
+    if device.type == "cpu":
+        outs = [_mask(shape, seed, site, r, device).float()
+                for shape, site, r in masks]
+    else:
+        outs = keep_mask_kernel(seed, masks, device)
+    return outs[0], (outs[1] if out_rate > 0.0 else None)

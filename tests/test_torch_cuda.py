@@ -319,11 +319,31 @@ def _ulps(got, want):
 
 SEED = philox.step_seed(42, 7)
 
+# The elementwise kernels' sizes past the unit (8 bf16 or 4 fp32 elements)
+# and past the grid's step (the elements one step of a persistent grid
+# covers, from the card's occupancy of each kernel): one unit past a whole
+# step, a ragged tail after three steps, 2^25 + 3, and the 384-px hidden
+# rows [16·577, 3072]. They are resolved on the card
+# (``_elementwise_shape``); a (kernel, label) pair takes that kernel's step.
+WALK_LABELS = ["one unit past a step", "ragged after three steps"]
+WALK_SHAPES = WALK_LABELS + [(2 ** 25 + 3,), (16 * 577, 3072)]
+
+
+def _elementwise_shape(shape, kernel, dtype):
+    if isinstance(shape, tuple) and isinstance(shape[0], str):
+        kernel, shape = shape
+    if not isinstance(shape, str):
+        return shape
+    step = DR.walk_step(kernel, dtype, 1 << 33)
+    return {"one unit past a step": (step + 16 // dtype.itemsize,),
+            "ragged after three steps": (3 * step + 5,)}[shape]
+
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (2, 197, 768),
-                                   (1001,)])
+                                   (1001,)] + WALK_SHAPES)
 def test_dropout_kernel_is_bit_exact(dev, dtype, shape):
+    shape = _elementwise_shape(shape, "F", dtype)
     x = _randn(dev, *shape, seed=3).to(dtype)
     before = DR.KERNEL_LAUNCHES
     got = DR.dropout_kernel(x, SEED, 17, 0.1)
@@ -331,6 +351,7 @@ def test_dropout_kernel_is_bit_exact(dev, dtype, shape):
     want = DR.dropout_reference(x, SEED, 17, 0.1)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+    assert torch.equal(DR.dropout_kernel(x, SEED, 17, 0.1), got)
     # the backward is the same mask on the gradient
     xr = x.clone().requires_grad_(True)
     g = _randn(dev, *shape, seed=4).to(dtype)
@@ -488,10 +509,14 @@ def test_mlp_train_fp32_takes_the_chain_on_the_card(dev):
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (3, 577, 3072),
-                                   (1001,)])
+                                   (1001,)] + WALK_SHAPES[2:]
+                         + [(k, label) for k in ("H", "H′")
+                            for label in WALK_LABELS])
 def test_gelu_dropout_kernels_are_bit_exact(dev, dtype, shape, rate):
     """H and H′ against their plain versions: the same bits, zeros
-    included (GELU runs the same IEEE operations on both sides)."""
+    included (GELU runs the same IEEE operations on both sides), and
+    reruns bit-equal; past the step of H's grid and of H′'s."""
+    shape = _elementwise_shape(shape, "H", dtype)
     x = _randn(dev, *shape, seed=5, scale=2.0).to(dtype)
     g = _randn(dev, *shape, seed=6).to(dtype)
     before = (DR.GELU_LAUNCHES, DR.GELU_BWD_LAUNCHES)
@@ -503,6 +528,8 @@ def test_gelu_dropout_kernels_are_bit_exact(dev, dtype, shape, rate):
     assert torch.equal(y, DR.gelu_dropout_reference(x, SEED, 23, rate))
     assert torch.equal(dx, DR.gelu_dropout_bwd_reference(x, g, SEED, 23,
                                                          rate))
+    assert torch.equal(DR.gelu_dropout_kernel(x, SEED, 23, rate), y)
+    assert torch.equal(DR.gelu_dropout_bwd_kernel(x, g, SEED, 23, rate), dx)
     # through the autograd op: x saved, the mask regenerated
     xr = x.clone().requires_grad_(True)
     DR.fused_gelu_dropout(xr, SEED, 23, rate).backward(g)
@@ -762,10 +789,12 @@ def test_bhnd_entry_points_route_and_refuse(dev):
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
-@pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (2, 197, 768)])
+@pytest.mark.parametrize("shape", [(1,), (7,), (13, 9), (2, 197, 768)]
+                         + WALK_SHAPES[2:])
 def test_dropout_add_kernel_is_bit_exact(dev, dtype, shape):
-    """G gives the bits of r + F(y); through autograd its gradients are
-    (F(g), g), F launched once for the backward."""
+    """G gives the bits of r + F(y), reruns bit-equal; through autograd its
+    gradients are (F(g), g), F launched once for the backward. G takes one
+    unit a thread (no step to walk past); 2^25 + 3 leaves a ragged tail."""
     seed = philox.step_seed(4, 1)
     y = _randn(dev, *shape, seed=1).to(dtype).requires_grad_(True)
     r = _randn(dev, *shape, seed=2).to(dtype).requires_grad_(True)
@@ -780,16 +809,29 @@ def test_dropout_add_kernel_is_bit_exact(dev, dtype, shape):
     assert torch.equal(out, want)
     assert torch.equal(dy, DR.dropout_reference(g, seed, 5, 0.1))
     assert torch.equal(dr, g)
+    before = DR.ADD_LAUNCHES
+    assert torch.equal(DR.dropout_add_kernel(y.detach(), r.detach(), seed, 5,
+                                             0.1), out)
+    assert DR.ADD_LAUNCHES == before + 1
 
 
-@pytest.mark.parametrize("m,f,d", [(1, 8, 0), (3, 13, 5), (197, 3072, 768)])
+# (25216, 3072, 768): the b128 MLP rows; (4099, 8191, 3): both masks ragged
+# after many units, the first past 2^25 elements
+@pytest.mark.parametrize("m,f,d", [(1, 8, 0), (3, 13, 5), (197, 3072, 768),
+                                   (25216, 3072, 768), (4099, 8191, 3)])
 def test_kernel_mask_matches_keep_mask(dev, m, f, d):
+    """E writes both masks in one launch, bit-equal to ``keep_mask`` and to
+    a rerun."""
     seed, sites = philox.step_seed(9, 3), (4, 5)
     before = M.MASK_LAUNCHES
     hidden, out = M.kernel_mask(seed, sites, m, f, 0.1, d=d,
                                 out_rate=0.1 if d else 0.0)
-    assert M.MASK_LAUNCHES == before + (2 if d else 1)
+    assert M.MASK_LAUNCHES == before + 1
+    again = M.kernel_mask(seed, sites, m, f, 0.1, d=d,
+                          out_rate=0.1 if d else 0.0)
     torch.cuda.synchronize()
+    assert torch.equal(again[0], hidden)
+    assert (again[1] is None) if out is None else torch.equal(again[1], out)
     assert hidden.dtype == torch.float32 and hidden.device.type == "cuda"
     assert torch.equal(hidden.bool(), philox.keep_mask(
         (m, f), seed, sites[0], 0.1, device=dev))

@@ -9,12 +9,20 @@ the main path's shapes, on one CUDA card:
 * kernel F (dropout 0.1) on one [128, 197, 768] bf16 site against
   ``F.dropout``;
 * kernels H and H′ (GELU + dropout 0.1 and its backward) on the 384-px
-  hidden rows [16·577, 3072] in bf16 against ``F.dropout(F.gelu(x))`` and
-  that chain's backward.
+  hidden rows [16·577, 3072] in bf16 (``chip_smoke.gelu_inputs``: x =
+  2·N(0, 1), dy = N(0, 1), the inputs ``chip_smoke.py`` times) against
+  ``F.dropout(F.gelu(x))`` and that chain's backward as its two aten calls
+  (``chip_smoke.gelu_dropout_bwd_library``), and their issue floors from
+  the SASS (``tools/sass_issue.py``, where ``cuobjdump`` is);
+* kernel G (dropout 0.1 + residual add) on [128, 197, 768] bf16 and kernel
+  E (the keep masks) at both sites of the b128 MLP rows, [25216, 3072] and
+  [25216, 768] fp32, one call; no one PyTorch call computes either.
 
 Device times: 20 launches back to back between two CUDA events, after 3
-warm-up calls, so the host's gap between calls is not inside. Each line is
-printed twice (two rounds). It imports the package and ``chip_smoke.py``
+warm-up calls, so the host's gap between calls is not inside unless the
+host takes longer than the kernel, as it can for F's and G's calls;
+beside each the profiler's kernel time, which holds no host gap. Each line
+is printed twice (two rounds). It imports the package and ``chip_smoke.py``
 from the tree it is run from, so running it from two trees in turns
 compares them:
 
@@ -23,15 +31,24 @@ compares them:
 
 from __future__ import annotations
 
+import subprocess
 import sys
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import card_line, device_ms  # noqa: E402
+from chip_smoke import (card_line, device_ms, gelu_dropout_bwd_library,  # noqa: E402
+                        gelu_inputs)
 from tools.time_gemm_sm90 import profile_parts  # noqa: E402
 
 N_PATCHES, DIM, HIDDEN, RATE = 196, 768, 3072, 0.1
+SHAPES = {"F": "[128, 197, 768] bf16", "G": "[128, 197, 768] bf16",
+          "H": "[9232, 3072] bf16", "H′": "[9232, 3072] bf16",
+          "E": "[25216, 3072] + [25216, 768] fp32"}
+# the device time of the port's elementwise kernels (both layouts' names),
+# summed over a call's launches
+KERNEL_NAMES = {"namespace)::elementwise_kernel<": "kernel",
+                "keep_mask_kernel": "kernel"}
 
 
 def main() -> int:
@@ -43,6 +60,7 @@ def main() -> int:
         return 1
     from gavit_tpu_torch.ops import dropout as DR
     from gavit_tpu_torch.ops import graph_ops as G
+    from gavit_tpu_torch.ops import mlp as M
 
     tag = sys.argv[1] if len(sys.argv) > 1 else "this tree"
     card = card_line()
@@ -54,10 +72,20 @@ def main() -> int:
 
     tokens = {b: (draw(b, N_PATCHES, DIM), draw(b, N_PATCHES, DIM))
               for b in (128, 1)}
-    xf = draw(128, 197, DIM)
-    xh, gh = draw(16 * 577, HIDDEN), draw(16 * 577, HIDDEN)
-    xg = xh.detach().clone().requires_grad_(True)
-    y_lib = F.dropout(F.gelu(xg), RATE)
+    xf, rf = draw(128, 197, DIM), draw(128, 197, DIM)
+    xh, gh = gelu_inputs(dev, torch.bfloat16)
+    bwd_lib = gelu_dropout_bwd_library(xh, gh)
+    rows = 128 * 197
+    libraries = {"F": ("F.dropout", lambda: F.dropout(xf, RATE)),
+                 "H": ("F.dropout(F.gelu)", lambda: F.dropout(F.gelu(xh), RATE)),
+                 "H′": ("that chain's backward (native_dropout_backward, "
+                        "gelu_backward)", bwd_lib)}
+
+    def library(key):
+        if key not in libraries:
+            return ""
+        name, fn = libraries[key]
+        return f", {name} {device_ms(fn):.4f} ms"
 
     for _ in range(2):
         for b, (t, v) in tokens.items():
@@ -71,18 +99,28 @@ def main() -> int:
                   f"kernel {alone:.4f} ms (normalise {parts['normalise']:.4f}"
                   f", body {parts['body']:.4f} by the profiler) ({card})",
                   flush=True)
-        print(f"[{tag}] F [128, 197, {DIM}] rate {RATE}: kernel "
-              f"{device_ms(lambda: DR.dropout_kernel(xf, 12345, 5, RATE)):.4f}"
-              f" ms, F.dropout {device_ms(lambda: F.dropout(xf, RATE)):.4f} ms "
-              f"({card})", flush=True)
-        print(f"[{tag}] H [{xh.shape[0]}, {HIDDEN}] rate {RATE}: kernel "
-              f"{device_ms(lambda: DR.gelu_dropout_kernel(xh, 12345, 7, RATE)):.4f}"
-              f" ms, F.dropout(F.gelu) "
-              f"{device_ms(lambda: F.dropout(F.gelu(xh), RATE)):.4f} ms; H′ "
-              f"{device_ms(lambda: DR.gelu_dropout_bwd_kernel(xh, gh, 12345, 7, RATE)):.4f}"
-              f" ms, that chain's backward "
-              f"{device_ms(lambda: torch.autograd.grad(y_lib, xg, gh, retain_graph=True)):.4f}"
-              f" ms ({card})", flush=True)
+        for key, fn in (
+                ("F", lambda: DR.dropout_kernel(xf, 12345, 5, RATE)),
+                ("H", lambda: DR.gelu_dropout_kernel(xh, 12345, 7, RATE)),
+                ("H′", lambda: DR.gelu_dropout_bwd_kernel(xh, gh, 12345, 7,
+                                                          RATE)),
+                ("G", lambda: DR.dropout_add_kernel(xf, rf, 12345, 9, RATE)),
+                ("E", lambda: M.kernel_mask(12345, (2, 3), rows, HIDDEN, RATE,
+                                            d=DIM, out_rate=RATE))):
+            kernel = profile_parts(fn, KERNEL_NAMES)["kernel"]
+            print(f"[{tag}] {key} {SHAPES[key]} rate {RATE}: kernel "
+                  f"{device_ms(fn):.4f} ms alone ({kernel:.4f} by the "
+                  f"profiler, no host gap){library(key)} ({card})",
+                  flush=True)
+    from gavit_tpu_torch.ops import _build
+    from tools import sass_issue
+
+    try:
+        lines = sass_issue.report(_build.library_path())
+    except (OSError, subprocess.CalledProcessError) as err:
+        lines = [f"issue floors: not measured ({err})"]
+    for line in lines:
+        print(f"[{tag}] {line} ({card})", flush=True)
     return 0
 
 
