@@ -95,7 +95,24 @@ before the last line:
    I, I′, J, J′ at b128 against sdpa, G and E against their plain versions
    and alone on the device beside their byte bounds; H's issue floor (the
    instructions its SASS gives an element, ``tools/sass_issue.py``) beside
-   its byte bound.
+   its byte bound;
+8. run: the training run as a user starts it, through
+   ``scripts/train_torch.py``'s and ``scripts/evaluate_torch.py``'s mains:
+   one accumulated step at 2 x b128, 2 x b64 (D/D′) and 8 x b16 (H/H′, F)
+   against the plain versions; ``configs/v5e8_dp.yaml`` at its global
+   batch 1024 as 8 micro-batches of 128, two epochs of two steps with
+   validation at b1024, the metric battery and checkpoints, its launches
+   counted (zeroed just before); images/s per epoch and of validate;
+   ``predict`` at b1024 and a ragged tail of 100 against the plain
+   forward; two identical accumulated steps (bit-equal, or the spread
+   that resume is held to, named); ``--resume auto`` from the epoch-1
+   checkpoint in a fresh Trainer bit-equal to the uninterrupted run; a
+   SIGTERM mid-epoch, its incomplete checkpoint and its resume; the
+   evaluation of the best checkpoint; a reference-layout ``.pth`` of a
+   224-px model loaded into finetune_384 (position embeddings 14 → 24,
+   the head fresh) and 3 steps that lower the loss; the static graph
+   (``model.graph.dynamic=false``) forward and 10 steps. Its checkpoints
+   go under ``build/chip_run/`` and are removed at its end.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -119,6 +136,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 CONFIG = ROOT / "configs" / "vit_b16_graph2.yaml"
 CONFIG_384 = ROOT / "configs" / "finetune_384.yaml"
+CONFIG_DP = ROOT / "configs" / "v5e8_dp.yaml"
+# the run phase's checkpoints and logs (several GB, removed at its end)
+RUN_DIR = ROOT / "build" / "chip_run"
+DP_ACCUM = 8  # global batch 1024 as 8 micro-batches of 128 on one card
+RUN_DEVICE = "cuda"  # the CLIs' --device in the run phase
 CONFIG_MOE = ROOT / "configs" / "examples" / "vit_b16_moe.yaml"
 SEED = 0
 GATE = 0.5
@@ -1591,7 +1613,7 @@ def train_config(overrides=()):
         f"training.seed={SEED}", *overrides])
 
 
-def train_config_384():
+def train_config_384(overrides=()):
     """finetune_384 at its batch 16 with a warmup of 5 steps (an 80-image
     synthetic set) and the 224-px run's lr of 1e-4: the file's 3e-5 is a
     fine-tune's, from pretrained weights, and moves random weights too
@@ -1601,7 +1623,7 @@ def train_config_384():
     return load_config(str(CONFIG_384), [
         "data.synthetic_size=80", "data.synthetic_learnable=true",
         "training.warmup_epochs=1", "training.learning_rate=1e-4",
-        f"training.seed={SEED}"])
+        f"training.seed={SEED}", *overrides])
 
 
 def large_config(size: int, overrides=()):
@@ -1644,11 +1666,12 @@ def held_loss(trainer, batches) -> float:
     return total / len(batches)
 
 
-def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
+def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
+                count_step=1):
     """The training step through scripts/train_torch.py's entry points;
-    ``expect``: the nonzero launch counts of one step, asserted. The
-    learning check (``steps_learn`` steps must lower the held loss) is left
-    out when ``steps_learn`` is not past ``steps_compare``."""
+    ``expect``: the nonzero launch counts of step ``count_step``, asserted.
+    The learning check (``steps_learn`` steps must lower the held loss) is
+    left out when ``steps_learn`` is not past ``steps_compare``."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -1678,11 +1701,11 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30):
                 if pinned is not None:
                     (pinned.start_record if impl == "auto"
                      else pinned.start_replay)()
-                if impl == "auto" and i == 1:
+                if impl == "auto" and i == count_step:
                     torch.cuda.synchronize()
                     reset_counts()
                 m = tr.train_step(images, labels)
-                if impl == "auto" and i == 1:
+                if impl == "auto" and i == count_step:
                     torch.cuda.synchronize()
                     counts = read_counts()
                 loss = m["loss"].item()
@@ -2956,6 +2979,399 @@ def train_config_moe():
         f"training.seed={SEED}"])
 
 
+# ---------------------------------------------------------------------------
+# the training run as a user starts it
+
+
+def run_sets(save: str) -> list:
+    """The run's overrides of configs/v5e8_dp.yaml: its global batch of
+    1024 as DP_ACCUM micro-batches of 128, two epochs of two optimizer steps
+    (a 2048-image synthetic set with learnable class stripes; its val set
+    1024 images), checkpoints and logs under RUN_DIR/save, wandb off (its
+    metrics go to the JSONL sink there)."""
+    return [f"training.grad_accum_steps={DP_ACCUM}", "training.epochs=2",
+            "training.warmup_epochs=1", f"training.seed={SEED}",
+            "data.synthetic_size=2048", "data.synthetic_learnable=true",
+            f"paths.save_dir={RUN_DIR / save}",
+            f"paths.log_dir={RUN_DIR / save / 'logs'}", "wandb.mode=disabled"]
+
+
+def run_args(save: str) -> list:
+    """scripts/train_torch.py's arguments for the run."""
+    return ["--config", str(CONFIG_DP), "--synthetic", "--device", RUN_DEVICE,
+            *[a for kv in run_sets(save) for a in ("--set", kv)]]
+
+
+@contextlib.contextmanager
+def gated_cli(train_torch):
+    """scripts/train_torch.py's main with the graph gates at GATE (zero at
+    init would hide the graph branch)."""
+    import functools
+
+    build = train_torch.build_trainer
+    train_torch.build_trainer = functools.partial(build, gate=GATE)
+    try:
+        yield
+    finally:
+        train_torch.build_trainer = build
+
+
+def train_state(trainer) -> dict:
+    """Every parameter, λ and AdamW moment of a trainer, copied."""
+    params = {**dict(trainer.model.named_parameters()),
+              **{f"criterion.{n}": p
+                 for n, p in trainer.criterion.named_parameters()}}
+    st = trainer.optimizer.state
+    out = {}
+    for name, p in params.items():
+        out[name] = p.detach().clone()
+        out[f"{name} exp_avg"] = st[p]["exp_avg"].clone()
+        out[f"{name} exp_avg_sq"] = st[p]["exp_avg_sq"].clone()
+    return out
+
+
+def state_diff(a: dict, b: dict):
+    """(largest |a - b| over every tensor, the five tensors that differ
+    most)."""
+    diffs = sorted(((max_err(a[k], b[k]), k) for k in a), reverse=True)
+    return diffs[0][0], [(k, v) for v, k in diffs[:5] if v > 0]
+
+
+def rerun_spread(dev, train_torch) -> float:
+    """Two identical accumulated steps (the run's shape: b1024 as 8 x 128)
+    from one start on one batch: their largest difference over every
+    parameter and moment, 0 where the step reruns bit for bit. A nonzero
+    spread names the tensors it is in."""
+    import torch
+
+    from gavit_tpu_torch import load_config
+
+    cfg = load_config(str(CONFIG_DP), run_sets("rerun"))
+    dataset = train_torch.create_dataset(cfg)
+    images, labels = (torch.from_numpy(a) for a in next(
+        train_torch.batches(dataset, cfg.data.batch_size, SEED)))
+    states = []
+    for _ in range(2):
+        tr = train_torch.build_trainer(cfg, dataset, dev, gate=GATE)
+        tr.train_step(images, labels)
+        tr.train_step(images, labels)
+        states.append(train_state(tr))
+        del tr
+    spread, where = state_diff(*states)
+    log(f"[run] two identical accumulated steps (b1024 as {DP_ACCUM} x 128) "
+        f"from one start: " + ("bit-equal" if spread == 0 else
+                              f"NOT bit-equal: largest difference {spread:.3e}"
+                              f" in {where}; resume is held to that spread"))
+    return spread
+
+
+def check_run_counts(counts, depth, steps, vals):
+    """The run's launches: per optimizer step DP_ACCUM micro-batches of the
+    224-px b128 step, per validation one b1024 forward."""
+    micro = steps * DP_ACCUM
+    want = expected({"A": depth * (micro + vals), "A′": depth * micro,
+                     "B": depth * vals, "C": 2 * (micro + vals),
+                     "D": depth * micro, "D′": depth * micro,
+                     "F": 2 * (1 + depth + 2) * micro})
+    log("[run] kernel launches in the run: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+
+
+def phase_accumulated_steps(dev, depth):
+    """One accumulated step through the kernels against the plain versions
+    from the same state, at the micro-batches the routes switch on: 2 x
+    b128 and 2 x b64 (D/D′ at M = 25216 and 12608), 8 x b16 (M = 3152: the
+    chain of H/H′ and F)."""
+    fused = {"A": depth, "A′": depth, "C": 2, "D": depth, "D′": depth,
+             "F": 2 * (1 + depth + 2)}
+    chain = {"A": depth, "A′": depth, "C": 2, "H": depth, "H′": depth,
+             "F": 2 * (1 + 2 * depth + 2)}
+    for batch, accum, per in ((256, 2, fused), (128, 2, fused),
+                              (128, 8, chain)):
+        phase_train(train_config([f"data.batch_size={batch}",
+                                  f"training.grad_accum_steps={accum}"]),
+                    dev, f"vit_b16_graph2 accum {accum} x b{batch // accum}",
+                    {k: v * accum for k, v in per.items()},
+                    steps_compare=1, steps_learn=0, count_step=0)
+
+
+def phase_pretrained(dev, depth, card):
+    """A reference-layout .pth written from a 224-px port model, loaded as
+    finetune_384's model.pretrained_path through scripts/train_torch.py's
+    build_trainer: the position embeddings go 14 → 24 as
+    ``interpolate_pos_embed`` gives them, every other entry of the file
+    that the 384-px model has is the file's, the head keeps its init;
+    then 3 steps (K, K′, H, H′, F) lower the held loss (K and B)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import train_torch
+    from gavit_tpu_torch import load_config
+    from gavit_tpu_torch.models.vit import build_model, init_params
+    from gavit_tpu_torch.utils.convert import flatten_tree, to_flax_tree
+    from gavit_tpu_torch.utils.torch_convert import (
+        interpolate_pos_embed, params_to_torch_state_dict,
+        torch_state_dict_to_params)
+
+    src = init_params(build_model(load_config(str(CONFIG)).model),
+                      torch.Generator().manual_seed(SEED + 7))
+    with torch.no_grad():
+        for gb in src.graphs:
+            gb.gate.fill_(GATE)
+    sd = params_to_torch_state_dict(src)
+    path = RUN_DIR / "mae_224.pth"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": {k: torch.from_numpy(v) for k, v in sd.items()}},
+               path)
+    # a fine-tune's small lr from the first step on: at 1e-4 the first two
+    # AdamW updates of the loaded weights raised the loss (PR 16)
+    cfg = train_config_384([f"model.pretrained_path={path}",
+                            "training.warmup_epochs=0",
+                            "training.learning_rate=1e-5"])
+    dataset = train_torch.create_dataset(cfg)
+    tr = train_torch.build_trainer(cfg, dataset, dev)
+    got = flatten_tree(to_flax_tree(tr.model))
+    want = flatten_tree(torch_state_dict_to_params(sd, depth))
+    same = [k for k in want if k in got and k not in ("pos_embed", "head/kernel",
+                                                      "head/bias")]
+    pos = interpolate_pos_embed(sd["pos_embed"], cfg.model.num_patches)
+    fresh = init_params(build_model(cfg.model),
+                        torch.Generator().manual_seed(cfg.training.seed))
+    ok = (all(np.array_equal(got[k], want[k]) for k in same)
+          and np.array_equal(got["pos_embed"], pos.numpy())
+          and tuple(pos.shape) == (1, cfg.model.num_patches + 1,
+                                   cfg.model.embed_dim)
+          and torch.equal(tr.model.head.weight.cpu(), fresh.head.weight)
+          and not np.array_equal(got["head/kernel"], want["head/kernel"]))
+    log(f"[run] finetune_384 from a reference-layout .pth of a 224-px "
+        f"model: {len(same)} entries the file's, pos_embed "
+        f"{tuple(sd['pos_embed'].shape)} -> {tuple(pos.shape)}, head kept fresh, {len(want) - len(same) - 3} "
+        f"entries of the file not in the model skipped "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the pretrained weights did not load as the "
+                             "file holds them")
+    data = list(itertools.islice(train_torch.batches(
+        dataset, cfg.data.batch_size, SEED), 3))
+    before = held_loss(tr, data)
+    counts = None
+    for i, (images, labels) in enumerate(data):
+        if i == 1:
+            torch.cuda.synchronize()
+            reset_counts()
+        tr.train_step(torch.from_numpy(images), torch.from_numpy(labels))
+        if i == 1:
+            torch.cuda.synchronize()
+            counts = read_counts()
+    after = held_loss(tr, data)
+    want_counts = expected({"K": depth, "K′": depth, "H": depth, "H′": depth,
+                            "F": 2 * (1 + 2 * depth + 1)})
+    ok = after < before and counts == want_counts
+    log(f"[run] finetune_384 from it, 3 steps at b16 (K, K′, H, H′, F: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f"): held loss {before:.5f} -> {after:.5f} "
+        f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("the fine-tune from pretrained weights did not "
+                             "lower the loss or missed a kernel")
+
+
+def phase_static_graph(dev, depth):
+    """vit_b16_graph2 with graph.dynamic false: one adjacency built by the
+    first graph block in tensor ops, reused by the second (no kernel C);
+    the forward through the kernels against the plain versions, then the
+    step (2 compared) and 10 steps that lower the loss."""
+    from gavit_tpu_torch import load_config
+
+    cfg = load_config(str(CONFIG), ["model.graph.dynamic=false"])
+    phase_slice(cfg, gated_weights(cfg), dev, "vit_b16_graph2 static graph",
+                n_images=8, expect={"A": depth, "B": depth})
+    phase_train(train_config(["model.graph.dynamic=false",
+                              "data.batch_size=32", "data.synthetic_size=160"]),
+                dev, "vit_b16_graph2 static graph",
+                {"A": depth, "A′": depth, "D": depth, "D′": depth,
+                 "F": 2 * (1 + depth + 2)}, steps_compare=2, steps_learn=10)
+
+
+def phase_run(dev, card):
+    """The training run as a user starts it, through scripts/train_torch.py's
+    and scripts/evaluate_torch.py's mains: configs/v5e8_dp.yaml at global
+    batch 1024 as 8 x 128 (epochs, validation at b1024, the metric battery,
+    best-AUC checkpoints), its launches; validate's probabilities at b1024
+    and a ragged tail of 100 against the plain forward; --resume auto from
+    the epoch-1 checkpoint against the uninterrupted run, bit for bit (or
+    to the rerun's own spread); a SIGTERM mid-epoch and its resume; then
+    the 224-px → 384-px pretrained load, the static graph and the
+    evaluation. The checkpoints are removed at the end."""
+    import os
+    import shutil
+    import signal
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import evaluate_torch
+    import train_torch
+    from gavit_tpu_torch.data.dataset import SyntheticChestXrayDataset
+    from gavit_tpu_torch.data.loader import DataLoader
+    from gavit_tpu_torch.training import trainer as trainer_mod
+    from gavit_tpu_torch.utils import checkpoint as ckpt_lib
+
+    from gavit_tpu_torch import load_config
+
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    depth = load_config(str(CONFIG_DP)).model.depth
+    t_phase = time.perf_counter()
+    phase_accumulated_steps(dev, depth)
+    spread = rerun_spread(dev, train_torch)
+
+    # the run, uninterrupted: counts zeroed just before, read just after
+    with gated_cli(train_torch):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        straight = train_torch.main(run_args("straight"))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+    hist = straight.train_metrics_history
+    check_run_counts(counts, depth, steps=4, vals=2)
+    for e, (m, v) in enumerate(zip(hist, straight.val_metrics_history)):
+        log(f"[run] v5e8_dp epoch {e + 1}: b1024 as {DP_ACCUM} x 128, "
+            f"{m['images_per_sec']:.1f} train images/s, train loss "
+            f"{m['loss']:.5f}, val loss {v['loss']:.5f}, val mean AUC "
+            f"{v['mean_auc']:.4f} ({card})")
+    if len(hist) != 2 or straight.step != 4 or not all(
+            math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError(f"the run took {straight.step} steps over "
+                             f"{len(hist)} epochs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straight.validate()
+    dt = time.perf_counter() - t0
+    n_val = len(straight.val_loader.dataset)
+    log(f"[run] validate: {n_val} images at b1024 in {dt * 1e3:.1f} ms, "
+        f"{n_val / dt:.1f} images/s, the metric battery included ({card}); "
+        f"the whole run {wall:.1f} s")
+
+    # validate's forward at b1024 and a ragged tail against the plain one
+    bs, size = straight.config.data.batch_size, straight.config.data.image_size
+    n_tokens = straight.config.model.num_patches + 1
+    val = DataLoader(SyntheticChestXrayDataset(
+        size=bs + 100, image_size=size, seed=SEED + 1, learnable=True), bs)
+    plain = train_torch.build_trainer(straight.config,
+                                      straight.train_loader.dataset, dev,
+                                      impl="reference")
+    plain.model.load_state_dict(straight.model.state_dict())
+    plain.criterion.load_state_dict(straight.criterion.state_dict())
+    probs, _, loss = straight.predict(val)
+    want, _, want_loss = plain.predict(val)
+    err = max_err(probs, want)
+    ok = probs.shape == (bs + 100, 14) and err <= PROB_TOL and bool(
+        torch.isfinite(loss).all())
+    log(f"[run] predict at b{bs} plus a tail of 100 (M = {bs * n_tokens} and "
+        f"{100 * n_tokens} rows through B): kernels vs plain versions max "
+        f"|dp| {err:.3e} "
+        f"(tol {PROB_TOL:.0e}), mean loss {loss.mean().item():.5f} vs "
+        f"{want_loss.mean().item():.5f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("validation through the kernels disagrees with "
+                             "the plain versions")
+    del plain
+
+    # resume: the uninterrupted run's epoch-1 checkpoint, --resume auto
+    [first] = [p for p in (RUN_DIR / "straight").iterdir()
+               if p.name.startswith("checkpoint_epoch_0_auc_")]
+    shutil.copytree(first, RUN_DIR / "resumed" / first.name)
+    with gated_cli(train_torch):
+        resumed = train_torch.main(run_args("resumed") + ["--resume", "auto"])
+    worst, where = state_diff(train_state(straight), train_state(resumed))
+    gen_same = torch.equal(straight.generator.get_state(),
+                           resumed.generator.get_state())
+    ok = (resumed.step == straight.step and worst <= spread and gen_same
+          and len(resumed.train_metrics_history) == 1)
+    log(f"[run] --resume auto from {first.name} in a fresh Trainer, then "
+        f"epoch 2: parameters, λ and AdamW moments vs the uninterrupted run "
+        f"largest |d| {worst:.3e} (held to the rerun spread {spread:.3e}"
+        f"{'; bit-equal' if worst == 0 else f'; at {where}'}), generator "
+        f"{'equal' if gen_same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the resumed run does not continue the "
+                             "uninterrupted one")
+    del resumed
+
+    # preemption: SIGTERM after the first step of epoch 2
+    step = trainer_mod.Trainer._step
+    sent = []
+
+    def step_then_sigterm(self, images, labels):
+        out = step(self, images, labels)
+        if self.current_epoch == 1 and not sent:
+            sent.append(self.step)
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    trainer_mod.Trainer._step = step_then_sigterm
+    try:
+        with gated_cli(train_torch):
+            pre = train_torch.main(run_args("preempted"))
+    finally:
+        trainer_mod.Trainer._step = step
+    latest = ckpt_lib.latest_checkpoint(str(RUN_DIR / "preempted"))
+    _, meta = ckpt_lib.restore(latest)
+    with gated_cli(train_torch):
+        after = train_torch.main(run_args("preempted") + ["--resume", "auto"])
+    ok = (sent == [3] and pre.step == 3 and meta["epoch_completed"] is False
+          and meta["next_epoch"] == 1 and after.step == 5
+          and after.current_epoch == 1
+          and len(after.train_metrics_history) == 1)
+    log(f"[run] SIGTERM after step {sent} (epoch 2 of 2): the run stopped "
+        f"at step {pre.step} and saved {os.path.basename(latest)} (epoch "
+        f"completed: {meta['epoch_completed']}); --resume auto replayed "
+        f"epoch 2 to step {after.step} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the preempted run did not save and resume")
+    del pre, after
+
+    # evaluate the best checkpoint
+    torch.cuda.synchronize()
+    reset_counts()
+    res = evaluate_torch.main([
+        "--config", str(CONFIG_DP), "--checkpoint",
+        str(RUN_DIR / "straight" / "best_model"), "--dataset", "synthetic",
+        "--set", "data.synthetic_size=512",
+        "--set", f"paths.save_dir={RUN_DIR / 'eval'}", "--device",
+        RUN_DEVICE])
+    torch.cuda.synchronize()
+    ev = read_counts()
+    on_disk = json.loads((RUN_DIR / "eval" / "evaluation" /
+                          "evaluation_results.json").read_text())
+    # the eval forward, then the Predictor: 1 + 50 one-image calls and
+    # 1 + 10 calls of 64 images (one b128 bucket each)
+    calls = 1 + 1 + 50 + 1 + 10
+    ok = (math.isfinite(on_disk["metrics"]["mean_auc"])
+          and on_disk["p50_single_image_latency_ms"] > 0
+          and "confidence_intervals" in on_disk
+          and ev == expected({"A": depth * calls, "B": depth * calls,
+                              "C": 2 * calls}))
+    log(f"[run] evaluate_torch on best_model: 512 images, mean AUC "
+        f"{res['metrics']['mean_auc']:.4f}, p50 one image "
+        f"{res['p50_single_image_latency_ms']:.3f} ms ({card}); launches A "
+        f"{ev['A']}, B {ev['B']}, C {ev['C']} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the evaluation wrote no finite result")
+    del straight
+
+    phase_pretrained(dev, depth, card)
+    phase_static_graph(dev, depth)
+    shutil.rmtree(RUN_DIR, ignore_errors=True)
+    log(f"[run] the run phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def kernels_json(results, serve_counts, train_counts, rows):
     """One row per kernel. ``launches``: from a training step for the
     kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
@@ -3247,6 +3663,7 @@ def main():
         cfg_moe, dev, results, weights_moe,
         {"fused": trainer_moe, "unfused": trainer_unf}, batch_moe, card))
     del trainer_moe, trainer_unf
+    phase_run(dev, card)
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:

@@ -515,17 +515,20 @@ def mesh_note(cfg: Config) -> str | None:
 
 
 def unused_note(cfg: Config) -> str | None:
-    """A log line naming each training field that is set away from its
-    default and that the port reads and does not use yet:
-    ``training.log_grad_norm`` (the JAX Trainer logs the global gradient
-    norm) and ``training.steps_per_call`` (it fuses that many steps into one
-    dispatch); both wait for ROADMAP Queue 1 item 6. None when neither
-    is set."""
-    default = TrainingConfig()
-    fields = [f"training.{name}={getattr(cfg.training, name)}"
-              for name in ("log_grad_norm", "steps_per_call")
-              if getattr(cfg.training, name) != getattr(default, name)]
+    """A log line naming each field that is set away from its default and
+    that the port reads and does not use: ``data.loader`` (``grain``, the
+    JAX package's checkpointable loader; the port's loader restarts an
+    interrupted epoch, and the sampler waits for ROADMAP Queue 1 item 9)
+    and ``training.prng_impl`` (JAX's generator; the port's masks are
+    Philox4x32-10 whatever it names). None when neither is set."""
+    fields = [f"{section}.{name}={getattr(getattr(cfg, section), name)}"
+              for section, default in (("data", DataConfig()),
+                                       ("training", TrainingConfig()))
+              for name in {"data": ("loader",),
+                           "training": ("prng_impl",)}[section]
+              if getattr(getattr(cfg, section), name)
+              != getattr(default, name)]
     if not fields:
         return None
-    return (f"config {', '.join(fields)} read and not used: the port's "
-            f"trainer takes one step a call and logs no gradient norm")
+    return (f"config {', '.join(fields)} read and not used: the port reads "
+            f"its data with its own loader and draws Philox masks")

@@ -5,14 +5,19 @@ messages are ``A·(h W_v)``, projected, dropped out in training
 (graph.py:101) and scaled by a scalar gate (zero at init) into the residual
 stream. The CLS token bypasses the branch unless ``include_cls``.
 
-Two adjacencies are ported: the dynamic one (knn / threshold / dense,
-rebuilt from the tokens in every block, kernel C on the card) and the
+Three adjacencies are ported: the dynamic one (knn / threshold / dense,
+rebuilt from the tokens in every block, kernel C on the card); the static
+one (``dynamic: false``, graph.py:83-93): the first graph block builds the
+``[B, n, n]`` fp32 adjacency with :func:`build_adjacency` and aggregates
+with :func:`graph_aggregate`, and every later block reuses it, in tensor
+ops as the JAX package's XLA path (gradients flow into the first block
+through the shared adjacency; selection is not differentiated); and the
 learned-static one (graph.py:75-81): a ``[n, n]`` fp32 parameter
 ``adj_logits`` over the n tokens the block sees, zero at init, turned into
 ``softmax(adj_logits / temperature)`` in fp32 and applied as
 :func:`graph_aggregate` does (adjacency cast to the values' dtype, fp32
 accumulation), which the JAX package computes as an einsum outside any
-Pallas kernel. ``dynamic: false`` with a built adjacency raises.
+Pallas kernel.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from torch import nn
 
 from gavit_tpu_torch.config import GraphConfig
 from gavit_tpu_torch.models.layers import Dense, Dropout, LayerNorm
-from gavit_tpu_torch.ops.graph_ops import (fused_graph_aggregate,
+from gavit_tpu_torch.ops.graph_ops import (build_adjacency,
+                                           fused_graph_aggregate,
                                            graph_aggregate)
 
 
@@ -35,10 +41,6 @@ class GraphBlock(nn.Module):
         learned-static ``adj_logits`` (one more with ``include_cls``)."""
         super().__init__()
         learned = cfg.adjacency == "learned_static"
-        if not (cfg.dynamic or learned):
-            raise NotImplementedError(
-                "the static graph (`dynamic: false`, one adjacency shared "
-                "by the graph blocks) waits for ROADMAP Queue 1 item 2")
         self.adj_logits = None
         if learned:
             if num_patches is None:
@@ -53,15 +55,27 @@ class GraphBlock(nn.Module):
         self.proj_drop = Dropout(drop, site, impl)
         self.gate = nn.Parameter(torch.zeros((), device=device))
 
-    def forward(self, x, seed=None):
-        """``x [B, N+1, D]`` with CLS at index 0 → same shape."""
+    def forward(self, x, seed=None, adj=None):
+        """``x [B, N+1, D]`` with CLS at index 0 → ``(tokens of the same
+        shape, adjacency)``. ``adj``: a built adjacency to reuse (the static
+        graph's later blocks). The adjacency returned is the one this block
+        built for reuse (the static graph's first block), else None."""
         g = self.cfg
         t = x if g.include_cls else x[:, 1:]
         h = self.norm(t)
         values = self.value(h)
+        adj_out = adj
         if self.adj_logits is not None:
-            adj = torch.softmax(self.adj_logits.float() / g.temperature, -1)
+            adj_l = torch.softmax(self.adj_logits.float() / g.temperature, -1)
+            msg = graph_aggregate(adj_l, values)
+            adj_out = None
+        elif adj is not None:
             msg = graph_aggregate(adj, values)
+        elif not g.dynamic:
+            adj_out = build_adjacency(h, mode=g.adjacency, k=g.k,
+                                      threshold=g.threshold,
+                                      temperature=g.temperature)
+            msg = graph_aggregate(adj_out, values)
         else:
             msg = fused_graph_aggregate(h, values, g.adjacency, g.k,
                                         g.threshold, g.temperature,
@@ -69,5 +83,5 @@ class GraphBlock(nn.Module):
         msg = self.proj_drop(self.proj(msg), seed)
         t = t + self.gate.to(t.dtype) * msg
         if g.include_cls:
-            return t
-        return torch.cat([x[:, :1], t], dim=1)
+            return t, adj_out
+        return torch.cat([x[:, :1], t], dim=1), adj_out

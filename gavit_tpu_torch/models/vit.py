@@ -118,10 +118,16 @@ class VisionTransformer(nn.Module):
         # model.remat: each transformer block (not the graph blocks, as in
         # the JAX model) rematerialised in the backward of a training step
         remat = self.cfg.remat and self.training and torch.is_grad_enabled()
+        # the static graph (graph.dynamic false): the first graph block's
+        # adjacency, reused by the later ones
+        static = not self.cfg.graph.dynamic
+        adj = None
         for i, block in enumerate(self.blocks):
             x = block(x, seed, generator, remat=remat)
             if i in graphs:
-                x = graphs[i](x, seed)
+                x, built = graphs[i](x, seed, adj=adj if static else None)
+                if static and adj is None:
+                    adj = built
         x = self.norm(x)
         return self.head(x[:, 0]).float()
 

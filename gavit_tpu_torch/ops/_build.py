@@ -210,6 +210,25 @@ def strides(*tensors: torch.Tensor):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
+def aligned(t: torch.Tensor, *, rows: bool = False) -> torch.Tensor:
+    """``t`` itself where a launcher can read it where it lies, else a fresh
+    contiguous copy. ``rows=False``: contiguous and 16-byte aligned at its
+    start (what :func:`require_cuda` asks). ``rows=True``, the attention
+    tensor maps: the last dim contiguous, every leading stride a nonzero
+    multiple of 16 bytes, the start 16-byte aligned. ``t.contiguous()``
+    would not do: it returns a contiguous view at an unaligned offset
+    unchanged."""
+    if rows:
+        lead = t.stride()[:-1]
+        fits = t.stride(-1) == 1 and all(
+            x and not x * t.element_size() % 16 for x in lead)
+    else:
+        fits = t.is_contiguous()
+    if fits and not t.data_ptr() % 16:
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def require_cuda(*tensors: torch.Tensor) -> None:
     """Device, contiguity and 16-byte alignment every launcher relies on."""
     dev = tensors[0].device

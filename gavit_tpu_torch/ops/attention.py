@@ -176,11 +176,8 @@ def _dout_strides(dout, qkv3, heads: int, what: str = "dout"):
     if dout.shape != (b, heads, n, d) or dout.dtype != qkv3.dtype:
         raise ValueError(f"{what} {tuple(dout.shape)} {dout.dtype} does not "
                          f"match qkv {tuple(qkv3.shape)} {qkv3.dtype}")
-    sb, sh, sn, sc = dout.stride()
-    if (sc != 1 or any(x % 8 for x in (sb, sh, sn))
-            or dout.data_ptr() % 16 or dout.device != qkv3.device):
-        dout = dout.contiguous()
-        sb, sh, sn, sc = dout.stride()
+    dout = _build.aligned(dout, rows=True)
+    sb, sh, sn, _ = dout.stride()
     return dout, sb, sh, sn
 
 
@@ -506,17 +503,6 @@ def _card_kernels(q, k, v, what: str) -> bool:
     return True
 
 
-def _aligned_rows(t):
-    """``t`` itself where its last dim is contiguous and every row starts
-    16 bytes aligned (bf16), as the forward's tensor maps need, else a
-    contiguous copy; a broadcast (stride-0) dim is copied too."""
-    lead = t.stride()[:-1]
-    if (t.stride(-1) != 1 or any(x % 8 for x in lead) or 0 in lead
-            or t.data_ptr() % 16):
-        return t.contiguous()
-    return t
-
-
 def _bhnd_forward(q, k, v, scale: float, what: str):
     """The bf16 attention forward (A and K's kernel) on CUDA q, k, v
     ``[B, H, N, 64]`` (read through their strides) → o ``[B, H, N, 64]``."""
@@ -525,7 +511,7 @@ def _bhnd_forward(q, k, v, scale: float, what: str):
         raise ValueError(f"the Hopper kernels take CUDA tensors, not "
                          f"{q.device}")
     b, h, n, d = q.shape
-    q, k, v = (_aligned_rows(t) for t in (q, k, v))
+    q, k, v = (_build.aligned(t, rows=True) for t in (q, k, v))
     o = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
     lib = _build.library()
     _build.check(lib.gavit_attention_bhnd_fwd(
@@ -546,7 +532,7 @@ def _bhnd_backward(q, k, v, dout, scale: float, what: str):
                          f"{dout.device} does not match CUDA q "
                          f"{tuple(q.shape)} {q.dtype}")
     b, h, n, d = q.shape
-    q, k, v, dout = (_aligned_rows(t) for t in (q, k, v, dout))
+    q, k, v, dout = (_build.aligned(t, rows=True) for t in (q, k, v, dout))
     dq, dk, dv = torch.empty((3, b, h, n, d), dtype=q.dtype,
                              device=q.device).unbind(0)
     stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)

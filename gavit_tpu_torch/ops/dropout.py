@@ -96,7 +96,7 @@ def dropout_kernel(x, seed: int, site: int, rate: float):
 def _run(x, seed, site, rate, impl):
     if impl == "reference" or x.device.type == "cpu":
         return dropout_reference(x, seed, site, rate)
-    return dropout_kernel(x.contiguous(), seed, site, rate)
+    return dropout_kernel(_build.aligned(x), seed, site, rate)
 
 
 class _FusedDropout(torch.autograd.Function):
@@ -164,8 +164,8 @@ class _FusedDropoutAdd(torch.autograd.Function):
         ctx.args = (seed, site, rate)
         if y.device.type == "cpu":
             return dropout_add_reference(y, r, seed, site, rate)
-        return dropout_add_kernel(y.contiguous(), r.contiguous(), seed, site,
-                                  rate)
+        return dropout_add_kernel(_build.aligned(y), _build.aligned(r), seed,
+                                  site, rate)
 
     @staticmethod
     def backward(ctx, g):
@@ -279,7 +279,7 @@ def gelu_dropout_bwd_kernel(x, g, seed, site: int, rate: float):
 class _FusedGeluDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, seed, site, rate, impl):
-        x = x.contiguous()
+        x = _build.aligned(x)
         ctx.save_for_backward(x)
         ctx.args = (seed, site, rate, impl)
         if impl == "reference" or x.device.type == "cpu":
@@ -290,7 +290,7 @@ class _FusedGeluDropout(torch.autograd.Function):
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         seed, site, rate, impl = ctx.args
-        g = g.to(x.dtype).contiguous()
+        g = _build.aligned(g.to(x.dtype))
         if impl == "reference" or x.device.type == "cpu":
             dx = gelu_dropout_bwd_reference(x, g, seed, site, rate)
         else:

@@ -47,23 +47,30 @@ class DynamicWeightedLoss(nn.Module):
         return torch.softmax(
             torch.stack([getattr(self, n) for n in LAMBDA_NAMES]), dim=0)
 
-    def forward(self, logits, targets, pos_weight=None):
+    def forward(self, logits, targets, pos_weight=None, *,
+                per_example: bool = False):
         """``(total, {'wbce', 'focal', 'asl'})``; the components are
-        detached, as the JAX package's ``stop_gradient``."""
+        detached, as the JAX package's ``stop_gradient``. With
+        ``per_example`` every value is a ``[B]`` vector (the mean over the
+        classes only), whose batch mean is the scalar form."""
         x = logits.float()
         t = targets.float()
         w = self.weights()
-        wbce = bce_with_logits(x, t, pos_weight).mean()
+
+        def mean(v):
+            return v.mean(-1) if per_example else v.mean()
+
+        wbce = mean(bce_with_logits(x, t, pos_weight))
         bce = bce_with_logits(x, t)
         pt = torch.exp(-bce)
-        focal = ((1.0 - pt) ** FOCAL_GAMMA * bce).mean()
+        focal = mean((1.0 - pt) ** FOCAL_GAMMA * bce)
         xs_pos = torch.sigmoid(x)
         xs_neg = 1.0 - xs_pos
         los_pos = t * torch.log(torch.clamp(xs_pos, min=ASL_CLIP)) * (
             (1.0 - xs_pos) ** ASL_GAMMA_POS)
         los_neg = (1.0 - t) * torch.log(torch.clamp(xs_neg, min=ASL_CLIP)) * (
             xs_pos ** ASL_GAMMA_NEG)
-        asl = -(los_pos + los_neg).mean()
+        asl = -mean(los_pos + los_neg)
         total = w[0] * wbce + w[1] * focal + w[2] * asl
         return total, {"wbce": wbce.detach(), "focal": focal.detach(),
                        "asl": asl.detach()}

@@ -71,13 +71,21 @@ def make_optimizer(cfg: Config, model: nn.Module, criterion: nn.Module,
 
 
 @torch.no_grad()
+def global_norm(params):
+    """The global norm of the gradients of ``params`` as a device tensor
+    (``optax.global_norm``)."""
+    grads = [p.grad for p in params if p.grad is not None]
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+
+
+@torch.no_grad()
 def clip_by_global_norm(params, max_norm: float):
     """Scale the gradients of ``params`` by max_norm / ‖g‖ when their
     global norm ‖g‖ is at least max_norm (``optax.clip_by_global_norm``);
     returns ‖g‖ as a device tensor (no host sync)."""
     grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    norm = global_norm(params)
     factor = torch.where(norm < max_norm, torch.ones_like(norm),
                          max_norm / norm)
     for g in grads:

@@ -2,29 +2,38 @@
 """Train the PyTorch port (``gavit_tpu_torch``) on the synthetic dataset.
 
     python scripts/train_torch.py --config configs/vit_b16_graph2.yaml \\
-        --synthetic --steps 5 [--device cuda|cpu] [--set key=value ...]
+        --synthetic [--resume PATH|auto] [--device cuda|cpu] \\
+        [--set key=value ...]
+    python scripts/train_torch.py ... --steps N
 
 Builds the model (fp32 parameters from ``training.seed``, computing in
-``training.precision``), the DynamicWeightedLoss, the two-group AdamW and
-its warmup-cosine schedule, then takes ``--steps`` steps on batches of
-``data.batch_size`` uint8 images from ``SyntheticChestXrayDataset``, each
-step preprocessed, run forward and backward and applied on the device
-(``gavit_tpu_torch/training/trainer.py``). It prints the loss, the λ
-weights and images/s of every step.
+``training.precision``; ``model.pretrained_path`` loaded over them where
+that file exists, as a reference-layout or MAE checkpoint), the
+DynamicWeightedLoss, the two-group AdamW and its warmup-cosine schedule.
+
+Without ``--steps`` it runs the epoch loop of
+``gavit_tpu_torch/training/trainer.py``: ``training.epochs`` epochs of the
+synthetic train set in a seeded order (full batches of
+``data.batch_size``, each one optimizer step over
+``training.grad_accum_steps`` micro-batches), validation every
+``eval_freq`` epochs on the synthetic val set, the metric battery,
+best-AUC checkpoints under ``paths.save_dir`` (``save_freq`` ones when no
+validation ran), early stopping, and on SIGTERM a mid-epoch checkpoint and
+a clean exit. ``--resume auto`` continues from the latest checkpoint in
+``paths.save_dir``. Metrics go to the wandb sink (a JSONL file under
+``paths.log_dir`` without wandb).
+
+With ``--steps N`` it takes N steps on batches of ``data.batch_size``
+uint8 images and prints the loss, the λ weights and images/s of each.
 
 It runs on ``cuda`` unless ``--device cpu`` is given; on the card the
 Hopper kernels build on first use. A MoE config
 (``configs/examples/vit_b16_moe.yaml``) trains with its auxiliary loss in
 the objective (``GAVIT_MOE_FUSED=0`` in the environment switches its
 grouped engine from the fused kernels to the unfused one); a config's
-``mesh`` is read and not used: the port runs on one card. Checkpointing,
-validation, early stopping, preemption and gradient accumulation wait for
-ROADMAP Queue 1 item 6; only the synthetic data path exists so far.
-
-Loading ``model.pretrained_path`` waits for ROADMAP Queue 1 item 1: where
-that file exists the JAX CLI fine-tunes from it, so this one exits with an
-error instead of training from random weights; an absent file is ignored,
-as there.
+``mesh`` is read and not used: the port runs on one card. Only the
+synthetic data path exists so far (the file datasets wait for ROADMAP
+Queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -53,24 +62,54 @@ def create_dataset(config):
         seed=config.training.seed, learnable=d.synthetic_learnable)
 
 
+def create_val_dataset(config):
+    """The synthetic val set scripts/train.py builds beside the train set."""
+    from gavit_tpu_torch.data.dataset import SyntheticChestXrayDataset
+
+    d = config.data
+    return SyntheticChestXrayDataset(
+        size=max(d.batch_size, d.synthetic_size // 8),
+        image_size=d.image_size, seed=config.training.seed + 1,
+        learnable=d.synthetic_learnable)
+
+
+def load_pretrained(config, model) -> None:
+    """``model.pretrained_path`` over the fresh weights where the file
+    exists (an absent file is ignored, as scripts/train.py does)."""
+    from gavit_tpu_torch.utils.torch_convert import load_mae_weights
+
+    path = config.model.pretrained_path
+    if not path or not os.path.exists(path):
+        return
+    try:
+        load_mae_weights(model, path)
+    except Exception as e:  # noqa: BLE001 - named and re-raised as an exit
+        raise SystemExit(f"train_torch: cannot load model.pretrained_path "
+                         f"{path!r}: {type(e).__name__}: {e}") from e
+
+
 def build_trainer(config, dataset, device, *, impl: str = "auto",
-                  gate: float | None = None):
-    """The model (weights from ``training.seed``; graph gates set to
-    ``gate`` when given) and its Trainer. ``impl='reference'`` runs every
-    op through its plain PyTorch version."""
+                  gate: float | None = None, train_loader=None,
+                  val_loader=None, wandb_run=None):
+    """The model (weights from ``training.seed``, then
+    ``model.pretrained_path`` where it exists; graph gates set to ``gate``
+    when given) and its Trainer. ``impl='reference'`` runs every op through
+    its plain PyTorch version."""
     from gavit_tpu_torch.models.vit import build_model, init_params
     from gavit_tpu_torch.training.trainer import Trainer
 
     model = build_model(config.model, precision=config.training.precision,
                         impl=impl)
     init_params(model, torch.Generator().manual_seed(config.training.seed))
+    load_pretrained(config, model)
     if gate is not None:
         with torch.no_grad():
             for gb in model.graphs:
                 gb.gate.fill_(gate)
     steps_per_epoch = max(1, len(dataset) // config.data.batch_size)
     return Trainer(config, model, dataset.class_weights, steps_per_epoch,
-                   device=device)
+                   device=device, train_loader=train_loader,
+                   val_loader=val_loader, wandb_run=wandb_run)
 
 
 def batches(dataset, batch_size: int, seed: int):
@@ -89,11 +128,35 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", action="store_true",
                    help="train on the synthetic dataset (the only data path "
                         "ported so far)")
-    p.add_argument("--steps", type=int, default=10)
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory to resume from ('auto': the "
+                        "latest in paths.save_dir)")
+    p.add_argument("--steps", type=int, default=None,
+                   help="take this many steps instead of the epoch loop")
     p.add_argument("--device", default="cuda")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="KEY=VALUE", help="config override, repeatable")
     return p.parse_args(argv)
+
+
+def run_steps(trainer, dataset, config, steps: int) -> None:
+    bs = config.data.batch_size
+    data = batches(dataset, bs, config.training.seed)
+    for _ in range(steps):
+        images, labels = next(data)
+        t0 = time.perf_counter()
+        m = trainer.train_step(torch.from_numpy(images),
+                               torch.from_numpy(labels))
+        loss = m["loss"].item()  # waits for the step
+        dt = time.perf_counter() - t0
+        w = [round(v, 4) for v in m["loss_weights"].tolist()]
+        aux = f" moe_aux {m['moe_aux'].item():.4f}" if "moe_aux" in m else ""
+        norm = (f" grad norm {m['grad_norm'].item():.4f}"
+                if config.training.log_grad_norm else "")
+        logger.info(f"step {trainer.step}: loss {loss:.4f} (wbce "
+                    f"{m['wbce'].item():.4f} focal {m['focal'].item():.4f} "
+                    f"asl {m['asl'].item():.4f}{aux}) loss weights {w} lr "
+                    f"{m['lr']:.3e}{norm} {bs / dt:.1f} img/s")
 
 
 def main(argv=None):
@@ -102,13 +165,6 @@ def main(argv=None):
     from gavit_tpu_torch.config import load_config, mesh_note, unused_note
 
     config = load_config(args.config, args.overrides)
-    pretrained = config.model.pretrained_path
-    if pretrained and os.path.exists(pretrained):
-        raise SystemExit(
-            f"train_torch: model.pretrained_path {pretrained!r} exists, and "
-            f"loading it waits for ROADMAP Queue 1 item 1; refusing to train "
-            f"from random weights in its place (set model.pretrained_path= "
-            f"to train from scratch)")
     for note in (mesh_note(config), unused_note(config)):
         if note:
             logger.info(note)
@@ -121,24 +177,52 @@ def main(argv=None):
         raise SystemExit("train_torch: --device cuda needs a CUDA device and "
                          "this PyTorch sees none (use --device cpu)")
     dataset = create_dataset(config)
-    trainer = build_trainer(config, dataset, device)
     bs = config.data.batch_size
-    logger.info(f"training {config.model.name} ({config.training.precision}) "
-                f"on {device}, batch {bs}, {args.steps} steps")
-    data = batches(dataset, bs, config.training.seed)
-    for _ in range(args.steps):
-        images, labels = next(data)
-        t0 = time.perf_counter()
-        m = trainer.train_step(torch.from_numpy(images),
-                               torch.from_numpy(labels))
-        loss = m["loss"].item()  # waits for the step
-        dt = time.perf_counter() - t0
-        w = [round(v, 4) for v in m["loss_weights"].tolist()]
-        aux = f" moe_aux {m['moe_aux'].item():.4f}" if "moe_aux" in m else ""
-        logger.info(f"step {trainer.step}: loss {loss:.4f} (wbce "
-                    f"{m['wbce'].item():.4f} focal {m['focal'].item():.4f} "
-                    f"asl {m['asl'].item():.4f}{aux}) loss weights {w} lr "
-                    f"{m['lr']:.3e} {bs / dt:.1f} img/s")
+    tr = config.training
+    what = (f"training {config.model.name} ({tr.precision}) on {device}, "
+            f"batch {bs}" + (f" as {tr.grad_accum_steps} micro-batches"
+                             if tr.grad_accum_steps > 1 else ""))
+    if args.steps is not None:
+        trainer = build_trainer(config, dataset, device)
+        logger.info(f"{what}, {args.steps} steps")
+        run_steps(trainer, dataset, config, args.steps)
+        return trainer
+
+    from gavit_tpu_torch.data.loader import DataLoader
+    from gavit_tpu_torch.utils import checkpoint as ckpt_lib
+    from gavit_tpu_torch.utils import wandb_compat
+
+    for path in (config.paths.save_dir, config.paths.log_dir):
+        Path(path).mkdir(parents=True, exist_ok=True)
+    run = wandb_compat.init(config, log_dir=config.paths.log_dir)
+    try:
+        val_ds = create_val_dataset(config)
+        train_loader = DataLoader(dataset, bs, shuffle=True, drop_last=True,
+                                  seed=tr.seed)
+        val_loader = DataLoader(val_ds, bs)
+        trainer = build_trainer(config, dataset, device,
+                                train_loader=train_loader,
+                                val_loader=val_loader, wandb_run=run)
+        logger.info(f"{what}, {tr.epochs} epochs of {len(train_loader)} "
+                    f"steps; {len(dataset)} train and {len(val_ds)} val "
+                    f"images")
+        resume = args.resume
+        if resume == "auto":
+            resume = ckpt_lib.latest_checkpoint(config.paths.save_dir)
+        if resume:
+            if os.path.isdir(resume):
+                trainer.restore_checkpoint(resume)
+            else:
+                logger.error(f"No checkpoint found at {resume}")
+        final = trainer.train()
+        logger.info("Training completed. Final metrics:")
+        for name, value in final.items():
+            logger.info(f"{name}: {value:.4f}")
+        trainer.metric_calculator.plot_metrics(
+            trainer.train_metrics_history,
+            os.path.join(config.paths.save_dir, "figures"))
+    finally:
+        run.finish()
     return trainer
 
 

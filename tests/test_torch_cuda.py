@@ -841,3 +841,136 @@ def test_kernel_mask_matches_keep_mask(dev, m, f, d):
             (m, d), seed, sites[1], 0.1, device=dev))
     else:
         assert out is None
+
+
+def _offset_view(t):
+    """A contiguous copy of ``t`` (2-byte elements) that starts 2 bytes past
+    a 16-byte boundary: ``contiguous()`` returns such a view unchanged."""
+    flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    with torch.no_grad():
+        view = flat[1:1 + t.numel()].view(t.shape)
+        view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    return view
+
+
+@pytest.mark.parametrize("entry", ["multi_head_attention", "attention_pallas",
+                                   "fused_attention_v2"])
+def test_attention_entry_points_take_misaligned_views(dev, entry):
+    """q, k, v and dO as contiguous bf16 views at a 2-byte offset: the
+    entry point copies them to fresh tensors and gives the bits it gives
+    the aligned tensors, forward and backward."""
+    bf = torch.bfloat16
+    fn = getattr(A, entry)
+    qkv = [_randn(dev, 2, 2, 37, 64, seed=i).to(bf) for i in range(3)]
+    do = _randn(dev, 2, 2, 37, 64, seed=9).to(bf)
+    outs = {}
+    for name, make in (("aligned", torch.clone), ("offset", _offset_view)):
+        leaves = [make(t).requires_grad_(True) for t in qkv]
+        out = fn(*leaves, 0.125)
+        outs[name] = (out.detach(),
+                      *torch.autograd.grad(out, leaves, make(do)))
+    for got, want in zip(outs["offset"], outs["aligned"]):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("entry", ["fused_dropout", "fused_dropout_add",
+                                   "fused_gelu_dropout"])
+def test_elementwise_entry_points_take_misaligned_views(dev, entry):
+    """F, G and H/H′ on bf16 views at a 2-byte offset (inputs and the
+    incoming gradient): the same bits as on aligned tensors, each kernel
+    launched."""
+    bf = torch.bfloat16
+    x = _randn(dev, 5, 37, seed=1).to(bf)
+    r = _randn(dev, 5, 37, seed=2).to(bf)
+    g = _randn(dev, 5, 37, seed=3).to(bf)
+    fn = {"fused_dropout": lambda a, b: DR.fused_dropout(a, SEED, 3, 0.1),
+          "fused_dropout_add": lambda a, b: DR.fused_dropout_add(
+              a, b, SEED, 3, 0.1),
+          "fused_gelu_dropout": lambda a, b: DR.fused_gelu_dropout(
+              a, SEED, 3, 0.1)}[entry]
+    counter = {"fused_dropout": "KERNEL_LAUNCHES",
+               "fused_dropout_add": "ADD_LAUNCHES",
+               "fused_gelu_dropout": "GELU_LAUNCHES"}[entry]
+    outs = {}
+    for name, make in (("aligned", torch.clone), ("offset", _offset_view)):
+        a = make(x).requires_grad_(True)
+        before = getattr(DR, counter)
+        out = fn(a, make(r))
+        assert getattr(DR, counter) == before + 1
+        outs[name] = (out.detach(), *torch.autograd.grad(out, a, make(g)))
+    for got, want in zip(outs["offset"], outs["aligned"]):
+        assert torch.equal(got, want)
+
+
+def _small_train_cfg(accum: int, batch: int):
+    return from_dict({
+        "model": {"name": "custom", "img_size": 32, "patch_size": 8,
+                  "embed_dim": 128, "depth": 2, "num_heads": 2,
+                  "num_classes": 14, "drop_rate": 0.1,
+                  "graph": {"enabled": True, "num_blocks": 1, "k": 4}},
+        "data": {"image_size": 32, "batch_size": batch},
+        "training": {"precision": "bf16", "epochs": 2, "warmup_epochs": 1,
+                     "grad_accum_steps": accum}})
+
+
+def _small_trainer(cfg, dev, impl="auto", loaders=(None, None)):
+    from gavit_tpu_torch.training.trainer import Trainer
+
+    model = init_params(build_model(cfg.model, precision="bf16", impl=impl),
+                        torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.graphs[0].gate.fill_(0.5)
+    return Trainer(cfg, model, torch.ones(14), 4, device=dev,
+                   train_loader=loaders[0], val_loader=loaders[1])
+
+
+def test_accumulated_step_reruns_bit_equal(dev):
+    """Two optimizer steps of 2 accumulated micro-batches (uint8 images,
+    augmentation and dropout on) from the same start, twice: every
+    parameter, the λ and both AdamW moments come out bit-equal."""
+    g = torch.Generator().manual_seed(3)
+    images = torch.randint(0, 256, (8, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    labels = (torch.rand(8, 14, generator=g) < 0.3).float()
+    runs = []
+    for _ in range(2):
+        tr = _small_trainer(_small_train_cfg(2, 8), dev)
+        for _ in range(2):
+            tr.train_step(images, labels)
+        state = tr.optimizer.state
+        runs.append([t.detach().clone() for p in
+                     [*tr.model.parameters(), *tr.criterion.parameters()]
+                     for t in (p, state[p]["exp_avg"], state[p]["exp_avg_sq"])])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_ragged_val_tail_through_kernels_matches_plain(dev):
+    """validate over 11 images in batches of 4 (a tail of 3): kernels A, B
+    and C take every batch, the tail too, and the loss and the tail's
+    probabilities agree with the plain versions'."""
+    from gavit_tpu_torch.data.dataset import SyntheticChestXrayDataset
+    from gavit_tpu_torch.data.loader import DataLoader
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+
+    ds = SyntheticChestXrayDataset(size=11, image_size=32, seed=1)
+    cfg = _small_train_cfg(1, 4)
+    out = {}
+    for impl in ("auto", "reference"):
+        tr = _small_trainer(cfg, dev, impl, (None, DataLoader(ds, 4)))
+        before = (A.KERNEL_LAUNCHES, M.KERNEL_LAUNCHES, G.KERNEL_LAUNCHES)
+        loss = tr.validate()["loss"]
+        moved = tuple(c - b for c, b in zip(
+            (A.KERNEL_LAUNCHES, M.KERNEL_LAUNCHES, G.KERNEL_LAUNCHES),
+            before))
+        tr.model.eval()
+        with torch.no_grad():
+            tail = torch.sigmoid(tr.model(val_preprocess(
+                torch.from_numpy(ds.batch(range(8, 11))[0]).to(dev))))
+        out[impl] = (loss, moved, tail)
+    assert out["auto"][1] == (2 * 3, 2 * 3, 3)
+    assert out["reference"][1] == (0, 0, 0)
+    assert abs(out["auto"][0] - out["reference"][0]) <= 2e-2 * abs(
+        out["reference"][0])
+    assert _err(out["auto"][2], out["reference"][2]) <= 2e-2

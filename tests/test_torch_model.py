@@ -234,11 +234,22 @@ def test_init_params_distributions_and_seed():
     {"dynamic": False, "adjacency": "threshold", "threshold": 0.2},
 ])
 def test_unported_graph_modes_raise(graph):
-    """The static adjacency shared across graph blocks is not ported; the
-    learned-static one is (it ignores ``dynamic``, as in the JAX model)."""
+    """The static adjacency shared across graph blocks (``dynamic: false``)
+    was refused until ROADMAP Queue 1 item 2; now no block raises: a block
+    given no adjacency builds one (row-stochastic ``[B, n, n]`` fp32) and
+    returns it, a block given one reuses it. The learned-static graph
+    ignores ``dynamic``, as in the JAX model."""
     cfg = tiny_cfg(**graph)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        GraphBlock(64, cfg.model.graph)
+    block = GraphBlock(64, cfg.model.graph)
+    assert block.adj_logits is None
+    x = torch.randn(2, 17, 64, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        block.gate.fill_(0.5)
+        out, adj = block(x)
+        assert out.shape == x.shape and adj.shape == (2, 16, 16)
+        torch.testing.assert_close(adj.sum(-1), torch.ones(2, 16))
+        again, reused = block(x * 2, adj=adj)
+    assert reused is adj and not torch.equal(again, out)
     static = tiny_cfg(dynamic=False, adjacency="learned_static")
     assert GraphBlock(64, static.model.graph, num_patches=16).adj_logits \
         .shape == (16, 16)

@@ -8,12 +8,16 @@
   (forward and the gradients of q, k, v); the model's mask is Philox's at
   a site past every other, the same under ``model.remat``; at rate 0 the
   path is the one it was, bit for bit, through the same op.
-* ``model.pretrained_path``: ``scripts/train_torch.py`` exits nonzero when
-  the file exists (loading it is still to come) and trains as before when
-  it does not.
-* ``training.log_grad_norm`` and ``training.steps_per_call``: still unused
-  by the port's trainer; ``config.unused_note`` names each one set away
-  from its default, and ``scripts/train_torch.py`` logs that line.
+* ``model.pretrained_path``: ``scripts/train_torch.py`` loads the file
+  where it exists (a reference-layout checkpoint: the weights become the
+  file's, the head keeps its init), exits nonzero naming the file where it
+  cannot be read (no training from random weights in its place), and
+  trains as before where it does not exist.
+* ``config.unused_note``: ``training.log_grad_norm`` and
+  ``training.steps_per_call``, once read and dropped, are taken by the
+  trainer now and no longer named; the note names ``data.loader`` and
+  ``training.prng_impl`` set away from their defaults, and
+  ``scripts/train_torch.py`` logs that line.
 """
 
 import sys
@@ -158,6 +162,10 @@ TINY = ["--synthetic", "--steps", "1", "--device", "cpu", "--set",
 
 
 def test_train_cli_refuses_an_existing_pretrained_path(tmp_path):
+    """An existing file that is no checkpoint is refused by name; a
+    reference-layout checkpoint is loaded; an absent file is ignored."""
+    from tests.torch_ref import TorchRefViT, reference_state_dict
+
     ckpt = tmp_path / "vit-b_CXR_0.5M_mae.pth"
     ckpt.write_bytes(b"weights")
     with pytest.raises(SystemExit) as exc:
@@ -165,6 +173,20 @@ def test_train_cli_refuses_an_existing_pretrained_path(tmp_path):
     assert exc.value.code not in (0, None)
     assert "pretrained_path" in str(exc.value.code)
     assert str(ckpt) in str(exc.value.code)
+
+    torch.manual_seed(0)
+    ref = TorchRefViT(img_size=16, patch_size=8, embed_dim=16, depth=1,
+                      num_heads=2, num_classes=14)
+    sd = reference_state_dict(ref)
+    torch.save({"model": sd}, ckpt)
+    fresh = _train_main()([*TINY, "--steps", "0", "--set",
+                           "model.pretrained_path="])
+    loaded = _train_main()([*TINY, "--steps", "0", "--set",
+                            f"model.pretrained_path={ckpt}"])
+    assert torch.equal(loaded.model.pos_embed, sd["pos_embed"])
+    assert torch.equal(loaded.model.blocks[0].mlp.fc1.weight,
+                       sd["blocks.0.mlp.fc1.weight"])
+    assert torch.equal(loaded.model.head.weight, fresh.model.head.weight)
     # an absent file changes nothing: one step, as before
     trainer = _train_main()(
         [*TINY, "--set", f"model.pretrained_path={tmp_path / 'absent.pth'}"])
@@ -173,38 +195,51 @@ def test_train_cli_refuses_an_existing_pretrained_path(tmp_path):
 
 @pytest.mark.parametrize("training,named", [
     ({}, []),
-    ({"log_grad_norm": True}, ["training.log_grad_norm=True"]),
-    ({"steps_per_call": 4}, ["training.steps_per_call=4"]),
-    ({"log_grad_norm": True, "steps_per_call": 2},
-     ["training.log_grad_norm=True", "training.steps_per_call=2"]),
+    ({"log_grad_norm": True}, []),
+    ({"steps_per_call": 4}, []),
+    ({"log_grad_norm": True, "steps_per_call": 2}, []),
     ({"log_grad_norm": False, "steps_per_call": 1}, []),
-], ids=["defaults", "grad_norm", "steps_per_call", "both", "defaults_set"])
+    ({"prng_impl": "threefry2x32"}, ["training.prng_impl=threefry2x32"]),
+    ({"prng_impl": "rbg", "data_loader": "grain"},
+     ["data.loader=grain"]),
+], ids=["defaults", "grad_norm", "steps_per_call", "both", "defaults_set",
+        "prng_impl", "loader"])
 def test_unused_note_names_each_field_set(training, named):
-    note = unused_note(from_dict({"training": training}))
+    """log_grad_norm and steps_per_call are taken now: never named."""
+    training = dict(training)
+    data = {"loader": training.pop("data_loader")} \
+        if "data_loader" in training else {}
+    note = unused_note(from_dict({"training": training, "data": data}))
     if not named:
         assert note is None
         return
     assert "read and not used" in note
     for field in named:
         assert field in note
-    for other in {"training.log_grad_norm", "training.steps_per_call"} - {
+    for other in {"data.loader", "training.prng_impl",
+                  "training.log_grad_norm", "training.steps_per_call"} - {
             f.split("=")[0] for f in named}:
         assert other not in note
 
 
 def test_train_cli_logs_the_unused_note(caplog):
+    """The CLI takes log_grad_norm (the step line shows the norm) and
+    steps_per_call without naming them, and logs the note for a field the
+    port does not use."""
     caplog.set_level("INFO")
     trainer = _train_main()(
         [*TINY, "--set", "training.log_grad_norm=true", "--set",
          "training.steps_per_call=2"])
-    assert trainer.step == 1  # one step a call, as before
+    assert trainer.step == 1  # --steps: one step a call, as before
+    assert not [r for r in caplog.records
+                if "read and not used" in r.getMessage()]
+    assert [r for r in caplog.records if "grad norm" in r.getMessage()]
+    caplog.clear()
+    _train_main()([*TINY, "--set", "data.loader=grain"])
     lines = [r.getMessage() for r in caplog.records
-             if "read and not used" in r.getMessage()
-             and "training." in r.getMessage()]
-    assert len(lines) == 1
-    assert "training.log_grad_norm=True" in lines[0]
-    assert "training.steps_per_call=2" in lines[0]
+             if "read and not used" in r.getMessage()]
+    assert len(lines) == 1 and "data.loader=grain" in lines[0]
     caplog.clear()
     _train_main()(TINY)
-    assert not [r for r in caplog.records if "training.log_grad_norm" in
-                r.getMessage() or "training.steps_per_call" in r.getMessage()]
+    assert not [r for r in caplog.records
+                if "read and not used" in r.getMessage()]

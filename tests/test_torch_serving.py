@@ -213,14 +213,17 @@ def test_http_handler_healthz_and_predict():
     assert not thread.is_alive()
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
     """Nothing of jax, flax or gavit_tpu loads while the port is imported
-    and driven: the package, its serving and training modules, and both
+    and driven: the package, its serving and training modules, and the
     CLIs (the trainer takes one tiny step on the CPU), for the graph model
     (also at 512 px with remat, through the blockwise attention's and the
     chunked graph's plain paths) and for the MoE example: a trainer step on
     its grouped engine, and its Predictor behind the serving handler on the
-    dense engine, which ``impl: auto`` picks at this size."""
+    dense engine, which ``impl: auto`` picks at this size; then the epoch
+    loop with accumulation and the static graph (validation, metrics,
+    checkpoints), ``--resume auto`` for one more epoch, and the evaluate
+    CLI on its best checkpoint."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
             "--set", "model.embed_dim=64", "--set", "model.depth=2",
             "--set", "model.num_heads=2", "--set", "data.image_size=32",
@@ -234,6 +237,9 @@ def test_port_never_imports_jax():
     code = (
         "import sys, runpy\n"
         "import numpy as np\n"
+        "import torch\n"
+        "torch.set_num_threads(1)  # tiny steps; other test workers share "
+        "the cores\n"
         "import gavit_tpu_torch, gavit_tpu_torch.serving\n"
         "import gavit_tpu_torch.training.trainer\n"
         f"serve = runpy.run_path({str(ROOT / 'scripts' / 'serve_torch.py')!r})\n"
@@ -252,6 +258,25 @@ def test_port_never_imports_jax():
         "serve['build_handler'](pred, 32, serve['model_desc'](config))\n"
         "assert pred.predict_proba(np.zeros((1, 32, 32, 3), np.uint8))"
         ".shape == (1, 14)\n"
+        f"evaluate = runpy.run_path({str(ROOT / 'scripts' / 'evaluate_torch.py')!r})\n"
+        f"loop = [*{tiny!r}, '--set', 'data.batch_size=4', '--set', "
+        "'training.grad_accum_steps=2', '--set', 'model.graph.dynamic=false', "
+        f"'--set', 'paths.save_dir={tmp_path / 'ckpt'}', '--set', "
+        f"'paths.log_dir={tmp_path / 'logs'}', '--synthetic', '--device', "
+        "'cpu']\n"
+        "first = train['main']([*loop, '--set', 'training.epochs=1'])\n"
+        "again = train['main']([*loop, '--set', 'training.epochs=2', "
+        "'--resume', 'auto'])\n"
+        "assert first.step == 2 and again.step == 4, (first.step, again.step)\n"
+        "import gavit_tpu_torch.utils.metrics as metrics\n"
+        "ci = metrics.MetricCalculator.calculate_confidence_intervals\n"
+        "metrics.MetricCalculator.calculate_confidence_intervals = (\n"
+        "    lambda self, t, p, **kw: ci(self, t, p, n_bootstrap=10, **kw))\n"
+        "res = evaluate['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--checkpoint', '{tmp_path / 'ckpt' / 'best_model'}', "
+        f"'--dataset', 'synthetic', '--device', 'cpu', *{tiny!r}, '--set', "
+        f"'model.graph.dynamic=false', '--set', 'paths.save_dir={tmp_path}'])\n"
+        "assert res['p50_single_image_latency_ms'] > 0\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'gavit_tpu')]\n"
         "assert not bad, bad\n"
