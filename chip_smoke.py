@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths on
-one CUDA card: ViT-B/16 with two kNN graph blocks at 224 px
-(``configs/vit_b16_graph2.yaml``), the same model at 512 and 1024 px
+one CUDA card, from synthetic batches and from image files: ViT-B/16
+with two kNN graph blocks at 224 px (``configs/vit_b16_graph2.yaml``),
+the same model at 512 and 1024 px
 (``--set model.img_size=... --set data.image_size=...``; 1024 px trains
 with ``model.remat``), its 384-px fine-tune with a learned-static graph
 block (``configs/finetune_384.yaml``), and ViT-B/16 with 8-expert top-2 MoE
@@ -112,7 +113,25 @@ before the last line:
    224-px model loaded into finetune_384 (position embeddings 14 → 24,
    the head fresh) and 3 steps that lower the loss; the static graph
    (``model.graph.dynamic=false``) forward and 10 steps. Its checkpoints
-   go under ``build/chip_run/`` and are removed at its end.
+   go under ``build/chip_run/`` and are removed at its end;
+9. data: training and evaluation from image files, through the same
+   mains: 1,024 train and 256 val grayscale 1024 x 1024 PNGs (NIH
+   ChestX-ray14's format) and their label files written from SEED, the
+   train split packed at 224 px by ``scripts/prepare_dataset_torch.py``
+   (3 rows bit-equal to the PNGs' decode), vit_b16_graph2 at b128 from
+   the pack with RandomAffine through the checkpointable loader
+   (``data.loader=grain``) and the PNG val split decoded on
+   ``os.cpu_count()`` threads, 2 epochs of 8 steps (images/s an epoch,
+   the step's wait on the loader, validate's images/s, its launches
+   counted); SIGTERM after step 3 and ``--resume auto`` (the two runs
+   train each epoch-1 sample exactly once and end bit-equal to the
+   uninterrupted run, or within the rerun's spread); the affine train
+   preprocess on the card against the CPU at b128 (1e-5) and its cost;
+   the threaded loader's images/s over the 1,024 train PNGs at 4, 8 and
+   16 threads and over the pack (``tools/time_loader_torch.py`` takes the
+   same measurement in a process of its own); ``evaluate_torch`` with ``--dataset nih`` and
+   ``chexpert``. The corpus goes under ``build/chip_data/`` and is
+   removed at the end.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -121,6 +140,7 @@ The last two lines are one JSON object describing the kernels and then
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import itertools
 import json
@@ -140,7 +160,10 @@ CONFIG_DP = ROOT / "configs" / "v5e8_dp.yaml"
 # the run phase's checkpoints and logs (several GB, removed at its end)
 RUN_DIR = ROOT / "build" / "chip_run"
 DP_ACCUM = 8  # global batch 1024 as 8 micro-batches of 128 on one card
-RUN_DEVICE = "cuda"  # the CLIs' --device in the run phase
+RUN_DEVICE = "cuda"  # the CLIs' --device in the run and data phases
+DATA_DIR = ROOT / "build" / "chip_data"
+# the data phase's PNG corpus: train and val images, each NIH's 1024 x 1024
+DATA_TRAIN, DATA_VAL, DATA_PNG = 1024, 256, 1024
 CONFIG_MOE = ROOT / "configs" / "examples" / "vit_b16_moe.yaml"
 SEED = 0
 GATE = 0.5
@@ -184,6 +207,8 @@ TIE_MARGIN = 1e-5
 # same bits are expected; each gradient is held within this share of its
 # tensor's largest value (fp32 reassociation), and bit-equality is reported
 REMAT_REL_TOL = 1e-6
+# the affine train preprocess, card vs CPU (fp32, normalised values ~2)
+AFFINE_TOL = 1e-5
 # the H100 SXM's published dense peaks (the bound of each kernel's work)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -3006,8 +3031,6 @@ def run_args(save: str) -> list:
 def gated_cli(train_torch):
     """scripts/train_torch.py's main with the graph gates at GATE (zero at
     init would hide the graph branch)."""
-    import functools
-
     build = train_torch.build_trainer
     train_torch.build_trainer = functools.partial(build, gate=GATE)
     try:
@@ -3037,17 +3060,13 @@ def state_diff(a: dict, b: dict):
     return diffs[0][0], [(k, v) for v, k in diffs[:5] if v > 0]
 
 
-def rerun_spread(dev, train_torch) -> float:
-    """Two identical accumulated steps (the run's shape: b1024 as 8 x 128)
-    from one start on one batch: their largest difference over every
-    parameter and moment, 0 where the step reruns bit for bit. A nonzero
-    spread names the tensors it is in."""
+def steps_spread(cfg, dataset, dev, train_torch):
+    """Two identical runs of two steps of ``cfg`` from one start on the
+    first batch of ``dataset``: (their largest difference over every
+    parameter and moment, 0 where the step reruns bit for bit; the tensors
+    it is in)."""
     import torch
 
-    from gavit_tpu_torch import load_config
-
-    cfg = load_config(str(CONFIG_DP), run_sets("rerun"))
-    dataset = train_torch.create_dataset(cfg)
     images, labels = (torch.from_numpy(a) for a in next(
         train_torch.batches(dataset, cfg.data.batch_size, SEED)))
     states = []
@@ -3057,7 +3076,19 @@ def rerun_spread(dev, train_torch) -> float:
         tr.train_step(images, labels)
         states.append(train_state(tr))
         del tr
-    spread, where = state_diff(*states)
+    return state_diff(*states)
+
+
+def rerun_spread(dev, train_torch) -> float:
+    """Two identical accumulated steps (the run's shape: b1024 as 8 x 128)
+    from one start on one batch: their largest difference over every
+    parameter and moment, 0 where the step reruns bit for bit. A nonzero
+    spread names the tensors it is in."""
+    from gavit_tpu_torch import load_config
+
+    cfg = load_config(str(CONFIG_DP), run_sets("rerun"))
+    spread, where = steps_spread(cfg, train_torch.create_dataset(cfg), dev,
+                                 train_torch)
     log(f"[run] two identical accumulated steps (b1024 as {DP_ACCUM} x 128) "
         f"from one start: " + ("bit-equal" if spread == 0 else
                               f"NOT bit-equal: largest difference {spread:.3e}"
@@ -3065,15 +3096,15 @@ def rerun_spread(dev, train_torch) -> float:
     return spread
 
 
-def check_run_counts(counts, depth, steps, vals):
-    """The run's launches: per optimizer step DP_ACCUM micro-batches of the
-    224-px b128 step, per validation one b1024 forward."""
-    micro = steps * DP_ACCUM
+def check_run_counts(counts, depth, steps, vals, accum=DP_ACCUM, tag="run"):
+    """The run's launches: per optimizer step ``accum`` micro-batches of the
+    224-px b128 step, per validation batch one forward."""
+    micro = steps * accum
     want = expected({"A": depth * (micro + vals), "A′": depth * micro,
                      "B": depth * vals, "C": 2 * (micro + vals),
                      "D": depth * micro, "D′": depth * micro,
                      "F": 2 * (1 + depth + 2) * micro})
-    log("[run] kernel launches in the run: "
+    log(f"[{tag}] kernel launches in the run: "
         + ", ".join(f"{k} {v}" for k, v in counts.items()))
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
@@ -3324,14 +3355,17 @@ def phase_run(dev, card):
     _, meta = ckpt_lib.restore(latest)
     with gated_cli(train_torch):
         after = train_torch.main(run_args("preempted") + ["--resume", "auto"])
+    # the loader's position is saved with it: the resume trains epoch 2's
+    # one unseen step
     ok = (sent == [3] and pre.step == 3 and meta["epoch_completed"] is False
-          and meta["next_epoch"] == 1 and after.step == 5
-          and after.current_epoch == 1
+          and meta["next_epoch"] == 1 and meta.get("has_loader_state")
+          and after.step == 4 and after.current_epoch == 1
           and len(after.train_metrics_history) == 1)
     log(f"[run] SIGTERM after step {sent} (epoch 2 of 2): the run stopped "
         f"at step {pre.step} and saved {os.path.basename(latest)} (epoch "
-        f"completed: {meta['epoch_completed']}); --resume auto replayed "
-        f"epoch 2 to step {after.step} {'ok' if ok else 'FAIL'}")
+        f"completed: {meta['epoch_completed']}, loader position: "
+        f"{bool(meta.get('has_loader_state'))}); --resume auto trained the "
+        f"rest of epoch 2 to step {after.step} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the preempted run did not save and resume")
     del pre, after
@@ -3369,6 +3403,318 @@ def phase_run(dev, card):
     phase_static_graph(dev, depth)
     shutil.rmtree(RUN_DIR, ignore_errors=True)
     log(f"[run] the run phase took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def write_corpus(root: Path, n: int, seed: int, side: int):
+    """``n`` grayscale ``side`` x ``side`` 8-bit PNGs (NIH ChestX-ray14's
+    format) under ``root/images`` and their label file in the reference
+    format (a file name, then 14 labels; every class two-valued), written
+    on a thread pool at PNG compress level 1. Each image is a smooth field
+    (a 16 x 16 grid of random greys resized by PIL's BICUBIC) plus 0-3
+    grey levels of noise: neither constant nor noise, so that its decode
+    costs what a radiograph's does. Returns (image dir, label file)."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    img_dir = root / "images"
+    img_dir.mkdir(parents=True)
+    labels = (np.random.default_rng(seed).random((n, 14)) < 0.3).astype(
+        np.float32)
+    labels[0], labels[1] = 1.0, 0.0
+    names = [f"{seed:03d}_{i:05d}.png" for i in range(n)]
+
+    def write(i):
+        r = np.random.default_rng((seed, i))
+        field = Image.fromarray(r.integers(0, 256, (16, 16), np.uint8))
+        img = (np.asarray(field.resize((side, side), Image.BICUBIC),
+                          np.int16) + r.integers(0, 4, (side, side), np.int16))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            img_dir / names[i], compress_level=1)
+
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        list(pool.map(write, range(n)))
+    label_file = root / "labels.txt"
+    label_file.write_text("".join(
+        name + " " + " ".join(f"{v:.0f}" for v in row) + "\n"
+        for name, row in zip(names, labels)))
+    return img_dir, label_file
+
+
+def loader_rates(train_dir: Path, train_labels: Path, packed, size: int,
+                 card: str) -> str:
+    """A line of the threaded loader's images/s alone at b TRAIN_BATCH: over
+    the DATA_TRAIN train PNGs (decoded and resized to ``size``) at 4, 8
+    and 16 decode threads, each a fresh loader, and over the packed split
+    ``packed``; ``os.cpu_count()`` beside them. Also run in a process of
+    its own by tools/time_loader_torch.py."""
+    import os
+
+    from gavit_tpu_torch.data.dataset import ChestXrayDataset
+    from gavit_tpu_torch.data.loader import DataLoader
+
+    rates = []
+    raw = ChestXrayDataset(str(train_dir), str(train_labels), size)
+    for n_threads in (4, 8, 16):
+        loader = DataLoader(raw, TRAIN_BATCH, shuffle=True,
+                            num_workers=n_threads)
+        t0 = time.perf_counter()
+        n = sum(len(b[1]) for b in loader)
+        rates.append(f"{n_threads} threads {n / (time.perf_counter() - t0):.1f}")
+    t0 = time.perf_counter()
+    n = sum(len(b[1]) for b in DataLoader(packed, TRAIN_BATCH, shuffle=True))
+    return (f"[data] the threaded loader alone at b{TRAIN_BATCH}, images/s "
+            f"over {len(raw)} train PNGs at " + ", ".join(rates) + "; over "
+            f"the {len(packed)}-image packed split (warm page cache) "
+            f"{n / (time.perf_counter() - t0):.1f}; os.cpu_count() "
+            f"{os.cpu_count()} ({card})")
+
+
+def data_sets(save: str, packed: Path, train_labels: Path, val_dir: Path,
+              val_labels: Path, workers: int) -> list:
+    """The data phase's overrides of configs/vit_b16_graph2.yaml: b128 from
+    files (the packed train split, the PNG val split decoded on
+    ``workers`` threads), RandomAffine on, the checkpointable loader, 2
+    epochs (8 steps each: 1024 images, drop_last), a warmup of one epoch,
+    checkpoints under DATA_DIR/save, wandb off."""
+    return [f"data.batch_size={TRAIN_BATCH}", "training.epochs=2",
+            "training.warmup_epochs=1", f"training.seed={SEED}",
+            "data.augment_affine=true", "data.loader=grain",
+            f"data.num_workers={workers}", f"data.train_dir={packed}",
+            f"data.train_labels={train_labels}", f"data.val_dir={val_dir}",
+            f"data.val_labels={val_labels}",
+            f"paths.save_dir={DATA_DIR / save}",
+            f"paths.log_dir={DATA_DIR / save / 'logs'}", "wandb.mode=disabled"]
+
+
+def phase_data(dev, card):
+    """Training and evaluation from image files at full width, through the
+    CLIs' mains: a PNG corpus of NIH's format written from SEED, the train
+    split packed by scripts/prepare_dataset_torch.py (3 rows held to the
+    PNGs' decode), vit_b16_graph2 at b128 with RandomAffine through the
+    checkpointable loader (images/s an epoch, the step's wait on the
+    loader, validate over the decoded val PNGs, its launches), SIGTERM
+    after step 3 and ``--resume auto`` (each epoch-0 sample trained once,
+    the end state the uninterrupted run's), the affine preprocess on the
+    card against the CPU and its cost, the threaded loader's images/s on
+    PNGs and on the pack, and evaluate_torch on ``--dataset nih`` and
+    ``chexpert``. The corpus is removed at the end."""
+    import hashlib
+    import os
+    import shutil
+    import signal
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import evaluate_torch
+    import prepare_dataset_torch
+    import train_torch
+    from gavit_tpu_torch import load_config
+    from gavit_tpu_torch.data.dataset import (ChestXrayDataset,
+                                              PackedChestXrayDataset)
+    from gavit_tpu_torch.ops.preprocess import (affine_draws,
+                                                train_preprocess_with)
+    from gavit_tpu_torch.training import trainer as trainer_mod
+    from gavit_tpu_torch.utils import checkpoint as ckpt_lib
+
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    t_phase = time.perf_counter()
+    workers = os.cpu_count()
+    size = load_config(str(CONFIG)).data.image_size
+    depth = load_config(str(CONFIG)).model.depth
+
+    t0 = time.perf_counter()
+    train_dir, train_labels = write_corpus(DATA_DIR / "train", DATA_TRAIN,
+                                           SEED, DATA_PNG)
+    val_dir, val_labels = write_corpus(DATA_DIR / "val", DATA_VAL, SEED + 1,
+                                       DATA_PNG)
+    dt = time.perf_counter() - t0
+    mb = sum(f.stat().st_size for d in (train_dir, val_dir)
+             for f in d.iterdir()) / 1e6
+    log(f"[data] wrote {DATA_TRAIN} train and {DATA_VAL} val grayscale "
+        f"{DATA_PNG}x{DATA_PNG} PNGs ({mb:.1f} MB) on {workers} threads in "
+        f"{dt:.2f} s")
+
+    packed_dir = DATA_DIR / "packed"
+    t0 = time.perf_counter()
+    prepare_dataset_torch.main(["--image-dir", str(train_dir), "--labels",
+                                str(train_labels), "--out", str(packed_dir),
+                                "--image-size", str(size), "--workers",
+                                str(workers)])
+    dt = time.perf_counter() - t0
+    packed = PackedChestXrayDataset(str(packed_dir))
+    raw = ChestXrayDataset(str(train_dir), str(train_labels), size)
+    rows = (0, DATA_TRAIN // 2, DATA_TRAIN - 1)
+    ok = (packed.images.shape == (DATA_TRAIN, size, size, 3)
+          and all(np.array_equal(packed[i][0], raw[i][0])
+                  and np.array_equal(packed[i][1], raw[i][1]) for i in rows))
+    log(f"[data] packed the train split at {size} px with "
+        f"scripts/prepare_dataset_torch.py on {workers} threads: "
+        f"{DATA_TRAIN / dt:.1f} images/s ({dt:.2f} s, "
+        f"{packed.images.nbytes / 1e6:.1f} MB of memmap); rows {rows} "
+        f"bit-equal to the PNGs' decode {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the packed split differs from the PNGs")
+
+    # the run, uninterrupted: counts zeroed just before, read just after
+    sets = functools.partial(data_sets, packed=packed_dir,
+                             train_labels=train_labels, val_dir=val_dir,
+                             val_labels=val_labels, workers=workers)
+
+    def args(save):
+        return ["--config", str(CONFIG), "--device", RUN_DEVICE,
+                *[a for kv in sets(save) for a in ("--set", kv)]]
+
+    with gated_cli(train_torch):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        straight = train_torch.main(args("straight"))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        wall = time.perf_counter() - t0
+    steps = DATA_TRAIN // TRAIN_BATCH
+    hist = straight.train_metrics_history
+    vals = len(straight.val_metrics_history) * -(-DATA_VAL // TRAIN_BATCH)
+    check_run_counts(counts, depth, steps=2 * steps, vals=vals, accum=1,
+                     tag="data")
+    for e, (m, v) in enumerate(zip(hist, straight.val_metrics_history)):
+        log(f"[data] vit_b16_graph2 from the packed split, RandomAffine, "
+            f"checkpointable loader, epoch {e + 1}: b{TRAIN_BATCH}, "
+            f"{m['images_per_sec']:.1f} train images/s, the step waited "
+            f"{m['loader_wait_ms']:.3f} ms a step on the loader; train loss "
+            f"{m['loss']:.5f}, val loss {v['loss']:.5f} over {DATA_VAL} "
+            f"PNGs ({card})")
+    if len(hist) != 2 or straight.step != 2 * steps or not all(
+            math.isfinite(m["loss"]) for m in hist):
+        raise AssertionError(f"the data run took {straight.step} steps over "
+                             f"{len(hist)} epochs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    straight.validate()
+    dt = time.perf_counter() - t0
+    log(f"[data] validate: {DATA_VAL} {DATA_PNG}x{DATA_PNG} PNGs decoded on "
+        f"{workers} threads at b{TRAIN_BATCH} in {dt * 1e3:.1f} ms, "
+        f"{DATA_VAL / dt:.1f} images/s, the metric battery included "
+        f"({card}); the whole run {wall:.1f} s")
+
+    # SIGTERM after step 3 and --resume auto: every epoch-0 sample once
+    spread, where = steps_spread(load_config(str(CONFIG), sets("rerun")),
+                                 packed, dev, train_torch)
+    log(f"[data] two identical b{TRAIN_BATCH} steps with RandomAffine from "
+        f"one start: " + ("bit-equal" if spread == 0 else
+                          f"largest difference {spread:.3e} in {where}"))
+    id_of = {hashlib.blake2b(packed.images[i].tobytes(),
+                             digest_size=16).digest(): i
+             for i in range(DATA_TRAIN)}
+    seen = {0: [], 1: []}  # run → (epoch, sample) of each trained image
+    step = trainer_mod.Trainer._step
+    sent = []
+
+    def record_step(self, images, labels):
+        run = 0 if not sent else 1
+        for row in images.cpu().numpy():
+            key = hashlib.blake2b(row.tobytes(), digest_size=16).digest()
+            seen[run].append((self.current_epoch, id_of[key]))
+        out = step(self, images, labels)
+        if not sent and self.step == 3:
+            sent.append(self.step)
+            os.kill(os.getpid(), signal.SIGTERM)
+        return out
+
+    trainer_mod.Trainer._step = record_step
+    try:
+        with gated_cli(train_torch):
+            pre = train_torch.main(args("preempted"))
+            latest = ckpt_lib.latest_checkpoint(str(DATA_DIR / "preempted"))
+            _, meta = ckpt_lib.restore(latest)
+            after = train_torch.main(args("preempted") + ["--resume", "auto"])
+    finally:
+        trainer_mod.Trainer._step = step
+    epoch0 = sorted(i for run in seen.values() for e, i in run if e == 0)
+    worst, where = state_diff(train_state(straight), train_state(after))
+    gen_same = torch.equal(straight.generator.get_state(),
+                           after.generator.get_state())
+    ok = (sent == [3] and pre.step == 3 and meta["epoch_completed"] is False
+          and meta.get("has_loader_state") is True
+          and len(seen[0]) == 3 * TRAIN_BATCH
+          and epoch0 == list(range(DATA_TRAIN))
+          and after.step == straight.step and worst <= spread and gen_same)
+    log(f"[data] SIGTERM after step {sent}: saved {os.path.basename(latest)} "
+        f"with the loader's position (has_loader_state "
+        f"{meta.get('has_loader_state')}); --resume auto trained "
+        f"{sum(e == 0 for e, _ in seen[1])} more samples of epoch 1, and the "
+        f"two runs trained each of its {DATA_TRAIN} samples "
+        f"{'exactly once' if epoch0 == list(range(DATA_TRAIN)) else 'NOT once'}"
+        f"; then epoch 2 to step {after.step}: parameters, λ and AdamW "
+        f"moments vs the uninterrupted run largest |d| {worst:.3e} (held to "
+        f"the rerun spread {spread:.3e}"
+        f"{'; bit-equal' if worst == 0 else f'; at {where}'}), generator "
+        f"{'equal' if gen_same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the mid-epoch resume did not continue on the "
+                             "next unseen sample")
+    del pre, after
+
+    # the affine preprocess on the card against the CPU, and its cost
+    images = torch.from_numpy(packed.batch(np.arange(TRAIN_BATCH))[0])
+    g = torch.Generator().manual_seed(SEED)
+    draws = (torch.rand(TRAIN_BATCH, generator=g) < 0.5,
+             0.8 + 0.4 * torch.rand(TRAIN_BATCH, generator=g),
+             0.8 + 0.4 * torch.rand(TRAIN_BATCH, generator=g),
+             *affine_draws(TRAIN_BATCH, g, "cpu"))
+    want = train_preprocess_with(images, *draws)
+    x = images.to(dev)
+    on_dev = [d.to(dev) for d in draws]
+    err = max_err(train_preprocess_with(x, *on_dev).cpu(), want)
+    with_affine = cuda_ms(lambda: train_preprocess_with(x, *on_dev))
+    without = cuda_ms(lambda: train_preprocess_with(x, *on_dev[:3]))
+    ok = err <= AFFINE_TOL
+    log(f"[data] train_preprocess_with at b{TRAIN_BATCH} x {size}^2 on the "
+        f"card vs the CPU, the same batch and draws: max |d| {err:.3e} (tol "
+        f"{AFFINE_TOL:.0e}) {'ok' if ok else 'FAIL'}; {with_affine:.4f} ms "
+        f"with RandomAffine, {without:.4f} ms without (median of 20, CUDA "
+        f"events; {card})")
+    if not ok:
+        raise AssertionError("the affine preprocess on the card disagrees "
+                             "with the CPU")
+
+    # the threaded loader alone: the train PNGs at 4, 8, 16 decode threads;
+    # the packed train split
+    log(loader_rates(train_dir, train_labels, packed, size, card))
+
+    # evaluate_torch on the val PNGs as the NIH and the CheXpert split
+    best = DATA_DIR / "straight" / "best_model"
+    for name in ("nih", "chexpert"):
+        res = evaluate_torch.main([
+            "--config", str(CONFIG), "--checkpoint", str(best), "--dataset",
+            name, "--set", f"data.val_dir={val_dir}", "--set",
+            f"data.val_labels={val_labels}", "--set",
+            f"data.chexpert_dir={val_dir}", "--set",
+            f"data.chexpert_labels={val_labels}", "--set",
+            f"data.batch_size={TRAIN_BATCH}", "--set",
+            f"data.num_workers={workers}", "--set",
+            f"paths.save_dir={DATA_DIR / ('eval_' + name)}", "--device",
+            RUN_DEVICE])
+        on_disk = json.loads((DATA_DIR / f"eval_{name}" / "evaluation" /
+                              "evaluation_results.json").read_text())
+        auc = on_disk["metrics"]["mean_auc"]
+        ok = math.isfinite(auc) and auc == res["metrics"]["mean_auc"]
+        log(f"[data] evaluate_torch --dataset {name} on {DATA_VAL} PNGs: "
+            f"mean AUC {auc:.4f}, p50 one image "
+            f"{res['p50_single_image_latency_ms']:.3f} ms ({card}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"evaluate_torch --dataset {name} wrote no "
+                                 "finite mean AUC")
+    del straight
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    log(f"[data] the data phase took {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -3664,6 +4010,7 @@ def main():
         {"fused": trainer_moe, "unfused": trainer_unf}, batch_moe, card))
     del trainer_moe, trainer_unf
     phase_run(dev, card)
+    phase_data(dev, card)
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:

@@ -516,19 +516,11 @@ def mesh_note(cfg: Config) -> str | None:
 
 def unused_note(cfg: Config) -> str | None:
     """A log line naming each field that is set away from its default and
-    that the port reads and does not use: ``data.loader`` (``grain``, the
-    JAX package's checkpointable loader; the port's loader restarts an
-    interrupted epoch, and the sampler waits for ROADMAP Queue 1 item 9)
-    and ``training.prng_impl`` (JAX's generator; the port's masks are
-    Philox4x32-10 whatever it names). None when neither is set."""
-    fields = [f"{section}.{name}={getattr(getattr(cfg, section), name)}"
-              for section, default in (("data", DataConfig()),
-                                       ("training", TrainingConfig()))
-              for name in {"data": ("loader",),
-                           "training": ("prng_impl",)}[section]
-              if getattr(getattr(cfg, section), name)
-              != getattr(default, name)]
-    if not fields:
+    that the port reads and does not use: ``training.prng_impl`` (JAX's
+    generator; the port's masks are Philox4x32-10 whatever it names).
+    None when it is not set."""
+    default = TrainingConfig().prng_impl
+    if cfg.training.prng_impl == default:
         return None
-    return (f"config {', '.join(fields)} read and not used: the port reads "
-            f"its data with its own loader and draws Philox masks")
+    return (f"config training.prng_impl={cfg.training.prng_impl} read and "
+            f"not used: the port draws Philox masks")

@@ -16,14 +16,18 @@ the micro-batch means. The parameters, the λ and the optimizer state are
 fp32 on the device.
 
 Around it, as the JAX Trainer: :meth:`train_epoch` (the loader's seeded
-epoch order; the step metrics read back to the host once every
+epoch order, ``data.prefetch`` batches in flight on the device
+(``data/loader.py::device_iterator``), the time each step waited on the
+loader; the step metrics read back to the host once every
 ``training.steps_per_call`` steps, the counterpart of the JAX package's
 multi-step dispatch; the train metric battery over the epoch's
 predictions), :meth:`validate` (:meth:`predict`'s eval forward, per-example losses
 averaged over every row), :meth:`save_checkpoint` /
 :meth:`restore_checkpoint` (``utils/checkpoint.py``: parameters, λ, AdamW
 state, schedule step, generator state, epoch, best AUC and epoch, patience
-counter; a mid-epoch save is marked incomplete and replays its epoch), and
+counter; a mid-epoch save is marked incomplete and, with the loader's
+position (snapshot once per consumed batch, ``data/loader.py``) saved
+with it, resumes its epoch on the next unseen batch), and
 :meth:`train` (``eval_freq``, ``save_freq``, best-AUC checkpoints, early
 stopping after ``early_stopping_patience`` epochs without a better AUC,
 SIGTERM → a mid-epoch save and a clean return). ``min_delta`` is read and,
@@ -41,7 +45,7 @@ import torch
 
 from gavit_tpu_torch.config import Config
 from gavit_tpu_torch.data.dataset import DISEASE_NAMES
-from gavit_tpu_torch.data.loader import to_device
+from gavit_tpu_torch.data.loader import device_iterator
 from gavit_tpu_torch.ops import philox
 from gavit_tpu_torch.ops.preprocess import train_preprocess, val_preprocess
 from gavit_tpu_torch.training.losses import DynamicWeightedLoss
@@ -108,6 +112,8 @@ class Trainer:
         self.train_metrics_history: list[dict] = []
         self.val_metrics_history: list[dict] = []
         self._preemption: PreemptionHandler | None = None
+        # the train loader's position after the last trained batch
+        self._loader_state: bytes | None = None
 
     # ------------------------------------------------------------------
     # the step
@@ -215,16 +221,28 @@ class Trainer:
 
     def train_epoch(self) -> dict:
         """One pass over the train loader; the metric battery over its
-        predictions, the mean loss and components, and images/s."""
+        predictions, the mean loss and components, images/s and the mean
+        time a step waited on the loader (``loader_wait_ms``)."""
         k = max(1, self.config.training.steps_per_call)
         preds, targets, pending, host = [], [], [], []
         n_images = 0
+        wait = 0.0
         t0 = time.perf_counter()
         self.train_loader.set_epoch(self.current_epoch)
+        state_fn = getattr(self.train_loader, "get_state", None)
+        batches = device_iterator(self.train_loader, self.device,
+                                  self.config.data.prefetch, state_fn)
         done = 0
-        for images, labels in self.train_loader:
-            metrics, probs = self._step(to_device(images, self.device),
-                                        to_device(labels, self.device))
+        while True:
+            t_wait = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - t_wait
+            if batch is None:
+                break
+            images, labels, loader_state = batch
+            metrics, probs = self._step(images, labels)
+            # every batch up to this one is trained: the resume point
+            self._loader_state = loader_state
             preds.append(probs)
             targets.append(labels)
             n_images += images.shape[0]
@@ -234,12 +252,15 @@ class Trainer:
             done += 1
             if self._preemption is not None and self._preemption.preempted:
                 raise _Preempted()
+        if not done:  # resumed at the end of its epoch: nothing left
+            return {"loss": float("nan"), "mean_auc": float("nan"),
+                    "images_per_sec": 0.0, "loader_wait_ms": 0.0}
         if pending:
             self._read_back(pending, host, done - len(pending))
         predictions = torch.cat(preds).cpu().numpy()
         elapsed = time.perf_counter() - t0
         metrics = self.metric_calculator.calculate_metrics(
-            np.concatenate(targets), predictions)
+            torch.cat(targets).cpu().numpy(), predictions)
         for key in ("loss", "wbce", "focal", "asl"):
             name = "loss_total" if key == "loss" else f"loss_{key}"
             metrics[name] = float(np.mean([m[key] for m in host]))
@@ -248,6 +269,7 @@ class Trainer:
             metrics["loss_moe_aux"] = float(np.mean([m["moe_aux"]
                                                      for m in host]))
         metrics["images_per_sec"] = n_images / max(elapsed, 1e-9)
+        metrics["loader_wait_ms"] = wait / done * 1e3
         return metrics
 
     @torch.no_grad()
@@ -258,20 +280,20 @@ class Trainer:
         preds, targets, losses = [], [], []
         self.model.eval()
         try:
-            for images, labels in loader:
-                x = to_device(images, self.device)
+            for x, labels, _ in device_iterator(loader, self.device,
+                                                self.config.data.prefetch):
                 if x.dtype == torch.uint8:
                     x = val_preprocess(x)
                 logits = self.model(x)
-                loss_vec, _ = self.criterion(
-                    logits, to_device(labels, self.device), self.pos_weight,
-                    per_example=True)
+                loss_vec, _ = self.criterion(logits, labels, self.pos_weight,
+                                             per_example=True)
                 preds.append(torch.sigmoid(logits.float()))
                 targets.append(labels)
                 losses.append(loss_vec)
         finally:
             self.model.train()
-        return torch.cat(preds), np.concatenate(targets), torch.cat(losses)
+        return (torch.cat(preds), torch.cat(targets).cpu().numpy(),
+                torch.cat(losses))
 
     def validate(self) -> dict:
         """The metric battery over the val loader's :meth:`predict`, and
@@ -296,7 +318,8 @@ class Trainer:
     def save_checkpoint(self, metrics: dict, is_best: bool = False,
                         epoch_completed: bool = True):
         """``epoch_completed=False`` marks a mid-epoch (preemption) save:
-        resume replays the in-progress epoch instead of skipping it."""
+        resume continues the in-progress epoch from the saved loader
+        position (without one, from its start) instead of skipping it."""
         save_dir = self.config.paths.save_dir
         meta = {
             "epoch": self.current_epoch,
@@ -309,17 +332,20 @@ class Trainer:
                         if isinstance(v, (int, float, np.floating))},
             "config": self.config.to_dict(),
         }
+        # a mid-epoch save resumes on the next unseen batch
+        loader_state = None if epoch_completed else self._loader_state
         name = ckpt_lib.checkpoint_name(self.current_epoch, metrics["mean_auc"])
         ckpt_lib.save(os.path.join(save_dir, name), self._state_tree(), meta,
                       also=(os.path.join(save_dir, "best_model"),)
-                      if is_best else ())
+                      if is_best else (), loader_state=loader_state)
         if is_best:
             logger.info(f"Saved new best model with AUC: "
                         f"{metrics['mean_auc']:.4f}")
 
     def restore_checkpoint(self, path: str):
         """Full resume: parameters, λ, optimizer, schedule step, generator,
-        epoch, best AUC, best epoch and patience."""
+        epoch, best AUC, best epoch and patience; a mid-epoch save's loader
+        position into the train loader."""
         # read to the host: load_state_dict copies onto the parameters'
         # device, and AdamW keeps its step counts on the host
         state, meta = ckpt_lib.restore(path, map_location="cpu")
@@ -334,6 +360,12 @@ class Trainer:
         self.best_val_auc = float(meta.get("best_val_auc", 0.0))
         self.best_epoch = int(meta.get("best_epoch", 0))
         self.patience_counter = int(meta.get("patience_counter", 0))
+        if meta.get("loader_state") and hasattr(self.train_loader,
+                                                "set_state"):
+            # set_epoch is idempotent: train_epoch's own call keeps it
+            self.train_loader.set_epoch(self.current_epoch)
+            self.train_loader.set_state(meta["loader_state"])
+            logger.info("Restored the mid-epoch loader position")
         logger.info(f"Resumed from {path} at epoch {self.current_epoch}")
 
     # ------------------------------------------------------------------

@@ -6,8 +6,11 @@ A checkpoint is a directory named as the JAX package names it
 (:func:`checkpoint_name`: ``checkpoint_epoch_{E}_auc_{AUC:.4f}``, plus a
 ``best_model`` copy) holding one file, ``state.pt``: the state tree (the
 model's fp32 parameters, the criterion's λ, the AdamW state of every
-group, the schedule step, the trainer's generator state) and its metadata
-(epoch, next epoch, best AUC and epoch, patience counter, metrics, config).
+group, the schedule step, the trainer's generator state), its metadata
+(epoch, next epoch, best AUC and epoch, patience counter, metrics, config)
+and, for a mid-epoch save, the train loader's position as bytes
+(``has_loader_state`` in the metadata; one process, so no per-process
+sidecar as the JAX package writes).
 The file is written under a temporary name in the same directory and
 renamed into place, so a process killed mid-write leaves the previous file
 or none, never half of one; ``meta.json`` beside it is a readable copy of
@@ -49,11 +52,15 @@ def _replace_into(path: str, write) -> None:
 
 
 def save(path: str, state: Any, meta: dict,
-         also: tuple[str, ...] = ()) -> None:
-    """Write ``{'state': state, 'meta': meta}`` to ``<path>/state.pt`` (and
-    the same file into each directory of ``also``: a hard link where the
-    file system has them, else a copy)."""
+         also: tuple[str, ...] = (), loader_state: bytes | None = None) -> None:
+    """Write ``{'state': state, 'meta': meta}`` (and ``loader_state`` where
+    given) to ``<path>/state.pt`` (and the same file into each directory of
+    ``also``: a hard link where the file system has them, else a copy)."""
     path = os.path.abspath(path)
+    blob = {"state": state, "meta": meta}
+    if loader_state is not None:
+        meta = blob["meta"] = {**meta, "has_loader_state": True}
+        blob["loader_state"] = bytes(loader_state)
     os.makedirs(path, exist_ok=True)
 
     def write_meta(tmp):
@@ -62,8 +69,7 @@ def save(path: str, state: Any, meta: dict,
 
     _replace_into(os.path.join(path, _META_FILE), write_meta)
     target = os.path.join(path, STATE_FILE)
-    _replace_into(target, lambda tmp: torch.save(
-        {"state": state, "meta": meta}, tmp))
+    _replace_into(target, lambda tmp: torch.save(blob, tmp))
 
     def link(tmp):
         try:
@@ -80,11 +86,15 @@ def save(path: str, state: Any, meta: dict,
 
 
 def restore(path: str, map_location=None) -> tuple[Any, dict]:
-    """``(state, meta)`` from a checkpoint directory."""
+    """``(state, meta)`` from a checkpoint directory; a saved loader
+    position is ``meta['loader_state']`` (bytes)."""
     blob = torch.load(os.path.join(os.path.abspath(path), STATE_FILE),
                       map_location=map_location, weights_only=False)
     logger.info(f"Restored checkpoint from {path}")
-    return blob["state"], blob["meta"]
+    meta = blob["meta"]
+    if "loader_state" in blob:
+        meta = {**meta, "loader_state": blob["loader_state"]}
+    return blob["state"], meta
 
 
 def latest_checkpoint(save_dir: str) -> str | None:

@@ -4,12 +4,15 @@ operating points, error analysis and the served p50 (counterpart of
 ``scripts/evaluate.py``, with its flags).
 
     python scripts/evaluate_torch.py --config <yaml> \\
-        --checkpoint <save_dir>/best_model --dataset synthetic \\
+        --checkpoint <save_dir>/best_model --dataset nih|chexpert|synthetic \\
         [--calibration-frac F] [--device cuda|cpu] [--set key=value ...]
 
 Loads the model from a checkpoint of ``scripts/train_torch.py``
 (``state.pt``, ``gavit_tpu_torch/utils/checkpoint.py``) at dropout 0 in
-``training.precision``, runs the eval forward over the dataset through the
+``training.precision``, runs the eval forward over the dataset (``nih``:
+``data.val_dir`` with ``data.val_labels``; ``chexpert``:
+``data.chexpert_dir`` with ``data.chexpert_labels``, PNG files decoded on
+``data.num_workers`` threads; ``synthetic``) through the
 Hopper kernels on the card, and writes
 ``<save_dir>/evaluation/evaluation_results.json`` with the JAX script's
 keys: ``metrics`` (at 0.5), ``optimal_thresholds`` (Youden's J, in-sample)
@@ -21,8 +24,7 @@ on up to 64 images); with ``--calibration-frac`` the thresholds are fit on
 a held-out split and the battery reported on the rest
 (``calibration``, ``metrics_at_calibrated_thresholds``). The JAX script
 evaluates in fp32; this one in the precision the port trains in. The ROC
-and confusion-matrix PDFs wait for ROADMAP Queue 1 item 8, the NIH and
-CheXpert datasets for item 9.
+and confusion-matrix PDFs wait for ROADMAP Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -87,18 +89,19 @@ def predict(model, dataloader, device) -> tuple[np.ndarray, np.ndarray]:
 def served_latency(config, model, dataset, device) -> tuple[float, dict]:
     """(p50 ms of one image through ``Predictor``, its batch latency stats
     over 10 calls on up to 64 images) with the model's weights."""
+    from gavit_tpu_torch.data.loader import read_batch
     from gavit_tpu_torch.serving import Predictor
     from gavit_tpu_torch.utils.convert import to_flax_tree
 
     pred = Predictor(config, to_flax_tree(model),
                      precision=config.training.precision, device=device)
-    one = dataset.batch([0])[0]
+    one = read_batch(dataset, [0])[0]
     pred.predict_proba(one)  # builds the kernels
     pred._latencies_ms.clear()
     for _ in range(50):
         pred.predict_proba(one)
     p50 = pred.latency_stats()["p50_ms"]
-    probe = dataset.batch(np.arange(min(len(dataset), 64)))[0]
+    probe = read_batch(dataset, np.arange(min(len(dataset), 64)))[0]
     pred.predict_proba(probe)
     pred._latencies_ms.clear()
     for _ in range(10):
@@ -188,13 +191,10 @@ def main(argv=None) -> dict:
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     args = parse_args(argv)
     from gavit_tpu_torch.config import load_config
-    from gavit_tpu_torch.data.dataset import SyntheticChestXrayDataset
+    from gavit_tpu_torch.data.dataset import (ChestXrayDataset,
+                                              SyntheticChestXrayDataset)
     from gavit_tpu_torch.data.loader import DataLoader
 
-    if args.dataset != "synthetic":
-        raise SystemExit(f"evaluate_torch: --dataset {args.dataset} waits for "
-                         "the file datasets of ROADMAP Queue 1 item 9 (use "
-                         "--dataset synthetic)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("evaluate_torch: --device cuda needs a CUDA device "
@@ -204,9 +204,17 @@ def main(argv=None) -> dict:
     save_dir.mkdir(parents=True, exist_ok=True)
     model = load_model(args.checkpoint, config, device)
     d = config.data
-    dataset = SyntheticChestXrayDataset(size=d.synthetic_size,
-                                        image_size=d.image_size)
-    results = evaluate(model, DataLoader(dataset, d.batch_size), device,
+    if args.dataset == "nih":
+        dataset = ChestXrayDataset(d.val_dir, d.val_labels,
+                                   image_size=d.image_size)
+    elif args.dataset == "chexpert":
+        dataset = ChestXrayDataset(d.chexpert_dir, d.chexpert_labels,
+                                   image_size=d.image_size)
+    else:
+        dataset = SyntheticChestXrayDataset(size=d.synthetic_size,
+                                            image_size=d.image_size)
+    loader = DataLoader(dataset, d.batch_size, num_workers=d.num_workers)
+    results = evaluate(model, loader, device,
                        calibration_frac=args.calibration_frac)
     p50, batch = served_latency(config, model, dataset, device)
     results["p50_single_image_latency_ms"] = p50

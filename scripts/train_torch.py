@@ -1,10 +1,22 @@
 #!/usr/bin/env python
-"""Train the PyTorch port (``gavit_tpu_torch``) on the synthetic dataset.
+"""Train the PyTorch port (``gavit_tpu_torch``).
 
     python scripts/train_torch.py --config configs/vit_b16_graph2.yaml \\
-        --synthetic [--resume PATH|auto] [--device cuda|cpu] \\
+        [--synthetic] [--resume PATH|auto] [--device cuda|cpu] \\
         [--set key=value ...]
     python scripts/train_torch.py ... --steps N
+
+The data: the synthetic sets with ``--synthetic`` (or ``data.synthetic``),
+else the NIH ChestX-ray14 splits of ``data.train_dir`` /
+``data.train_labels`` and ``data.val_dir`` / ``data.val_labels``: a
+directory packed by ``scripts/prepare_dataset_torch.py`` (or
+``scripts/prepare_dataset.py``) opens as the packed memmap, any other as
+PNG files decoded on ``data.num_workers`` threads. ``data.loader: grain``
+takes ``data/checkpointable.py``'s loader, GrainLoader's counterpart,
+otherwise the threaded one: the same loader, whose position a SIGTERM
+save keeps, so the resume trains the next unseen batch;
+``data.augment_affine`` adds RandomAffine to the train
+transform.
 
 Builds the model (fp32 parameters from ``training.seed``, computing in
 ``training.precision``; ``model.pretrained_path`` loaded over them where
@@ -13,10 +25,9 @@ DynamicWeightedLoss, the two-group AdamW and its warmup-cosine schedule.
 
 Without ``--steps`` it runs the epoch loop of
 ``gavit_tpu_torch/training/trainer.py``: ``training.epochs`` epochs of the
-synthetic train set in a seeded order (full batches of
-``data.batch_size``, each one optimizer step over
-``training.grad_accum_steps`` micro-batches), validation every
-``eval_freq`` epochs on the synthetic val set, the metric battery,
+train set in a seeded order (full batches of ``data.batch_size``, each
+one optimizer step over ``training.grad_accum_steps`` micro-batches),
+validation every ``eval_freq`` epochs on the val set, the metric battery,
 best-AUC checkpoints under ``paths.save_dir`` (``save_freq`` ones when no
 validation ran), early stopping, and on SIGTERM a mid-epoch checkpoint and
 a clean exit. ``--resume auto`` continues from the latest checkpoint in
@@ -31,9 +42,7 @@ Hopper kernels build on first use. A MoE config
 (``configs/examples/vit_b16_moe.yaml``) trains with its auxiliary loss in
 the objective (``GAVIT_MOE_FUSED=0`` in the environment switches its
 grouped engine from the fused kernels to the unfused one); a config's
-``mesh`` is read and not used: the port runs on one card. Only the
-synthetic data path exists so far (the file datasets wait for ROADMAP
-Queue 1 item 9).
+``mesh`` is read and not used: the port runs on one card.
 """
 
 from __future__ import annotations
@@ -71,6 +80,27 @@ def create_val_dataset(config):
         size=max(d.batch_size, d.synthetic_size // 8),
         image_size=d.image_size, seed=config.training.seed + 1,
         learnable=d.synthetic_learnable)
+
+
+def open_split(config, directory: str, labels: str):
+    """A file split: a packed directory as the memmap, any other as PNG
+    files with their label file."""
+    from gavit_tpu_torch.data.dataset import (ChestXrayDataset,
+                                              PackedChestXrayDataset)
+
+    if PackedChestXrayDataset.is_packed(directory):
+        return PackedChestXrayDataset(directory)
+    return ChestXrayDataset(directory, labels,
+                            image_size=config.data.image_size)
+
+
+def create_datasets(config, synthetic: bool):
+    """(train, val): the synthetic sets, or the config's file splits."""
+    d = config.data
+    if synthetic or d.synthetic:
+        return create_dataset(config), create_val_dataset(config)
+    return (open_split(config, d.train_dir, d.train_labels),
+            open_split(config, d.val_dir, d.val_labels))
 
 
 def load_pretrained(config, model) -> None:
@@ -115,19 +145,21 @@ def build_trainer(config, dataset, device, *, impl: str = "auto",
 def batches(dataset, batch_size: int, seed: int):
     """Endless uint8 batches, a fresh permutation of the dataset per epoch
     (the last partial batch of an epoch is dropped)."""
+    from gavit_tpu_torch.data.loader import read_batch
+
     rng = np.random.default_rng(seed)
     while True:
         order = rng.permutation(len(dataset))
         for start in range(0, len(order) - batch_size + 1, batch_size):
-            yield dataset.batch(order[start:start + batch_size])
+            yield read_batch(dataset, order[start:start + batch_size])
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--config", default="configs/vit_b16_graph2.yaml")
     p.add_argument("--synthetic", action="store_true",
-                   help="train on the synthetic dataset (the only data path "
-                        "ported so far)")
+                   help="train on the synthetic dataset instead of the "
+                        "config's data.train_dir / data.val_dir")
     p.add_argument("--resume", default=None,
                    help="checkpoint directory to resume from ('auto': the "
                         "latest in paths.save_dir)")
@@ -168,38 +200,43 @@ def main(argv=None):
     for note in (mesh_note(config), unused_note(config)):
         if note:
             logger.info(note)
-    if not (args.synthetic or config.data.synthetic):
-        raise SystemExit("train_torch: only --synthetic data is ported so far "
-                         "(the image-folder loader waits for ROADMAP Queue 1 "
-                         "item 9)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("train_torch: --device cuda needs a CUDA device and "
                          "this PyTorch sees none (use --device cpu)")
-    dataset = create_dataset(config)
-    bs = config.data.batch_size
+    d = config.data
+    bs = d.batch_size
     tr = config.training
     what = (f"training {config.model.name} ({tr.precision}) on {device}, "
             f"batch {bs}" + (f" as {tr.grad_accum_steps} micro-batches"
                              if tr.grad_accum_steps > 1 else ""))
     if args.steps is not None:
+        dataset = (create_dataset(config) if args.synthetic or d.synthetic
+                   else open_split(config, d.train_dir, d.train_labels))
         trainer = build_trainer(config, dataset, device)
         logger.info(f"{what}, {args.steps} steps")
         run_steps(trainer, dataset, config, args.steps)
         return trainer
 
+    from gavit_tpu_torch.data.checkpointable import CheckpointableLoader
     from gavit_tpu_torch.data.loader import DataLoader
     from gavit_tpu_torch.utils import checkpoint as ckpt_lib
     from gavit_tpu_torch.utils import wandb_compat
+    from gavit_tpu_torch.utils.custom_logging import log_dataset_info
 
     for path in (config.paths.save_dir, config.paths.log_dir):
         Path(path).mkdir(parents=True, exist_ok=True)
     run = wandb_compat.init(config, log_dir=config.paths.log_dir)
     try:
-        val_ds = create_val_dataset(config)
-        train_loader = DataLoader(dataset, bs, shuffle=True, drop_last=True,
-                                  seed=tr.seed)
-        val_loader = DataLoader(val_ds, bs)
+        dataset, val_ds = create_datasets(config, args.synthetic)
+        log_dataset_info(dataset, val_ds)
+        # "grain": GrainLoader's counterpart, which is the threaded loader
+        loader = CheckpointableLoader if d.loader == "grain" else DataLoader
+        # batches pinned on the loaders' lookahead threads for a card
+        kw = dict(num_workers=d.num_workers, pin_memory=device.type == "cuda")
+        train_loader = loader(dataset, bs, shuffle=True, drop_last=True,
+                              seed=tr.seed, **kw)
+        val_loader = loader(val_ds, bs, **kw)
         trainer = build_trainer(config, dataset, device,
                                 train_loader=train_loader,
                                 val_loader=val_loader, wandb_run=run)

@@ -200,12 +200,12 @@ def test_train_cli_refuses_an_existing_pretrained_path(tmp_path):
     ({"log_grad_norm": True, "steps_per_call": 2}, []),
     ({"log_grad_norm": False, "steps_per_call": 1}, []),
     ({"prng_impl": "threefry2x32"}, ["training.prng_impl=threefry2x32"]),
-    ({"prng_impl": "rbg", "data_loader": "grain"},
-     ["data.loader=grain"]),
+    ({"prng_impl": "rbg", "data_loader": "grain"}, []),
 ], ids=["defaults", "grad_norm", "steps_per_call", "both", "defaults_set",
         "prng_impl", "loader"])
 def test_unused_note_names_each_field_set(training, named):
-    """log_grad_norm and steps_per_call are taken now: never named."""
+    """log_grad_norm, steps_per_call and data.loader (grain: the
+    checkpointable loader) are taken now: never named."""
     training = dict(training)
     data = {"loader": training.pop("data_loader")} \
         if "data_loader" in training else {}
@@ -223,22 +223,22 @@ def test_unused_note_names_each_field_set(training, named):
 
 
 def test_train_cli_logs_the_unused_note(caplog):
-    """The CLI takes log_grad_norm (the step line shows the norm) and
-    steps_per_call without naming them, and logs the note for a field the
-    port does not use."""
+    """The CLI takes log_grad_norm (the step line shows the norm),
+    steps_per_call and data.loader without naming them, and logs the note
+    for a field the port does not use."""
     caplog.set_level("INFO")
     trainer = _train_main()(
         [*TINY, "--set", "training.log_grad_norm=true", "--set",
-         "training.steps_per_call=2"])
+         "training.steps_per_call=2", "--set", "data.loader=grain"])
     assert trainer.step == 1  # --steps: one step a call, as before
     assert not [r for r in caplog.records
                 if "read and not used" in r.getMessage()]
     assert [r for r in caplog.records if "grad norm" in r.getMessage()]
     caplog.clear()
-    _train_main()([*TINY, "--set", "data.loader=grain"])
+    _train_main()([*TINY, "--set", "training.prng_impl=threefry2x32"])
     lines = [r.getMessage() for r in caplog.records
              if "read and not used" in r.getMessage()]
-    assert len(lines) == 1 and "data.loader=grain" in lines[0]
+    assert len(lines) == 1 and "training.prng_impl=threefry2x32" in lines[0]
     caplog.clear()
     _train_main()(TINY)
     assert not [r for r in caplog.records

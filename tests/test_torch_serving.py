@@ -223,7 +223,10 @@ def test_port_never_imports_jax(tmp_path):
     dense engine, which ``impl: auto`` picks at this size; then the epoch
     loop with accumulation and the static graph (validation, metrics,
     checkpoints), ``--resume auto`` for one more epoch, and the evaluate
-    CLI on its best checkpoint."""
+    CLI on its best checkpoint; then the file path: PNGs packed by the
+    port's packer, an epoch from the pack with RandomAffine through the
+    checkpointable loader and the PNGs as the val split, and the evaluate
+    CLI on them as ``--dataset nih``."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
             "--set", "model.embed_dim=64", "--set", "model.depth=2",
             "--set", "model.num_heads=2", "--set", "data.image_size=32",
@@ -277,6 +280,30 @@ def test_port_never_imports_jax(tmp_path):
         f"'--dataset', 'synthetic', '--device', 'cpu', *{tiny!r}, '--set', "
         f"'model.graph.dynamic=false', '--set', 'paths.save_dir={tmp_path}'])\n"
         "assert res['p50_single_image_latency_ms'] > 0\n"
+        "from PIL import Image\n"
+        f"png = {str(tmp_path / 'png')!r}\n"
+        "import os; os.makedirs(png)\n"
+        "rows = []\n"
+        "for i in range(8):\n"
+        "    Image.fromarray(np.full((40, 40), 30 * i, np.uint8)).save("
+        "f'{png}/{i}.png')\n"
+        "    rows.append(f'{i}.png ' + ' '.join([str(i % 2)] * 14))\n"
+        "open(f'{png}/list.txt', 'w').write('\\n'.join(rows))\n"
+        f"pack = runpy.run_path({str(ROOT / 'scripts' / 'prepare_dataset_torch.py')!r})\n"
+        "pack['main'](['--image-dir', png, '--labels', f'{png}/list.txt', "
+        f"'--out', {str(tmp_path / 'packed')!r}, '--image-size', '32'])\n"
+        f"files = [*{tiny!r}, '--set', "
+        f"'data.train_dir={tmp_path / 'packed'}', '--set', 'data.val_dir=' + png, "
+        "'--set', f'data.val_labels={png}/list.txt', '--set', "
+        "'data.augment_affine=true', '--set', 'data.loader=grain', '--set', "
+        f"'paths.save_dir={tmp_path / 'files'}', '--device', 'cpu']\n"
+        "tr = train['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        "*files, '--set', 'training.epochs=1'])\n"
+        "assert tr.step == 4, tr.step\n"
+        "res = evaluate['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--checkpoint', '{tmp_path / 'files' / 'best_model'}', "
+        "'--dataset', 'nih', *files])\n"
+        "assert np.isfinite(res['metrics']['mean_auc'])\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'gavit_tpu')]\n"
         "assert not bad, bad\n"

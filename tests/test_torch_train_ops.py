@@ -159,5 +159,14 @@ def test_train_preprocess_matches_jax():
     hi = (1 - np.array(tpre.IMAGENET_MEAN)) / np.array(tpre.IMAGENET_STD)
     assert x.shape == (6, 32, 32, 3) and x.dtype == torch.float32
     assert (x.numpy() >= lo - 1e-6).all() and (x.numpy() <= hi + 1e-6).all()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tpre.train_preprocess(torch.from_numpy(imgs), gen, use_affine=True)
+    # with RandomAffine: in range (zero fill normalises to the bottom of
+    # it), and not the transform without it from the same generator state
+    warped = tpre.train_preprocess(torch.from_numpy(imgs),
+                                   torch.Generator().manual_seed(0),
+                                   use_affine=True)
+    plain = tpre.train_preprocess(torch.from_numpy(imgs),
+                                  torch.Generator().manual_seed(0))
+    assert warped.shape == (6, 32, 32, 3) and warped.dtype == torch.float32
+    assert (warped.numpy() >= lo - 1e-6).all()
+    assert (warped.numpy() <= hi + 1e-6).all()
+    assert not torch.equal(warped, plain)

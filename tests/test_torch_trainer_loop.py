@@ -18,8 +18,9 @@ kNN graph block with k=4 and its gate at 0.5).
   uint8 augmentation on;
 * early stopping, best and periodic checkpoint names as
   ``checkpoint_name`` gives them, and a pre-armed preemption handler
-  (a mid-epoch save marked incomplete, replayed on resume);
-* ``scripts/evaluate_torch.py`` writing the JAX script's keys;
+  (a mid-epoch save marked incomplete, resumed on the next unseen batch);
+* ``scripts/evaluate_torch.py`` writing the JAX script's keys, on the
+  synthetic set and on a PNG split (``--dataset nih``);
 * the 12-step loss trajectory of ``Trainer.train_step`` against
   ``tests/torch_ref.py::TorchRefTrainer`` (the reference's update rule),
   as tests/test_trajectory_parity.py runs it for the JAX Trainer.
@@ -291,8 +292,8 @@ def test_early_stopping_and_checkpoint_names(tmp_path):
 
 def test_preempted_run_saves_an_incomplete_checkpoint(tmp_path):
     """A pre-armed handler: train() stops after the first step, saves a
-    checkpoint marked incomplete and returns; resumed, it replays epoch 0
-    and trains to the epoch count."""
+    checkpoint marked incomplete, with the loader's position, and returns;
+    resumed, it trains the rest of epoch 0 and then to the epoch count."""
     train_ds, val_ds = _uint8_sets()
     cfg = from_dict(raw_cfg(tmp_path, epochs=2))
     tr = port_trainer(cfg, train_ds, val_ds)
@@ -310,7 +311,7 @@ def test_preempted_run_saves_an_incomplete_checkpoint(tmp_path):
     tr.restore_checkpoint(latest)
     assert tr.current_epoch == 0 and tr.step == 1
     tr.train()
-    assert len(tr.train_metrics_history) == 2 and tr.step == 1 + 2 * 3
+    assert len(tr.train_metrics_history) == 2 and tr.step == 3 + 3
 
 
 def test_evaluate_cli_writes_the_jax_scripts_keys(tmp_path, monkeypatch):
@@ -344,10 +345,26 @@ def test_evaluate_cli_writes_the_jax_scripts_keys(tmp_path, monkeypatch):
     assert np.isfinite(on_disk["metrics"]["mean_auc"])
     assert on_disk["p50_single_image_latency_ms"] > 0
     assert res["metrics"] == on_disk["metrics"]
-    with pytest.raises(SystemExit, match="item 9"):
-        evaluate_torch.main(["--config", "configs/vit_b16_graph2.yaml",
-                             "--checkpoint", "x", "--dataset", "nih",
-                             "--device", "cpu"])
+    # --dataset nih: the PNG split of data.val_dir and data.val_labels
+    from PIL import Image
+
+    rng = np.random.default_rng(0)
+    lines = []
+    for i in range(10):
+        Image.fromarray(rng.integers(0, 256, (40, 40), np.uint8)).save(
+            tmp_path / f"{i}.png")
+        row = np.full(14, float(i % 2))
+        lines.append(f"{i}.png " + " ".join(f"{v:.0f}" for v in row))
+    (tmp_path / "val.txt").write_text("\n".join(lines) + "\n")
+    res = evaluate_torch.main([
+        "--config", str(config), "--checkpoint",
+        str(tmp_path / "ckpt" / "best_model"), "--dataset", "nih",
+        "--device", "cpu", "--set", f"data.val_dir={tmp_path}", "--set",
+        f"data.val_labels={tmp_path / 'val.txt'}"])
+    on_disk = json.loads(out.read_text())
+    assert np.isfinite(on_disk["metrics"]["mean_auc"])
+    assert res["metrics"] == on_disk["metrics"]
+    assert "calibration" not in on_disk
 
 
 def test_loss_trajectory_matches_the_reference_update_rule():
