@@ -57,7 +57,23 @@ before the last line:
    Predictor; the kernels' launch counters, zeroed just before, must show
    that the requests went through every serving kernel; the 512- and
    1024-px Predictors (buckets 1 and 8, 1 and 4) against their plain
-   versions, with the launches of their warm-up;
+   versions, with the launches of their warm-up; then ``serve_quant``:
+   the int8 GEMM (cuBLASLt through ``torch._int_mm``) at every quantised
+   site's shape at b1, b8 and b64 bit-equal to its plain version; the
+   224-px int8 ``Predictor`` calibrated on 8 images, warmed over buckets
+   1/8/64 (A, C and the int8 GEMMs counted, never B), against the same
+   Predictor on the plain versions under the same scales and against the
+   bf16 one, its rerun bit-equal; ToMe at r = 8 in bf16 (A, B, C) and
+   int8 (A, C, int8 GEMMs) against the plain versions, ``tome_forward``
+   at r = 0 bit-equal to the model; the b1 p50 and b64 images/s of each;
+   and, after the 224-px training phase, QAT (``training.qat=true``) at
+   b128, 3 steps against the plain versions on the same scales (A, A′, C,
+   H, H′, F; never D or D′), its checkpoint served by
+   ``scripts/serve_torch.py --checkpoint ... --precision int8
+   --coalesce-ms 2 --max-queue-rows 64`` in a process of its own:
+   concurrent requests against the in-process Predictor, ``/metrics``,
+   one 503 with Retry-After, one 413, and SIGTERM (exit 0, ``shutdown
+   complete``), under ``build/chip_serve/``, removed at its end;
 6. train: each configuration through ``scripts/train_torch.py``'s trainer
    (preprocess → forward with dropout 0.1 → loss → backward → AdamW),
    vit_b16_graph2 and the MoE model at batch 128 (the MoE objective with
@@ -194,6 +210,21 @@ BIAS_REL_TOL = 1e-3  # D′'s fp32 bias gradients: summation order only
 DROP_RATE = 0.1
 TRAIN_BATCH = 128
 LOSS_REL_TOL = 2e-2  # per-step loss, kernels vs plain versions, bf16
+# the plain versions' int8 forward against the kernels' (PinnedCodes), as
+# (codes apart, share of rows, share of codes): a quantised site's input
+# may lie this many codes (units of its act scale) from the kernels', a
+# bf16 rounding or two at the top of the range; this share of the graph
+# projections' token rows may take another kNN neighbour set (a near-tie
+# between kernel C's similarities and the plain version's); and this share
+# of all codes may differ, where an input sits on a rounding boundary.
+# Measured on vit_b16_graph2, the int8 Predictor at b64 and the QAT step
+# at b128 (NVIDIA H100 80GB HBM3): at most 0.894 codes, 1 row of the two
+# projections' 25,088 and 2.3e-6 of the codes
+PIN_BOUNDS = (2.0, 1e-3, 1e-4)
+# the same in a QAT step after the two trainers' first different update:
+# their weights differ by bf16 roundings of it, and so do more inputs
+# (measured 1.910 codes, 322 rows of 50,176, 1.7e-3 of the codes)
+PIN_BOUNDS_UPDATED = (4.0, 2e-2, 1e-2)
 GRAD_COSINE = 0.99  # each parameter's first gradient, kernels vs plain
 # L's fp32 log-sum-exp: the same terms summed in another order (the online
 # softmax over 64-key tiles against one pass over the row), up to 4097 keys
@@ -212,6 +243,8 @@ AFFINE_TOL = 1e-5
 # the H100 SXM's published dense peaks (the bound of each kernel's work)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores (TF32 stays off)
+PEAK_INT8_OPS = 1979e12
 # exponentials an SM's special-function units issue a clock (ex2, fp32)
 SFU_EX2_PER_CLOCK = 16
 
@@ -1436,6 +1469,113 @@ class PinnedRouting:
         return vals, pinned, aux
 
 
+class PinnedCodes:
+    """The int8 counterpart of :class:`PinnedRouting`: records the input of
+    every quantised site of ``auto`` (the kernels' model) at each of its
+    calls and, in the same calls of ``plain`` (the plain versions' model,
+    on the same scales), compares its own input there with the recorded one
+    in codes, units of the site's act scale, each clipped to ±127.
+
+    Rounding to int8 is discontinuous: a bf16 rounding the kernels place
+    otherwise moves a code, and a moved code moves everything after it
+    (the CPU tests count 6% of codes between the port and the JAX
+    package). So where the codes differ and the inputs lie within the
+    bound's distance (``PIN_BOUNDS``), the plain forward takes the
+    recorded value (the gradient still flows through its own input), and
+    the comparison after it holds the arithmetic. A kNN neighbour set decided
+    by a near-tie may go either way between the kernel's similarities and
+    the plain version's, and changes that token's row of the graph
+    projection's input outright: such rows are taken whole and counted, as
+    :class:`PinnedRouting` takes expert choices. Any other input farther
+    away is left as it is and fails :meth:`check`.
+
+    Every kernel of the quantised paths writes into a quantised site (A
+    into the attention projection, C into the graph projection, H into fc2,
+    F into the residual that qkv, fc1 or the head reads next), so
+    :meth:`check` holds each kernel's output to the plain version's at the
+    scale the model quantises it to: a wrong kernel moves inputs by more
+    than a rounding, or moves more codes or rows than rounding does."""
+
+    def __init__(self, auto, plain):
+        from gavit_tpu_torch.utils.convert import quant_sites
+
+        self.hooks = [mod.register_forward_pre_hook(
+            functools.partial(self.record, path))
+            for path, mod in quant_sites(auto).items()]
+        self.hooks += [mod.register_forward_pre_hook(
+            functools.partial(self.replay, path))
+            for path, mod in quant_sites(plain).items()]
+        self.recorded, self.i = {}, {}
+        # per replayed forward: {path: [codes taken, codes, far, kNN rows
+        # taken, rows, largest distance in codes]}
+        self.sites, self.bounds = [], []
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+    def start_record(self):
+        self.recorded = {}
+
+    def start_replay(self, bounds=PIN_BOUNDS):
+        """The next forward of ``plain`` replays, held to ``bounds``
+        (``PIN_BOUNDS``' layout)."""
+        self.i = {}
+        self.sites.append({})
+        self.bounds.append(bounds)
+
+    def record(self, path, mod, args):
+        self.recorded.setdefault(path, []).append(args[0].detach().clone())
+
+    def replay(self, path, mod, args):
+        import torch
+
+        i = self.i[path] = self.i.get(path, -1) + 1
+        x, want = args[0], self.recorded[path][i]
+
+        def codes(v):
+            return torch.clamp(v.detach().float() / mod.act_scale, -127, 127)
+        u, v = codes(x), codes(want)
+        gap = (u - v).abs()
+        far = gap > self.bounds[-1][0]
+        take = (torch.round(u) != torch.round(v)) & ~far
+        rows = torch.zeros_like(far[..., :0])
+        if path.startswith("graph_") and path.endswith("/proj"):
+            rows = far.any(-1, keepdim=True)
+            take, far = take | rows, far & ~rows
+            gap = gap.masked_fill(rows, 0.0)
+        site = self.sites[-1].setdefault(path, [0, 0, 0, 0, 0, 0.0])
+        for j, n in enumerate((take.sum(), take.numel(), far.sum(),
+                               rows.sum(), rows.numel())):
+            site[j] += int(n)
+        site[5] = max(site[5], float(gap.max()))
+        # the recorded value exactly, the gradient through x
+        return (torch.where(take, want + (x - x.detach()), x),)
+
+    def check(self, i):
+        """``(ok, text)`` of the ``i``-th replayed forward against its
+        bounds: no input farther from the kernels' than the bound outside
+        the kNN rows taken, and at most the bounds' shares of the graph
+        projections' rows and of all codes taken."""
+        sites, (gap_tol, row_frac, code_frac) = self.sites[i], self.bounds[i]
+        taken, codes, far, rows, n_rows = (
+            sum(s[j] for s in sites.values()) for j in range(5))
+        gap = max(s[5] for s in sites.values())
+        knn = [p for p, s in sites.items() if s[3]]
+        ok = (far == 0 and rows <= row_frac * n_rows
+              and taken <= code_frac * codes)
+        return ok, (
+            f"{taken} of {codes} int8 codes taken from the kernels' inputs "
+            f"(at most {code_frac:.0e}), {rows} of {n_rows} graph-projection "
+            f"rows among them (a kNN set on a near-tie; at most "
+            f"{row_frac:.0e}{': ' + ', '.join(knn) if knn else ''}); "
+            f"inputs elsewhere at most {gap:.3f} codes apart, {far} past "
+            f"{gap_tol}")
+
+
 def phase_slice(cfg, weights, dev, name, n_images=8, expect=None,
                 ref_cfg=None):
     """The bf16 forward of ``n_images`` through the kernels against the
@@ -1530,6 +1670,12 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
 def expected(nonzero: dict) -> dict:
     """Every counter at 0 but those named."""
     return {k: nonzero.get(k, 0) for k in COUNTERS}
+
+
+def expected_quant(nonzero: dict) -> dict:
+    """:func:`expected` and the int8 GEMM's calls (``int8``), which no
+    kernel row carries: the JAX package leaves that GEMM to XLA."""
+    return {**expected(nonzero), "int8": nonzero.get("int8", 0)}
 
 
 def reset_counts():
@@ -1627,6 +1773,475 @@ def phase_serve(cfg, weights, dev):
     return predictor, reference, counts
 
 
+# (K, N) of every int8 GEMM of vit_b16_graph2: the patch projection and
+# the graph blocks' value and projection (768, 768) on b·196 rows, qkv
+# (768, 2304), the attention projection (768, 768), fc1 (768, 3072) and fc2
+# (3072, 768) on b·197, the head (768, 14) on b
+INT8_SITES = ((768, 768), (768, 2304), (768, 3072), (3072, 768), (768, 14))
+SERVE_QUANT_BUCKETS = (1, 8, 64)
+TOME_R = 8
+SERVE_DIR = ROOT / "build" / "chip_serve"
+
+
+def check_int8_gemm(dev):
+    """The int8 GEMM (cuBLASLt through ``torch._int_mm``, zero-padded where
+    it refuses a shape) at every site's shape at b1, b8 and b64 against the
+    plain float64 sum, bit for bit, and the static product's fp32 output
+    bit for bit."""
+    import torch
+
+    from gavit_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cases = 0
+    for k, n in INT8_SITES:
+        w_q = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                            dtype=torch.int8)
+        w_scale = torch.rand(1, n, device=dev, generator=g) * 1e-3
+        for b in SERVE_QUANT_BUCKETS:
+            for m in ([b] if n == 14 else [b * N_TOKENS, b * (N_TOKENS - 1)]):
+                xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                                   dtype=torch.int8)
+                same = torch.equal(Q.int8_mm(xq, w_q),
+                                   Q.int8_mm_reference(xq, w_q))
+                x = torch.randn(m, k, device=dev, generator=g).to(
+                    torch.bfloat16)
+                s = torch.tensor(0.02, device=dev)
+                same = same and torch.equal(
+                    Q.static_int8_matmul(x, w_q, w_scale, s),
+                    Q.static_int8_matmul(x, w_q, w_scale, s,
+                                         impl="reference"))
+                torch.cuda.synchronize()
+                if not same:
+                    raise AssertionError(f"int8 GEMM M={m} K={k} N={n}: "
+                                         "not bit-equal to the plain sum")
+                cases += 1
+    log(f"[serve_quant] int8 GEMM at {cases} shapes (every site, b1/b8/b64, "
+        f"the head's N = 14 and M ≤ 16 padded): int32 sums and static "
+        f"products bit-equal to the plain versions ok")
+
+
+def phase_quant_times(dev, card, batch: int = 64):
+    """At the b64 serving shapes, each alone on the device (20 launches
+    between two events): the int8 GEMM of each site (cuBLASLt through
+    ``torch._int_mm``; the JAX package leaves it to XLA, so it is a
+    library row) against the same product in bf16 (``F.linear``) and its
+    bound, and one whole static-int8 site (quantise, GEMM, rescale, cast,
+    bias) against the bf16 ``F.linear`` with its bias; then kernels A, B
+    and C at the token counts ToMe at r = 8 leaves (A and B at N = 197,
+    149, 109: the first, seventh and last block; C at 196 patches and at
+    the graph blocks' 164 and 132), each beside its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import graph_ops as G
+    from gavit_tpu_torch.ops import mlp as M
+    from gavit_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 9)
+    bf = torch.bfloat16
+    total = {"int8": 0.0, "bf16": 0.0, "bound": 0.0}
+    # (K, N, rows, calls a forward) of every site at b64
+    rows_b, rows_p = batch * N_TOKENS, batch * (N_TOKENS - 1)
+    sites = ((768, 768, rows_p, 5), (768, 2304, rows_b, 12),
+             (768, 768, rows_b, 12), (768, 3072, rows_b, 12),
+             (3072, 768, rows_b, 12), (768, 14, batch, 1))
+    for k, n, m, calls in sites:
+        xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        w_q = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                            dtype=torch.int8)
+        x = torch.randn(m, k, device=dev, generator=g).to(bf)
+        w = torch.randn(n, k, device=dev, generator=g).to(bf)
+        ki = device_ms(lambda: Q.int8_mm(xq, w_q))
+        kb = device_ms(lambda: F.linear(x, w))
+        bms, by = bound(2 * m * k * n, m * k + k * n + 4 * m * n,
+                        PEAK_INT8_OPS)
+        for key, val in (("int8", ki), ("bf16", kb), ("bound", bms)):
+            total[key] += calls * val
+        log(f"[time] int8 GEMM (cuBLASLt, torch._int_mm) M={m} K={k} N={n} "
+            f"alone: {ki:.4f} ms, bf16 F.linear {kb:.4f} ms, bound "
+            f"{bms:.4f} ms "
+            f"({by}, int8 at {PEAK_INT8_OPS / 1e12:.0f} TOP/s, int32 out) "
+            f"({card})")
+    log(f"[time] int8 GEMMs of one b{batch} forward (54 calls): "
+        f"{total['int8']:.4f} ms against bf16 {total['bf16']:.4f} ms, bound "
+        f"{total['bound']:.4f} ms ({card})")
+    # one whole fc1 site: the quantise pass, the GEMM, the rescale, the
+    # cast and the bias, against bf16 F.linear with its bias
+    x = torch.randn(rows_b, DIM, device=dev, generator=g).to(bf)
+    w_q = torch.randint(-127, 128, (HIDDEN, DIM), device=dev, generator=g,
+                        dtype=torch.int8)
+    w_scale = torch.rand(1, HIDDEN, device=dev, generator=g) * 1e-3
+    bias = torch.randn(HIDDEN, device=dev, generator=g).to(bf)
+    s = torch.tensor(0.02, device=dev)
+    w = torch.randn(HIDDEN, DIM, device=dev, generator=g).to(bf)
+    site = device_ms(lambda: Q.static_int8_matmul(x, w_q, w_scale, s)
+                     .to(bf) + bias)
+    lin = device_ms(lambda: F.linear(x, w, bias))
+    log(f"[time] one static-int8 fc1 site at M={rows_b} (quantise, GEMM, "
+        f"rescale, cast, bias) alone: {site:.4f} ms, bf16 F.linear with its "
+        f"bias {lin:.4f} ms ({card})")
+
+    # ToMe's shapes
+    scale = HEAD_DIM ** -0.5
+    for n in (N_TOKENS, N_TOKENS - 6 * TOME_R, N_TOKENS - 11 * TOME_R):
+        qkv = torch.randn(batch, n, 3 * DIM, device=dev, generator=g).to(bf)
+        ka = device_ms(lambda: A.qkv_attention_kernel(qkv, scale, HEADS))
+        ams, aby = bound(4 * batch * HEADS * n * n * HEAD_DIM,
+                         4 * batch * n * DIM * 2)
+        m = batch * n
+        args = (torch.randn(m, DIM, device=dev, generator=g).to(bf),
+                *(t.to(bf) for t in (
+                    torch.randn(HIDDEN, DIM, device=dev, generator=g) * 0.02,
+                    torch.zeros(HIDDEN, device=dev),
+                    torch.randn(DIM, HIDDEN, device=dev, generator=g) * 0.02,
+                    torch.zeros(DIM, device=dev))))
+        kb = device_ms(lambda: M.mlp_inference_kernel(*args, True))
+        bms, bby = bound(4 * m * DIM * HIDDEN,
+                         (2 * m * DIM + 2 * DIM * HIDDEN + HIDDEN + DIM) * 2)
+        log(f"[time] ToMe r={TOME_R} shapes at b{batch} N={n}, alone: A "
+            f"{ka:.4f} ms "
+            f"(bound {ams:.4f}, {aby}), B at M={m} {kb:.4f} ms (bound "
+            f"{bms:.4f}, {bby}) ({card})")
+    for n in (N_TOKENS - 1, N_TOKENS - 4 * TOME_R - 1,
+              N_TOKENS - 8 * TOME_R - 1):
+        t, v = (torch.randn(batch, n, DIM, device=dev, generator=g).to(bf)
+                for _ in range(2))
+        kc = device_ms(lambda: G.graph_aggregate_kernel(t, v, "knn", 8, 0.0,
+                                                        1.0))
+        cms, cby = bound(4 * batch * n * n * DIM, 3 * batch * n * DIM * 2)
+        log(f"[time] ToMe r={TOME_R} shapes at b{batch}, alone: C knn at {n} "
+            f"patches "
+            f"{kc:.4f} ms (bound {cms:.4f}, {cby}) ({card})")
+
+
+def imgs_per_s(predictor, n: int = 64, calls: int = 10) -> float:
+    """Images/s of ``predict_proba`` on ``n`` images, median of ``calls``."""
+    import numpy as np
+
+    s = predictor.image_size
+    imgs = np.random.default_rng(SEED + 6).integers(0, 256, (n, s, s, 3),
+                                                    np.uint8)
+    for _ in range(3):
+        predictor.predict_proba(imgs)
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        predictor.predict_proba(imgs)
+        times.append(time.perf_counter() - t0)
+    return n / statistics.median(times)
+
+
+def phase_serve_quant(cfg, weights, dev, card):
+    """int8 and ToMe serving of vit_b16_graph2 at 224 px: the int8
+    ``Predictor`` calibrated on 8 images, warmed over buckets 1/8/64 (its
+    launches counted), against the same Predictor on the plain versions
+    under the same scales and against the bf16 one; ToMe at r = 8 in bf16
+    and int8 against the plain versions, with the launches of one b64
+    forward; ``tome_forward`` at r = 0 bit-equal to the model; the b1 p50
+    and b64 images/s of bf16, int8 and ToMe r = 8."""
+    import numpy as np
+    import torch
+
+    from gavit_tpu_torch.models.tome import tome_forward
+    from gavit_tpu_torch.ops import quant as Q
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+    from gavit_tpu_torch.utils.convert import quant_state
+
+    check_int8_gemm(dev)
+    depth = cfg.model.depth
+    n_graph = len(set(cfg.model.graph_insert_after()))
+    sites = 2 + 4 * depth + 2 * n_graph  # int8 GEMMs a forward
+    s = cfg.data.image_size
+    rng = np.random.default_rng(SEED + 3)
+    calib = rng.integers(0, 256, (8, s, s, 3), np.uint8)
+    imgs = rng.integers(0, 256, (64, s, s, 3), np.uint8)
+
+    def make(precision, impl="auto", tome_r=0):
+        return Predictor(cfg, weights, precision=precision, device=dev,
+                         buckets=SERVE_QUANT_BUCKETS, impl=impl,
+                         tome_r=tome_r)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_counts()
+        Q.INT8_MM_LAUNCHES = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {**read_counts(), "int8": Q.INT8_MM_LAUNCHES}
+
+    def held(name, pred, plain, counts, expect):
+        """``pred``'s b64 probabilities (launches ``counts``) against the
+        plain-version ``plain``'s; int8 ones on the kernels' codes."""
+        int8 = pred.model.quant == "int8"
+        pin = (PinnedCodes(pred.model, plain.model) if int8
+               else contextlib.nullcontext())
+        with pin:
+            if int8:
+                pin.start_record()
+            got = pred.predict_proba(imgs)
+            if int8:
+                pin.start_replay()
+            want = plain.predict_proba(imgs)
+        err = float(np.abs(got - want).max())
+        want_counts = expected_quant(expect)
+        ok = (np.isfinite(got).all() and err <= PROB_TOL
+              and counts == want_counts)
+        pinned = ""
+        if int8:
+            pin_ok, text = pin.check(0)
+            ok = ok and pin_ok
+            pinned = f", the plain forward on the kernels' codes: {text}"
+        log(f"[serve_quant] {name}: max |dp| vs the plain versions "
+            f"{err:.3e} (tol {PROB_TOL:.0e}){pinned}; launches of one "
+            f"forward " + ", ".join(f"{k} {v}" for k, v in counts.items()
+                                   if v)
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{name}: {err}, launches {counts} "
+                                 f"(expected {want_counts}){pinned}")
+        return got
+
+    int8 = make("int8")
+    int8.calibrate(calib)
+    state = quant_state(int8.model)
+    nb = len(SERVE_QUANT_BUCKETS)
+    _, counts = counted(int8.warmup)
+    want = {"A": depth * nb, "C": n_graph * nb, "int8": sites * nb}
+    held_counts = expected_quant(want)
+    log(f"[serve_quant] int8 Predictor calibrated on 8 images, warm-up over "
+        f"buckets {SERVE_QUANT_BUCKETS}: launches "
+        + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+        + f" {'ok' if counts == held_counts else 'FAIL'}")
+    if counts != held_counts:
+        raise AssertionError(f"int8 warm-up launches {counts}, expected "
+                             f"{held_counts}")
+    ref = make("int8", "reference")
+    ref.use_quant_state(state)
+    bf16 = make("bf16")
+    _, counts = counted(lambda: int8.predict_proba(imgs))
+    got = held("int8 Predictor b64", int8, ref, counts,
+               {"A": depth, "C": n_graph, "int8": sites})
+    rerun = int8.predict_proba(imgs)
+    dev_bf16 = float(np.abs(got - bf16.predict_proba(imgs)).max())
+    log(f"[serve_quant] int8 rerun bit-equal "
+        f"{'ok' if np.array_equal(rerun, got) else 'FAIL'}; int8 vs bf16 "
+        f"Predictor max |dp| {dev_bf16:.4f} (recorded)")
+    if not np.array_equal(rerun, got):
+        raise AssertionError("the int8 Predictor's rerun differs")
+    del ref
+
+    # ToMe at r = 8: blocks at 197, 189, ..., 109 tokens
+    x = val_preprocess(torch.from_numpy(imgs[:8]).to(dev))
+    with torch.inference_mode():
+        same = torch.equal(tome_forward(bf16.model, x, 0), bf16.model(x))
+    log(f"[serve_quant] tome_forward r=0 bit-equal to the model "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("tome_forward at r=0 differs from the model")
+    tome = make("bf16", tome_r=TOME_R)
+    _, counts = counted(lambda: tome.predict_proba(imgs))
+    held(f"ToMe r={TOME_R} bf16 b64", tome, make("bf16", "reference", TOME_R),
+         counts, {"A": depth, "B": depth, "C": n_graph})
+    tome8 = make("int8", tome_r=TOME_R)
+    tome8.use_quant_state(state)
+    tref = make("int8", "reference", TOME_R)
+    tref.use_quant_state(state)
+    _, counts = counted(lambda: tome8.predict_proba(imgs))
+    held(f"ToMe r={TOME_R} int8 b64", tome8, tref, counts,
+         {"A": depth, "C": n_graph, "int8": sites})
+    del tref
+    phase_quant_times(dev, card)
+    for name, pred in (("bf16", bf16), ("int8", int8),
+                       (f"ToMe r={TOME_R} bf16", tome),
+                       (f"ToMe r={TOME_R} int8", tome8)):
+        log(f"[time] Predictor {name} at {s} px: b1 p50 "
+            f"{p50_ms(pred):.3f} ms over 50 calls, b64 "
+            f"{imgs_per_s(pred):.1f} images/s ({card})")
+
+
+def phase_qat_serve(dev, card):
+    """QAT: vit_b16_graph2 with ``training.qat=true`` at b128, 3 steps
+    through the kernels against 3 through the plain versions on the same
+    scales (the launches of one step: A, A′, C, H, H′ and F, never D or
+    D′), its checkpoint written, then served by ``scripts/serve_torch.py
+    --checkpoint ... --precision int8 --coalesce-ms 2 --max-queue-rows 64``
+    in a process of its own: concurrent requests against the in-process
+    Predictor on that checkpoint, ``/metrics``, one 503 (65 rows while
+    others are pending) and one 413 (a Content-Length past the default
+    128 MB), then SIGTERM: exit 0 and ``shutdown complete``."""
+    import shutil
+    import socket
+
+    import numpy as np
+
+    from gavit_tpu_torch.serving import Predictor
+
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+    tcfg = train_config(["training.qat=true", f"paths.save_dir={SERVE_DIR}"])
+    depth = tcfg.model.depth
+    n_graph = len(set(tcfg.model.graph_insert_after()))
+    # per block A, A′, H, H′ (the MLP's chain), never D or D′; F forward and
+    # backward at the embedding, each attention projection and MLP output,
+    # and each graph projection
+    trainer, _, _ = phase_train(
+        tcfg, dev, "vit_b16_graph2 QAT",
+        {"A": depth, "A′": depth, "C": n_graph, "H": depth, "H′": depth,
+         "F": 2 * (1 + 2 * depth + n_graph)}, steps_compare=3,
+        steps_learn=0)
+    trainer.save_checkpoint({"mean_auc": 0.5}, is_best=True)
+    best = SERVE_DIR / "best_model"
+    del trainer
+    cfg = tcfg
+    s = cfg.data.image_size
+    pred = Predictor(cfg, checkpoint_path=str(best), precision="int8",
+                     device=dev)
+    if not pred.calibrated:
+        raise AssertionError("the QAT checkpoint's scales were not served")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    log_path = SERVE_DIR / "serve.log"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts" / "serve_torch.py"),
+             "--config", str(CONFIG), "--checkpoint", str(best),
+             "--precision", "int8", "--coalesce-ms", "2",
+             "--max-queue-rows", "64", "--port", str(port),
+             "--device", RUN_DEVICE],
+            cwd=ROOT, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        def get(path, body=None, timeout=300, ctype="application/json"):
+            req = urllib.request.Request(base + path, data=body, headers=(
+                {"Content-Type": ctype} if body else {}))
+            with urllib.request.urlopen(req, timeout=timeout) as r:
+                raw = r.read()
+            return raw.decode() if path == "/metrics" else json.loads(raw)
+
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                get("/healthz", timeout=5)
+                break
+            except OSError:
+                if proc.poll() is not None or time.monotonic() > deadline:
+                    raise AssertionError("the server did not come up: "
+                                         + log_path.read_text()[-2000:])
+                time.sleep(0.5)
+        log(f"[serve_quant] scripts/serve_torch.py --checkpoint (QAT) "
+            f"--precision int8 up in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(SEED + 7)
+        singles = rng.integers(0, 256, (16, s, s, 3), np.uint8)
+        batch = rng.integers(0, 256, (8, s, s, 3), np.uint8)
+        want = pred.predict_proba(np.concatenate([singles, batch]))
+        answers = {}
+
+        def post(i, arr):
+            answers[i] = get("/predict", json.dumps(arr.tolist()).encode())
+
+        threads = [threading.Thread(target=post, args=(i, img))
+                   for i, img in enumerate(singles)]
+        threads.append(threading.Thread(target=post, args=(16, batch)))
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        got = np.concatenate([np.asarray(answers[i]["probabilities"])
+                              for i in range(17)])
+        err = float(np.abs(got - want).max())
+        stats = get("/stats")
+        ok = err <= 1e-4 and len(answers) == 17
+        log(f"[serve_quant] 16 concurrent single-image requests and one of "
+            f"8: max |dp| vs the in-process int8 Predictor on the checkpoint "
+            f"{err:.2e} (tol 1e-4; the JSON keeps 5 decimals) "
+            f"{'ok' if ok else 'FAIL'}; /stats microbatch "
+            f"{stats['microbatch']}")
+        if not ok:
+            raise AssertionError("the served answers disagree")
+        metrics = get("/metrics")
+        kinds = sorted(line.split()[2] for line in metrics.splitlines()
+                       if line.startswith("# TYPE"))
+        if len(kinds) != 11:
+            raise AssertionError(f"/metrics: {metrics}")
+        log(f"[serve_quant] GET /metrics: {len(kinds)} metrics ok")
+
+        # 503: 65 rows past the bound of 64 while single PNG requests (a
+        # cheap decode) keep rows pending
+        from PIL import Image
+
+        big = json.dumps(np.zeros((65, s, s, 3), np.uint8).tolist()).encode()
+        buf = io.BytesIO()
+        Image.fromarray(singles[0]).save(buf, format="PNG")
+        one = buf.getvalue()
+        shed, stop, errors = None, threading.Event(), []
+
+        def keep_busy():
+            while not stop.is_set():
+                try:
+                    get("/predict", one, ctype="image/png")
+                except urllib.error.HTTPError as e:
+                    if e.code != 503:  # shed too while the 65 rows pend
+                        errors.append(e)
+                        return
+                except Exception as e:  # noqa: BLE001 - raised below
+                    errors.append(e)
+                    return
+
+        for _ in range(3):
+            busy = [threading.Thread(target=keep_busy) for _ in range(8)]
+            for t in busy:
+                t.start()
+            try:
+                get("/predict", big)
+            except urllib.error.HTTPError as e:
+                shed = e
+            stop.set()
+            for t in busy:
+                t.join(timeout=120)
+            stop.clear()
+            if shed is not None:
+                break
+        if errors:
+            raise AssertionError(f"a request beside the 503 failed: "
+                                 f"{errors[0]!r}")
+        if shed is None or shed.code != 503 or \
+                shed.headers["Retry-After"] != "1":
+            raise AssertionError(f"no 503 with Retry-After: {shed}")
+        log("[serve_quant] 65 rows while others pend: 503, Retry-After 1 ok")
+        import http.client
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.putrequest("POST", "/predict")
+        conn.putheader("Content-Type", "application/json")
+        conn.putheader("Content-Length", str(129 << 20))
+        conn.endheaders()
+        status = conn.getresponse().status
+        conn.close()
+        if status != 413:
+            raise AssertionError(f"a 129 MB Content-Length: HTTP {status}")
+        log("[serve_quant] a 129 MB Content-Length: 413 before the body ok")
+        proc.send_signal(15)
+        code = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    text = log_path.read_text()
+    ok = code == 0 and "shutdown complete" in text and \
+        "int8 predictor using QAT-trained scales" in text
+    log(f"[serve_quant] SIGTERM: exit {code}, 'shutdown complete' logged "
+        f"{'ok' if ok else 'FAIL'} ({card})")
+    if not ok:
+        raise AssertionError("the server did not stop cleanly: "
+                             + text[-2000:])
+    shutil.rmtree(SERVE_DIR, ignore_errors=True)
+
+
 def train_config(overrides=()):
     """vit_b16_graph2 at batch 128 with a warmup of 5 steps (5 steps an
     epoch of a 640-image synthetic set with learnable class stripes)."""
@@ -1707,6 +2322,14 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
     trainers = {impl: train_torch.build_trainer(cfg, dataset, dev, impl=impl,
                                                 gate=GATE)
                 for impl in ("auto", "reference")}
+    if trainers["auto"].quant:
+        # QAT: the plain versions' trainer on the kernels' trainer's
+        # scales, so the comparison holds the arithmetic and not two
+        # calibrations in bf16
+        from gavit_tpu_torch.utils.convert import load_quant_state
+
+        trainers["reference"].quant = trainers["auto"].quant
+        load_quant_state(trainers["reference"].model, trainers["auto"].quant)
     data = list(itertools.islice(
         train_torch.batches(dataset, bs, cfg.training.seed),
         max(steps_compare, steps_learn)))
@@ -1717,15 +2340,28 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
     held = data[:5]  # the learning check's fixed batches
     learn = steps_learn > steps_compare
     before = held_loss(trainers["auto"], held) if learn else None
-    # an MoE model's plain step replays the kernels' step's expert choices
-    pinned = PinnedRouting() if cfg.model.moe.enabled else None
+    # an MoE model's plain step replays the kernels' step's expert choices,
+    # a QAT model's the kernels' step's int8 codes
+    pinned = (PinnedRouting() if cfg.model.moe.enabled else
+              PinnedCodes(trainers["auto"].model, trainers["reference"].model)
+              if cfg.training.qat else None)
+    same_weights = []  # QAT: whether step i's two models start equal
     with pinned or contextlib.nullcontext():
         for i in range(steps_compare):
             images, labels = (torch.from_numpy(a) for a in data[i])
+            if isinstance(pinned, PinnedCodes):
+                same_weights.append(all(
+                    torch.equal(a, b) for a, b in zip(
+                        trainers["auto"].model.parameters(),
+                        trainers["reference"].model.parameters())))
             for impl, tr in trainers.items():
-                if pinned is not None:
-                    (pinned.start_record if impl == "auto"
-                     else pinned.start_replay)()
+                if impl == "auto" and pinned is not None:
+                    pinned.start_record()
+                elif isinstance(pinned, PinnedCodes):
+                    pinned.start_replay(PIN_BOUNDS if same_weights[i]
+                                        else PIN_BOUNDS_UPDATED)
+                elif pinned is not None:
+                    pinned.start_replay()
                 if impl == "auto" and i == count_step:
                     torch.cuda.synchronize()
                     reset_counts()
@@ -1743,7 +2379,17 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
                     first_grads[impl] = [
                         (n, p.grad.detach().float().flatten())
                         for n, p in tr.model.named_parameters()]
-    if pinned is not None:
+    if isinstance(pinned, PinnedCodes):
+        for i, same in enumerate(same_weights):
+            ok, text = pinned.check(i)
+            log(f"[train] {name} step {i} ("
+                f"{'equal' if same else 'updated'} weights), the plain "
+                f"step on the kernels' codes: {text} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} step {i}: the plain forward's "
+                                     f"int8 codes: {text}")
+    elif pinned is not None:
         log(f"[train] {name}: each plain step on the kernels' step's expert "
             f"choices; without them it would have made "
             f"{', '.join(map(str, pinned.flips))} of {pinned.choices} "
@@ -1781,6 +2427,12 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
                     .item(), param))
     worst = min(cos)
     ok = worst[0] >= GRAD_COSINE
+    if not ok:
+        norms = {impl: dict(g)[worst[1]].norm().item()
+                 for impl, g in first_grads.items()}
+        log(f"[train] {worst[1]}'s gradient norm through the kernels "
+            f"{norms['auto']:.6e}, through the plain versions "
+            f"{norms['reference']:.6e}")
     graph = [f"{p} {c:.6f}" for c, p in cos if p.startswith("graphs.")]
     moe = [c for c, p in cos if ".moe." in p]
     log(f"[train] first-step gradients, kernels vs plain versions: lowest "
@@ -2011,9 +2663,19 @@ def phase_large_times(cfg512, weights512, dev, results, predictor512,
         both = cuda_ms(lambda: torch.autograd.grad(
             G.graph_aggregate_chunked(tt, tv, "knn", 8), (tt, tv), up),
             iters=5)
+        # fp32 GEMMs over [c, N] chunks: the similarity and the dense
+        # aggregation forward (4·B·N²·D), the recompute and both GEMMs'
+        # gradients in the backward (12·B·N²·D more); 3 bf16 [B, N, D]
+        # tensors forward, 5 more backward
+        unit = gb * gn * gn * DIM
+        io = gb * gn * DIM * 2
+        fb, wf = bound(4 * unit, 3 * io, PEAK_FP32_FLOPS)
+        bb, wb = bound(16 * unit, 8 * io, PEAK_FP32_FLOPS)
         log(f"[time] chunked graph (tensor ops, no kernel) bf16 knn B={gb} "
-            f"N={gn} chunk {G._pick_chunk(gn)}: forward {fwd:.3f} ms, "
-            f"forward + backward {both:.3f} ms ({card})")
+            f"N={gn} chunk {G._pick_chunk(gn)}: forward {fwd:.3f} ms (bound "
+            f"{fb:.4f} ms, {wf}, fp32 at {PEAK_FP32_FLOPS / 1e12:.0f} "
+            f"TFLOP/s), forward + backward {both:.3f} ms (bound {bb:.4f} "
+            f"ms, {wb}) ({card})")
         del t, vals, up, tt, tv
 
     s = cfg512.data.image_size
@@ -2139,10 +2801,11 @@ def phase_times(cfg, dev, results, predictors, card):
             f"{64 / (ms / 1000):.1f} img/s ({card})")
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """(least ms, what bounds it): the larger of the operations at the
-    card's bf16 tensor-core peak and the bytes at its memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    card's peak for their type (bf16 tensor cores unless ``peak`` says
+    otherwise) and the bytes at its memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes
                                        else "bytes")
 
@@ -2234,6 +2897,19 @@ def phase_train_times(cfg, dev, results, trainer, batch, card):
     log(f"[time] C at b{b} N={n - 1} knn with the adjacency, alone on the "
         f"device (20 launches between two events): kernel "
         f"{results['C']['device'][0]:.4f} ms ({card})")
+    # C's backward, _fga_bwd's tensor ops (no kernel, as in the JAX
+    # package): four fp32 GEMMs of 2·B·N²·D over the saved adjacency; the
+    # tokens, values, gradient and both results bf16, the adjacency fp32
+    _, adj = G.graph_aggregate_kernel(t, vals, "knn", 8, 0.0, 1.0,
+                                      return_adjacency=True)
+    up = torch.randn(t.shape, device=dev, generator=g).to(bf)
+    kb = cuda_ms(lambda: G.graph_backward(t, vals, adj, up), iters=5)
+    cb, wb = bound(8 * b * (n - 1) ** 2 * DIM,
+                   5 * b * (n - 1) * DIM * 2 + b * (n - 1) ** 2 * 4,
+                   PEAK_FP32_FLOPS)
+    log(f"[time] C's backward (tensor ops) at b{b} N={n - 1}: {kb:.4f} ms, "
+        f"bound {cb:.4f} ms ({wb}, fp32 at "
+        f"{PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s) ({card})")
 
     # D and D′ at M = 128 x 197, against F.linear → gelu → dropout → F.linear
     # → dropout in bf16 (its forward, and its backward alone)
@@ -3874,6 +4550,7 @@ def main():
     depth = cfg.model.depth
     phase_slice(cfg, weights, dev, "vit_b16_graph2")
     predictor, reference, serve_counts = phase_serve(cfg, weights, dev)
+    phase_serve_quant(cfg, weights, dev, card)
     tcfg = train_config()
     # per block A, A′, D, D′; C at 2 graph blocks; F forward and backward at
     # the embedding, 12 attention projections and 2 graph projections
@@ -3898,6 +4575,9 @@ def main():
                 "vit_b16_graph2 attn_drop 0.1",
                 {"C": 2, "D": depth, "D′": depth, "F": 2 * (1 + depth + 2)},
                 steps_compare=3, steps_learn=15)
+
+    # QAT at b128 and its checkpoint served int8 over HTTP
+    phase_qat_serve(dev, card)
 
     # 384 px: finetune_384 (12 blocks, 1 learned-static graph block): K and
     # B in the forward; in training K, K′, H, H′ per block (M = 16·577 has

@@ -10,11 +10,14 @@ A second package beside the JAX one, with the same layout and module names:
   ops/       — the plain PyTorch versions and the wrappers of the hand-written
                Hopper kernels (attention forward and backward, inference and
                training MLP, dropout, GELU + dropout, fused graph op, the
-               MoE expert MLP and its grouped dW GEMM)
+               MoE expert MLP and its grouped dW GEMM), and int8
+               quantisation (``ops/quant.py``)
   csrc/      — the CUDA C++ sources of those kernels, built on first use
   training/  — the loss, schedule, optimizer and the train step
   utils/     — the weight bridge to and from the JAX parameter tree
-  serving.py — the Predictor (bucketed batches, device-resident weights)
+  serving.py — the Predictor (bucketed batches, device-resident weights,
+               int8 static PTQ, token merging, the port's checkpoints) and
+               the MicroBatcher
 
 It imports torch and nothing of jax, flax or gavit_tpu.
 """

@@ -35,10 +35,12 @@ from gavit_tpu_torch.ops.graph_ops import (build_adjacency,
 class GraphBlock(nn.Module):
     def __init__(self, dim: int, cfg: GraphConfig, *,
                  num_patches: int | None = None, drop: float = 0.0,
-                 site: int = 0, dtype=torch.float32, impl: str = "auto",
-                 device=None):
+                 site: int = 0, dtype=torch.float32, quant=None,
+                 impl: str = "auto", device=None):
         """``num_patches``: the model's patch tokens, which size the
-        learned-static ``adj_logits`` (one more with ``include_cls``)."""
+        learned-static ``adj_logits`` (one more with ``include_cls``).
+        ``quant``: the ``value`` and ``proj`` GEMMs quantised, as the JAX
+        block's (graph.py:70, :98)."""
         super().__init__()
         learned = cfg.adjacency == "learned_static"
         self.adj_logits = None
@@ -50,8 +52,10 @@ class GraphBlock(nn.Module):
         self.cfg = cfg
         self.impl = impl
         self.norm = LayerNorm(dim, dtype=dtype, device=device)
-        self.value = Dense(dim, dim, dtype=dtype, device=device)
-        self.proj = Dense(dim, dim, dtype=dtype, device=device)
+        self.value = Dense(dim, dim, dtype=dtype, quant=quant, impl=impl,
+                           device=device)
+        self.proj = Dense(dim, dim, dtype=dtype, quant=quant, impl=impl,
+                          device=device)
         self.proj_drop = Dropout(drop, site, impl)
         self.gate = nn.Parameter(torch.zeros((), device=device))
 

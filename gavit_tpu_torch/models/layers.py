@@ -27,28 +27,82 @@ from gavit_tpu_torch.models.moe import MoEMlp
 from gavit_tpu_torch.ops import philox
 from gavit_tpu_torch.ops.attention import (attention_reference,
                                            fused_qkv_attention)
-from gavit_tpu_torch.ops.dropout import fused_dropout
+from gavit_tpu_torch.ops.dropout import fused_dropout, fused_gelu_dropout
 from gavit_tpu_torch.ops.mlp import fused_mlp, fused_mlp_inference
+from gavit_tpu_torch.ops.quant import (fake_quant_act, fake_quant_weight,
+                                       int8_matmul, static_int8_matmul)
 
 LN_EPS = 1e-5
+# a quantised Dense's state, as the JAX "quant" collection names it
+QUANT_KEYS = ("act_scale", "w_q", "w_scale")
 
 
 class Dense(nn.Module):
     """``x·Wᵀ + b`` in the compute dtype (the non-quantised ``QDense``), the
-    bias added in the GEMM's epilogue before the one rounding to the dtype."""
+    bias added in the GEMM's epilogue before the one rounding to the dtype.
+
+    ``quant`` (``QDense``'s quantised modes, layers.py:60-152):
+
+    * ``'int8'`` with a calibrated state (``w_q`` int8 ``[N, K]``,
+      ``w_scale`` fp32 ``[1, N]``, ``act_scale`` an fp32 scalar): static
+      PTQ through :func:`~gavit_tpu_torch.ops.quant.static_int8_matmul`;
+      without one, dynamic PTQ (:func:`~gavit_tpu_torch.ops.quant.int8_matmul`)
+      recording the activation's absmax for calibration (the JAX ``sow``
+      into ``quant_stats`` with ``reduce_fn=max``).
+    * ``'qat'`` with an ``act_scale``: both operands fake-quantised, the
+      activation against the scale, the live weight per output channel, and
+      the GEMM in the compute dtype; without one, the absmax recorded and
+      the GEMM unquantised (the calibration pass).
+
+    Either way the product is cast to the compute dtype and then gets the
+    bias in that dtype, as the JAX ``QDense`` does. The state is held in
+    non-persistent buffers (they follow ``.to(device)`` and stay out of
+    ``state_dict``); ``utils/convert.py::quant_state`` reads it by the JAX
+    "quant" collection's paths.
+    """
 
     def __init__(self, in_features: int, out_features: int, *,
-                 bias: bool = True, dtype=torch.float32, device=None):
+                 bias: bool = True, dtype=torch.float32, quant=None,
+                 impl: str = "auto", device=None):
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
+        self.impl = impl
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device))
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
+        for name in QUANT_KEYS + ("act_absmax",):
+            self.register_buffer(name, None, persistent=False)
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(self.dtype)
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
+        if self.quant is None:
+            bias = None if self.bias is None else self.bias.to(self.dtype)
+            return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                            bias)
+        y = (self._qat(x) if self.quant == "qat" else self._int8(x))
+        y = y.to(self.dtype)
+        return y if self.bias is None else y + self.bias.to(self.dtype)
+
+    def _record(self, x):
+        m = x.detach().float().abs().amax()
+        self.act_absmax = m if self.act_absmax is None else \
+            torch.maximum(self.act_absmax, m)
+
+    def _int8(self, x):
+        if self.w_q is not None:
+            return static_int8_matmul(x, self.w_q, self.w_scale,
+                                      self.act_scale, self.impl)
+        self._record(x)
+        return int8_matmul(x, self.weight, self.impl)
+
+    def _qat(self, x):
+        dt = self.dtype
+        if self.act_scale is not None:
+            return F.linear(fake_quant_act(x.to(dt), self.act_scale),
+                            fake_quant_weight(self.weight).to(dt))
+        self._record(x)
+        return F.linear(x.to(dt), self.weight.to(dt))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -114,11 +168,12 @@ class PatchEmbed(nn.Module):
     one GEMM, patch features ordered ``(c, ph, pw)`` (layers.py:165-182)."""
 
     def __init__(self, patch_size: int, in_chans: int, embed_dim: int, *,
-                 dtype=torch.float32, device=None):
+                 dtype=torch.float32, quant=None, impl: str = "auto",
+                 device=None):
         super().__init__()
         self.patch_size = patch_size
         self.proj = Dense(in_chans * patch_size * patch_size, embed_dim,
-                          dtype=dtype, device=device)
+                          dtype=dtype, quant=quant, impl=impl, device=device)
 
     def forward(self, x):
         b, h, w, c = x.shape
@@ -133,7 +188,9 @@ class PatchEmbed(nn.Module):
 
 class HeadMergeProj(Dense):
     """Attention output projection on ``[B, H, N, d]``; the weight is the
-    Dense over the merged heads, ``[D, H·d]``."""
+    Dense over the merged heads, ``[D, H·d]``. Quantised, it merges the
+    heads and then runs the int8 (or fake-quantised) GEMM, as the JAX
+    ``HeadMergeProj``'s quant path does (layers.py:365-369)."""
 
     def forward(self, out4):
         b, h, n, d = out4.shape
@@ -155,15 +212,16 @@ class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
                  site: int = 0, attn_site: int = 0, dtype=torch.float32,
-                 impl: str = "auto", device=None):
+                 quant=None, impl: str = "auto", device=None):
         super().__init__()
         self.num_heads = num_heads
         self.impl = impl
         self.attn_drop = attn_drop
         self.attn_site = attn_site
         self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, dtype=dtype,
-                         device=device)
-        self.proj = HeadMergeProj(dim, dim, dtype=dtype, device=device)
+                         quant=quant, impl=impl, device=device)
+        self.proj = HeadMergeProj(dim, dim, dtype=dtype, quant=quant,
+                                  impl=impl, device=device)
         self.proj_drop = Dropout(proj_drop, site, impl)
 
     def forward(self, x, seed=None):
@@ -198,20 +256,46 @@ class Mlp(nn.Module):
     Both routes draw their masks from the same (seed, site) pairs, so they
     compute the same function with the same masks; which one runs changes
     the result only by where bf16 rounds (``ops/mlp.py::fused_mlp``).
+
+    Quantised (``quant`` 'int8' or 'qat'), it takes the chain and never
+    kernels B, D or D′, as the JAX ``Mlp`` does (its ``not self.quant``
+    gate, layers.py:226, and the chain, :282-305): fc1 and fc2 are the
+    quantised Dense; between them, in eval, GELU in the compute dtype (tanh
+    in bf16, erf in fp32); in training, the erf GELU + dropout of kernel H
+    (H′ in the backward) at ``site``, and the output dropout (kernel F) at
+    ``site + 1``.
     """
 
     def __init__(self, dim: int, hidden_dim: int, *, drop: float = 0.0,
-                 site: int = 0, dtype=torch.float32, impl: str = "auto",
-                 device=None):
+                 site: int = 0, dtype=torch.float32, quant=None,
+                 impl: str = "auto", device=None):
         super().__init__()
         self.dtype = dtype
+        self.quant = quant
         self.impl = impl
         self.drop = drop
         self.sites = (site, site + 1)
-        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, device=device)
-        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, device=device)
+        self.fc1 = Dense(dim, hidden_dim, dtype=dtype, quant=quant,
+                         impl=impl, device=device)
+        self.fc2 = Dense(hidden_dim, dim, dtype=dtype, quant=quant,
+                         impl=impl, device=device)
+
+    def _quant_chain(self, x, seed):
+        h = self.fc1(x)
+        if self.training:
+            h = fused_gelu_dropout(h, seed, self.sites[0], self.drop,
+                                   self.impl)
+        else:
+            approx = "tanh" if self.dtype == torch.bfloat16 else "none"
+            h = F.gelu(h, approximate=approx)
+        y = self.fc2(h)
+        if self.training:
+            y = fused_dropout(y, seed, self.sites[1], self.drop, self.impl)
+        return y
 
     def forward(self, x, seed=None):
+        if self.quant:
+            return self._quant_chain(x, seed)
         dt = self.dtype
         args = (x.to(dt), self.fc1.weight.to(dt), self.fc1.bias.to(dt),
                 self.fc2.weight.to(dt), self.fc2.bias.to(dt))
@@ -228,20 +312,22 @@ class Block(nn.Module):
     ``site + 2`` (the MLP's hidden and output masks), and ``attn_site``
     (attention probabilities, at ``attn_drop`` > 0). With ``moe`` (a
     ``MoEConfig``) the MLP is a mixture of experts, the submodule ``moe``
-    in place of ``mlp``, on the same two sites."""
+    in place of ``mlp``, on the same two sites, and stays unquantised under
+    ``quant``, as the JAX ``MoEMlp`` does; the attention's GEMMs are
+    quantised in every block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0, *,
                  qkv_bias: bool = True, drop: float = 0.0,
                  attn_drop: float = 0.0, drop_path_rate: float = 0.0,
                  site: int = 0, attn_site: int = 0, dtype=torch.float32,
-                 impl: str = "auto", moe=None, device=None):
+                 quant=None, impl: str = "auto", moe=None, device=None):
         super().__init__()
         self.drop_path_rate = drop_path_rate
         self.norm1 = LayerNorm(dim, dtype=dtype, device=device)
         self.attn = Attention(dim, num_heads, qkv_bias=qkv_bias,
                               attn_drop=attn_drop, proj_drop=drop, site=site,
-                              attn_site=attn_site, dtype=dtype, impl=impl,
-                              device=device)
+                              attn_site=attn_site, dtype=dtype, quant=quant,
+                              impl=impl, device=device)
         self.norm2 = LayerNorm(dim, dtype=dtype, device=device)
         if moe is not None:
             self.moe = MoEMlp(moe, dim, int(dim * mlp_ratio), drop=drop,
@@ -249,8 +335,8 @@ class Block(nn.Module):
                               device=device)
         else:
             self.mlp = Mlp(dim, int(dim * mlp_ratio), drop=drop,
-                           site=site + 1, dtype=dtype, impl=impl,
-                           device=device)
+                           site=site + 1, dtype=dtype, quant=quant,
+                           impl=impl, device=device)
 
     def forward(self, x, seed=None, generator=None, remat: bool = False):
         """``remat``: rematerialise the block in the backward

@@ -31,10 +31,13 @@ from gavit_tpu_torch.models.layers import (
     Dense,
     Dropout,
     LayerNorm,
+    Mlp,
     PatchEmbed,
 )
 
-PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# int8: bf16 everywhere but the quantised GEMMs (vit.py:158-173)
+PRECISIONS = {"fp32": torch.float32, "bf16": torch.bfloat16,
+              "int8": torch.bfloat16}
 
 
 def dropout_sites(depth: int, n_graph: int) -> dict:
@@ -63,16 +66,24 @@ class VisionTransformer(nn.Module):
     ``impl``, for every op of the model: ``'auto'`` launches the Hopper
     kernels on CUDA tensors and takes the plain versions on CPU tensors;
     ``'reference'`` always takes the plain versions.
+
+    ``quant``: None, ``'int8'`` (serving PTQ) or ``'qat'`` (fake-quantised
+    GEMMs for quantisation-aware training), at every GEMM the JAX model
+    quantises: the patch projection, each block's qkv, attention
+    projection, fc1 and fc2 (not an MoE block's experts), each graph
+    block's value and projection, and the head (``layers.py::Dense``).
     """
 
     def __init__(self, cfg: ModelConfig, *, dtype=torch.float32,
-                 impl: str = "auto", device=None):
+                 quant=None, impl: str = "auto", device=None):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        self.quant = quant
         d = cfg.embed_dim
         self.patch_embed = PatchEmbed(cfg.patch_size, cfg.in_chans, d,
-                                      dtype=dtype, device=device)
+                                      dtype=dtype, quant=quant, impl=impl,
+                                      device=device)
         n = cfg.num_patches
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d, device=device))
         self.pos_embed = nn.Parameter(torch.zeros(1, n + 1, d, device=device))
@@ -88,7 +99,7 @@ class VisionTransformer(nn.Module):
             Block(d, cfg.num_heads, cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
                   drop=cfg.drop_rate, attn_drop=cfg.attn_drop_rate,
                   drop_path_rate=dpr[i], site=sites[f"blocks.{i}.attn"],
-                  attn_site=attn_sites[i], dtype=dtype,
+                  attn_site=attn_sites[i], dtype=dtype, quant=quant,
                   impl=impl, moe=cfg.moe if i in moe_sites else None,
                   device=device)
             for i in range(cfg.depth)
@@ -96,11 +107,22 @@ class VisionTransformer(nn.Module):
         self.graphs = nn.ModuleList(
             GraphBlock(d, cfg.graph, num_patches=n, drop=cfg.drop_rate,
                        site=sites[f"graphs.{j}"], dtype=dtype,
-                       impl=impl, device=device)
+                       quant=quant, impl=impl, device=device)
             for j in range(len(self.graph_sites))
         )
         self.norm = LayerNorm(d, dtype=dtype, device=device)
-        self.head = Dense(d, cfg.num_classes, dtype=dtype, device=device)
+        self.head = Dense(d, cfg.num_classes, dtype=dtype, quant=quant,
+                          impl=impl, device=device)
+
+    def set_quant(self, quant) -> "VisionTransformer":
+        """Switch every quantised site (and the MLPs' route) to ``quant``
+        (None, 'int8' or 'qat'), as the JAX model's ``clone(quant=...)``
+        does; the parameters and any quant state stay."""
+        self.quant = quant
+        for mod in self.modules():
+            if isinstance(mod, (Dense, Mlp)):
+                mod.quant = quant
+        return self
 
     def forward(self, x, seed: int | None = None, generator=None):
         """``[B, H, W, C]`` normalised images → ``[B, num_classes]`` fp32.
@@ -143,16 +165,22 @@ class VisionTransformer(nn.Module):
 
 
 def build_model(cfg: ModelConfig, *, precision: str = "fp32",
-                impl: str = "auto", device=None) -> VisionTransformer:
-    """``precision``: ``'fp32'`` (parity) or ``'bf16'`` (serving and
-    training). The parameters are fp32 either way; ``init_params`` fills
-    them. The model comes back in eval mode (deterministic, as the JAX
-    model's default); ``train()`` switches dropout and drop_path on."""
+                impl: str = "auto", qat: bool = False,
+                device=None) -> VisionTransformer:
+    """``precision``: ``'fp32'`` (parity), ``'bf16'`` (serving and
+    training) or ``'int8'`` (PTQ serving: int8 GEMMs, bf16 elsewhere).
+    ``qat``: quantisation-aware training, every GEMM the int8 path
+    quantises fake-quantised against the same static scales. The
+    parameters are fp32 either way; ``init_params`` fills them. The model
+    comes back in eval mode (deterministic, as the JAX model's default);
+    ``train()`` switches dropout and drop_path on."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision must be one of {sorted(PRECISIONS)}, "
                          f"not {precision!r}")
+    quant = "int8" if precision == "int8" else ("qat" if qat else None)
     return VisionTransformer(
-        cfg, dtype=PRECISIONS[precision], impl=impl, device=device,
+        cfg, dtype=PRECISIONS[precision], quant=quant, impl=impl,
+        device=device,
     ).eval()
 
 

@@ -1,5 +1,5 @@
 """The training loop (counterpart of ``gavit_tpu/training/trainer.py``,
-without pipeline parallelism, the mesh or QAT).
+without pipeline parallelism or the mesh).
 
 One :meth:`Trainer.train_step` is: uint8 NHWC images → ``train_preprocess``
 on the device (flip + colour jitter, draws from the trainer's generator) →
@@ -32,6 +32,18 @@ with it, resumes its epoch on the next unseen batch), and
 stopping after ``early_stopping_patience`` epochs without a better AUC,
 SIGTERM → a mid-epoch save and a clean return). ``min_delta`` is read and,
 as in the JAX Trainer, not applied: any higher AUC is better.
+
+QAT (``training.qat``): the Trainer switches the model it is given to
+QAT (``set_quant('qat')``, as the JAX Trainer clones it), so its quantised
+GEMMs are fake-quantised (``models/layers.py::Dense``) against static activation scales calibrated
+once, at construction, on the first 8 images of the train set through the
+validation preprocessing on the initial weights (:meth:`_calibrate_qat`,
+the JAX Trainer's, trainer.py:695-720). The scales are frozen for the run,
+held by the model's sites (so ``train_step``, ``validate`` and ``predict``
+run under them), saved in each checkpoint's state (``quant``, flagged
+``has_quant`` in ``meta.json``) and adopted on restore, so a resumed run
+and the int8 serving export (``serving.py::export_quant``) see the run's
+noise model.
 """
 
 from __future__ import annotations
@@ -52,6 +64,7 @@ from gavit_tpu_torch.training.losses import DynamicWeightedLoss
 from gavit_tpu_torch.training.optimizer import (clip_by_global_norm,
                                                 global_norm, make_optimizer)
 from gavit_tpu_torch.utils import checkpoint as ckpt_lib
+from gavit_tpu_torch.utils.convert import load_quant_state
 from gavit_tpu_torch.utils.metrics import MetricCalculator
 from gavit_tpu_torch.utils.preemption import PreemptionHandler
 
@@ -65,15 +78,14 @@ class _Preempted(Exception):
 class Trainer:
     def __init__(self, config: Config, model: torch.nn.Module, pos_weight,
                  steps_per_epoch: int, device=None, *, train_loader=None,
-                 val_loader=None, wandb_run=None):
+                 val_loader=None, wandb_run=None, dataset=None):
         """``model``: a built ``VisionTransformer`` with fp32 parameters
         (moved to ``device`` here); ``pos_weight``: the per-class WBCE
         weights ``[num_classes]``. The loaders (``data/loader.py``) are
-        needed by the epoch loop only; ``wandb_run``: a ``log`` sink."""
+        needed by the epoch loop only; ``wandb_run``: a ``log`` sink.
+        ``dataset``: the train set QAT calibrates on where no
+        ``train_loader`` is given."""
         tr = config.training
-        if tr.qat:
-            raise NotImplementedError(
-                "QAT (training.qat) waits for ROADMAP Queue 1 item 8")
         self.config = config
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
@@ -114,6 +126,15 @@ class Trainer:
         self._preemption: PreemptionHandler | None = None
         # the train loader's position after the last trained batch
         self._loader_state: bytes | None = None
+        # QAT: the frozen activation scales, {site path: {'act_scale': t}}
+        self.quant: dict = {}
+        if tr.qat:
+            self.model.set_quant("qat")
+            ds = train_loader.dataset if train_loader is not None else dataset
+            if ds is None:
+                raise ValueError("training.qat calibrates on the train set: "
+                                 "give a train_loader or a dataset")
+            self.quant = self._calibrate_qat(ds)
 
     # ------------------------------------------------------------------
     # the step
@@ -305,15 +326,34 @@ class Trainer:
         return metrics
 
     # ------------------------------------------------------------------
-    # checkpointing
+    # QAT and checkpointing
     # ------------------------------------------------------------------
 
+    def _calibrate_qat(self, dataset, n: int = 8) -> dict:
+        """Static activation scales from the first ``n`` samples of the
+        train set (not the loader: drawing from it would move its
+        position) on the current weights, set on the model."""
+        from gavit_tpu_torch.serving import calibrate_act_scales
+
+        imgs = np.stack([np.asarray(dataset[i][0])
+                         for i in range(min(n, len(dataset)))])
+        sample = val_preprocess(torch.from_numpy(imgs).to(torch.uint8)
+                                .to(self.device))
+        quant = calibrate_act_scales(self.model, sample)
+        load_quant_state(self.model, quant)
+        logger.info(f"QAT: calibrated {len(quant)} static activation scales")
+        return quant
+
     def _state_tree(self) -> dict:
-        return {"step": self.step,
+        tree = {"step": self.step,
                 "model": self.model.state_dict(),
                 "criterion": self.criterion.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "generator": self.generator.get_state()}
+        if self.quant:
+            # the run's noise model: resume and the int8 export read it
+            tree["quant"] = self.quant
+        return tree
 
     def save_checkpoint(self, metrics: dict, is_best: bool = False,
                         epoch_completed: bool = True):
@@ -353,6 +393,12 @@ class Trainer:
         self.criterion.load_state_dict(state["criterion"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.generator.set_state(state["generator"])
+        if state.get("quant") and self.quant:
+            # QAT resume: the checkpoint's scales, not this run's fresh
+            # calibration
+            self.quant = {path: {k: v.to(self.device) for k, v in node.items()}
+                          for path, node in state["quant"].items()}
+            load_quant_state(self.model, self.quant)
         self.step = int(state["step"])
         self.current_epoch = int(meta.get("next_epoch",
                                           int(meta.get("epoch", 0)) + 1))

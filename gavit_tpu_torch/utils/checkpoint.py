@@ -10,7 +10,9 @@ group, the schedule step, the trainer's generator state), its metadata
 (epoch, next epoch, best AUC and epoch, patience counter, metrics, config)
 and, for a mid-epoch save, the train loader's position as bytes
 (``has_loader_state`` in the metadata; one process, so no per-process
-sidecar as the JAX package writes).
+sidecar as the JAX package writes). A QAT run's state also holds its
+activation scales under ``quant`` (``{site path: {'act_scale': t}}``),
+and its metadata says so with ``has_quant``.
 The file is written under a temporary name in the same directory and
 renamed into place, so a process killed mid-write leaves the previous file
 or none, never half of one; ``meta.json`` beside it is a readable copy of
@@ -58,6 +60,8 @@ def save(path: str, state: Any, meta: dict,
     ``also``: a hard link where the file system has them, else a copy)."""
     path = os.path.abspath(path)
     blob = {"state": state, "meta": meta}
+    if isinstance(state, dict) and state.get("quant"):
+        meta = blob["meta"] = {**meta, "has_quant": True}
     if loader_state is not None:
         meta = blob["meta"] = {**meta, "has_loader_state": True}
         blob["loader_state"] = bytes(loader_state)

@@ -13,6 +13,15 @@ reverse direction (port → nested dicts of numpy arrays in the Flax layout).
 (``{'lambda_wbce', 'lambda_focal', 'lambda_asl'}``, the JAX package's
 ``params['criterion']``).
 
+The int8 quant state: :func:`quant_state` / :func:`load_quant_state` read
+and set the quantised Dense sites' ``act_scale``, ``w_q`` and ``w_scale``
+(``models/layers.py::Dense``) as a flat dict ``{flax module path: {key:
+tensor}}``, the paths of the JAX "quant" collection (``blocks_0/attn/qkv``,
+``graph_0/value``, ``head``); ``w_q`` is ``[N, K]`` there, as the port's
+weights are. :func:`quant_from_flax` / :func:`quant_to_flax` carry a JAX
+"quant" tree (nested dicts of numpy arrays, ``w_q`` ``[K, N]``) into that
+state and back.
+
 Reading an orbax checkpoint needs JAX and waits for the checkpoint port.
 """
 
@@ -24,7 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from gavit_tpu_torch.models.layers import Dense, LayerNorm
+from gavit_tpu_torch.models.layers import QUANT_KEYS, Dense, LayerNorm
 
 
 def flatten_tree(tree, prefix: str = "") -> dict:
@@ -123,3 +132,87 @@ def load_criterion_params(criterion: nn.Module, tree) -> nn.Module:
     for name, p in own.items():
         p.copy_(torch.tensor(np.asarray(tree[name], np.float32)))
     return criterion
+
+
+# ---------------------------------------------------------------------------
+# the int8 quant state
+# ---------------------------------------------------------------------------
+
+
+def quant_sites(model: nn.Module) -> dict:
+    """``{flax module path: Dense}`` for every quantised Dense of ``model``
+    (the sites of the JAX "quant" collection)."""
+    return {_flax_module_path(name): mod
+            for name, mod in model.named_modules()
+            if isinstance(mod, Dense) and mod.quant}
+
+
+def quant_state(model: nn.Module, keys=QUANT_KEYS) -> dict:
+    """The sites' state that is set, ``{path: {key: tensor}}`` (empty where
+    nothing is calibrated)."""
+    out = {}
+    for path, mod in quant_sites(model).items():
+        node = {k: getattr(mod, k) for k in keys
+                if getattr(mod, k) is not None}
+        if node:
+            out[path] = node
+    return out
+
+
+@torch.no_grad()
+def load_quant_state(model: nn.Module, state: dict) -> nn.Module:
+    """Set the sites' state from ``{path: {key: tensor}}`` (copied to each
+    site's device; ``act_scale`` alone for QAT, all three keys for static
+    int8). Every site not in ``state`` is cleared. Strict: a path that is
+    no quantised site, an unknown key, or a shape that does not fit the
+    site's weight raises."""
+    sites = quant_sites(model)
+    unknown = sorted(set(state) - set(sites))
+    if unknown:
+        raise KeyError(f"quant state for {unknown}: no such quantised site "
+                       f"(the model has {sorted(sites)})")
+    for path, mod in sites.items():
+        node = state.get(path, {})
+        bad = sorted(set(node) - set(QUANT_KEYS))
+        if bad:
+            raise KeyError(f"{path}: unknown quant keys {bad}")
+        n, k = mod.weight.shape
+        want = {"act_scale": (), "w_q": (n, k), "w_scale": (1, n)}
+        dev = mod.weight.device
+        for key in QUANT_KEYS:
+            val = node.get(key)
+            if val is not None:
+                val = torch.as_tensor(val)
+                if tuple(val.shape) != want[key]:
+                    raise ValueError(f"{path}/{key}: shape "
+                                     f"{tuple(val.shape)}, expected "
+                                     f"{want[key]}")
+                val = val.to(device=dev, dtype=(
+                    torch.int8 if key == "w_q" else torch.float32))
+            setattr(mod, key, val)
+    return model
+
+
+def quant_from_flax(tree) -> dict:
+    """A JAX "quant" tree (nested dicts of arrays) → the port's quant state
+    (``w_q`` transposed to ``[N, K]``)."""
+    out: dict = {}
+    for path, arr in flatten_tree(tree).items():
+        site, _, key = path.rpartition("/")
+        arr = np.array(arr.T if key == "w_q" else arr, order="C")
+        out.setdefault(site, {})[key] = torch.from_numpy(arr)
+    return out
+
+
+def quant_to_flax(state: dict) -> dict:
+    """The port's quant state → a JAX "quant" tree of numpy arrays
+    (``w_q`` ``[K, N]`` int8, ``w_scale`` ``[1, N]`` and ``act_scale`` fp32)."""
+    tree: dict = {}
+    for path, node in state.items():
+        parent = tree
+        for key in path.split("/"):
+            parent = parent.setdefault(key, {})
+        for key, val in node.items():
+            arr = torch.as_tensor(val).detach().cpu().numpy()
+            parent[key] = arr.T.copy() if key == "w_q" else arr
+    return tree

@@ -22,6 +22,11 @@ Builds the model (fp32 parameters from ``training.seed``, computing in
 ``training.precision``; ``model.pretrained_path`` loaded over them where
 that file exists, as a reference-layout or MAE checkpoint), the
 DynamicWeightedLoss, the two-group AdamW and its warmup-cosine schedule.
+``--set training.qat=true`` trains quantisation-aware: every GEMM the
+int8 serving path quantises is fake-quantised against activation scales
+calibrated on the first 8 train images, which the checkpoints carry, so
+``scripts/serve_torch.py --checkpoint ... --precision int8`` serves the
+run under them.
 
 Without ``--steps`` it runs the epoch loop of
 ``gavit_tpu_torch/training/trainer.py``: ``training.epochs`` epochs of the
@@ -139,7 +144,8 @@ def build_trainer(config, dataset, device, *, impl: str = "auto",
     steps_per_epoch = max(1, len(dataset) // config.data.batch_size)
     return Trainer(config, model, dataset.class_weights, steps_per_epoch,
                    device=device, train_loader=train_loader,
-                   val_loader=val_loader, wandb_run=wandb_run)
+                   val_loader=val_loader, wandb_run=wandb_run,
+                   dataset=dataset)
 
 
 def batches(dataset, batch_size: int, seed: int):

@@ -23,6 +23,7 @@ Tolerances, as in chip_smoke.py: fp32 1e-5 (fp32 products summed in another
 order), bf16 2e-2 (outputs rounded to bf16, one ulp is 2^-8 relative).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -974,3 +975,130 @@ def test_ragged_val_tail_through_kernels_matches_plain(dev):
     assert abs(out["auto"][0] - out["reference"][0]) <= 2e-2 * abs(
         out["reference"][0])
     assert _err(out["auto"][2], out["reference"][2]) <= 2e-2
+
+
+# --- int8 serving, QAT's MLP chain and ToMe's token counts -----------------
+
+# (K, N) of every quantised GEMM of ViT-B/16 with its graph blocks: the
+# patch projection, qkv, the attention and graph projections and the graph
+# value, fc1, fc2 and the head
+INT8_SITES = [(768, 768), (768, 2304), (768, 3072), (3072, 768), (768, 14)]
+
+
+@pytest.mark.parametrize("b", [1, 8, 64])
+@pytest.mark.parametrize("k,n", INT8_SITES)
+def test_int8_gemm_at_every_site_is_bit_equal(dev, b, k, n):
+    """cuBLASLt's int8 GEMM (``torch._int_mm``, padded where it refuses a
+    shape: the head's N = 14, M ≤ 16 at b1) against the plain float64 sum,
+    bit for bit, at each site's rows: b·197 tokens (b·196 for the graph's
+    patch rows) and b rows for the head; then the static int8 product's
+    fp32 output, also bit for bit."""
+    from gavit_tpu_torch.ops import quant as Q
+
+    rows = [b] if n == 14 else [b * 197, b * 196]
+    g = torch.Generator(device=dev).manual_seed(k + n + b)
+    w_q = torch.randint(-127, 128, (n, k), device=dev, generator=g,
+                        dtype=torch.int8)
+    for m in rows:
+        xq = torch.randint(-127, 128, (m, k), device=dev, generator=g,
+                           dtype=torch.int8)
+        before = Q.INT8_MM_LAUNCHES
+        got = Q.int8_mm(xq, w_q)
+        assert Q.INT8_MM_LAUNCHES == before + 1
+        want = Q.int8_mm_reference(xq, w_q)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and got.shape == (m, n)
+        assert torch.equal(got, want)
+        x = _randn(dev, m, k, seed=m).to(torch.bfloat16)
+        w_scale = torch.rand(1, n, device=dev, generator=g) * 1e-3
+        s = torch.tensor(0.02, device=dev)
+        assert torch.equal(Q.static_int8_matmul(x, w_q, w_scale, s),
+                           Q.static_int8_matmul(x, w_q, w_scale, s,
+                                                impl="reference"))
+
+
+def test_int8_gemm_raises_rather_than_falls_back(dev):
+    from gavit_tpu_torch.ops import quant as Q
+
+    with pytest.raises(ValueError, match="CUDA"):
+        Q.int8_mm_kernel(torch.zeros(17, 8, dtype=torch.int8),
+                         torch.zeros(8, 8, dtype=torch.int8, device=dev))
+    with pytest.raises(TypeError, match="int8"):
+        Q.int8_mm(torch.zeros(17, 8, device=dev),
+                  torch.zeros(8, 8, dtype=torch.int8, device=dev))
+
+
+@pytest.mark.parametrize("n", range(101, 198, 8))
+def test_attention_kernel_at_merged_token_counts(dev, n):
+    """Kernel A at the token counts ToMe leaves at r = 8 (197, 189, ...,
+    101), b8 × 12 heads, against its plain version."""
+    qkv = _randn(dev, 8, n, 3 * 12 * 64, seed=n).to(torch.bfloat16)
+    before = A.KERNEL_LAUNCHES
+    got = A.fused_qkv_attention(qkv.view(8, n, 3, 12, 64), 0.125,
+                                merge_heads=False)
+    assert A.KERNEL_LAUNCHES == before + 1
+    want = A.attention_reference(*A._split_heads(qkv, 12), 0.125)
+    torch.cuda.synchronize()
+    assert _err(got, want) <= TOL[torch.bfloat16]
+
+
+def _quant_cfg():
+    return from_dict({"model": {
+        "name": "custom", "img_size": 32, "patch_size": 8, "embed_dim": 64,
+        "depth": 2, "num_heads": 1, "num_classes": 14, "drop_rate": 0.1,
+        "graph": {"enabled": True, "num_blocks": 1, "adjacency": "knn",
+                  "k": 4}}, "data": {"image_size": 32}})
+
+
+def test_quant_mlp_takes_the_chain(dev):
+    """Under int8 and QAT the MLP never launches B, D or D′: in eval its
+    GELU is the tensor op between the quantised GEMMs, in QAT training H
+    and H′ run between them and F drops its output (forward and
+    backward)."""
+    from gavit_tpu_torch.serving import calibrate_act_scales
+    from gavit_tpu_torch.utils.convert import load_quant_state
+
+    cfg = _quant_cfg()
+    x = _randn(dev, 4, 32, 32, 3)
+    counters = lambda: (M.KERNEL_LAUNCHES, M.TRAIN_FWD_LAUNCHES,  # noqa
+                        M.TRAIN_BWD_LAUNCHES, DR.GELU_LAUNCHES,
+                        DR.GELU_BWD_LAUNCHES)
+    model = init_params(build_model(cfg.model, precision="int8"),
+                        torch.Generator().manual_seed(0)).to(dev)
+    before = counters()
+    with torch.no_grad():
+        model(x)
+    assert counters() == before
+    model = init_params(build_model(cfg.model, precision="bf16", qat=True),
+                        torch.Generator().manual_seed(0)).to(dev)
+    load_quant_state(model, calibrate_act_scales(model, x))
+    model.train()
+    before, f_before = counters(), DR.KERNEL_LAUNCHES
+    model(x, seed=7).float().sum().backward()
+    moved = [a - b for a, b in zip(counters(), before)]
+    assert moved == [0, 0, 0, 2, 2]
+    # F: the embedding, 2 attention and 2 MLP outputs, 1 graph projection,
+    # forward and backward
+    assert DR.KERNEL_LAUNCHES - f_before == 2 * 6
+
+
+def test_int8_predictor_reruns_bit_equal(dev):
+    from gavit_tpu_torch.ops import quant as Q
+    from gavit_tpu_torch.serving import Predictor
+
+    pred = Predictor(_quant_cfg(), precision="int8", device=dev,
+                     buckets=(1, 8))
+    pred.warmup()
+    assert pred.calibrated
+    imgs = torch.randint(0, 256, (5, 32, 32, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(1)).numpy()
+    before = Q.INT8_MM_LAUNCHES
+    first = pred.predict_proba(imgs)
+    # per forward: patch, head, and qkv, proj, fc1, fc2 in 2 blocks, value
+    # and proj in the graph block
+    assert Q.INT8_MM_LAUNCHES - before == 2 + 2 * 4 + 2
+    assert np.array_equal(first, pred.predict_proba(imgs))
+    ref = Predictor(_quant_cfg(), precision="int8", device=dev,
+                    buckets=(1, 8), impl="reference")
+    ref.warmup()
+    assert np.abs(ref.predict_proba(imgs) - first).max() <= 2e-2

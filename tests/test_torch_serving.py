@@ -226,7 +226,11 @@ def test_port_never_imports_jax(tmp_path):
     CLI on its best checkpoint; then the file path: PNGs packed by the
     port's packer, an epoch from the pack with RandomAffine through the
     checkpointable loader and the PNGs as the val split, and the evaluate
-    CLI on them as ``--dataset nih``."""
+    CLI on them as ``--dataset nih``; then an epoch of QAT
+    (``training.qat=true``) and the serve CLI's main on its best
+    checkpoint with ``--precision int8 --tome-r 1 --coalesce-ms 2
+    --max-queue-rows 8 --max-body-mb 1`` (a request and ``/metrics``, then
+    SIGTERM), and its Predictor in bf16 behind a MicroBatcher."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
             "--set", "model.embed_dim=64", "--set", "model.depth=2",
             "--set", "model.num_heads=2", "--set", "data.image_size=32",
@@ -304,6 +308,49 @@ def test_port_never_imports_jax(tmp_path):
         f"'--checkpoint', '{tmp_path / 'files' / 'best_model'}', "
         "'--dataset', 'nih', *files])\n"
         "assert np.isfinite(res['metrics']['mean_auc'])\n"
+        f"qat_dir = {str(tmp_path / 'qat')!r}\n"
+        "qat = train['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--synthetic', '--device', 'cpu', *{tiny!r}, '--set', "
+        "'training.qat=true', '--set', 'training.epochs=1', '--set', "
+        "f'paths.save_dir={qat_dir}', '--set', f'paths.log_dir={qat_dir}'])\n"
+        "assert qat.quant\n"
+        "import os, signal, socket, threading, urllib.request\n"
+        "sock = socket.socket(); sock.bind(('127.0.0.1', 0))\n"
+        "port = sock.getsockname()[1]; sock.close()\n"
+        "def stop():\n"
+        "    url = f'http://127.0.0.1:{port}'\n"
+        "    for _ in range(600):\n"
+        "        try:\n"
+        "            urllib.request.urlopen(url + '/healthz', timeout=5)\n"
+        "            break\n"
+        "        except OSError:\n"
+        "            time.sleep(0.1)\n"
+        "    req = urllib.request.Request(url + '/predict', data=json.dumps("
+        "np.zeros((32, 32, 3), int).tolist()).encode(), headers={"
+        "'Content-Type': 'application/json'})\n"
+        "    replies.append(json.loads(urllib.request.urlopen(req, "
+        "timeout=60).read()))\n"
+        "    replies.append(urllib.request.urlopen(url + '/metrics', "
+        "timeout=60).read().decode())\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "import json, time\n"
+        "replies = []\n"
+        "threading.Thread(target=stop, daemon=True).start()\n"
+        "serve['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        "'--checkpoint', f'{qat_dir}/best_model', '--precision', 'int8', "
+        "'--tome-r', '1', '--coalesce-ms', '2', '--max-queue-rows', '8', "
+        "'--max-body-mb', '1', '--device', 'cpu', '--port', str(port), "
+        f"*{tiny!r}])\n"
+        "assert len(replies[0]['probabilities'][0]) == 14, replies\n"
+        "assert 'gavit_microbatch_rejected_total' in replies[1]\n"
+        "pred = gavit_tpu_torch.serving.Predictor(gavit_tpu_torch.load_config("
+        f"'configs/vit_b16_graph2.yaml', {tiny[1::2]!r}), checkpoint_path="
+        "f'{qat_dir}/best_model', precision='bf16', device='cpu', "
+        "buckets=(1, 4))\n"
+        "mb = gavit_tpu_torch.serving.MicroBatcher(pred, max_wait_ms=1)\n"
+        "assert mb.submit(np.zeros((2, 32, 32, 3), np.uint8)).shape == "
+        "(2, 14)\n"
+        "mb.close()\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'gavit_tpu')]\n"
         "assert not bad, bad\n"

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's bf16 serving forward, on a card.
+"""Where the time goes in the PyTorch port's serving forward, on a card.
 
     python3 tools/profile_torch_serving.py [--batch 1 64] [--iters 10] \
-        [--out build/profile]
+        [--precision bf16|int8] [--tome-r R] [--out build/profile]
 
-Builds ``configs/vit_b16_graph2.yaml`` in bf16 through ``Predictor`` with
-weights from a seed, warms it up, then for each batch size:
+Builds ``configs/vit_b16_graph2.yaml`` through ``Predictor`` with weights
+from a seed (int8: calibrated on 8 noise images from
+``np.random.default_rng(0)``, as its warm-up does; ``--tome-r``: the
+forward of ``models/tome.py`` with R merges after every block), warms it
+up, then for each batch size:
 
 * times the forward with CUDA events (median over ``--iters``);
 * runs ``torch.profiler`` over the same number of forwards and prints the
@@ -33,6 +36,8 @@ def main():
     p.add_argument("--batch", type=int, nargs="+", default=[1, 64])
     p.add_argument("--iters", type=int, default=10)
     p.add_argument("--out", default="build/profile")
+    p.add_argument("--precision", default="bf16", choices=["bf16", "int8"])
+    p.add_argument("--tome-r", type=int, default=0)
     args = p.parse_args()
 
     import numpy as np
@@ -43,29 +48,41 @@ def main():
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_serving: no CUDA device")
     from gavit_tpu_torch import load_config
+    from gavit_tpu_torch.models.tome import tome_forward
     from gavit_tpu_torch.ops.preprocess import val_preprocess
     from gavit_tpu_torch.serving import Predictor
 
     cfg = load_config(str(ROOT / "configs" / "vit_b16_graph2.yaml"))
     # the graph gates stay zero: the graph kernel runs all the same
-    model = Predictor(cfg, precision="bf16", device="cuda", seed=0).model
+    pred = Predictor(cfg, precision=args.precision, device="cuda", seed=0,
+                     tome_r=args.tome_r)
+    s = cfg.data.image_size
+    if args.precision == "int8":
+        pred.calibrate(np.random.default_rng(0).integers(
+            0, 256, (8, s, s, 3), np.uint8))
+    model = pred.model
+
+    def forward(x):
+        return (tome_forward(model, x, args.tome_r) if args.tome_r
+                else model(x))
+
+    what = args.precision + (f" ToMe r={args.tome_r}" if args.tome_r else "")
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    s = cfg.data.image_size
     for b in args.batch:
         imgs = np.random.default_rng(b).integers(0, 256, (b, s, s, 3),
                                                  np.uint8)
         x = val_preprocess(torch.from_numpy(imgs).cuda())
         with torch.inference_mode():
             for _ in range(3):
-                model(x)
+                forward(x)
             torch.cuda.synchronize()
             times = []
             for _ in range(args.iters):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                model(x)
+                forward(x)
                 end.record()
                 end.synchronize()
                 times.append(start.elapsed_time(end))
@@ -73,7 +90,7 @@ def main():
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(args.iters):
-                    model(x)
+                    forward(x)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1000
         # device-side events only (kernels, memsets), so no time is counted
@@ -83,16 +100,19 @@ def main():
                   and e.self_device_time_total > 0
                   and not e.key.startswith(("Command Buffer", "Activity"))]
         busy_ms = sum(e.self_device_time_total for e in events) / 1000
-        print(f"[profile] b{b}: forward {statistics.median(times):.3f} ms "
+        print(f"[profile] {what} b{b}: forward "
+              f"{statistics.median(times):.3f} ms "
               f"(CUDA events, median of {args.iters}); under the profiler "
               f"wall {wall_ms / args.iters:.3f} ms, device busy "
               f"{busy_ms / args.iters:.3f} ms per forward, idle share "
               f"{1 - busy_ms / wall_ms:.3f}")
         events.sort(key=lambda e: e.self_device_time_total, reverse=True)
         for e in events[:25]:
-            print(f"[profile] b{b}   {e.self_device_time_total / 1000 / args.iters:9.4f} "
+            print(f"[profile] {what} b{b}   "
+                  f"{e.self_device_time_total / 1000 / args.iters:9.4f} "
                   f"ms/fwd  {e.count // args.iters:4d}x/fwd  {e.key[:90]}")
-        prof.export_chrome_trace(str(out / f"trace_b{b}.json"))
+        tag = what.replace(" ", "_").replace("=", "")
+        prof.export_chrome_trace(str(out / f"trace_{tag}_b{b}.json"))
 
 
 if __name__ == "__main__":
