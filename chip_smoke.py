@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Bring-up check of the PyTorch port's bf16 serving and training paths on
-one CUDA card, from synthetic batches and from image files: ViT-B/16
+"""Bring-up check of the PyTorch port's bf16 serving and training paths,
+and its fp32 Grad-CAM and training, on one CUDA card, from synthetic
+batches and from image files: ViT-B/16
 with two kNN graph blocks at 224 px (``configs/vit_b16_graph2.yaml``),
 the same model at 512 and 1024 px
 (``--set model.img_size=... --set data.image_size=...``; 1024 px trains
@@ -22,7 +23,8 @@ before the last line:
 3. kernel checks against their plain PyTorch versions, each within a stated
    tolerance: A (attention), B (inference MLP) and C (graph aggregate) at
    the serving shapes of ViT-B/16 at 224 px; F (dropout), D and D′ (training
-   MLP) and A′ (attention backward) at the training shapes (batch 128); K
+   MLP) and A′ (attention backward) at the training shapes (batch 128), A′
+   in fp32 at N = 50, 197 (b64) and 416 with its reruns bit-equal; K
    and K′ (long-sequence attention) at 384 px (N=577, b1 and b16), H and H′
    (GELU + dropout) at the 384 fine-tune's hidden rows [16·577, 3072]; M,
    M′ and tgmm (the MoE expert MLP forward, backward and grouped dW) at the
@@ -89,7 +91,17 @@ before the last line:
    against one with it off; the MoE model again with the fused gate off,
    then one such step with ``model.moe.grouped_remat`` on against one with
    it off (bit-equal, lower peak memory); the unfused MoE engine against
-   the fused one at drop 0;
+   the fused one at drop 0; then ``gradcam``: vit_b16_graph2 in fp32 (as
+   ``scripts/gradcam_torch.py`` builds it) on 8 images, Grad-CAM at block
+   -1 and at block 6 (its backward through A′ in fp32 in blocks 7-11) and
+   the attention rollout through the kernels against the plain versions
+   (1e-4), each call's launches counted; A′ in fp32 alone at b64 N = 197
+   beside sdpa's fp32 forward and backward (TF32 off) and its bound;
+   three fp32 training steps at b32 against the plain versions' (losses
+   within 1e-4, the launches of one step), their checkpoint, and
+   ``scripts/gradcam_torch.py`` on it in a process of its own (exit 0, its
+   figures drawn or, without matplotlib, each skipped with a log line),
+   under ``build/chip_gradcam/``, removed at its end;
 7. times: each kernel against its plain version and a library call (CUDA
    events, median), for B, C, D, D′, E, F, G, H, H′, L, L′, M, M′, N-gmm, tgmm
    (both dW, cap-padded and packed rows, and one hot expert), A′, K′, I′
@@ -240,6 +252,20 @@ TIE_MARGIN = 1e-5
 REMAT_REL_TOL = 1e-6
 # the affine train preprocess, card vs CPU (fp32, normalised values ~2)
 AFFINE_TOL = 1e-5
+# A′ in fp32 against its plain version, relative to the largest gradient:
+# fp32 products summed in another order (up to 416 keys a row)
+ATTN_BWD_F32_TOL = 1e-5
+# the gradcam phase: the fp32 model through the kernels against the plain
+# versions. Its logits agree to ~1e-5; the CAMs (min-max normalised sums
+# of tokens times gradients), the rollout maps and the probabilities are
+# held within this, absolute, in [0, 1]
+GRADCAM_TOL = 1e-4
+# its fp32 training steps: per-step loss, relative (fp32 sums in other
+# orders, three AdamW updates)
+FP32_LOSS_REL_TOL = 1e-4
+GRADCAM_BATCH, FP32_TRAIN_BATCH = 8, 32
+GRADCAM_BLOCKS = (-1, 6)  # the last block, and one 5 blocks before it
+GRADCAM_DIR = ROOT / "build" / "chip_gradcam"
 # the H100 SXM's published dense peaks (the bound of each kernel's work)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -834,6 +860,36 @@ def check_attention_bwd(dev, results, batch=TRAIN_BATCH, n=N_TOKENS,
           f"second run bit-equal {same}")
     results["A′"]["errs"].append(err)
     results["A′"]["cases"].append((qkv, do))
+
+
+def check_attention_bwd_f32(dev, results, heads=HEADS):
+    """A′ in fp32 (``csrc/attention.cu``) at N = 50, 197 (b64, kept for
+    its times) and 416, its bound, dO as the output projection's backward
+    hands it over; each run twice for the same bits."""
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+
+    scale = HEAD_DIM ** -0.5
+    for b, n in ((8, 50), (64, N_TOKENS), (4, 416)):
+        g = torch.Generator(device=dev).manual_seed(SEED + n)
+        qkv = torch.randn(b, n, 3 * heads * HEAD_DIM, device=dev,
+                          generator=g)
+        do = torch.randn(b, n, heads, HEAD_DIM, device=dev,
+                         generator=g).transpose(1, 2)
+        got = A.qkv_attention_bwd_kernel(qkv, do, scale, heads)
+        again = A.qkv_attention_bwd_kernel(qkv, do, scale, heads)
+        want = A.attention_backward_reference(qkv, do, scale, heads)
+        rel, err = rel_err(got, want), max_err(got, want)
+        same = torch.equal(got, again)
+        check("A′ fp32 attention bwd", rel <= ATTN_BWD_F32_TOL and same
+              and torch.isfinite(got).all().item(),
+              f"fp32 B={b} N={n} H={heads} d={HEAD_DIM}: dqkv rel to max "
+              f"{rel:.3e} (tol {ATTN_BWD_F32_TOL:.0e}), max_abs_err "
+              f"{err:.3e}; a second run bit-equal {same}")
+        results["A′ fp32"]["errs"].append(err)
+        if n == N_TOKENS:
+            results["A′ fp32"]["cases"].append((qkv, do))
 
 
 def routed_tokens(dev, g, routing, batch, n, dim):
@@ -1644,6 +1700,7 @@ def phase_slice(cfg, weights, dev, name, n_images=8, expect=None,
 # each kernel's launch counter: (module, attribute)
 COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "A′": ("attention", "BWD_KERNEL_LAUNCHES"),
+            "A′ fp32": ("attention", "BWD_F32_KERNEL_LAUNCHES"),
             "B": ("mlp", "KERNEL_LAUNCHES"),
             "C": ("graph_ops", "KERNEL_LAUNCHES"),
             "D": ("mlp", "TRAIN_FWD_LAUNCHES"),
@@ -2307,11 +2364,13 @@ def held_loss(trainer, batches) -> float:
 
 
 def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
-                count_step=1):
+                count_step=1, loss_tol=LOSS_REL_TOL):
     """The training step through scripts/train_torch.py's entry points;
     ``expect``: the nonzero launch counts of step ``count_step``, asserted.
     The learning check (``steps_learn`` steps must lower the held loss) is
-    left out when ``steps_learn`` is not past ``steps_compare``."""
+    left out when ``steps_learn`` is not past ``steps_compare``.
+    ``loss_tol``: each step's loss, kernels against plain versions,
+    relative."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -2396,13 +2455,13 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
             f"choices otherwise")
     rels = [abs(a - b) / abs(b) for a, b in zip(losses["auto"],
                                                  losses["reference"])]
-    ok = max(rels) <= LOSS_REL_TOL
+    ok = max(rels) <= loss_tol
     log(f"[train] {name} {cfg.training.precision} b{bs}, dropout "
         f"{cfg.model.drop_rate}, "
         f"gates {GATE}: losses through the kernels "
         f"{[round(v, 5) for v in losses['auto']]}, through the plain versions "
         f"{[round(v, 5) for v in losses['reference']]}; max rel diff "
-        f"{max(rels):.3e} (tol {LOSS_REL_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+        f"{max(rels):.3e} (tol {loss_tol:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("training through the kernels disagrees with "
                              "the plain versions")
@@ -2470,6 +2529,195 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
         raise AssertionError("30 steps through the kernels did not lower "
                              "the loss")
     return tr, data[0], counts
+
+
+def gradcam_times(dev, results, card) -> dict:
+    """A′ in fp32 at b64 N = 197 against its plain version and sdpa's fp32
+    forward and backward (TF32 off), per call and alone on the device (20
+    launches between two events); its bound: 10·B·H·N²·d operations at
+    the card's fp32 rate (no tensor cores) against 7 fp32 [B, N, H, d]
+    tensors moved."""
+    import torch
+    import torch.nn.functional as F
+
+    from gavit_tpu_torch.ops import attention as A
+
+    qkv, do = results["A′ fp32"]["cases"][0]
+    b, n, h, d = qkv.shape[0], qkv.shape[1], HEADS, HEAD_DIM
+    scale = d ** -0.5
+    q, k, v = (t.detach().clone().requires_grad_(True)
+               for t in A._split_heads(qkv, h))
+    do_c = do.contiguous()
+
+    def sdpa_fwd_bwd():
+        out = F.scaled_dot_product_attention(q, k, v)
+        torch.autograd.grad(out, (q, k, v), do_c)
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    kernel = lambda: A.qkv_attention_bwd_kernel(qkv, do, scale, h)  # noqa: E731
+    row = (cuda_ms(kernel),
+           cuda_ms(lambda: A.attention_backward_reference(qkv, do, scale, h),
+                   iters=5),
+           cuda_ms(sdpa_fwd_bwd)) + bound(10 * b * h * n * n * d,
+                                          7 * b * n * h * d * 4,
+                                          PEAK_FP32_FLOPS)
+    results["A′ fp32"]["device"] = (device_ms(kernel), device_ms(sdpa_fwd_bwd))
+    alone, lib_alone = results["A′ fp32"]["device"]
+    log(f"[time] A′ fp32 at b{b} N={n}: per call {row[0]:.4f} ms, alone on "
+        f"the device (20 launches between two events) {alone:.4f} ms; plain "
+        f"{row[1]:.4f} ms; sdpa fp32 fwd+bwd, TF32 off, {row[2]:.4f} ms, "
+        f"alone {lib_alone:.4f} ms; bound {row[3]:.4f} ms ({row[4]}) "
+        f"({card})")
+    return {"A′ fp32": row}
+
+
+def phase_gradcam(cfg, weights, dev, results, card):
+    """The interpretability path in fp32, as ``scripts/gradcam_torch.py``
+    builds it (``load_model``'s fp32 at dropout 0): vit_b16_graph2 at full
+    width on GRADCAM_BATCH images, Grad-CAM at each block of GRADCAM_BLOCKS
+    (at block 6 its backward runs A′ in fp32 in blocks 7-11, past the
+    second graph block) and the attention rollout, through the kernels
+    against the plain versions on the same weights, each forward's
+    launches counted; then FP32_TRAIN_BATCH training at 224 px in fp32
+    (three steps against the plain versions', the launches of one step),
+    its checkpoint, and ``scripts/gradcam_torch.py`` on it in a process of
+    its own. Returns (the fp32 step's launches, Grad-CAM's at block 6, the
+    timing rows)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+    from gavit_tpu_torch.utils.gradcam import (VisionTransformerGradCAM,
+                                               attention_rollout)
+
+    t0 = time.perf_counter()
+    s = cfg.data.image_size
+    depth = cfg.model.depth
+    imgs = np.random.default_rng(SEED + 7).integers(
+        0, 256, (GRADCAM_BATCH, s, s, 3), np.uint8)
+    x = val_preprocess(torch.from_numpy(imgs).to(dev))
+    models = {impl: Predictor(cfg, weights, precision="fp32", device=dev,
+                              impl=impl).model
+              for impl in ("auto", "reference")}
+    gradcam_counts = None
+    for block in GRADCAM_BLOCKS:
+        out = {}
+        for impl, model in models.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            out[impl] = VisionTransformerGradCAM(model, block)(x, 0)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if impl == "auto":
+                # A′ runs in the blocks after the probe's
+                want = expected({"A": depth, "C": 2,
+                                 "A′ fp32": depth - 1 - block % depth})
+                if counts != want:
+                    raise AssertionError(f"Grad-CAM at block {block}: "
+                                         f"launches {counts}, expected "
+                                         f"{want}")
+                launched = counts
+                if block % depth != depth - 1:
+                    gradcam_counts = counts
+            elif any(counts.values()):
+                raise AssertionError(f"the plain versions launched {counts}")
+        (cam, prob), (cam_p, prob_p) = out["auto"], out["reference"]
+        err_cam = float(np.abs(cam - cam_p).max())
+        err_p = float(np.abs(prob - prob_p).max())
+        ok = (err_cam <= GRADCAM_TOL and err_p <= GRADCAM_TOL
+              and np.isfinite(cam).all() and cam.shape == (
+                  GRADCAM_BATCH, s // 16, s // 16))
+        log(f"[gradcam] fp32 Grad-CAM at block {block}, class 0, "
+            f"{GRADCAM_BATCH} images: kernels vs plain versions max |dCAM| "
+            f"{err_cam:.3e}, max |dp| {err_p:.3e} (tol {GRADCAM_TOL:.0e}) "
+            f"{'ok' if ok else 'FAIL'}; CAM > 0 in {(cam > 0).mean():.1%} "
+            f"of the patches"
+            + (" (the head reads CLS alone, so the last block's patch "
+               "tokens get no gradient)" if block % depth == depth - 1
+               else "") + "; launches "
+            + ", ".join(f"{k} {v}" for k, v in launched.items() if v))
+        if not ok:
+            raise AssertionError("Grad-CAM through the kernels disagrees "
+                                 "with the plain versions")
+    maps = {}
+    for impl, model in models.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        maps[impl] = {f: attention_rollout(model, x, f)[0]
+                      for f in ("mean", "max")}
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if impl == "auto" and counts != expected({"C": 4}):
+            raise AssertionError(f"rollout launches {counts}: expected C "
+                                 "4 (the capture takes the plain attention)")
+    err = max(float(np.abs(maps["auto"][f] - maps["reference"][f]).max())
+              for f in ("mean", "max"))
+    ok = err <= GRADCAM_TOL
+    log(f"[gradcam] fp32 attention rollout (mean, max) over {GRADCAM_BATCH} "
+        f"images: kernels vs plain versions max |d| {err:.3e} (tol "
+        f"{GRADCAM_TOL:.0e}) {'ok' if ok else 'FAIL'}; launches C 4 (two "
+        f"forwards; the capture's attention is the plain one, as JAX's)")
+    if not ok:
+        raise AssertionError("the rollout through the kernels disagrees "
+                             "with the plain versions")
+    del models
+    rows = gradcam_times(dev, results, card)
+
+    # fp32 training at 224 px, then its checkpoint through the Grad-CAM CLI
+    shutil.rmtree(GRADCAM_DIR, ignore_errors=True)
+    tcfg = train_config([
+        "training.precision=fp32", f"data.batch_size={FP32_TRAIN_BATCH}",
+        f"data.synthetic_size={5 * FP32_TRAIN_BATCH}",
+        f"paths.save_dir={GRADCAM_DIR / 'ckpt'}", "wandb.mode=disabled"])
+    trainer, _, counts_fp32 = phase_train(
+        tcfg, dev, "vit_b16_graph2 fp32",
+        {"A": depth, "A′ fp32": depth, "C": 2, "H": depth, "H′": depth,
+         "F": 2 * (1 + 2 * depth + 2)}, steps_compare=3, steps_learn=0,
+        loss_tol=FP32_LOSS_REL_TOL)
+    trainer.save_checkpoint({"mean_auc": 0.5}, is_best=True)
+    del trainer
+    torch.cuda.empty_cache()
+    out_dir = GRADCAM_DIR / "gradcam"
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "gradcam_torch.py"),
+         "--config", str(CONFIG), "--checkpoint",
+         str(GRADCAM_DIR / "ckpt" / "best_model"), "--dataset", "synthetic",
+         "--num-images", str(GRADCAM_BATCH), "--out", str(out_dir),
+         "--device", RUN_DEVICE, "--set", "wandb.mode=disabled"],
+        capture_output=True, text=True, timeout=600)
+    text = proc.stdout + proc.stderr
+    skipped = [ln for ln in text.splitlines() if "figure skipped:" in ln]
+    cams = [ln for ln in text.splitlines() if ln.startswith("Grad-CAM for ")]
+    figures = sorted(str(p.relative_to(out_dir))
+                     for p in out_dir.rglob("*") if p.is_file())
+    try:
+        import matplotlib  # noqa: F401
+        drawn = True
+    except ImportError:
+        drawn = False
+    # drawn: every figure written (the rollout, a map a block, one a
+    # predicted disease, the grid) and none skipped; else each skipped,
+    # the per-block maps in one line
+    ok = proc.returncode == 0 and "Artifacts in" in text and (
+        (not skipped and len(figures) == 2 + depth + len(cams))
+        if drawn else (not figures and len(skipped) == 3 + len(cams)))
+    log(f"[gradcam] scripts/gradcam_torch.py on the fp32 checkpoint: exit "
+        f"{proc.returncode} in {time.perf_counter() - t1:.1f} s, "
+        f"{len(cams)} diseases predicted above 0.5, {len(figures)} figures "
+        f"written, {len(skipped)} skipped (matplotlib "
+        f"{'present' if drawn else 'absent'}) {'ok' if ok else 'FAIL'}")
+    for line in skipped[:2]:
+        log(f"[gradcam]   {line.strip()}")
+    if not ok:
+        log(text[-3000:])
+        raise AssertionError("scripts/gradcam_torch.py failed")
+    shutil.rmtree(GRADCAM_DIR)
+    log(f"[gradcam] phase done in {time.perf_counter() - t0:.1f} s")
+    return counts_fp32, gradcam_counts, rows
 
 
 def p50_ms(predictor, calls: int = 50) -> float:
@@ -4412,13 +4660,19 @@ def kernels_json(results, serve_counts, train_counts, rows):
     with one hot expert; C's library figure null). D′'s ``library_ms`` is
     the chain's backward from y to the fc1 output; its
     ``library_full_bwd_ms`` the whole chain's backward onto x and the
-    weights."""
+    weights. A′ in fp32 (``csrc/attention.cu``) has a row of its own: its
+    launches from the fp32 224-px b32 step, ``gradcam_launches`` from
+    Grad-CAM at block 6, its times at b64 N = 197 (the library call sdpa's
+    fp32 forward and backward, TF32 off), ``device_ms`` as the others'."""
     spec = [
         ("A", "fused_qkv_attention",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:583"),
         ("A′", "fused_qkv_attention_bwd",
          "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
+         "gavit_tpu/ops/attention.py:608"),
+        ("A′ fp32", "fused_qkv_attention_bwd_fp32",
+         "gavit_tpu_torch/csrc/attention.cu",
          "gavit_tpu/ops/attention.py:608"),
         ("B", "fused_mlp_inference", "gavit_tpu_torch/csrc/mlp.cu",
          "gavit_tpu/ops/mlp.py:582"),
@@ -4479,7 +4733,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
             "512" if key in ("L", "L′") else
             "moe" if key in ("M", "M′", "tgmm") else
             "moe_unfused" if key == "N-gmm" else
-            "ops" if key in ("I", "I′", "J", "J′", "G", "E") else "224"]
+            "ops" if key in ("I", "I′", "J", "J′", "G", "E") else
+            "fp32" if key == "A′ fp32" else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
@@ -4490,8 +4745,8 @@ def kernels_json(results, serve_counts, train_counts, rows):
     row["N-gmm"]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                                   "bound_by": by, "library_ms": lm}
     tgmm_device = results["tgmm"]["device"]
-    for key in ("A′", "B", "C", "D", "D′", "E", "F", "G", "H", "H′", "K′",
-                "I′", "J′", "L", "L′", "M", "M′", "N-gmm"):
+    for key in ("A′", "A′ fp32", "B", "C", "D", "D′", "E", "F", "G", "H",
+                "H′", "K′", "I′", "J′", "L", "L′", "M", "M′", "N-gmm"):
         row[key]["device_ms"], row[key]["library_device_ms"] = \
             results[key]["device"]
     (row["N-gmm"]["transposed"]["device_ms"],
@@ -4518,6 +4773,7 @@ def kernels_json(results, serve_counts, train_counts, rows):
     row["G"]["redesigned"] = "one 16-byte unit a thread, csrc/dropout.cu"
     row["E"]["redesigned"] = ("both masks in one launch, 16-byte stores, "
                               "csrc/dropout.cu")
+    row["A′ fp32"]["gradcam_launches"] = train_counts["gradcam"]["A′ fp32"]
     return {"kernels": out}
 
 
@@ -4536,6 +4792,7 @@ def main():
     check_dropout(dev, results)
     check_mlp_train(dev, results)
     check_attention_bwd(dev, results)
+    check_attention_bwd_f32(dev, results)
     check_long_attention(dev, results)
     check_gelu_dropout(dev, results)
     # the JAX package's op-level entry points (the counts of their own run),
@@ -4576,6 +4833,11 @@ def main():
                 {"C": 2, "D": depth, "D′": depth, "F": 2 * (1 + depth + 2)},
                 steps_compare=3, steps_learn=15)
 
+    # fp32: Grad-CAM, rollout, A′ fp32's times, fp32 training at b32 and
+    # the Grad-CAM CLI on its checkpoint
+    counts_fp32, counts_gradcam, rows_fp32 = phase_gradcam(
+        cfg, weights, dev, results, card)
+
     # QAT at b128 and its checkpoint served int8 over HTTP
     phase_qat_serve(dev, card)
 
@@ -4597,6 +4859,7 @@ def main():
     del predictor, reference
     rows, _ = phase_train_times(tcfg, dev, results, trainer, batch, card)
     rows.update(op_rows)
+    rows.update(rows_fp32)
     del trainer
     rows.update(phase_384_times(cfg384, tcfg384, dev, results, weights384,
                                 trainer384, batch384, card))
@@ -4701,7 +4964,8 @@ def main():
                                   {"224": counts_224, "384": counts_384,
                                    "512": counts_512, "moe": counts_moe,
                                    "moe_unfused": counts_unfused,
-                                   "ops": counts_ops},
+                                   "ops": counts_ops, "fp32": counts_fp32,
+                                   "gradcam": counts_gradcam},
                                   rows), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -207,7 +207,12 @@ class Attention(nn.Module):
     ``attention_reference`` in tensor ops drops the fp32 probabilities by
     the Philox mask of (step seed, ``attn_site``), element ``((b·H + h)·N
     + i)·N + j`` of ``[B, H, N, N]``; a recompute (``model.remat``) draws
-    the same mask."""
+    the same mask.
+
+    ``return_probs`` (the model's ``capture='attention'``) also returns the
+    fp32 ``[B, H, N, N]`` probabilities: the attention then takes the plain
+    ``attention_reference`` too, as the JAX model's ``return_probs`` does
+    (layers.py:410-441), since no kernel materialises them."""
 
     def __init__(self, dim: int, num_heads: int, *, qkv_bias: bool = True,
                  attn_drop: float = 0.0, proj_drop: float = 0.0,
@@ -224,24 +229,30 @@ class Attention(nn.Module):
                                   impl=impl, device=device)
         self.proj_drop = Dropout(proj_drop, site, impl)
 
-    def forward(self, x, seed=None):
+    def forward(self, x, seed=None, return_probs: bool = False):
         b, n, c = x.shape
         h = self.num_heads
         hd = c // h
         qkv = self.qkv(x).view(b, n, 3, h, hd)
-        if self.training and self.attn_drop > 0.0:
-            if seed is None:
+        dropped = self.training and self.attn_drop > 0.0
+        probs = None
+        if dropped or return_probs:
+            if dropped and seed is None:
                 raise ValueError("attention dropout with a rate > 0 needs a "
                                  "seed")
             q, k, v = qkv.permute(2, 0, 3, 1, 4)
-            keep = philox.keep_mask((b, h, n, n), seed, self.attn_site,
-                                    self.attn_drop, device=x.device)
+            keep = (philox.keep_mask((b, h, n, n), seed, self.attn_site,
+                                     self.attn_drop, device=x.device)
+                    if dropped else None)
             out4 = attention_reference(q, k, v, hd ** -0.5, self.attn_drop,
-                                       keep)
+                                       keep, return_probs=return_probs)
+            if return_probs:
+                out4, probs = out4
         else:
             out4 = fused_qkv_attention(qkv, hd ** -0.5, merge_heads=False,
                                        impl=self.impl)
-        return self.proj_drop(self.proj(out4), seed)
+        out = self.proj_drop(self.proj(out4), seed)
+        return (out, probs) if return_probs else out
 
 
 class Mlp(nn.Module):
@@ -338,8 +349,11 @@ class Block(nn.Module):
                            site=site + 1, dtype=dtype, quant=quant,
                            impl=impl, device=device)
 
-    def forward(self, x, seed=None, generator=None, remat: bool = False):
-        """``remat``: rematerialise the block in the backward
+    def forward(self, x, seed=None, generator=None, remat: bool = False,
+                return_probs: bool = False):
+        """``return_probs``: return ``(x, probs)``, the attention's fp32
+        ``[B, H, N, N]`` probabilities beside the output (see
+        :class:`Attention`). ``remat``: rematerialise the block in the backward
         (``torch.utils.checkpoint``, the JAX model's ``nn.remat(Block)``):
         only its input is kept, and the backward runs its forward again.
         drop_path's two keep masks are drawn here, before the checkpointed
@@ -350,15 +364,19 @@ class Block(nn.Module):
         keep = tuple(drop_path_keep(x, self.drop_path_rate, self.training,
                                     generator) for _ in range(2))
         if not remat:
-            return self._branches(x, seed, keep)
+            return self._branches(x, seed, keep, return_probs)
         # the whole block again (no early stop): the recompute launches
         # every kernel of the block once more, a count chip_smoke.py holds
         with set_checkpoint_early_stop(False):
-            return checkpoint(self._branches, x, seed, keep,
+            return checkpoint(self._branches, x, seed, keep, return_probs,
                               use_reentrant=False, preserve_rng_state=False)
 
-    def _branches(self, x, seed, keep):
+    def _branches(self, x, seed, keep, return_probs=False):
         rate = self.drop_path_rate
-        x = x + apply_drop_path(self.attn(self.norm1(x), seed), keep[0], rate)
+        attn = self.attn(self.norm1(x), seed, return_probs)
+        if return_probs:
+            attn, probs = attn
+        x = x + apply_drop_path(attn, keep[0], rate)
         mlp = self.moe if hasattr(self, "moe") else self.mlp
-        return x + apply_drop_path(mlp(self.norm2(x), seed), keep[1], rate)
+        x = x + apply_drop_path(mlp(self.norm2(x), seed), keep[1], rate)
+        return (x, probs) if return_probs else x

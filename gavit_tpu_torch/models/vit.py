@@ -124,12 +124,30 @@ class VisionTransformer(nn.Module):
                 mod.quant = quant
         return self
 
-    def forward(self, x, seed: int | None = None, generator=None):
+    def forward(self, x, seed: int | None = None, generator=None,
+                capture: str | None = None, token_probe: tuple | None = None):
         """``[B, H, W, C]`` normalised images → ``[B, num_classes]`` fp32.
 
         ``seed``: the step's 64-bit dropout seed, needed in training mode
         when ``drop_rate > 0``. ``generator``: drop_path's draws (training
-        mode, ``drop_path_rate > 0``)."""
+        mode, ``drop_path_rate > 0``).
+
+        The JAX model's interpretability hooks (vit.py:52-70, :117-138):
+        ``capture='tokens'`` returns ``(logits, list)`` with each block's
+        output (after the probe, before any graph block at that site);
+        ``capture='attention'`` returns ``(logits, list)`` with each block's
+        fp32 ``[B, H, N, N]`` attention probabilities, from the plain
+        attention (:class:`~gavit_tpu_torch.models.layers.Attention`).
+        ``token_probe=(i, probe)`` adds ``probe`` to block ``i``'s output
+        (``i`` modulo the depth), before any graph block there: its
+        gradient is the gradient with respect to those tokens (Grad-CAM,
+        ``utils/gradcam.py``)."""
+        if capture not in (None, "tokens", "attention"):
+            raise ValueError(f"capture must be None, 'tokens' or "
+                             f"'attention', not {capture!r}")
+        probe_index = (None if token_probe is None
+                       else token_probe[0] % self.cfg.depth)
+        captured = []
         dt = self.dtype
         x = self.patch_embed(x.to(dt))
         b, _, d = x.shape
@@ -145,13 +163,22 @@ class VisionTransformer(nn.Module):
         static = not self.cfg.graph.dynamic
         adj = None
         for i, block in enumerate(self.blocks):
-            x = block(x, seed, generator, remat=remat)
+            x = block(x, seed, generator, remat=remat,
+                      return_probs=capture == "attention")
+            if capture == "attention":
+                x, probs = x
+                captured.append(probs)
+            if i == probe_index:
+                x = x + token_probe[1].to(x.dtype)
+            if capture == "tokens":
+                captured.append(x)
             if i in graphs:
                 x, built = graphs[i](x, seed, adj=adj if static else None)
                 if static and adj is None:
                     adj = built
         x = self.norm(x)
-        return self.head(x[:, 0]).float()
+        logits = self.head(x[:, 0]).float()
+        return logits if capture is None else (logits, captured)
 
     def moe_aux_loss(self):
         """The sum of the MoE blocks' config-weighted auxiliary losses

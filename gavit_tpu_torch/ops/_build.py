@@ -54,6 +54,8 @@ _SIGNATURES = {
         (_P,) * 10 + (_I, _I, _I, _U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
     "gavit_attention_bwd": (
         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),
+    "gavit_attention_bwd_f32": (
+        (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),
     "gavit_attention_long_fwd": ((_P, _P, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_long_bwd": (
         (_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L, _F, _P), _I),

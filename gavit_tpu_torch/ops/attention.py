@@ -15,14 +15,15 @@
   kernels :func:`attention_route` names for the sequence length and dtype:
   kernel A (replaces ``_fwd_kernel_v4``; bf16 in
   ``csrc/attention_fwd_sm90.cu``, fp32 in ``csrc/attention.cu``) with A′
-  in the backward (replaces ``_bwd_kernel_v4``), or kernel K with K′
+  in the backward (replaces ``_bwd_kernel_v4``; fp32 in
+  ``csrc/attention.cu`` too), or kernel K with K′
   (replace ``_fwd_kernel_v3`` and ``_bwd_kernel_v3``), or the blockwise
   kernel L with L′ (replace ``_fwd_kernel_v5``, ``_dq_kernel_v5`` and
   ``_dkv_kernel_v5``); the forwards are ``csrc/attention_fwd_sm90.cu``'s,
   the backwards ``csrc/attention_bwd_sm90.cu``'s (K′ and L′ one kernel
   pair, L′ in its mode that reads L's lse and o; A′ two launches of its
-  own for rows of up to 224 tokens); it raises for anything those
-  kernels do not take.
+  own for bf16 rows of up to 224 tokens, two CUDA-core launches for fp32
+  rows of up to 416); it raises for anything those kernels do not take.
 * :func:`blockwise_attention_reference` and
   :func:`blockwise_attention_backward_reference` — the plain versions of L
   and L′: the forward also returns the fp32 log-sum-exp of each row, which
@@ -48,10 +49,11 @@ import torch
 
 from gavit_tpu_torch.ops import _build, philox
 
-# launches since the last reset (chip_smoke.py reads them): kernels A, A′,
-# K, K′, L and L′
+# launches since the last reset (chip_smoke.py reads them): kernels A, A′
+# (bf16; its fp32 launches apart), K, K′, L and L′
 KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
+BWD_F32_KERNEL_LAUNCHES = 0
 LONG_KERNEL_LAUNCHES = 0
 LONG_BWD_KERNEL_LAUNCHES = 0
 LARGE_KERNEL_LAUNCHES = 0
@@ -73,9 +75,9 @@ A_MAX_N = {torch.bfloat16: 224, torch.float32: 416}
 # + 5·N²·4 bytes within its 12 MiB budget), so both packages run the exact
 # kernels over the same range and the blockwise kernels L/L′ take the rest.
 K_MAX_N = 749
-# what card attention in fp32 past kernel A's forward waits for (A′, K/K′
-# and L/L′ are bf16 only: the kernels of csrc/attention_bwd_sm90.cu take
-# bf16 at head_dim 64)
+# what card attention in fp32 past kernels A/A′ waits for (they take fp32
+# rows up to A_MAX_N; K/K′ and L/L′ are bf16 only: the kernels of
+# csrc/attention_bwd_sm90.cu take bf16 at head_dim 64)
 _FP32_TODO = ("fp32 attention on the card waits for ROADMAP Queue 2 item "
               "10.7 (Queue 1 item 10)")
 # attention_pallas's switch from v1 to the blockwise v5, copied from the JAX
@@ -108,7 +110,7 @@ def pallas_route(n: int, d: int, dtype: torch.dtype) -> str:
 
 def attention_route(n: int, dtype: torch.dtype) -> str:
     """The kernel family that takes rows of ``n`` tokens in ``dtype`` on the
-    card: ``'A'`` (A/A′, bf16 up to 224 tokens; fp32 forward up to 416),
+    card: ``'A'`` (A/A′, bf16 up to 224 tokens, fp32 up to 416),
     ``'K'`` (K/K′, bf16 past 224 up to :data:`K_MAX_N`) or ``'L'`` (L/L′,
     bf16 past :data:`K_MAX_N`)."""
     if n < 1:
@@ -131,7 +133,7 @@ def plain_route(n: int) -> str:
 
 
 def attention_reference(q, k, v, scale: float, dropout_rate: float = 0.0,
-                        keep=None):
+                        keep=None, return_probs: bool = False):
     """softmax(q kᵀ · scale) v for q, k, v ``[B, H, N, d]``.
 
     Products are taken in fp32 from the inputs' values (a bf16 product is
@@ -140,13 +142,15 @@ def attention_reference(q, k, v, scale: float, dropout_rate: float = 0.0,
     it is false and the rest scaled by 1/(1 - ``dropout_rate``), as
     ``gavit_tpu.ops.attention.attention_reference`` drops them
     (attention.py:68-92); the model draws ``keep`` from Philox.
+    ``return_probs``: also return those fp32 ``[B, H, N, N]`` probabilities
+    (the interpretability capture; no kernel materialises them).
     """
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
     if keep is not None:
         p = torch.where(keep, p / (1.0 - dropout_rate), 0.0)
-    out = torch.matmul(p.to(v.dtype).float(), v.float())
-    return out.to(q.dtype)
+    out = torch.matmul(p.to(v.dtype).float(), v.float()).to(q.dtype)
+    return (out, p) if return_probs else out
 
 
 def _split_heads(qkv3, heads: int):
@@ -234,32 +238,40 @@ def attention_backward_reference(qkv3, dout, scale: float, heads: int):
 
 
 def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
-    """Kernel A′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` bf16 (contiguous)
-    with N up to ``A_MAX_N[bf16]`` and ``dout [B, H, N, d]``, read through
-    its strides → ``dqkv3`` like qkv3. Its two launches (query-major over
-    the whole row of keys, key-major with the head's Q and dO resident)
-    share a ``[3, B, H, N]`` fp32 scratch of row statistics. The refusal
+    """Kernel A′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` (contiguous), bf16
+    with N up to ``A_MAX_N[bf16]`` or fp32 up to ``A_MAX_N[fp32]``, and
+    ``dout [B, H, N, d]`` of its dtype, read through its strides →
+    ``dqkv3`` like qkv3. Its two launches (query-major over the whole row
+    of keys, key-major with the head's Q and dO resident) share a
+    ``[3, B, H, N]`` fp32 scratch of row statistics: bf16 on
+    ``csrc/attention_bwd_sm90.cu``'s wgmma launches, fp32 on
+    ``csrc/attention.cu``'s CUDA-core ones (fp32 FMAs only). The refusal
     comes before the device check, so a CPU tensor of a shape A′ does not
     take raises the same error."""
-    global BWD_KERNEL_LAUNCHES
+    global BWD_KERNEL_LAUNCHES, BWD_F32_KERNEL_LAUNCHES
     n = qkv3.shape[1]
-    if qkv3.dtype != torch.bfloat16 or n > A_MAX_N[torch.bfloat16]:
+    if n > A_MAX_N.get(qkv3.dtype, 0):
         raise NotImplementedError(
-            f"kernel A′ takes bf16 with N <= {A_MAX_N[torch.bfloat16]}, got "
-            f"{qkv3.dtype} N={n}: longer bf16 rows take kernel K′ or L′; "
-            f"{_FP32_TODO}")
+            f"kernel A′ takes bf16 with N <= {A_MAX_N[torch.bfloat16]} and "
+            f"fp32 with N <= {A_MAX_N[torch.float32]}, got {qkv3.dtype} "
+            f"N={n}: longer bf16 rows take kernel K′ or L′; {_FP32_TODO}")
     b, n, d = _check_rows(qkv3, heads, "kernel A′")
     dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
     dqkv = torch.empty_like(qkv3)
     stats = torch.empty((3, b, heads, n), dtype=torch.float32,
                         device=qkv3.device)
     lib = _build.library()
-    _build.check(lib.gavit_attention_bwd(
+    launch = (lib.gavit_attention_bwd if qkv3.dtype == torch.bfloat16
+              else lib.gavit_attention_bwd_f32)
+    _build.check(launch(
         qkv3.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
         b, n, heads, d, sb, sh, sn, float(scale),
         _build.stream(qkv3.device)), "attention backward kernel")
     with _build.count_lock:
-        BWD_KERNEL_LAUNCHES += 1
+        if qkv3.dtype == torch.bfloat16:
+            BWD_KERNEL_LAUNCHES += 1
+        else:
+            BWD_F32_KERNEL_LAUNCHES += 1
     return dqkv
 
 

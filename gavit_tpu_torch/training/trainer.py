@@ -44,6 +44,11 @@ run under them), saved in each checkpoint's state (``quant``, flagged
 ``has_quant`` in ``meta.json``) and adopted on restore, so a resumed run
 and the int8 serving export (``serving.py::export_quant``) see the run's
 noise model.
+
+``training.precision: fp32`` on a card pins TF32 off (process-wide) and
+runs through the kernels' fp32 bodies: A and A′ up to 416 tokens, C, and
+the MLP's GEMM chain with H, H′ and F (D/D′ are bf16 only, as the JAX
+package finds no fp32 row block at ViT widths).
 """
 
 from __future__ import annotations
@@ -90,6 +95,12 @@ class Trainer:
         self.device = torch.device(device) if device is not None else \
             next(model.parameters()).device
         self.model = model.to(self.device).train()
+        if (self.device.type == "cuda"
+                and getattr(model, "dtype", None) == torch.float32):
+            # fp32 training in IEEE fp32: TF32 off in every cuBLAS GEMM
+            # (and cuDNN), as the JAX package's HIGHEST precision
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
         self.criterion = DynamicWeightedLoss(device=self.device)
         self.pos_weight = torch.as_tensor(pos_weight, dtype=torch.float32,
                                           device=self.device)

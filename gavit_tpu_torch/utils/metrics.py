@@ -15,14 +15,17 @@ average precision as the step-wise sum over the distinct thresholds
 (``-Σ diff(recall)·precision``), and the ROC curve with every threshold
 kept (``drop_intermediate=False``), its first threshold +inf.
 ``tests/test_torch_train_utils.py`` holds every key to the JAX
-calculator within 1e-12. The loss and AUC figures (``plot_metrics``) wait
-for ``utils/visualization.py`` (ROADMAP Queue 1 item 8): until then it logs
-that it skips them (the card's machine has no matplotlib either).
+calculator within 1e-12. The precision-recall curve
+(:func:`precision_recall_curve`) is scikit-learn's too, for the figures.
+``plot_metrics`` draws the loss and per-disease AUC figures with
+matplotlib, imported inside the call; where it is missing (the card's
+machine) it logs which figures it skipped and returns.
 """
 
 from __future__ import annotations
 
 import logging
+from pathlib import Path
 
 import numpy as np
 from scipy.stats import rankdata
@@ -54,16 +57,22 @@ def _binary_clf_curve(y_true, y_score):
     return fps, tps, y_score[idx]
 
 
-def average_precision(y_true, y_score) -> float:
-    """Step-wise average precision: Σ (R_n − R_{n−1}) P_n over the distinct
-    thresholds, scores descending."""
-    fps, tps, _ = _binary_clf_curve(y_true, y_score)
+def precision_recall_curve(y_true, y_score):
+    """(precision, recall, thresholds) at the distinct thresholds, recall
+    decreasing, with the last point (1, 0) and no threshold of its own."""
+    fps, tps, thr = _binary_clf_curve(y_true, y_score)
     ps = tps + fps
     precision = np.zeros_like(tps)
     np.divide(tps, ps, out=precision, where=ps != 0)
     recall = tps / tps[-1]
-    precision = np.hstack((precision[::-1], 1))
-    recall = np.hstack((recall[::-1], 0))
+    return (np.hstack((precision[::-1], 1)), np.hstack((recall[::-1], 0)),
+            thr[::-1])
+
+
+def average_precision(y_true, y_score) -> float:
+    """Step-wise average precision: Σ (R_n − R_{n−1}) P_n over the distinct
+    thresholds, scores descending."""
+    precision, recall, _ = precision_recall_curve(y_true, y_score)
     return float(-np.sum(np.diff(recall) * np.array(precision)[:-1]))
 
 
@@ -172,7 +181,36 @@ class MetricCalculator:
         return ci
 
     def plot_metrics(self, metrics_history, save_dir) -> None:
-        """The loss and per-disease AUC history figures: they wait for
-        ``utils/visualization.py`` (ROADMAP Queue 1 item 8)."""
-        logger.info(f"metric figures for {save_dir} skipped: the port's "
-                    "figures wait for ROADMAP Queue 1 item 8")
+        """The loss curve and the per-disease AUC curves over the epochs,
+        ``loss_curve.png`` and ``auc_curves.png`` in ``save_dir``, as the
+        JAX calculator draws them."""
+        from gavit_tpu_torch.utils.visualization import pyplot
+
+        plt = pyplot(f"loss_curve.png and auc_curves.png in {save_dir}")
+        if plt is None:
+            return
+        save_dir = Path(save_dir)
+        save_dir.mkdir(parents=True, exist_ok=True)
+
+        plt.figure(figsize=(10, 6))
+        plt.plot([m["loss"] for m in metrics_history], label="Loss")
+        plt.xlabel("Epoch")
+        plt.ylabel("Loss")
+        plt.title("Training Loss")
+        plt.legend()
+        plt.savefig(save_dir / "loss_curve.png")
+        plt.close()
+
+        plt.figure(figsize=(12, 8))
+        for disease in self.disease_names:
+            series = [m.get(f"{disease}_auc") for m in metrics_history]
+            if any(v is not None for v in series):
+                plt.plot([v if v is not None else np.nan for v in series],
+                         label=disease)
+        plt.xlabel("Epoch")
+        plt.ylabel("AUC-ROC")
+        plt.title("AUC-ROC per Disease")
+        plt.legend(bbox_to_anchor=(1.05, 1), loc="upper left")
+        plt.tight_layout()
+        plt.savefig(save_dir / "auc_curves.png")
+        plt.close()

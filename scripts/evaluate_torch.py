@@ -22,9 +22,14 @@ their co-occurrence), ``p50_single_image_latency_ms`` (50 one-image calls
 through ``Predictor``, the served path) and ``batch_latency_ms`` (10 calls
 on up to 64 images); with ``--calibration-frac`` the thresholds are fit on
 a held-out split and the battery reported on the rest
-(``calibration``, ``metrics_at_calibrated_thresholds``). The JAX script
-evaluates in fp32; this one in the precision the port trains in. The ROC
-and confusion-matrix PDFs wait for ROADMAP Queue 1 item 8.
+(``calibration``, ``metrics_at_calibrated_thresholds``). Beside it, as
+the JAX script writes them through ``VisualizationManager``:
+``roc_curves/roc_curves.pdf`` and ``confusion_matrices/
+confusion_matrices.pdf`` (dpi 300; skipped with a log line where
+matplotlib is missing, as on the card's machine) and the per-disease
+tables ``performance.csv`` and ``performance.tex`` with the AUC-ROC CI
+column. The JAX script evaluates in fp32; this one in the precision the
+port trains in.
 """
 
 from __future__ import annotations
@@ -44,14 +49,16 @@ import torch  # noqa: E402
 logger = logging.getLogger("evaluate_torch")
 
 
-def load_model(checkpoint_path, config, device):
+def load_model(checkpoint_path, config, device, precision=None):
     """The model at dropout 0 with the checkpoint's parameters (fresh
-    weights from seed 0 without a checkpoint), in eval mode on ``device``."""
+    weights from seed 0 without a checkpoint), in eval mode on ``device``,
+    computing in ``precision`` (default ``training.precision``)."""
     from gavit_tpu_torch.models.vit import build_model, init_params
     from gavit_tpu_torch.utils import checkpoint as ckpt_lib
 
     model_cfg = dataclasses.replace(config.model, drop_rate=0.0)
-    model = build_model(model_cfg, precision=config.training.precision)
+    model = build_model(model_cfg,
+                        precision=precision or config.training.precision)
     init_params(model, torch.Generator().manual_seed(0))
     if checkpoint_path:
         state, _ = ckpt_lib.restore(checkpoint_path, map_location="cpu")
@@ -110,8 +117,11 @@ def served_latency(config, model, dataset, device) -> tuple[float, dict]:
 
 
 def evaluate(model, dataloader, device, prng_seed: int = 0,
-             calibration_frac: float = 0.0) -> dict:
+             calibration_frac: float = 0.0, save_dir=None) -> dict:
+    """The battery over the loader; with ``save_dir``, the ROC and
+    confusion-matrix PDFs and the performance tables there too."""
     from gavit_tpu_torch.utils.metrics import MetricCalculator
+    from gavit_tpu_torch.utils.visualization import VisualizationManager
 
     names = dataloader.dataset.disease_names
     calc = MetricCalculator(names)
@@ -149,6 +159,15 @@ def evaluate(model, dataloader, device, prng_seed: int = 0,
     metrics_at_optimal = calc.calculate_metrics(
         targets, predictions,
         threshold=np.asarray([thresholds.get(d, 0.5) for d in names]))
+    if save_dir is not None:
+        # the JAX script's evaluation artifacts (scripts/evaluate.py:212-225)
+        viz = VisualizationManager(save_dir, names)
+        viz.plot_roc_curves(targets, predictions, filename="roc_curves.pdf",
+                            title="ROC Curves for All Diseases", dpi=300)
+        viz.plot_confusion_matrices(targets, predictions,
+                                    filename="confusion_matrices.pdf",
+                                    dpi=300)
+        viz.save_performance_tables(metrics, ci_metrics=ci)
     error_df, cooc = analyze_error_patterns(predictions, targets, names)
     out = {
         "metrics": metrics,
@@ -215,15 +234,14 @@ def main(argv=None) -> dict:
                                             image_size=d.image_size)
     loader = DataLoader(dataset, d.batch_size, num_workers=d.num_workers)
     results = evaluate(model, loader, device,
-                       calibration_frac=args.calibration_frac)
+                       calibration_frac=args.calibration_frac,
+                       save_dir=save_dir)
     p50, batch = served_latency(config, model, dataset, device)
     results["p50_single_image_latency_ms"] = p50
     results["batch_latency_ms"] = batch
     logger.info(f"mean AUC {results['metrics']['mean_auc']:.4f}; p50 "
                 f"single-image latency {p50:.2f} ms; serving batch latency "
                 f"{batch}")
-    logger.info("roc_curves.pdf and confusion_matrices.pdf skipped: the "
-                "port's figures wait for ROADMAP Queue 1 item 8")
     with open(save_dir / "evaluation_results.json", "w") as f:
         json.dump(results, f, indent=4)
     logger.info(f"Wrote {save_dir / 'evaluation_results.json'}")

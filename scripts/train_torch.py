@@ -37,7 +37,11 @@ best-AUC checkpoints under ``paths.save_dir`` (``save_freq`` ones when no
 validation ran), early stopping, and on SIGTERM a mid-epoch checkpoint and
 a clean exit. ``--resume auto`` continues from the latest checkpoint in
 ``paths.save_dir``. Metrics go to the wandb sink (a JSONL file under
-``paths.log_dir`` without wandb).
+``paths.log_dir`` without wandb). At the end it draws the JAX script's
+figures into ``<save_dir>/figures/``: ``loss_curve.png``,
+``auc_curves.png`` and ``training_progress/`` (each skipped with a log
+line where matplotlib is missing, as on the card's machine).
+``training.precision: fp32`` trains in fp32 with TF32 off.
 
 With ``--steps N`` it takes N steps on batches of ``data.batch_size``
 uint8 images and prints the loss, the λ weights and images/s of each.
@@ -261,9 +265,19 @@ def main(argv=None):
         logger.info("Training completed. Final metrics:")
         for name, value in final.items():
             logger.info(f"{name}: {value:.4f}")
+        # the JAX script's figures (scripts/train.py:226-240): the loss and
+        # AUC curves, and the training-progress plots and panel under
+        # figures/training_progress/
+        figures = os.path.join(config.paths.save_dir, "figures")
         trainer.metric_calculator.plot_metrics(
-            trainer.train_metrics_history,
-            os.path.join(config.paths.save_dir, "figures"))
+            trainer.train_metrics_history, figures)
+        if trainer.train_metrics_history and trainer.val_metrics_history:
+            from gavit_tpu_torch.utils.visualization import \
+                VisualizationManager
+
+            VisualizationManager(
+                figures, dataset.disease_names).plot_training_progress(
+                trainer.train_metrics_history, trainer.val_metrics_history)
     finally:
         run.finish()
     return trainer

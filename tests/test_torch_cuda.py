@@ -5,7 +5,9 @@ fallback, each body's dispatch bound (attention's kernel A up to 224 keys
 and K past it, the graph's tensor-core body up to 256), dropout (F) and
 GELU + dropout (H, H′) at rates 0 and 0.1 with the masks bit-identical to
 the plain version's, the MLP's two routes, and the training kernels'
-gradients against torch.autograd through the plain versions; the graph's
+gradients against torch.autograd through the plain versions (A′ in fp32
+too, at 1 to 416 tokens and 1 to 16 heads, reruns bit-equal, a dO 4 bytes
+off alignment); the graph's
 TMA + wgmma body and D′ with NaN planted past their inputs and bit-equal
 reruns; the
 [B, H, N, d] attention kernels I/I′ and J/J′ from one token to 641, the
@@ -590,11 +592,54 @@ def test_attention_gradients_match_autograd_through_plain(dev):
     assert _rel(grads["auto"], grads["reference"]) <= 2e-2
 
 
+@pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (2, 17, 3), (1, 50, 16),
+                                       (2, 197, 12), (1, 416, 2),
+                                       (1, 416, 12)])
+def test_attention_bwd_kernel_fp32_matches_plain(dev, b, n, heads):
+    """A′ in fp32 (``csrc/attention.cu``'s two CUDA-core launches) on qkv
+    rows and a dO followed in memory by NaN, dO as the output projection
+    hands it over and contiguous: within 1e-5 of the plain version relative
+    to its largest value (fp32 products summed in another order), finite,
+    the same bits on a rerun, one launch counted a call (on
+    its own counter); and through
+    ``fused_qkv_attention``'s autograd."""
+    qkv = _nan_tailed(_randn(dev, b, n, 3 * heads * 64, seed=n))
+    do_bnhd = _nan_tailed(_randn(dev, b, n, heads, 64, seed=n + 1))
+    want = A.attention_backward_reference(qkv, do_bnhd.transpose(1, 2),
+                                          0.125, heads)
+    before = A.BWD_F32_KERNEL_LAUNCHES
+    for dout in (do_bnhd.transpose(1, 2), do_bnhd.transpose(1, 2).contiguous()):
+        got = A.qkv_attention_bwd_kernel(qkv, dout, 0.125, heads)
+        again = A.qkv_attention_bwd_kernel(qkv, dout, 0.125, heads)
+        torch.cuda.synchronize()
+        assert got.shape == qkv.shape and got.dtype == torch.float32
+        assert torch.isfinite(got).all() and _rel(got, want) <= 1e-5
+        assert torch.equal(got, again)  # no atomics: the same bits
+    assert A.BWD_F32_KERNEL_LAUNCHES == before + 4
+    leaf = qkv.clone().requires_grad_(True)
+    out = A.fused_qkv_attention(leaf.view(b, n, 3, heads, 64), 0.125,
+                                merge_heads=False)
+    out.backward(do_bnhd.transpose(1, 2))
+    assert A.BWD_F32_KERNEL_LAUNCHES == before + 5
+    assert torch.equal(leaf.grad, got)
+
+
+def test_attention_bwd_kernel_fp32_takes_a_misaligned_dout(dev):
+    """dO as a contiguous fp32 view 4 bytes past a 16-byte boundary: copied
+    to a fresh tensor, the same bits as from an aligned one."""
+    qkv = _randn(dev, 2, 37, 3 * 2 * 64, seed=3)
+    do = _randn(dev, 2, 2, 37, 64, seed=4)
+    got = A.qkv_attention_bwd_kernel(qkv, _offset_view(do), 0.125, 2)
+    want = A.qkv_attention_bwd_kernel(qkv, do.clone(), 0.125, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 def test_attention_bwd_kernel_refuses_what_it_does_not_take(dev):
-    qkv = torch.zeros(1, 5, 3 * 64, device=dev)
+    qkv = torch.zeros(1, 417, 3 * 64, device=dev)
     with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        A.qkv_attention_bwd_kernel(qkv, torch.zeros(1, 1, 5, 64, device=dev),
-                                   0.125, 1)
+        A.qkv_attention_bwd_kernel(
+            qkv, torch.zeros(1, 1, 417, 64, device=dev), 0.125, 1)
     qkv = torch.zeros(1, 225, 3 * 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError, match="N <= 224"):
         A.qkv_attention_bwd_kernel(
@@ -845,13 +890,14 @@ def test_kernel_mask_matches_keep_mask(dev, m, f, d):
 
 
 def _offset_view(t):
-    """A contiguous copy of ``t`` (2-byte elements) that starts 2 bytes past
-    a 16-byte boundary: ``contiguous()`` returns such a view unchanged."""
+    """A contiguous copy of ``t`` that starts one element (2 bytes in bf16,
+    4 in fp32) past a 16-byte boundary: ``contiguous()`` returns such a
+    view unchanged."""
     flat = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
     with torch.no_grad():
         view = flat[1:1 + t.numel()].view(t.shape)
         view.copy_(t)
-    assert view.is_contiguous() and view.data_ptr() % 16 == 2
+    assert view.is_contiguous() and view.data_ptr() % 16 == t.element_size()
     return view
 
 

@@ -40,6 +40,16 @@ from test_torch_train_step import (_assert_tree_close, jax_loss_fn,
 SIZE = 512
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One torch thread: beside the other test processes, a pool of
+    threads per process made the remat test 25x slower than alone."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def raw_config(remat=False, drop=0.0, drop_path=0.0):
     return {
         "model": {"name": "custom", "img_size": SIZE, "patch_size": 16,

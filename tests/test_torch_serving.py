@@ -226,11 +226,14 @@ def test_port_never_imports_jax(tmp_path):
     CLI on its best checkpoint; then the file path: PNGs packed by the
     port's packer, an epoch from the pack with RandomAffine through the
     checkpointable loader and the PNGs as the val split, and the evaluate
-    CLI on them as ``--dataset nih``; then an epoch of QAT
-    (``training.qat=true``) and the serve CLI's main on its best
-    checkpoint with ``--precision int8 --tome-r 1 --coalesce-ms 2
-    --max-queue-rows 8 --max-body-mb 1`` (a request and ``/metrics``, then
-    SIGTERM), and its Predictor in bf16 behind a MicroBatcher."""
+    CLI on them as ``--dataset nih``, and the Grad-CAM CLI on the same
+    checkpoint and PNGs; then an epoch of QAT (``training.qat=true``) and
+    the serve CLI's main on its best checkpoint with ``--precision int8
+    --tome-r 1 --coalesce-ms 2 --max-queue-rows 8 --max-body-mb 1`` (a
+    request and ``/metrics``, then SIGTERM), and its Predictor in bf16
+    behind a MicroBatcher. matplotlib is hidden, as on the card's machine,
+    so every figure is skipped with its log line
+    (``tests/test_torch_visualization.py`` draws them)."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
             "--set", "model.embed_dim=64", "--set", "model.depth=2",
             "--set", "model.num_heads=2", "--set", "data.image_size=32",
@@ -243,6 +246,7 @@ def test_port_never_imports_jax(tmp_path):
              "--set", "model.remat=true"]
     code = (
         "import sys, runpy\n"
+        "sys.modules['matplotlib'] = None  # absent, as on the card\n"
         "import numpy as np\n"
         "import torch\n"
         "torch.set_num_threads(1)  # tiny steps; other test workers share "
@@ -308,6 +312,10 @@ def test_port_never_imports_jax(tmp_path):
         f"'--checkpoint', '{tmp_path / 'files' / 'best_model'}', "
         "'--dataset', 'nih', *files])\n"
         "assert np.isfinite(res['metrics']['mean_auc'])\n"
+        f"gradcam = runpy.run_path({str(ROOT / 'scripts' / 'gradcam_torch.py')!r})\n"
+        "gradcam['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--checkpoint', '{tmp_path / 'files' / 'best_model'}', "
+        "'--dataset', 'nih', '--num-images', '2', *files])\n"
         f"qat_dir = {str(tmp_path / 'qat')!r}\n"
         "qat = train['main'](['--config', 'configs/vit_b16_graph2.yaml', "
         f"'--synthetic', '--device', 'cpu', *{tiny!r}, '--set', "

@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's bf16 training step, on a card.
+"""Where the time goes in the PyTorch port's training step, on a card
+(bf16 as the configurations train; ``--set training.precision=fp32`` for
+the fp32 step).
 
     python3 tools/profile_torch_training.py [--config configs/vit_b16_graph2.yaml] \
         [--batch 128] [--iters 5] [--out build/profile_train] [--set KEY=VALUE]
@@ -52,6 +54,8 @@ FAMILIES = (
     ("attn_bwd_q_sm90", "K′ query-major: dq, row statistics, wgmma (attention_bwd_sm90.cu)"),
     ("attn_bwd_kv_sm90", "K′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
+    ("attn_bwd_dq_kernel", "A′ fp32 query-major: dq, row statistics (attention.cu)"),
+    ("attn_bwd_dkv_kernel", "A′ fp32 key-major: dk, dv (attention.cu)"),
     # the backward prologue D′ and M′ share; their bias reductions
     ("bwd_prologue", "D′/M′ prologue: out mask + db2 partials (train_epilogues.cuh)"),
     ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
@@ -82,8 +86,8 @@ FAMILIES = (
     ("graph_", "C graph op, CUDA cores (graph.cu)"),
     ("layer_norm", "LayerNorm forward and backward"),
     ("nvjet", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
-    ("xmma_gemm_f32", "cuBLAS fp32 GEMMs (graph backward)"),
-    ("sgemm", "cuBLAS fp32 GEMMs (graph backward)"),
+    ("xmma_gemm_f32", "cuBLAS fp32 GEMMs (graph backward; every GEMM of an fp32 step)"),
+    ("sgemm", "cuBLAS fp32 GEMMs (graph backward; every GEMM of an fp32 step)"),
     ("gemm", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
     ("multi_tensor_apply", "AdamW (foreach)"),
     ("Sort", "sorts (MoE top-k)"),
@@ -170,7 +174,7 @@ def main():
     n = args.iters
     step = statistics.median(times)
     print(f"[profile] {path.stem} {cfg.data.image_size} px train step "
-          f"b{batch} bf16 on {card}: "
+          f"b{batch} {cfg.training.precision} on {card}: "
           f"{step:.3f} ms (host clock, median of {n}), "
           f"{batch / step * 1000:.1f} "
           f"img/s; under the profiler wall {wall_ms / n:.3f} ms, device busy "
