@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths,
-and its fp32 Grad-CAM and training, on one CUDA card, from synthetic
-batches and from image files: ViT-B/16
+its fp32 Grad-CAM and training, and its MAE pretraining, on one CUDA card,
+from synthetic batches and from image files: ViT-B/16
 with two kNN graph blocks at 224 px (``configs/vit_b16_graph2.yaml``),
 the same model at 512 and 1024 px
 (``--set model.img_size=... --set data.image_size=...``; 1024 px trains
@@ -159,7 +159,24 @@ before the last line:
    16 threads and over the pack (``tools/time_loader_torch.py`` takes the
    same measurement in a process of its own); ``evaluate_torch`` with ``--dataset nih`` and
    ``chexpert``. The corpus goes under ``build/chip_data/`` and is
-   removed at the end.
+   removed at the end;
+10. mae: MAE pretraining of ViT-B/16 at 224 px (vit_b16_graph2's trunk)
+   with ``scripts/pretrain_mae_torch.py``'s 512 x 4 x 8 decoder, mask 0.75,
+   bf16, b256: A, A′ and B at the step's encoder (N = 50, 12 heads) and
+   decoder (N = 197, 8 heads) shapes against their plain versions, and B's
+   gradient (the chain's VJP behind it) against autograd through the plain
+   chain; 3 steps through the kernels against 3 through the plain versions
+   on the same draws (losses, every first gradient, every MLP weight's
+   gradient nonzero), the launches of one step (A, A′ and B 16 each,
+   nothing else), 30 steps that lower the loss on 5 fixed batches, the
+   step's images/s, A, A′ and B alone at those shapes beside their bounds
+   and library calls; then the CLIs: ``pretrain_mae_torch`` for one epoch
+   of 2 steps, its ``.pth`` loaded by ``train_torch --set
+   model.pretrained_path=...`` (2 steps), ``convert_checkpoint_torch``
+   (the ``.pth`` into the port's checkpoint and into vit_b16_moe's model
+   with MoE off, that one upcycled, its forward held to the dense one's),
+   ``inspect_checkpoint_torch`` on the ``.pth`` and the upcycled
+   checkpoint; under ``build/chip_mae/``, removed at its end.
 
 The last two lines are one JSON object describing the kernels and then
 ``{"ok": true, "device": {...}}``. No CUDA device: exit 1, no result.
@@ -266,6 +283,12 @@ FP32_LOSS_REL_TOL = 1e-4
 GRADCAM_BATCH, FP32_TRAIN_BATCH = 8, 32
 GRADCAM_BLOCKS = (-1, 6)  # the last block, and one 5 blocks before it
 GRADCAM_DIR = ROOT / "build" / "chip_gradcam"
+# MAE pretraining: scripts/pretrain_mae_torch.py's defaults (decoder dim,
+# depth, heads; mask ratio) at b256; 3 steps compared, 30 that must lower
+# the loss, 6 timed; the CLI chain's files (removed at its end)
+MAE_BATCH, MAE_DECODER, MAE_MASK = 256, (512, 4, 8), 0.75
+MAE_STEPS_COMPARE, MAE_STEPS_LEARN, MAE_STEPS_TIMED = 3, 30, 6
+MAE_DIR = ROOT / "build" / "chip_mae"
 # the H100 SXM's published dense peaks (the bound of each kernel's work)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -4642,7 +4665,455 @@ def phase_data(dev, card):
     return counts
 
 
-def kernels_json(results, serve_counts, train_counts, rows):
+# ---------------------------------------------------------------------------
+# MAE pretraining: ViT-B/16 at 224 px with the 512 x 4 x 8 decoder, mask
+# 0.75, bf16, b256 (scripts/pretrain_mae_torch.py)
+# ---------------------------------------------------------------------------
+
+
+def mae_config(overrides=()):
+    """vit_b16_graph2's ViT-B/16 at b256 over a 1280-image synthetic set
+    with learnable class stripes (5 steps an epoch, a warmup of 5 steps)."""
+    from gavit_tpu_torch import load_config
+
+    return load_config(str(CONFIG), [
+        f"data.batch_size={MAE_BATCH}", f"data.synthetic_size={5 * MAE_BATCH}",
+        "data.synthetic_learnable=true", "training.warmup_epochs=1",
+        f"training.seed={SEED}", *overrides])
+
+
+def mae_shapes(cfg):
+    """((what, batch, tokens, heads, dim, hidden), ...) of the MAE step's
+    encoder (CLS + the visible patches) and decoder (every token)."""
+    m = cfg.model
+    n = m.num_patches
+    keep = max(1, int(round(n * (1.0 - MAE_MASK))))
+    dec_dim, _, dec_heads = MAE_DECODER
+    hidden = int(m.embed_dim * m.mlp_ratio)
+    return (("encoder", MAE_BATCH, keep + 1, m.num_heads, m.embed_dim, hidden),
+            ("decoder", MAE_BATCH, n + 1, dec_heads, dec_dim,
+             int(dec_dim * m.mlp_ratio)))
+
+
+def mae_held_loss(pre, batches) -> float:
+    """The MAE loss of ``pre``'s model over ``batches`` on the validation
+    preprocessing and fixed noise (SEED + 30): the same number for the same
+    weights."""
+    import torch
+
+    from gavit_tpu_torch.models.mae import mae_loss
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+
+    g = torch.Generator(device=pre.device).manual_seed(SEED + 30)
+    total = 0.0
+    with torch.no_grad():
+        for images, _ in batches:
+            x = val_preprocess(torch.from_numpy(images).to(pre.device))
+            noise = torch.rand((x.shape[0], pre.config.model.num_patches),
+                               generator=g, device=pre.device)
+            pred, mask = pre.model(x, noise)
+            total += mae_loss(pred, x, mask,
+                              pre.config.model.patch_size).item()
+    return total / len(batches)
+
+
+def check_mae_kernels(dev, results, shapes):
+    """A, A′ and B at the MAE step's shapes against their plain versions
+    (A and B within ATTN_TOL / MLP_TOL, A′ within GRAD_REL_TOL of the
+    largest gradient), and B's gradient, the chain's VJP behind
+    ``fused_mlp_inference``, against autograd through the plain chain
+    (GRAD_REL_TOL), every one nonzero. Returns the inputs, for the
+    times."""
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import mlp as M
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    cases = {}
+    for what, b, n, h, d, f in shapes:
+        scale = HEAD_DIM ** -0.5
+        qkv = torch.randn(b, n, 3 * h * HEAD_DIM, device=dev,
+                          generator=g).to(bf)
+        do = torch.randn(b, n, h, HEAD_DIM, device=dev,
+                         generator=g).to(bf).transpose(1, 2)
+        out = A.qkv_attention_kernel(qkv, scale, h)
+        want = A.attention_reference(*A._split_heads(qkv, h), scale)
+        err = max_err(out, want)
+        check(f"A attention (MAE {what})", err <= ATTN_TOL["bf16"]
+              and torch.isfinite(out).all().item(),
+              f"bf16 B={b} N={n} H={h}: max_abs_err {err:.3e} (tol "
+              f"{ATTN_TOL['bf16']:.0e})")
+        results["A"]["errs"].append(err)
+        dq = A.qkv_attention_bwd_kernel(qkv, do, scale, h)
+        dq_want = A.attention_backward_reference(qkv, do, scale, h)
+        rel, err = rel_err(dq, dq_want), max_err(dq, dq_want)
+        check(f"A′ attention bwd (MAE {what})", rel <= GRAD_REL_TOL
+              and torch.isfinite(dq).all().item(),
+              f"bf16 B={b} N={n} H={h}: dqkv rel to max {rel:.3e} (tol "
+              f"{GRAD_REL_TOL:.0e}), max_abs_err {err:.3e}")
+        results["A′"]["errs"].append(err)
+
+        m = b * n
+        args = mlp_inputs(dev, m, d, f)
+        y = M.mlp_inference_kernel(*args, True)
+        err = max_err(y, M._chain_infer(*args, True))
+        check(f"B mlp (MAE {what})", err <= MLP_TOL
+              and torch.isfinite(y).all().item(),
+              f"bf16 tanh M={m} D={d} F={f}: max_abs_err {err:.3e} (tol "
+              f"{MLP_TOL:.0e})")
+        results["B"]["errs"].append(err)
+        dy = torch.randn(m, d, device=dev, generator=g).to(bf)
+        grads = {}
+        for what_, fn in (("kernel", M.fused_mlp_inference),
+                          ("plain", lambda *a: M._chain_infer(*a, True))):
+            leaves = [t.detach().clone().requires_grad_(True) for t in args]
+            fn(*leaves).backward(dy)
+            grads[what_] = [t.grad for t in leaves]
+        rels = [rel_err(a, w) for a, w in zip(*grads.values())]
+        nonzero = all(a.abs().max().item() > 0 for a in grads["kernel"])
+        check(f"B mlp backward (MAE {what})",
+              max(rels) <= GRAD_REL_TOL and nonzero,
+              f"M={m} D={d} F={f}, kernel B and the chain's VJP against "
+              f"autograd through the plain chain: dx, dW1, db1, dW2, db2 "
+              f"rel to max "
+              + ", ".join(f"{r:.3e}" for r in rels)
+              + f" (tol {GRAD_REL_TOL:.0e}), each nonzero {nonzero}")
+        cases[what] = (qkv, do, args, dy)
+    return cases
+
+
+def mae_times(dev, results, shapes, cases, card) -> dict:
+    """A, A′ and B alone at the MAE step's shapes (per call, and alone on
+    the device: 20 launches between two events) beside their plain
+    versions, their bounds and their library calls (sdpa's forward, its
+    forward and backward; the bf16 cuBLAS chain), and B's backward (the
+    chain's VJP) beside the chain's own autograd; ``{key: {what: row}}``."""
+    import torch
+    import torch.nn.functional as F
+
+    from gavit_tpu_torch.ops import attention as A
+    from gavit_tpu_torch.ops import mlp as M
+
+    out = {"A": {}, "A′": {}, "B": {}}
+    for what, b, n, h, d, f in shapes:
+        qkv, do, args, dy = cases[what]
+        scale = HEAD_DIM ** -0.5
+        q, k, v = (t.detach().clone().requires_grad_(True)
+                   for t in A._split_heads(qkv, h))
+        do_c = do.contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (q, k, v), do_c)
+
+        shape = f"bf16 b{b} N={n} H={h}"
+        rows = {
+            "A": (lambda: A.qkv_attention_kernel(qkv, scale, h),
+                  lambda: A.attention_reference(*A._split_heads(qkv, h),
+                                                scale),
+                  sdpa, bound(4 * b * h * n * n * HEAD_DIM,
+                              4 * b * n * h * HEAD_DIM * 2)),
+            "A′": (lambda: A.qkv_attention_bwd_kernel(qkv, do, scale, h),
+                   lambda: A.attention_backward_reference(qkv, do, scale, h),
+                   sdpa_fwd_bwd, bound(10 * b * h * n * n * HEAD_DIM,
+                                       7 * b * n * h * HEAD_DIM * 2))}
+        x, w1, b1, w2, b2 = args
+        m = b * n
+        rows["B"] = (
+            lambda: M.mlp_inference_kernel(*args, True),
+            lambda: M._chain_infer(*args, True),
+            lambda: F.linear(F.gelu(F.linear(x, w1, b1), approximate="tanh"),
+                             w2, b2),
+            bound(4 * m * d * f, (2 * m * d + 2 * d * f + f + d) * 2))
+        for key, (kern, plain, lib, (bms, by)) in rows.items():
+            row = {"shape": f"{shape} M={m} D={d} F={f}" if key == "B"
+                   else shape,
+                   "ms": cuda_ms(kern), "device_ms": device_ms(kern),
+                   "plain_ms": cuda_ms(plain, iters=5),
+                   "library_ms": cuda_ms(lib),
+                   "library_device_ms": device_ms(lib),
+                   "bound_ms": bms, "bound_by": by}
+            out[key][what] = row
+            log(f"[time] {key} at the MAE {what} ({row['shape']}): kernel "
+                f"{row['ms']:.4f} ms, alone {row['device_ms']:.4f}; plain "
+                f"{row['plain_ms']:.4f}; library {row['library_ms']:.4f}, "
+                f"alone {row['library_device_ms']:.4f}; bound {bms:.4f} ms "
+                f"({by}) ({card})")
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+
+        def b_bwd():
+            y = M.fused_mlp_inference(*leaves)
+            torch.autograd.grad(y, leaves, dy)
+
+        def chain_bwd():
+            y = F.linear(F.gelu(F.linear(leaves[0], leaves[1], leaves[2]),
+                                approximate="tanh"), leaves[3], leaves[4])
+            torch.autograd.grad(y, leaves, dy)
+
+        fb, cb = device_ms(b_bwd), device_ms(chain_bwd)
+        out["B"][what]["fwd_bwd_device_ms"] = fb
+        out["B"][what]["library_fwd_bwd_device_ms"] = cb
+        log(f"[time] B forward + backward (the chain's VJP) at the MAE "
+            f"{what} M={m}: alone {fb:.4f} ms; the bf16 cuBLAS chain's "
+            f"forward and autograd backward {cb:.4f} ms ({card})")
+    return out
+
+
+def mae_cli_chain(dev, card):
+    """The artifact chain through the CLIs' mains: pretrain_mae_torch for
+    one epoch of 2 steps at b256 → the reference-layout .pth → train_torch
+    --steps 2 at b32 with model.pretrained_path (its log line "Loaded MAE
+    pre-trained weights", the encoder's weights those of the file) →
+    convert_checkpoint_torch --to-jax (the .pth into the port's checkpoint;
+    also into vit_b16_moe's model with MoE off) → --upcycle-moe into
+    vit_b16_moe, whose bf16 forward on 32 images is the dense one's within
+    PROB_TOL on its grouped engine → inspect_checkpoint_torch on the .pth
+    and the upcycled checkpoint. Its files go under MAE_DIR, removed at
+    the end."""
+    import logging
+    import shutil
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import convert_checkpoint_torch
+    import inspect_checkpoint_torch
+    import pretrain_mae_torch
+    import train_torch
+    from gavit_tpu_torch import load_config
+    from gavit_tpu_torch.models.vit import build_model
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.utils import checkpoint as ckpt_lib
+
+    shutil.rmtree(MAE_DIR, ignore_errors=True)
+    pth = MAE_DIR / "mae_encoder.pth"
+    t0 = time.perf_counter()
+    pretrain_mae_torch.main([
+        "--config", str(CONFIG), "--synthetic", "--device", RUN_DEVICE,
+        "--out", str(pth), "--set", f"data.batch_size={MAE_BATCH}", "--set",
+        f"data.synthetic_size={2 * MAE_BATCH}", "--set", "training.epochs=1",
+        "--set", f"paths.save_dir={MAE_DIR / 'ckpt'}"])
+    state, meta = ckpt_lib.restore(str(MAE_DIR / "ckpt" / "mae_epoch_0"))
+    ok = state["step"] == 2 and math.isfinite(meta["loss"]) and pth.exists()
+    log(f"[mae] pretrain_mae_torch: 1 epoch of 2 steps at b{MAE_BATCH}, "
+        f"loss {meta['loss']:.5f}, mae_epoch_0 at step {state['step']}, "
+        f"{pth.name} {pth.stat().st_size / 2**20:.1f} MiB in "
+        f"{time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the MAE pretraining CLI did not write its "
+                             "checkpoint and .pth")
+
+    lines = []
+    handler = logging.Handler()
+    handler.emit = lambda r: lines.append(r.getMessage())
+    loader_log = logging.getLogger("gavit_tpu_torch.utils.torch_convert")
+    level = loader_log.level
+    loader_log.setLevel(logging.INFO)
+    loader_log.addHandler(handler)
+    try:
+        trainer = train_torch.main([
+            "--config", str(CONFIG), "--synthetic", "--device", RUN_DEVICE,
+            "--steps", "2", "--set", f"model.pretrained_path={pth}", "--set",
+            "data.batch_size=32", "--set", "data.synthetic_size=64", "--set",
+            "wandb.mode=disabled"])
+    finally:
+        loader_log.removeHandler(handler)
+        loader_log.setLevel(level)
+    sd = torch.load(pth, map_location="cpu", weights_only=True)["model"]
+    loaded = any("Loaded MAE pre-trained weights" in s for s in lines)
+    # the fine-tune stepped twice from the file's weights: they moved, but
+    # the file's norm weights are still within the 2 updates' reach
+    moved = (trainer.model.blocks[0].norm1.weight.detach().float().cpu()
+             - sd["blocks.0.norm1.weight"]).abs().max().item()
+    ok = loaded and trainer.step == 2 and moved < 1e-2
+    log(f"[mae] train_torch --steps 2 with model.pretrained_path: "
+        f"\"Loaded MAE pre-trained weights\" logged {loaded}; blocks.0.norm1 "
+        f"within {moved:.2e} of the file's after 2 steps "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fine-tune did not load the MAE .pth")
+    del trainer
+
+    port, dense, upc = (MAE_DIR / s for s in ("port", "dense", "moe"))
+    convert_checkpoint_torch.main(["--to-jax", str(pth), str(port),
+                                   "--config", str(CONFIG)])
+    convert_checkpoint_torch.main(["--to-jax", str(pth), str(dense),
+                                   "--config", str(CONFIG_MOE), "--set",
+                                   "model.moe.enabled=false"])
+    convert_checkpoint_torch.main(["--upcycle-moe", str(dense), str(upc),
+                                   "--config", str(CONFIG_MOE)])
+    # the grouped engine (dropless), as phase_upcycle pins it: the dense
+    # engine's capacity drops tokens when the zero router ties every expert
+    cfg_moe = grouped_engine(load_config(str(CONFIG_MOE)))
+    dense_cfg = load_config(str(CONFIG_MOE), ["model.moe.enabled=false"])
+    models = []
+    for cfg, path in ((dense_cfg, dense), (cfg_moe, upc)):
+        model = build_model(cfg.model, precision="bf16")
+        model.load_state_dict(ckpt_lib.restore(str(path),
+                                               map_location="cpu")[0]["model"])
+        models.append(model.to(dev))
+    s = cfg_moe.data.image_size
+    x = val_preprocess(torch.from_numpy(np.random.default_rng(SEED + 32)
+                                        .integers(0, 256, (32, s, s, 3),
+                                                  np.uint8)).to(dev))
+    with torch.inference_mode():
+        want, got = (torch.sigmoid(m(x).float()) for m in models)
+    err = max_err(got, want)
+    ok = err <= PROB_TOL
+    log(f"[mae] convert_checkpoint_torch: .pth → {port.name}/ and "
+        f"{dense.name}/ (vit_b16_moe with MoE off), --upcycle-moe → "
+        f"{upc.name}/: its bf16 forward against the dense one on 32 "
+        f"images max |dp| {err:.3e} (tol {PROB_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the upcycled checkpoint does not compute the "
+                             "dense one's function")
+    del models
+    counts = {}
+    for path, stats in ((pth, ["--stats"]), (upc, [])):
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            counts[path.name] = inspect_checkpoint_torch.main(
+                [str(path), *stats])
+        finite = "finite=False" not in text.getvalue()
+        log(f"[mae] inspect_checkpoint_torch {path.name} {' '.join(stats)}: "
+            f"{counts[path.name]:,} elements"
+            + (f", every tensor finite {finite}" if stats else ""))
+        if not finite or not counts[path.name]:
+            raise AssertionError(f"inspect_checkpoint_torch on {path}")
+    shutil.rmtree(MAE_DIR, ignore_errors=True)
+    log(f"[mae] the CLI chain in {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def phase_mae(dev, results, card):
+    """MAE pretraining at full width: kernels A, A′ and B at the step's
+    shapes against their plain versions; 3 steps through the kernels
+    against 3 through the plain versions on the same draws (losses within
+    LOSS_REL_TOL, every first gradient at cosine ≥ GRAD_COSINE, every MLP
+    weight's gradient nonzero: kernel B's chain backward); the launches of
+    one step; 30 steps that lower the loss on the first 5 batches; the
+    step's time; A, A′ and B alone; then the CLI chain. Returns (the
+    step's launches, the kernels' MAE rows)."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "scripts"))
+    import pretrain_mae_torch
+    import train_torch
+
+    t_phase = time.perf_counter()
+    cfg = mae_config()
+    shapes = mae_shapes(cfg)
+    cases = check_mae_kernels(dev, results, shapes)
+    dataset = train_torch.create_dataset(cfg)
+    bs = cfg.data.batch_size
+    data = list(itertools.islice(train_torch.batches(dataset, bs, SEED),
+                                 MAE_STEPS_LEARN))
+    held = data[:5]
+    dec_dim, dec_depth, dec_heads = MAE_DECODER
+    pres = {impl: pretrain_mae_torch.MAEPretrainer(
+        cfg, dev, len(dataset) // bs, decoder_dim=dec_dim,
+        decoder_depth=dec_depth, decoder_heads=dec_heads,
+        mask_ratio=MAE_MASK, impl=impl) for impl in ("auto", "reference")}
+    before = mae_held_loss(pres["auto"], held)
+    losses = {impl: [] for impl in pres}
+    first_grads, counts = {}, None
+    for i in range(MAE_STEPS_COMPARE):
+        images = torch.from_numpy(data[i][0])
+        for impl, pre in pres.items():
+            if impl == "auto" and i == 1:
+                torch.cuda.synchronize()
+                reset_counts()
+            losses[impl].append(pre.train_step(images).item())
+            if impl == "auto" and i == 1:
+                torch.cuda.synchronize()
+                counts = read_counts()
+            if i == 0:
+                # after the update: clipped by the step's own global-norm
+                # factor, which a cosine does not see
+                first_grads[impl] = [(n, p.grad.detach().float().flatten())
+                                     for n, p in
+                                     pre.model.named_parameters()]
+    rels = [abs(a - b) / abs(b) for a, b in zip(losses["auto"],
+                                                 losses["reference"])]
+    ok = max(rels) <= LOSS_REL_TOL
+    log(f"[mae] ViT-B/16 MAE bf16 b{bs}, decoder {dec_dim}x{dec_depth}x"
+        f"{dec_heads}, mask {MAE_MASK}: losses through the kernels "
+        f"{[round(v, 5) for v in losses['auto']]}, through the plain "
+        f"versions {[round(v, 5) for v in losses['reference']]}; max rel "
+        f"diff {max(rels):.3e} (tol {LOSS_REL_TOL:.0e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("MAE training through the kernels disagrees "
+                             "with the plain versions")
+    cos, mlp_norms = [], []
+    for (name, a), (_, b) in zip(first_grads["auto"],
+                                 first_grads["reference"]):
+        if ".mlp.fc" in name and name.endswith(".weight"):
+            mlp_norms.append((a.norm().item(), name))
+        if b.abs().max() == 0 and a.abs().max() == 0:
+            continue
+        cos.append((torch.nn.functional.cosine_similarity(a, b, dim=0)
+                    .item(), name))
+    worst, weakest = min(cos), min(mlp_norms)
+    ok = (worst[0] >= GRAD_COSINE and weakest[0] > 0
+          and len(cos) == len(first_grads["auto"]))
+    log(f"[mae] first-step gradients, kernels vs plain versions: lowest "
+        f"cosine {worst[0]:.6f} ({worst[1]}) over {len(cos)} of "
+        f"{len(first_grads['auto'])} parameters (need {GRAD_COSINE}); the "
+        f"{len(mlp_norms)} MLP weights' gradient norms through the kernels "
+        f"at least {weakest[0]:.3e} ({weakest[1]}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("an MAE gradient through the kernels is zero or "
+                             "points away from the plain version's")
+    depth = cfg.model.depth + dec_depth
+    log("[mae] kernel launches in one MAE step: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    if counts != expected({"A": depth, "A′": depth, "B": depth}):
+        raise AssertionError(f"MAE launch counts {counts}, expected "
+                             f"{expected({'A': depth, 'A′': depth, 'B': depth})}")
+    del pres["reference"], first_grads
+    pre = pres["auto"]
+    for i in range(MAE_STEPS_COMPARE, MAE_STEPS_LEARN):
+        losses["auto"].append(pre.train_step(
+            torch.from_numpy(data[i][0])).item())
+    after = mae_held_loss(pre, held)
+    ok = all(math.isfinite(v) for v in losses["auto"]) and after < before
+    log(f"[mae] {MAE_STEPS_LEARN} steps through the kernels (warmup 5 "
+        f"steps, lr {cfg.training.learning_rate}): the loss of the first 5 "
+        f"batches on fixed noise without augmentation {before:.5f} before "
+        f"and {after:.5f} after; training losses "
+        f"{[round(v, 4) for v in losses['auto']]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{MAE_STEPS_LEARN} MAE steps through the "
+                             "kernels did not lower the loss")
+    times = []
+    for i in range(MAE_STEPS_TIMED):
+        images = torch.from_numpy(data[i % len(data)][0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre.train_step(images)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    ms = statistics.median(times)
+    log(f"[time] MAE step b{bs} bf16 (uint8 upload, preprocess, noise, "
+        f"forward, loss, backward, clip, AdamW), host clock around a "
+        f"synchronised step: median {ms:.3f} ms of {len(times)} "
+        f"({[round(t, 3) for t in times]}), {bs / (ms / 1e3):.1f} images/s "
+        f"({card})")
+    del pre, pres
+    rows = mae_times(dev, results, shapes, cases, card)
+    del cases
+    torch.cuda.empty_cache()
+    mae_cli_chain(dev, card)
+    log(f"[mae] phase in {time.perf_counter() - t_phase:.1f} s")
+    return counts, rows
+
+
+def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
     """One row per kernel. ``launches``: from a training step for the
     kernels on its path (224 px b128 for A, A′, C, D, D′, F; 384 px b16 for
     K, K′, H, H′; 512 px b32 for L, L′; the MoE model at b128 for M, M′,
@@ -4663,7 +5134,12 @@ def kernels_json(results, serve_counts, train_counts, rows):
     weights. A′ in fp32 (``csrc/attention.cu``) has a row of its own: its
     launches from the fp32 224-px b32 step, ``gradcam_launches`` from
     Grad-CAM at block 6, its times at b64 N = 197 (the library call sdpa's
-    fp32 forward and backward, TF32 off), ``device_ms`` as the others'."""
+    fp32 forward and backward, TF32 off), ``device_ms`` as the others'.
+    A's, A′'s and B's rows carry ``mae``: the launches of one MAE step
+    (``train_counts['mae']``) and, at the step's encoder and decoder
+    shapes (``rows_mae``), each one's times, bound and library figures;
+    B's row also names its ``backward`` and carries its forward and
+    backward time at those shapes beside the bf16 chain's."""
     spec = [
         ("A", "fused_qkv_attention",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
@@ -4774,6 +5250,12 @@ def kernels_json(results, serve_counts, train_counts, rows):
     row["E"]["redesigned"] = ("both masks in one launch, 16-byte stores, "
                               "csrc/dropout.cu")
     row["A′ fp32"]["gradcam_launches"] = train_counts["gradcam"]["A′ fp32"]
+    for key in ("A", "A′", "B"):
+        row[key]["mae"] = {"launches": train_counts["mae"][key],
+                           **rows_mae[key]}
+    row["B"]["backward"] = ("the VJP of the chain recomputed from the "
+                            "inputs, tensor ops and cuBLAS (as "
+                            "gavit_tpu/ops/mlp.py:676 _fmi_bwd)")
     return {"kernels": out}
 
 
@@ -4954,6 +5436,10 @@ def main():
     del trainer_moe, trainer_unf
     phase_run(dev, card)
     phase_data(dev, card)
+    # MAE pretraining at b256: A, A′ and B in every encoder and decoder
+    # block, B with its chain backward; then the pretrain → .pth → fine-tune
+    # → convert → inspect chain through the CLIs
+    counts_mae, rows_mae = phase_mae(dev, results, card)
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:
@@ -4965,8 +5451,9 @@ def main():
                                    "512": counts_512, "moe": counts_moe,
                                    "moe_unfused": counts_unfused,
                                    "ops": counts_ops, "fp32": counts_fp32,
-                                   "gradcam": counts_gradcam},
-                                  rows), ensure_ascii=False))
+                                   "gradcam": counts_gradcam,
+                                   "mae": counts_mae},
+                                  rows, rows_mae), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

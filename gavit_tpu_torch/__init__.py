@@ -6,7 +6,7 @@ A second package beside the JAX one, with the same layout and module names:
   data/      — the label list and the synthetic dataset
   models/    — ViT + graph message-passing blocks + MoE MLPs (nn.Module;
                ``eval()`` is the deterministic forward, ``train()`` the
-               dropout one)
+               dropout one), and the MAE that pretrains the ViT's trunk
   ops/       — the plain PyTorch versions and the wrappers of the hand-written
                Hopper kernels (attention forward and backward, inference and
                training MLP, dropout, GELU + dropout, fused graph op, the
@@ -14,7 +14,9 @@ A second package beside the JAX one, with the same layout and module names:
                quantisation (``ops/quant.py``)
   csrc/      — the CUDA C++ sources of those kernels, built on first use
   training/  — the loss, schedule, optimizer and the train step
-  utils/     — the weight bridge to and from the JAX parameter tree
+  utils/     — the weight bridge to and from the JAX parameter tree and
+               the reference layout, checkpoints, metrics, figures,
+               Grad-CAM, logging and profiling
   serving.py — the Predictor (bucketed batches, device-resident weights,
                int8 static PTQ, token merging, the port's checkpoints) and
                the MicroBatcher

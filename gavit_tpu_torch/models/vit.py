@@ -217,7 +217,8 @@ def init_params(model: VisionTransformer, generator: torch.Generator):
     for Dense kernels, MoE routers and expert kernels, CLS and position
     embeddings; Xavier uniform for the patch projection; zeros for biases
     (the expert banks' too), graph gates and learned-static adjacency
-    logits; LayerNorm scale 1.
+    logits; LayerNorm scale 1. Takes the MAE model too (``models/mae.py``:
+    its mask token and decoder position embeddings truncated normal).
 
     The draws come from ``generator`` on the CPU and are copied to the
     parameters' device, so a seed gives the same weights on every device.
@@ -253,8 +254,11 @@ def init_params(model: VisionTransformer, generator: torch.Generator):
             mod.gate.zero_()
             if mod.adj_logits is not None:
                 mod.adj_logits.zero_()
-    fill(model.cls_token, trunc)
-    fill(model.pos_embed, trunc)
+    # the model's own parameters in their order: the CLS token and the
+    # position embeddings (and the MAE's mask token and decoder position
+    # embeddings, models/mae.py)
+    for p in model.parameters(recurse=False):
+        fill(p, trunc)
     return model
 
 

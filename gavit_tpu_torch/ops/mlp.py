@@ -7,7 +7,9 @@ Serving:
   to the compute dtype before the GELU, the GELU output again before fc2.
 * :func:`fused_mlp_inference` — the serving entry point. On a CUDA bf16
   tensor it launches kernel B (``csrc/mlp.cu``), which replaces the TPU
-  kernel ``_mlp_infer_kernel``.
+  kernel ``_mlp_infer_kernel``. It is differentiable (:class:`_MlpInference`):
+  its backward is the VJP of :func:`_chain_linear`, as the JAX package's
+  is the VJP of its XLA chain (MAE pretraining and Grad-CAM take it).
 
 Training:
 
@@ -89,6 +91,50 @@ def mlp_inference_kernel(x2, w1, b1, w2, b2, approximate: bool):
     return y
 
 
+def _chain_linear(x2, w1, b1, w2, b2, approximate: bool):
+    """:func:`_chain_infer`'s function and rounding points with each GEMM
+    and its bias in x2's dtype (``F.linear``: cuBLAS on the card, fp32
+    accumulation, one rounding to the dtype; the GELU computed in fp32 and
+    rounded, as PyTorch's bf16 GELU and its backward do): the chain whose
+    VJP is kernel B's backward, as the JAX package's ``_fmi_bwd`` takes the
+    VJP of its XLA chain. In fp32 it is :func:`_chain_infer` up to
+    summation order."""
+    h1 = F.linear(x2, w1, b1)
+    g = F.gelu(h1, approximate="tanh" if approximate else "none")
+    return F.linear(g, w2, b2)
+
+
+class _MlpInference(torch.autograd.Function):
+    """:func:`fused_mlp_inference` with a gradient (gavit_tpu/ops/mlp.py:
+    609-688): the forward as the entry point dispatches it (kernel B on a
+    CUDA bf16 tensor), the backward the VJP of :func:`_chain_linear`
+    recomputed from the saved inputs (tensor ops and cuBLAS, no kernel of
+    its own)."""
+
+    @staticmethod
+    def forward(ctx, x2, w1, b1, w2, b2, approximate, use_kernel):
+        ctx.save_for_backward(x2, w1, b1, w2, b2)
+        ctx.approximate = approximate
+        fwd = mlp_inference_kernel if use_kernel else _chain_infer
+        return fwd(x2, w1, b1, w2, b2, approximate)
+
+    @staticmethod
+    def backward(ctx, gy):
+        saved = ctx.saved_tensors
+        wanted = [i for i, need in enumerate(ctx.needs_input_grad[:5])
+                  if need]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(i in wanted)
+                      for i, t in enumerate(saved)]
+            y = _chain_linear(*inputs, ctx.approximate)
+        got = torch.autograd.grad(y, [inputs[i] for i in wanted],
+                                  gy.to(y.dtype))
+        grads = [None] * 7
+        for i, g in zip(wanted, got):
+            grads[i] = g
+        return tuple(grads)
+
+
 def fused_mlp_inference(x, w1, b1, w2, b2, approximate: bool = True,
                         impl: str = "auto"):
     """``GELU(x·W1+b1)·W2+b2`` over the last dim of ``x``; tanh GELU when
@@ -105,15 +151,26 @@ def fused_mlp_inference(x, w1, b1, w2, b2, approximate: bool = True,
       makes the same choice, because fp32 weights exceed its VMEM budget and
       ``pick_block`` returns None (gavit_tpu/ops/mlp.py:111-115), so the fp32
       parity path is the GEMM chain there too.
+
+    Differentiable: where gradients are recorded and an input needs one,
+    the call goes through :class:`_MlpInference`, whose backward is the VJP
+    of the chain recomputed from the inputs (the JAX package's
+    ``_fmi_bwd``), so kernel B's ctypes call, which records no
+    ``grad_fn``, does not cut the graph. The forward launches the same
+    kernel either way.
     """
     _build.check_impl(impl)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1])
-    if (impl == "auto" and x.device.type != "cpu"
-            and x.dtype == torch.bfloat16):
-        y = mlp_inference_kernel(x2, w1, b1, w2, b2, approximate)
+    use_kernel = (impl == "auto" and x.device.type != "cpu"
+                  and x.dtype == torch.bfloat16)
+    args = (x2, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        y = _MlpInference.apply(*args, approximate, use_kernel)
+    elif use_kernel:
+        y = mlp_inference_kernel(*args, approximate)
     else:
-        y = _chain_infer(x2, w1, b1, w2, b2, approximate)
+        y = _chain_infer(*args, approximate)
     return y.reshape(shape)
 
 

@@ -11,6 +11,10 @@ banks' ``[E, F]`` biases too) and every parameter with fewer than two
 dimensions (the λ included) are exempt, as the JAX package's mask is.
 The model's gradients are clipped to ``max_grad_norm`` by their global norm
 before the update, as ``optax.clip_by_global_norm`` does; the λ are not.
+
+:func:`make_mae_optimizer` is MAE pretraining's (scripts/pretrain_mae.py:
+93-102): one group, weight decay on every parameter (optax's ``adamw``
+there has no mask), the gradients clipped to a global norm of 1.0 first.
 """
 
 from __future__ import annotations
@@ -68,6 +72,27 @@ def make_optimizer(cfg: Config, model: nn.Module, criterion: nn.Module,
     schedules = [model_lr if g["role"] == "model" else crit_lr
                  for g in groups]
     return opt, schedules
+
+
+MAE_MAX_GRAD_NORM = 1.0  # optax.clip_by_global_norm(1.0), pretrain_mae.py
+
+
+def make_mae_optimizer(cfg: Config, model: nn.Module, steps_per_epoch: int):
+    """``(optimizer, schedule)`` of MAE pretraining: AdamW over every
+    parameter of ``model`` in one group with ``training.weight_decay``, β
+    and ε from the config, and the warmup-cosine schedule (warmup
+    ``warmup_epochs`` epochs, ``epochs`` epochs in all) that the step sets
+    as the lr before each update, read at the count of updates before it,
+    as optax reads it. Clip with :func:`clip_by_global_norm` at
+    :data:`MAE_MAX_GRAD_NORM` first."""
+    tr, op = cfg.training, cfg.optimizer
+    schedule = warmup_cosine_schedule(
+        tr.learning_rate, steps_per_epoch * tr.warmup_epochs,
+        steps_per_epoch * tr.epochs)
+    opt = torch.optim.AdamW(list(model.parameters()), lr=0.0,
+                            betas=(op.beta1, op.beta2), eps=op.eps,
+                            weight_decay=tr.weight_decay)
+    return opt, schedule
 
 
 @torch.no_grad()

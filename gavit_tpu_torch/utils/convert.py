@@ -9,6 +9,10 @@ Dense kernels ``[in, out]`` are transposed into ``nn.Linear``'s
 keep the Flax layout both ways, with no transpose. Strict: a missing or
 unexpected key, or a shape mismatch, raises. ``to_flax_tree`` is the
 reverse direction (port → nested dicts of numpy arrays in the Flax layout).
+Both take the MAE model (``models/mae.py``) too: its encoder as the ViT's,
+and ``decoder_embed``, ``mask_token``, ``decoder_pos_embed``,
+``decoder_blocks_{i}``, ``decoder_norm`` and ``decoder_pred`` as the JAX
+``MAEViT`` names them.
 ``load_criterion_params`` / ``criterion_tree`` carry the loss's λ
 (``{'lambda_wbce', 'lambda_focal', 'lambda_asl'}``, the JAX package's
 ``params['criterion']``).
@@ -50,8 +54,9 @@ def flatten_tree(tree, prefix: str = "") -> dict:
 
 def _flax_module_path(name: str) -> str:
     """``blocks.3.attn.qkv`` → ``blocks_3/attn/qkv``; ``graphs.1`` →
-    ``graph_1``."""
-    name = re.sub(r"^blocks\.(\d+)", r"blocks_\1", name)
+    ``graph_1``; the MAE decoder's ``decoder_blocks.2`` →
+    ``decoder_blocks_2``."""
+    name = re.sub(r"^(decoder_)?blocks\.(\d+)", r"\1blocks_\2", name)
     name = re.sub(r"^graphs\.(\d+)", r"graph_\1", name)
     return name.replace(".", "/")
 

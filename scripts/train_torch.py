@@ -3,7 +3,7 @@
 
     python scripts/train_torch.py --config configs/vit_b16_graph2.yaml \\
         [--synthetic] [--resume PATH|auto] [--device cuda|cpu] \\
-        [--set key=value ...]
+        [--profile DIR] [--set key=value ...]
     python scripts/train_torch.py ... --steps N
 
 The data: the synthetic sets with ``--synthetic`` (or ``data.synthetic``),
@@ -42,6 +42,11 @@ figures into ``<save_dir>/figures/``: ``loss_curve.png``,
 ``auc_curves.png`` and ``training_progress/`` (each skipped with a log
 line where matplotlib is missing, as on the card's machine).
 ``training.precision: fp32`` trains in fp32 with TF32 off.
+
+The epoch loop logs to ``paths.log_dir`` too (a timestamped file beside
+the console) and starts with the device inventory; ``--profile DIR``
+profiles its first epoch with ``torch.profiler`` into ``DIR/trace.json``
+(that epoch is neither validated nor saved, as in ``scripts/train.py``).
 
 With ``--steps N`` it takes N steps on batches of ``data.batch_size``
 uint8 images and prints the loss, the λ weights and images/s of each.
@@ -176,6 +181,9 @@ def parse_args(argv=None):
     p.add_argument("--steps", type=int, default=None,
                    help="take this many steps instead of the epoch loop")
     p.add_argument("--device", default="cuda")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="profile the first epoch with torch.profiler into "
+                        "DIR/trace.json")
     p.add_argument("--set", action="append", default=[], dest="overrides",
                    metavar="KEY=VALUE", help="config override, repeatable")
     return p.parse_args(argv)
@@ -232,10 +240,14 @@ def main(argv=None):
     from gavit_tpu_torch.data.loader import DataLoader
     from gavit_tpu_torch.utils import checkpoint as ckpt_lib
     from gavit_tpu_torch.utils import wandb_compat
-    from gavit_tpu_torch.utils.custom_logging import log_dataset_info
+    from gavit_tpu_torch.utils.custom_logging import (log_dataset_info,
+                                                      log_system_info,
+                                                      setup_logging)
 
     for path in (config.paths.save_dir, config.paths.log_dir):
         Path(path).mkdir(parents=True, exist_ok=True)
+    setup_logging(config)
+    log_system_info()
     run = wandb_compat.init(config, log_dir=config.paths.log_dir)
     try:
         dataset, val_ds = create_datasets(config, args.synthetic)
@@ -261,6 +273,15 @@ def main(argv=None):
                 trainer.restore_checkpoint(resume)
             else:
                 logger.error(f"No checkpoint found at {resume}")
+        if args.profile:
+            from gavit_tpu_torch.utils.profiling import trace
+
+            logger.info(f"Profiling the first epoch into {args.profile}")
+            with trace(args.profile):
+                first = trainer.train_epoch()
+            trainer.train_metrics_history.append(first)
+            trainer.current_epoch += 1
+            trainer.start_epoch = trainer.current_epoch
         final = trainer.train()
         logger.info("Training completed. Final metrics:")
         for name, value in final.items():

@@ -11,8 +11,11 @@ off alignment); the graph's
 TMA + wgmma body and D′ with NaN planted past their inputs and bit-equal
 reruns; the
 [B, H, N, d] attention kernels I/I′ and J/J′ from one token to 641, the
-dropout-add G bit for bit, and the mask writer E. chip_smoke.py covers the
-serving and training shapes themselves.
+dropout-add G bit for bit, and the mask writer E; kernel B's chain
+backward at the MAE widths, an eval Block's input gradient through A′ and
+B's backward, and a small MAE step (rerun bit-equal, against the plain
+versions). chip_smoke.py covers the serving and training shapes
+themselves.
 
 Marked ``cuda``: they skip without a card. This file imports nothing of JAX,
 so it runs on a machine without it, where the JAX-importing conftest is left
@@ -65,7 +68,7 @@ def _err(a, b):
 @pytest.mark.parametrize("b,n,heads", [
     (1, 1, 1), (3, 13, 2), (2, 15, 3), (1, 16, 12), (2, 17, 12), (3, 64, 2),
     (2, 65, 1), (1, 197, 12), (2, 208, 4), (1, 224, 3), (1, 225, 3),
-    (1, 256, 2), (2, 257, 3), (2, 400, 1)])
+    (1, 256, 2), (2, 257, 3), (2, 400, 1), (256, 50, 12), (4, 197, 8)])
 def test_attention_kernel_matches_plain(dev, dtype, b, n, heads):
     """Kernel A (bf16 up to 224 tokens: the single-pass body, whose key row
     is one 224-row tile; fp32 up to 416) and K past 224 (its streamed body)
@@ -104,12 +107,14 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("m,d,f", [(1, 64, 256), (5, 72, 136), (129, 64, 256),
                                    (1, 768, 3072), (197, 768, 3072),
                                    (300, 136, 520), (9232, 768, 3072),
-                                   (12608, 768, 3072)])
+                                   (12608, 768, 3072), (197, 512, 2048),
+                                   (50432, 512, 2048)])
 def test_mlp_kernel_matches_plain(dev, m, d, f):
     """Kernel B at ragged widths (d = 72, 136: a K tail; f = 136, 520: a
-    partial column tile) and at the served rows of ViT-B (b1, 197 = one
-    image, 9232 = 384 px b16, 12608 = b64), both GELU forms, the same bits
-    on a rerun."""
+    partial column tile), at the served rows of ViT-B (b1, 197 = one
+    image, 9232 = 384 px b16, 12608 = b64) and at the MAE decoder's widths
+    (512, 2048; 50432 = b256 × 197), both GELU forms, the same bits on a
+    rerun."""
     bf = torch.bfloat16
     x = _randn(dev, m, d, seed=1).to(bf)
     w1 = _randn(dev, f, d, seed=2, scale=d ** -0.5).to(bf)
@@ -552,7 +557,8 @@ def _nan_tailed(t):
 @pytest.mark.parametrize("b,n,heads", [(1, 1, 1), (2, 13, 2), (2, 17, 12),
                                        (1, 197, 12), (2, 224, 3),
                                        (2, 64, 1), (1, 65, 6), (3, 128, 4),
-                                       (1, 224, 12)])
+                                       (1, 224, 12), (64, 50, 12),
+                                       (4, 197, 8)])
 def test_attention_bwd_kernel_matches_plain(dev, b, n, heads):
     """A′ (the backward pair under A′'s entry) on qkv rows and a dO followed
     in memory by NaN: within 2e-2 of the plain version, finite, the same
@@ -1148,3 +1154,148 @@ def test_int8_predictor_reruns_bit_equal(dev):
                     buckets=(1, 8), impl="reference")
     ref.warmup()
     assert np.abs(ref.predict_proba(imgs) - first).max() <= 2e-2
+
+
+# kernel B's backward (``ops/mlp.py::_MlpInference``): the VJP of the chain
+# recomputed from the inputs, as the JAX package's ``_fmi_bwd``
+
+
+@pytest.mark.parametrize("m,d,f", [(12800, 768, 3072), (9850, 512, 2048),
+                                   (333, 512, 2048)])
+def test_mlp_inference_gradients_match_autograd_through_the_chain(dev, m, d,
+                                                                  f):
+    """bf16 at the MAE encoder's and decoder's widths (12800 = b256 × 50,
+    9850 = b50 × 197) and a ragged M: the forward launches kernel B once,
+    the backward none, and every gradient is within 2e-2 of autograd's
+    through the plain chain (``_chain_infer``, fp32 GEMMs), and
+    nonzero."""
+    bf = torch.bfloat16
+    tensors = [_randn(dev, m, d, seed=1), _randn(dev, f, d, seed=2,
+                                                 scale=d ** -0.5),
+               _randn(dev, f, seed=3, scale=0.1),
+               _randn(dev, d, f, seed=4, scale=0.5 * f ** -0.5),
+               _randn(dev, d, seed=5, scale=0.1)]
+    dy = _randn(dev, m, d, seed=6).to(bf)
+    grads = {}
+    for kernel in (True, False):
+        args = [t.to(bf).requires_grad_(True) for t in tensors]
+        before = M.KERNEL_LAUNCHES
+        y = (M.fused_mlp_inference(*args) if kernel
+             else M._chain_infer(*args, True))
+        assert M.KERNEL_LAUNCHES - before == kernel
+        y.backward(dy)
+        assert M.KERNEL_LAUNCHES - before == kernel
+        grads[kernel] = [a.grad for a in args]
+    torch.cuda.synchronize()
+    for name, got, want in zip(("x", "w1", "b1", "w2", "b2"), grads[True],
+                               grads[False]):
+        assert got.dtype == bf and torch.isfinite(got).all(), name
+        assert got.abs().max() > 0, name
+        assert _rel(got, want) <= 2e-2, name
+
+
+def test_eval_block_input_gradients_reach_the_mlp(dev):
+    """A bf16 Block in eval mode (the serving forward: A and B) with a
+    gradient asked of its input: the input's gradient through kernels A′
+    and B's chain backward against the plain versions' (2e-2), and the
+    MLP's weights get gradients; the no-grad forward launches the same
+    kernels."""
+    from gavit_tpu_torch.models.layers import Block
+
+    x0 = _randn(dev, 4, 50, 128, seed=8).to(torch.bfloat16)
+    dy = _randn(dev, 4, 50, 128, seed=9).to(torch.bfloat16)
+    grads = {}
+    for impl in ("auto", "reference"):
+        torch.manual_seed(0)
+        block = Block(128, 2, dtype=torch.bfloat16, impl=impl).to(dev).eval()
+        with torch.no_grad():
+            for p in block.parameters():
+                p.copy_(torch.randn(p.shape, generator=torch.Generator()
+                                    .manual_seed(p.numel())) * 0.05
+                        + (1.0 if p.ndim == 1 and p.shape[0] == 128 else 0))
+        before = (A.KERNEL_LAUNCHES, M.KERNEL_LAUNCHES)
+        with torch.no_grad():
+            block(x0)
+        x = x0.clone().requires_grad_(True)
+        block(x).backward(dy)
+        moved = (A.KERNEL_LAUNCHES - before[0],
+                 M.KERNEL_LAUNCHES - before[1])
+        assert moved == ((2, 2) if impl == "auto" else (0, 0))
+        assert block.mlp.fc1.weight.grad.abs().max() > 0
+        assert block.mlp.fc2.weight.grad.abs().max() > 0
+        grads[impl] = x.grad
+    torch.cuda.synchronize()
+    assert _rel(grads["auto"], grads["reference"]) <= 2e-2
+
+
+def _small_mae_pretrainer(dev, impl="auto"):
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent /
+                           "scripts"))
+    from pretrain_mae_torch import MAEPretrainer
+
+    cfg = from_dict({
+        "model": {"name": "custom", "img_size": 32, "patch_size": 8,
+                  "embed_dim": 128, "depth": 2, "num_heads": 2,
+                  "num_classes": 14},
+        "data": {"image_size": 32, "batch_size": 8,
+                 "augment_affine": True},
+        "training": {"precision": "bf16", "epochs": 2, "warmup_epochs": 1,
+                     "learning_rate": 1e-3}})
+    return MAEPretrainer(cfg, dev, 2, decoder_dim=128, decoder_depth=1,
+                         decoder_heads=2, impl=impl)
+
+
+def test_small_mae_step_reruns_bit_equal_and_matches_plain(dev):
+    """Two bf16 MAE steps of a small model (head_dim 64, A, A′ and B in
+    every block) from one seed, twice: the losses, the parameters and both
+    AdamW moments bit-equal; the first step's loss within 2e-2 of the
+    plain versions' and each first gradient at cosine ≥ 0.99, every MLP
+    weight's gradient nonzero; one step launches A, A′ and B once a block
+    and nothing else."""
+    images = torch.randint(0, 256, (8, 32, 32, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(2))
+    runs = []
+    for _ in range(2):
+        pre = _small_mae_pretrainer(dev)
+        losses = [pre.train_step(images).item() for _ in range(2)]
+        state = pre.optimizer.state
+        runs.append((losses, [t.detach().clone() for p in pre.params
+                              for t in (p, state[p]["exp_avg"],
+                                        state[p]["exp_avg_sq"])]))
+    torch.cuda.synchronize()
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+    from gavit_tpu_torch.models.mae import mae_loss
+
+    grads, losses = {}, {}
+    for impl in ("auto", "reference"):
+        pre = _small_mae_pretrainer(dev, impl)
+        x, noise = pre.draws(images.to(dev))
+        counts = (A.KERNEL_LAUNCHES, A.BWD_KERNEL_LAUNCHES,
+                  M.KERNEL_LAUNCHES, M.TRAIN_FWD_LAUNCHES,
+                  M.TRAIN_BWD_LAUNCHES, DR.KERNEL_LAUNCHES)
+        pred, mask = pre.model(x, noise)
+        loss = mae_loss(pred, x, mask, 8)
+        loss.backward()
+        moved = tuple(c - b for c, b in zip(
+            (A.KERNEL_LAUNCHES, A.BWD_KERNEL_LAUNCHES, M.KERNEL_LAUNCHES,
+             M.TRAIN_FWD_LAUNCHES, M.TRAIN_BWD_LAUNCHES,
+             DR.KERNEL_LAUNCHES), counts))
+        assert moved == ((3, 3, 3, 0, 0, 0) if impl == "auto"
+                         else (0,) * 6)
+        losses[impl] = loss.item()
+        grads[impl] = [(n, p.grad.float().flatten())
+                       for n, p in pre.model.named_parameters()]
+    assert abs(losses["auto"] - losses["reference"]) <= 2e-2 * abs(
+        losses["reference"])
+    for (name, a), (_, b) in zip(grads["auto"], grads["reference"]):
+        if ".mlp.fc" in name and name.endswith("weight"):
+            assert a.abs().max() > 0, name
+        if a.abs().max() == 0 and b.abs().max() == 0:
+            continue
+        cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
+        assert cos >= 0.99, (name, cos)

@@ -231,7 +231,10 @@ def test_port_never_imports_jax(tmp_path):
     the serve CLI's main on its best checkpoint with ``--precision int8
     --tome-r 1 --coalesce-ms 2 --max-queue-rows 8 --max-body-mb 1`` (a
     request and ``/metrics``, then SIGTERM), and its Predictor in bf16
-    behind a MicroBatcher. matplotlib is hidden, as on the card's machine,
+    behind a MicroBatcher; then MAE pretraining through its CLI, the
+    ``.pth`` it writes converted to the port's checkpoint and that to a
+    reference-layout ``.npz``, both inspected, and an epoch of the train
+    CLI under ``--profile``. matplotlib is hidden, as on the card's machine,
     so every figure is skipped with its log line
     (``tests/test_torch_visualization.py`` draws them)."""
     tiny = ["--set", "model.img_size=32", "--set", "model.patch_size=8",
@@ -359,6 +362,25 @@ def test_port_never_imports_jax(tmp_path):
         "assert mb.submit(np.zeros((2, 32, 32, 3), np.uint8)).shape == "
         "(2, 14)\n"
         "mb.close()\n"
+        f"mae_dir = {str(tmp_path / 'mae')!r}\n"
+        f"pretrain = runpy.run_path({str(ROOT / 'scripts' / 'pretrain_mae_torch.py')!r})\n"
+        "pth = pretrain['main'](['--config', 'configs/vit_b16_graph2.yaml', "
+        f"'--synthetic', '--device', 'cpu', *{tiny!r}, '--set', "
+        "'training.epochs=1', '--set', f'paths.save_dir={mae_dir}', "
+        "'--decoder-dim', '32', '--decoder-depth', '1', '--decoder-heads', "
+        "'2'])\n"
+        f"convert = runpy.run_path({str(ROOT / 'scripts' / 'convert_checkpoint_torch.py')!r})\n"
+        "convert['main'](['--to-jax', pth, f'{mae_dir}/port', '--config', "
+        f"'configs/vit_b16_graph2.yaml', *{tiny!r}])\n"
+        "convert['main'](['--to-torch', f'{mae_dir}/port', "
+        "f'{mae_dir}/ref.npz'])\n"
+        f"inspect = runpy.run_path({str(ROOT / 'scripts' / 'inspect_checkpoint_torch.py')!r})\n"
+        "assert inspect['main']([f'{mae_dir}/port', '--stats']) > 0\n"
+        "assert inspect['main']([f'{mae_dir}/ref.npz']) > 0\n"
+        "train['main']([*loop, '--set', 'training.epochs=1', '--set', "
+        "f'paths.save_dir={mae_dir}/profiled', '--profile', "
+        "f'{mae_dir}/trace'])\n"
+        "assert os.path.exists(f'{mae_dir}/trace/trace.json')\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'flax', 'gavit_tpu')]\n"
         "assert not bad, bad\n"

@@ -5,6 +5,7 @@ the fp32 step).
 
     python3 tools/profile_torch_training.py [--config configs/vit_b16_graph2.yaml] \
         [--batch 128] [--iters 5] [--out build/profile_train] [--set KEY=VALUE]
+    python3 tools/profile_torch_training.py --mae [--batch 256]
 
 Builds the configuration (``configs/vit_b16_graph2.yaml`` by default;
 ``configs/finetune_384.yaml`` for the 384-px fine-tune, at its batch 16,
@@ -14,7 +15,10 @@ environment its unfused grouped engine; ``--set`` overrides as the CLIs
 take them, e.g. the 1024-px step: ``--batch 4 --set model.img_size=1024
 --set data.image_size=1024 --set model.remat=true``; dropout 0.1, graph
 gates 0.5, weights from a seed) through ``scripts/train_torch.py``'s
-trainer, takes 3 warm-up steps on synthetic uint8 batches, then:
+trainer (with ``--mae``, the MAE pretraining step of
+``scripts/pretrain_mae_torch.py`` instead: its default 512 x 4 x 8 decoder
+and mask 0.75 on the configuration's trunk, batch 256 unless ``--batch``
+says otherwise), takes 3 warm-up steps on synthetic uint8 batches, then:
 
 * times the step on the host clock around ``train_step`` and a
   synchronize (median over ``--iters``);
@@ -85,6 +89,8 @@ FAMILIES = (
     ("graph_fwd_sm90", "C similarity, kNN, softmax, A·V, wgmma (graph.cu)"),
     ("graph_", "C graph op, CUDA cores (graph.cu)"),
     ("layer_norm", "LayerNorm forward and backward"),
+    ("GammaBeta", "LayerNorm forward and backward"),
+    ("Gelu", "GELU forward and backward, PyTorch's (B's chain backward)"),
     ("nvjet", "cuBLAS bf16 GEMMs (qkv, proj, patch, value, head; dx, dW)"),
     ("xmma_gemm_f32", "cuBLAS fp32 GEMMs (graph backward; every GEMM of an fp32 step)"),
     ("sgemm", "cuBLAS fp32 GEMMs (graph backward; every GEMM of an fp32 step)"),
@@ -114,7 +120,10 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="configs/vit_b16_graph2.yaml")
     p.add_argument("--batch", type=int, default=None,
-                   help="default: 128 for vit_b16_graph2, else the file's")
+                   help="default: 128 for vit_b16_graph2 (256 with --mae), "
+                        "else the file's")
+    p.add_argument("--mae", action="store_true",
+                   help="profile the MAE pretraining step")
     p.add_argument("--iters", type=int, default=5)
     p.add_argument("--out", default="build/profile_train")
     p.add_argument("--set", action="append", default=[], dest="overrides",
@@ -133,32 +142,45 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     path = ROOT / args.config
-    batch = args.batch or (128 if path.stem == "vit_b16_graph2" else None)
+    batch = args.batch or (256 if args.mae else 128 if
+                           path.stem == "vit_b16_graph2" else None)
     cfg = load_config(str(path),
                       ([f"data.batch_size={batch}"] if batch else [])
                       + args.overrides)
     batch = cfg.data.batch_size
     dataset = train_torch.create_dataset(cfg)
-    trainer = train_torch.build_trainer(cfg, dataset, "cuda", gate=0.5)
     images, labels = (torch.from_numpy(a) for a in next(
         train_torch.batches(dataset, batch, 0)))
+    if args.mae:
+        from pretrain_mae_torch import MAEPretrainer
+
+        pretrainer = MAEPretrainer(cfg, "cuda",
+                                   max(1, len(dataset) // batch))
+
+        def step():
+            pretrainer.train_step(images)
+    else:
+        trainer = train_torch.build_trainer(cfg, dataset, "cuda", gate=0.5)
+
+        def step():
+            trainer.train_step(images, labels)
     from chip_smoke import card_line
 
     card = card_line()
     for _ in range(3):
-        trainer.train_step(images, labels)
+        step()
     torch.cuda.synchronize()
     times = []
     for _ in range(args.iters):
         t0 = time.perf_counter()
-        trainer.train_step(images, labels)
+        step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1000)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            trainer.train_step(images, labels)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1000
     # device-side events only (kernels, memsets, copies), so no time is
@@ -173,7 +195,8 @@ def main():
     busy_ms = sum(e.self_device_time_total for e in events) / 1000
     n = args.iters
     step = statistics.median(times)
-    print(f"[profile] {path.stem} {cfg.data.image_size} px train step "
+    what = "MAE step" if args.mae else "train step"
+    print(f"[profile] {path.stem} {cfg.data.image_size} px {what} "
           f"b{batch} {cfg.training.precision} on {card}: "
           f"{step:.3f} ms (host clock, median of {n}), "
           f"{batch / step * 1000:.1f} "
@@ -195,7 +218,8 @@ def main():
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(
-        str(out / f"trace_train_{path.stem}_b{batch}.json"))
+        str(out / f"trace_{'mae' if args.mae else 'train'}_{path.stem}"
+                  f"_b{batch}.json"))
 
 
 if __name__ == "__main__":
