@@ -54,10 +54,14 @@ before the last line:
    engine) of the MoE model, 128 with the fused gate off (the unfused
    engine), with the launch counts of that forward; the upcycled MoE model
    against the dense one through both grouped engines;
-5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a warmed
-   224-px Predictor; every response must be 200 and match the plain-version
-   Predictor; the kernels' launch counters, zeroed just before, must show
-   that the requests went through every serving kernel; the 512- and
+5. serve: ``scripts/serve_torch.py``'s HTTP server in-process with a
+   224-px Predictor, warmed as the CLI warms it (each bucket's eager run
+   and its CUDA-graph capture); every response must be 200 and match the
+   plain-version Predictor; the kernels' launch counters, zeroed just
+   before the warm-up, must show every serving kernel's wrapper launched
+   there, and a ``torch.profiler`` trace of the requests must show the
+   replays running on the device the port's kernels that the eager path
+   runs on the same images; the 512- and
    1024-px Predictors (buckets 1 and 8, 1 and 4) against their plain
    versions, with the launches of their warm-up; then ``serve_quant``:
    the int8 GEMM (cuBLASLt through ``torch._int_mm``) at every quantised
@@ -68,6 +72,16 @@ before the last line:
    bf16 one, its rerun bit-equal; ToMe at r = 8 in bf16 (A, B, C) and
    int8 (A, C, int8 GEMMs) against the plain versions, ``tome_forward``
    at r = 0 bit-equal to the model; the b1 p50 and b64 images/s of each;
+   then ``serve_graphs``: the CUDA Predictor serves each bucket from one
+   captured CUDA graph, and for bf16, int8 and ToMe r = 8 at buckets 1
+   and 64 each replay is bit-equal to the eager kernel path and runs the
+   port's kernels it runs (a ``torch.profiler`` trace of each; a replay
+   runs no wrapper and moves no counter), with b1 p50, b64 images/s and
+   the b1 idle share eager and captured;
+   then ``export``: ``export_serving`` at 224 px over buckets 1 and 8 in
+   bf16 and int8, the artifact loaded by ``ExportedPredictor`` (one CUDA
+   graph a bucket) launching the kernels' custom ops, against its own
+   eager path, the Predictor and the plain versions;
    and, after the 224-px training phase, QAT (``training.qat=true``) at
    b128, 3 steps against the plain versions on the same scales (A, A′, C,
    H, H′, F; never D or D′), its checkpoint served by
@@ -190,6 +204,8 @@ import io
 import itertools
 import json
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1773,7 +1789,15 @@ def read_counts():
 
 
 def phase_serve(cfg, weights, dev):
+    """The 224-px server as ``scripts/serve_torch.py`` starts it: the
+    Predictor's warm-up (each bucket's eager run and its capture, where the
+    wrappers launch: the counters, zeroed just before), then 4 requests
+    answered by replays, which run no wrapper: a ``torch.profiler`` trace
+    of them must show the port's kernels that the eager path runs on the
+    same images. Returns the Predictor, its plain-version twin and the
+    counts of the run."""
     import numpy as np
+    import torch
     from PIL import Image
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -1783,13 +1807,12 @@ def phase_serve(cfg, weights, dev):
     predictor = Predictor(cfg, weights, precision="bf16", device=dev)
     reference = Predictor(cfg, weights, precision="bf16", device=dev,
                           impl="reference")
-    predictor.warmup()
+    reference.warmup()
     s = cfg.data.image_size
     server = serve_torch.GavitHTTPServer(
         ("127.0.0.1", 0),
         serve_torch.build_handler(predictor, s, serve_torch.model_desc(cfg)))
     thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
     base = f"http://127.0.0.1:{server.server_address[1]}"
     rng = np.random.default_rng(SEED + 1)
 
@@ -1803,9 +1826,39 @@ def phase_serve(cfg, weights, dev):
                 raise AssertionError(f"{path}: HTTP {r.status}")
             return json.loads(r.read())
 
-    def predict_check(name, images, body, ctype="application/json"):
-        out = request("/predict", body, ctype)
-        probs = np.asarray(out["probabilities"], np.float32)
+    one = rng.integers(0, 256, (s, s, 3), np.uint8)
+    png = rng.integers(0, 256, (s, s, 3), np.uint8)
+    buf = io.BytesIO()
+    Image.fromarray(png).save(buf, format="PNG")
+    sent = [("1 image as JSON", one, json.dumps(one.tolist()).encode(),
+             "application/json"),
+            ("1 PNG", png, buf.getvalue(), "image/png")]
+    for n in (8, 64):
+        batch = rng.integers(0, 256, (n, s, s, 3), np.uint8)
+        sent.append((f"batch of {n} as JSON", batch,
+                     json.dumps(batch.tolist()).encode(), "application/json"))
+    answers = []
+
+    def serve_all():
+        health = request("/healthz")
+        log(f"[serve] GET /healthz: 200 {health}")
+        for _, _, body, ctype in sent:
+            answers.append(np.asarray(
+                request("/predict", body, ctype)["probabilities"], np.float32))
+        log(f"[serve] GET /stats: 200 {request('/stats')}")
+
+    try:
+        torch.cuda.synchronize()
+        reset_counts()
+        predictor.warmup()
+        thread.start()
+        _, moved, replayed = traced(serve_all)
+        counts = read_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    for (name, images, _, _), probs in zip(sent, answers):
         want = reference.predict_proba(images)
         n = images.shape[0] if images.ndim == 4 else 1
         ok = (probs.shape == (n, cfg.model.num_classes)
@@ -1819,37 +1872,26 @@ def phase_serve(cfg, weights, dev):
         if not ok:
             raise AssertionError(f"served {name} disagrees with the plain "
                                  "versions")
-
-    try:
-        reset_counts()
-        health = request("/healthz")
-        log(f"[serve] GET /healthz: 200 {health}")
-        one = rng.integers(0, 256, (s, s, 3), np.uint8)
-        predict_check("1 image as JSON", one,
-                      json.dumps(one.tolist()).encode())
-        png = rng.integers(0, 256, (s, s, 3), np.uint8)
-        buf = io.BytesIO()
-        Image.fromarray(png).save(buf, format="PNG")
-        predict_check("1 PNG", png, buf.getvalue(), "image/png")
-        for n in (8, 64):
-            batch = rng.integers(0, 256, (n, s, s, 3), np.uint8)
-            predict_check(f"batch of {n} as JSON", batch,
-                          json.dumps(batch.tolist()).encode())
-        stats = request("/stats")
-        log(f"[serve] GET /stats: 200 {stats}")
-        counts = read_counts()
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    device_calls = 4  # 1 image, 1 PNG, bucket 8, bucket 128
-    log(f"[serve] kernel launches over {device_calls} device calls: "
-        + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    _, _, eager = traced(lambda: [predictor._predict_proba_eager(x)
+                                  for _, x, _, _ in sent])
+    nb = len(predictor.buckets)
     depth, n_graph = cfg.model.depth, len(set(cfg.model.graph_insert_after()))
-    expect = expected({"A": depth * device_calls, "B": depth * device_calls,
-                       "C": n_graph * device_calls})
-    if counts != expect:
-        raise AssertionError(f"launch counts {counts}, expected {expect}")
+    # per bucket one eager run and one capture; the requests, replays only
+    expect = expected({"A": 2 * depth * nb, "B": 2 * depth * nb,
+                       "C": 2 * n_graph * nb})
+    ok = (counts == expect and not moved and bool(replayed)
+          and replayed == eager)
+    log(f"[serve] kernel launches of the warm-up over {nb} buckets: "
+        + ", ".join(f"{k} {v}" for k, v in counts.items())
+        + f"; the 4 requests moved {'no counter' if not moved else moved}; "
+        f"the device ran {sum(replayed.values())} launches of the port's "
+        f"kernels in them ({kernel_list(replayed)}), the eager path on the "
+        f"same images {'the same' if replayed == eager else kernel_list(eager)}"
+        f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"launch counts {counts}, expected {expect}; "
+                             f"requests moved {moved}; replays ran "
+                             f"{replayed}, the eager path {eager}")
     return predictor, reference, counts
 
 
@@ -2017,11 +2059,13 @@ def imgs_per_s(predictor, n: int = 64, calls: int = 10) -> float:
 def phase_serve_quant(cfg, weights, dev, card):
     """int8 and ToMe serving of vit_b16_graph2 at 224 px: the int8
     ``Predictor`` calibrated on 8 images, warmed over buckets 1/8/64 (its
-    launches counted), against the same Predictor on the plain versions
-    under the same scales and against the bf16 one; ToMe at r = 8 in bf16
-    and int8 against the plain versions, with the launches of one b64
-    forward; ``tome_forward`` at r = 0 bit-equal to the model; the b1 p50
-    and b64 images/s of bf16, int8 and ToMe r = 8."""
+    launches counted: each bucket's eager run and its capture), against
+    the same Predictor on the plain versions under the same scales and
+    against the bf16 one; ToMe at r = 8 in bf16 and int8 against the plain
+    versions; each held on the eager paths, with the launches of one b64
+    forward there, and its replay bit-equal to its eager path;
+    ``tome_forward`` at r = 0 bit-equal to the model; the b1 p50 and b64
+    images/s of bf16, int8 and ToMe r = 8."""
     import numpy as np
     import torch
 
@@ -2053,19 +2097,24 @@ def phase_serve_quant(cfg, weights, dev, card):
         torch.cuda.synchronize()
         return out, {**read_counts(), "int8": Q.INT8_MM_LAUNCHES}
 
-    def held(name, pred, plain, counts, expect):
-        """``pred``'s b64 probabilities (launches ``counts``) against the
-        plain-version ``plain``'s; int8 ones on the kernels' codes."""
+    def held(name, pred, plain, expect):
+        """``pred``'s b64 probabilities against the plain-version
+        ``plain``'s, both on their eager paths (where the wrappers run and
+        count, and the pins, forward hooks, run too), int8 ones on the
+        kernels' codes; ``pred``'s replay bit-equal to its eager path."""
         int8 = pred.model.quant == "int8"
         pin = (PinnedCodes(pred.model, plain.model) if int8
                else contextlib.nullcontext())
         with pin:
             if int8:
                 pin.start_record()
-            got = pred.predict_proba(imgs)
+            got, counts = counted(lambda: pred._predict_proba_eager(imgs))
             if int8:
                 pin.start_replay()
-            want = plain.predict_proba(imgs)
+            want = plain._predict_proba_eager(imgs)
+        if not np.array_equal(got, pred.predict_proba(imgs)):
+            raise AssertionError(f"{name}: the captured replay differs from "
+                                 "the eager kernel path")
         err = float(np.abs(got - want).max())
         want_counts = expected_quant(expect)
         ok = (np.isfinite(got).all() and err <= PROB_TOL
@@ -2090,7 +2139,9 @@ def phase_serve_quant(cfg, weights, dev, card):
     state = quant_state(int8.model)
     nb = len(SERVE_QUANT_BUCKETS)
     _, counts = counted(int8.warmup)
-    want = {"A": depth * nb, "C": n_graph * nb, "int8": sites * nb}
+    # each bucket's eager run and its capture
+    want = {"A": 2 * depth * nb, "C": 2 * n_graph * nb,
+            "int8": 2 * sites * nb}
     held_counts = expected_quant(want)
     log(f"[serve_quant] int8 Predictor calibrated on 8 images, warm-up over "
         f"buckets {SERVE_QUANT_BUCKETS}: launches "
@@ -2102,8 +2153,7 @@ def phase_serve_quant(cfg, weights, dev, card):
     ref = make("int8", "reference")
     ref.use_quant_state(state)
     bf16 = make("bf16")
-    _, counts = counted(lambda: int8.predict_proba(imgs))
-    got = held("int8 Predictor b64", int8, ref, counts,
+    got = held("int8 Predictor b64", int8, ref,
                {"A": depth, "C": n_graph, "int8": sites})
     rerun = int8.predict_proba(imgs)
     dev_bf16 = float(np.abs(got - bf16.predict_proba(imgs)).max())
@@ -2123,15 +2173,15 @@ def phase_serve_quant(cfg, weights, dev, card):
     if not same:
         raise AssertionError("tome_forward at r=0 differs from the model")
     tome = make("bf16", tome_r=TOME_R)
-    _, counts = counted(lambda: tome.predict_proba(imgs))
+    tome.warmup()
     held(f"ToMe r={TOME_R} bf16 b64", tome, make("bf16", "reference", TOME_R),
-         counts, {"A": depth, "B": depth, "C": n_graph})
+         {"A": depth, "B": depth, "C": n_graph})
     tome8 = make("int8", tome_r=TOME_R)
     tome8.use_quant_state(state)
+    tome8.warmup()
     tref = make("int8", "reference", TOME_R)
     tref.use_quant_state(state)
-    _, counts = counted(lambda: tome8.predict_proba(imgs))
-    held(f"ToMe r={TOME_R} int8 b64", tome8, tref, counts,
+    held(f"ToMe r={TOME_R} int8 b64", tome8, tref,
          {"A": depth, "C": n_graph, "int8": sites})
     del tref
     phase_quant_times(dev, card)
@@ -2141,6 +2191,276 @@ def phase_serve_quant(cfg, weights, dev, card):
         log(f"[time] Predictor {name} at {s} px: b1 p50 "
             f"{p50_ms(pred):.3f} ms over 50 calls, b64 "
             f"{imgs_per_s(pred):.1f} images/s ({card})")
+
+
+class EagerPath:
+    """A predictor's private eager path behind ``predict_proba`` (the
+    yardstick of its captured graphs), for the timers that take a
+    predictor."""
+
+    def __init__(self, predictor):
+        self.image_size = predictor.image_size
+        self.predict_proba = predictor._predict_proba_eager
+
+
+def launches_of(fn):
+    """``fn()``'s result and every launch counter it moved (the kernels'
+    and the int8 GEMM's), read after a synchronise."""
+    import torch
+
+    from gavit_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+
+
+def by_kernel(moved) -> dict:
+    """:func:`launches_of`'s counters by kernel row (every row of
+    ``COUNTERS``)."""
+    return {k: moved.get(key, 0) for k, key in COUNTERS.items()}
+
+
+# the port's kernels (gavit_tpu_torch/csrc), each in an anonymous namespace
+# of its file, by the heads of their names; a few of PyTorch's kernels sit
+# in an anonymous namespace too
+PORT_KERNEL = re.compile(
+    r"^(void )?\(anonymous namespace\)::(attn_|gemm90::|graph_|moe_|"
+    r"colsum_reduce|bwd_prologue|keep_mask_kernel|elementwise_kernel<)")
+
+
+def traced(fn):
+    """``fn()``'s result, the launch counters it moved (:func:`launches_of`)
+    and the port's kernels that ran on the device, ``{name: launches}``,
+    from a ``torch.profiler`` trace: a replayed CUDA graph runs no wrapper
+    and moves no counter, but its kernels show in the trace. Nothing may
+    be captured inside ``fn``."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out, moved = launches_of(fn)
+        torch.cuda.synchronize()
+    kernels = Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and PORT_KERNEL.match(e.key):
+            kernels[e.key] += e.count
+    return out, moved, dict(kernels)
+
+
+def kernel_list(kernels: dict) -> str:
+    """``{name: launches}`` as short names (the demangled name up to its
+    template or argument list) with their launches."""
+    short = {}
+    for name, n in kernels.items():
+        key = name.replace("(anonymous namespace)::", "")
+        key = key.removeprefix("void ").split("(")[0][:70]
+        short[key] = short.get(key, 0) + n
+    return ", ".join(f"{k} {n}" for k, n in sorted(short.items()))
+
+
+def idle_share(predictor, calls: int = 20):
+    """The device's idle share of the wall time over ``calls`` one-image
+    requests under ``torch.profiler`` (1 - busy / wall; device-side events
+    only), and the device time a request: ``(idle, busy_ms)``."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    s = predictor.image_size
+    img = np.random.default_rng(SEED + 8).integers(0, 256, (s, s, 3),
+                                                   np.uint8)
+    predictor.predict_proba(img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            predictor.predict_proba(img)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0
+                  and not e.key.startswith(("Command Buffer", "Activity")))
+    busy_ms /= 1000
+    return 1 - busy_ms / wall_ms, busy_ms / calls
+
+
+SERVE_GRAPH_BUCKETS = (1, 64)
+
+
+def phase_serve_graphs(cfg, weights, dev, card):
+    """The captured serve path at 224 px: bf16, int8 (calibrated on 8
+    images) and ToMe r = 8 bf16 Predictors over buckets 1 and 64, each
+    bucket one CUDA graph captured at warm-up. Each bucket's replay is held
+    bit for bit to the eager kernel path on the same images, and to run on
+    the device the port's kernels it runs, launch for launch (a
+    ``torch.profiler`` trace of each: the replay runs no wrapper and moves
+    no counter, the eager path's wrappers count their launches); then b1
+    p50 and b64 images/s, eager and captured, beside the device's idle
+    share of b1 requests under ``torch.profiler`` and the b1 graph's
+    replay alone on the device (CUDA events)."""
+    import numpy as np
+
+    from gavit_tpu_torch.serving import Predictor
+
+    s = cfg.data.image_size
+    rng = np.random.default_rng(SEED + 9)
+    calib = rng.integers(0, 256, (8, s, s, 3), np.uint8)
+    for name, kw in (("bf16", {"precision": "bf16"}),
+                     ("int8", {"precision": "int8"}),
+                     (f"ToMe r={TOME_R} bf16",
+                      {"precision": "bf16", "tome_r": TOME_R})):
+        t0 = time.perf_counter()
+        pred = Predictor(cfg, weights, device=dev,
+                         buckets=SERVE_GRAPH_BUCKETS, **kw)
+        pred.calibrate(calib)
+        pred.warmup()
+        if sorted(pred._graphs) != list(SERVE_GRAPH_BUCKETS):
+            raise AssertionError(f"{name}: captured buckets "
+                                 f"{sorted(pred._graphs)}")
+        warm_s = time.perf_counter() - t0
+        eager = EagerPath(pred)
+        for b in SERVE_GRAPH_BUCKETS:
+            imgs = rng.integers(0, 256, (b, s, s, 3), np.uint8)
+            want, c_eager, k_eager = traced(lambda: eager.predict_proba(imgs))
+            got, c_graph, k_graph = traced(lambda: pred.predict_proba(imgs))
+            same = np.array_equal(got, want)
+            ok = (same and not c_graph and bool(c_eager) and bool(k_eager)
+                  and k_graph == k_eager and np.isfinite(got).all())
+            log(f"[serve_graphs] {name} b{b}: replay vs eager kernel path "
+                f"{'bit-equal' if same else f'max |dp| {np.abs(got - want).max():.3e}'}"
+                f"; the eager path's wrappers launched "
+                + ", ".join(f"{k[1]}/{k[0]} {v}" for k, v in
+                            sorted(c_eager.items()))
+                + f", the replay moved {'no counter' if not c_graph else c_graph}"
+                f"; on the device (trace) the eager path ran "
+                f"{kernel_list(k_eager)}, the replay "
+                f"{'the same' if k_graph == k_eager else kernel_list(k_graph)}"
+                f" {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{name} b{b}: the captured replay "
+                                     "differs from the eager path")
+        replay_ms = cuda_ms(pred._graphs[1].graph.replay, iters=50)
+        times = {}
+        for path, p in (("eager", eager), ("captured", pred)):
+            idle, busy = idle_share(p)
+            times[path] = (p50_ms(p), imgs_per_s(p), idle, busy)
+        log(f"[time] Predictor {name} at {s} px, warm-up with capture "
+            f"{warm_s:.1f} s; b1 graph replay alone {replay_ms:.4f} ms on "
+            f"the device; "
+            + "; ".join(f"{path}: b1 p50 {p50:.3f} ms, b64 {rate:.1f} "
+                        f"images/s, b1 idle share {idle:.3f} (device busy "
+                        f"{busy:.4f} ms a request, under the profiler)"
+                        for path, (p50, rate, idle, busy) in times.items())
+            + f" ({card})")
+        del pred, eager
+
+
+EXPORT_DIR = ROOT / "build" / "chip_export"
+EXPORT_BUCKETS = (1, 8)
+
+
+def phase_export(cfg, weights, dev, card):
+    """``export_serving`` on the card at 224 px over buckets 1 and 8, bf16
+    and int8 (calibrated on 8 images): the artifact loaded by
+    ``ExportedPredictor`` runs the kernels' custom ops (counted in its
+    warm-up, each bucket's eager run and its capture: A and C, and B in
+    bf16; the int8 GEMM is an aten op in the program, uncounted); one b8
+    request's replay is bit-equal to the artifact's eager path and runs
+    the same port kernels on the device (a ``torch.profiler`` trace of
+    each), and its probabilities are held to the Predictor's (bit-equality
+    recorded) and to the plain-version Predictor's within PROB_TOL. The
+    artifacts go under ``build/chip_export`` and are removed."""
+    import numpy as np
+
+    from gavit_tpu_torch.serving import (ExportedPredictor, Predictor,
+                                         export_serving)
+    from gavit_tpu_torch.utils.convert import quant_state
+
+    s = cfg.data.image_size
+    depth = cfg.model.depth
+    n_graph = len(set(cfg.model.graph_insert_after()))
+    rng = np.random.default_rng(SEED + 10)
+    calib = rng.integers(0, 256, (8, s, s, 3), np.uint8)
+    imgs = rng.integers(0, 256, (8, s, s, 3), np.uint8)
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    try:
+        for precision, want in (
+                ("bf16", {"A": depth, "B": depth, "C": n_graph}),
+                ("int8", {"A": depth, "C": n_graph})):
+            out = EXPORT_DIR / precision
+            t0 = time.perf_counter()
+            manifest = export_serving(
+                cfg, str(out), weights=weights, precision=precision,
+                buckets=EXPORT_BUCKETS, device=dev,
+                calibration_images=calib if precision == "int8" else None)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = ExportedPredictor(str(out))
+            _, counts = launches_of(loaded.warmup)
+            load_s = time.perf_counter() - t0
+            counts = by_kernel(counts)
+            warm = expected({k: 2 * n * len(EXPORT_BUCKETS)
+                             for k, n in want.items()})
+            eager, c_eager, k_eager = traced(
+                lambda: loaded._predict_proba_eager(imgs))
+            got, c_graph, k_graph = traced(lambda: loaded.predict_proba(imgs))
+            replayed = (np.array_equal(got, eager) and not c_graph
+                        and by_kernel(c_eager) == expected(want)
+                        and bool(k_eager) and k_graph == k_eager)
+            replay_text = (
+                "bit-equal to it, no counter moved, the same port kernels "
+                f"on the device (trace: {kernel_list(k_graph)})" if replayed
+                else f"differs: counters {c_graph}, kernels "
+                f"{kernel_list(k_graph)} against {kernel_list(k_eager)}")
+            pred = Predictor(cfg, weights, precision=precision, device=dev,
+                             buckets=EXPORT_BUCKETS)
+            plain = Predictor(cfg, weights, precision=precision, device=dev,
+                              buckets=EXPORT_BUCKETS, impl="reference")
+            if precision == "int8":
+                pred.calibrate(calib)
+                plain.use_quant_state(quant_state(pred.model))
+            mine = pred.predict_proba(imgs)
+            err_pred = float(np.abs(got - mine).max())
+            err_plain = float(np.abs(got - plain.predict_proba(imgs)).max())
+            sizes = sum(f.stat().st_size for f in out.iterdir())
+            ok = (counts == warm and replayed and np.isfinite(got).all()
+                  and err_pred <= PROB_TOL and err_plain <= PROB_TOL
+                  and manifest["device"] == "cuda"
+                  and sorted(loaded._graphs) == list(EXPORT_BUCKETS))
+            log(f"[export] {precision} at {s} px, buckets {EXPORT_BUCKETS}: "
+                f"exported in {export_s:.1f} s ({manifest['n_weights']} "
+                f"weights, {sizes / 2**20:.1f} MiB on disk), loaded, warm "
+                f"and captured in {load_s:.1f} s, the warm-up launching "
+                + ", ".join(f"{k} {v}" for k, v in counts.items() if v)
+                + f"; one b8 request: the eager path's wrappers launched "
+                + ", ".join(f"{k} {v}" for k, v in
+                            by_kernel(c_eager).items() if v)
+                + f", the replay {replay_text}; vs the Predictor "
+                f"{'bit-equal' if np.array_equal(got, mine) else f'max |dp| {err_pred:.3e}'}"
+                f", vs the plain versions max |dp| {err_plain:.3e} (tol "
+                f"{PROB_TOL:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the {precision} artifact: warm-up "
+                                     f"launches {counts} (expected {warm}),"
+                                     f" replay ok {replayed}, {err_pred}, "
+                                     f"{err_plain}")
+            log(f"[time] ExportedPredictor {precision} at {s} px: b1 p50 "
+                f"{p50_ms(loaded):.3f} ms over 50 calls ({card})")
+            del loaded, pred, plain
+    finally:
+        shutil.rmtree(EXPORT_DIR, ignore_errors=True)
 
 
 def phase_qat_serve(dev, card):
@@ -2764,8 +3084,9 @@ def phase_serve_large(cfg, weights, dev, buckets, card):
     """``Predictor`` at 512 or 1024 px over ``buckets`` (the default top
     bucket, 128, is more than a 1024-px server batches): warmed, then one
     image and a full top bucket, each against the plain-version Predictor;
-    the launches of the warm-up (L and B in every block, C never: the graph
-    blocks take the chunked path); the b1 p50."""
+    the launches of the warm-up (each bucket's eager run and its capture:
+    L and B in every block, C never: the graph blocks take the chunked
+    path); the b1 p50."""
     import numpy as np
 
     from gavit_tpu_torch.serving import Predictor
@@ -2782,7 +3103,8 @@ def phase_serve_large(cfg, weights, dev, buckets, card):
     torch.cuda.synchronize()
     counts = read_counts()
     depth, s = cfg.model.depth, cfg.data.image_size
-    want = expected({"L": depth * len(buckets), "B": depth * len(buckets)})
+    want = expected({"L": 2 * depth * len(buckets),
+                     "B": 2 * depth * len(buckets)})
     log(f"[serve] {s} px Predictor buckets {buckets}: kernel launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items())
         + f" {'ok' if counts == want else 'FAIL'}")
@@ -3578,16 +3900,16 @@ def phase_moe_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
 
     s = cfg.data.image_size
     predictor = Predictor(cfg, weights, precision="bf16", device=dev)
-    # every bucket once: the dense engine at 1, 8 and 32, the grouped one
-    # (kernel M) at 128
+    # every bucket's eager run and its capture: the dense engine at 1, 8 and
+    # 32, the grouped one (kernel M) at 128
     torch.cuda.synchronize()
     reset_counts()
     predictor.warmup()
     torch.cuda.synchronize()
     counts = read_counts()
     depth, n = cfg.model.depth, len(predictor.buckets)
-    want = expected({"A": depth * n, "B": depth // 2 * n, "C": 2 * n,
-                     "M": depth // 2})
+    want = expected({"A": 2 * depth * n, "B": 2 * (depth // 2) * n,
+                     "C": 2 * 2 * n, "M": 2 * (depth // 2)})
     log(f"[serve] MoE Predictor buckets {predictor.buckets}: kernel launches "
         + ", ".join(f"{k} {v}" for k, v in counts.items())
         + f" {'ok' if counts == want else 'FAIL'}")
@@ -4330,9 +4652,10 @@ def phase_run(dev, card):
     ev = read_counts()
     on_disk = json.loads((RUN_DIR / "eval" / "evaluation" /
                           "evaluation_results.json").read_text())
-    # the eval forward, then the Predictor: 1 + 50 one-image calls and
-    # 1 + 10 calls of 64 images (one b128 bucket each)
-    calls = 1 + 1 + 50 + 1 + 10
+    # the eval forward, then the Predictor's two buckets (1 + 50 one-image
+    # calls, 1 + 10 calls of 64 images in the b128 bucket): each bucket's
+    # first call runs it eagerly and captures it, the rest are replays
+    calls = 1 + (1 + 1) + (1 + 1)
     ok = (math.isfinite(on_disk["metrics"]["mean_auc"])
           and on_disk["p50_single_image_latency_ms"] > 0
           and "confidence_intervals" in on_disk
@@ -5290,6 +5613,10 @@ def main():
     phase_slice(cfg, weights, dev, "vit_b16_graph2")
     predictor, reference, serve_counts = phase_serve(cfg, weights, dev)
     phase_serve_quant(cfg, weights, dev, card)
+    # one CUDA graph per bucket against the eager kernel path, and the
+    # torch.export artifact
+    phase_serve_graphs(cfg, weights, dev, card)
+    phase_export(cfg, weights, dev, card)
     tcfg = train_config()
     # per block A, A′, D, D′; C at 2 graph blocks; F forward and backward at
     # the embedding, 12 attention projections and 2 graph projections

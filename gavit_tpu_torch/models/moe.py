@@ -212,8 +212,7 @@ class MoEMlp(nn.Module):
         w1, b1 = self.fc1_kernel.to(dt), self.fc1_bias.to(dt)
         w2, b2 = self.fc2_kernel.to(dt), self.fc2_bias.to(dt)
         fused = use_fused()
-        fused_live = fused and x.is_cuda and self.impl == "auto"
-        if resolve_moe_impl(cfg.impl, g * s * k, fused_live) == "grouped":
+        if self.engine(g, s, x.is_cuda) == "grouped":
             gate_vals, gate_idx, aux = router_topk(
                 logits, k, normalize_gates=cfg.normalize_gates)
             engine = grouped_moe_mlp_fused if fused else grouped_moe_mlp
@@ -239,6 +238,23 @@ class MoEMlp(nn.Module):
                          + cfg.router_z_weight * aux["router_z"]
                          if self.training else None)
         return out
+
+    def engine(self, groups: int, tokens: int, cuda: bool) -> str:
+        """The engine a forward on ``groups`` images of ``tokens`` tokens
+        takes ('grouped' or 'dense'), from shapes alone: the crossover
+        counts the fused kernels' threshold where they run."""
+        fused_live = use_fused() and cuda and self.impl == "auto"
+        return resolve_moe_impl(self.cfg.impl, groups * tokens * self.cfg.k,
+                                fused_live)
+
+    def reads_host(self, groups: int, tokens: int, cuda: bool) -> bool:
+        """Whether such a forward reads the host: the grouped engine's
+        plain versions (a CPU tensor, or ``impl='reference'``) read their
+        group sizes there (``ops/gmm.py::_bounds``,
+        ``ops/moe_fused.py::_expert_rows``); the kernels M and N-gmm read
+        them on the device."""
+        plain = not cuda or self.impl != "auto"
+        return plain and self.engine(groups, tokens, cuda) == "grouped"
 
     def _dense(self, x, combine, w1, b1, w2, b2, seed, rate, approx):
         """The static-capacity engine (moe.py:310-335): dispatch by the

@@ -180,6 +180,19 @@ class VisionTransformer(nn.Module):
         logits = self.head(x[:, 0]).float()
         return logits if capture is None else (logits, captured)
 
+    def reads_host(self, batch: int) -> str | None:
+        """Why a forward on ``batch`` images reads the host (a CUDA graph
+        cannot capture it, nor ``torch.export`` trace it), decided from
+        shapes alone, else None: an MoE block whose engine's plain versions
+        read their group sizes there (:meth:`MoEMlp.reads_host`)."""
+        tokens = self.cfg.num_patches + 1  # patches + CLS
+        cuda = self.pos_embed.is_cuda
+        if any(hasattr(b, "moe") and b.moe.reads_host(batch, tokens, cuda)
+               for b in self.blocks):
+            return ("the grouped MoE engine's plain versions read the group "
+                    "sizes on the host")
+        return None
+
     def moe_aux_loss(self):
         """The sum of the MoE blocks' config-weighted auxiliary losses
         (load balance and router z) of the last training forward; an fp32

@@ -96,6 +96,23 @@ build_log: str | None = None
 build_seconds: float | None = None
 
 
+# the modules whose ``*LAUNCHES`` globals count kernel (and int8 GEMM) calls
+_COUNTED = ("attention", "dropout", "gmm", "graph_ops", "mlp", "moe_fused",
+            "quant")
+
+
+def launch_counts() -> dict:
+    """Every launch counter of the ops modules, ``{(module, name): count}``:
+    what a call launched is the difference of two reads."""
+    import importlib
+
+    with count_lock:
+        return {(name, attr): val for name in _COUNTED
+                for attr, val in vars(importlib.import_module(
+                    f"gavit_tpu_torch.ops.{name}")).items()
+                if attr.endswith("LAUNCHES")}
+
+
 def _nvcc() -> str:
     home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     if (home / "bin" / "nvcc").exists():
@@ -231,14 +248,22 @@ def aligned(t: torch.Tensor, *, rows: bool = False) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
-    """Device, contiguity and 16-byte alignment every launcher relies on."""
+def require_device(*tensors: torch.Tensor) -> None:
+    """All on one CUDA device: what a wrapper checks before it calls a
+    kernel's custom op. It reads no data pointer, so it holds under
+    ``torch.export``'s fake tensors too."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the Hopper kernels take CUDA tensors, not {dev}")
     for t in tensors:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    """Device, contiguity and 16-byte alignment every launcher relies on."""
+    require_device(*tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("the Hopper kernels take contiguous tensors")
         if t.data_ptr() % 16:

@@ -160,13 +160,21 @@ def _split_heads(qkv3, heads: int):
     return qkv5[0], qkv5[1], qkv5[2]
 
 
-def _check_rows(qkv3, heads: int, what: str):
-    """(b, n, d) of packed rows a kernel takes: head_dim 64, on the card."""
+def _rows_shape(qkv3, heads: int, what: str):
+    """(b, n, d) of packed rows a kernel takes: head_dim 64. Shapes only, so
+    it holds under ``torch.export``'s fake tensors too."""
     b, n, f = qkv3.shape
     d = f // (3 * heads)
     if 3 * heads * d != f or d != 64:
         raise ValueError(f"{what} takes head_dim 64, got rows of {f} "
                          f"for {heads} heads")
+    return b, n, d
+
+
+def _check_rows(qkv3, heads: int, what: str):
+    """:func:`_rows_shape`, and the rows on the card, contiguous and
+    aligned (inside a launch: real tensors only)."""
+    b, n, d = _rows_shape(qkv3, heads, what)
     _build.require_cuda(qkv3)
     return b, n, d
 
@@ -187,7 +195,19 @@ def _dout_strides(dout, qkv3, heads: int, what: str = "dout"):
 
 def qkv_attention_kernel(qkv3, scale: float, heads: int):
     """Kernel A on a CUDA tensor ``[B, N, 3·H·d]`` → ``[B, H, N, d]`` (a view
-    of ``[B, N, H, d]`` memory)."""
+    of ``[B, N, H, d]`` memory), through the custom op
+    ``gavit_tpu_torch::attention_fwd``."""
+    _rows_shape(qkv3, heads, "kernel A")
+    _build.require_device(qkv3)
+    return torch.ops.gavit_tpu_torch.attention_fwd(
+        qkv3, float(scale), heads).transpose(1, 2)
+
+
+@torch.library.custom_op("gavit_tpu_torch::attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _attention_fwd_op(qkv3: torch.Tensor, scale: float,
+                      heads: int) -> torch.Tensor:
+    """Kernel A's launch: ``[B, N, 3·H·d]`` → contiguous ``[B, N, H, d]``."""
     global KERNEL_LAUNCHES
     b, n, d = _check_rows(qkv3, heads, "kernel A")
     code = _build.dtype_code(qkv3.dtype)
@@ -196,15 +216,25 @@ def qkv_attention_kernel(qkv3, scale: float, heads: int):
         raise ValueError(f"N={n} does not fit kernel A ({qkv3.dtype} up to "
                          f"N={A_MAX_N[qkv3.dtype]}; longer bf16 rows take "
                          "kernel K)")
-    # written as [B, N, H, d]: the [B, H, N, d] view below merges heads for
-    # the output projection without a copy
+    # written as [B, N, H, d]: the [B, H, N, d] view the wrapper takes
+    # merges heads for the output projection without a copy
     out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
     _build.check(lib.gavit_attention_fwd(
         qkv3.data_ptr(), out.data_ptr(), b, n, heads, d, float(scale), code,
         _build.stream(qkv3.device)), "attention kernel")
     with _build.count_lock:
         KERNEL_LAUNCHES += 1
-    return out.transpose(1, 2)
+    return out
+
+
+def _fwd_fake(qkv3, scale, heads):
+    """The forwards' output under ``torch.export``: contiguous
+    ``[B, N, H, d]`` in the rows' dtype, as the launches allocate it."""
+    b, n, f = qkv3.shape
+    return qkv3.new_empty((b, n, heads, f // (3 * heads)))
+
+
+_attention_fwd_op.register_fake(_fwd_fake)
 
 
 def attention_bhnd_backward_reference(q, k, v, dout, scale: float):
@@ -275,10 +305,10 @@ def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
     return dqkv
 
 
-def _check_long(qkv3, heads: int, what: str, large: bool = False):
+def _long_shape(qkv3, heads: int, what: str, large: bool = False):
     """K/K′ take bf16 rows up to :data:`K_MAX_N` tokens, L/L′
-    (``large``) at any length."""
-    b, n, d = _check_rows(qkv3, heads, what)
+    (``large``) at any length. Shapes and dtype only."""
+    b, n, d = _rows_shape(qkv3, heads, what)
     if qkv3.dtype != torch.bfloat16:
         raise TypeError(f"{what} takes bfloat16 rows, not {qkv3.dtype}")
     if n > K_MAX_N and not large:
@@ -288,9 +318,27 @@ def _check_long(qkv3, heads: int, what: str, large: bool = False):
     return b, n, d
 
 
+def _check_long(qkv3, heads: int, what: str, large: bool = False):
+    b, n, d = _long_shape(qkv3, heads, what, large)
+    _build.require_cuda(qkv3)
+    return b, n, d
+
+
 def qkv_attention_long_kernel(qkv3, scale: float, heads: int):
     """Kernel K on a CUDA bf16 tensor ``[B, N, 3·H·d]`` → ``[B, H, N, d]``
-    (a view of ``[B, N, H, d]`` memory, as kernel A's)."""
+    (a view of ``[B, N, H, d]`` memory, as kernel A's), through the custom
+    op ``gavit_tpu_torch::attention_long_fwd``."""
+    _long_shape(qkv3, heads, "kernel K")
+    _build.require_device(qkv3)
+    return torch.ops.gavit_tpu_torch.attention_long_fwd(
+        qkv3, float(scale), heads).transpose(1, 2)
+
+
+@torch.library.custom_op("gavit_tpu_torch::attention_long_fwd",
+                         mutates_args=(), device_types="cuda")
+def _attention_long_fwd_op(qkv3: torch.Tensor, scale: float,
+                           heads: int) -> torch.Tensor:
+    """Kernel K's launch: ``[B, N, 3·H·d]`` → contiguous ``[B, N, H, d]``."""
     global LONG_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel K")
     out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
@@ -300,7 +348,10 @@ def qkv_attention_long_kernel(qkv3, scale: float, heads: int):
         _build.stream(qkv3.device)), "long attention kernel")
     with _build.count_lock:
         LONG_KERNEL_LAUNCHES += 1
-    return out.transpose(1, 2)
+    return out
+
+
+_attention_long_fwd_op.register_fake(_fwd_fake)
 
 
 def qkv_attention_long_bwd_kernel(qkv3, dout, scale: float, heads: int):
@@ -368,7 +419,21 @@ def blockwise_attention_backward_reference(qkv3, o, lse, dout, scale: float,
 def qkv_attention_large_kernel(qkv3, scale: float, heads: int):
     """Kernel L on a CUDA bf16 tensor ``[B, N, 3·H·d]`` →
     ``(o [B, H, N, d], lse [B, H, N] fp32)``; o is a view of
-    ``[B, N, H, d]`` memory, as kernel A's."""
+    ``[B, N, H, d]`` memory, as kernel A's. Through the custom op
+    ``gavit_tpu_torch::attention_large_fwd``."""
+    _long_shape(qkv3, heads, "kernel L", large=True)
+    _build.require_device(qkv3)
+    out, lse = torch.ops.gavit_tpu_torch.attention_large_fwd(
+        qkv3, float(scale), heads)
+    return out.transpose(1, 2), lse
+
+
+@torch.library.custom_op("gavit_tpu_torch::attention_large_fwd",
+                         mutates_args=(), device_types="cuda")
+def _attention_large_fwd_op(qkv3: torch.Tensor, scale: float, heads: int
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel L's launch → (contiguous ``[B, N, H, d]``, ``[B, H, N]``
+    fp32)."""
     global LARGE_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel L", large=True)
     out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
@@ -379,7 +444,14 @@ def qkv_attention_large_kernel(qkv3, scale: float, heads: int):
         float(scale), _build.stream(qkv3.device)), "blockwise attention kernel")
     with _build.count_lock:
         LARGE_KERNEL_LAUNCHES += 1
-    return out.transpose(1, 2), lse
+    return out, lse
+
+
+@_attention_large_fwd_op.register_fake
+def _(qkv3, scale, heads):
+    b, n, _ = qkv3.shape
+    return (_fwd_fake(qkv3, scale, heads),
+            qkv3.new_empty((b, heads, n), dtype=torch.float32))
 
 
 def qkv_attention_large_bwd_kernel(qkv3, o, lse, dout, scale: float,

@@ -79,9 +79,9 @@ def _check_bf16(what, *tensors):
 
 def gmm_kernel(x, w, group_sizes, transpose_rhs: bool = False):
     """Kernel N-gmm on CUDA bf16 ``x [T, K]`` and ``w`` with int32
-    ``group_sizes [E]`` on the device → bf16 ``[T, N]``."""
-    global KERNEL_LAUNCHES
-    t, kd = x.shape
+    ``group_sizes [E]`` on the device → bf16 ``[T, N]``, through the custom
+    op ``gavit_tpu_torch::gmm``."""
+    _, kd = x.shape
     e = w.shape[0]
     n, wk = (w.shape[1], w.shape[2]) if transpose_rhs else \
         (w.shape[2], w.shape[1])
@@ -93,6 +93,23 @@ def gmm_kernel(x, w, group_sizes, transpose_rhs: bool = False):
         raise ValueError(f"N-gmm takes int32 group sizes [{e}], got "
                          f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
     _check_bf16("kernel N-gmm", x, w)
+    _build.require_device(x, w, group_sizes)
+    return torch.ops.gavit_tpu_torch.gmm(x, w, group_sizes,
+                                         bool(transpose_rhs))
+
+
+def _gmm_cols(w, transpose_rhs: bool) -> int:
+    return w.shape[1] if transpose_rhs else w.shape[2]
+
+
+@torch.library.custom_op("gavit_tpu_torch::gmm", mutates_args=(),
+                         device_types="cuda")
+def _gmm_op(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
+            transpose_rhs: bool) -> torch.Tensor:
+    """Kernel N-gmm's launch → ``[T, N]`` (no launch at T = 0)."""
+    global KERNEL_LAUNCHES
+    t, kd = x.shape
+    e, n = w.shape[0], _gmm_cols(w, transpose_rhs)
     _build.require_cuda(x, w, group_sizes)
     out = torch.empty((t, n), dtype=x.dtype, device=x.device)
     if not t:
@@ -105,6 +122,11 @@ def gmm_kernel(x, w, group_sizes, transpose_rhs: bool = False):
     with _build.count_lock:
         KERNEL_LAUNCHES += 1
     return out
+
+
+@_gmm_op.register_fake
+def _(x, w, group_sizes, transpose_rhs):
+    return x.new_empty((x.shape[0], _gmm_cols(w, transpose_rhs)))
 
 
 def tgmm_kernel(a, b, group_sizes, out_dtype=torch.bfloat16):
@@ -158,4 +180,7 @@ def ragged_matmul(x, w, group_sizes, *, impl: str = "auto"):
     CPU tensor, or ``impl='reference'``, takes the plain versions."""
     _build.check_impl(impl)
     use_kernel = impl == "auto" and x.device.type != "cpu"
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        # no gradient recorded (serving, torch.export): the forward alone
+        return (gmm_kernel if use_kernel else gmm_reference)(x, w, group_sizes)
     return _Gmm.apply(x, w, group_sizes, use_kernel)

@@ -119,17 +119,32 @@ def graph_aggregate(adj, values):
 def graph_aggregate_kernel(tokens, values, mode: str, k: int,
                            threshold: float, temperature: float,
                            return_adjacency: bool = False):
-    """Kernel C on CUDA tensors. With ``return_adjacency`` it also writes
+    """Kernel C on CUDA tensors, through the custom op
+    ``gavit_tpu_torch::graph_fwd``. With ``return_adjacency`` it also writes
     the fp32 adjacency and returns ``(out, adj)``."""
-    global KERNEL_LAUNCHES
     if mode not in MODES:
         raise ValueError(f"unknown adjacency mode: {mode!r}")
     if tokens.shape != values.shape or tokens.dtype != values.dtype:
         raise ValueError(f"tokens {tuple(tokens.shape)} {tokens.dtype} and "
                          f"values {tuple(values.shape)} {values.dtype} differ")
-    b, n, d = tokens.shape
     if mode == "knn" and k < 1:
         raise ValueError(f"knn needs k >= 1, got {k}")
+    _build.require_device(tokens, values)
+    out, adj = torch.ops.gavit_tpu_torch.graph_fwd(
+        tokens, values, mode, int(k), float(threshold), float(temperature),
+        bool(return_adjacency))
+    return (out, adj) if return_adjacency else out
+
+
+@torch.library.custom_op("gavit_tpu_torch::graph_fwd", mutates_args=(),
+                         device_types="cuda")
+def _graph_fwd_op(tokens: torch.Tensor, values: torch.Tensor, mode: str,
+                  k: int, threshold: float, temperature: float,
+                  return_adjacency: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel C's launch → ``(out, adj)``; ``adj`` is the fp32 ``[B, N, N]``
+    adjacency with ``return_adjacency``, else an empty fp32 tensor."""
+    global KERNEL_LAUNCHES
+    b, n, d = tokens.shape
     _build.require_cuda(tokens, values)
     code = _build.dtype_code(tokens.dtype)
     lib = _build.library()
@@ -137,20 +152,28 @@ def graph_aggregate_kernel(tokens, values, mode: str, k: int,
         raise ValueError(f"N={n} is outside kernel C's range (2 up to its "
                          "shared-memory bound; the row-chunked path waits)")
     out = torch.empty_like(values)
-    adj = (torch.empty((b, n, n), dtype=torch.float32, device=tokens.device)
-           if return_adjacency else None)
+    adj = torch.empty((b, n, n) if return_adjacency else (0,),
+                      dtype=torch.float32, device=tokens.device)
     # the bf16 body keeps the normalised tokens here between its two launches
     scratch = torch.empty_like(tokens) if tokens.dtype == torch.bfloat16 \
         else None
     _build.check(lib.gavit_graph_fwd(
         tokens.data_ptr(), values.data_ptr(), out.data_ptr(),
-        adj.data_ptr() if adj is not None else None,
-        scratch.data_ptr() if scratch is not None else None, b, n, d, MODES[mode],
-        int(k), float(threshold), float(temperature), code,
+        adj.data_ptr() if return_adjacency else None,
+        scratch.data_ptr() if scratch is not None else None, b, n, d,
+        MODES[mode], int(k), float(threshold), float(temperature), code,
         _build.stream(tokens.device)), "graph kernel")
     with _build.count_lock:
         KERNEL_LAUNCHES += 1
-    return (out, adj) if return_adjacency else out
+    return out, adj
+
+
+@_graph_fwd_op.register_fake
+def _(tokens, values, mode, k, threshold, temperature, return_adjacency):
+    b, n, _ = tokens.shape
+    return (torch.empty_like(values, memory_format=torch.contiguous_format),
+            tokens.new_empty((b, n, n) if return_adjacency else (0,),
+                             dtype=torch.float32))
 
 
 def graph_backward(tokens, values, adj, g, temperature: float = 1.0):

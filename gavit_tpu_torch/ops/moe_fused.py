@@ -256,10 +256,10 @@ def _group_sizes(tile_group, group_sizes, cap: int, tm: int, e: int):
 def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
                    sites, rate: float, out_rate: float, approx: bool,
                    group_sizes=None):
-    """Kernel M on CUDA bf16 tensors → ``(y, h1)``. ``group_sizes``: the
-    grouping's padded rows per expert, as :func:`group_by_expert_tiled`
-    returns them (derived from ``tile_group`` when not given)."""
-    global KERNEL_LAUNCHES
+    """Kernel M on CUDA bf16 tensors → ``(y, h1)``, through the custom op
+    ``gavit_tpu_torch::moe_fwd``. ``group_sizes``: the grouping's padded
+    rows per expert, as :func:`group_by_expert_tiled` returns them (derived
+    from ``tile_group`` when not given)."""
     cap, d = x_sorted.shape
     e, _, f = w1.shape
     if (w1.shape != (e, d, f) or b1.shape != (e, f)
@@ -271,7 +271,32 @@ def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
         raise ValueError(f"kernel M takes widths divisible by 8, got {d}, {f}")
     _check_bf16("kernel M", x_sorted, w1, b1, w2, b2)
     group_sizes = _group_sizes(tile_group, group_sizes, cap, tm, e)
-    _build.require_cuda(x_sorted, w1, b1, w2, b2, tile_group, group_sizes)
+    _build.require_device(x_sorted, w1, b1, w2, b2, tile_group, group_sizes)
+    y, h1 = torch.ops.gavit_tpu_torch.moe_fwd(
+        x_sorted, w1, b1, w2, b2, group_sizes, int(tm), _int64(seed or 0),
+        [int(s) for s in sites], float(rate), float(out_rate), bool(approx))
+    return y, h1
+
+
+def _int64(seed: int) -> int:
+    """A 64-bit step seed as the signed int64 an op's schema carries; the
+    launch masks it back to 64 bits (``philox.split_seed``)."""
+    seed &= (1 << 64) - 1
+    return seed - (1 << 64) if seed >> 63 else seed
+
+
+@torch.library.custom_op("gavit_tpu_torch::moe_fwd", mutates_args=(),
+                         device_types="cuda")
+def _moe_fwd_op(x_sorted: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor, group_sizes: torch.Tensor,
+                tm: int, seed: int, sites: list[int], rate: float,
+                out_rate: float, approx: bool
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Kernel M's launch → ``(y [cap, D], h1 [cap, F])``."""
+    global KERNEL_LAUNCHES
+    cap, d = x_sorted.shape
+    e, _, f = w1.shape
+    _build.require_cuda(x_sorted, w1, b1, w2, b2, group_sizes)
     h1 = torch.empty((cap, f), dtype=x_sorted.dtype, device=x_sorted.device)
     g = torch.empty_like(h1)
     y = torch.empty_like(x_sorted)
@@ -285,6 +310,14 @@ def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
     with _build.count_lock:
         KERNEL_LAUNCHES += 1
     return y, h1
+
+
+@_moe_fwd_op.register_fake
+def _(x_sorted, w1, b1, w2, b2, group_sizes, tm, seed, sites, rate,
+      out_rate, approx):
+    cap, _ = x_sorted.shape
+    return (x_sorted.new_empty(x_sorted.shape),
+            x_sorted.new_empty((cap, w1.shape[2])))
 
 
 def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
@@ -383,6 +416,14 @@ def fused_grouped_mlp(x_sorted, w1, b1, w2, b2, tile_group, group_sizes,
     if (rate > 0.0 or out_rate > 0.0) and seed is None:
         raise ValueError("MoE dropout with a rate > 0 needs a seed")
     use_kernel = impl == "auto" and x_sorted.device.type != "cpu"
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (x_sorted, w1, b1, w2, b2))):
+        # no gradient recorded (serving, torch.export): the forward alone
+        args = (x_sorted, w1, b1, w2, b2, tile_group, int(tm), seed or 0,
+                tuple(sites), float(rate), float(out_rate), bool(approx))
+        if use_kernel:
+            return moe_fwd_kernel(*args, group_sizes)[0]
+        return moe_fwd_reference(*args)[0]
     return _FusedGroupedMlp.apply(
         x_sorted, w1, b1, w2, b2, tile_group, group_sizes, seed or 0,
         tuple(sites), float(rate), float(out_rate), bool(approx), int(tm),

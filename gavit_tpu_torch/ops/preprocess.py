@@ -38,11 +38,18 @@ _TRANSLATE = 0.05
 _SCALE = (0.95, 1.05)
 
 
+def _per_channel(values, like):
+    """``values`` as a tensor of ``like``'s dtype and device, written by
+    fill kernels: no copy from host memory, which a CUDA graph's capture
+    refuses (``serving.py`` captures this preprocessing)."""
+    return torch.stack([torch.full((), v, dtype=like.dtype,
+                                   device=like.device) for v in values])
+
+
 def normalize(x):
     """ImageNet normalisation on ``[B, H, W, 3]`` floats in [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-    return (x - mean) / std
+    return (x - _per_channel(IMAGENET_MEAN, x)) / _per_channel(IMAGENET_STD,
+                                                              x)
 
 
 def to_float(images_u8):

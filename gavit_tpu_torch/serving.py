@@ -13,22 +13,38 @@ checkpoint, the scales it trained under (:func:`export_quant`).
 ``tome_r`` merges tokens after every block (``models/tome.py``) and
 composes with int8.
 
+On a CUDA device the Predictor serves each bucket from one captured CUDA
+graph, the counterpart of the JAX Predictor's per-bucket ``jit``: the
+whole serve path (uint8 → ``val_preprocess`` → model or ``tome_forward``
+→ fp32 sigmoid) is captured once and replayed per request, so a request
+pays a copy in, one graph launch and a copy out. The kernels' launch
+counters count where their wrappers run: in each bucket's eager run and
+its capture, never in a replay.
+
+``export_serving`` writes the same serve path as one ``torch.export``
+program per bucket (``predict_b{b}.pt2``) with the weights outside the
+programs in one ``weights.pt`` and a ``manifest.json``;
+:class:`ExportedPredictor` serves such an artifact without the model code,
+on CUDA from one captured graph a bucket as well.
+
 ``MicroBatcher``: coalesces concurrent requests into one bucketed call
 within ``max_wait_ms``, up to ``max_batch`` rows, and sheds load past
 ``max_queue_rows`` pending rows with :class:`QueueFull`.
 
-One CUDA graph per bucket and ``torch.export`` of the serve path wait for
-ROADMAP Queue 1 item 7; the mesh for item 13.
+Serving over several cards waits for ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
+import os
 import queue
 import threading
 import time
 from collections import deque
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -46,6 +62,10 @@ from gavit_tpu_torch.utils.convert import (load_flax_params,
 logger = logging.getLogger(__name__)
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
+EXPORT_FORMAT = "gavit_tpu_torch.serving_export.v1"
+# what is left to ROADMAP Queue 1 item 15, quoted where it refuses
+_ITEM_15 = ("ROADMAP Queue 1 item 15 (static-shape grouping, cross-device "
+            "export)")
 
 # latency and batch-size samples kept for the percentile windows
 _STATS_WINDOW = 4096
@@ -102,6 +122,34 @@ def _cast_weights_(model: torch.nn.Module, dtype: torch.dtype) -> None:
         for name, p in mod.named_parameters(recurse=False):
             if name not in _FP32_PARAMS:
                 p.data = p.data.to(dtype)
+
+
+class _ServePath(torch.nn.Module):
+    """uint8 NHWC ``[B, S, S, 3]`` → fp32 probabilities ``[B, classes]``:
+    ``val_preprocess`` → the model (``tome_forward`` with ``tome_r``) →
+    ``sigmoid(logits.float())``. The one function that the eager path runs,
+    a CUDA graph captures and ``torch.export`` traces."""
+
+    def __init__(self, model: torch.nn.Module, tome_r: int = 0):
+        super().__init__()
+        self.model = model
+        self.tome_r = tome_r
+
+    def forward(self, images_u8):
+        x = val_preprocess(images_u8)
+        if self.tome_r:
+            logits = tome_forward(self.model, x, self.tome_r)
+        else:
+            logits = self.model(x)
+        return torch.sigmoid(logits.float())
+
+
+class _Captured(NamedTuple):
+    """One bucket's CUDA graph: its static uint8 input and fp32 output."""
+
+    graph: "torch.cuda.CUDAGraph"
+    images: torch.Tensor
+    probs: torch.Tensor
 
 
 # ---------------------------------------------------------------------------
@@ -172,7 +220,144 @@ def export_quant(model, act_scales: dict) -> dict:
         for path, node in act_scales.items()}
 
 
-class Predictor:
+class _Served:
+    """What both predictors share: the bucketed ``predict_proba``, the
+    latency window and the label lists, and the serve path ``_run`` (uint8
+    ``[b, S, S, 3]`` on the device → fp32 probabilities) launched op by op
+    (:meth:`_predict_eager`) or, on CUDA, replayed from one CUDA graph a
+    bucket, captured at ``warmup`` or at the bucket's first call (one eager
+    run first, which builds the kernels and sets their attributes). All
+    buckets share one memory pool; a lock serialises capture and replay,
+    since the static buffers are shared. A capture that fails raises:
+    nothing falls back to the eager path."""
+
+    def __init__(self, image_size: int, buckets, disease_names, device):
+        self.image_size = image_size
+        self.buckets = tuple(sorted(set(buckets)))
+        self.disease_names = list(disease_names)
+        self.device = device
+        self._latencies_ms: deque = deque(maxlen=_STATS_WINDOW)
+        self._latency_count = 0
+        self._stats_lock = threading.Lock()
+        self._graphs: dict = {}  # bucket -> _Captured
+        self._pool = None
+        self._graph_lock = threading.Lock()
+
+    def _run(self, images: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _captures(self, b: int) -> bool:
+        """Whether bucket ``b`` is served from a CUDA graph."""
+        return self.device.type == "cuda"
+
+    def _check_servable(self):
+        pass
+
+    @torch.inference_mode()
+    def _predict_eager(self, images_u8: np.ndarray) -> np.ndarray:
+        """The serve path launched op by op: the CPU's path, and on CUDA
+        the buckets that are not captured (and the checks' yardstick)."""
+        self._check_servable()
+        return self._run(torch.tensor(images_u8, device=self.device)
+                         ).cpu().numpy()
+
+    def _predict_proba_eager(self, images_u8) -> np.ndarray:
+        """:meth:`predict_proba` on the eager path, bucketed alike and
+        outside the latency window: what the checks hold a replay to."""
+        return _bucketed_predict(images_u8, self.buckets, self.image_size,
+                                 self._predict_eager)
+
+    @torch.inference_mode()
+    def _capture(self, b: int) -> _Captured:
+        """Bucket ``b``'s graph (call under ``_graph_lock``): one eager run,
+        then the capture into the shared pool."""
+        s = self.image_size
+        images = torch.zeros((b, s, s, 3), dtype=torch.uint8,
+                             device=self.device)
+        self._run(images)
+        torch.cuda.synchronize(self.device)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pool):
+            probs = self._run(images)
+        captured = _Captured(graph, images, probs)
+        self._graphs[b] = captured
+        return captured
+
+    def _predict(self, images_u8: np.ndarray) -> np.ndarray:
+        b = images_u8.shape[0]
+        self._check_servable()
+        if not self._captures(b):
+            return self._predict_eager(images_u8)
+        chunk = torch.from_numpy(np.ascontiguousarray(images_u8))
+        # the static buffers are inference tensors (made under the capture's
+        # inference mode): written and read in it
+        with self._graph_lock, torch.inference_mode():
+            captured = self._graphs.get(b) or self._capture(b)
+            captured.images.copy_(chunk)
+            captured.graph.replay()
+            return captured.probs.cpu().numpy()
+
+    def _drop_graphs(self):
+        """Forget every captured graph (new static state: the next call
+        captures again)."""
+        with self._graph_lock:
+            self._graphs.clear()
+            self._pool = None
+
+    def _warm_buckets(self):
+        """Every bucket once: captured where it is, else run eagerly."""
+        s = self.image_size
+        for b in self.buckets:
+            if self._captures(b):
+                with self._graph_lock:
+                    if b not in self._graphs:
+                        self._capture(b)
+            else:
+                self._predict_eager(np.zeros((b, s, s, 3), np.uint8))
+
+    def predict_proba(self, images_u8: np.ndarray) -> np.ndarray:
+        """uint8 ``[N, S, S, 3]`` → probabilities ``[N, num_classes]``."""
+        t0 = time.perf_counter()
+        probs = _bucketed_predict(images_u8, self.buckets, self.image_size,
+                                  self._predict)
+        ms = (time.perf_counter() - t0) * 1000
+        with self._stats_lock:
+            self._latencies_ms.append(ms)
+            self._latency_count += 1
+        return probs
+
+    def labels_from_probs(self, probs, threshold: float = 0.5):
+        """Disease-name lists per image from probabilities in hand."""
+        return [
+            [self.disease_names[i] for i in np.nonzero(row > threshold)[0]]
+            for row in np.asarray(probs)
+        ]
+
+    def predict_labels(self, images_u8, threshold: float = 0.5):
+        """Disease-name lists per image at ``threshold`` (serving.py:382):
+        :meth:`predict_proba`, then :meth:`labels_from_probs`."""
+        return self.labels_from_probs(self.predict_proba(images_u8),
+                                      threshold)
+
+    def latency_stats(self) -> dict:
+        with self._stats_lock:
+            if not self._latencies_ms:
+                return {}
+            arr = np.asarray(self._latencies_ms)
+            count = self._latency_count
+        return {
+            "count": int(count),
+            "window": int(arr.size),
+            "p50_ms": float(np.percentile(arr, 50)),
+            "p95_ms": float(np.percentile(arr, 95)),
+            "p99_ms": float(np.percentile(arr, 99)),
+            "mean_ms": float(arr.mean()),
+        }
+
+
+class Predictor(_Served):
     def __init__(
         self,
         config: Config,
@@ -196,9 +381,15 @@ class Predictor:
         :meth:`calibrate`, or on noise at :meth:`warmup`). ``impl``:
         ``'auto'`` (Hopper kernels and cuBLASLt's int8 GEMM on CUDA) or
         ``'reference'`` (plain PyTorch everywhere). ``tome_r``: tokens
-        merged after every block (``models/tome.py``)."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        merged after every block (``models/tome.py``).
+
+        On CUDA each bucket is served from a CUDA graph (:class:`_Served`).
+        The only buckets served eagerly: int8 before it has static scales
+        (the dynamic-PTQ calibration pass is never captured), and the
+        MoE buckets whose route reads the host
+        (``VisionTransformer.reads_host``)."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 f"Predictor(device={device!r}) needs a CUDA device and this "
                 "PyTorch sees none")
@@ -221,10 +412,10 @@ class Predictor:
         else:
             load_flax_params(model, weights)
         _cast_weights_(model, model.dtype)
-        self.model = model.to(self.device).eval()
-        self.image_size = config.data.image_size
-        self.buckets = tuple(sorted(set(buckets)))
-        self.disease_names = DISEASE_NAMES[: model_cfg.num_classes]
+        self.model = model.to(device).eval()
+        self._serve = _ServePath(self.model, self._tome_r)
+        super().__init__(config.data.image_size, buckets,
+                         DISEASE_NAMES[: model_cfg.num_classes], device)
         self._is_int8 = precision == "int8"
         self._has_qat_scales = qat_scales is not None
         self._static = False
@@ -234,35 +425,43 @@ class Predictor:
                                                       qat_scales))
             self._static = True
             logger.info("int8 predictor using QAT-trained scales")
-        self._latencies_ms: deque = deque(maxlen=_STATS_WINDOW)
-        self._latency_count = 0
-        self._stats_lock = threading.Lock()
+        self._eager_logged: set = set()
 
     @property
     def calibrated(self) -> bool:
         """True once an int8 predictor serves static scales."""
         return self._static
 
-    @torch.inference_mode()
-    def _predict(self, images_u8: np.ndarray) -> np.ndarray:
+    def _check_servable(self):
         if self._is_int8 and self._tome_r and not self._static:
             raise RuntimeError(
                 "int8 + tome_r serves static scales only: call calibrate() "
                 "or warmup() before predicting (the merged trunk has no "
                 "dynamic-PTQ calibration pass)")
-        x = val_preprocess(torch.tensor(images_u8, device=self.device))
-        if self._tome_r:
-            logits = tome_forward(self.model, x, self._tome_r)
-        else:
-            logits = self.model(x)
-        return torch.sigmoid(logits.float()).cpu().numpy()
+
+    def _run(self, images):
+        return self._serve(images)
+
+    def _captures(self, b: int) -> bool:
+        """Whether bucket ``b`` is served from a CUDA graph; an eager bucket
+        is logged once with its reason."""
+        if self.device.type != "cuda" or (self._is_int8 and not self._static):
+            return False
+        reason = self.model.reads_host(b)
+        if reason is None:
+            return True
+        if b not in self._eager_logged:
+            self._eager_logged.add(b)
+            logger.info(f"bucket {b} runs eagerly: {reason} ({_ITEM_15})")
+        return False
 
     def calibrate(self, images_u8: np.ndarray, *, force: bool = False):
         """Static PTQ calibration of an int8 predictor: activation ranges
         observed on ``images_u8`` (uint8 ``[N, S, S, 3]``), the weights
         quantised once, the serve path switched to static scales. A QAT
         checkpoint's trained scales are kept unless ``force``: fresh sample
-        scales would reopen the train/serve skew QAT closes."""
+        scales would reopen the train/serve skew QAT closes. The
+        calibration pass runs eagerly; captured graphs are dropped."""
         if not self._is_int8:
             return
         if self._has_qat_scales and not force:
@@ -270,6 +469,7 @@ class Predictor:
                 "calibrate() skipped: predictor holds QAT-trained scales "
                 "(pass force=True to discard them for PTQ scales)")
             return
+        self._drop_graphs()
         x = val_preprocess(torch.tensor(np.asarray(images_u8, np.uint8),
                                         device=self.device))
         self.use_quant_state(calibrate_int8(self.model, x))
@@ -278,57 +478,214 @@ class Predictor:
     def use_quant_state(self, state: dict):
         """Serve int8 under a given static state (``{path: {act_scale,
         w_q, w_scale}}``, as :func:`calibrate_int8` returns or
-        ``utils/convert.py::quant_state`` reads from another predictor)."""
+        ``utils/convert.py::quant_state`` reads from another predictor).
+        Captured graphs read the old state's tensors: they are dropped."""
         if not self._is_int8:
             raise ValueError("use_quant_state serves precision='int8' only")
+        self._drop_graphs()
         load_quant_state(self.model, state)
         self._static = True
 
     def warmup(self):
-        """Run every bucket once (builds the kernels on first use). An int8
-        predictor without scales first calibrates on 8 noise images from
-        ``np.random.default_rng(0)``, as the JAX Predictor does; call
-        :meth:`calibrate` with real images first for real scales."""
+        """Run every bucket once (builds the kernels on first use) and, on
+        CUDA, capture its graph. An int8 predictor without scales first
+        calibrates on 8 noise images from ``np.random.default_rng(0)``, as
+        the JAX Predictor does; call :meth:`calibrate` with real images
+        first for real scales."""
         s = self.image_size
         if self._is_int8 and not self._static:
             rng = np.random.default_rng(0)
             self.calibrate(rng.integers(0, 256, (8, s, s, 3), np.uint8))
-        for b in self.buckets:
-            self._predict(np.zeros((b, s, s, 3), np.uint8))
-        logger.info(f"Predictor warm for buckets {self.buckets}")
+        self._warm_buckets()
+        logger.info(f"Predictor warm for buckets {self.buckets}"
+                    + (f" ({len(self._graphs)} CUDA graphs)"
+                       if self._graphs else ""))
 
-    def predict_proba(self, images_u8: np.ndarray) -> np.ndarray:
-        """uint8 ``[N, S, S, 3]`` → probabilities ``[N, num_classes]``."""
-        t0 = time.perf_counter()
-        probs = _bucketed_predict(images_u8, self.buckets, self.image_size,
-                                  self._predict)
-        ms = (time.perf_counter() - t0) * 1000
-        with self._stats_lock:
-            self._latencies_ms.append(ms)
-            self._latency_count += 1
-        return probs
 
-    def labels_from_probs(self, probs, threshold: float = 0.5):
-        """Disease-name lists per image from probabilities in hand."""
-        return [
-            [self.disease_names[i] for i in np.nonzero(row > threshold)[0]]
-            for row in np.asarray(probs)
-        ]
+# ---------------------------------------------------------------------------
+# export
+# ---------------------------------------------------------------------------
 
-    def latency_stats(self) -> dict:
-        with self._stats_lock:
-            if not self._latencies_ms:
-                return {}
-            arr = np.asarray(self._latencies_ms)
-            count = self._latency_count
-        return {
-            "count": int(count),
-            "window": int(arr.size),
-            "p50_ms": float(np.percentile(arr, 50)),
-            "p95_ms": float(np.percentile(arr, 95)),
-            "p99_ms": float(np.percentile(arr, 99)),
-            "mean_ms": float(arr.mean()),
-        }
+
+class _FlatServe(torch.nn.Module):
+    """The serve path as a function of its flat weights: ``forward(weights,
+    images_u8)`` runs ``serve`` with ``weights`` (in ``names``' order) in
+    place of its parameters and buffers (``torch.func.functional_call``).
+    ``serve`` is held outside the module's registry, so an exported
+    program carries none of its tensors."""
+
+    def __init__(self, serve: torch.nn.Module, names: list):
+        super().__init__()
+        object.__setattr__(self, "_serve", serve)
+        self._names = list(names)
+
+    def forward(self, weights, images_u8):
+        return torch.func.functional_call(
+            self._serve, dict(zip(self._names, weights)), (images_u8,))
+
+
+def _live_state(serve: torch.nn.Module) -> dict:
+    """The parameters and set buffers the serve path reads, by name. A
+    static-int8 site reads ``w_q``, ``w_scale`` and ``act_scale``: its fp32
+    ``weight`` is dead and left out (serving.py:439-463)."""
+    dead = {f"{name}.weight" for name, mod in serve.named_modules()
+            if isinstance(mod, Dense) and mod.quant == "int8"
+            and mod.w_q is not None}
+    state = {n: p for n, p in serve.named_parameters() if n not in dead}
+    state.update((n, b) for n, b in serve.named_buffers() if b is not None)
+    return state
+
+
+@torch.no_grad()
+def _export_program(serve: torch.nn.Module, state: dict, batch: int,
+                   image_size: int):
+    """One bucket's ``torch.export`` program of ``serve`` over the flat
+    weights ``state`` (name → tensor, as :func:`_live_state` gives them)
+    and a uint8 ``[batch, S, S, 3]`` batch on the weights' device. On a
+    CUDA device the kernels are the custom ops of ``gavit_tpu_torch.ops``;
+    on the CPU their plain versions. The tracing runs the ops' fake
+    implementations and launches nothing. Raises if the program holds a
+    tensor of its own."""
+    names = list(state)
+    weights = [state[n].detach() for n in names]
+    images = weights[0].new_zeros((batch, image_size, image_size, 3),
+                                  dtype=torch.uint8)
+    program = torch.export.export(_FlatServe(serve, names), (weights, images))
+    if program.state_dict:
+        raise RuntimeError(f"the exported program holds weights of its own: "
+                           f"{sorted(program.state_dict)[:5]}")
+    # the example inputs would store a copy of every weight in each program
+    program.example_inputs = None
+    return program
+
+
+def export_serving(config: Config, out_dir: str, *,
+                   checkpoint_path: str | None = None, weights=None,
+                   precision: str = "bf16", buckets: tuple = DEFAULT_BUCKETS,
+                   tome_r: int = 0, device="cuda", seed: int = 0,
+                   calibration_images=None) -> dict:
+    """Write a serving artifact (serving.py:394): one ``torch.export``
+    program a bucket (``predict_b{b}.pt2``, ``torch.export.save``), the
+    weights outside the programs in one ``weights.pt`` (their names in
+    ``manifest.json``), and the manifest. The program is the whole serve
+    path (uint8 → ``val_preprocess`` → model → sigmoid), the one a
+    :class:`Predictor` runs, as a function of the flat weights and the
+    batch (``torch.func.functional_call``).
+
+    What loading needs differs from the JAX artifact, which needs only the
+    jax runtime: a program exported on CUDA calls the kernels' custom ops,
+    so :class:`ExportedPredictor` imports their registrations
+    (``gavit_tpu_torch.ops``) and no model code. A CPU program holds the
+    plain versions and needs torch alone. An artifact serves on the device
+    type it was exported on (the JAX ``platforms`` cross-lowering is left
+    to ROADMAP Queue 1 item 15).
+
+    ``precision='int8'`` exports the static-PTQ program with the fp32
+    weight of every quantised site left out; it needs
+    ``calibration_images`` (uint8 ``[N, S, S, 3]``) unless the checkpoint
+    carries QAT-trained scales, and raises otherwise (noise scales would
+    ship in a deployment artifact). A MoE bucket whose route reads the
+    host (a grouped-engine bucket on the CPU) raises, naming item 15.
+    Returns the manifest."""
+    pred = Predictor(config, weights, checkpoint_path=checkpoint_path,
+                     precision=precision, device=device, seed=seed,
+                     buckets=buckets, tome_r=tome_r)
+    for b in pred.buckets:
+        reason = pred.model.reads_host(b)
+        if reason is not None:
+            raise ValueError(f"bucket {b} cannot be exported: {reason} "
+                             f"({_ITEM_15})")
+    if precision == "int8" and not pred.calibrated:
+        if calibration_images is None:
+            raise ValueError(
+                "int8 export needs calibration_images (or a QAT checkpoint "
+                "whose trained scales ride along)")
+        pred.calibrate(np.asarray(calibration_images, np.uint8))
+    os.makedirs(out_dir, exist_ok=True)
+    state = _live_state(pred._serve)
+    s = pred.image_size
+    for b in pred.buckets:
+        torch.export.save(_export_program(pred._serve, state, b, s),
+                          os.path.join(out_dir, f"predict_b{b}.pt2"))
+    names = list(state)
+    torch.save({str(i): state[n].detach().cpu() for i, n in enumerate(names)},
+               os.path.join(out_dir, "weights.pt"))
+    manifest = {
+        "format": EXPORT_FORMAT,
+        "model": config.model.name,
+        "image_size": s,
+        "num_classes": config.model.num_classes,
+        "disease_names": list(pred.disease_names),
+        "buckets": list(pred.buckets),
+        "precision": precision,
+        "tome_r": int(tome_r),
+        "device": pred.device.type,
+        "torch_version": torch.__version__,
+        # the flat weights' structure: their names in argument order
+        "treedef": names,
+        "n_weights": len(names),
+        "leaf_dtypes": [str(state[n].dtype) for n in names],
+    }
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+    return manifest
+
+
+class ExportedPredictor(_Served):
+    """Serve from an :func:`export_serving` artifact without the model
+    code (serving.py:511): the per-bucket programs and the weights, behind
+    :class:`Predictor`'s ``predict_proba`` contract (pad to the bucket,
+    chunk past the top one), ``warmup``, ``latency_stats``,
+    ``labels_from_probs`` and ``predict_labels``. The programs take the
+    flat weights (``weights.pt``'s keys in order) and the uint8 batch. On
+    CUDA each bucket's program is served from one captured CUDA graph, as
+    the :class:`Predictor` serves its own (:class:`_Served`).
+
+    ``device``: where to serve (default the artifact's device type). An
+    artifact serves on the device type it was exported on; any other is
+    refused (ROADMAP Queue 1 item 15)."""
+
+    def __init__(self, artifact_dir: str, device=None):
+        with open(os.path.join(artifact_dir, "manifest.json")) as f:
+            self.manifest = json.load(f)
+        if self.manifest.get("format") != EXPORT_FORMAT:
+            raise ValueError(f"{artifact_dir}: format "
+                             f"{self.manifest.get('format')!r}, not "
+                             f"{EXPORT_FORMAT!r}")
+        exported_on = self.manifest["device"]
+        device = torch.device(device if device is not None else exported_on)
+        if device.type != exported_on:
+            raise ValueError(
+                f"the artifact was exported on {exported_on} and serves "
+                f"there only, not on {device.type}: export it again "
+                f"on that device ({_ITEM_15})")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("this artifact serves on CUDA and this "
+                               "PyTorch sees no CUDA device")
+        # a CUDA program calls the kernels' custom ops: register them
+        import gavit_tpu_torch.ops  # noqa: F401
+
+        super().__init__(self.manifest["image_size"],
+                         self.manifest["buckets"],
+                         self.manifest["disease_names"], device)
+        saved = torch.load(os.path.join(artifact_dir, "weights.pt"),
+                           map_location=device, weights_only=True)
+        self._weights = [saved[str(i)]
+                         for i in range(self.manifest["n_weights"])]
+        self._fns = {b: torch.export.load(os.path.join(
+            artifact_dir, f"predict_b{b}.pt2")).module()
+            for b in self.buckets}
+
+    def _run(self, images):
+        return self._fns[images.shape[0]](self._weights, images)
+
+    def warmup(self):
+        """Run every bucket's program once (the kernels build on their
+        first call) and, on CUDA, capture its graph."""
+        self._warm_buckets()
+        logger.info(f"ExportedPredictor warm for buckets {self.buckets}"
+                    + (f" ({len(self._graphs)} CUDA graphs)"
+                       if self._graphs else ""))
 
 
 # ---------------------------------------------------------------------------

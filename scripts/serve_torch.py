@@ -9,6 +9,15 @@ Stdlib-only HTTP server wrapping :class:`gavit_tpu_torch.serving.Predictor`
         [--precision bf16|fp32|int8] [--tome-r R] [--coalesce-ms MS] \
         [--max-queue-rows N] [--max-body-mb MB] [--device cuda] \
         [--host 127.0.0.1] [--port 8476] [--no-warmup] [--set key=value]
+    python scripts/serve_torch.py --artifact ARTIFACT_DIR [--device cuda] ...
+
+``--artifact`` serves an artifact of ``scripts/export_serving_torch.py``
+(``serving.py::ExportedPredictor``: the exported programs and their
+weights, no model code); exactly one of ``--config`` and ``--artifact`` is
+given, and the choices baked at export (``--checkpoint``, ``--weights``,
+``--precision``, ``--tome-r``, ``--set``) cannot be combined with it.
+On CUDA the Predictor serves each bucket from a CUDA graph captured at
+warm-up (``--no-warmup``: at the bucket's first request).
 
 ``--checkpoint`` serves a checkpoint directory of ``scripts/train_torch.py``
 (``best_model`` or ``checkpoint_epoch_*``); ``--weights`` an ``.npz`` whose
@@ -186,9 +195,15 @@ def model_desc(config) -> str:
     return f"{desc}+graph{m.graph.num_blocks}" if m.graph.enabled else desc
 
 
-def main(argv=None):
+def make_server(argv=None):
+    """Parse the flags and build the predictor, the micro-batcher (or None)
+    and the HTTP server, not yet serving: ``(server, batcher, desc)``."""
     p = argparse.ArgumentParser()
-    p.add_argument("--config", required=True)
+    p.add_argument("--config", default="")
+    p.add_argument("--artifact", default="",
+                   help="serve an artifact of scripts/export_serving_torch.py "
+                        "(the exported programs and weights; no model code, "
+                        "no --config)")
     p.add_argument("--checkpoint", default="",
                    help="checkpoint directory of scripts/train_torch.py")
     p.add_argument("--weights", default="",
@@ -209,7 +224,9 @@ def main(argv=None):
                    help="micro-batch concurrent requests: a request waits up "
                         "to MS ms to ride a bigger device batch (0: only "
                         "what is already queued). Off when unset")
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu; with --artifact, the "
+                        "artifact's own device type by default")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8476)
     p.add_argument("--no-warmup", action="store_true")
@@ -218,20 +235,41 @@ def main(argv=None):
                    help="Override a config value (dotted keys, YAML values)")
     args = p.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
+    if bool(args.artifact) == bool(args.config):
+        p.error("exactly one of --config or --artifact is required")
     if args.checkpoint and args.weights:
         p.error("--checkpoint and --weights are exclusive")
 
-    from gavit_tpu_torch.config import load_config, mesh_note
-    from gavit_tpu_torch.serving import MicroBatcher, Predictor
+    from gavit_tpu_torch.serving import (ExportedPredictor, MicroBatcher,
+                                         Predictor)
 
-    config = load_config(args.config, args.overrides)
-    note = mesh_note(config)
-    if note:
-        logger.info(note)
-    predictor = Predictor(config, args.weights or None,
-                          checkpoint_path=args.checkpoint or None,
-                          precision=args.precision, device=args.device,
-                          tome_r=args.tome_r)
+    if args.artifact:
+        # precision, ToMe and the weights were baked at export: a flag that
+        # would otherwise be ignored is refused
+        baked = [flag for flag, on in (
+            ("--checkpoint", args.checkpoint), ("--weights", args.weights),
+            ("--precision", args.precision != "bf16"),
+            ("--tome-r", args.tome_r), ("--set", args.overrides)) if on]
+        if baked:
+            p.error(f"{' '.join(baked)} cannot combine with --artifact "
+                    "(those choices are baked into the artifact at export)")
+        predictor = ExportedPredictor(args.artifact, device=args.device)
+        image_size = predictor.image_size
+        desc = f"{predictor.manifest['model']} (exported artifact)"
+    else:
+        from gavit_tpu_torch.config import load_config, mesh_note
+
+        config = load_config(args.config, args.overrides)
+        note = mesh_note(config)
+        if note:
+            logger.info(note)
+        predictor = Predictor(config, args.weights or None,
+                              checkpoint_path=args.checkpoint or None,
+                              precision=args.precision,
+                              device=args.device or "cuda",
+                              tome_r=args.tome_r)
+        image_size = config.data.image_size
+        desc = model_desc(config)
     if not args.no_warmup:
         predictor.warmup()
     batcher = None
@@ -241,12 +279,17 @@ def main(argv=None):
         logger.info(f"Micro-batching: wait {args.coalesce_ms} ms, max batch "
                     f"{batcher.max_batch}, admission bound "
                     f"{batcher.max_queue_rows} rows")
-    desc = model_desc(config)
     server = GavitHTTPServer(
         (args.host, args.port),
-        build_handler(predictor, config.data.image_size, desc, batcher,
+        build_handler(predictor, image_size, desc, batcher,
                       max_body_bytes=args.max_body_mb << 20))
-    logger.info(f"Serving {desc} on http://{args.host}:{args.port}")
+    logger.info(f"Serving {desc} on http://{args.host}:"
+                f"{server.server_address[1]}")
+    return server, batcher, desc
+
+
+def main(argv=None):
+    server, batcher, _ = make_server(argv)
 
     # SIGTERM (and Ctrl-C) take the graceful path: stop accepting, flush
     # every accepted request, then close

@@ -19,6 +19,17 @@ import torch
 from gavit_tpu.ops import attention as jattn
 from gavit_tpu_torch.ops import attention as tattn
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = {"fp32": 1e-5, "bf16": 2e-2}
 DTYPES = {"fp32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -24,6 +24,17 @@ from gavit_tpu.ops import attention as jattn
 from gavit_tpu_torch.ops import attention as tattn
 from gavit_tpu_torch.ops import philox
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
 B, H, D = 2, 2, 16
 ENTRY = {"v1": (jattn.attention_pallas, tattn.attention_pallas),

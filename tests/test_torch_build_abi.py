@@ -14,8 +14,20 @@ import ctypes
 import re
 
 import pytest
+import torch
 
 from gavit_tpu_torch.ops import _build
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 _EXPORT = re.compile(
     r"GAVIT_EXPORT\s+([\w\s*]+?)\s*\b(gavit_\w+)\s*\(([^)]*)\)\s*\{", re.S)

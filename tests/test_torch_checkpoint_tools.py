@@ -64,7 +64,7 @@ def _sets(*items):
     return [a for item in items for a in ("--set", item)]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

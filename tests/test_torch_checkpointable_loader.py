@@ -27,7 +27,7 @@ from gavit_tpu_torch.training.trainer import Trainer
 from gavit_tpu_torch.utils import checkpoint as ckpt_lib
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

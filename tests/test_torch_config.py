@@ -9,11 +9,23 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from gavit_tpu import config as jconfig
 from gavit_tpu.data import dataset as jdata
 from gavit_tpu_torch import config as tconfig
 from gavit_tpu_torch.data import dataset as tdata
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "configs")
                  .rglob("*.yaml"))

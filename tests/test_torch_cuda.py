@@ -1145,10 +1145,12 @@ def test_int8_predictor_reruns_bit_equal(dev):
     imgs = torch.randint(0, 256, (5, 32, 32, 3), dtype=torch.uint8,
                          generator=torch.Generator().manual_seed(1)).numpy()
     before = Q.INT8_MM_LAUNCHES
-    first = pred.predict_proba(imgs)
+    first = pred._predict_proba_eager(imgs)
     # per forward: patch, head, and qkv, proj, fc1, fc2 in 2 blocks, value
-    # and proj in the graph block
+    # and proj in the graph block (counted on the eager path: a replay runs
+    # no wrapper)
     assert Q.INT8_MM_LAUNCHES - before == 2 + 2 * 4 + 2
+    assert np.array_equal(first, pred.predict_proba(imgs))
     assert np.array_equal(first, pred.predict_proba(imgs))
     ref = Predictor(_quant_cfg(), precision="int8", device=dev,
                     buckets=(1, 8), impl="reference")
@@ -1299,3 +1301,275 @@ def test_small_mae_step_reruns_bit_equal_and_matches_plain(dev):
             continue
         cos = torch.nn.functional.cosine_similarity(a, b, dim=0).item()
         assert cos >= 0.99, (name, cos)
+
+
+# --- the captured serve path: one CUDA graph per bucket ---------------------
+
+
+def _serve_cfg(size=224, depth=2):
+    """ViT-B/16's widths (768, 12 heads) with a kNN graph block after block
+    0, cut to ``depth`` blocks: at 224 px kernel A, at 384 K, at 512 L."""
+    return from_dict({"model": {
+        "name": "custom", "img_size": size, "patch_size": 16,
+        "embed_dim": 768, "depth": depth, "num_heads": 12, "num_classes": 14,
+        "graph": {"enabled": True, "num_blocks": 1, "insert_after": [0],
+                  "adjacency": "knn", "k": 8}}, "data": {"image_size": size}})
+
+
+def _u8(b, size, seed):
+    return torch.randint(0, 256, (b, size, size, 3), dtype=torch.uint8,
+                         generator=torch.Generator().manual_seed(seed)).numpy()
+
+
+def _port_kernels(fn):
+    """The port's kernels that ``fn()`` ran on the device, ``{name:
+    launches}``, from a ``torch.profiler`` trace (each sits in an anonymous
+    namespace of its csrc file, named as below; a few of PyTorch's do
+    too): a CUDA graph's replay shows its kernels there, though it runs no
+    wrapper."""
+    import re
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    port = re.compile(
+        r"^(void )?\(anonymous namespace\)::(attn_|gemm90::|graph_|moe_|"
+        r"colsum_reduce|bwd_prologue|keep_mask_kernel|elementwise_kernel<)")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = Counter()
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and port.match(e.key):
+            kernels[e.key] += e.count
+    return dict(kernels)
+
+
+def _replays_eager(pred, imgs):
+    """``pred``'s replay on ``imgs`` against its eager path: bit-equal, the
+    eager path's wrappers launching (their counts returned), the replay
+    moving no counter and running the same port kernels on the device."""
+    want, eager_counts = _moved(lambda: pred._predict_proba_eager(imgs))
+    got, counts = _moved(lambda: pred.predict_proba(imgs))
+    assert np.array_equal(got, want)
+    assert eager_counts and not counts
+    kernels = _port_kernels(lambda: pred._predict_proba_eager(imgs))
+    assert kernels
+    assert _port_kernels(lambda: pred.predict_proba(imgs)) == kernels
+    return got, eager_counts
+
+
+def _moved(fn):
+    from gavit_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    before = _build.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    return out, {k: v - before[k] for k, v in after.items() if v != before[k]}
+
+
+def _qat_checkpoint(cfg, path):
+    """A checkpoint holding QAT act scales, as the QAT trainer writes one."""
+    from gavit_tpu_torch.serving import calibrate_act_scales
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.utils import checkpoint as ckpt_lib
+
+    model = init_params(build_model(cfg.model, qat=True),
+                        torch.Generator().manual_seed(3))
+    x = val_preprocess(torch.from_numpy(_u8(4, cfg.data.image_size, 7)))
+    ckpt_lib.save(str(path), {"model": model.state_dict(),
+                              "quant": calibrate_act_scales(model, x)}, {})
+    return str(path)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "qat", "tome"])
+def test_captured_buckets_equal_eager_and_plain(dev, tmp_path, variant):
+    """Every default bucket at 224 px, each one CUDA graph captured at
+    warm-up: the replay bit-equal to the eager kernel path, running the
+    same port kernels on the device (a profiler trace; a replay runs no
+    wrapper), and within 2e-2 of the plain versions (int8 and QAT on the
+    same scales)."""
+    from gavit_tpu_torch.serving import DEFAULT_BUCKETS, Predictor
+    from gavit_tpu_torch.utils.convert import quant_state
+
+    cfg = _serve_cfg()
+    kw = {"bf16": {"precision": "bf16"}, "int8": {"precision": "int8"},
+          "qat": {"precision": "int8", "checkpoint_path": _qat_checkpoint(
+              cfg, tmp_path / "qat")},
+          "tome": {"precision": "bf16", "tome_r": 8}}[variant]
+    pred = Predictor(cfg, device=dev, **kw)
+    pred.warmup()
+    assert sorted(pred._graphs) == list(DEFAULT_BUCKETS)
+    plain = Predictor(cfg, device=dev, impl="reference", **kw)
+    if kw["precision"] == "int8":
+        plain.use_quant_state(quant_state(pred.model))
+    for i, b in enumerate(DEFAULT_BUCKETS):
+        imgs = _u8(b, 224, i)
+        got, _ = _replays_eager(pred, imgs)
+        assert np.abs(got - plain.predict_proba(imgs)).max() <= 2e-2, b
+
+
+@pytest.mark.parametrize("size,kernel", [(384, "LONG_KERNEL_LAUNCHES"),
+                                         (512, "LARGE_KERNEL_LAUNCHES")])
+def test_captured_bucket_through_the_long_kernels(dev, size, kernel):
+    """One bucket at 384 px (577 tokens: kernel K) and 512 px (1025:
+    kernel L, the graph block on its chunked path)."""
+    from gavit_tpu_torch.serving import Predictor
+
+    cfg = _serve_cfg(size)
+    pred = Predictor(cfg, precision="bf16", device=dev, buckets=(2,))
+    pred.warmup()
+    imgs = _u8(2, size, 1)
+    got, eager_counts = _replays_eager(pred, imgs)
+    assert eager_counts[("attention", kernel)] == 2
+    plain = Predictor(cfg, precision="bf16", device=dev, buckets=(2,),
+                      impl="reference")
+    assert np.abs(got - plain.predict_proba(imgs)).max() <= 2e-2
+
+
+def test_two_threads_get_their_own_rows(dev):
+    """Replays serialise on the predictor's lock: two threads predicting
+    at once, 20 times each, get exactly their own images' rows."""
+    import threading
+
+    from gavit_tpu_torch.serving import Predictor
+
+    pred = Predictor(_serve_cfg(), precision="bf16", device=dev,
+                     buckets=(1, 8))
+    pred.warmup()
+    inputs = [_u8(8, 224, 11), _u8(8, 224, 12)]
+    wants = [pred.predict_proba(x) for x in inputs]
+    assert not np.array_equal(wants[0], wants[1])
+    bad = []
+
+    def run(i):
+        for _ in range(20):
+            if not np.array_equal(pred.predict_proba(inputs[i]), wants[i]):
+                bad.append(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert not bad
+
+
+def test_calibrate_after_capture_captures_again(dev):
+    """New static scales drop the graphs (they read the old state's
+    tensors); the next call captures under the new scales."""
+    from gavit_tpu_torch.serving import Predictor
+
+    pred = Predictor(_serve_cfg(), precision="int8", device=dev,
+                     buckets=(1, 8))
+    pred.warmup()
+    first = pred._graphs[8]
+    imgs = _u8(8, 224, 13)
+    before = pred.predict_proba(imgs)
+    pred.calibrate(_u8(8, 224, 14))
+    assert not pred._graphs
+    after = pred.predict_proba(imgs)
+    assert pred._graphs[8] is not first
+    assert np.array_equal(after, pred._predict_proba_eager(imgs))
+    assert not np.array_equal(after, before)
+
+
+def test_exported_artifact_replays_its_eager_path(dev, tmp_path):
+    """A CUDA artifact served by ``ExportedPredictor`` from one captured
+    graph a bucket: the replay bit-equal to the artifact's eager path,
+    running the same port kernels (the custom ops) on the device, equal to
+    the Predictor it was exported from and within 2e-2 of the plain
+    versions."""
+    from gavit_tpu_torch.serving import (ExportedPredictor, Predictor,
+                                         export_serving)
+
+    cfg = _serve_cfg()
+    export_serving(cfg, str(tmp_path / "art"), precision="bf16",
+                   buckets=(2,), device=dev)
+    loaded = ExportedPredictor(str(tmp_path / "art"))
+    loaded.warmup()
+    assert sorted(loaded._graphs) == [2]
+    imgs = _u8(2, 224, 16)
+    got, eager_counts = _replays_eager(loaded, imgs)
+    assert eager_counts[("attention", "KERNEL_LAUNCHES")] == 2
+    pred = Predictor(cfg, precision="bf16", device=dev, buckets=(2,))
+    assert np.array_equal(got, pred.predict_proba(imgs))
+    plain = Predictor(cfg, precision="bf16", device=dev, buckets=(2,),
+                      impl="reference")
+    assert np.abs(got - plain.predict_proba(imgs)).max() <= 2e-2
+
+
+def _op_cases(dev):
+    """Each serving op's arguments at a small launch."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def bf(*shape):
+        return torch.randn(*shape, device=dev, generator=g).bfloat16()
+
+    from gavit_tpu_torch.ops import moe_fused as MF
+
+    e, d, f, cap, tm = 4, 64, 256, 64, 8
+    tiles = torch.arange(cap // tm, device=dev, dtype=torch.int32) % e
+    sizes = MF.tile_group_sizes(tiles, e, tm)
+    return {
+        "attention_fwd": (bf(2, 17, 3 * 2 * 64), 0.125, 2),
+        "attention_long_fwd": (bf(2, 300, 3 * 2 * 64), 0.125, 2),
+        "attention_large_fwd": (bf(1, 800, 3 * 2 * 64), 0.125, 2),
+        "mlp_infer": (bf(34, d), bf(f, d), bf(f), bf(d, f), bf(d), True),
+        "graph_fwd": (bf(2, 17, d), bf(2, 17, d), "knn", 4, 0.0, 1.0, True),
+        "moe_fwd": (bf(cap, d), bf(e, d, f), bf(e, f), bf(e, f, d), bf(e, d),
+                    sizes, tm, 5, [1, 2], 0.0, 0.0, True),
+        "gmm": (bf(cap, d), bf(e, d, f), sizes, False),
+    }
+
+
+@pytest.mark.parametrize("name", ["attention_fwd", "attention_long_fwd",
+                                  "attention_large_fwd", "mlp_infer",
+                                  "graph_fwd", "moe_fwd", "gmm"])
+def test_custom_op_fakes_agree_with_the_kernels(dev, name):
+    """``torch.library.opcheck``: the schema, the autograd registration
+    and the fake implementation's shapes, dtypes and strides against the
+    launch's (torch.compile's dispatch test is left out: nothing compiles
+    these ops)."""
+    import gavit_tpu_torch.ops  # noqa: F401
+
+    op = getattr(torch.ops.gavit_tpu_torch, name).default
+    torch.library.opcheck(op, _op_cases(dev)[name], test_utils=(
+        "test_schema", "test_autograd_registration", "test_faketensor"))
+
+
+def test_moe_plain_grouped_buckets_run_eagerly(dev, caplog):
+    """The grouped MoE engine's plain versions read the group sizes on the
+    host, so a Predictor on them (``impl='reference'``) serves those
+    buckets eagerly, decided from shapes at warm-up and logged once; the
+    kernels' Predictor captures every bucket."""
+    import logging
+
+    from gavit_tpu_torch.serving import Predictor
+
+    cfg = from_dict({"model": {
+        "name": "custom", "img_size": 32, "patch_size": 8, "embed_dim": 128,
+        "depth": 2, "num_heads": 2, "num_classes": 14,
+        "moe": {"enabled": True, "num_experts": 4, "k": 2, "every": 2,
+                "impl": "grouped"}}, "data": {"image_size": 32}})
+    with caplog.at_level(logging.INFO, logger="gavit_tpu_torch.serving"):
+        plain = Predictor(cfg, precision="bf16", device=dev, buckets=(1, 2),
+                          impl="reference")
+        plain.warmup()
+        plain.predict_proba(_u8(2, 32, 15))
+    assert not plain._graphs
+    eager = [r.getMessage() for r in caplog.records
+             if "runs eagerly" in r.getMessage()]
+    assert len(eager) == 2 and all("item 15" in m for m in eager)
+    pred = Predictor(cfg, precision="bf16", device=dev, buckets=(1, 2))
+    pred.warmup()
+    assert sorted(pred._graphs) == [1, 2]
+    imgs = _u8(2, 32, 15)
+    assert np.abs(pred.predict_proba(imgs)
+                  - plain.predict_proba(imgs)).max() <= 2e-2

@@ -35,7 +35,7 @@ ROOT = Path(__file__).resolve().parents[1]
 SIZE = 32
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -26,6 +26,16 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
 import sass_issue  # noqa: E402
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _round_f32(value: Fraction) -> np.float32:
     """``value`` rounded to the nearest fp32, ties to even."""
     c = np.float32(float(value))

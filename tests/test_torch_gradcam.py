@@ -38,7 +38,7 @@ GRAPH = {"enabled": True, "num_blocks": 1, "insert_after": [0],
          "adjacency": "knn", "k": 4}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

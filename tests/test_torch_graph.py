@@ -15,6 +15,17 @@ import torch
 from gavit_tpu.ops import graph_ops as jg
 from gavit_tpu_torch.ops import graph_ops as tg
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 MODES = [("knn", {"k": 4}), ("threshold", {"threshold": 0.1}),
          ("dense", {"temperature": 0.5})]
 

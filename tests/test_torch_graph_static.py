@@ -22,7 +22,7 @@ from gavit_tpu_torch.models.vit import build_model, init_params
 from gavit_tpu_torch.utils.convert import flatten_tree, flax_layout, to_flax_tree
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """One intra-op thread for these tiny steps: more only spin against the
     other test workers on the machine's cores."""

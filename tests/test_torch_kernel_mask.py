@@ -23,6 +23,17 @@ from gavit_tpu_torch.ops import philox
 from gavit_tpu_torch.ops.dropout import gelu_and_grad
 from test_kernels_interpret import _make_prng_emulation
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SEED = philox.step_seed(3, 11)
 SITES = (8, 9)
 M, D, F = 40, 24, 64

@@ -18,6 +18,17 @@ from gavit_tpu.ops import mlp as jmlp
 from gavit_tpu_torch.ops import mlp as tmlp
 from gavit_tpu_torch.ops import philox
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 D, F = 64, 256
 
 

@@ -12,8 +12,10 @@ parameter tree from ``jax.eval_shape`` of its ``init_params``. The JAX
 forward runs under ``jax.jit``, its Pallas kernels in interpret mode: one
 compile per model instead of an eager interpretation of every op.
 
-Also: the weight bridge is strict and round-trips a learned-static tree,
-and the initialisers follow the JAX package's distributions.
+The shipped configurations are held here; the tiny model in each graph
+mode in ``tests/test_torch_model_parity.py``. Also: the weight bridge is
+strict and round-trips a learned-static tree, and the initialisers follow
+the JAX package's distributions.
 """
 
 import dataclasses
@@ -37,6 +39,17 @@ from gavit_tpu_torch.models.graph import GraphBlock
 from gavit_tpu_torch.models.vit import build_model, count_params, init_params
 from gavit_tpu_torch.utils.convert import (flatten_tree, load_flax_params,
                                            to_flax_tree)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 GATE = 0.5
 
@@ -96,32 +109,6 @@ def port_weights(cfg, seed):
 def assert_matches_jax_tree(params, shapes):
     got = {k: tuple(v.shape) for k, v in flatten_tree(params).items()}
     assert got == shapes
-
-
-@pytest.mark.parametrize("graph", [
-    {"include_cls": False},
-    {"include_cls": True},
-    {"include_cls": False, "adjacency": "threshold", "threshold": 0.2},
-])
-def test_vit_fp32_logits_match_jax(graph):
-    cfg = tiny_cfg(**graph)
-    shapes, forward, _ = _jax_side(jax_from_dict(tiny_raw(**graph)))
-    model, params = port_weights(cfg, 0)
-    assert_matches_jax_tree(params, shapes)
-    x = np.random.default_rng(0).standard_normal((3, 32, 32, 3)).astype(
-        np.float32)
-    want = np.asarray(forward(params, jnp.asarray(x)))
-    # the bridge carries the tree into a fresh model
-    model = load_flax_params(build_model(cfg.model, precision="fp32"), params)
-    with torch.no_grad():
-        got = model(torch.from_numpy(x))
-    assert got.dtype == torch.float32 and got.shape == (3, 14)
-    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0)
-    # the graph branch is live: a zero gate changes the logits
-    with torch.no_grad():
-        for gb in model.graphs:
-            gb.gate.zero_()
-        assert (model(torch.from_numpy(x)) - got).abs().max() > 1e-5
 
 
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "configs")

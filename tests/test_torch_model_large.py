@@ -40,7 +40,7 @@ from test_torch_train_step import (_assert_tree_close, jax_loss_fn,
 SIZE = 512
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """One torch thread: beside the other test processes, a pool of
     threads per process made the remat test 25x slower than alone."""

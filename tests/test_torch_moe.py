@@ -28,6 +28,17 @@ from gavit_tpu_torch.models import moe as tmoe
 from gavit_tpu_torch.ops import moe_fused as tfused
 from gavit_tpu_torch.ops import philox
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 G, S, D, F, E, K = 3, 17, 32, 64, 4, 2
 
 

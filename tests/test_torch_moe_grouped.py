@@ -53,6 +53,17 @@ from gavit_tpu_torch.ops import philox
 from gavit_tpu_torch.utils.convert import (flatten_tree, load_flax_params,
                                            to_flax_tree)
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 G, S, D, F, E, K = 4, 12, 16, 32, 4, 2
 
 

@@ -45,7 +45,7 @@ from gavit_tpu_torch.data.transforms import ChestXrayTransforms
 from gavit_tpu_torch.ops import preprocess as tpre
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

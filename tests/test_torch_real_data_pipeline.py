@@ -27,7 +27,7 @@ from gavit_tpu_torch.utils.metrics import MetricCalculator
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)

@@ -37,6 +37,17 @@ from gavit_tpu_torch.models.vit import (attention_probs_sites, build_model,
 from gavit_tpu_torch.ops import philox
 from gavit_tpu_torch.ops.attention import attention_reference
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 B, H, N, HD = 2, 2, 9, 8
 RATE = 0.25

@@ -32,6 +32,16 @@ from test_torch_train_step import (_assert_tree_close, jax_loss_fn,
                                    port_model, setup)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize("decay_all", [True, False])
 def test_three_adamw_steps_match_optax(decay_all):
     raw, jcfg, jmodel, params, x, labels, pos_weight = setup(

@@ -27,6 +27,16 @@ from gavit_tpu_torch.ops import mlp as tmlp
 from gavit_tpu_torch.ops import preprocess as tpre
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread for the module: the test processes share the
+    cores, and a pool of threads in each slows every one of them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(got, want, rel):
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)

@@ -61,7 +61,7 @@ from tests.torch_ref import TorchRefViT, reference_state_dict
 NAMES = [f"d{i}" for i in range(6)]
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     """One intra-op thread for these tiny steps: more only spin against the
     other test workers on the machine's cores."""

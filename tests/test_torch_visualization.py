@@ -44,7 +44,7 @@ RAW = {"model": {"name": "custom", "img_size": 32, "patch_size": 8,
                  "num_classes": 14, "drop_rate": 0.0}}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def _one_thread():
     n = torch.get_num_threads()
     torch.set_num_threads(1)
