@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths,
-its fp32 Grad-CAM and training, and its MAE pretraining, on one CUDA card,
+its fp32 Grad-CAM and training at every length, and its MAE pretraining,
+on one CUDA card,
 from synthetic batches and from image files: ViT-B/16
 with two kNN graph blocks at 224 px (``configs/vit_b16_graph2.yaml``),
 the same model at 512 and 1024 px
@@ -32,7 +33,12 @@ before the last line:
    hot and an empty expert, and at b8 (T = 3152, tm = 32), M's reruns
    bit-equal; L and L′ (blockwise attention) at N = 750, 1025 (b32), 1088
    and 4097, each run twice for the same bits, and the chunked graph path
-   (tensor ops) at 1024 and 4096 patch tokens; N-gmm (the unfused engine's ragged grouped GEMM)
+   (tensor ops) at 1024 and 4096 patch tokens; K, K′, L and L′ in fp32
+   (``csrc/attention_f32.cu``) at N = 417, 577 (b16), 708 and 709, 1025
+   (b32), 4097 with 1 to 12 heads, each run twice for the same bits, and
+   I/J fp32 through ``multi_head_attention`` and ``fused_attention_v2``
+   (b8 × 12 × 577, forward and backward) and ``attention_pallas`` at 1025
+   on L fp32; N-gmm (the unfused engine's ragged grouped GEMM)
    in both forms at the b128 routing, with a hot and an empty expert and
    at b127 (T = 50038, no multiple of the row tile), the same bits again
    (B too), and tgmm's two dW on the same packed rows as well as on the
@@ -115,9 +121,20 @@ before the last line:
    within 1e-4, the launches of one step), their checkpoint, and
    ``scripts/gradcam_torch.py`` on it in a process of its own (exit 0, its
    figures drawn or, without matplotlib, each skipped with a log line),
-   under ``build/chip_gradcam/``, removed at its end;
+   under ``build/chip_gradcam/``, removed at its end; then, after the
+   384-px training phase, ``fp32_long``: finetune_384 in fp32 (N = 577)
+   on 8 images, Grad-CAM at blocks -1 and 6 through K and K′ fp32 against
+   the plain versions (1e-4), three fp32 steps at its b16 against the
+   plain versions' (losses within 1e-4, K fp32 12, K′ fp32 12), their
+   checkpoint through ``scripts/gradcam_torch.py --config
+   configs/finetune_384.yaml`` (exit 0; under ``build/chip_gradcam_384/``,
+   removed), three fp32 steps of vit_b16_graph2 at 512 px b32 (N = 1025)
+   at full width and 4 of its 12 blocks (L fp32 4, L′ fp32 4), and the
+   four fp32 bodies' times;
 7. times: each kernel against its plain version and a library call (CUDA
    events, median), for B, C, D, D′, E, F, G, H, H′, L, L′, M, M′, N-gmm, tgmm
+   (and K, K′, L, L′ in fp32 at b16 N = 577 and b32 N = 1025 beside sdpa
+   in fp32 with TF32 off, in the ``fp32_long`` phase)
    (both dW, cap-padded and packed rows, and one hot expert), A′, K′, I′
    and J′ also the device time alone (20 launches between two events)
    beside the library call's (D′'s: the chain's backward from y to the
@@ -299,6 +316,19 @@ FP32_LOSS_REL_TOL = 1e-4
 GRADCAM_BATCH, FP32_TRAIN_BATCH = 8, 32
 GRADCAM_BLOCKS = (-1, 6)  # the last block, and one 5 blocks before it
 GRADCAM_DIR = ROOT / "build" / "chip_gradcam"
+# K, K′, L and L′ in fp32 (csrc/attention_f32.cu) against their plain
+# versions: fp32 products summed in other orders (the online softmax over
+# 64-key tiles against one pass over the row); o and the lse absolute,
+# dqkv relative to its largest value
+ATTN_F32_TOL = 1e-5
+# their checks: (batch, tokens, heads), K up to its fp32 bound 708 and L
+# from 709 to 1024 px; the 384- and 512-px shapes are kept for the times
+F32_LONG_CASES = ((2, 417, 1), (BATCH_384, N_384, HEADS), (1, 708, 5))
+F32_LARGE_CASES = ((1, 709, 3), (BATCH_512, N_512, HEADS), (1, N_1024, HEADS))
+# the fp32 training steps at 512 px: vit_b16_graph2 at full width with 4
+# of its 12 blocks (its two graph blocks after blocks 0 and 2)
+FP32_DEPTH_512 = 4
+GRADCAM_384_DIR = ROOT / "build" / "chip_gradcam_384"
 # MAE pretraining: scripts/pretrain_mae_torch.py's defaults (decoder dim,
 # depth, heads; mask ratio) at b256; 3 steps compared, 30 that must lower
 # the loss, 6 timed; the CLI chain's files (removed at its end)
@@ -528,10 +558,10 @@ def check_blockwise_attention(dev, results,
 
     scale = HEAD_DIM ** -0.5
     bf = torch.bfloat16
-    routes = tuple(A.attention_route(n, bf) for n in (A.K_MAX_N,
-                                                      A.K_MAX_N + 1))
+    k_max = A.K_MAX_N[bf]
+    routes = tuple(A.attention_route(n, bf) for n in (k_max, k_max + 1))
     check("L route", routes == ("K", "L"),
-          f"bf16 N={A.K_MAX_N} takes {routes[0]}, N={A.K_MAX_N + 1} takes "
+          f"bf16 N={k_max} takes {routes[0]}, N={k_max + 1} takes "
           f"{routes[1]}")
     for n, b in cases:
         g = torch.Generator(device=dev).manual_seed(SEED + 61 + n)
@@ -929,6 +959,127 @@ def check_attention_bwd_f32(dev, results, heads=HEADS):
         results["A′ fp32"]["errs"].append(err)
         if n == N_TOKENS:
             results["A′ fp32"]["cases"].append((qkv, do))
+
+
+def check_attention_f32(dev, results):
+    """K, K′, L and L′ in fp32 (``csrc/attention_f32.cu``) alone against
+    their plain versions: K and K′ at N = 417, 577 (b16, the 384-px
+    fine-tune; kept for the times) and 708, L and L′ at 709, 1025 (b32, 512
+    px; kept) and 4097 (1024 px), 1 to 12 heads, dO as the output
+    projection's backward hands it over; each run twice for the same bits,
+    o and the lse finite. Then I/J in fp32 through their entry points
+    (``multi_head_attention`` on I/I′, ``fused_attention_v2`` on J/J′, at
+    b8 × 12 × 577 and through autograd) and ``attention_pallas`` at 1025
+    tokens on L, each entry point's counters only."""
+    import torch
+
+    from gavit_tpu_torch.ops import attention as A
+
+    scale = HEAD_DIM ** -0.5
+    for b, n, h in F32_LONG_CASES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 91 + n)
+        qkv = torch.randn(b, n, 3 * h * HEAD_DIM, device=dev, generator=g)
+        do = torch.randn(b, n, h, HEAD_DIM, device=dev,
+                         generator=g).transpose(1, 2)
+        o, o2 = (A.qkv_attention_long_kernel(qkv, scale, h) for _ in range(2))
+        got, again = (A.qkv_attention_long_bwd_kernel(qkv, do, scale, h)
+                      for _ in range(2))
+        want_o = A.attention_reference(*A._split_heads(qkv, h), scale)
+        want = A.attention_backward_reference(qkv, do, scale, h)
+        torch.cuda.synchronize()
+        err, rel, gerr = (max_err(o, want_o), rel_err(got, want),
+                          max_err(got, want))
+        same = torch.equal(o, o2) and torch.equal(got, again)
+        ident = torch.equal(got, want)
+        finite = (torch.isfinite(o).all().item()
+                  and torch.isfinite(got).all().item())
+        del want_o, want, o2, again
+        check("K and K′ fp32", finite and same and err <= ATTN_F32_TOL
+              and rel <= ATTN_F32_TOL,
+              f"fp32 B={b} N={n} H={h} d={HEAD_DIM}: o max_abs_err "
+              f"{err:.3e}, dqkv rel to max {rel:.3e} (tol "
+              f"{ATTN_F32_TOL:.0e}; max_abs_err {gerr:.3e}, bit-equal to "
+              f"the plain version {ident}); a second run of each bit-equal "
+              f"{same}")
+        results["K fp32"]["errs"].append(err)
+        results["K′ fp32"]["errs"].append(gerr)
+        if n == N_384:
+            results["K fp32"]["cases"].append(qkv)
+            results["K′ fp32"]["cases"].append((qkv, do))
+    for b, n, h in F32_LARGE_CASES:
+        g = torch.Generator(device=dev).manual_seed(SEED + 93 + n)
+        qkv = torch.randn(b, n, 3 * h * HEAD_DIM, device=dev, generator=g)
+        do = torch.randn(b, n, h, HEAD_DIM, device=dev,
+                         generator=g).transpose(1, 2)
+        o, lse = A.qkv_attention_large_kernel(qkv, scale, h)
+        o2, lse2 = A.qkv_attention_large_kernel(qkv, scale, h)
+        got, again = (A.qkv_attention_large_bwd_kernel(qkv, o, lse, do,
+                                                       scale, h)
+                      for _ in range(2))
+        want_o, want_lse = A.blockwise_attention_reference(qkv, scale, h)
+        want = A.blockwise_attention_backward_reference(qkv, o, lse, do,
+                                                        scale, h)
+        torch.cuda.synchronize()
+        err, lerr = max_err(o, want_o), max_err(lse, want_lse)
+        rel, gerr = rel_err(got, want), max_err(got, want)
+        same = (torch.equal(o, o2) and torch.equal(lse, lse2)
+                and torch.equal(got, again))
+        ident = torch.equal(got, want)
+        finite = all(torch.isfinite(t).all().item() for t in (o, lse, got))
+        del want_o, want_lse, want, o2, lse2, again
+        check("L and L′ fp32", finite and same and err <= ATTN_F32_TOL
+              and lerr <= ATTN_F32_TOL and rel <= ATTN_F32_TOL,
+              f"fp32 B={b} N={n} H={h} d={HEAD_DIM}: o max_abs_err "
+              f"{err:.3e}, lse max_abs_err {lerr:.3e}, dqkv rel to max "
+              f"{rel:.3e} (tol {ATTN_F32_TOL:.0e}; max_abs_err "
+              f"{gerr:.3e}, bit-equal to the plain version {ident}); o, lse "
+              f"and dqkv finite {finite}; a second run of each bit-equal "
+              f"{same}")
+        results["L fp32"]["errs"].append(err)
+        results["L′ fp32"]["errs"].append(gerr)
+        if n == N_512:
+            results["L fp32"]["cases"].append(qkv)
+            results["L′ fp32"]["cases"].append((qkv, o, lse, do))
+        torch.cuda.empty_cache()
+
+    # the [B, H, N, d] entry points in fp32, forward and backward
+    b, n, h = 8, N_384, HEADS
+    g = torch.Generator(device=dev).manual_seed(SEED + 97)
+    q, k, v, gout = (torch.randn(b, h, n, HEAD_DIM, device=dev, generator=g)
+                     for _ in range(4))
+    want = A.attention_reference(q, k, v, scale)
+    dwant = A.attention_bhnd_backward_reference(q, k, v, gout, scale)
+    for fn, entry in ((A.multi_head_attention, "I"),
+                      (A.fused_attention_v2, "J")):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        reset_counts()
+        out = fn(*leaves, scale)
+        grads = torch.autograd.grad(out, leaves, gout)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        err = max_err(out, want)
+        rel = max(rel_err(a, w) for a, w in zip(grads, dwant))
+        check(f"{entry} and {entry}′ fp32 entry point",
+              counts == expected({entry: 1, f"{entry}′": 1})
+              and err <= ATTN_F32_TOL and rel <= ATTN_F32_TOL,
+              f"{fn.__name__} fp32 B={b} H={h} N={n}: o max_abs_err "
+              f"{err:.3e}, dq, dk, dv rel to max {rel:.3e} (tol "
+              f"{ATTN_F32_TOL:.0e}); launches "
+              + ", ".join(f"{key} {val}" for key, val in counts.items()
+                          if val))
+    n = N_512
+    q, k, v = (torch.randn(1, h, n, HEAD_DIM, device=dev, generator=g)
+               for _ in range(3))
+    reset_counts()
+    out = A.attention_pallas(q, k, v, scale)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    err = max_err(out, A.attention_reference(q, k, v, scale))
+    check("attention_pallas fp32 on L", counts == expected({"L fp32": 1})
+          and err <= ATTN_F32_TOL,
+          f"fp32 B=1 H={h} N={n}: max_abs_err {err:.3e} (tol "
+          f"{ATTN_F32_TOL:.0e}); L fp32 launched {counts['L fp32']}")
 
 
 def routed_tokens(dev, g, routing, batch, n, dim):
@@ -1749,6 +1900,10 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "K′": ("attention", "LONG_BWD_KERNEL_LAUNCHES"),
             "L": ("attention", "LARGE_KERNEL_LAUNCHES"),
             "L′": ("attention", "LARGE_BWD_KERNEL_LAUNCHES"),
+            "K fp32": ("attention", "LONG_F32_KERNEL_LAUNCHES"),
+            "K′ fp32": ("attention", "LONG_BWD_F32_KERNEL_LAUNCHES"),
+            "L fp32": ("attention", "LARGE_F32_KERNEL_LAUNCHES"),
+            "L′ fp32": ("attention", "LARGE_BWD_F32_KERNEL_LAUNCHES"),
             "H": ("dropout", "GELU_LAUNCHES"),
             "H′": ("dropout", "GELU_BWD_LAUNCHES"),
             "M": ("moe_fused", "KERNEL_LAUNCHES"),
@@ -2914,6 +3069,74 @@ def gradcam_times(dev, results, card) -> dict:
     return {"A′ fp32": row}
 
 
+def gradcam_vs_plain(cfg, weights, dev, forward: dict, backward: str,
+                     tag: str, what: str, seed: int):
+    """fp32 Grad-CAM of ``cfg``'s model on GRADCAM_BATCH images drawn from
+    ``seed``, as ``scripts/gradcam_torch.py`` builds it (``load_model``'s
+    fp32 at dropout 0), at each block of GRADCAM_BLOCKS, class 0, through
+    the kernels against the plain versions on the same weights (CAM and
+    probabilities within GRADCAM_TOL). Each call's launches are held to
+    ``forward`` and to ``backward`` once in each block after the probe's;
+    the plain versions launch nothing. Returns (the two models, the
+    preprocessed images, the launches at the first probed block before the
+    last)."""
+    import numpy as np
+    import torch
+
+    from gavit_tpu_torch.ops.preprocess import val_preprocess
+    from gavit_tpu_torch.serving import Predictor
+    from gavit_tpu_torch.utils.gradcam import VisionTransformerGradCAM
+
+    s, patch = cfg.data.image_size, cfg.model.patch_size
+    depth = cfg.model.depth
+    imgs = np.random.default_rng(seed).integers(
+        0, 256, (GRADCAM_BATCH, s, s, 3), np.uint8)
+    x = val_preprocess(torch.from_numpy(imgs).to(dev))
+    models = {impl: Predictor(cfg, weights, precision="fp32", device=dev,
+                              impl=impl).model
+              for impl in ("auto", "reference")}
+    gradcam_counts = None
+    for block in GRADCAM_BLOCKS:
+        out = {}
+        for impl, model in models.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            out[impl] = VisionTransformerGradCAM(model, block)(x, 0)
+            torch.cuda.synchronize()
+            counts = read_counts()
+            if impl == "auto":
+                want = expected({**forward,
+                                 backward: depth - 1 - block % depth})
+                if counts != want:
+                    raise AssertionError(f"{what} Grad-CAM at block {block}: "
+                                         f"launches {counts}, expected "
+                                         f"{want}")
+                launched = counts
+                if block % depth != depth - 1:
+                    gradcam_counts = counts
+            elif any(counts.values()):
+                raise AssertionError(f"the plain versions launched {counts}")
+        (cam, prob), (cam_p, prob_p) = out["auto"], out["reference"]
+        err_cam = float(np.abs(cam - cam_p).max())
+        err_p = float(np.abs(prob - prob_p).max())
+        ok = (err_cam <= GRADCAM_TOL and err_p <= GRADCAM_TOL
+              and np.isfinite(cam).all() and cam.shape == (
+                  GRADCAM_BATCH, s // patch, s // patch))
+        log(f"[{tag}] fp32 Grad-CAM of {what} (N={(s // patch) ** 2 + 1}) "
+            f"at block {block}, class 0, {GRADCAM_BATCH} images: kernels vs "
+            f"plain versions max |dCAM| {err_cam:.3e}, max |dp| {err_p:.3e} "
+            f"(tol {GRADCAM_TOL:.0e}) {'ok' if ok else 'FAIL'}; CAM > 0 in "
+            f"{(cam > 0).mean():.1%} of the patches"
+            + (" (the head reads CLS alone, so the last block's patch "
+               "tokens get no gradient)" if block % depth == depth - 1
+               else "") + "; launches "
+            + ", ".join(f"{k} {v}" for k, v in launched.items() if v))
+        if not ok:
+            raise AssertionError(f"{what} Grad-CAM through the kernels "
+                                 "disagrees with the plain versions")
+    return models, x, gradcam_counts
+
+
 def phase_gradcam(cfg, weights, dev, results, card):
     """The interpretability path in fp32, as ``scripts/gradcam_torch.py``
     builds it (``load_model``'s fp32 at dropout 0): vit_b16_graph2 at full
@@ -2931,60 +3154,14 @@ def phase_gradcam(cfg, weights, dev, results, card):
     import numpy as np
     import torch
 
-    from gavit_tpu_torch.ops.preprocess import val_preprocess
-    from gavit_tpu_torch.serving import Predictor
-    from gavit_tpu_torch.utils.gradcam import (VisionTransformerGradCAM,
-                                               attention_rollout)
+    from gavit_tpu_torch.utils.gradcam import attention_rollout
 
     t0 = time.perf_counter()
-    s = cfg.data.image_size
     depth = cfg.model.depth
-    imgs = np.random.default_rng(SEED + 7).integers(
-        0, 256, (GRADCAM_BATCH, s, s, 3), np.uint8)
-    x = val_preprocess(torch.from_numpy(imgs).to(dev))
-    models = {impl: Predictor(cfg, weights, precision="fp32", device=dev,
-                              impl=impl).model
-              for impl in ("auto", "reference")}
-    gradcam_counts = None
-    for block in GRADCAM_BLOCKS:
-        out = {}
-        for impl, model in models.items():
-            torch.cuda.synchronize()
-            reset_counts()
-            out[impl] = VisionTransformerGradCAM(model, block)(x, 0)
-            torch.cuda.synchronize()
-            counts = read_counts()
-            if impl == "auto":
-                # A′ runs in the blocks after the probe's
-                want = expected({"A": depth, "C": 2,
-                                 "A′ fp32": depth - 1 - block % depth})
-                if counts != want:
-                    raise AssertionError(f"Grad-CAM at block {block}: "
-                                         f"launches {counts}, expected "
-                                         f"{want}")
-                launched = counts
-                if block % depth != depth - 1:
-                    gradcam_counts = counts
-            elif any(counts.values()):
-                raise AssertionError(f"the plain versions launched {counts}")
-        (cam, prob), (cam_p, prob_p) = out["auto"], out["reference"]
-        err_cam = float(np.abs(cam - cam_p).max())
-        err_p = float(np.abs(prob - prob_p).max())
-        ok = (err_cam <= GRADCAM_TOL and err_p <= GRADCAM_TOL
-              and np.isfinite(cam).all() and cam.shape == (
-                  GRADCAM_BATCH, s // 16, s // 16))
-        log(f"[gradcam] fp32 Grad-CAM at block {block}, class 0, "
-            f"{GRADCAM_BATCH} images: kernels vs plain versions max |dCAM| "
-            f"{err_cam:.3e}, max |dp| {err_p:.3e} (tol {GRADCAM_TOL:.0e}) "
-            f"{'ok' if ok else 'FAIL'}; CAM > 0 in {(cam > 0).mean():.1%} "
-            f"of the patches"
-            + (" (the head reads CLS alone, so the last block's patch "
-               "tokens get no gradient)" if block % depth == depth - 1
-               else "") + "; launches "
-            + ", ".join(f"{k} {v}" for k, v in launched.items() if v))
-        if not ok:
-            raise AssertionError("Grad-CAM through the kernels disagrees "
-                                 "with the plain versions")
+    # A′ fp32 runs in the blocks after the probe's; C at both graph blocks
+    models, x, gradcam_counts = gradcam_vs_plain(
+        cfg, weights, dev, {"A": depth, "C": 2}, "A′ fp32", "gradcam",
+        "vit_b16_graph2", SEED + 7)
     maps = {}
     for impl, model in models.items():
         torch.cuda.synchronize()
@@ -3061,6 +3238,169 @@ def phase_gradcam(cfg, weights, dev, results, card):
     shutil.rmtree(GRADCAM_DIR)
     log(f"[gradcam] phase done in {time.perf_counter() - t0:.1f} s")
     return counts_fp32, gradcam_counts, rows
+
+
+def fp32_long_times(dev, results, card) -> dict:
+    """K, K′, L and L′ in fp32 at the table's shapes (K, K′ at b16 N = 577;
+    L, L′ at b32 N = 1025, L′ from L's o and lse) against their plain
+    versions and sdpa in fp32 with TF32 off (its forward for K and L, its
+    forward and backward for K′ and L′), per call and alone on the device
+    (20 launches between two events); bounds: 4·B·H·N²·d operations
+    forward and 10·B·H·N²·d backward at the card's fp32 rate (no tensor
+    cores), against the fp32 bytes the call moves."""
+    import torch
+    import torch.nn.functional as F
+
+    from gavit_tpu_torch.ops import attention as A
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rows = {}
+    h, d = HEADS, HEAD_DIM
+    scale = d ** -0.5
+    qkv_k, do_k = results["K′ fp32"]["cases"][0]
+    qkv_l, o_l, lse_l, do_l = results["L′ fp32"]["cases"][0]
+    for key, qkv, do in (("K", qkv_k, do_k), ("L", qkv_l, do_l)):
+        b, n = qkv.shape[0], qkv.shape[1]
+        q, k, v = (t.detach().clone().requires_grad_(True)
+                   for t in A._split_heads(qkv, h))
+        do_c = do.contiguous()
+
+        def sdpa_fwd(q=q, k=k, v=v):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(q, k, v)
+
+        def sdpa_fwd_bwd(q=q, k=k, v=v, do_c=do_c):
+            out = F.scaled_dot_product_attention(q, k, v)
+            torch.autograd.grad(out, (q, k, v), do_c)
+
+        if key == "K":
+            fwd = lambda: A.qkv_attention_long_kernel(qkv, scale, h)  # noqa: E731
+            plain = lambda: A.attention_reference(  # noqa: E731
+                *A._split_heads(qkv, h), scale)
+            bwd = lambda: A.qkv_attention_long_bwd_kernel(  # noqa: E731
+                qkv, do, scale, h)
+            plain_bwd = lambda: A.attention_backward_reference(  # noqa: E731
+                qkv, do, scale, h)
+        else:
+            fwd = lambda: A.qkv_attention_large_kernel(qkv, scale, h)  # noqa: E731
+            plain = lambda: A.blockwise_attention_reference(  # noqa: E731
+                qkv, scale, h)
+            bwd = lambda: A.qkv_attention_large_bwd_kernel(  # noqa: E731
+                qkv, o_l, lse_l, do, scale, h)
+            plain_bwd = lambda: A.blockwise_attention_backward_reference(  # noqa: E731
+                qkv, o_l, lse_l, do, scale, h)
+        tensor = b * n * h * d * 4  # one fp32 [B, N, H, d] tensor
+        for name, fn, ref, lib, flops, nbytes in (
+                (f"{key} fp32", fwd, plain, sdpa_fwd,
+                 4 * b * h * n * n * d, 4 * tensor
+                 + (b * h * n * 4 if key == "L" else 0)),
+                (f"{key}′ fp32", bwd, plain_bwd, sdpa_fwd_bwd,
+                 10 * b * h * n * n * d, (8 if key == "L" else 7) * tensor
+                 + (b * h * n * 4 if key == "L" else 0))):
+            rows[name] = (cuda_ms(fn), cuda_ms(ref, iters=5), cuda_ms(lib)
+                          ) + bound(flops, nbytes, PEAK_FP32_FLOPS)
+            results[name]["device"] = (device_ms(fn), device_ms(lib))
+            alone, lib_alone = results[name]["device"]
+            km, pm, lm, bms, by = rows[name]
+            log(f"[time] {name} at b{b} N={n} H={h}: per call {km:.4f} ms, "
+                f"alone on the device (20 launches between two events) "
+                f"{alone:.4f} ms; plain {pm:.4f} ms; sdpa fp32 "
+                f"{'fwd' if name == key + ' fp32' else 'fwd+bwd'}, TF32 "
+                f"off, {lm:.4f} ms, alone {lib_alone:.4f} ms; bound "
+                f"{bms:.4f} ms ({by}; {alone / bms:.1f}x it alone) ({card})")
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fp32_long(cfg384, weights384, dev, results, card):
+    """fp32 attention past kernel A's 416 tokens, on the paths that reach
+    it: Grad-CAM of the 384-px fine-tune (N = 577) in fp32, as
+    ``scripts/gradcam_torch.py`` builds it, at GRADCAM_BLOCKS on
+    GRADCAM_BATCH images through the kernels (K fp32 in the forward, K′
+    fp32 in the blocks after the probe's) against the plain versions;
+    three fp32 training steps at 384 px b16 against the plain versions'
+    (K and K′ fp32), their checkpoint and ``scripts/gradcam_torch.py
+    --config configs/finetune_384.yaml`` on it in a process of its own;
+    three fp32 steps at 512 px b32 (N = 1025, FP32_DEPTH_512 blocks, L and
+    L′ fp32); then the four fp32 bodies' times. Returns (the 384 step's
+    launches, the 512 step's, Grad-CAM's at block 6, the timing rows)."""
+    import torch
+
+    t0 = time.perf_counter()
+    depth = cfg384.model.depth
+    # the learned-static graph block aggregates in tensor ops (no C); the
+    # fp32 MLP takes the GEMM chain (no B)
+    models, _, gradcam_counts = gradcam_vs_plain(
+        cfg384, weights384, dev, {"K fp32": depth}, "K′ fp32", "fp32_long",
+        "finetune_384", SEED + 11)
+    del models
+    torch.cuda.empty_cache()
+
+    # fp32 training at 384 px b16, then its checkpoint through the CLI
+    shutil.rmtree(GRADCAM_384_DIR, ignore_errors=True)
+    tcfg = train_config_384([
+        "training.precision=fp32",
+        f"paths.save_dir={GRADCAM_384_DIR / 'ckpt'}", "wandb.mode=disabled"])
+    trainer, _, counts_384 = phase_train(
+        tcfg, dev, "finetune_384 fp32",
+        {"K fp32": depth, "K′ fp32": depth, "H": depth, "H′": depth,
+         "F": 2 * (1 + 2 * depth + 1)}, steps_compare=3, steps_learn=0,
+        loss_tol=FP32_LOSS_REL_TOL)
+    trainer.save_checkpoint({"mean_auc": 0.5}, is_best=True)
+    del trainer
+    torch.cuda.empty_cache()
+    # the CLI in a process of its own, beside the 512-px steps (which time
+    # nothing)
+    out_dir = GRADCAM_384_DIR / "gradcam"
+    cli_log = GRADCAM_384_DIR / "cli.log"
+    t1 = time.perf_counter()
+    with open(cli_log, "w") as sink:
+        proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "scripts" / "gradcam_torch.py"),
+             "--config", str(CONFIG_384), "--checkpoint",
+             str(GRADCAM_384_DIR / "ckpt" / "best_model"), "--dataset",
+             "synthetic", "--num-images", str(GRADCAM_BATCH), "--out",
+             str(out_dir), "--device", RUN_DEVICE, "--set",
+             "wandb.mode=disabled"],
+            stdout=sink, stderr=subprocess.STDOUT)
+    try:
+        # fp32 training at 512 px b32 (N = 1025) at full width, cut in depth
+        d512 = FP32_DEPTH_512
+        tcfg512 = large_config(512, [
+            f"data.batch_size={BATCH_512}",
+            f"data.synthetic_size={5 * BATCH_512}",
+            "data.synthetic_learnable=true", "training.warmup_epochs=1",
+            f"training.seed={SEED}", "training.precision=fp32",
+            f"model.depth={d512}"])
+        trainer, _, counts_512 = phase_train(
+            tcfg512, dev, f"vit_b16_graph2 512 px fp32 depth {d512}",
+            {"L fp32": d512, "L′ fp32": d512, "H": d512, "H′": d512,
+             "F": 2 * (1 + 2 * d512 + 2)}, steps_compare=3, steps_learn=0,
+            loss_tol=FP32_LOSS_REL_TOL)
+        del trainer
+        torch.cuda.empty_cache()
+        t2 = time.perf_counter()
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = cli_log.read_text()
+    cams = [ln for ln in text.splitlines() if ln.startswith("Grad-CAM for ")]
+    ok = proc.returncode == 0 and "Artifacts in" in text
+    log(f"[fp32_long] scripts/gradcam_torch.py --config "
+        f"configs/finetune_384.yaml on the fp32 384-px checkpoint, beside "
+        f"the 512-px steps: exit {proc.returncode} {time.perf_counter() - t1:.1f} "
+        f"s after its start ({time.perf_counter() - t2:.1f} s after the "
+        f"steps), {len(cams)} diseases predicted above 0.5 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        log(text[-3000:])
+        raise AssertionError("scripts/gradcam_torch.py failed at 384 px")
+    shutil.rmtree(GRADCAM_384_DIR)
+    rows = fp32_long_times(dev, results, card)
+    log(f"[fp32_long] phase done in {time.perf_counter() - t0:.1f} s")
+    return counts_384, counts_512, gradcam_counts, rows
 
 
 def p50_ms(predictor, calls: int = 50) -> float:
@@ -5458,6 +5798,13 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
     launches from the fp32 224-px b32 step, ``gradcam_launches`` from
     Grad-CAM at block 6, its times at b64 N = 197 (the library call sdpa's
     fp32 forward and backward, TF32 off), ``device_ms`` as the others'.
+    K, K′, L and L′ in fp32 (``csrc/attention_f32.cu``) have rows of their
+    own: K's and K′'s launches from the fp32 384-px b16 step and
+    ``gradcam_launches`` from the 384-px Grad-CAM at block 6, L's and L′'s
+    from the fp32 512-px b32 step (FP32_DEPTH_512 blocks); their times at
+    b16 N = 577 and b32 N = 1025, the library call sdpa in fp32 (its
+    forward for K and L, forward and backward for K′ and L′), with
+    ``device_ms`` and ``library_device_ms``.
     A's, A′'s and B's rows carry ``mae``: the launches of one MAE step
     (``train_counts['mae']``) and, at the step's encoder and decoder
     shapes (``rows_mae``), each one's times, bound and library figures;
@@ -5494,6 +5841,18 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
          "gavit_tpu/ops/attention.py:803"),
         ("L′", "fused_qkv_attention_large_bwd",
          "gavit_tpu_torch/csrc/attention_bwd_sm90.cu",
+         "gavit_tpu/ops/attention.py:852"),
+        ("K fp32", "fused_qkv_attention_long_fp32",
+         "gavit_tpu_torch/csrc/attention_f32.cu",
+         "gavit_tpu/ops/attention.py:453"),
+        ("K′ fp32", "fused_qkv_attention_long_bwd_fp32",
+         "gavit_tpu_torch/csrc/attention_f32.cu",
+         "gavit_tpu/ops/attention.py:475"),
+        ("L fp32", "fused_qkv_attention_large_fp32",
+         "gavit_tpu_torch/csrc/attention_f32.cu",
+         "gavit_tpu/ops/attention.py:803"),
+        ("L′ fp32", "fused_qkv_attention_large_bwd_fp32",
+         "gavit_tpu_torch/csrc/attention_f32.cu",
          "gavit_tpu/ops/attention.py:852"),
         ("H", "fused_gelu_dropout", "gavit_tpu_torch/csrc/dropout.cu",
          "gavit_tpu/ops/dropout.py:252"),
@@ -5533,7 +5892,9 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
             "moe" if key in ("M", "M′", "tgmm") else
             "moe_unfused" if key == "N-gmm" else
             "ops" if key in ("I", "I′", "J", "J′", "G", "E") else
-            "fp32" if key == "A′ fp32" else "224"]
+            "fp32" if key == "A′ fp32" else
+            "384 fp32" if key in ("K fp32", "K′ fp32") else
+            "512 fp32" if key in ("L fp32", "L′ fp32") else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": rep, "launches": counts[key],
                     "max_abs_err": max(results[key]["errs"]), "ms": km,
@@ -5545,7 +5906,8 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
                                   "bound_by": by, "library_ms": lm}
     tgmm_device = results["tgmm"]["device"]
     for key in ("A′", "A′ fp32", "B", "C", "D", "D′", "E", "F", "G", "H",
-                "H′", "K′", "I′", "J′", "L", "L′", "M", "M′", "N-gmm"):
+                "H′", "K′", "I′", "J′", "L", "L′", "M", "M′", "N-gmm",
+                "K fp32", "K′ fp32", "L fp32", "L′ fp32"):
         row[key]["device_ms"], row[key]["library_device_ms"] = \
             results[key]["device"]
     (row["N-gmm"]["transposed"]["device_ms"],
@@ -5573,6 +5935,8 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
     row["E"]["redesigned"] = ("both masks in one launch, 16-byte stores, "
                               "csrc/dropout.cu")
     row["A′ fp32"]["gradcam_launches"] = train_counts["gradcam"]["A′ fp32"]
+    for key in ("K fp32", "K′ fp32"):
+        row[key]["gradcam_launches"] = train_counts["gradcam 384"][key]
     for key in ("A", "A′", "B"):
         row[key]["mae"] = {"launches": train_counts["mae"][key],
                            **rows_mae[key]}
@@ -5580,6 +5944,14 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
                             "inputs, tensor ops and cuBLAS (as "
                             "gavit_tpu/ops/mlp.py:676 _fmi_bwd)")
     return {"kernels": out}
+
+
+_T0 = time.perf_counter()
+
+
+def stamp(what: str) -> None:
+    """The script's wall clock at the end of a phase."""
+    log(f"[time] {what} done at {time.perf_counter() - _T0:.1f} s")
 
 
 def main():
@@ -5599,12 +5971,14 @@ def main():
     check_attention_bwd(dev, results)
     check_attention_bwd_f32(dev, results)
     check_long_attention(dev, results)
+    check_attention_f32(dev, results)
     check_gelu_dropout(dev, results)
     # the JAX package's op-level entry points (the counts of their own run),
     # then I/I′ and J/J′ at other lengths, and their times
     counts_ops = phase_ops(dev, results)
     check_bhnd_attention(dev, results)
     op_rows = phase_op_times(dev, results, card)
+    stamp("kernel checks and the op-level phase")
 
     # 224 px: vit_b16_graph2 (12 blocks, 2 kNN graph blocks)
     cfg = load_config(str(CONFIG))
@@ -5617,6 +5991,7 @@ def main():
     # torch.export artifact
     phase_serve_graphs(cfg, weights, dev, card)
     phase_export(cfg, weights, dev, card)
+    stamp("224-px slice, serve, serve_quant, serve_graphs and export")
     tcfg = train_config()
     # per block A, A′, D, D′; C at 2 graph blocks; F forward and backward at
     # the embedding, 12 attention projections and 2 graph projections
@@ -5641,14 +6016,17 @@ def main():
                 "vit_b16_graph2 attn_drop 0.1",
                 {"C": 2, "D": depth, "D′": depth, "F": 2 * (1 + depth + 2)},
                 steps_compare=3, steps_learn=15)
+    stamp("224-px training")
 
     # fp32: Grad-CAM, rollout, A′ fp32's times, fp32 training at b32 and
     # the Grad-CAM CLI on its checkpoint
     counts_fp32, counts_gradcam, rows_fp32 = phase_gradcam(
         cfg, weights, dev, results, card)
+    stamp("gradcam")
 
     # QAT at b128 and its checkpoint served int8 over HTTP
     phase_qat_serve(dev, card)
+    stamp("qat_serve")
 
     # 384 px: finetune_384 (12 blocks, 1 learned-static graph block): K and
     # B in the forward; in training K, K′, H, H′ per block (M = 16·577 has
@@ -5663,16 +6041,24 @@ def main():
         tcfg384, dev, "finetune_384",
         {"K": depth, "K′": depth, "H": depth, "H′": depth,
          "F": 2 * (1 + 2 * depth + 1)})
+    # fp32 past 416 tokens: Grad-CAM of finetune_384 and fp32 training at
+    # 384 px (K, K′ fp32) and 512 px (L, L′ fp32), the CLI at 384 px, the
+    # four fp32 bodies' times
+    counts_384_f32, counts_512_f32, counts_gradcam_384, rows_f32 = \
+        phase_fp32_long(cfg384, weights384, dev, results, card)
+    stamp("384 px and fp32_long")
 
     phase_times(cfg, dev, results, (predictor, reference), card)
     del predictor, reference
     rows, _ = phase_train_times(tcfg, dev, results, trainer, batch, card)
     rows.update(op_rows)
     rows.update(rows_fp32)
+    rows.update(rows_f32)
     del trainer
     rows.update(phase_384_times(cfg384, tcfg384, dev, results, weights384,
                                 trainer384, batch384, card))
     del trainer384, weights384
+    stamp("times")
 
     # 512 and 1024 px: vit_b16_graph2 with model.img_size and
     # data.image_size set; attention through L (L′ in training), the graph
@@ -5713,6 +6099,7 @@ def main():
         {"512 px": (trainer512, batch512, tcfg512),
          "1024 px remat": (trainer1024, batch1024, tcfg1024)}, card))
     del trainer512, trainer1024, predictor512, weights512
+    stamp("512 and 1024 px")
 
     # the MoE example (12 blocks, MoE MLPs in blocks 1, 3, ..., 11, 2 kNN
     # graph blocks): at b64 the grouped engine (M in 6 blocks, B in the
@@ -5761,12 +6148,16 @@ def main():
         cfg_moe, dev, results, weights_moe,
         {"fused": trainer_moe, "unfused": trainer_unf}, batch_moe, card))
     del trainer_moe, trainer_unf
+    stamp("MoE")
     phase_run(dev, card)
+    stamp("run")
     phase_data(dev, card)
+    stamp("data")
     # MAE pretraining at b256: A, A′ and B in every encoder and decoder
     # block, B with its chain backward; then the pretrain → .pth → fine-tune
     # → convert → inspect chain through the CLIs
     counts_mae, rows_mae = phase_mae(dev, results, card)
+    stamp("mae")
     leaked = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "flax", "gavit_tpu")]
     if leaked:
@@ -5779,6 +6170,9 @@ def main():
                                    "moe_unfused": counts_unfused,
                                    "ops": counts_ops, "fp32": counts_fp32,
                                    "gradcam": counts_gradcam,
+                                   "384 fp32": counts_384_f32,
+                                   "512 fp32": counts_512_f32,
+                                   "gradcam 384": counts_gradcam_384,
                                    "mae": counts_mae},
                                   rows, rows_mae), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {

@@ -199,7 +199,8 @@ class HeadMergeProj(Dense):
 
 class Attention(nn.Module):
     """Fused-QKV multi-head self-attention: qkv GEMM → kernel A, K or L on
-    the raw rows by sequence length (A′, K′ or L′ in the backward) →
+    the raw rows by sequence length and dtype (A′, K′ or L′ in the
+    backward; bf16 or fp32 at every length) →
     head-merging output projection → projection dropout (layers.py:425).
 
     In training with ``attn_drop`` > 0 the attention leaves the kernels, as

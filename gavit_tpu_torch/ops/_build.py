@@ -66,6 +66,9 @@ _SIGNATURES = {
     "gavit_attention_large_fwd": ((_P, _P, _P, _I, _I, _I, _I, _F, _P), _I),
     "gavit_attention_large_bwd": (
         (_P,) * 6 + (_I,) * 4 + (_L,) * 6 + (_F, _P), _I),
+    "gavit_attention_f32_fwd": ((_P,) * 5 + (_LP, _I, _I, _I, _I, _F, _P), _I),
+    "gavit_attention_f32_bwd": (
+        (_P,) * 10 + (_LP, _I, _I, _I, _I, _F, _P), _I),
     "gavit_dropout": ((_P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_dropout_add": ((_P, _P, _P, _L, _U, _U, _U, _U, _F, _I, _P), _I),
     "gavit_elementwise_step": ((_I, _I, _L), _L),
@@ -222,10 +225,12 @@ def check_impl(impl: str) -> None:
         raise ValueError(f"impl must be 'auto' or 'reference', not {impl!r}")
 
 
-def strides(*tensors: torch.Tensor):
+def strides(*tensors: torch.Tensor | None):
     """The (batch, head, row) strides of ``[B, H, N, d]`` tensors, flattened
-    into the ``long long`` array the attention launchers take."""
-    vals = [x for t in tensors for x in t.stride()[:3]]
+    into the ``long long`` array the attention launchers take; zeros for a
+    None (an operand the launch does not read)."""
+    vals = [x for t in tensors
+            for x in (t.stride()[:3] if t is not None else (0, 0, 0))]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 

@@ -19,11 +19,15 @@
   ``csrc/attention.cu`` too), or kernel K with K′
   (replace ``_fwd_kernel_v3`` and ``_bwd_kernel_v3``), or the blockwise
   kernel L with L′ (replace ``_fwd_kernel_v5``, ``_dq_kernel_v5`` and
-  ``_dkv_kernel_v5``); the forwards are ``csrc/attention_fwd_sm90.cu``'s,
-  the backwards ``csrc/attention_bwd_sm90.cu``'s (K′ and L′ one kernel
-  pair, L′ in its mode that reads L's lse and o; A′ two launches of its
-  own for bf16 rows of up to 224 tokens, two CUDA-core launches for fp32
-  rows of up to 416); it raises for anything those kernels do not take.
+  ``_dkv_kernel_v5``); in bf16 the forwards are
+  ``csrc/attention_fwd_sm90.cu``'s, the backwards
+  ``csrc/attention_bwd_sm90.cu``'s (K′ and L′ one kernel pair, L′ in its
+  mode that reads L's lse and o; A′ two launches of its own for bf16 rows
+  of up to 224 tokens, two CUDA-core launches for fp32 rows of up to 416);
+  in fp32 K, K′, L and L′ are ``csrc/attention_f32.cu``'s streamed
+  CUDA-core bodies (K′ and L′ one pair of launches, L′ in its lse mode),
+  at any length. It raises for anything those kernels do not take (head
+  widths other than 64).
 * :func:`blockwise_attention_reference` and
   :func:`blockwise_attention_backward_reference` — the plain versions of L
   and L′: the forward also returns the fp32 log-sum-exp of each row, which
@@ -37,7 +41,8 @@
   launches kernel J with J′ (replace ``_fwd_kernel_v2``/``_bwd_kernel_v2``)
   at every length. I and J are the bf16 attention forward of A and K
   (``csrc/attention_fwd_sm90.cu``), I′ and J′ the backward pair
-  (``csrc/attention_bwd_sm90.cu``), all reading and writing ``[B, H, N, d]``
+  (``csrc/attention_bwd_sm90.cu``), in fp32 K's and K′'s bodies
+  (``csrc/attention_f32.cu``), all reading and writing ``[B, H, N, d]``
   through strides, each entry point with its own launch counts; their plain
   versions are :func:`attention_reference` and
   :func:`attention_bhnd_backward_reference`.
@@ -49,15 +54,20 @@ import torch
 
 from gavit_tpu_torch.ops import _build, philox
 
-# launches since the last reset (chip_smoke.py reads them): kernels A, A′
-# (bf16; its fp32 launches apart), K, K′, L and L′
+# launches since the last reset (chip_smoke.py reads them): kernels A, A′,
+# K, K′, L and L′, each fp32 body of A′, K, K′, L and L′ on a counter of
+# its own
 KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
 BWD_F32_KERNEL_LAUNCHES = 0
 LONG_KERNEL_LAUNCHES = 0
+LONG_F32_KERNEL_LAUNCHES = 0
 LONG_BWD_KERNEL_LAUNCHES = 0
+LONG_BWD_F32_KERNEL_LAUNCHES = 0
 LARGE_KERNEL_LAUNCHES = 0
+LARGE_F32_KERNEL_LAUNCHES = 0
 LARGE_BWD_KERNEL_LAUNCHES = 0
+LARGE_BWD_F32_KERNEL_LAUNCHES = 0
 # and kernels I, I′ (attention_pallas) and J, J′ (fused_attention_v2)
 V1_KERNEL_LAUNCHES = 0
 V1_BWD_KERNEL_LAUNCHES = 0
@@ -69,17 +79,17 @@ V2_BWD_KERNEL_LAUNCHES = 0
 # its fp32 body stages K and V of a head in shared memory
 # (attn_smem_bytes(416) = 231,680 of 232,448 bytes)
 A_MAX_N = {torch.bfloat16: 224, torch.float32: 416}
-# the longest rows kernels K/K′ take. They stream key tiles and would run at
-# any N; the bound is the JAX package's own switch from the exact v3 kernels
-# to the blockwise v5 ones (``_v3_fits`` at head_dim 64 in bf16: 2·7·N·64·2
-# + 5·N²·4 bytes within its 12 MiB budget), so both packages run the exact
-# kernels over the same range and the blockwise kernels L/L′ take the rest.
-K_MAX_N = 749
-# what card attention in fp32 past kernels A/A′ waits for (they take fp32
-# rows up to A_MAX_N; K/K′ and L/L′ are bf16 only: the kernels of
-# csrc/attention_bwd_sm90.cu take bf16 at head_dim 64)
-_FP32_TODO = ("fp32 attention on the card waits for ROADMAP Queue 2 item "
-              "10.7 (Queue 1 item 10)")
+# the longest rows kernels K/K′ take, by dtype. They stream key tiles and
+# would run at any N; the bound is the JAX package's own switch from the
+# exact v3 kernels to the blockwise v5 ones (``_v3_fits`` at head_dim 64:
+# 2·7·N·64·itemsize + 5·N²·4 bytes within its 12 MiB budget: N <= 749 in
+# bf16, N <= 708 in fp32), so both packages run the exact kernels over the
+# same range and the blockwise kernels L/L′ take the rest.
+K_MAX_N = {torch.bfloat16: 749, torch.float32: 708}
+# what card attention at head widths other than 64 waits for (every kernel
+# here takes head_dim 64, the width of every shipped model)
+_HEAD_DIM_TODO = ("head widths other than 64 on the card wait for ROADMAP "
+                  "Queue 2 item 10.7 (Queue 1 item 10)")
 # attention_pallas's switch from v1 to the blockwise v5, copied from the JAX
 # package (attention.py:53-58, :1083-1086, its 12 MiB VMEM budget): tokens
 # padded to a multiple of 128 lanes, and the exact backward's estimate at
@@ -110,26 +120,27 @@ def pallas_route(n: int, d: int, dtype: torch.dtype) -> str:
 
 def attention_route(n: int, dtype: torch.dtype) -> str:
     """The kernel family that takes rows of ``n`` tokens in ``dtype`` on the
-    card: ``'A'`` (A/A′, bf16 up to 224 tokens, fp32 up to 416),
-    ``'K'`` (K/K′, bf16 past 224 up to :data:`K_MAX_N`) or ``'L'`` (L/L′,
-    bf16 past :data:`K_MAX_N`)."""
+    card: ``'A'`` (A/A′: bf16 up to 224 tokens, fp32 up to 416), ``'K'``
+    (K/K′, up to :data:`K_MAX_N` of the dtype: 749 in bf16, 708 in fp32) or
+    ``'L'`` (L/L′, past it, at any length)."""
     if n < 1:
         raise ValueError(f"attention over {n} tokens")
-    if n <= A_MAX_N.get(dtype, 0):
+    if dtype not in A_MAX_N:
+        raise TypeError(f"the attention kernels take float32 or bfloat16, "
+                        f"not {dtype}")
+    if n <= A_MAX_N[dtype]:
         return "A"
-    if dtype == torch.bfloat16:
-        return "K" if n <= K_MAX_N else "L"
-    raise NotImplementedError(
-        f"no attention kernel takes {dtype} rows of {n} tokens (fp32 up to "
-        f"{A_MAX_N[torch.float32]}, bf16 at any length): {_FP32_TODO}")
+    return "K" if n <= K_MAX_N[dtype] else "L"
 
 
-def plain_route(n: int) -> str:
+def plain_route(n: int, dtype: torch.dtype) -> str:
     """The family whose plain versions stand in for the kernels on a CPU
     tensor or under ``impl='reference'``: ``'L'`` (blockwise, with the saved
-    log-sum-exp) past :data:`K_MAX_N`, as on the card, else ``'A'`` (A and
-    K share theirs)."""
-    return "L" if n > K_MAX_N else "A"
+    log-sum-exp) where the JAX package leaves its exact v3 kernels for v5
+    (past :data:`K_MAX_N` of the dtype, as on the card), else ``'A'`` (A
+    and K share theirs)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return "A" if _v3_fits(n, 64, itemsize) else "L"
 
 
 def attention_reference(q, k, v, scale: float, dropout_rate: float = 0.0,
@@ -284,7 +295,7 @@ def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
         raise NotImplementedError(
             f"kernel A′ takes bf16 with N <= {A_MAX_N[torch.bfloat16]} and "
             f"fp32 with N <= {A_MAX_N[torch.float32]}, got {qkv3.dtype} "
-            f"N={n}: longer bf16 rows take kernel K′ or L′; {_FP32_TODO}")
+            f"N={n}: longer rows take kernel K′ or L′")
     b, n, d = _check_rows(qkv3, heads, "kernel A′")
     dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
     dqkv = torch.empty_like(qkv3)
@@ -306,16 +317,50 @@ def qkv_attention_bwd_kernel(qkv3, dout, scale: float, heads: int):
 
 
 def _long_shape(qkv3, heads: int, what: str, large: bool = False):
-    """K/K′ take bf16 rows up to :data:`K_MAX_N` tokens, L/L′
-    (``large``) at any length. Shapes and dtype only."""
+    """K/K′ take bf16 or fp32 rows up to :data:`K_MAX_N` tokens of their
+    dtype, L/L′ (``large``) at any length. Shapes and dtype only."""
     b, n, d = _rows_shape(qkv3, heads, what)
-    if qkv3.dtype != torch.bfloat16:
-        raise TypeError(f"{what} takes bfloat16 rows, not {qkv3.dtype}")
-    if n > K_MAX_N and not large:
+    if qkv3.dtype not in K_MAX_N:
+        raise TypeError(f"{what} takes bfloat16 or float32 rows, not "
+                        f"{qkv3.dtype}")
+    if n > K_MAX_N[qkv3.dtype] and not large:
         raise ValueError(
-            f"{what} takes N <= {K_MAX_N}, got {n}: longer rows take the "
-            "blockwise kernels L/L′ (attention_route 'L')")
+            f"{what} takes {qkv3.dtype} rows of N <= {K_MAX_N[qkv3.dtype]}, "
+            f"got {n}: longer rows take the blockwise kernels L/L′ "
+            "(attention_route 'L')")
     return b, n, d
+
+
+def _f32_forward(q, k, v, o, lse, scale: float, what: str) -> None:
+    """The fp32 body of K (``lse`` None) and L (``lse`` written) in
+    ``csrc/attention_f32.cu`` on CUDA ``[B, H, N, 64]`` q, k, v → o, each
+    read or written through its strides (views of the packed rows, or I's
+    and J's separate tensors)."""
+    b, h, n, d = q.shape
+    lib = _build.library()
+    _build.check(lib.gavit_attention_f32_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(), _build.strides(q, k, v, o),
+        b, n, h, d, float(scale), _build.stream(q.device)), what)
+
+
+def _f32_backward(q, k, v, o, lse, dout, dq, dk, dv, scale: float,
+                  what: str) -> None:
+    """The fp32 body of K′ (``o`` and ``lse`` None: the query-major launch
+    recomputes the row statistics, delta = rowsum(dp∘p)) and L′ (from L's
+    ``o`` and ``lse``, delta = rowsum(do∘o)) on
+    CUDA ``[B, H, N, 64]`` views → dq, dk, dv; its two launches share a
+    ``[3, B, H, N]`` fp32 scratch of row statistics."""
+    b, h, n, d = q.shape
+    stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
+    lib = _build.library()
+    _build.check(lib.gavit_attention_f32_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if o is None else o.data_ptr(),
+        None if lse is None else lse.data_ptr(), dout.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+        _build.strides(q, k, v, o, dout, dq, dk, dv), b, n, h, d,
+        float(scale), _build.stream(q.device)), what)
 
 
 def _check_long(qkv3, heads: int, what: str, large: bool = False):
@@ -325,9 +370,9 @@ def _check_long(qkv3, heads: int, what: str, large: bool = False):
 
 
 def qkv_attention_long_kernel(qkv3, scale: float, heads: int):
-    """Kernel K on a CUDA bf16 tensor ``[B, N, 3·H·d]`` → ``[B, H, N, d]``
-    (a view of ``[B, N, H, d]`` memory, as kernel A's), through the custom
-    op ``gavit_tpu_torch::attention_long_fwd``."""
+    """Kernel K on a CUDA bf16 or fp32 tensor ``[B, N, 3·H·d]`` →
+    ``[B, H, N, d]`` (a view of ``[B, N, H, d]`` memory, as kernel A's),
+    through the custom op ``gavit_tpu_torch::attention_long_fwd``."""
     _long_shape(qkv3, heads, "kernel K")
     _build.require_device(qkv3)
     return torch.ops.gavit_tpu_torch.attention_long_fwd(
@@ -338,10 +383,18 @@ def qkv_attention_long_kernel(qkv3, scale: float, heads: int):
                          mutates_args=(), device_types="cuda")
 def _attention_long_fwd_op(qkv3: torch.Tensor, scale: float,
                            heads: int) -> torch.Tensor:
-    """Kernel K's launch: ``[B, N, 3·H·d]`` → contiguous ``[B, N, H, d]``."""
-    global LONG_KERNEL_LAUNCHES
+    """Kernel K's launch: ``[B, N, 3·H·d]`` → contiguous ``[B, N, H, d]``,
+    by the rows' dtype: bf16 on ``csrc/attention_fwd_sm90.cu``, fp32 on
+    ``csrc/attention_f32.cu``."""
+    global LONG_KERNEL_LAUNCHES, LONG_F32_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel K")
     out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
+    if qkv3.dtype == torch.float32:
+        _f32_forward(*_split_heads(qkv3, heads), out.transpose(1, 2), None,
+                     scale, "long attention kernel (fp32)")
+        with _build.count_lock:
+            LONG_F32_KERNEL_LAUNCHES += 1
+        return out
     lib = _build.library()
     _build.check(lib.gavit_attention_long_fwd(
         qkv3.data_ptr(), out.data_ptr(), b, n, heads, d, float(scale),
@@ -355,13 +408,23 @@ _attention_long_fwd_op.register_fake(_fwd_fake)
 
 
 def qkv_attention_long_bwd_kernel(qkv3, dout, scale: float, heads: int):
-    """Kernel K′ on CUDA bf16 tensors, the arguments as
+    """Kernel K′ on CUDA bf16 or fp32 tensors, the arguments as
     :func:`qkv_attention_bwd_kernel`'s → ``dqkv3`` like qkv3. Its two
-    launches share a ``[3, B, H, N]`` fp32 scratch of row statistics."""
-    global LONG_BWD_KERNEL_LAUNCHES
+    launches share a ``[3, B, H, N]`` fp32 scratch of row statistics; fp32
+    rows take ``csrc/attention_f32.cu``'s pair, whose query-major launch
+    first takes each row's max, sum and delta = rowsum(dp∘p) in a pass over
+    the key tiles."""
+    global LONG_BWD_KERNEL_LAUNCHES, LONG_BWD_F32_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel K′")
     dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
     dqkv = torch.empty_like(qkv3)
+    if qkv3.dtype == torch.float32:
+        _f32_backward(*_split_heads(qkv3, heads), None, None, dout,
+                      *_split_heads(dqkv, heads), scale,
+                      "long attention backward kernel (fp32)")
+        with _build.count_lock:
+            LONG_BWD_F32_KERNEL_LAUNCHES += 1
+        return dqkv
     stats = torch.empty((3, b, heads, n), dtype=torch.float32,
                         device=qkv3.device)
     lib = _build.library()
@@ -417,7 +480,7 @@ def blockwise_attention_backward_reference(qkv3, o, lse, dout, scale: float,
 
 
 def qkv_attention_large_kernel(qkv3, scale: float, heads: int):
-    """Kernel L on a CUDA bf16 tensor ``[B, N, 3·H·d]`` →
+    """Kernel L on a CUDA bf16 or fp32 tensor ``[B, N, 3·H·d]`` →
     ``(o [B, H, N, d], lse [B, H, N] fp32)``; o is a view of
     ``[B, N, H, d]`` memory, as kernel A's. Through the custom op
     ``gavit_tpu_torch::attention_large_fwd``."""
@@ -433,11 +496,18 @@ def qkv_attention_large_kernel(qkv3, scale: float, heads: int):
 def _attention_large_fwd_op(qkv3: torch.Tensor, scale: float, heads: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Kernel L's launch → (contiguous ``[B, N, H, d]``, ``[B, H, N]``
-    fp32)."""
-    global LARGE_KERNEL_LAUNCHES
+    fp32), by the rows' dtype: bf16 on ``csrc/attention_fwd_sm90.cu``, fp32
+    on ``csrc/attention_f32.cu``."""
+    global LARGE_KERNEL_LAUNCHES, LARGE_F32_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel L", large=True)
     out = torch.empty((b, n, heads, d), dtype=qkv3.dtype, device=qkv3.device)
     lse = torch.empty((b, heads, n), dtype=torch.float32, device=qkv3.device)
+    if qkv3.dtype == torch.float32:
+        _f32_forward(*_split_heads(qkv3, heads), out.transpose(1, 2), lse,
+                     scale, "blockwise attention kernel (fp32)")
+        with _build.count_lock:
+            LARGE_F32_KERNEL_LAUNCHES += 1
+        return out, lse
     lib = _build.library()
     _build.check(lib.gavit_attention_large_fwd(
         qkv3.data_ptr(), out.data_ptr(), lse.data_ptr(), b, n, heads, d,
@@ -456,13 +526,14 @@ def _(qkv3, scale, heads):
 
 def qkv_attention_large_bwd_kernel(qkv3, o, lse, dout, scale: float,
                                    heads: int):
-    """Kernel L′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` bf16 (contiguous),
-    kernel L's ``o`` and ``lse``, and ``dout [B, H, N, d]``; o and dout are
-    read through their strides → ``dqkv3`` like qkv3. Its two launches
-    (the backward pair in its lse mode) share a ``[3, B, H, N]`` fp32
-    scratch of row statistics: L's lse in base-2 units, the multiplier 1
-    and delta = rowsum(do∘o), which the query-major launch writes."""
-    global LARGE_BWD_KERNEL_LAUNCHES
+    """Kernel L′ on CUDA tensors: ``qkv3 [B, N, 3·H·d]`` bf16 or fp32
+    (contiguous), kernel L's ``o`` and ``lse``, and ``dout [B, H, N, d]``; o
+    and dout are read through their strides → ``dqkv3`` like qkv3. Its two
+    launches (the backward pair in its lse mode) share a ``[3, B, H, N]``
+    fp32 scratch of row statistics: L's lse (in base-2 units in bf16), the
+    multiplier 1 and delta = rowsum(do∘o), which the query-major launch
+    writes; fp32 rows take ``csrc/attention_f32.cu``'s pair."""
+    global LARGE_BWD_KERNEL_LAUNCHES, LARGE_BWD_F32_KERNEL_LAUNCHES
     b, n, d = _check_long(qkv3, heads, "kernel L′", large=True)
     dout, sb, sh, sn = _dout_strides(dout, qkv3, heads)
     o, ob, oh, on = _dout_strides(o, qkv3, heads, "o")
@@ -471,6 +542,13 @@ def qkv_attention_large_bwd_kernel(qkv3, o, lse, dout, scale: float,
                          f"L's [{b}, {heads}, {n}] float32")
     _build.require_cuda(qkv3, lse)
     dqkv = torch.empty_like(qkv3)
+    if qkv3.dtype == torch.float32:
+        _f32_backward(*_split_heads(qkv3, heads), o, lse, dout,
+                      *_split_heads(dqkv, heads), scale,
+                      "blockwise attention backward kernel (fp32)")
+        with _build.count_lock:
+            LARGE_BWD_F32_KERNEL_LAUNCHES += 1
+        return dqkv
     stats = torch.empty((3, b, heads, n), dtype=torch.float32,
                         device=qkv3.device)
     lib = _build.library()
@@ -549,15 +627,16 @@ def fused_qkv_attention(qkv, scale: float, merge_heads: bool = True,
     ``merge_heads=False`` for an output projection that contracts (h, d).
 
     ``impl='auto'`` launches the kernels of :func:`attention_route` (A/A′,
-    K/K′ or L/L′) for a CUDA tensor and takes the plain versions of
-    :func:`plain_route` for a CPU tensor; ``'reference'`` always takes the
-    plain versions.
+    K/K′ or L/L′, bf16 or fp32) for a CUDA tensor and takes the plain
+    versions of :func:`plain_route` for a CPU tensor; ``'reference'``
+    always takes the plain versions.
     """
     _build.check_impl(impl)
     b, n, three, h, d = qkv.shape
     qkv3 = qkv.reshape(b, n, three * h * d)
     kernel = impl == "auto" and qkv.device.type != "cpu"
-    route = attention_route(n, qkv.dtype) if kernel else plain_route(n)
+    route = (attention_route(n, qkv.dtype) if kernel
+             else plain_route(n, qkv.dtype))
     out = _qkv_attention(qkv3, scale, h, route, kernel)
     if merge_heads:
         return out.transpose(1, 2)
@@ -570,9 +649,10 @@ def fused_qkv_attention(qkv, scale: float, merge_heads: bool = True,
 
 
 def _card_kernels(q, k, v, what: str) -> bool:
-    """True for CUDA tensors, which take the kernels (bf16 at head_dim 64,
-    else NotImplementedError); False for CPU tensors, which take the plain
-    versions. q, k and v must agree in shape, dtype and device."""
+    """True for CUDA tensors, which take the kernels (bf16 or fp32 at
+    head_dim 64, else NotImplementedError); False for CPU tensors, which
+    take the plain versions. q, k and v must agree in shape, dtype and
+    device."""
     if q.dim() != 4 or any(t.shape != q.shape or t.dtype != q.dtype
                            or t.device != q.device for t in (k, v)):
         raise ValueError(f"{what} takes q, k, v of one [B, H, N, d] shape, "
@@ -580,16 +660,17 @@ def _card_kernels(q, k, v, what: str) -> bool:
                          f"{tuple(k.shape)} {tuple(v.shape)}")
     if q.device.type == "cpu":
         return False
-    if q.dtype != torch.bfloat16 or q.shape[-1] != 64:
+    if q.dtype not in K_MAX_N or q.shape[-1] != 64:
         raise NotImplementedError(
-            f"{what} on the card takes bfloat16 at head_dim 64, got "
-            f"{q.dtype} at head_dim {q.shape[-1]}: {_FP32_TODO}")
+            f"{what} on the card takes bfloat16 or float32 at head_dim 64, "
+            f"got {q.dtype} at head_dim {q.shape[-1]}: {_HEAD_DIM_TODO}")
     return True
 
 
 def _bhnd_forward(q, k, v, scale: float, what: str):
-    """The bf16 attention forward (A and K's kernel) on CUDA q, k, v
-    ``[B, H, N, 64]`` (read through their strides) → o ``[B, H, N, 64]``."""
+    """The attention forward on CUDA q, k, v ``[B, H, N, 64]`` (read through
+    their strides) → o ``[B, H, N, 64]``: A and K's kernel in bf16, K's
+    fp32 body in fp32."""
     _card_kernels(q, k, v, what)
     if q.device.type != "cuda":
         raise ValueError(f"the Hopper kernels take CUDA tensors, not "
@@ -597,6 +678,9 @@ def _bhnd_forward(q, k, v, scale: float, what: str):
     b, h, n, d = q.shape
     q, k, v = (_build.aligned(t, rows=True) for t in (q, k, v))
     o = torch.empty((b, h, n, d), dtype=q.dtype, device=q.device)
+    if q.dtype == torch.float32:
+        _f32_forward(q, k, v, o, None, scale, what)
+        return o
     lib = _build.library()
     _build.check(lib.gavit_attention_bhnd_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -606,9 +690,9 @@ def _bhnd_forward(q, k, v, scale: float, what: str):
 
 
 def _bhnd_backward(q, k, v, dout, scale: float, what: str):
-    """K′'s two launches on CUDA bf16 ``[B, H, N, 64]`` q, k, v and dout
-    (read through their strides) → ``(dq, dk, dv)``; they share a
-    ``[3, B, H, N]`` fp32 scratch of row statistics."""
+    """K′'s two launches (bf16, or its fp32 body) on CUDA ``[B, H, N, 64]``
+    q, k, v and dout (read through their strides) → ``(dq, dk, dv)``; they
+    share a ``[3, B, H, N]`` fp32 scratch of row statistics."""
     _card_kernels(q, k, v, what)
     if dout.shape != q.shape or dout.dtype != q.dtype or \
             dout.device != q.device or q.device.type != "cuda":
@@ -619,6 +703,9 @@ def _bhnd_backward(q, k, v, dout, scale: float, what: str):
     q, k, v, dout = (_build.aligned(t, rows=True) for t in (q, k, v, dout))
     dq, dk, dv = torch.empty((3, b, h, n, d), dtype=q.dtype,
                              device=q.device).unbind(0)
+    if q.dtype == torch.float32:
+        _f32_backward(q, k, v, None, None, dout, dq, dk, dv, scale, what)
+        return dq, dk, dv
     stats = torch.empty((3, b, h, n), dtype=torch.float32, device=q.device)
     lib = _build.library()
     _build.check(lib.gavit_attention_bhnd_bwd(
@@ -638,10 +725,10 @@ _BHND = {"v1": (("V1_KERNEL_LAUNCHES", "kernel I"),
 
 def bhnd_kernel(entry: str, bwd: bool, *args):
     """Kernel I (``entry='v1'``, ``attention_pallas``) or J (``'v2'``,
-    ``fused_attention_v2``) on CUDA bf16 ``(q, k, v, scale)`` ``[B, H, N,
-    64]`` → o; with ``bwd``, I′ or J′ on ``(q, k, v, dout, scale)`` →
-    ``(dq, dk, dv)``. Both entry points launch one kernel pair; each counts
-    its own launches."""
+    ``fused_attention_v2``) on CUDA bf16 or fp32 ``(q, k, v, scale)``
+    ``[B, H, N, 64]`` → o; with ``bwd``, I′ or J′ on ``(q, k, v, dout,
+    scale)`` → ``(dq, dk, dv)``. Both entry points launch one kernel pair
+    (K's and K′'s fp32 bodies in fp32); each counts its own launches."""
     counter, what = _BHND[entry][bwd]
     out = (_bhnd_backward if bwd else _bhnd_forward)(*args, what)
     with _build.count_lock:
@@ -680,8 +767,8 @@ def attention_pallas(q, k, v, scale: float):
     kernels I/I′ on a CUDA tensor; ``'L'`` packs q, k, v into the
     ``[B, N, 3·H·d]`` rows kernel L takes and saves L's o and lse for L′, as
     the JAX package hands that length to ``flash_attention_large``. A CPU
-    tensor takes the route's plain versions. On the card fp32 and head_dim
-    other than 64 raise."""
+    tensor takes the route's plain versions. On the card head_dim other
+    than 64 raises."""
     kernel = _card_kernels(q, k, v, "attention_pallas")
     b, h, n, d = q.shape
     if pallas_route(n, d, q.dtype) == "I":
@@ -697,7 +784,7 @@ def fused_attention_v2(q, k, v, scale: float):
     on a CUDA tensor, at every N. The JAX function sizes its head chunks
     for the TPU's VMEM (``_head_chunk``) and has no other route; the
     streaming kernel needs neither. A CPU tensor takes the plain versions;
-    on the card fp32 and head_dim other than 64 raise."""
+    on the card head_dim other than 64 raises."""
     kernel = _card_kernels(q, k, v, "fused_attention_v2")
     return _BhndAttention.apply(q, k, v, float(scale),
                                 "v2" if kernel else None)

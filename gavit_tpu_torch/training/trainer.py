@@ -46,9 +46,10 @@ and the int8 serving export (``serving.py::export_quant``) see the run's
 noise model.
 
 ``training.precision: fp32`` on a card pins TF32 off (process-wide) and
-runs through the kernels' fp32 bodies: A and A′ up to 416 tokens, C, and
-the MLP's GEMM chain with H, H′ and F (D/D′ are bf16 only, as the JAX
-package finds no fp32 row block at ViT widths).
+runs through the kernels' fp32 bodies: A and A′ up to 416 tokens, K and
+K′ up to 708, L and L′ past it, C, and the MLP's GEMM chain with H, H′ and
+F (D/D′ are bf16 only, as the JAX package finds no fp32 row block at ViT
+widths).
 """
 
 from __future__ import annotations

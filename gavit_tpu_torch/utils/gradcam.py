@@ -4,9 +4,11 @@
 Where the JAX module differentiates a zero probe added to a block's output
 with ``jax.grad``, this one adds the same probe through the model's
 ``token_probe`` hook and takes its gradient with ``torch.autograd.grad``.
-On the card that backward runs through the kernels: A′ in every attention
-after the probed block (fp32 for the fp32 model Grad-CAM is built in), the
-graph kernel C's closed-form backward and the MLP's GEMM chain.
+On the card that backward runs through the kernels: the attention
+backward of the sequence length (A′, K′ or L′; fp32 bodies for the fp32
+model Grad-CAM is built in, at every length) in every block after the
+probed one, the graph kernel C's closed-form backward and the MLP's GEMM
+chain.
 
 CAM recipe, as the JAX module's: per target class, weights = the mean over
 patch tokens of ∂logit/∂tokens, CAM = ReLU(Σ_d w_d · token_d) over the

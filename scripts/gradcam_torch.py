@@ -10,8 +10,9 @@
 Loads the model from a ``scripts/train_torch.py`` checkpoint in fp32 at
 dropout 0, as the JAX script's ``load_model`` builds it (fresh weights
 from seed 0 without a checkpoint); on the card the fp32 forward and the
-Grad-CAM backward run through the Hopper kernels (A and A′ in fp32, C,
-the MLP's GEMM chain), with TF32 off. It picks ``--num-images`` images
+Grad-CAM backward run through the Hopper kernels (A and A′ in fp32 up to
+416 tokens, K and K′ up to 708 (the 384-px fine-tune), L and L′ past it,
+C, the MLP's GEMM chain), with TF32 off. It picks ``--num-images`` images
 (``nih``: ``data.val_dir`` with ``data.val_labels``; ``synthetic``) with a
 seed of 0 and writes under ``--out`` (default ``<save_dir>/gradcam``):
 the attention rollout (``attention_maps/attention_maps.png``), the first

@@ -87,7 +87,10 @@ def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
 
 
 @pytest.mark.parametrize("dtype,n,error,match", [
-    (torch.float32, 417, NotImplementedError, "Queue 1 item 10"),
+    # fp32 rows past A′'s 416 tokens take K′ or L′ (their id kept from
+    # when the route refused them)
+    pytest.param(torch.float32, 417, NotImplementedError, "K′ or L′",
+                 id="dtype0-417-NotImplementedError-Queue 1 item 10"),
     (torch.bfloat16, 225, NotImplementedError, "N <= 224"),
     (torch.bfloat16, 577, NotImplementedError, "K′ or L′"),
     (torch.bfloat16, 197, ValueError, "CUDA"),
@@ -95,7 +98,8 @@ def test_cpu_tensor_takes_plain_version_and_kernel_refuses_it():
 ])
 def test_attention_bwd_kernel_refuses_before_the_card(dtype, n, error, match):
     """Kernel A′'s wrapper refuses what its kernels do not take (rows past
-    ``A_MAX_N`` of their dtype: fp32 past 416 tokens, bf16 past 224) before
+    ``A_MAX_N`` of their dtype: fp32 past 416 tokens, bf16 past 224, which
+    take K′ or L′) before
     it looks at the device or builds anything, so a CPU tensor meets the
     same error as a CUDA one; rows it takes, in either dtype, are refused
     on the CPU for their device rather than computed. No launch is
@@ -143,14 +147,15 @@ def test_long_attention_plain_versions_match_jax_v3(n, dtype):
 def test_route_picks_the_jax_dispatchers_family():
     """At ViT-B's shapes (12 heads, d 64, bf16) the JAX dispatcher takes v4
     at 224 px (N=197), v3 at 384 px (N=577) and the blockwise v5 past v3's
-    bound (512 px, N=1025), where the port takes A, K and L; fp32 past
-    kernel A's forward raises on the card."""
+    bound (512 px, N=1025), where the port takes A, K and L; in fp32 the
+    same families, A up to 416 tokens, K up to v3's fp32 bound (708), L
+    past it."""
     bf = torch.bfloat16
     assert jattn._v4_fits(12, 197, 64, 2)
     assert tattn.attention_route(197, bf) == "A"
     assert not jattn._v4_fits(12, 577, 64, 2) and jattn._v3_fits(577, 64, 2)
     assert tattn.attention_route(577, bf) == "K"
-    k_max = tattn.K_MAX_N
+    k_max = tattn.K_MAX_N[bf]
     assert jattn._v3_fits(k_max, 64, 2) and not jattn._v3_fits(k_max + 1,
                                                               64, 2)
     assert tattn.attention_route(k_max, bf) == "K"
@@ -158,6 +163,13 @@ def test_route_picks_the_jax_dispatchers_family():
     assert not jattn._v3_fits(1025, 64, 2)
     assert tattn.attention_route(1025, bf) == "L"
     assert tattn.attention_route(225, bf) == "K"
-    assert tattn.attention_route(416, torch.float32) == "A"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tattn.attention_route(417, torch.float32)
+    f32 = torch.float32
+    assert tattn.attention_route(416, f32) == "A"
+    assert tattn.attention_route(417, f32) == "K"
+    assert tattn.attention_route(577, f32) == "K"
+    k_max = tattn.K_MAX_N[f32]
+    assert jattn._v3_fits(k_max, 64, 4) and not jattn._v3_fits(k_max + 1,
+                                                              64, 4)
+    assert tattn.attention_route(k_max, f32) == "K"
+    assert tattn.attention_route(k_max + 1, f32) == "L"
+    assert tattn.attention_route(1025, f32) == "L"

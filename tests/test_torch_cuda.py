@@ -7,7 +7,9 @@ GELU + dropout (H, H′) at rates 0 and 0.1 with the masks bit-identical to
 the plain version's, the MLP's two routes, and the training kernels'
 gradients against torch.autograd through the plain versions (A′ in fp32
 too, at 1 to 416 tokens and 1 to 16 heads, reruns bit-equal, a dO 4 bytes
-off alignment); the graph's
+off alignment; K, K′, L and L′ in fp32 from one token to 4097 with NaN
+right after qkv and dO, reruns bit-equal, through every route's autograd,
+I/J fp32 and a captured CUDA graph); the graph's
 TMA + wgmma body and D′ with NaN planted past their inputs and bit-equal
 reruns; the
 [B, H, N, d] attention kernels I/I′ and J/J′ from one token to 641, the
@@ -98,10 +100,16 @@ def test_attention_kernel_refuses_what_it_does_not_take(dev):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         A.qkv_attention_kernel(torch.zeros(1, 5, 3 * 64, device=dev,
                                            dtype=torch.float16), 0.125, 1)
-    # fp32 K and V of one head at 384 px (N=577) exceed a block's 227 KB
+    # fp32 K and V of one head at 384 px (N=577) exceed a block's 227 KB:
+    # kernel A refuses them, and the route takes K's fp32 body
+    qkv = torch.zeros(1, 577, 3 * 64, device=dev)
     with pytest.raises(ValueError, match="does not fit"):
-        A.qkv_attention_kernel(torch.zeros(1, 577, 3 * 64, device=dev),
-                               0.125, 1)
+        A.qkv_attention_kernel(qkv, 0.125, 1)
+    before = A.LONG_F32_KERNEL_LAUNCHES
+    out = A.fused_qkv_attention(qkv.view(1, 577, 3, 1, 64), 0.125)
+    assert A.LONG_F32_KERNEL_LAUNCHES == before + 1
+    torch.cuda.synchronize()
+    assert out.shape == (1, 577, 1, 64) and torch.isfinite(out).all()
 
 
 @pytest.mark.parametrize("m,d,f", [(1, 64, 256), (5, 72, 136), (129, 64, 256),
@@ -643,7 +651,7 @@ def test_attention_bwd_kernel_fp32_takes_a_misaligned_dout(dev):
 
 def test_attention_bwd_kernel_refuses_what_it_does_not_take(dev):
     qkv = torch.zeros(1, 417, 3 * 64, device=dev)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="K′ or L′"):
         A.qkv_attention_bwd_kernel(
             qkv, torch.zeros(1, 1, 417, 64, device=dev), 0.125, 1)
     qkv = torch.zeros(1, 225, 3 * 64, device=dev, dtype=torch.bfloat16)
@@ -748,20 +756,177 @@ def test_long_attention_gradients_match_autograd_through_plain(dev):
     assert _rel(grads["auto"], grads["reference"]) <= 2e-2
 
 
+# fp32 rows from one token to past the exact family's bound: partial and
+# whole 16-row blocks and 64-row tiles, A's fp32 bound + 1, 384 px and
+# K's fp32 bound; heads 1 to 16
+LONG_F32_CASES = [(1, 1, 1), (2, 17, 3), (1, 64, 2), (1, 65, 16),
+                  (2, 130, 1), (1, 417, 12), (2, 577, 4), (1, 708, 2)]
+# L's: the fp32 route's first length, 512 px, a tile multiple, 1024 px
+LARGE_F32_CASES = [(1, 1, 1), (2, 65, 3), (1, 709, 2), (1, 1025, 12),
+                   (2, 1088, 1), (1, 4097, 2)]
+
+
+@pytest.mark.parametrize("b,n,heads", LONG_F32_CASES)
+def test_long_attention_kernels_fp32_match_plain(dev, b, n, heads):
+    """K and K′ in fp32 (``csrc/attention_f32.cu``) on qkv rows and a dO
+    each followed in memory by NaN, dO as the output projection hands it
+    over and contiguous: o within 1e-5, dqkv within 1e-5 of the plain
+    versions relative to its largest value (fp32 products summed in
+    another order), finite, the same bits on a rerun, each launch on its
+    own counter."""
+    qkv = _nan_tailed(_randn(dev, b, n, 3 * heads * 64, seed=n))
+    do_bnhd = _nan_tailed(_randn(dev, b, n, heads, 64, seed=n + 1))
+    before = (A.LONG_F32_KERNEL_LAUNCHES, A.LONG_BWD_F32_KERNEL_LAUNCHES,
+              A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES)
+    got = A.qkv_attention_long_kernel(qkv, 0.125, heads)
+    again = A.qkv_attention_long_kernel(qkv, 0.125, heads)
+    want = A.attention_reference(*A._split_heads(qkv, heads), 0.125)
+    dwant = A.attention_backward_reference(qkv, do_bnhd.transpose(1, 2),
+                                           0.125, heads)
+    for dout in (do_bnhd.transpose(1, 2), do_bnhd.transpose(1, 2).contiguous()):
+        dgot = A.qkv_attention_long_bwd_kernel(qkv, dout, 0.125, heads)
+        dagain = A.qkv_attention_long_bwd_kernel(qkv, dout, 0.125, heads)
+        torch.cuda.synchronize()
+        assert dgot.shape == qkv.shape and dgot.dtype == torch.float32
+        assert torch.isfinite(dgot).all() and _rel(dgot, dwant) <= 1e-5
+        assert torch.equal(dgot, dagain)
+    assert got.shape == (b, heads, n, 64) and got.dtype == torch.float32
+    assert torch.isfinite(got).all() and _err(got, want) <= TOL[torch.float32]
+    assert torch.equal(got, again)
+    assert (A.LONG_F32_KERNEL_LAUNCHES, A.LONG_BWD_F32_KERNEL_LAUNCHES,
+            A.LONG_KERNEL_LAUNCHES, A.LONG_BWD_KERNEL_LAUNCHES) == (
+        before[0] + 2, before[1] + 4, before[2], before[3])
+
+
+@pytest.mark.parametrize("b,n,heads", LARGE_F32_CASES)
+def test_large_attention_kernels_fp32_match_plain(dev, b, n, heads):
+    """L and L′ in fp32 against their plain versions on NaN-tailed rows and
+    dO: o within 1e-5, the fp32 lse within 1e-5 (the online softmax over
+    64-key tiles against one pass), dqkv from L's o and lse within 1e-5
+    relative to its largest value; finite, reruns bit-equal, each launch
+    on its own counter."""
+    qkv = _nan_tailed(_randn(dev, b, n, 3 * heads * 64, seed=n))
+    before = (A.LARGE_F32_KERNEL_LAUNCHES, A.LARGE_BWD_F32_KERNEL_LAUNCHES,
+              A.LARGE_KERNEL_LAUNCHES, A.LARGE_BWD_KERNEL_LAUNCHES)
+    o, lse = A.qkv_attention_large_kernel(qkv, 0.125, heads)
+    o2, lse2 = A.qkv_attention_large_kernel(qkv, 0.125, heads)
+    want_o, want_lse = A.blockwise_attention_reference(qkv, 0.125, heads)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float32 and lse.shape == (b, heads, n)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert _err(o, want_o) <= TOL[torch.float32]
+    assert _err(lse, want_lse) <= 1e-5
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    do = _nan_tailed(_randn(dev, b, n, heads, 64, seed=n + 1)).transpose(1, 2)
+    got = A.qkv_attention_large_bwd_kernel(qkv, o, lse, do, 0.125, heads)
+    again = A.qkv_attention_large_bwd_kernel(qkv, o, lse, do, 0.125, heads)
+    want = A.blockwise_attention_backward_reference(qkv, o, lse, do, 0.125,
+                                                    heads)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and _rel(got, want) <= 1e-5
+    assert torch.equal(got, again)
+    assert (A.LARGE_F32_KERNEL_LAUNCHES, A.LARGE_BWD_F32_KERNEL_LAUNCHES,
+            A.LARGE_KERNEL_LAUNCHES, A.LARGE_BWD_KERNEL_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2], before[3])
+
+
+@pytest.mark.parametrize("n,route", [(300, "A"), (577, "K"), (750, "L")])
+def test_fp32_attention_gradients_match_autograd_through_plain(dev, n,
+                                                               route):
+    """fp32 rows through ``fused_qkv_attention`` and the head merge, on
+    each route of its length: A/A′ at 300 tokens, K/K′ fp32 at 577 (the
+    384-px fine-tune), L/L′ fp32 at 750; the gradients within 1e-5 of
+    autograd through the plain versions (relative to the largest), one
+    forward and one backward launched on the route's counters."""
+    b, heads = 2, 3
+    counters = {"A": ("KERNEL_LAUNCHES", "BWD_F32_KERNEL_LAUNCHES"),
+                "K": ("LONG_F32_KERNEL_LAUNCHES",
+                      "LONG_BWD_F32_KERNEL_LAUNCHES"),
+                "L": ("LARGE_F32_KERNEL_LAUNCHES",
+                      "LARGE_BWD_F32_KERNEL_LAUNCHES")}[route]
+    assert A.attention_route(n, torch.float32) == route
+    grads = {}
+    for impl in ("auto", "reference"):
+        qkv = _randn(dev, b, n, 3 * heads * 64, seed=1).requires_grad_(True)
+        before = [getattr(A, c) for c in counters]
+        out = A.fused_qkv_attention(qkv.view(b, n, 3, heads, 64), 0.125,
+                                    merge_heads=False, impl=impl)
+        merged = out.transpose(1, 2).reshape(b, n, heads * 64)
+        merged.backward(_randn(dev, b, n, heads * 64, seed=2))
+        moved = [getattr(A, c) - v for c, v in zip(counters, before)]
+        assert moved == [int(impl == "auto")] * 2
+        grads[impl] = qkv.grad
+    torch.cuda.synchronize()
+    assert _rel(grads["auto"], grads["reference"]) <= 1e-5
+
+
+@pytest.mark.parametrize("entry", ["I", "J"])
+@pytest.mark.parametrize("b,heads,n", [(1, 1, 1), (2, 3, 65), (1, 12, 197),
+                                       (1, 2, 640)])
+def test_bhnd_attention_kernels_fp32_match_plain(dev, entry, b, heads, n):
+    """I/I′ and J/J′ in fp32 (K's and K′'s fp32 bodies read through the
+    strides) on q, k, v as views of [B, N, H, d] memory and a contiguous
+    dO: within 1e-5 of the plain versions, reruns bit-equal, only the entry
+    point's counters moving."""
+    qkv = [_randn(dev, b, n, heads, 64, seed=n + i).transpose(1, 2)
+           for i in range(3)]
+    do = _randn(dev, b, heads, n, 64, seed=n + 3)
+    e = {"I": "v1", "J": "v2"}[entry]
+    counters = ("V1_KERNEL_LAUNCHES", "V1_BWD_KERNEL_LAUNCHES",
+                "V2_KERNEL_LAUNCHES", "V2_BWD_KERNEL_LAUNCHES",
+                "LONG_F32_KERNEL_LAUNCHES", "LONG_BWD_F32_KERNEL_LAUNCHES")
+    before = {c: getattr(A, c) for c in counters}
+    got = A.bhnd_kernel(e, False, *qkv, 0.125)
+    again = A.bhnd_kernel(e, False, *qkv, 0.125)
+    grads = A.bhnd_kernel(e, True, *qkv, do, 0.125)
+    gagain = A.bhnd_kernel(e, True, *qkv, do, 0.125)
+    want = A.attention_reference(*qkv, 0.125)
+    dwant = A.attention_bhnd_backward_reference(*qkv, do, 0.125)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and _err(got, want) <= TOL[
+        torch.float32]
+    assert torch.equal(got, again)
+    for a, w, a2 in zip(grads, dwant, gagain):
+        assert _rel(a, w) <= 1e-5 and torch.equal(a, a2)
+    fc, bc = {"I": counters[:2], "J": counters[2:4]}[entry]
+    moved = {c: getattr(A, c) - before[c] for c in counters}
+    assert moved == {c: {fc: 2, bc: 2}.get(c, 0) for c in counters}
+
+
+def test_fp32_long_attention_is_captured_and_replayed(dev):
+    """K's and L's fp32 launches allocate, copy and synchronise nothing: a
+    CUDA graph captures them, and its replay gives the eager bits."""
+    for n in (577, 1025):
+        qkv = _randn(dev, 2, n, 3 * 2 * 64, seed=n)
+        eager = A.fused_qkv_attention(qkv.view(2, n, 3, 2, 64), 0.125)
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            A.fused_qkv_attention(qkv.view(2, n, 3, 2, 64), 0.125)
+            with torch.cuda.graph(graph, stream=stream):
+                out = A.fused_qkv_attention(qkv.view(2, n, 3, 2, 64), 0.125)
+        torch.cuda.current_stream().wait_stream(stream)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 def test_route_raises_past_the_long_kernels_bound(dev):
-    """Past K_MAX_N kernel K raises and the route takes L instead; fp32
-    past kernel A's forward raises, naming the ROADMAP item."""
-    n = A.K_MAX_N + 1
-    qkv = torch.zeros(1, n, 3 * 64, device=dev, dtype=torch.bfloat16)
-    before = A.LARGE_KERNEL_LAUNCHES
-    A.fused_qkv_attention(qkv.view(1, n, 3, 1, 64), 0.125)
-    assert A.LARGE_KERNEL_LAUNCHES == before + 1
-    with pytest.raises(ValueError, match="L/L′"):
-        A.qkv_attention_long_kernel(qkv, 0.125, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        A.fused_qkv_attention(qkv.float().view(1, n, 3, 1, 64), 0.125)
-    with pytest.raises(TypeError, match="bfloat16"):
-        A.qkv_attention_long_kernel(qkv[:, :5].float().contiguous(), 0.125, 1)
+    """Past K_MAX_N of its dtype (749 in bf16, 708 in fp32) kernel K raises
+    and the route takes L instead, fp32 rows L's fp32 body; a dtype
+    neither takes raises."""
+    for dtype, counter in ((torch.bfloat16, "LARGE_KERNEL_LAUNCHES"),
+                           (torch.float32, "LARGE_F32_KERNEL_LAUNCHES")):
+        n = A.K_MAX_N[dtype] + 1
+        qkv = torch.zeros(1, n, 3 * 64, device=dev, dtype=dtype)
+        before = getattr(A, counter)
+        A.fused_qkv_attention(qkv.view(1, n, 3, 1, 64), 0.125)
+        assert getattr(A, counter) == before + 1
+        with pytest.raises(ValueError, match="L/L′"):
+            A.qkv_attention_long_kernel(qkv, 0.125, 1)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        A.qkv_attention_long_kernel(qkv[:, :5].half().contiguous(), 0.125, 1)
     # kernel A's fp32 body ends where the route says it does
     lib = A._build.library()
     f32 = A._build.dtype_code(torch.float32)
@@ -812,7 +977,8 @@ def test_bhnd_attention_kernels_match_plain(dev, entry, b, heads, n):
 def test_bhnd_entry_points_route_and_refuse(dev):
     """attention_pallas takes I up to 640 tokens and L/L′ from 641; J
     takes 641 too; gradients through autograd match the plain versions';
-    fp32 and head_dim other than 64 raise, naming the ROADMAP item."""
+    fp32 runs (I's and J's fp32 bodies, and L's past 640); head_dim other
+    than 64 raises, naming the ROADMAP item."""
     bf = torch.bfloat16
     for n, counter in ((640, "V1_KERNEL_LAUNCHES"),
                        (641, "LARGE_KERNEL_LAUNCHES")):
@@ -830,14 +996,23 @@ def test_bhnd_entry_points_route_and_refuse(dev):
         before = A.V2_KERNEL_LAUNCHES
         A.fused_attention_v2(q, k, v, 0.125)
         assert A.V2_KERNEL_LAUNCHES == before + 1
+    for n, counter in ((5, "V1_KERNEL_LAUNCHES"),
+                       (641, "LARGE_F32_KERNEL_LAUNCHES")):
+        x = _randn(dev, 1, 1, n, 64, seed=n)
+        before = getattr(A, counter)
+        out = A.attention_pallas(x, x, x, 0.125)
+        assert getattr(A, counter) == before + 1
+        assert _err(out, A.attention_reference(x, x, x, 0.125)) <= TOL[
+            torch.float32]
     for fn in (A.attention_pallas, A.fused_attention_v2,
                A.multi_head_attention):
         x = torch.zeros(1, 1, 5, 64, device=dev)
-        with pytest.raises(NotImplementedError, match="Queue 2 item 10.7"):
-            fn(x, x, x, 0.125)
+        assert torch.equal(fn(x, x, x, 0.125), x)
         x = torch.zeros(1, 1, 5, 32, device=dev, dtype=bf)
         with pytest.raises(NotImplementedError, match="head_dim"):
             fn(x, x, x, 0.125)
+        with pytest.raises(NotImplementedError, match="Queue 2 item 10.7"):
+            fn(x.float(), x.float(), x.float(), 0.125)
 
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
@@ -1540,8 +1715,13 @@ def test_custom_op_fakes_agree_with_the_kernels(dev, name):
     import gavit_tpu_torch.ops  # noqa: F401
 
     op = getattr(torch.ops.gavit_tpu_torch, name).default
-    torch.library.opcheck(op, _op_cases(dev)[name], test_utils=(
-        "test_schema", "test_autograd_registration", "test_faketensor"))
+    cases = [_op_cases(dev)[name]]
+    if name in ("attention_long_fwd", "attention_large_fwd"):
+        # K's and L's fp32 rows, which the op dispatches inside the launch
+        cases.append((cases[0][0].float(), *cases[0][1:]))
+    for args in cases:
+        torch.library.opcheck(op, args, test_utils=(
+            "test_schema", "test_autograd_registration", "test_faketensor"))
 
 
 def test_moe_plain_grouped_buckets_run_eagerly(dev, caplog):

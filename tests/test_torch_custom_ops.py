@@ -3,7 +3,9 @@ seven ops are registered by importing ``gavit_tpu_torch.ops``, each runs on
 CUDA tensors only, its fake implementation gives the shape, dtype and
 strides of the launch's output (the wrappers' views, such as kernel A's
 ``[B, H, N, d]`` over ``[B, N, H, d]`` memory, stand on them), and
-``torch.export`` traces each wrapper to its op over fake CUDA tensors. The
+``torch.export`` traces each wrapper to its op over fake CUDA tensors
+(kernels K and L over bf16 and over fp32 rows, which their ops dispatch by
+dtype inside the launch). The
 card holds each fake to its kernel with ``torch.library.opcheck``
 (``tests/test_torch_cuda.py``). At most 3 tests a file (see
 ``tests/test_torch_export.py``)."""
@@ -41,6 +43,8 @@ def calls(b=2, n=17, heads=2, d=64, cap=32, e=4, f=256):
     dim = heads * d
     qkv = torch.empty(b, n, 3 * dim, dtype=BF16, device="cuda")
     o = ((b, heads, n, d), BF16, (n * dim, d, dim, 1))
+    qkv32 = torch.empty(b, n, 3 * dim, dtype=torch.float32, device="cuda")
+    o32 = ((b, heads, n, d), torch.float32, (n * dim, d, dim, 1))
     x = torch.empty(b * n, dim, dtype=BF16, device="cuda")
     tok = torch.empty(b, n, dim, dtype=BF16, device="cuda")
     xs = torch.empty(cap, dim, dtype=BF16, device="cuda")
@@ -64,6 +68,11 @@ def calls(b=2, n=17, heads=2, d=64, cap=32, e=4, f=256):
         "attention_large_fwd": (
             lambda: A.qkv_attention_large_kernel(qkv, 0.125, heads),
             [o, rows((b, heads, n), torch.float32)]),
+        "attention_long_fwd fp32": (
+            lambda: A.qkv_attention_long_kernel(qkv32, 0.125, heads), [o32]),
+        "attention_large_fwd fp32": (
+            lambda: A.qkv_attention_large_kernel(qkv32, 0.125, heads),
+            [o32, rows((b, heads, n), torch.float32)]),
         "mlp_infer": (lambda: B.mlp_inference_kernel(
             x, torch.empty(f, dim, dtype=BF16, device="cuda"),
             torch.empty(f, dtype=BF16, device="cuda"),
@@ -105,8 +114,9 @@ def test_fakes_give_the_launch_outputs():
 
 
 def test_export_traces_each_wrapper_to_its_op():
-    """One program calling every wrapper: its graph calls each op once and
-    no plain version (no matmul, softmax or sort of the plain paths)."""
+    """One program calling every wrapper: its graph calls each op once a
+    case (K's and L's twice: bf16 and fp32 rows) and no plain version (no
+    matmul, softmax or sort of the plain paths)."""
     with FakeTensorMode():
         cases = calls()
 
@@ -123,8 +133,9 @@ def test_export_traces_each_wrapper_to_its_op():
     with torch.no_grad():
         code = torch.export.export(Every(), (dummy,)).graph_module.code
     for name in OPS:
+        want = sum(case.split()[0] == name for case in cases)
         assert code.count(f"torch.ops.gavit_tpu_torch.{name}.default(") \
-            == 1, name
+            == want, name
     for plain in ("aten.matmul", "aten.bmm", "aten.mm", "aten._softmax",
                   "aten.sort"):
         assert plain not in code, plain

@@ -16,8 +16,8 @@ initialiser through ``to_flax_tree``, the JAX side under ``jax.jit``.
 * attention rollout, ``head_fusion`` mean and max, within 1e-5;
 * ``overlay_cam`` equal to JAX's, ``load_bbox_annotations`` equal on a
   CSV with NIH's column names;
-* the route of the fp32 attention backward: A′ up to 416 tokens, refused
-  past it with the Queue 2 item 10.7 message, before any device check.
+* the route of the fp32 attention backward: A′ up to 416 tokens, K′ up
+  to 708, L′ past it; the wrappers' refusals come before any device check.
 """
 
 import jax
@@ -158,13 +158,19 @@ def test_overlay_cam_and_bbox_csv_match_jax(tmp_path):
 
 
 def test_fp32_backward_route_takes_a_prime_up_to_416_tokens():
-    assert A.attention_route(416, torch.float32) == "A"
-    with pytest.raises(NotImplementedError, match="10.7"):
-        A.attention_route(417, torch.float32)
+    """fp32 rows take A′ up to 416 tokens, K′ up to 708 (the 384-px
+    fine-tune's 577) and L′ past it; A′'s and K′'s wrappers refuse what
+    they do not take before the device check and stop at the CPU tensor
+    otherwise."""
+    f32 = torch.float32
+    assert A.attention_route(416, f32) == "A"
+    assert A.attention_route(417, f32) == "K"
+    assert A.attention_route(577, f32) == "K"
+    assert A.attention_route(709, f32) == "L"
     # A′'s own refusal comes before the device check: fp32 rows of 416
-    # tokens pass it and stop at the CPU tensor, 417 are refused as fp32
+    # tokens pass it and stop at the CPU tensor, 417 are K′'s
     for n, err, match in ((416, ValueError, "CUDA tensors"),
-                          (417, NotImplementedError, "Queue 2 item 10.7")):
+                          (417, NotImplementedError, "kernel K′ or L′")):
         qkv = torch.zeros(1, n, 3 * 64)
         with pytest.raises(err, match=match):
             A.qkv_attention_bwd_kernel(qkv, torch.zeros(1, 1, n, 64),
@@ -173,3 +179,11 @@ def test_fp32_backward_route_takes_a_prime_up_to_416_tokens():
     with pytest.raises(NotImplementedError, match="kernel K′ or L′"):
         A.qkv_attention_bwd_kernel(
             qkv, torch.zeros(1, 1, 225, 64, dtype=torch.bfloat16), 0.125, 1)
+    # K′ takes the fp32 rows of 577 tokens up to the device check; past
+    # 708 they are L′'s
+    for n, err, match in ((577, ValueError, "CUDA tensors"),
+                          (709, ValueError, "L/L′")):
+        qkv = torch.zeros(1, n, 3 * 64)
+        with pytest.raises(err, match=match):
+            A.qkv_attention_long_bwd_kernel(qkv, torch.zeros(1, 1, n, 64),
+                                            0.125, 1)

@@ -24,7 +24,8 @@ says otherwise), takes 3 warm-up steps on synthetic uint8 batches, then:
   synchronize (median over ``--iters``);
 * runs ``torch.profiler`` over ``--iters`` more steps and prints the device
   time per step grouped by kernel family (the port's kernels A, A′, C, D,
-  D′, F, H, H′, K, K′, L, L′, M, M′, tgmm, N-gmm by name; cuBLAS GEMMs;
+  D′, F, H, H′, K, K′, L, L′ (and their fp32 bodies), M, M′, tgmm, N-gmm
+  by name; cuBLAS GEMMs;
   LayerNorm; the MoE routing's sorts, scans and gathers; elementwise and
   reductions), the top kernels, the device busy time per step and the idle
   share of the wall time (1 - busy / wall);
@@ -57,6 +58,9 @@ FAMILIES = (
     ("attn_fwd_sm90", "A/K attention forward, wgmma (attention_fwd_sm90.cu)"),
     ("attn_bwd_q_sm90", "K′ query-major: dq, row statistics, wgmma (attention_bwd_sm90.cu)"),
     ("attn_bwd_kv_sm90", "K′ key-major: dk, dv, wgmma (attention_bwd_sm90.cu)"),
+    ("attn_f32_fwd", "K/L attention forward, fp32 (attention_f32.cu)"),
+    ("attn_f32_bwd_dq", "K′/L′ fp32 query-major: row statistics, dq (attention_f32.cu)"),
+    ("attn_f32_bwd_dkv", "K′/L′ fp32 key-major: dk, dv (attention_f32.cu)"),
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
     ("attn_bwd_dq_kernel", "A′ fp32 query-major: dq, row statistics (attention.cu)"),
     ("attn_bwd_dkv_kernel", "A′ fp32 key-major: dk, dv (attention.cu)"),

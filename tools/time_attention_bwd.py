@@ -57,7 +57,7 @@ def main():
             torch.autograd.grad(out, (q, k, v), doc)
 
         fns = {}
-        if n > A.K_MAX_N:
+        if n > A.K_MAX_N[torch.bfloat16]:
             o, lse = A.qkv_attention_large_kernel(qkv, 0.125, h)
             fns["L′"] = lambda: A.qkv_attention_large_bwd_kernel(
                 qkv, o, lse, do, 0.125, h)
