@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Bring-up check of the PyTorch port's bf16 serving and training paths,
-its fp32 Grad-CAM and training at every length, and its MAE pretraining,
+its fp32 Grad-CAM and training at every length and of the MoE example, and
+its MAE pretraining,
 on one CUDA card,
 from synthetic batches and from image files: ViT-B/16
 with two kNN graph blocks at 224 px (``configs/vit_b16_graph2.yaml``),
@@ -43,7 +44,9 @@ before the last line:
    at b127 (T = 50038, no multiple of the row tile), the same bits again
    (B too), and tgmm's two dW on the same packed rows as well as on the
    fused engine's cap-padded ones (empty experts zero, the same bits
-   again);
+   again); M, M′, tgmm and N-gmm again in fp32 (``csrc/moe_f32.cu``, the
+   CUDA cores) at the same routings, each output within 2e-5 of its
+   largest magnitude, every rerun bit-equal;
    then the JAX package's op-level entry points, counts zeroed before and
    read after: ``multi_head_attention`` and ``fused_attention_v2`` forward
    and backward at b128 × 12 × 197 × 64 (I, I′ and J, J′), ``fused_dropout_add``
@@ -101,8 +104,9 @@ before the last line:
    vit_b16_graph2 and the MoE model at batch 128 (the MoE objective with
    its auxiliary loss), finetune_384 at its batch 16 and vit_b16_graph2 at
    512 px b32: 5 steps through the kernels against 5 through the plain
-   versions from the same start (losses, and every gradient of the first
-   step), the launch counts of one step, then 30 steps through the kernels
+   versions from the same start (3 for the MoE model on each engine;
+   losses, and every gradient of the first step), the launch counts of
+   one step, then 30 steps through the kernels
    that must lower the loss; vit_b16_graph2 again with drop_path 0.1 (3
    compared steps, 20 that must lower the loss) and at b32 with
    attn_drop 0.1 (A and A′ not launched; 3 compared steps, 15 that must
@@ -130,7 +134,15 @@ before the last line:
    configs/finetune_384.yaml`` (exit 0; under ``build/chip_gradcam_384/``,
    removed), three fp32 steps of vit_b16_graph2 at 512 px b32 (N = 1025)
    at full width and 4 of its 12 blocks (L fp32 4, L′ fp32 4), and the
-   four fp32 bodies' times;
+   four fp32 bodies' times; after the MoE phases, ``fp32_moe``: three
+   fp32 training steps of the MoE example at b64 with 4 of its 12 blocks
+   on the fused grouped engine (M, M′, tgmm in fp32) and on the unfused
+   one (N-gmm, tgmm in fp32) against the plain versions' (losses within
+   1e-4, the plain steps on the kernels' expert choices, the flips
+   counted, the launches of one step), fp32 Grad-CAM of the whole model
+   on 8 images at blocks -1 and 6 on the grouped engine and its attention
+   rollout against the plain versions (1e-4), and the four fp32 bodies'
+   times beside a loop of fp32 ``torch.matmul`` per expert;
 7. times: each kernel against its plain version and a library call (CUDA
    events, median), for B, C, D, D′, E, F, G, H, H′, L, L′, M, M′, N-gmm, tgmm
    (and K, K′, L, L′ in fp32 at b16 N = 577 and b32 N = 1025 beside sdpa
@@ -174,19 +186,19 @@ before the last line:
    (``model.graph.dynamic=false``) forward and 10 steps. Its checkpoints
    go under ``build/chip_run/`` and are removed at its end;
 9. data: training and evaluation from image files, through the same
-   mains: 1,024 train and 256 val grayscale 1024 x 1024 PNGs (NIH
+   mains: 512 train and 128 val grayscale 1024 x 1024 PNGs (NIH
    ChestX-ray14's format) and their label files written from SEED, the
    train split packed at 224 px by ``scripts/prepare_dataset_torch.py``
    (3 rows bit-equal to the PNGs' decode), vit_b16_graph2 at b128 from
    the pack with RandomAffine through the checkpointable loader
    (``data.loader=grain``) and the PNG val split decoded on
-   ``os.cpu_count()`` threads, 2 epochs of 8 steps (images/s an epoch,
+   ``os.cpu_count()`` threads, 2 epochs of 4 steps (images/s an epoch,
    the step's wait on the loader, validate's images/s, its launches
    counted); SIGTERM after step 3 and ``--resume auto`` (the two runs
    train each epoch-1 sample exactly once and end bit-equal to the
    uninterrupted run, or within the rerun's spread); the affine train
    preprocess on the card against the CPU at b128 (1e-5) and its cost;
-   the threaded loader's images/s over the 1,024 train PNGs at 4, 8 and
+   the threaded loader's images/s over the 512 train PNGs at 4, 8 and
    16 threads and over the pack (``tools/time_loader_torch.py`` takes the
    same measurement in a process of its own); ``evaluate_torch`` with ``--dataset nih`` and
    ``chexpert``. The corpus goes under ``build/chip_data/`` and is
@@ -241,7 +253,7 @@ DP_ACCUM = 8  # global batch 1024 as 8 micro-batches of 128 on one card
 RUN_DEVICE = "cuda"  # the CLIs' --device in the run and data phases
 DATA_DIR = ROOT / "build" / "chip_data"
 # the data phase's PNG corpus: train and val images, each NIH's 1024 x 1024
-DATA_TRAIN, DATA_VAL, DATA_PNG = 1024, 256, 1024
+DATA_TRAIN, DATA_VAL, DATA_PNG = 512, 128, 1024
 CONFIG_MOE = ROOT / "configs" / "examples" / "vit_b16_moe.yaml"
 SEED = 0
 GATE = 0.5
@@ -269,6 +281,10 @@ PROB_TOL = 2e-2  # bf16 model end to end, probabilities in [0, 1]
 # fp32 sums taken in another order; relative to the tensor's largest value
 GRAD_REL_TOL = 2e-2
 BIAS_REL_TOL = 1e-3  # D′'s fp32 bias gradients: summation order only
+# M, M′, tgmm and N-gmm in fp32 against their plain versions: every output
+# (y, h1, dx, go, dh1, db1, db2, dW1, dW2, both N-gmm forms) within this
+# share of the tensor's largest magnitude (fp32 sums in another order)
+MOE_F32_TOL = 2e-5
 DROP_RATE = 0.1
 TRAIN_BATCH = 128
 LOSS_REL_TOL = 2e-2  # per-step loss, kernels vs plain versions, bf16
@@ -328,6 +344,9 @@ F32_LARGE_CASES = ((1, 709, 3), (BATCH_512, N_512, HEADS), (1, N_1024, HEADS))
 # the fp32 training steps at 512 px: vit_b16_graph2 at full width with 4
 # of its 12 blocks (its two graph blocks after blocks 0 and 2)
 FP32_DEPTH_512 = 4
+# the fp32 MoE training steps: the MoE example at full width, b64, its
+# first 4 blocks (MoE MLPs in blocks 1 and 3)
+FP32_MOE_BATCH, FP32_MOE_DEPTH = 64, 4
 GRADCAM_384_DIR = ROOT / "build" / "chip_gradcam_384"
 # MAE pretraining: scripts/pretrain_mae_torch.py's defaults (decoder dim,
 # depth, heads; mask ratio) at b256; 3 steps compared, 30 that must lower
@@ -1103,30 +1122,31 @@ def routed_tokens(dev, g, routing, batch, n, dim):
 
 
 def moe_case(dev, routing="router", batch=TRAIN_BATCH, n=N_TOKENS,
-             dim=DIM, hidden=HIDDEN):
+             dim=DIM, hidden=HIDDEN, dtype="bf16"):
     """The MoE expert MLP's inputs at the b128 training shapes: T = batch·n·2
     pairs routed by a seeded fp32 router over random tokens (``'router'``),
     all on expert 5 (``'hot'``), or never on experts 0 and 7 (``'empty'``);
     the tiled grouping at ``fused_tm(T)``; x_sorted gathered from the
-    tokens (pad rows hold token 0); bf16 weights; dy zero on pad rows, as
-    the combine's backward gives it."""
+    tokens (pad rows hold token 0); weights in ``dtype`` (the tokens are
+    drawn in bf16 either way, so both dtypes route alike); dy zero on pad
+    rows, as the combine's backward gives it."""
     import torch
 
     from gavit_tpu_torch.ops import moe_fused as MF
 
     g = torch.Generator(device=dev).manual_seed(SEED + 51)
-    bf = torch.bfloat16
+    dt = getattr(torch, DTYPES[dtype])
     tokens, idx = routed_tokens(dev, g, routing, batch, n, dim)
     t = idx.numel()
     tm = MF.fused_tm(t, EXPERTS)
     _, src, used, tg, gs = MF.group_by_expert_tiled(idx, EXPERTS, tm)
-    x = tokens[src // TOP_K]
+    x = tokens[src // TOP_K].to(dt)
     w1, b1, w2, b2 = ((torch.randn(*shape, device=dev, generator=g) * 0.02)
-                      .to(bf) for shape in ((EXPERTS, dim, hidden),
+                      .to(dt) for shape in ((EXPERTS, dim, hidden),
                                             (EXPERTS, hidden),
                                             (EXPERTS, hidden, dim),
                                             (EXPERTS, dim)))
-    dy = (torch.randn(x.shape, device=dev, generator=g) * 0.01).to(bf) \
+    dy = (torch.randn(x.shape, device=dev, generator=g) * 0.01).to(dt) \
         * used[:, None]
     return dict(x=x, w=(w1, b1, w2, b2), dy=dy, tg=tg, gs=gs, tm=tm, t=t,
                 used=used)
@@ -1159,53 +1179,64 @@ def torch_max_abs(t, where) -> float:
 
 def check_tgmm(results, what, a, b, gs):
     """Kernel tgmm on ``a [R, K]ᵀ · b [R, N]`` grouped by ``gs`` against
-    tgmm_reference: within GRAD_REL_TOL of the largest value (one fp32 sum
-    rounded once, in another order), finite, an empty expert's dW exactly
-    zero, the same bits when run again."""
+    tgmm_reference in the operands' dtype: within GRAD_REL_TOL of the
+    largest value in bf16 (one fp32 sum rounded once, in another order),
+    MOE_F32_TOL in fp32, finite, an empty expert's dW exactly zero, the
+    same bits when run again."""
     import torch
 
     from gavit_tpu_torch.ops import gmm as GM
 
+    f32 = a.dtype == torch.float32
+    tol, key = (MOE_F32_TOL, "tgmm fp32") if f32 else (GRAD_REL_TOL, "tgmm")
     k = GM.tgmm_kernel(a, b, gs)
     again = GM.tgmm_kernel(a, b, gs)
-    r = GM.tgmm_reference(a, b, gs, torch.bfloat16)
+    r = GM.tgmm_reference(a, b, gs, a.dtype)
     torch.cuda.synchronize()
     rel, same = rel_err(k, r), torch.equal(k, again)
     empty = gs == 0
     zeros = not k[empty].any().item()
-    check("tgmm grouped dW", rel <= GRAD_REL_TOL and same and zeros
-          and torch.isfinite(k).all().item(),
-          f"bf16 {what} [{EXPERTS}, {a.shape[1]}, {b.shape[1]}], groups "
-          f"{gs.tolist()}: rel to max {rel:.3e} (tol {GRAD_REL_TOL:.0e}), "
-          f"the same bits again {same}, empty experts "
+    check(f"{key} grouped dW", rel <= tol and same and zeros
+          and k.dtype == a.dtype and torch.isfinite(k).all().item(),
+          f"{'fp32' if f32 else 'bf16'} {what} [{EXPERTS}, {a.shape[1]}, "
+          f"{b.shape[1]}], groups {gs.tolist()}: rel to max {rel:.3e} (tol "
+          f"{tol:.0e}), the same bits again {same}, empty experts "
           f"{empty.nonzero().flatten().tolist()} zero {zeros}; max_abs_err "
           f"{max_err(k, r):.3e}")
-    results["tgmm"]["errs"].append(max_err(k, r))
+    results[key]["errs"].append(max_err(k, r))
 
 
 def check_moe(dev, results):
     """M (erf with dropout 0.1, and tanh at rate 0), M′ and tgmm against
     their plain versions at the b128 routing, with a hot and an empty
     expert, and at b8 (T = 3152 pairs, where ``fused_tm`` gives tm = 32 and
-    a 128-row tile straddles experts): the masks (zero patterns)
-    bit-exact, h1 within 1 ulp, y, dx, go and dh1 within the bf16
-    tolerance of D and D′ relative to the tensor's largest, M's and M′'s
-    reruns bit-equal, M′'s dh1 and dx zero on pad rows, dye bit-exact, db1
-    and db2 within BIAS_REL_TOL, dW1 and dW2 (rounded to bf16 once from
-    fp32 sums) within GRAD_REL_TOL. The masks:
-    y and dye hold the output mask and go the hidden one exactly
-    (``mask_applied`` against ``ops/philox.py``'s bits)."""
+    a 128-row tile straddles experts), in bf16 (``csrc/moe.cu``) and in
+    fp32 (``csrc/moe_f32.cu``): the masks (zero patterns) bit-exact, h1
+    within 1 ulp in bf16, y, dx, go and dh1 within the bf16 tolerance of D
+    and D′ relative to the tensor's largest (MOE_F32_TOL in fp32, h1 and
+    the bias gradients too), M's and M′'s reruns bit-equal, M′'s dh1 and
+    dx zero on pad rows, dye bit-exact, db1 and db2 within BIAS_REL_TOL in
+    bf16, dW1 and dW2 (rounded to bf16 once from fp32 sums) within
+    GRAD_REL_TOL. The masks: y and dye hold the output mask and go the
+    hidden one exactly (``mask_applied`` against ``ops/philox.py``'s
+    bits)."""
     import torch
 
-    from gavit_tpu_torch.ops import gmm as GM
     from gavit_tpu_torch.ops import moe_fused as MF
     from gavit_tpu_torch.ops import philox
 
     seed, sites = philox.step_seed(SEED, 6), (5, 6)
     f = HIDDEN
-    for routing, batch in (("router", TRAIN_BATCH), ("hot", TRAIN_BATCH),
-                           ("empty", TRAIN_BATCH), ("router", 8)):
-        c = moe_case(dev, routing, batch)
+    for dtype, routing, batch in itertools.product(
+            ("bf16", "fp32"), ("router", "hot", "empty", "router 8"),
+            (TRAIN_BATCH,)):
+        if routing == "router 8":
+            routing, batch = "router", 8
+        f32 = dtype == "fp32"
+        sfx = " fp32" if f32 else ""
+        tol, bias_tol = ((MOE_F32_TOL, MOE_F32_TOL) if f32
+                         else (GRAD_REL_TOL, BIAS_REL_TOL))
+        c = moe_case(dev, routing, batch, dtype=dtype)
         x, (w1, b1, w2, b2), dy, tg, tm = (c["x"], c["w"], c["dy"], c["tg"],
                                            c["tm"])
         cap = x.shape[0]
@@ -1226,20 +1257,25 @@ def check_moe(dev, results):
             del y2, h12
             masked, how = mask_applied(y, y_ref, keep_o if rate else
                                        torch.ones_like(keep_o))
-            uh = ulps(h1, h1_ref)
             ry = rel_err(y, y_ref)
+            if f32:
+                uh = rel_err(h1, h1_ref)
+                h1_ok, h1_how = uh <= tol, f"h1 rel to max {uh:.3e}"
+            else:
+                uh = ulps(h1, h1_ref)
+                h1_ok, h1_how = uh <= 1, f"h1 within {uh:.0f} ulp (tol 1)"
             err = max(max_err(y, y_ref), max_err(h1, h1_ref))
-            check("M moe expert mlp fwd", masked and uh <= 1 and same
-                  and ry <= GRAD_REL_TOL and torch.isfinite(y).all().item(),
-                  f"bf16 {routing} b{batch} T={c['t']} cap={cap} tm={tm} "
+            check(f"M{sfx} moe expert mlp fwd", masked and h1_ok and same
+                  and ry <= tol and y.dtype == x.dtype
+                  and torch.isfinite(y).all().item(),
+                  f"{dtype} {routing} b{batch} T={c['t']} cap={cap} tm={tm} "
                   f"{'tanh' if approx else 'erf'} rate {rate}: y holds the "
-                  f"output mask exactly {masked} ({how}), h1 within "
-                  f"{uh:.0f} ulp (tol 1), y rel "
-                  f"to max {ry:.3e} (tol {GRAD_REL_TOL:.0e}), a second run "
+                  f"output mask exactly {masked} ({how}), {h1_how}, y rel "
+                  f"to max {ry:.3e} (tol {tol:.0e}), a second run "
                   f"bit-equal {same}; max_abs_err {err:.3e}")
-            results["M"]["errs"].append(err)
+            results[f"M{sfx}"]["errs"].append(err)
             if routing == "router" and batch == TRAIN_BATCH and not approx:
-                results["M"]["cases"].append(c)
+                results[f"M{sfx}"]["cases"].append(c)
         got, again = (MF.moe_bwd_kernel(dy, h1_ref, w1, w2, tg, tm, seed,
                                         sites, DROP_RATE, DROP_RATE, False,
                                         c["gs"]) for _ in range(2))
@@ -1253,76 +1289,83 @@ def check_moe(dev, results):
         pad = ~c["used"]
         pads = ((got[2][pad] == 0).all() and (got[0][pad] == 0).all()).item()
         masked, how = mask_applied(got[1], want[1], keep_h)
-        ok = (all(rels[n] <= GRAD_REL_TOL for n in ("dx", "go", "dh1"))
-              and all(rels[n] <= BIAS_REL_TOL for n in ("db1", "db2"))
+        ok = (all(rels[n] <= tol for n in ("dx", "go", "dh1"))
+              and all(rels[n] <= bias_tol for n in ("db1", "db2"))
               and torch.equal(got[5], want[5]) and pads and masked and same
               and all(torch.isfinite(a).all().item() for a in got))
         err = max(max_err(a, b) for a, b in zip(got, want))
-        check("M′ moe expert mlp bwd", ok,
-              f"bf16 {routing} b{batch} tm={tm} rate {DROP_RATE}: rel to "
+        check(f"M′{sfx} moe expert mlp bwd", ok,
+              f"{dtype} {routing} b{batch} tm={tm} rate {DROP_RATE}: rel to "
               f"max " + ", ".join(
                   f"{n} {v:.3e}" for n, v in rels.items())
-              + f" (tol {GRAD_REL_TOL:.0e}; db1, db2 {BIAS_REL_TOL:.0e}); "
+              + f" (tol {tol:.0e}; db1, db2 {bias_tol:.0e}); "
               f"dye bit-exact {torch.equal(got[5], want[5])}, go holds the "
               f"hidden mask exactly {masked} ({how}), dh1 and dx zero on "
               f"pad rows {pads}, a second run bit-equal {same}; max_abs_err "
               f"{err:.3e}")
-        results["M′"]["errs"].append(err)
+        results[f"M′{sfx}"]["errs"].append(err)
         _, go, dh1, _, _, dye = got
         for what, a, b in (("dW1", x, dh1), ("dW2", go, dye)):
             check_tgmm(results, f"{routing} {what} over the {cap} cap-padded "
                        f"rows", a, b, c["gs"])
         if routing == "router" and batch == TRAIN_BATCH:
-            results["M′"]["cases"].append((dy, h1_ref, go, dh1, dye))
+            results[f"M′{sfx}"]["cases"].append((dy, h1_ref, go, dh1, dye))
+        del c, got, want, x, y, h1, y_ref, h1_ref, dy, go, dh1, dye
+        torch.cuda.empty_cache()
 
 
 def gmm_case(dev, routing="router", batch=TRAIN_BATCH, n=N_TOKENS, dim=DIM,
-             hidden=HIDDEN):
+             hidden=HIDDEN, dtype="bf16"):
     """Kernel N-gmm's inputs as the unfused engine gives them: the pairs of
     ``batch`` images routed as in ``moe_case`` (T = batch·n·2), grouped by
     expert with no padding (``group_by_expert``), x the pairs' token rows
-    [T, D], bf16 W1 [E, D, F] and W2 [E, F, D], the group sizes on the
-    card; random h [T, F] (fc2's input), dh [T, F] (fc1's dx = dh·W1ᵀ) and
-    dy [T, D] (fc2's dh = dy·W2ᵀ)."""
+    [T, D], W1 [E, D, F] and W2 [E, F, D] in ``dtype``, the group sizes on
+    the card; random h [T, F] (fc2's input), dh [T, F] (fc1's dx = dh·W1ᵀ)
+    and dy [T, D] (fc2's dh = dy·W2ᵀ)."""
     import torch
 
     from gavit_tpu_torch.ops import moe_grouped as MG
 
     g = torch.Generator(device=dev).manual_seed(SEED + 52)
+    dt = getattr(torch, DTYPES[dtype])
     tokens, idx = routed_tokens(dev, g, routing, batch, n, dim)
     _, src, sizes = MG.group_by_expert(idx, EXPERTS)
     t = src.numel()
 
     def draw(*shape, scale):
-        return (torch.randn(*shape, device=dev, generator=g) * scale).to(
-            torch.bfloat16)
+        return (torch.randn(*shape, device=dev, generator=g) * scale).to(dt)
 
     w1 = draw(EXPERTS, dim, hidden, scale=0.02)
     dh = draw(t, hidden, scale=0.01)
     w2 = draw(EXPERTS, hidden, dim, scale=0.02)
     h = draw(t, hidden, scale=0.5)
     dy = draw(t, dim, scale=0.01)
-    return dict(x=tokens[src // TOP_K], w1=w1, w2=w2, h=h, dh=dh, dy=dy,
-                gs=sizes, t=t, routing=routing)
+    return dict(x=tokens[src // TOP_K].to(dt), w1=w1, w2=w2, h=h, dh=dh,
+                dy=dy, gs=sizes, t=t, routing=routing)
 
 
 def check_gmm(dev, results):
     """N-gmm in both forms at each of the unfused engine's four GEMMs (fc1
     x·W1 and its dx dh·W1ᵀ, fc2 h·W2 and its dh dy·W2ᵀ) against its plain
     version at the b128 routing, with a hot and an empty expert, and at
-    b127 (T = 50038, no multiple of the 128-row tile): within GRAD_REL_TOL
-    of the largest value (bf16 outputs of fp32 sums taken in another
-    order), the same bits when run again; tgmm's two dW on the same packed
-    rows (``check_tgmm``); and the differentiable op, forward and both
-    gradients, on the b127 rows as they are."""
+    b127 (T = 50038, no multiple of the 128-row tile), in bf16 and in fp32:
+    within GRAD_REL_TOL of the largest value in bf16 (bf16 outputs of fp32
+    sums taken in another order), MOE_F32_TOL in fp32, the same bits when
+    run again; tgmm's two dW on the same packed rows (``check_tgmm``); and
+    the differentiable op, forward and both gradients, on the b127 rows as
+    they are, in each dtype."""
     import torch
 
     from gavit_tpu_torch.ops import gmm as GM
 
-    for routing, batch in (("router", TRAIN_BATCH), ("hot", TRAIN_BATCH),
-                           ("empty", TRAIN_BATCH),
-                           ("router", TRAIN_BATCH - 1)):
-        c = gmm_case(dev, routing, batch)
+    for dtype, (routing, batch) in itertools.product(
+            ("bf16", "fp32"), (("router", TRAIN_BATCH), ("hot", TRAIN_BATCH),
+                               ("empty", TRAIN_BATCH),
+                               ("router", TRAIN_BATCH - 1))):
+        f32 = dtype == "fp32"
+        key, tol = ("N-gmm fp32", MOE_F32_TOL) if f32 else ("N-gmm",
+                                                           GRAD_REL_TOL)
+        c = gmm_case(dev, routing, batch, dtype=dtype)
         gs = c["gs"]
         for form, a, w, tr in (("fwd", c["x"], c["w1"], False),
                                ("transposed", c["dh"], c["w1"], True),
@@ -1334,36 +1377,40 @@ def check_gmm(dev, results):
             torch.cuda.synchronize()
             rel, same = rel_err(got, want), torch.equal(got, again)
             err = max_err(got, want)
-            check(f"N-gmm {form}", rel <= GRAD_REL_TOL and same
+            check(f"{key} {form}", rel <= tol and same
+                  and got.dtype == a.dtype
                   and torch.isfinite(got).all().item(),
-                  f"bf16 {routing} T={c['t']} groups {gs.tolist()} "
+                  f"{dtype} {routing} T={c['t']} groups {gs.tolist()} "
                   f"[{a.shape[1]}] x {list(w.shape)}{'ᵀ' if tr else ''} → "
                   f"{list(got.shape)}: rel to max {rel:.3e} (tol "
-                  f"{GRAD_REL_TOL:.0e}), the same bits again {same}; "
+                  f"{tol:.0e}), the same bits again {same}; "
                   f"max_abs_err {err:.3e}")
-            results["N-gmm"]["errs"].append(err)
+            results[key]["errs"].append(err)
         # tgmm on the same packed rows, as the unfused engine's backward
         # takes them: dW1 = xᵀ·dh and dW2 = hᵀ·dy
         for what, a, b in (("dW1", c["x"], c["dh"]), ("dW2", c["h"], c["dy"])):
             check_tgmm(results, f"{routing} {what} over the T={c['t']} packed "
                        f"rows", a, b, gs)
         if routing == "router" and batch == TRAIN_BATCH:  # for the times
-            results["N-gmm"]["cases"].append(
+            results[key]["cases"].append(
                 {k: c[k] for k in ("x", "w1", "h", "dh", "dy", "gs", "t")})
-    x, w1, dh, gs = c["x"], c["w1"], c["dh"], c["gs"]
-    got, refs = {}, {}
-    for impl, out in (("auto", got), ("reference", refs)):
-        xi, wi = (a.detach().clone().requires_grad_(True) for a in (x, w1))
-        y = GM.ragged_matmul(xi, wi, gs, impl=impl)
-        y.backward(dh)
-        out.update(y=y.detach(), dx=xi.grad, dw=wi.grad)
-    rels = {k: rel_err(got[k], refs[k]) for k in got}
-    check("N-gmm op", got["y"].shape == (c["t"], HIDDEN)
-          and max(rels.values()) <= GRAD_REL_TOL,
-          f"ragged_matmul on T={c['t']} rows (no multiple of the tile, not "
-          f"padded) against impl='reference': rel to max " + ", ".join(
-              f"{k} {v:.3e}" for k, v in rels.items())
-          + f" (tol {GRAD_REL_TOL:.0e})")
+        if batch != TRAIN_BATCH - 1:
+            continue
+        x, w1, dh = c["x"], c["w1"], c["dh"]
+        got, refs = {}, {}
+        for impl, out in (("auto", got), ("reference", refs)):
+            xi, wi = (a.detach().clone().requires_grad_(True)
+                      for a in (x, w1))
+            y = GM.ragged_matmul(xi, wi, gs, impl=impl)
+            y.backward(dh)
+            out.update(y=y.detach(), dx=xi.grad, dw=wi.grad)
+        rels = {k: rel_err(got[k], refs[k]) for k in got}
+        check(f"{key} op", got["y"].shape == (c["t"], HIDDEN)
+              and max(rels.values()) <= tol,
+              f"{dtype} ragged_matmul on T={c['t']} rows (no multiple of the "
+              f"tile, not padded) against impl='reference': rel to max "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+              + f" (tol {tol:.0e})")
 
 
 # ---------------------------------------------------------------------------
@@ -1910,6 +1957,10 @@ COUNTERS = {"A": ("attention", "KERNEL_LAUNCHES"),
             "M′": ("moe_fused", "BWD_KERNEL_LAUNCHES"),
             "tgmm": ("gmm", "TGMM_LAUNCHES"),
             "N-gmm": ("gmm", "KERNEL_LAUNCHES"),
+            "M fp32": ("moe_fused", "F32_KERNEL_LAUNCHES"),
+            "M′ fp32": ("moe_fused", "BWD_F32_KERNEL_LAUNCHES"),
+            "tgmm fp32": ("gmm", "F32_TGMM_LAUNCHES"),
+            "N-gmm fp32": ("gmm", "F32_KERNEL_LAUNCHES"),
             "I": ("attention", "V1_KERNEL_LAUNCHES"),
             "I′": ("attention", "V1_BWD_KERNEL_LAUNCHES"),
             "J": ("attention", "V2_KERNEL_LAUNCHES"),
@@ -2862,13 +2913,14 @@ def held_loss(trainer, batches) -> float:
 
 
 def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
-                count_step=1, loss_tol=LOSS_REL_TOL):
+                count_step=1, loss_tol=LOSS_REL_TOL, routing=None):
     """The training step through scripts/train_torch.py's entry points;
     ``expect``: the nonzero launch counts of step ``count_step``, asserted.
     The learning check (``steps_learn`` steps must lower the held loss) is
     left out when ``steps_learn`` is not past ``steps_compare``.
     ``loss_tol``: each step's loss, kernels against plain versions,
-    relative."""
+    relative. ``routing``, a dict, gets an MoE model's expert-choice flips
+    (``flips``, one count a replayed step, of ``choices``)."""
     import torch
 
     sys.path.insert(0, str(ROOT / "scripts"))
@@ -2951,6 +3003,8 @@ def phase_train(cfg, dev, name, expect, steps_compare=5, steps_learn=30,
             f"choices; without them it would have made "
             f"{', '.join(map(str, pinned.flips))} of {pinned.choices} "
             f"choices otherwise")
+        if routing is not None:
+            routing.update(flips=list(pinned.flips), choices=pinned.choices)
     rels = [abs(a - b) / abs(b) for a, b in zip(losses["auto"],
                                                  losses["reference"])]
     ok = max(rels) <= loss_tol
@@ -3069,17 +3123,19 @@ def gradcam_times(dev, results, card) -> dict:
     return {"A′ fp32": row}
 
 
-def gradcam_vs_plain(cfg, weights, dev, forward: dict, backward: str,
-                     tag: str, what: str, seed: int):
+def gradcam_vs_plain(cfg, weights, dev, forward: dict, backward: dict,
+                     tag: str, what: str, seed: int, pinned=None):
     """fp32 Grad-CAM of ``cfg``'s model on GRADCAM_BATCH images drawn from
     ``seed``, as ``scripts/gradcam_torch.py`` builds it (``load_model``'s
     fp32 at dropout 0), at each block of GRADCAM_BLOCKS, class 0, through
     the kernels against the plain versions on the same weights (CAM and
     probabilities within GRADCAM_TOL). Each call's launches are held to
-    ``forward`` and to ``backward`` once in each block after the probe's;
-    the plain versions launch nothing. Returns (the two models, the
-    preprocessed images, the launches at the first probed block before the
-    last)."""
+    ``forward`` and, for each kernel of ``backward``, to its launches in
+    each block (a tuple over the blocks) summed over the blocks after the
+    probe's; the plain versions launch nothing. ``pinned``, a
+    :class:`PinnedRouting` (entered), hands each plain forward the kernels'
+    forward's expert choices. Returns (the two models, the preprocessed
+    images, the launches at the first probed block before the last)."""
     import numpy as np
     import torch
 
@@ -3099,14 +3155,19 @@ def gradcam_vs_plain(cfg, weights, dev, forward: dict, backward: str,
     for block in GRADCAM_BLOCKS:
         out = {}
         for impl, model in models.items():
+            if pinned is not None:
+                (pinned.start_record if impl == "auto"
+                 else pinned.start_replay)()
             torch.cuda.synchronize()
             reset_counts()
             out[impl] = VisionTransformerGradCAM(model, block)(x, 0)
             torch.cuda.synchronize()
             counts = read_counts()
             if impl == "auto":
-                want = expected({**forward,
-                                 backward: depth - 1 - block % depth})
+                after = block % depth + 1  # the blocks the backward runs
+                want = expected({**forward, **{
+                    k: sum(per_block[after:])
+                    for k, per_block in backward.items()}})
                 if counts != want:
                     raise AssertionError(f"{what} Grad-CAM at block {block}: "
                                          f"launches {counts}, expected "
@@ -3160,8 +3221,8 @@ def phase_gradcam(cfg, weights, dev, results, card):
     depth = cfg.model.depth
     # A′ fp32 runs in the blocks after the probe's; C at both graph blocks
     models, x, gradcam_counts = gradcam_vs_plain(
-        cfg, weights, dev, {"A": depth, "C": 2}, "A′ fp32", "gradcam",
-        "vit_b16_graph2", SEED + 7)
+        cfg, weights, dev, {"A": depth, "C": 2}, {"A′ fp32": (1,) * depth},
+        "gradcam", "vit_b16_graph2", SEED + 7)
     maps = {}
     for impl, model in models.items():
         torch.cuda.synchronize()
@@ -3331,8 +3392,8 @@ def phase_fp32_long(cfg384, weights384, dev, results, card):
     # the learned-static graph block aggregates in tensor ops (no C); the
     # fp32 MLP takes the GEMM chain (no B)
     models, _, gradcam_counts = gradcam_vs_plain(
-        cfg384, weights384, dev, {"K fp32": depth}, "K′ fp32", "fp32_long",
-        "finetune_384", SEED + 11)
+        cfg384, weights384, dev, {"K fp32": depth},
+        {"K′ fp32": (1,) * depth}, "fp32_long", "finetune_384", SEED + 11)
     del models
     torch.cuda.empty_cache()
 
@@ -4100,21 +4161,22 @@ def phase_384_times(cfg, tcfg, dev, results, weights, trainer, batch, card):
     return rows
 
 
-def moe_library(c):
+def moe_library(c, loop=False):
     """The library yardsticks of M, M′ and tgmm on a moe_case, and the name
     of what they call: ``torch._grouped_mm`` (bf16 grouped GEMMs over the
-    expert row offsets, no bias: it takes none) where this torch has it and
-    it runs on these inputs, else a loop of one ``torch.matmul`` per
-    expert. M: GEMM, GELU, dropout, GEMM, dropout; M′: that chain's
-    backward to x; tgmm: one dW, ``lib["tgmm"](a, b)`` as the kernel's
-    ``tgmm_kernel(a, b, group_sizes)``."""
+    expert row offsets, no bias: it takes none) where this torch has it, it
+    runs on these inputs and ``loop`` is off, else a loop of one
+    ``torch.matmul`` per expert (fp32: ``torch._grouped_mm`` takes none).
+    M: GEMM, GELU, dropout, GEMM, dropout; M′: that chain's backward to x;
+    tgmm: one dW, ``lib["tgmm"](a, b)`` as the kernel's ``tgmm_kernel(a,
+    b, group_sizes)``."""
     import torch
     import torch.nn.functional as F
 
     x, (w1, _, w2, _), dy = c["x"], c["w"], c["dy"]
     offs = torch.cumsum(c["gs"], 0, dtype=torch.int32)
     bounds = [0] + offs.tolist()
-    grouped = getattr(torch, "_grouped_mm", None)
+    grouped = None if loop else getattr(torch, "_grouped_mm", None)
 
     def gmm(a, w):
         if grouped is not None:
@@ -4611,6 +4673,199 @@ def train_config_moe():
         f"data.batch_size={TRAIN_BATCH}", "data.synthetic_size=640",
         "data.synthetic_learnable=true", "training.warmup_epochs=1",
         f"training.seed={SEED}"])
+
+
+def train_config_moe_f32(overrides=()):
+    """The MoE example in fp32 at FP32_MOE_BATCH, full width, its first
+    FP32_MOE_DEPTH blocks (MoE MLPs in blocks 1 and 3), the grouped engine
+    pinned ('auto' would take the dense one for the unfused engine at b64),
+    a 5-step epoch of a synthetic set with learnable class stripes."""
+    from gavit_tpu_torch import load_config
+
+    return load_config(str(CONFIG_MOE), [
+        "training.precision=fp32", f"data.batch_size={FP32_MOE_BATCH}",
+        f"data.synthetic_size={5 * FP32_MOE_BATCH}",
+        "data.synthetic_learnable=true", "training.warmup_epochs=1",
+        f"training.seed={SEED}", f"model.depth={FP32_MOE_DEPTH}",
+        "model.moe.impl=grouped", "wandb.mode=disabled", *overrides])
+
+
+def moe_f32_times(dev, results, card) -> dict:
+    """M, M′, tgmm and N-gmm in fp32 at the b128 routing (T = 50432 pairs;
+    M, M′ and tgmm over the cap-padded rows at tm 256, N-gmm over the
+    packed rows) against their plain versions and a loop of one fp32
+    ``torch.matmul`` per expert with TF32 off (no single PyTorch call
+    computes the grouped function in fp32: ``torch._grouped_mm`` takes
+    none), per call and alone on the device (20 launches between two
+    events); bounds: the FLOPs over the T real rows at the card's fp32 rate
+    (no tensor cores) against the fp32 bytes the call moves."""
+    import torch
+
+    from gavit_tpu_torch.ops import gmm as GM
+    from gavit_tpu_torch.ops import moe_fused as MF
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    c = results["M fp32"]["cases"][0]
+    x, (w1, b1, w2, b2), tg, tm, gs = c["x"], c["w"], c["tg"], c["tm"], c["gs"]
+    dy, h1, go, dh1, dye = results["M′ fp32"]["cases"][0]
+    seed, sites = 1, (5, 6)
+    cap, e, t = x.shape[0], EXPERTS, c["t"]
+    lib = moe_library(c, loop=True)
+    wbytes = 2 * e * DIM * HIDDEN * 4
+    fwd = lambda: MF.moe_fwd_kernel(  # noqa: E731
+        x, w1, b1, w2, b2, tg, tm, seed, sites, DROP_RATE, DROP_RATE, False,
+        gs)
+    bwd = lambda: MF.moe_bwd_kernel(  # noqa: E731
+        dy, h1, w1, w2, tg, tm, seed, sites, DROP_RATE, DROP_RATE, False, gs)
+    n = results["N-gmm fp32"]["cases"][0]
+    nx, nw1, ndh, ngs, nt = n["x"], n["w1"], n["dh"], n["gs"], n["t"]
+    nb = [0] + torch.cumsum(ngs.long(), 0).tolist()
+
+    def loop_gmm(a, w):
+        return torch.cat([a[lo:hi] @ w[i] for i, (lo, hi) in
+                          enumerate(zip(nb[:-1], nb[1:]))])
+
+    w1t = nw1.transpose(1, 2)
+    cases = {
+        "M fp32": (fwd, lambda: MF.moe_fwd_reference(
+            x, w1, b1, w2, b2, tg, tm, seed, sites, DROP_RATE, DROP_RATE,
+            False), lib["M"], 4 * t * DIM * HIDDEN,
+            (2 * t * DIM + t * HIDDEN) * 4 + wbytes),
+        "M′ fp32": (bwd, lambda: MF.moe_bwd_reference(
+            dy, h1, w1, w2, tg, tm, seed, sites, DROP_RATE, DROP_RATE,
+            False), lib["M′"], 4 * t * DIM * HIDDEN,
+            (3 * t * DIM + 3 * t * HIDDEN) * 4 + wbytes
+            + e * (HIDDEN + DIM) * 4),
+        "tgmm fp32": (lambda: GM.tgmm_kernel(x, dh1, gs),
+                      lambda: GM.tgmm_reference(x, dh1, gs, torch.float32),
+                      lambda: lib["tgmm"](x, dh1), 2 * t * DIM * HIDDEN,
+                      (t * DIM + t * HIDDEN) * 4 + e * DIM * HIDDEN * 4),
+        "N-gmm fp32": (lambda: GM.gmm_kernel(nx, nw1, ngs),
+                       lambda: GM.gmm_reference(nx, nw1, ngs),
+                       lambda: loop_gmm(nx, nw1), 2 * nt * DIM * HIDDEN,
+                       (nt * DIM + e * DIM * HIDDEN + nt * HIDDEN) * 4),
+        "N-gmm fp32 transposed": (
+            lambda: GM.gmm_kernel(ndh, nw1, ngs, True),
+            lambda: GM.gmm_reference(ndh, nw1, ngs, True),
+            lambda: loop_gmm(ndh, w1t), 2 * nt * DIM * HIDDEN,
+            (nt * HIDDEN + e * DIM * HIDDEN + nt * DIM) * 4),
+    }
+    rows = {}
+    for key, (fn, ref, libf, flops, nbytes) in cases.items():
+        rows[key] = (cuda_ms(fn), cuda_ms(ref, iters=3, warmup=1),
+                     cuda_ms(libf)) + bound(flops, nbytes, PEAK_FP32_FLOPS)
+        dev_times = (device_ms(fn), device_ms(libf))
+        if key.endswith("transposed"):
+            results["N-gmm fp32"]["device transposed"] = dev_times
+        else:
+            results[key]["device"] = dev_times
+        km, pm, lm, bms, by = rows[key]
+        log(f"[time] {key} at b{TRAIN_BATCH} (T={nt if 'N-gmm' in key else t}"
+            f"{'' if 'N-gmm' in key else f', cap={cap}, tm={tm}'}): kernel "
+            f"{km:.4f} ms, alone on the device (20 launches between two "
+            f"events) {dev_times[0]:.4f} ms; plain {pm:.4f} ms; a loop of "
+            f"{e} fp32 torch.matmul, TF32 off, {lm:.4f} ms, alone "
+            f"{dev_times[1]:.4f} ms; bound {bms:.4f} ms ({by}; "
+            f"{dev_times[0] / bms:.1f}x it alone) ({card})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_fp32_moe(cfg_moe, weights_moe, dev, results, card):
+    """The MoE example in fp32 on the card (``csrc/moe_f32.cu``): three
+    fp32 training steps at FP32_MOE_BATCH and FP32_MOE_DEPTH blocks on the
+    fused grouped engine (M fp32, M′ fp32, tgmm fp32) and, with the fused
+    gate off, on the unfused one (N-gmm fp32, tgmm fp32), each against the
+    plain versions (losses within FP32_LOSS_REL_TOL, the plain steps on
+    the kernels' expert choices, the choices they would have flipped
+    counted) with the launches of one step; fp32 Grad-CAM of the whole
+    model on GRADCAM_BATCH images on the grouped engine at GRADCAM_BLOCKS
+    and its attention rollout against the plain versions (GRADCAM_TOL),
+    each call's launches counted; then the four fp32 bodies' times.
+    Returns (the fused step's launches, the unfused step's, Grad-CAM's at
+    block 6, the timing rows)."""
+    import torch
+
+    t0 = time.perf_counter()
+    d = FP32_MOE_DEPTH
+    moe, dense = d // 2, d - d // 2  # MoE MLPs in blocks 1, 3, ...
+    # A (fp32 body), A′ fp32 and, in the dense blocks, the fp32 MLP chain
+    # with H/H′; F at the embedding, every attention output, the dense MLP
+    # outputs and the 2 graph projections, forward and backward
+    base = {"A": d, "A′ fp32": d, "C": 2, "H": dense, "H′": dense,
+            "F": 2 * (1 + d + dense + 2)}
+    tcfg = train_config_moe_f32()
+    routing = {}
+    _, _, counts_fused = phase_train(
+        tcfg, dev, f"vit_b16_moe fp32 depth {d}",
+        {**base, "M fp32": moe, "M′ fp32": moe, "tgmm fp32": 2 * moe},
+        steps_compare=3, steps_learn=0, loss_tol=FP32_LOSS_REL_TOL,
+        routing=routing)
+    flips = {"fused": routing}
+    torch.cuda.empty_cache()
+    routing = {}
+    with fused_gate("0"):
+        # the unfused engine: N-gmm fp32 for both GEMMs and, transposed,
+        # their input gradients, tgmm fp32 for dW, F at both of its
+        # dropout sites forward and backward
+        _, _, counts_unfused = phase_train(
+            tcfg, dev, f"vit_b16_moe unfused fp32 depth {d}",
+            {**base, "N-gmm fp32": 4 * moe, "tgmm fp32": 2 * moe,
+             "F": base["F"] + 2 * 2 * moe},
+            steps_compare=3, steps_learn=0, loss_tol=FP32_LOSS_REL_TOL,
+            routing=routing)
+    flips["unfused"] = routing
+    torch.cuda.empty_cache()
+
+    # fp32 Grad-CAM and rollout of the whole model on the grouped engine
+    cfg = grouped_engine(cfg_moe)
+    depth = cfg.model.depth
+    per_moe = tuple(i % 2 for i in range(depth))  # MoE MLPs in odd blocks
+    from gavit_tpu_torch.utils.gradcam import attention_rollout
+
+    maps = {}
+    with PinnedRouting() as pinned:
+        models, x, gradcam_counts = gradcam_vs_plain(
+            cfg, weights_moe, dev, {"A": depth, "C": 2, "M fp32": depth // 2},
+            {"A′ fp32": (1,) * depth, "M′ fp32": per_moe,
+             "tgmm fp32": tuple(2 * m for m in per_moe)},
+            "fp32_moe", "vit_b16_moe (grouped engine)", SEED + 13,
+            pinned=pinned)
+        for impl, model in models.items():
+            (pinned.start_record if impl == "auto" else pinned.start_replay)()
+            torch.cuda.synchronize()
+            reset_counts()
+            maps[impl] = {f: attention_rollout(model, x, f)[0]
+                          for f in ("mean", "max")}
+            torch.cuda.synchronize()
+            counts = read_counts()
+            # two forwards; the capture's attention is the plain one
+            want = expected({"C": 4, "M fp32": 2 * (depth // 2)}
+                            if impl == "auto" else {})
+            if counts != want:
+                raise AssertionError(f"rollout launches {counts}, expected "
+                                     f"{want}")
+    flips["gradcam and rollout"] = {"flips": list(pinned.flips),
+                                    "choices": pinned.choices}
+    err = max(float(abs(maps["auto"][f] - maps["reference"][f]).max())
+              for f in ("mean", "max"))
+    ok = err <= GRADCAM_TOL
+    log(f"[fp32_moe] fp32 attention rollout (mean, max) of vit_b16_moe "
+        f"over {GRADCAM_BATCH} images: kernels vs plain versions max |d| "
+        f"{err:.3e} (tol {GRADCAM_TOL:.0e}) {'ok' if ok else 'FAIL'}; "
+        f"launches C 4, M fp32 {2 * (depth // 2)}")
+    if not ok:
+        raise AssertionError("the MoE rollout through the kernels disagrees "
+                             "with the plain versions")
+    del models, x
+    torch.cuda.empty_cache()
+    log("[fp32_moe] expert choices the plain versions would have flipped "
+        "without the kernels' (fp32): " + "; ".join(
+            f"{k} {', '.join(map(str, v['flips']))} of {v['choices']}"
+            for k, v in flips.items()))
+    rows = moe_f32_times(dev, results, card)
+    log(f"[fp32_moe] phase done in {time.perf_counter() - t0:.1f} s")
+    return counts_fused, counts_unfused, gradcam_counts, rows
 
 
 # ---------------------------------------------------------------------------
@@ -5805,6 +6060,13 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
     b16 N = 577 and b32 N = 1025, the library call sdpa in fp32 (its
     forward for K and L, forward and backward for K′ and L′), with
     ``device_ms`` and ``library_device_ms``.
+    M, M′, tgmm and N-gmm in fp32 (``csrc/moe_f32.cu``) have rows of their
+    own: M's, M′'s and tgmm's launches from the fused fp32 MoE step (b64,
+    4 blocks), N-gmm's (both forms) from the unfused one, M's, M′'s and
+    tgmm's ``gradcam_launches`` from the MoE Grad-CAM at block 6; their
+    times at the b128 routing beside a loop of fp32 ``torch.matmul`` per
+    expert (``library``), N-gmm's transposed form under ``transposed``,
+    with ``device_ms`` and ``library_device_ms``.
     A's, A′'s and B's rows carry ``mae``: the launches of one MAE step
     (``train_counts['mae']``) and, at the step's encoder and decoder
     shapes (``rows_mae``), each one's times, bound and library figures;
@@ -5866,6 +6128,14 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
          "gavit_tpu/ops/moe_fused.py:411"),
         ("N-gmm", "grouped_gemm_gmm", "gavit_tpu_torch/csrc/moe.cu",
          "gavit_tpu/ops/moe_grouped.py:138"),
+        ("M fp32", "fused_grouped_mlp_fp32", "gavit_tpu_torch/csrc/moe_f32.cu",
+         "gavit_tpu/ops/moe_fused.py:116"),
+        ("M′ fp32", "fused_grouped_mlp_bwd_fp32",
+         "gavit_tpu_torch/csrc/moe_f32.cu", "gavit_tpu/ops/moe_fused.py:167"),
+        ("tgmm fp32", "grouped_dw_tgmm_fp32", "gavit_tpu_torch/csrc/moe_f32.cu",
+         "gavit_tpu/ops/moe_fused.py:411"),
+        ("N-gmm fp32", "grouped_gemm_gmm_fp32",
+         "gavit_tpu_torch/csrc/moe_f32.cu", "gavit_tpu/ops/moe_grouped.py:138"),
         ("I", "attention_pallas",
          "gavit_tpu_torch/csrc/attention_fwd_sm90.cu",
          "gavit_tpu/ops/attention.py:102"),
@@ -5893,6 +6163,8 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
             "moe_unfused" if key == "N-gmm" else
             "ops" if key in ("I", "I′", "J", "J′", "G", "E") else
             "fp32" if key == "A′ fp32" else
+            "moe fp32" if key in ("M fp32", "M′ fp32", "tgmm fp32") else
+            "moe_unfused fp32" if key == "N-gmm fp32" else
             "384 fp32" if key in ("K fp32", "K′ fp32") else
             "512 fp32" if key in ("L fp32", "L′ fp32") else "224"]
         out.append({"name": name, "route": "cuda", "source": src,
@@ -5901,18 +6173,20 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
                     "plain_ms": pm, "bound_ms": bms, "bound_by": by,
                     "library_ms": lm})
     row = dict(zip([key for key, _, _, _ in spec], out))
-    km, pm, lm, bms, by = rows["N-gmm transposed"]
-    row["N-gmm"]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
+    for key in ("N-gmm", "N-gmm fp32"):
+        km, pm, lm, bms, by = rows[f"{key} transposed"]
+        row[key]["transposed"] = {"ms": km, "plain_ms": pm, "bound_ms": bms,
                                   "bound_by": by, "library_ms": lm}
+        (row[key]["transposed"]["device_ms"],
+         row[key]["transposed"]["library_device_ms"]) = \
+            results[key]["device transposed"]
     tgmm_device = results["tgmm"]["device"]
     for key in ("A′", "A′ fp32", "B", "C", "D", "D′", "E", "F", "G", "H",
                 "H′", "K′", "I′", "J′", "L", "L′", "M", "M′", "N-gmm",
-                "K fp32", "K′ fp32", "L fp32", "L′ fp32"):
+                "K fp32", "K′ fp32", "L fp32", "L′ fp32", "M fp32", "M′ fp32",
+                "tgmm fp32", "N-gmm fp32"):
         row[key]["device_ms"], row[key]["library_device_ms"] = \
             results[key]["device"]
-    (row["N-gmm"]["transposed"]["device_ms"],
-     row["N-gmm"]["transposed"]["library_device_ms"]) = \
-        results["N-gmm"]["device transposed"]
     row["tgmm"]["device_ms"], row["tgmm"]["library_device_ms"] = \
         tgmm_device["dW1 cap-padded"]
     row["tgmm"]["device"] = {what: {"ms": dk, "library_ms": dl}
@@ -5937,6 +6211,11 @@ def kernels_json(results, serve_counts, train_counts, rows, rows_mae):
     row["A′ fp32"]["gradcam_launches"] = train_counts["gradcam"]["A′ fp32"]
     for key in ("K fp32", "K′ fp32"):
         row[key]["gradcam_launches"] = train_counts["gradcam 384"][key]
+    for key in ("M fp32", "M′ fp32", "tgmm fp32"):
+        row[key]["gradcam_launches"] = train_counts["gradcam moe"][key]
+    for key in ("M fp32", "M′ fp32", "tgmm fp32", "N-gmm fp32"):
+        row[key]["library"] = ("a loop of one fp32 torch.matmul per expert, "
+                               "TF32 off (torch._grouped_mm takes no fp32)")
     for key in ("A", "A′", "B"):
         row[key]["mae"] = {"launches": train_counts["mae"][key],
                            **rows_mae[key]}
@@ -6119,9 +6398,11 @@ def main():
         tcfg_moe, dev, "vit_b16_moe",
         {"A": depth, "A′": depth, "C": 2, "D": depth // 2,
          "D′": depth // 2, "M": depth // 2, "M′": depth // 2,
-         "tgmm": depth, "F": 2 * (1 + depth + 2)})
+         "tgmm": depth, "F": 2 * (1 + depth + 2)}, steps_compare=3)
+    stamp("MoE checks, slices and fused training")
     rows.update(phase_moe_times(cfg_moe, tcfg_moe, dev, results, weights_moe,
                                 trainer_moe, batch_moe, card))
+    stamp("MoE times")
 
     # the MoE example with the fused kernels switched off
     # (GAVIT_MOE_FUSED=0): the unfused grouped engine, N-gmm for the expert
@@ -6140,7 +6421,9 @@ def main():
             tcfg_moe, dev, "vit_b16_moe unfused",
             {"A": depth, "A′": depth, "C": 2, "D": depth // 2,
              "D′": depth // 2, "N-gmm": 2 * depth, "tgmm": depth,
-             "F": 2 * (1 + depth + 2) + 2 * 2 * (depth // 2)})
+             "F": 2 * (1 + depth + 2) + 2 * 2 * (depth // 2)},
+            steps_compare=3)
+        stamp("N-gmm checks, unfused slice and training")
         phase_grouped_remat(tcfg_moe, dev, batch_moe, card)
     phase_engines(dev, card)
     phase_upcycle(cfg_moe, dev)
@@ -6149,6 +6432,13 @@ def main():
         {"fused": trainer_moe, "unfused": trainer_unf}, batch_moe, card))
     del trainer_moe, trainer_unf
     stamp("MoE")
+    # the MoE example in fp32: training on both grouped engines (M, M′,
+    # tgmm and N-gmm in fp32), Grad-CAM and rollout, the four bodies' times
+    counts_moe_f32, counts_unfused_f32, counts_gradcam_moe, rows_moe_f32 = \
+        phase_fp32_moe(cfg_moe, weights_moe, dev, results, card)
+    rows.update(rows_moe_f32)
+    del weights_moe
+    stamp("fp32_moe")
     phase_run(dev, card)
     stamp("run")
     phase_data(dev, card)
@@ -6173,6 +6463,9 @@ def main():
                                    "384 fp32": counts_384_f32,
                                    "512 fp32": counts_512_f32,
                                    "gradcam 384": counts_gradcam_384,
+                                   "moe fp32": counts_moe_f32,
+                                   "moe_unfused fp32": counts_unfused_f32,
+                                   "gradcam moe": counts_gradcam_moe,
                                    "mae": counts_mae},
                                   rows, rows_mae), ensure_ascii=False))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,12 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0, uint32_t k1
   return c;
 }
 
+// a site is off (rate 0) when the caller passes threshold 0 and scale 1
+inline DropSite make_site(unsigned k0, unsigned k1, unsigned site, unsigned threshold,
+                          float scale) {
+  return DropSite{k0, k1, site, threshold, scale, threshold > 0 || scale != 1.f};
+}
+
 // the four words of element group g (elements 4g..4g+3) of a site
 __device__ __forceinline__ uint4 site_bits(const DropSite& s, unsigned long long g) {
   return philox4x32_10(make_uint4(static_cast<uint32_t>(g), s.site, 0u, 0u), s.k0, s.k1);

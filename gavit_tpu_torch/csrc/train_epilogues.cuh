@@ -51,21 +51,6 @@ __device__ __forceinline__ float train_gelu(float h) {
   return g;
 }
 
-// tanh-GELU and its derivative from one tanhf, each other step one
-// IEEE-rounded operation in the order of the plain version
-// (ops/moe_fused.py::gelu_tanh_and_grad: fp32 tensor ops with the Python
-// constants rounded to fp32, 3a folded first)
-__device__ __forceinline__ void gelu_tanh_and_grad(float x, float& g, float& dg) {
-  const float c = 0.7978845608028654f, a = 0.044715f, a3 = 0.134145f;
-  const float cube = __fmul_rn(__fmul_rn(__fmul_rn(a, x), x), x);
-  const float th = tanhf(__fmul_rn(c, __fadd_rn(x, cube)));
-  const float hx = __fmul_rn(0.5f, x), one_th = __fadd_rn(1.f, th);
-  g = __fmul_rn(hx, one_th);
-  const float poly = __fadd_rn(1.f, __fmul_rn(__fmul_rn(a3, x), x));
-  dg = __fadd_rn(__fmul_rn(0.5f, one_th),
-                 __fmul_rn(__fmul_rn(__fmul_rn(hx, __fsub_rn(1.f, __fmul_rn(th, th))), c), poly));
-}
-
 // the bias of group e's columns col and col + 1, added to an accumulator
 // quad (group e's bias row lies e * bias_stride elements in). The
 // epilogues of one bias row pass e = 0, which folds away: the group's index
@@ -91,12 +76,6 @@ __device__ __forceinline__ uint32_t keep_bits8(const DropSite& s, int n, int row
 #pragma unroll
   for (int i = 0; i < 8; ++i) bits |= (uint32_t)(w[i] >= s.threshold) << i;
   return bits;
-}
-
-// a site is off (rate 0) when the caller passes threshold 0 and scale 1
-inline DropSite make_site(unsigned k0, unsigned k1, unsigned site, unsigned threshold,
-                          float scale) {
-  return DropSite{k0, k1, site, threshold, scale, threshold > 0 || scale != 1.f};
 }
 
 // the training epilogues: the epilogue warps draw the keep bits of p.drop

@@ -83,6 +83,12 @@ _SIGNATURES = {
         (_P,) * 13 + (_I,) * 6 + (_U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
     "gavit_moe_tgmm": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
     "gavit_gmm": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+    "gavit_moe_fwd_f32": (
+        (_P,) * 9 + (_I,) * 6 + (_U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
+    "gavit_moe_bwd_f32": (
+        (_P,) * 13 + (_I,) * 6 + (_U, _U, _U, _U, _F, _U, _U, _F, _P), _I),
+    "gavit_moe_tgmm_f32": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "gavit_gmm_f32": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
     "gavit_graph_fits": ((_I,), _I),
     "gavit_graph_fwd": (
         (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P), _I),

@@ -8,11 +8,12 @@ grouped engines take.
   consecutive rows in fp32 and rounding once; gmm's rows past the last
   group are zero. They read the group sizes on the host (a sync: plain
   versions only).
-* :func:`gmm_kernel` — kernel N-gmm (``csrc/moe.cu``) on CUDA bf16 tensors:
+* :func:`gmm_kernel` — kernel N-gmm on CUDA bf16 tensors (``csrc/moe.cu``,
+  the tensor cores) or fp32 ones (``csrc/moe_f32.cu``, the CUDA cores):
   ``[T, K] × [E, K, N] → [T, N]``, or with ``transpose_rhs``
   ``[T, K] × [E, N, K]ᵀ → [T, N]``, the group sizes read on the device.
-* :func:`tgmm_kernel` — kernel tgmm (``csrc/moe.cu``): ``[R, K]ᵀ · [R, N]``
-  per group → ``[E, K, N]``.
+* :func:`tgmm_kernel` — kernel tgmm (the same two files): ``[R, K]ᵀ ·
+  [R, N]`` per group → ``[E, K, N]`` in the operands' dtype.
 * :func:`ragged_matmul` — the differentiable op, megablox's custom VJP
   (jax/experimental/pallas/ops/tpu/megablox/ops.py:63-105): forward
   ``gmm(x, w)``; ``dx = gmm(dy, w, transpose_rhs=True)``; ``dW`` through
@@ -31,12 +32,11 @@ from gavit_tpu_torch.ops import _build
 
 # launches since the last reset (chip_smoke.py reads them): kernel N-gmm,
 # in either form, and kernel tgmm (one per GEMM's backward in the unfused
-# engine, two per backward of the fused one)
+# engine, two per backward of the fused one), bf16 and fp32 apart
 KERNEL_LAUNCHES = 0
 TGMM_LAUNCHES = 0
-
-_FP32_TODO = ("fp32 MoE kernels on the card wait for ROADMAP Queue 2 item "
-              "10.7")
+F32_KERNEL_LAUNCHES = 0
+F32_TGMM_LAUNCHES = 0
 
 
 def _bounds(group_sizes) -> list[int]:
@@ -70,17 +70,21 @@ def tgmm_reference(a, b, group_sizes, out_dtype):
         for lo, hi in zip(bounds[:-1], bounds[1:])])
 
 
-def _check_bf16(what, *tensors):
-    for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} takes bfloat16 tensors, not {t.dtype}: "
-                            f"{_FP32_TODO}")
+def check_dtype(what, *tensors):
+    """bfloat16 or float32, every operand one dtype: what the MoE kernels
+    take (the bf16 bodies on the tensor cores, the fp32 ones on the CUDA
+    cores)."""
+    dt = tensors[0].dtype
+    if dt not in (torch.bfloat16, torch.float32) or any(
+            t.dtype != dt for t in tensors):
+        raise TypeError(f"{what} takes bfloat16 or float32 tensors of one "
+                        f"dtype, not {[str(t.dtype) for t in tensors]}")
 
 
 def gmm_kernel(x, w, group_sizes, transpose_rhs: bool = False):
-    """Kernel N-gmm on CUDA bf16 ``x [T, K]`` and ``w`` with int32
-    ``group_sizes [E]`` on the device → bf16 ``[T, N]``, through the custom
-    op ``gavit_tpu_torch::gmm``."""
+    """Kernel N-gmm on CUDA bf16 or fp32 ``x [T, K]`` and ``w`` (one dtype)
+    with int32 ``group_sizes [E]`` on the device → ``[T, N]`` in their
+    dtype, through the custom op ``gavit_tpu_torch::gmm``."""
     _, kd = x.shape
     e = w.shape[0]
     n, wk = (w.shape[1], w.shape[2]) if transpose_rhs else \
@@ -92,7 +96,7 @@ def gmm_kernel(x, w, group_sizes, transpose_rhs: bool = False):
     if group_sizes.dtype != torch.int32 or group_sizes.shape != (e,):
         raise ValueError(f"N-gmm takes int32 group sizes [{e}], got "
                          f"{group_sizes.dtype} {tuple(group_sizes.shape)}")
-    _check_bf16("kernel N-gmm", x, w)
+    check_dtype("kernel N-gmm", x, w)
     _build.require_device(x, w, group_sizes)
     return torch.ops.gavit_tpu_torch.gmm(x, w, group_sizes,
                                          bool(transpose_rhs))
@@ -106,33 +110,43 @@ def _gmm_cols(w, transpose_rhs: bool) -> int:
                          device_types="cuda")
 def _gmm_op(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor,
             transpose_rhs: bool) -> torch.Tensor:
-    """Kernel N-gmm's launch → ``[T, N]`` (no launch at T = 0)."""
-    global KERNEL_LAUNCHES
+    """Kernel N-gmm's launch → ``[T, N]`` (no launch at T = 0): the fp32
+    body for fp32 operands, else the bf16 one."""
+    global KERNEL_LAUNCHES, F32_KERNEL_LAUNCHES
     t, kd = x.shape
     e, n = w.shape[0], _gmm_cols(w, transpose_rhs)
+    check_dtype("kernel N-gmm", x, w)
     _build.require_cuda(x, w, group_sizes)
     out = torch.empty((t, n), dtype=x.dtype, device=x.device)
     if not t:
         return out
     lib = _build.library()
-    _build.check(lib.gavit_gmm(
+    f32 = x.dtype == torch.float32
+    launch = lib.gavit_gmm_f32 if f32 else lib.gavit_gmm
+    _build.check(launch(
         x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(), out.data_ptr(),
         t, kd, n, e, int(transpose_rhs), _build.stream(x.device)),
         "grouped GEMM kernel")
     with _build.count_lock:
-        KERNEL_LAUNCHES += 1
+        if f32:
+            F32_KERNEL_LAUNCHES += 1
+        else:
+            KERNEL_LAUNCHES += 1
     return out
 
 
 @_gmm_op.register_fake
 def _(x, w, group_sizes, transpose_rhs):
+    check_dtype("kernel N-gmm", x, w)
     return x.new_empty((x.shape[0], _gmm_cols(w, transpose_rhs)))
 
 
-def tgmm_kernel(a, b, group_sizes, out_dtype=torch.bfloat16):
-    """Kernel tgmm on CUDA bf16 ``a [R, K]``, ``b [R, N]`` and int32
-    ``group_sizes [E]`` (on the device, summing to R) → bf16 ``[E, K, N]``."""
-    global TGMM_LAUNCHES
+def tgmm_kernel(a, b, group_sizes, out_dtype=None):
+    """Kernel tgmm on CUDA bf16 or fp32 ``a [R, K]``, ``b [R, N]`` (one
+    dtype) and int32 ``group_sizes [E]`` (on the device, summing to R) →
+    ``[E, K, N]`` in their dtype; ``out_dtype``, where given, must be that
+    dtype."""
+    global TGMM_LAUNCHES, F32_TGMM_LAUNCHES
     rows, kd = a.shape
     n = b.shape[1]
     e = group_sizes.shape[0]
@@ -141,17 +155,23 @@ def tgmm_kernel(a, b, group_sizes, out_dtype=torch.bfloat16):
                          f"rows must match, widths divisible by 8")
     if group_sizes.dtype != torch.int32 or group_sizes.ndim != 1:
         raise ValueError("tgmm takes int32 group sizes [E]")
-    _check_bf16("kernel tgmm", a, b)
-    if out_dtype != torch.bfloat16:
-        raise TypeError(f"kernel tgmm writes bfloat16, not {out_dtype}")
+    check_dtype("kernel tgmm", a, b)
+    if out_dtype is not None and out_dtype != a.dtype:
+        raise TypeError(f"kernel tgmm writes its operands' {a.dtype}, not "
+                        f"{out_dtype}")
     _build.require_cuda(a, b, group_sizes)
-    c = torch.empty((e, kd, n), dtype=torch.bfloat16, device=a.device)
+    c = torch.empty((e, kd, n), dtype=a.dtype, device=a.device)
     lib = _build.library()
-    _build.check(lib.gavit_moe_tgmm(
+    f32 = a.dtype == torch.float32
+    launch = lib.gavit_moe_tgmm_f32 if f32 else lib.gavit_moe_tgmm
+    _build.check(launch(
         a.data_ptr(), b.data_ptr(), group_sizes.data_ptr(), c.data_ptr(),
         rows, kd, n, e, _build.stream(a.device)), "grouped dW kernel")
     with _build.count_lock:
-        TGMM_LAUNCHES += 1
+        if f32:
+            F32_TGMM_LAUNCHES += 1
+        else:
+            TGMM_LAUNCHES += 1
     return c
 
 

@@ -13,8 +13,9 @@
   dx), the masks of ``ops/philox.py`` (the hidden mask is element
   row·F + col of the ``[cap, F]`` buffer at the hidden site, the output
   mask element row·D + col of ``[cap, D]`` at the output site).
-* :func:`moe_fwd_kernel`, :func:`moe_bwd_kernel` — kernels M and M′
-  (``csrc/moe.cu``) on CUDA bf16 tensors, both over the grouping's
+* :func:`moe_fwd_kernel`, :func:`moe_bwd_kernel` — kernels M and M′ on
+  CUDA bf16 tensors (``csrc/moe.cu``, the tensor cores) or fp32 ones
+  (``csrc/moe_f32.cu``, the CUDA cores), both over the grouping's
   ``group_sizes`` (:func:`tile_group_sizes` derives them from the tile
   map when not given).
 * :func:`fused_grouped_mlp` — the differentiable op: M forward; M′ and two
@@ -42,9 +43,12 @@ from gavit_tpu_torch.ops.dropout import gelu_and_grad, site_args
 from gavit_tpu_torch.ops.moe_grouped import dispatch_rows, resolve_matmul_impl
 
 # launches since the last reset (chip_smoke.py reads them): kernels M
-# (forward) and M′ (backward); tgmm counts in ops/gmm.py
+# (forward) and M′ (backward), bf16 and fp32 apart; tgmm counts in
+# ops/gmm.py
 KERNEL_LAUNCHES = 0
 BWD_KERNEL_LAUNCHES = 0
+F32_KERNEL_LAUNCHES = 0
+BWD_F32_KERNEL_LAUNCHES = 0
 
 
 def _round_up(n: int, t: int) -> int:
@@ -211,12 +215,6 @@ def moe_bwd_reference(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
 # ---------------------------------------------------------------------------
 
 
-def _check_bf16(what, *tensors):
-    for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} takes bfloat16 tensors, not {t.dtype}")
-
-
 def _check_map(tile_group, cap: int, tm: int, e: int):
     if tile_group.dtype != torch.int32 or tile_group.shape != (cap // tm,):
         raise ValueError(f"tile_group must be int32 [{cap // tm}], got "
@@ -256,7 +254,8 @@ def _group_sizes(tile_group, group_sizes, cap: int, tm: int, e: int):
 def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
                    sites, rate: float, out_rate: float, approx: bool,
                    group_sizes=None):
-    """Kernel M on CUDA bf16 tensors → ``(y, h1)``, through the custom op
+    """Kernel M on CUDA bf16 or fp32 tensors (one dtype) → ``(y, h1)`` in
+    their dtype, through the custom op
     ``gavit_tpu_torch::moe_fwd``. ``group_sizes``: the grouping's padded
     rows per expert, as :func:`group_by_expert_tiled` returns them (derived
     from ``tile_group`` when not given)."""
@@ -269,7 +268,7 @@ def moe_fwd_kernel(x_sorted, w1, b1, w2, b2, tile_group, tm: int, seed,
                          f"{tuple(w2.shape)} b2 {tuple(b2.shape)}")
     if d % 8 or f % 8:
         raise ValueError(f"kernel M takes widths divisible by 8, got {d}, {f}")
-    _check_bf16("kernel M", x_sorted, w1, b1, w2, b2)
+    gmm.check_dtype("kernel M", x_sorted, w1, b1, w2, b2)
     group_sizes = _group_sizes(tile_group, group_sizes, cap, tm, e)
     _build.require_device(x_sorted, w1, b1, w2, b2, tile_group, group_sizes)
     y, h1 = torch.ops.gavit_tpu_torch.moe_fwd(
@@ -292,29 +291,37 @@ def _moe_fwd_op(x_sorted: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                 tm: int, seed: int, sites: list[int], rate: float,
                 out_rate: float, approx: bool
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Kernel M's launch → ``(y [cap, D], h1 [cap, F])``."""
-    global KERNEL_LAUNCHES
+    """Kernel M's launch → ``(y [cap, D], h1 [cap, F])``: the fp32 body for
+    fp32 operands, else the bf16 one."""
+    global KERNEL_LAUNCHES, F32_KERNEL_LAUNCHES
     cap, d = x_sorted.shape
     e, _, f = w1.shape
+    gmm.check_dtype("kernel M", x_sorted, w1, b1, w2, b2)
     _build.require_cuda(x_sorted, w1, b1, w2, b2, group_sizes)
     h1 = torch.empty((cap, f), dtype=x_sorted.dtype, device=x_sorted.device)
     g = torch.empty_like(h1)
     y = torch.empty_like(x_sorted)
     lib = _build.library()
-    _build.check(lib.gavit_moe_fwd(
+    f32 = x_sorted.dtype == torch.float32
+    launch = lib.gavit_moe_fwd_f32 if f32 else lib.gavit_moe_fwd
+    _build.check(launch(
         x_sorted.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), group_sizes.data_ptr(), h1.data_ptr(), g.data_ptr(),
         y.data_ptr(), cap, d, f, e, tm, int(approx),
         *_sites(seed, sites, rate, out_rate),
         _build.stream(x_sorted.device)), "MoE expert MLP kernel")
     with _build.count_lock:
-        KERNEL_LAUNCHES += 1
+        if f32:
+            F32_KERNEL_LAUNCHES += 1
+        else:
+            KERNEL_LAUNCHES += 1
     return y, h1
 
 
 @_moe_fwd_op.register_fake
 def _(x_sorted, w1, b1, w2, b2, group_sizes, tm, seed, sites, rate,
       out_rate, approx):
+    gmm.check_dtype("kernel M", x_sorted, w1, b1, w2, b2)
     cap, _ = x_sorted.shape
     return (x_sorted.new_empty(x_sorted.shape),
             x_sorted.new_empty((cap, w1.shape[2])))
@@ -323,9 +330,11 @@ def _(x_sorted, w1, b1, w2, b2, group_sizes, tm, seed, sites, rate,
 def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
                    rate: float, out_rate: float, approx: bool,
                    group_sizes=None):
-    """Kernel M′ on CUDA bf16 tensors → ``(dx, go, dh1, db1, db2, dye)``.
-    ``group_sizes`` as :func:`moe_fwd_kernel` takes them."""
-    global BWD_KERNEL_LAUNCHES
+    """Kernel M′ on CUDA bf16 or fp32 tensors (one dtype) → ``(dx, go, dh1,
+    db1, db2, dye)``, db1 and db2 in fp32, the rest in their dtype: the
+    fp32 body for fp32 operands, else the bf16 one. ``group_sizes`` as
+    :func:`moe_fwd_kernel` takes them."""
+    global BWD_KERNEL_LAUNCHES, BWD_F32_KERNEL_LAUNCHES
     cap, f = h1.shape
     e, d, _ = w1.shape
     if (dy.shape != (cap, d) or w1.shape != (e, d, f)
@@ -336,7 +345,7 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
     if d % 8 or f % 8:
         raise ValueError(f"kernel M′ takes widths divisible by 8, got {d}, "
                          f"{f}")
-    _check_bf16("kernel M′", dy, h1, w1, w2)
+    gmm.check_dtype("kernel M′", dy, h1, w1, w2)
     group_sizes = _group_sizes(tile_group, group_sizes, cap, tm, e)
     _build.require_cuda(dy, h1, w1, w2, tile_group, group_sizes)
     dev = dy.device
@@ -351,7 +360,9 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
                         dtype=torch.float32, device=dev)
     part2 = torch.empty((lib.gavit_moe_bwd_partial_rows(cap, tm, 1), d),
                         dtype=torch.float32, device=dev)
-    _build.check(lib.gavit_moe_bwd(
+    f32 = dy.dtype == torch.float32
+    launch = lib.gavit_moe_bwd_f32 if f32 else lib.gavit_moe_bwd
+    _build.check(launch(
         dy.data_ptr(), h1.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         group_sizes.data_ptr(), dye.data_ptr(), dh1.data_ptr(), go.data_ptr(),
         dx.data_ptr(), db1.data_ptr(), db2.data_ptr(), part1.data_ptr(),
@@ -359,7 +370,10 @@ def moe_bwd_kernel(dy, h1, w1, w2, tile_group, tm: int, seed, sites,
         *_sites(seed, sites, rate, out_rate), _build.stream(dev)),
         "MoE expert MLP backward kernel")
     with _build.count_lock:
-        BWD_KERNEL_LAUNCHES += 1
+        if f32:
+            BWD_F32_KERNEL_LAUNCHES += 1
+        else:
+            BWD_KERNEL_LAUNCHES += 1
     return dx, go, dh1, db1, db2, dye
 
 

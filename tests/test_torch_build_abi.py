@@ -97,10 +97,11 @@ def test_parser_reads_a_signature():
         "unsigned", "float"]
 
 
-@pytest.mark.parametrize("name", ["gavit_moe_fwd", "gavit_moe_bwd"])
+@pytest.mark.parametrize("name", ["gavit_moe_fwd", "gavit_moe_bwd",
+                                  "gavit_moe_fwd_f32", "gavit_moe_bwd_f32"])
 def test_moe_launchers_take_the_group_sizes(name):
-    """Kernels M and M′ walk the grouping's ``group_sizes`` [E] on the
-    device, not a tile map: a parameter of that name, where
+    """Kernels M and M′ (bf16 and fp32) walk the grouping's ``group_sizes``
+    [E] on the device, not a tile map: a parameter of that name, where
     ``ops/moe_fused.py`` passes them, and none named ``tile_group``."""
     for src in sorted(_build.CSRC.glob("*.cu")):
         for _, found, params in _EXPORT.findall(src.read_text()):

@@ -4,8 +4,8 @@ CUDA tensors only, its fake implementation gives the shape, dtype and
 strides of the launch's output (the wrappers' views, such as kernel A's
 ``[B, H, N, d]`` over ``[B, N, H, d]`` memory, stand on them), and
 ``torch.export`` traces each wrapper to its op over fake CUDA tensors
-(kernels K and L over bf16 and over fp32 rows, which their ops dispatch by
-dtype inside the launch). The
+(kernels K, L, M and N-gmm over bf16 and over fp32 rows, which their ops
+dispatch by dtype inside the launch). The
 card holds each fake to its kernel with ``torch.library.opcheck``
 (``tests/test_torch_cuda.py``). At most 3 tests a file (see
 ``tests/test_torch_export.py``)."""
@@ -34,6 +34,7 @@ def _one_thread():
 OPS = ("attention_fwd", "attention_long_fwd", "attention_large_fwd",
        "mlp_infer", "graph_fwd", "moe_fwd", "gmm")
 BF16 = torch.bfloat16
+F32 = torch.float32
 
 
 def calls(b=2, n=17, heads=2, d=64, cap=32, e=4, f=256):
@@ -50,6 +51,9 @@ def calls(b=2, n=17, heads=2, d=64, cap=32, e=4, f=256):
     xs = torch.empty(cap, dim, dtype=BF16, device="cuda")
     w1 = torch.empty(e, dim, f, dtype=BF16, device="cuda")
     w2 = torch.empty(e, f, dim, dtype=BF16, device="cuda")
+    xs32 = torch.empty(cap, dim, device="cuda")
+    w1_32 = torch.empty(e, dim, f, device="cuda")
+    w2_32 = torch.empty(e, f, dim, device="cuda")
     sizes = torch.empty(e, dtype=torch.int32, device="cuda")
     tiles = torch.empty(cap // 8, dtype=torch.int32, device="cuda")
 
@@ -88,6 +92,13 @@ def calls(b=2, n=17, heads=2, d=64, cap=32, e=4, f=256):
             (3, 4), 0.0, 0.0, True, sizes),
             [rows((cap, dim)), rows((cap, f))]),
         "gmm": (lambda: G.gmm_kernel(xs, w1, sizes), [rows((cap, f))]),
+        "moe_fwd fp32": (lambda: M.moe_fwd_kernel(
+            xs32, w1_32, torch.empty(e, f, device="cuda"), w2_32,
+            torch.empty(e, dim, device="cuda"), tiles, 8, 1 << 63, (3, 4),
+            0.0, 0.0, False, sizes),
+            [rows((cap, dim), F32), rows((cap, f), F32)]),
+        "gmm fp32": (lambda: G.gmm_kernel(xs32, w1_32, sizes),
+                     [rows((cap, f), F32)]),
     }
 
 
@@ -115,7 +126,7 @@ def test_fakes_give_the_launch_outputs():
 
 def test_export_traces_each_wrapper_to_its_op():
     """One program calling every wrapper: its graph calls each op once a
-    case (K's and L's twice: bf16 and fp32 rows) and no plain version (no
+    case (K's, L's, M's and N-gmm's twice: bf16 and fp32 rows) and no plain version (no
     matmul, softmax or sort of the plain paths)."""
     with FakeTensorMode():
         cases = calls()

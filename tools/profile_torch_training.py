@@ -24,7 +24,7 @@ says otherwise), takes 3 warm-up steps on synthetic uint8 batches, then:
   synchronize (median over ``--iters``);
 * runs ``torch.profiler`` over ``--iters`` more steps and prints the device
   time per step grouped by kernel family (the port's kernels A, A′, C, D,
-  D′, F, H, H′, K, K′, L, L′ (and their fp32 bodies), M, M′, tgmm, N-gmm
+  D′, F, H, H′, K, K′, L, L′, M, M′, tgmm, N-gmm (and their fp32 bodies)
   by name; cuBLAS GEMMs;
   LayerNorm; the MoE routing's sorts, scans and gathers; elementwise and
   reductions), the top kernels, the device busy time per step and the idle
@@ -64,9 +64,18 @@ FAMILIES = (
     ("attn_fwd", "A attention forward, fp32 (attention.cu)"),
     ("attn_bwd_dq_kernel", "A′ fp32 query-major: dq, row statistics (attention.cu)"),
     ("attn_bwd_dkv_kernel", "A′ fp32 key-major: dk, dv (attention.cu)"),
+    # the fp32 MoE bodies on the CUDA-core mainloop (gemm_f32.cuh,
+    # moe_f32.cu): ahead of the bf16 names that their names contain
+    ("bwd_prologue_f32", "M′ fp32 prologue: out mask + db2 partials (moe_f32.cu)"),
+    ("gemm32::GroupedK", "tgmm fp32 grouped dW1, dW2, CUDA cores (gemm_f32.cuh)"),
+    ("::Fc1Epi<", "M fp32 fc1 + b1[e] + h1 + GELU + mask → g, CUDA cores (moe_f32.cu)"),
+    ("::Fc2Epi", "M fp32 fc2 + b2[e] + mask, CUDA cores (moe_f32.cu)"),
+    ("::DhEpi<", "M′ fp32 dh + GELU′ + masks → dh1, go, db1 partials, CUDA cores (moe_f32.cu)"),
+    ("gemm32::StoreEpi, false", "N-gmm fp32 x·W[e], CUDA cores (gemm_f32.cuh)"),
+    ("gemm32::StoreEpi, true", "M′ fp32 dx = dh1·W1[e]ᵀ; N-gmm fp32 transposed, CUDA cores (gemm_f32.cuh)"),
     # the backward prologue D′ and M′ share; their bias reductions
     ("bwd_prologue", "D′/M′ prologue: out mask + db2 partials (train_epilogues.cuh)"),
-    ("moe_colsum_reduce", "M′ per-expert bias reductions (moe.cu)"),
+    ("moe_colsum_reduce", "M′ per-expert bias reductions, both dtypes (moe_common.cuh)"),
     ("colsum_reduce", "D′ bias-gradient reductions (mlp.cu)"),
     # the wgmma mainloop's instantiations (gemm_sm90.cuh): tgmm's GroupedK
     # before N-gmm's "StoreEpi, true", D's (one bias row) before M's (a

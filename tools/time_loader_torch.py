@@ -35,7 +35,7 @@ OUT = ROOT / "build" / "loader_time"
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--train", type=int, default=chip_smoke.DATA_TRAIN,
+    p.add_argument("--train", type=int, default=1024,
                    help="PNGs to write and read")
     args = p.parse_args(argv)
     try:
